@@ -1,0 +1,233 @@
+// Mofidi contact sums, closest-source pick and epilogue per query lane.
+//
+// Replaces the TPU kernel rigid_body_2d_3d_pysph_tpu/ops/pallas_contact.py
+// (_kernel + _pair_body, wrapper contact_sums_pallas; the compact
+// pipeline contact_pipeline_compact_pallas drives it).  For query slot b
+// (row qslot[b] of the dense pack) and each source-entity slot s < S it
+// computes, over the gated pairs with the stencil's source lanes
+// (rows nbr[b][0..O) of the pack, M lanes each, in that order):
+//
+//   Eq. 22 sums  q0..q2 = sum t1 * (xij, yij, zij),  t1 = V_q W / r
+//   Eq. 21 sums  q3 = sum t2,  q4..q6 = sum t2 * (xij, yij, zij),  t2 = t1 r
+//   the closest gated source (lowest stencil lane on a distance tie)
+//
+// and the epilogue of pallas_contact.py:313-328, writing
+// out[b][l][c * S + s] for the 12 column blocks c: cfn x/y/z, wij sum,
+// contact distance, closest distance, picked source x/y/z/u/v/w.
+// The gate is: source on the contact boundary, not fluid, of another dem
+// entity than the query; rigid query; r <= cutoff.  Pack fields: 2D
+// x y u v vol h flags (F = 7), 3D x y z u v w vol h flags (F = 9); the
+// flags word is dem*8 + boundary*4 + fluid*2 + rigid (the sentinel -8
+// decodes to dem -1).  qslot [NI] and nbr [NI, O] are int64, the grid
+// build's own index type.
+//
+// Bound on the card: latency and instruction issue, not bytes.  A block
+// reads O x M x F floats (a few KB in 2D, ~100 KB in 3D) and does
+// M x O x M pair tests, few of them gated; the main path launches it on
+// the few hundred slots the interest cull keeps.  Design: one block per
+// query slot, one thread per (query lane, entity slot), so every running
+// sum and the (min r, lane) pair sit in registers with no cross-thread
+// reduction, and the scan in ascending lane order with a strict "<"
+// gives the lowest lane on a tie.  Source lanes come through shared
+// memory in tiles of TILE stencil entries (all threads read the same
+// word at once: a broadcast, no bank conflicts), with their flags
+// decoded once at load.  Picks are copies of the shared-memory words,
+// so they are exact; nothing goes through a matrix unit.  Built with
+// --fmad=false so r = sqrt(x*x + y*y) rounds as the plain version's does.
+#include <cuda_runtime.h>
+
+#define TILE 16
+#define S_MAX 64
+
+namespace {
+
+constexpr float kBig = 1.0e9f;
+
+__device__ __forceinline__ float pow4(float t) {
+  const float t2 = t * t;
+  return t2 * t2;
+}
+
+__device__ __forceinline__ float pow5(float t) { return t * pow4(t); }
+
+template <bool TWO_D>
+__device__ __forceinline__ float quintic_w(float rij, float h, float sig_num,
+                                           float sig_den) {
+  const float q = rij / h;
+  const float t3 = fmaxf(3.0f - q, 0.0f);
+  const float t2 = fmaxf(2.0f - q, 0.0f);
+  const float t1 = fmaxf(1.0f - q, 0.0f);
+  const float val = pow5(t3) - 6.0f * pow5(t2) + 15.0f * pow5(t1);
+  const float sig = TWO_D ? sig_num / (sig_den * h * h)
+                          : sig_num / (sig_den * h * h * h);
+  return sig * val;
+}
+
+__device__ __forceinline__ void decode_flags(float f, float& dem, float& bdry,
+                                             float& fluid, float& rigid) {
+  dem = floorf(f * 0.125f);
+  float r = f - 8.0f * dem;
+  bdry = floorf(r * 0.25f);
+  r = r - 4.0f * bdry;
+  fluid = floorf(r * 0.5f);
+  rigid = r - 2.0f * fluid;
+}
+
+template <bool TWO_D>
+__global__ void contact_sums_kernel(const float* __restrict__ dft,
+                                    const long long* __restrict__ qslot,
+                                    const long long* __restrict__ nbr,
+                                    float* __restrict__ out, int O, int nrows,
+                                    int M, int S, float cutoff,
+                                    float init_dist, float sig_num,
+                                    float sig_den) {
+  constexpr int F = TWO_D ? 7 : 9;
+  constexpr int FX = 0, FY = 1, FZ = 2;
+  constexpr int FU = TWO_D ? 2 : 3, FV = TWO_D ? 3 : 4, FW = 5;
+  constexpr int FVOL = TWO_D ? 4 : 6, FH = TWO_D ? 5 : 7;
+  constexpr int FFLAGS = TWO_D ? 6 : 8;
+
+  extern __shared__ float smem[];
+  const int TL = TILE * M;
+  float* sx = smem;
+  float* sy = sx + TL;
+  float* sz = sy + TL;
+  float* su = sz + TL;
+  float* sv = su + TL;
+  float* sw = sv + TL;
+  float* sh = sw + TL;
+  float* sd = sh + TL;   // dem of a contact-surface source, else -1
+
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int l = t / S;
+  const int s = t % S;
+  const float sf = (float)s;
+
+  const int qs = (int)min(max(qslot[b], 0LL), (long long)(nrows - 1));
+  const float* q = dft + (long long)qs * F * M;
+  const float qx = q[FX * M + l];
+  const float qy = q[FY * M + l];
+  const float qz = TWO_D ? 0.0f : q[FZ * M + l];
+  const float qvol = q[FVOL * M + l];
+  const float qh = q[FH * M + l];
+  float q_dem, q_bdry, q_fluid, q_rigid;
+  decode_flags(q[FFLAGS * M + l], q_dem, q_bdry, q_fluid, q_rigid);
+  const bool active = (q_rigid == 1.0f) && (q_dem != sf);
+
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f, a6 = 0.f;
+  float minr = kBig;
+  float px = 0.f, py = 0.f, pz = 0.f, pu = 0.f, pv = 0.f, pw = 0.f;
+
+  for (int o0 = 0; o0 < O; o0 += TILE) {
+    const int nt = min(TILE, O - o0);
+    __syncthreads();   // the previous tile has been consumed
+    for (int k = t; k < nt * M; k += blockDim.x) {
+      const int o = k / M;
+      const int ll = k - o * M;
+      const int slot = (int)min(max(nbr[(long long)b * O + o0 + o], 0LL),
+                               (long long)(nrows - 1));
+      const float* src = dft + (long long)slot * F * M;
+      sx[k] = src[FX * M + ll];
+      sy[k] = src[FY * M + ll];
+      sz[k] = TWO_D ? 0.0f : src[FZ * M + ll];
+      su[k] = src[FU * M + ll];
+      sv[k] = src[FV * M + ll];
+      sw[k] = TWO_D ? 0.0f : src[FW * M + ll];
+      sh[k] = src[FH * M + ll];
+      float d, bd, fl, rg;
+      decode_flags(src[FFLAGS * M + ll], d, bd, fl, rg);
+      sd[k] = (bd == 1.0f && fl == 0.0f) ? d : -1.0f;
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int k = 0; k < nt * M; ++k) {
+      if (sd[k] != sf) continue;
+      const float xij = qx - sx[k];
+      const float yij = qy - sy[k];
+      float r2 = xij * xij + yij * yij;
+      float zij = 0.0f;
+      if (!TWO_D) {
+        zij = qz - sz[k];
+        r2 = r2 + zij * zij;
+      }
+      const float rij = sqrtf(r2);
+      if (!(rij <= cutoff)) continue;
+      const float hij = 0.5f * (qh + sh[k]);
+      const float wij = quintic_w<TWO_D>(rij, hij, sig_num, sig_den);
+      const float rinv = 1.0f / fmaxf(rij, 1e-30f);
+      const float t1 = qvol * rinv * wij;
+      const float t2 = t1 * rij;
+      a0 += t1 * xij;
+      a1 += t1 * yij;
+      a3 += t2;
+      a4 += t2 * xij;
+      a5 += t2 * yij;
+      if (!TWO_D) {
+        a2 += t1 * zij;
+        a6 += t2 * zij;
+      }
+      if (rij < minr) {   // strict: the lowest lane keeps a tie
+        minr = rij;
+        px = sx[k];
+        py = sy[k];
+        pz = sz[k];
+        pu = su[k];
+        pv = sv[k];
+        pw = sw[k];
+      }
+    }
+  }
+
+  // epilogue (pallas_contact.py:313-328)
+  const bool has = a3 > 1e-12f;
+  const float inv_w = has ? 1.0f / fmaxf(a3, 1e-30f) : 0.0f;
+  const float mx = a0 * inv_w, my = a1 * inv_w, mz = a2 * inv_w;
+  const float mag = sqrtf(mx * mx + my * my + mz * mz);
+  const float inv_m = (has && mag > 0.0f) ? 1.0f / fmaxf(mag, 1e-30f) : 0.0f;
+  const float cx = mx * inv_m, cy = my * inv_m, cz = mz * inv_m;
+  const float num = cx * a4 + cy * a5 + cz * a6;
+  const float dist = has ? num / a3 : 0.0f;
+  const bool found = minr < init_dist;
+  const float mind = fminf(minr, init_dist);
+
+  float* o = out + ((long long)b * M + l) * (12 * S) + s;
+  o[0 * S] = cx;
+  o[1 * S] = cy;
+  o[2 * S] = cz;
+  o[3 * S] = a3;
+  o[4 * S] = dist;
+  o[5 * S] = mind;
+  o[6 * S] = found ? px : 0.0f;
+  o[7 * S] = found ? py : 0.0f;
+  o[8 * S] = found ? pz : 0.0f;
+  o[9 * S] = found ? pu : 0.0f;
+  o[10 * S] = found ? pv : 0.0f;
+  o[11 * S] = found ? pw : 0.0f;
+}
+
+}  // namespace
+
+extern "C" int contact_sums(const void* dft, const void* qslot,
+                            const void* nbr, void* out, int NI, int O,
+                            int nrows, int M, int S, int two_d,
+                            float cutoff, float init_dist, float sig_num,
+                            float sig_den, void* stream) {
+  if (S < 1 || S > S_MAX || M < 1 || M * S > 1024 || nrows < 1)
+    return (int)cudaErrorInvalidValue;
+  if (NI == 0) return 0;
+  const size_t smem = (size_t)TILE * M * 8 * sizeof(float);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (two_d) {
+    contact_sums_kernel<true><<<NI, M * S, smem, st>>>(
+        (const float*)dft, (const long long*)qslot,
+        (const long long*)nbr, (float*)out,
+        O, nrows, M, S, cutoff, init_dist, sig_num, sig_den);
+  } else {
+    contact_sums_kernel<false><<<NI, M * S, smem, st>>>(
+        (const float*)dft, (const long long*)qslot,
+        (const long long*)nbr, (float*)out,
+        O, nrows, M, S, cutoff, init_dist, sig_num, sig_den);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,98 @@
+"""Host-side particle lattice generators (numpy, float64).
+
+A copy of the lattice builders the rigid-contact slice needs from
+``rigid_body_2d_3d_pysph_tpu/geom/geometry.py`` (importing that module
+would import ``jax`` through the reference package's ``__init__``).
+Semantics follow PySPH's ``get_2d_block`` / ``get_3d_block`` /
+``get_2d_tank``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def get_2d_block(dx: float, length: float, height: float, center=(0.0, 0.0)):
+    """Regular 2D lattice spanning [-L/2, L/2] x [-H/2, H/2] + center,
+    ``int(length/dx) + 1`` points per axis, endpoints inclusive."""
+    n1 = int(round(length / dx)) + 1
+    n2 = int(round(height / dx)) + 1
+    xs = np.linspace(-length / 2.0, length / 2.0, n1)
+    ys = np.linspace(-height / 2.0, height / 2.0, n2)
+    x, y = np.meshgrid(xs, ys, indexing="ij")
+    return x.ravel() + center[0], y.ravel() + center[1]
+
+
+def get_3d_block(dx: float, length: float, height: float, depth: float,
+                 center=(0.0, 0.0, 0.0)):
+    """Regular 3D lattice, endpoints inclusive."""
+    n1 = int(round(length / dx)) + 1
+    n2 = int(round(height / dx)) + 1
+    n3 = int(round(depth / dx)) + 1
+    xs = np.linspace(-length / 2.0, length / 2.0, n1)
+    ys = np.linspace(-height / 2.0, height / 2.0, n2)
+    zs = np.linspace(-depth / 2.0, depth / 2.0, n3)
+    x, y, z = np.meshgrid(xs, ys, zs, indexing="ij")
+    return (
+        x.ravel() + center[0],
+        y.ravel() + center[1],
+        z.ravel() + center[2],
+    )
+
+
+def get_2d_tank(dx: float, length: float, height: float, num_layers: int = 1):
+    """Open U-shaped 2D tank: the inner region spans
+    ``[-length/2, length/2] x [0, height]`` with ``num_layers`` wall rows
+    outside it."""
+    L, H, k = length, height, num_layers
+    x0 = -L / 2.0
+    xb, yb = _grid(x0 - k * dx, L + x0 + k * dx, -k * dx, -dx, dx)
+    xl, yl = _grid(x0 - k * dx, x0 - dx, 0.0, H, dx)
+    xr, yr = _grid(L + x0 + dx, L + x0 + k * dx, 0.0, H, dx)
+    x = np.concatenate([xl, xr, xb])
+    y = np.concatenate([yl, yr, yb])
+    return x, y
+
+
+def _grid(x0, x1, y0, y1, dx):
+    nx = int(round((x1 - x0) / dx)) + 1
+    ny = int(round((y1 - y0) / dx)) + 1
+    xs = np.linspace(x0, x1, nx)
+    ys = np.linspace(y0, y1, ny)
+    x, y = np.meshgrid(xs, ys, indexing="ij")
+    return x.ravel(), y.ravel()
+
+
+def hydrostatic_tank_2d(fluid_length, fluid_height, tank_height, tank_layers,
+                        fluid_spacing, tank_spacing):
+    """2D tank + fluid block, the fluid aligned inside the tank."""
+    xt, yt = get_2d_tank(
+        dx=tank_spacing,
+        length=fluid_length + 2.0 * tank_spacing,
+        height=tank_height,
+        num_layers=tank_layers,
+    )
+    xf, yf = get_2d_block(fluid_spacing, fluid_length, fluid_height)
+    xf += np.min(xt) - np.min(xf)
+    yf -= np.min(yf) - np.min(yt)
+    xf += tank_spacing * tank_layers
+    yf += tank_spacing * tank_layers
+    return xf, yf, xt, yt
+
+
+def create_tank_2d_from_block_2d(xf, yf, tank_length, tank_height,
+                                 tank_spacing, tank_layers):
+    """Tank walls (left, right, bottom) around an existing block."""
+    dx, k = tank_spacing, tank_layers
+    xl, yl = get_2d_block(dx, (k - 1) * dx, tank_height)
+    xl += np.min(xf) - np.max(xl) - dx
+    yl += np.min(yf) - np.min(yl)
+
+    xr = xl + abs(np.min(xl)) + tank_length + dx
+    yr = np.array(yl)
+
+    xb, yb = get_2d_block(dx, np.max(xr) - np.min(xl), (k - 1) * dx)
+    xb += np.min(xl) - np.min(xb)
+    yb += np.min(yl) - np.max(yb) - dx
+
+    return np.concatenate([xl, xr, xb]), np.concatenate([yl, yr, yb])

@@ -1,0 +1,2 @@
+from .base import Scheme  # noqa: F401
+from .rigid_body import RigidBody2DScheme, RigidBody3DScheme  # noqa: F401

@@ -1,0 +1,102 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library under
+``<repo>/build/torch_kernels/``, then loaded with ``ctypes``.  The
+library's file name carries a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is reused.  The build
+uses only sources in this package and needs no network.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+
+BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# per-kernel extra flags: the contact kernel must not contract a*b + c
+# into an FMA, or its pair distances drift an ulp from the plain
+# version's and a tie in the closest-source pick can flip
+EXTRA_FLAGS = {"pack_expand": [], "contact": ["--fmad=false"]}
+
+# C signatures: every pointer and the stream are void*, sizes are int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "pack_expand": ("pack_expand",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "contact": ("contact_sums",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                 _P]),
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    flags = BASE_FLAGS + EXTRA_FLAGS[name]
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(flags).encode()
+                              ).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+
+
+def build(name: str) -> tuple[str, float]:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
+    returns (path, seconds spent compiling)."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return out, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *BASE_FLAGS, *EXTRA_FLAGS[name], "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+    os.replace(tmp, out)   # atomic: concurrent builders never see half
+    return out, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str):
+    """The ctypes function of kernel ``name``, built if needed."""
+    path, _ = build(name)
+    lib = ctypes.CDLL(path)
+    fname, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fname)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# launches per kernel, counted by the wrappers where they launch (and
+# nowhere else); a run resets them to read how often its path launched
+LAUNCHES = {"pack_expand": 0, "contact": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,360 @@
+"""The Mofidi contact pair pass on the compact interesting-slot path.
+
+Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/pallas_contact.py``:
+the packed contact fields and their sentinels, the interest cull
+(``_cull_interesting_slots``, plain PyTorch here as it is XLA there),
+the contact sums (``contact_sums``: ``csrc/contact.cu`` for CUDA
+tensors, :func:`contact_sums_reference` for CPU tensors) and the compact
+pipeline that drives pack expansion, cull and contact sums.
+
+Output of the contact sums: ``[NI, M, 12 S]`` with column ``c * S + s``
+for block c of (cfn x/y/z, wij sum, contact distance, closest distance,
+picked source x/y/z/u/v/w) and source-entity slot s.  Every row is
+written: a query lane with no gated pair (sentinel lanes, padding rows)
+holds the init row (zeros, closest distance = init_dist).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import _build
+from .cellpairs import CellGridConfig, build_cell_grid_packed
+from .kernels import QuinticSpline
+from .pack_expand import expand_slots, expand_slots_reference
+
+_BIG = 1.0e9
+S_MAX = 64   # compile-time bound of csrc/contact.cu
+_MAX_PAIR_ELEMS = 1 << 22   # pair lanes per chunk of the plain version
+
+# Pack field order.  The flags word is dem_id*8 + boundary*4 + fluid*2
+# + rigid, exact for dem_id < 2^20; the sentinel -8 decodes to dem -1.
+_FIELDS_3D = ("x", "y", "z", "u", "v", "w", "vol", "h", "flags")
+_FIELDS_2D = ("x", "y", "u", "v", "vol", "h", "flags")
+_SENT = [_BIG, _BIG, _BIG, 0.0, 0.0, 0.0, 0.0, 1.0, -8.0]
+_SENT_2D = [_BIG, _BIG, 0.0, 0.0, 0.0, 1.0, -8.0]
+
+
+def sent_fields(two_d: bool):
+    return _SENT_2D if two_d else _SENT
+
+
+def field_index(two_d: bool):
+    names = _FIELDS_2D if two_d else _FIELDS_3D
+    return {k: i for i, k in enumerate(names)}
+
+
+def decode_flags(f):
+    """flags -> (dem_id, is_boundary, is_fluid, is_rigid) as floats."""
+    dem = torch.floor(f * 0.125)
+    r = f - 8.0 * dem
+    bdry = torch.floor(r * 0.25)
+    r = r - 4.0 * bdry
+    fluid = torch.floor(r * 0.5)
+    rigid = r - 2.0 * fluid
+    return dem, bdry, fluid, rigid
+
+
+def contact_payload(scene, two_d: bool):
+    """The packed contact fields as per-particle [N] tensors (2D drops
+    z and w, identically zero there)."""
+    fdt = scene.dtype
+    flags = (scene.dem_id.to(fdt) * 8.0
+             + scene.contact_force_is_boundary * 4.0
+             + scene.is_fluid.to(fdt) * 2.0
+             + scene.is_rigid.to(fdt))
+    vol = scene.m / scene.rho
+    if two_d:
+        return [scene.x, scene.y, scene.u, scene.v, vol, scene.h, flags]
+    return [scene.x, scene.y, scene.z, scene.u, scene.v, scene.w, vol,
+            scene.h, flags]
+
+
+def cull_interesting_slots(dfT, slot_cid, cfg: CellGridConfig):
+    """Conservative per-slot interest test for the contact gate: a slot
+    can produce a gated pair only if it holds a rigid query lane and its
+    cell's stencil holds a contact-surface, non-fluid source of a dem
+    other than some query's.  Exact for the dem/flag gates and
+    conservative in distance, so culled slots' output is exactly the
+    init row.  Returns ``(interesting [NC] bool, islot [NC])`` with the
+    interesting slot ids first, ascending, then NC."""
+    NC = cfg.NC_max
+    G = cfg.n_cells_total
+    gx, gy, _ = cfg.dims
+    F = dfT.shape[1]
+    dev = dfT.device
+    BIGD = 2.0e9
+    dem, bdry, fluid, rigid = decode_flags(dfT[:NC, F - 1, :])
+    qmask = rigid == 1.0
+    smask = (bdry == 1.0) & (fluid == 0.0)
+    big = torch.full_like(dem, BIGD)
+    qdmin = torch.where(qmask, dem, big).amin(1)
+    qdmax = torch.where(qmask, dem, -big).amax(1)
+    sdmin = torch.where(smask, dem, big).amin(1)
+    sdmax = torch.where(smask, dem, -big).amax(1)
+
+    # per-cell source tables over the dense cell-id space (scatter
+    # min/max merges the slots of a multi-slot cell)
+    live = slot_cid < G
+    cidc = torch.where(live, slot_cid, torch.full_like(slot_cid, G))
+    bigs = torch.full_like(sdmin, BIGD)
+    smin_g = torch.full((G + 1,), BIGD, dtype=dem.dtype, device=dev
+                        ).scatter_reduce(0, cidc, torch.where(live, sdmin,
+                                                              bigs),
+                                         "amin")[:G]
+    smax_g = torch.full((G + 1,), -BIGD, dtype=dem.dtype, device=dev
+                        ).scatter_reduce(0, cidc, torch.where(live, sdmax,
+                                                              -bigs),
+                                         "amax")[:G]
+
+    # union over each slot's stencil cells (the domain's boundary ring
+    # is particle-free, so offsets never wrap)
+    offs = torch.tensor([dx_ + gx * (dy_ + gy * dz_)
+                         for (dx_, dy_, dz_) in cfg.stencil],
+                        dtype=torch.int64, device=dev)
+    maxoff = int(offs.abs().max())
+    pad = torch.full((maxoff,), BIGD, dtype=dem.dtype, device=dev)
+    pmin = torch.cat([pad, smin_g, pad])
+    pmax = torch.cat([-pad, smax_g, -pad])
+    at = torch.clamp(slot_cid, 0, G - 1)[:, None] + offs[None, :] + maxoff
+    sminu = torch.where(live, pmin[at].amin(1), bigs)
+    smaxu = torch.where(live, pmax[at].amax(1), -bigs)
+
+    has_q = qdmin < BIGD
+    has_s = sminu < BIGD
+    uniform = (qdmin == qdmax) & (sminu == smaxu) & (qdmin == sminu)
+    interesting = has_q & has_s & ~uniform & live
+    iota = torch.arange(NC, dtype=torch.int64, device=dev)
+    islot = torch.sort(torch.where(interesting, iota,
+                                   torch.full_like(iota, NC))).values
+    return interesting, islot
+
+
+def _sigma_constants(kernel: QuinticSpline):
+    return (7.0 if kernel.dim == 2 else 1.0), kernel.sigma_denominator
+
+
+def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
+                           init_dist: float, kernel: QuinticSpline):
+    """Plain PyTorch version of the contact kernel (same inputs, same
+    ``[NI, M, 12 S]`` output).  Rows are processed in chunks of at most
+    ``_MAX_PAIR_ELEMS`` pair lanes to bound memory."""
+    two_d = kernel.dim == 2
+    fi = field_index(two_d)
+    NI, O = nbr.shape
+    F, M = dfT.shape[1], dfT.shape[2]
+    OM = O * M
+    dt = dfT.dtype
+    dev = dfT.device
+    chunk = max(1, _MAX_PAIR_ELEMS // (M * OM))
+    lane = torch.arange(OM, device=dev)
+    src_names = ("x", "y", "z", "u", "v", "w")
+    outs = []
+    for c0 in range(0, NI, chunk):
+        qs = qslot[c0:c0 + chunk].to(torch.int64)
+        nb = nbr[c0:c0 + chunk].to(torch.int64)
+        B = qs.shape[0]
+        q = dfT[qs]                                            # [B, F, M]
+        src = dfT[nb].permute(0, 2, 1, 3).reshape(B, F, OM)    # [B, F, OM]
+
+        def qcol(k):
+            return q[:, fi[k], :, None]                        # [B, M, 1]
+
+        def srow(k):
+            return src[:, fi[k], None, :]                      # [B, 1, OM]
+
+        xij = qcol("x") - srow("x")
+        yij = qcol("y") - srow("y")
+        if two_d:
+            rij = torch.sqrt(xij * xij + yij * yij)
+        else:
+            zij = qcol("z") - srow("z")
+            rij = torch.sqrt(xij * xij + yij * yij + zij * zij)
+        hij = 0.5 * (qcol("h") + srow("h"))
+        wij = kernel.w(rij, hij)
+        s_dem, s_bdry, s_fluid, _ = decode_flags(srow("flags"))
+        q_dem, _, _, q_rigid = decode_flags(qcol("flags"))
+        gate = ((s_bdry == 1.0) & (s_dem != q_dem) & (s_fluid == 0.0)
+                & (q_rigid == 1.0) & (rij <= cutoff))
+        zero = torch.zeros_like(rij)
+        rinv = 1.0 / torch.clamp(rij, min=1e-30)
+        t1 = torch.where(gate, qcol("vol") * rinv * wij, zero)
+        t2 = t1 * rij
+
+        # per-slot sums: [B, nq*M, OM] x one-hot [B, OM, S]
+        oh = (s_dem[:, 0, :, None]
+              == torch.arange(S, device=dev, dtype=dt)).to(dt)
+        if two_d:
+            quants = [t1 * xij, t1 * yij, t2, t2 * xij, t2 * yij]
+        else:
+            quants = [t1 * xij, t1 * yij, t1 * zij, t2,
+                      t2 * xij, t2 * yij, t2 * zij]
+        nq = len(quants)
+        sums = torch.bmm(torch.stack(quants, 1).reshape(B, nq * M, OM), oh
+                         ).reshape(B, nq, M, S)
+        if two_d:
+            q0, q1, q3, q4, q5 = sums.unbind(1)
+            q2 = q6 = torch.zeros_like(q0)
+        else:
+            q0, q1, q2, q3, q4, q5, q6 = sums.unbind(1)
+
+        # closest gated source per slot, lowest lane on a tie
+        r_g = torch.where(gate, rij, torch.full_like(rij, _BIG))
+        names = src_names[:2] + src_names[3:5] if two_d else src_names
+        fields = torch.stack([src[:, fi[k], :] for k in names], 1)
+        fields = torch.cat([fields, torch.zeros_like(fields[..., :1])], -1)
+        mins, picks = [], []
+        for s in range(S):
+            m = s_dem == float(s)                              # [B, 1, OM]
+            mn = torch.where(m, r_g, torch.full_like(r_g, _BIG)).amin(-1)
+            pick = gate & m & (r_g <= mn[..., None])
+            ls = torch.where(pick, lane, torch.full_like(lane, OM)).amin(-1)
+            got = torch.gather(fields, 2, ls[:, None, :].expand(
+                B, len(names), M))                             # [B, nf, M]
+            mins.append(mn)
+            picks.append(got)
+        min_r = torch.stack(mins, -1)                          # [B, M, S]
+        srcs = torch.stack(picks, -1)                          # [B, nf, M, S]
+        if two_d:
+            zs = torch.zeros_like(srcs[:, 0])
+            srcs = torch.stack([srcs[:, 0], srcs[:, 1], zs,
+                                srcs[:, 2], srcs[:, 3], zs], 1)
+
+        # epilogue
+        has = q3 > 1e-12
+        zq = torch.zeros_like(q3)
+        inv_w = torch.where(has, 1.0 / torch.clamp(q3, min=1e-30), zq)
+        mx, my, mz = q0 * inv_w, q1 * inv_w, q2 * inv_w
+        mag = torch.sqrt(mx * mx + my * my + mz * mz)
+        inv_m = torch.where(has & (mag > 0),
+                            1.0 / torch.clamp(mag, min=1e-30), zq)
+        cfn_x, cfn_y, cfn_z = mx * inv_m, my * inv_m, mz * inv_m
+        num = cfn_x * q4 + cfn_y * q5 + cfn_z * q6
+        dist = torch.where(has, num / torch.where(has, q3, zq + 1.0), zq)
+        found = min_r < init_dist
+        mind = torch.clamp(min_r, max=init_dist)
+        srcs = torch.where(found[:, None], srcs, torch.zeros_like(srcs))
+        cols = torch.stack([cfn_x, cfn_y, cfn_z, q3, dist, mind]
+                           + list(srcs.unbind(1)), 2)          # [B,M,12,S]
+        outs.append(cols.reshape(B, M, 12 * S))
+    if not outs:
+        return torch.zeros((0, M, 12 * S), dtype=dt, device=dev)
+    return torch.cat(outs, 0)
+
+
+def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
+                 kernel: QuinticSpline):
+    """Contact sums for the query slots ``qslot [NI]`` over the stencil
+    rows ``nbr [NI, O]`` of the dense pack ``dfT [R, F, M]``."""
+    two_d = kernel.dim == 2
+    F = len(_FIELDS_2D if two_d else _FIELDS_3D)
+    if dfT.dim() != 3 or dfT.shape[1] != F or qslot.dim() != 1 \
+            or nbr.dim() != 2 or nbr.shape[0] != qslot.shape[0]:
+        raise ValueError("contact_sums: bad shapes "
+                         f"{tuple(dfT.shape)}, {tuple(qslot.shape)}, "
+                         f"{tuple(nbr.shape)} for dim {kernel.dim}")
+    if dfT.device.type == "cpu":
+        return contact_sums_reference(dfT, qslot, nbr, S, cutoff,
+                                      init_dist, kernel)
+    if dfT.device.type != "cuda":
+        raise ValueError(f"unsupported device {dfT.device}")
+    if dfT.dtype != torch.float32:
+        raise ValueError("the contact kernel takes float32")
+    if qslot.dtype != torch.int64 or nbr.dtype != torch.int64:
+        raise ValueError("the contact kernel takes int64 qslot/nbr")
+    M = dfT.shape[2]
+    if S > S_MAX or M * S > 1024:
+        raise ValueError(f"contact kernel limits: S={S} (max {S_MAX}), "
+                         f"M*S={M * S} (max 1024)")
+    NI, O = nbr.shape
+    dfT, qslot, nbr = dfT.contiguous(), qslot.contiguous(), nbr.contiguous()
+    out = torch.empty((NI, M, 12 * S), dtype=torch.float32,
+                      device=dfT.device)
+    sig_num, sig_den = _sigma_constants(kernel)
+    fn = _build.load("contact")
+    stream = torch.cuda.current_stream(dfT.device).cuda_stream
+    err = fn(dfT.data_ptr(), qslot.data_ptr(), nbr.data_ptr(),
+             out.data_ptr(), NI, O, dfT.shape[0], M, S, int(two_d),
+             float(cutoff), float(init_dist), float(sig_num),
+             float(sig_den), stream)
+    _build.check(err, "contact_sums")
+    _build.LAUNCHES["contact"] += 1
+    return out
+
+
+class CompactContact(NamedTuple):
+    out: torch.Tensor           # [NI, M, 12 S]
+    pid: torch.Tensor           # [NI, M] particle per lane (n = empty)
+    u: torch.Tensor             # [NI, M] query velocities
+    v: torch.Tensor
+    w: torch.Tensor
+    overflow: torch.Tensor      # 0-d bool: grid or cull capacity
+    n_interesting: torch.Tensor  # 0-d: slots the cull found
+
+
+def pack_scene(scene, cfg: CellGridConfig, plain: bool = False):
+    """Grid build with the pack fields riding the sort, then pack
+    expansion: ``(grid, pack tables, dfT [NC + 1, F, M])``.  ``plain``
+    runs the expansion's plain version even on CUDA tensors (for
+    comparisons on the card)."""
+    two_d = cfg.dim == 2
+    grid, pt = build_cell_grid_packed(
+        scene.x, scene.y, scene.z, scene.active, cfg,
+        contact_payload(scene, two_d))
+    sent = torch.tensor(sent_fields(two_d), dtype=scene.dtype,
+                        device=scene.device)
+    expand = expand_slots_reference if plain else expand_slots
+    return grid, pt, expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+
+
+def select_queries(dfT, grid, pt, cfg: CellGridConfig, ni_max: int):
+    """The interest cull and the first ``ni_max`` interesting slots:
+    ``(qsel [NI], nbr [NI, O], valid [NI], slot [NI], n_interesting)``;
+    padding rows query the all-sentinel row NC."""
+    NC = cfg.NC_max
+    interesting, islot = cull_interesting_slots(dfT, pt.slot_cid, cfg)
+    isl = islot[:ni_max]
+    valid = isl < NC
+    isl_c = torch.clamp(isl, 0, NC - 1)
+    qsel = torch.where(valid, isl, torch.full_like(isl, NC))
+    nbr = grid.nbr_slots[isl_c]
+    nbr = torch.where(valid[:, None], nbr, torch.full_like(nbr, NC))
+    return qsel, nbr, valid, isl_c, interesting.to(torch.int64).sum()
+
+
+def contact_pipeline_compact(scene, cfg: CellGridConfig,
+                             kernel: QuinticSpline, ni_max: int,
+                             plain: bool = False) -> CompactContact:
+    """Pack, cull and contact sums on at most ``ni_max`` interesting
+    slots.  ``overflow`` is raised when the grid overflows or the cull
+    finds more than ``ni_max`` slots (the caller then re-sizes).
+    ``plain`` runs both kernels' plain versions even on CUDA tensors."""
+    S = scene.meta.total_no_bodies
+    M = cfg.M
+    n = scene.n
+    two_d = cfg.dim == 2
+    fi = field_index(two_d)
+
+    grid, pt, dfT = pack_scene(scene, cfg, plain)
+    qsel, nbr, valid, isl_c, n_int = select_queries(dfT, grid, pt, cfg,
+                                                    ni_max)
+    sums = contact_sums_reference if plain else contact_sums
+    out = sums(dfT, qsel, nbr, S, cfg.radius, 4.0 * scene.meta.spacing0,
+               kernel)
+
+    # original particle id per compacted lane (empty lanes -> n)
+    base_c = torch.where(valid, pt.base[isl_c], torch.full_like(qsel, n))
+    cnt_c = torch.where(valid, pt.cnt[isl_c], torch.zeros_like(qsel))
+    lane = torch.arange(M, device=scene.device)[None, :]
+    sidx = torch.clamp(base_c[:, None] + lane, 0, max(n - 1, 0))
+    pid = torch.where(lane < cnt_c[:, None], pt.sorted_pid[sidx],
+                      torch.full_like(sidx, n))
+
+    qI = dfT[qsel]                                       # [NI, F, M]
+    u_c, v_c = qI[:, fi["u"]], qI[:, fi["v"]]
+    w_c = torch.zeros_like(u_c) if two_d else qI[:, fi["w"]]
+    return CompactContact(out=out, pid=pid, u=u_c, v=v_c, w=w_c,
+                          overflow=grid.overflow | (n_int > ni_max),
+                          n_interesting=n_int)
