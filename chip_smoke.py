@@ -9,12 +9,13 @@ no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for matmul and cuDNN;
-2. build: both hand-written kernels from ``csrc/`` (nvcc, sm_90a);
-3. kernels against their plain twins on the card at the main path's
-   shapes (2D, F = 7) and on a 3D case (F = 9, 27-cell stencil): pack
-   expansion bit for bit, contact picks bit for bit, contact sums within
-   rtol 1e-5 (f32 summation order); kernel and twin times in ms;
-4. the main path: ``RigidBody2DScheme.setup`` -> ``make_step`` ->
+2. build: every hand-written kernel source in ``csrc/`` (one nvcc each,
+   all started together; sm_90a), with seconds and register reports;
+3. rigid kernels against their plain twins on the card at the main
+   path's shapes (2D, F = 7) and on a 3D case (F = 9, 27-cell stencil):
+   pack expansion bit for bit, contact picks bit for bit, contact sums
+   within rtol 1e-5 (f32 summation order); kernel and twin times in ms;
+4. the rigid main path: ``RigidBody2DScheme.setup`` -> ``make_step`` ->
    ``step`` for 200 steps at dt = 1e-4 on a ~105k-particle scene that is
    in contact from the first step (a resting stack of 8 blocks in two
    rows of 4 on a tank floor), in chunks with the overflow-rebuild rule;
@@ -22,8 +23,25 @@ no result line):
    overflow, COM drift < 2 dx, and that no block dropped half the
    free-fall distance (the stack is carried by contact), and prints
    steps/s;
-5. 20 kernel steps against 20 twin steps from one state;
-6. a JSON line of per-kernel numbers, then the result line.
+5. 20 rigid kernel steps against 20 twin steps from one state;
+6. DEM kernels against their twins on ~100k grains in contact (2D spill
+   grid, 3D spill grid, 2D row-window grid), each from an empty contact
+   table (every contact allocated), a filled one, and one whose contacts
+   open and close (positions jittered by up to an overlap: slots freed
+   and reallocated): tables, slot positions and counts bit for bit,
+   force and torque sums within 2e-5 |ref| + 2e-5 max |ref|, springs
+   within rtol 1e-4; times, gated pairs, candidate lanes;
+7. the DEM main path (``DEMScheme`` LVC displacement, spill grid): 200
+   steps at dt = 5e-6 of a granular column whose grains start 0.5 %
+   overlapped, in chunks with the overflow-rebuild rule; checks one
+   kernel launch per step, live contacts every step, finiteness,
+   overflow, the floor and the overlap; prints steps/s;
+8. the same on the row-window grid for 100 steps (one DEM launch and two
+   pack expansions per step);
+9. 20 DEM kernel steps against 20 twin steps from one state;
+10. a JSON line of per-kernel numbers (``launches`` from the kernel's
+    first main path, ``launches_by_path`` from every path it ran on),
+    then the result line.
 
 It imports nothing from JAX or the JAX package.
 """
@@ -47,6 +65,23 @@ REPS = 20
 # between kernel and twin, and 20 steps of a stiff contact carry it on
 STEP_RTOL = 1e-4
 SUM_RTOL = 1e-5
+# DEM: the bench's grains (radius 1e-3, rho 2600) spaced 0.5 % under a
+# diameter, so every lattice neighbour overlaps by 1e-5 m at step 0; the
+# column case's dt
+DEM_R = 1e-3
+DEM_SPACING = 2 * DEM_R * (1 - 0.005)
+DEM_OVERLAP = 2 * DEM_R - DEM_SPACING
+DEM_DT = 5e-6
+DEM_STEPS = 200
+DEM_ROWWIN_STEPS = 100
+DEM_SUM_RTOL = 2e-5        # summation order (tests/test_pallas_dem.py)
+DEM_SPRING_RTOL = 1e-4     # operation order
+# the least time a kernel could take: H100 SXM HBM rate and f32 peak
+# outside the tensor cores (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+OPS_PER_LANE = 9           # any candidate lane: 3 sub, 3 mul, 2 add, sqrt
+OPS_PER_DEM_PAIR = 140     # the LVC body per gated pair (csrc/dem.cu)
 # face gap of the resting stack in dx: a contact engages below 1 dx, and
 # the 0.05 dx overlap of a 0.95 dx gap pushes a face with about the
 # weight of one block (kr * 0.05 dx per face particle), so the stack
@@ -90,6 +125,26 @@ def cuda_ms(fn, reps=REPS, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """(least ms, what bounds it) for this many bytes and f32 ops."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_ops / F32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def slot_lanes(cnt, nbr):
+    """Live (query, source) lane pairs of slots with ``cnt`` live lanes
+    whose sources are the slots ``nbr`` lists (>= len(cnt) = none)."""
+    ext = torch.cat([cnt, torch.zeros(1, dtype=cnt.dtype,
+                                      device=cnt.device)])
+    src = ext[torch.clamp(nbr, 0, cnt.shape[0])].sum(1)
+    return int((cnt[:nbr.shape[0]] * src).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -245,10 +300,35 @@ def phase_kernels(scheme, scene, label, timings):
         contact_plain_ms=cuda_ms(
             lambda: tck.contact_sums_reference(*k2_args)),
         pack_err=k1_err, contact_err=k2_err)
+    # least times: K1 moves its inputs and output once; K2 reads its
+    # inputs, writes its rows and tests every live candidate lane
+    cnt_ext = torch.cat([pt.cnt, torch.zeros(1, dtype=pt.cnt.dtype,
+                                             device=pt.cnt.device)])
+    live_lanes = int((cnt_ext[torch.clamp(qsel, max=cfg.NC_max)]
+                      * cnt_ext[torch.clamp(nbr, max=cfg.NC_max)].sum(1)
+                      ).sum())
+    t["pack_bound"], t["pack_bound_by"] = bound(
+        nbytes(pt.sorted_fields, pt.base, pt.cnt, sent, dfT), 0)
+    # K2 needs the F fields of the particles in the slots that the
+    # interesting rows' stencils reach, and writes 12S values per live
+    # query lane; the sentinel lanes of the pack and the stencil are
+    # layout, not work
+    NC = cfg.NC_max
+    reached = torch.zeros(NC + 1, dtype=torch.bool, device=scene.device)
+    reached[nbr[valid].reshape(-1)] = True
+    reached = reached[:NC]
+    n_src = int(pt.cnt[reached].sum())
+    n_query = int(pt.cnt[qsel[valid]].sum())
+    t["contact_bound"], t["contact_bound_by"] = bound(
+        4 * (n_src * dfT.shape[1] + n_query * 12 * S),
+        live_lanes * OPS_PER_LANE)
     print(f"[kernels] {label}: pack {t['pack_ms']:.4f} ms "
-          f"(plain {t['pack_plain_ms']:.4f} ms), contact "
-          f"{t['contact_ms']:.4f} ms (plain {t['contact_plain_ms']:.4f} ms)",
-          flush=True)
+          f"(plain {t['pack_plain_ms']:.4f} ms, bound "
+          f"{t['pack_bound']:.4f} ms by {t['pack_bound_by']}), contact "
+          f"{t['contact_ms']:.4f} ms (plain {t['contact_plain_ms']:.4f} ms, "
+          f"bound {t['contact_bound']:.4f} ms by {t['contact_bound_by']}; "
+          f"{live_lanes} live candidate lanes, {n_src} source and "
+          f"{n_query} query particles)", flush=True)
     timings[label] = t
 
 
@@ -372,6 +452,365 @@ def phase_step_parity(scheme, scene):
           f"steps, max abs diff: " + ", ".join(worst), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# DEM
+# ---------------------------------------------------------------------------
+
+def dem_scene(dev, dim, grid="spill", n_target=100_000):
+    """The bench's granular column over a floor (``bench.py``
+    ``build_dem_scene`` / ``build_dem_scene_3d`` geometry at ~n_target
+    grains) with grains spaced DEM_SPACING: every lattice neighbour and
+    the floor under the lowest row overlap by 0.01 r at step 0."""
+    from rigid_body_2d_3d_pysph_tpu_torch import config
+    from rigid_body_2d_3d_pysph_tpu_torch.geom import get_2d_block
+    from rigid_body_2d_3d_pysph_tpu_torch.models import DEMScheme
+    from rigid_body_2d_3d_pysph_tpu_torch.state import (
+        make_group, build_scene, ROLE_RIGID, ROLE_BOUNDARY)
+
+    r, s, rho = DEM_R, DEM_SPACING, 2600.0
+    if dim == 2:
+        k = np.sqrt(n_target / 1130.0) * s / 2.1e-3
+        w, h = 0.05 * k, 0.1 * k
+        xg, yg = get_2d_block(s, w, h)
+        zg = np.zeros_like(xg)
+        m = rho * np.pi * r**2
+        xf = np.arange(-3.5 * h, 3.5 * h, 2 * r)
+        zf = np.zeros_like(xf)
+    else:
+        k = (n_target / ((0.05 * 0.1 * 0.05) / s**3)) ** (1.0 / 3.0)
+        w, h, d = 0.05 * k, 0.1 * k, 0.05 * k
+        xg, yg, zg = (a.ravel() for a in np.meshgrid(
+            np.arange(0.0, w, s), np.arange(0.0, h, s), np.arange(0.0, d, s)))
+        m = rho * (4.0 / 3.0) * np.pi * r**3
+        xf, zf = (a.ravel() for a in np.meshgrid(
+            np.arange(-1.5 * w, 2.5 * w, 2 * r),
+            np.arange(-1.5 * d, 2.5 * d, 2 * r)))
+    yg = yg - yg.min() + (s - r)        # floor centres at -r
+    grains = make_group("sand", xg, yg, z=zg, m=m, h=2 * r, rho=rho,
+                        rad_s=r, role=ROLE_RIGID,
+                        body_id=np.arange(len(xg), dtype=np.int32), dem_id=0)
+    floor = make_group("floor", xf, np.full(len(xf), -r), z=zf, m=m,
+                       h=2 * r, rho=rho, rad_s=r, role=ROLE_BOUNDARY,
+                       dem_id=1)
+    scene = build_scene([grains, floor], dim=dim, total_no_bodies=2,
+                        spacing0=s, device=dev, dtype=config.WORK_DTYPE)
+    scheme = DEMScheme(["sand"], ["floor"], kn=1e5, en=0.5, mu=0.5,
+                       dim=dim, gy=-9.81, max_tng_contacts_limit=8,
+                       dem_grid=grid)
+    return scheme, scheme.setup(scene)
+
+
+def dem_kernel_call(scheme, scene, cfg, tables):
+    """The DEM kernel wrapper, its twin and their arguments for ``scene``
+    with the contact ``tables`` (idx, dem, sx, sy, sz in particle order),
+    built as the main path builds them; also the grid, the candidate
+    lanes and (idx, dem) in particle order of an output."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_cell as tdc
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import pack_expand as tpe
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.cellpairs import (
+        build_cell_grid_packed)
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.rowwin import (
+        build_row_window_grid)
+
+    dev = scene.device
+    mat = tdk.material_table(scene)
+    sent = torch.tensor(tdc.SENT, device=dev)
+    L = tables[0].shape[1]
+    if scheme.dem_grid == "spill":
+        grid, pt = build_cell_grid_packed(scene.x, scene.y, scene.z,
+                                          scene.active, cfg,
+                                          tdk.dem_payload(scene))
+        dfT = tpe.expand_slots(pt.sorted_fields, pt.base, pt.cnt, sent,
+                               cfg.M)
+        args = (dfT, grid.nbr_slots, *tables, mat, DEM_DT, cfg)
+        return (tdk.dem_cell_sums, tdk.dem_cell_sums_reference, args, grid,
+                slot_lanes(pt.cnt, grid.nbr_slots), lambda out: out[1:3])
+    tab = torch.cat([tables[0].float(), tables[1].float(), *tables[2:]], 1).T
+    grid, pt = build_row_window_grid(scene.x, scene.y, scene.z, scene.active,
+                                     cfg, tdk.dem_payload(scene) + list(tab))
+    dfs = tpe.expand_slots(pt.sorted_fields[:tdc.NF], pt.base, pt.cnt, sent,
+                           cfg.M)
+    dft = tpe.expand_slots(
+        pt.sorted_fields[tdc.NF:], pt.base, pt.cnt,
+        torch.tensor([-1.0] * (2 * L) + [0.0] * (3 * L), device=dev), cfg.M)
+    args = (dfs, dft, grid.nbr_runs, grid.run_cnt, mat, DEM_DT, scene.n, cfg)
+    lanes = slot_lanes(pt.cnt, tdk.rowwin_sources(grid.nbr_runs,
+                                                  grid.run_cnt, cfg))
+    return (tdk.dem_rowwin_sums, tdk.dem_rowwin_sums_reference, args, grid,
+            lanes,
+            lambda out: tdk.unpack_dem_out(out, grid, cfg, scene.n, L)[1:3])
+
+
+def dem_compare(spill, got, ref, L, label):
+    """Kernel output against twin output: table idx, dem, slot positions
+    and counts bit for bit, sums and springs within tolerance.  Returns
+    (twin sums [..., 8], sums max abs error, springs max abs error)."""
+    if spill:
+        outs_got = got
+        sums_got, sums_ref = got[0], ref[0]
+        exact = [(got[0][:, 6:], ref[0][:, 6:]), (got[1], ref[1]),
+                 (got[2], ref[2])]
+        springs = list(zip(got[3:], ref[3:]))
+    else:
+        outs_got = (got,)
+        sums_got, sums_ref = got[..., :8], ref[..., :8]
+        exact = [(got[..., 6:8 + 2 * L], ref[..., 6:8 + 2 * L])]
+        springs = [(got[..., 8 + 2 * L:], ref[..., 8 + 2 * L:])]
+    for a in outs_got:
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{label}: non-finite kernel output")
+    for a, b in exact:
+        check(torch.equal(a, b), f"{label}: tables or counts != twin "
+              f"({int((a != b).sum())} entries differ)")
+    a, b = sums_got[..., :6], sums_ref[..., :6]
+    err = float((a - b).abs().max())
+    tol = DEM_SUM_RTOL * b.abs() + DEM_SUM_RTOL * float(b.abs().max())
+    check(bool(((a - b).abs() <= tol).all()),
+          f"{label}: force/torque sums off by {err:.3e}")
+    spring_err = 0.0
+    for a, b in springs:
+        d = (a - b).abs()
+        spring_err = max(spring_err, float(d.max()))
+        check(bool((d <= DEM_SPRING_RTOL * b.abs()).all()),
+              f"{label}: springs off by {float(d.max()):.3e}")
+    return sums_ref, err, spring_err
+
+
+def phase_dem_kernels(scheme, scene, label, timings):
+    """A DEM kernel against its twin at the main path's shapes, with
+    seeded random velocities and spins, on three contact tables: the
+    setup's empty one (every contact is allocated), one filled by a twin
+    pass at the same positions (the timed case: the main path's steady
+    state), and one advanced by a twin pass at positions jittered by up
+    to an overlap, then met at positions jittered again (contacts open
+    and close: slots are freed and reallocated)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    dev = scene.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rnd = lambda a: (torch.rand(scene.n, generator=gen, device=dev) - 0.5) * a
+    vel = dict(u=rnd(0.1), v=rnd(0.1), wz=rnd(100.0))
+    if scheme.dim == 3:
+        vel.update(w=rnd(0.1), wx=rnd(100.0), wy=rnd(100.0))
+    scene = scene.replace(**vel)
+    axes = ("x", "y", "z")[:scheme.dim]
+    jitter = lambda: scene.replace(
+        **{k: scene[k] + rnd(2 * DEM_OVERLAP) for k in axes})
+    spill = scheme.dem_grid == "spill"
+    cfg = scheme.cell_config(scene) if spill else scheme.rowwin_config(scene)
+    run = (tdk.lvc_displacement_cell_kernel if spill
+           else tdk.lvc_displacement_rowwin_kernel)
+
+    def twin_pass(sc, tables):
+        p = run(sc, cfg, DEM_DT, *tables, plain=True)
+        check(not bool(p.overflow), f"{label}: grid overflow")
+        return (p.tng_idx, p.tng_dem, p.tng_x, p.tng_y, p.tng_z)
+
+    empty = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x, scene.tng_y,
+             scene.tng_z)
+    filled = twin_pass(scene, empty)
+    moved1, moved2 = jitter(), jitter()
+    cases = [("empty", scene, empty), ("filled", scene, filled),
+             ("moved", moved2, twin_pass(moved1, filled))]
+    L = empty[0].shape[1]
+    errs, lines = [], []
+    for case, sc, tables in cases:
+        kern, plain, args, grid, lanes, tabs_of = dem_kernel_call(
+            scheme, sc, cfg, tables)
+        check(not bool(grid.overflow), f"{label} {case}: grid overflow")
+        got = kern(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        sums_ref, err, spring_err = dem_compare(spill, got, ref, L,
+                                                f"{label} {case}")
+        errs += [err, spring_err]
+        gated = int(sums_ref[..., 7].sum())
+        live = int(sums_ref[..., 6].sum())
+        check(gated > 0 and live > 0, f"{label} {case}: no contact")
+        # table changes in particle order: a slot whose (idx, dem) the
+        # pass changed was freed if it held a contact, allocated if it
+        # holds one now
+        oi, od = tabs_of(ref)
+        changed = (oi != tables[0]) | (od != tables[1])
+        n_alloc = int((changed & (oi >= 0)).sum())
+        n_free = int((changed & (tables[0] >= 0)).sum())
+        if case == "empty":
+            check(n_alloc == live, f"{label} empty: {n_alloc} allocations "
+                  f"for {live} live entries")
+        if case == "moved":
+            check(n_alloc > 0 and n_free > 0, f"{label} moved: {n_alloc} "
+                  f"allocations, {n_free} frees")
+        lines.append(f"{case}: {live} live, {n_alloc} allocated, {n_free} "
+                     f"freed, {gated} gated, sums {err:.3e}, springs "
+                     f"{spring_err:.3e}")
+        if case == "filled":
+            timed = (kern, plain, args, lanes, gated)
+    kern, plain, args, lanes, gated = timed
+    if spill:
+        shape = f"NC={cfg.NC_max} M={cfg.M} O={cfg.O}"
+    else:
+        shape = f"NCW={cfg.NC_max} M={cfg.M} R={cfg.R} max_run={cfg.max_run}"
+    # least time: each particle's 13 source fields and its table row
+    # (idx, dem, sx, sy, sz: 5L words) read once, its 8 sums and its
+    # table row written once (the pack's sentinel lanes and the stencil
+    # are layout, not work); 9 f32 ops per candidate lane and the LVC
+    # body per gated pair
+    n_bytes = 4 * scene.n * (tdk.NF + 8 + 2 * 5 * L)
+    n_ops = lanes * OPS_PER_LANE + gated * OPS_PER_DEM_PAIR
+    bms, bby = bound(n_bytes, n_ops)
+    t = dict(ms=cuda_ms(lambda: kern(*args)),
+             plain_ms=cuda_ms(lambda: plain(*args), reps=3, warmup=1),
+             err=max(errs), bound_ms=bms, bound_by=bby)
+    print(f"[dem-kernels] {label}: n={scene.n} {shape} L={L} | tables, "
+          f"slots and counts exact on every table; max abs errors | "
+          + " | ".join(lines), flush=True)
+    print(f"[dem-kernels] {label}: filled table, candidate lanes {lanes} | "
+          f"kernel {t['ms']:.4f} ms, twin {t['plain_ms']:.4f} ms, bound "
+          f"{bms:.4f} ms by {bby} ({n_bytes} bytes, {n_ops} ops)",
+          flush=True)
+    timings[label] = t
+
+
+def table_overlap_max(scene):
+    """Largest overlap among the live contact-table pairs."""
+    live = scene.tng_idx >= 0
+    j = torch.clamp(scene.tng_idx, min=0).long()
+    d = [scene[k][:, None] - scene[k][j] for k in ("x", "y", "z")]
+    rij = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    ov = scene.rad_s[:, None] + scene.rad_s[j] - rij
+    return float(torch.where(live, ov, torch.zeros_like(ov)).max())
+
+
+def phase_dem_main(scheme, scene, n_steps, label, smi):
+    """The DEM step through its entry points, in chunks with the
+    overflow-rebuild rule; returns (end scene, launches, steps/s)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    spill = scheme.dem_grid == "spill"
+    kname = "dem_cell" if spill else "dem_rowwin"
+    step = scheme.make_step(scene)
+    sand = scene.meta.group("sand")
+    floor = scene.meta.group("floor")
+    floor_top = float((scene.y + scene.rad_s)[floor.start:floor.stop].max())
+    _build.reset_launches()
+    steps_run = done = rebuilds = 0
+    chunk_s, lives, gateds = [], [], []
+    while done < n_steps:
+        chunk_start = scene
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live, gated = [], []
+        for _ in range(CHUNK):
+            scene = step(scene, DEM_DT)
+            live.append(scene.total_tng_contacts.sum())
+            gated.append(scene.n_gated)
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+        steps_run += CHUNK
+        if bool(scene.nbr_overflow):
+            rebuilds += 1
+            check(rebuilds <= 8, f"{label}: overflow persists after 8 "
+                  "rebuilds")
+            scheme.refresh_configs(chunk_start, grow=rebuilds > 1)
+            step = scheme.make_step(chunk_start)
+            scene = chunk_start
+            print(f"[{label}] step {done}: capacity overflow, rebuilt "
+                  f"(x{rebuilds}, boost {scheme.capacity_boost:.2f})",
+                  flush=True)
+            continue
+        rebuilds = 0
+        done += CHUNK
+        lv = torch.stack(live).cpu().numpy()
+        gt = torch.stack(gated).cpu().numpy()
+        lives.append(lv)
+        gateds.append(gt)
+        chunk_s.append(el)
+        print(f"[{label}] steps {done - CHUNK}-{done}: {el:.3f} s, live "
+              f"table entries {lv.min()}-{lv.max()}, gated pairs/step "
+              f"{gt.min()}-{gt.max()}", flush=True)
+    launches = dict(_build.LAUNCHES)
+    lv, gt = np.concatenate(lives), np.concatenate(gateds)
+    check(launches[kname] == steps_run, f"{label}: {kname} launched "
+          f"{launches[kname]} times in {steps_run} steps")
+    n_pack = steps_run * (1 if spill else 2)
+    check(launches["pack_expand"] == n_pack, f"{label}: pack_expand "
+          f"launched {launches['pack_expand']} times, expected {n_pack}")
+    check(bool((lv > 0).all()), f"{label}: a step had no live contact")
+    for k, v in scene.fields.items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
+    check(not bool(scene.nbr_overflow), f"{label}: overflow at the end")
+    bottom = float((scene.y - scene.rad_s)[sand.start:sand.stop].min())
+    check(bottom > floor_top - DEM_R, f"{label}: a grain's bottom "
+          f"{bottom:.4e} is more than r below the floor's top {floor_top:.4e}")
+    ov = table_overlap_max(scene)
+    check(0 < ov < 0.1 * DEM_R, f"{label}: max overlap {ov:.3e} not in "
+          f"(0, 0.1 r)")
+    steady = chunk_s[1:] or chunk_s
+    sps = CHUNK * len(steady) / sum(steady)
+    print(f"[{label}] n={scene.n} ({sand.stop - sand.start} grains) "
+          f"steps={done} (run {steps_run}) launches {kname}="
+          f"{launches[kname]} pack_expand={launches['pack_expand']} | live "
+          f"entries/step min {lv.min()} mean {lv.mean():.1f} | gated "
+          f"pairs/step mean {gt.mean():.1f} | max overlap {ov:.4e} "
+          f"({ov / DEM_R:.4f} r) | lowest grain bottom {bottom:.4e} "
+          f"(floor top {floor_top:.4e})", flush=True)
+    print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
+          f"{CHUNK * len(chunk_s) / sum(chunk_s):.2f} steps/s all chunks, "
+          f"on {smi}", flush=True)
+    return scene, launches, sps
+
+
+def _sorted_tables(scene):
+    """Per row, the table's (idx, dem) keys and springs sorted by key."""
+    key = torch.where(scene.tng_idx >= 0,
+                      scene.tng_idx.long() * 8 + scene.tng_idx_dem_id.long(),
+                      torch.full_like(scene.tng_idx, 2**62, dtype=torch.long))
+    key, order = torch.sort(key, 1)
+    spr = torch.stack([torch.gather(scene[k], 1, order)
+                       for k in ("tng_x", "tng_y", "tng_z")])
+    return key, spr
+
+
+def phase_dem_parity(scheme, scene):
+    """20 kernel steps against 20 twin steps from one state."""
+    fast = scheme.make_step(scene)
+    plain = scheme.make_step(scene, plain=True)
+    a = b = scene
+    for _ in range(COMPARE_STEPS):
+        a, b = fast(a, DEM_DT), plain(b, DEM_DT)
+    torch.cuda.synchronize()
+    check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
+          "overflow during the DEM step comparison")
+    worst = []
+    for k in ("x", "y", "u", "v", "wz", "fx", "fy", "torz"):
+        # positions as displacements over the run, so the tolerance is on
+        # the motion and not on the domain's size
+        x = a[k] - scene[k] if k in ("x", "y") else a[k]
+        y = b[k] - scene[k] if k in ("x", "y") else b[k]
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
+        check(bool(((x - y).abs() <= STEP_RTOL * y.abs()
+                    + STEP_RTOL * scale).all()),
+              f"DEM kernel step vs twin step: {k} off by {err:.3e} "
+              f"(scale {scale:.3e}, rtol {STEP_RTOL})")
+    ka, sa = _sorted_tables(a)
+    kb, sb = _sorted_tables(b)
+    rows = int((ka != kb).any(1).sum())
+    check(rows == 0, f"DEM kernel vs twin step: {rows} rows hold other "
+          "contacts")
+    d = (sa - sb).abs()
+    check(bool((d <= STEP_RTOL * sb.abs()
+                + STEP_RTOL * float(sb.abs().max())).all()),
+          f"DEM kernel vs twin step: springs off by {float(d.max()):.3e}")
+    print(f"[dem-parity] {COMPARE_STEPS} kernel steps vs {COMPARE_STEPS} "
+          f"twin steps: contact tables equal as (idx, dem) -> spring maps "
+          f"(springs max abs diff {float(d.max()):.3e}), max abs diff: "
+          + ", ".join(worst), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -397,12 +836,22 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         dev = config.device()
 
-        # 2. build
-        for name in ("pack_expand", "contact"):
-            path, sec = _build.build(name)
-            _build.load(name)
+        # 2. build: one nvcc per source, all started together
+        from concurrent.futures import ThreadPoolExecutor
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+            built = dict(zip(_build.SOURCES,
+                             pool.map(_build.build, _build.SOURCES)))
+        for name, (path, sec) in built.items():
             print(f"[build] {name}: {sec:.2f} s -> "
                   f"{os.path.relpath(path, ROOT)}", flush=True)
+            for line in _build.BUILD_LOG.get(name, "").splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {name}: {line.strip()}", flush=True)
+        for k in _build.KERNELS:
+            _build.load(k)
+        print(f"[build] all sources in {time.perf_counter() - t0:.2f} s "
+              "wall", flush=True)
 
         # 3. kernels against twins
         t0 = time.perf_counter()
@@ -425,26 +874,82 @@ def main() -> int:
 
         # 5. kernel steps against twin steps
         phase_step_parity(scheme, end)
+        del scheme, scene, end
+
+        # 6. DEM kernels against twins
+        dem_t = {}
+        for label, dim, grid in (("2D spill", 2, "spill"),
+                                 ("3D spill", 3, "spill"),
+                                 ("2D rowwin", 2, "rowwin")):
+            t0 = time.perf_counter()
+            dscheme, dscene = dem_scene(dev, dim, grid)
+            print(f"[dem-setup] {label}: n={dscene.n} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            phase_dem_kernels(dscheme, dscene, label, dem_t)
+            del dscheme, dscene
+
+        # 7. the DEM main path (spill grid), 8. the row-window path
+        dscheme, dscene = dem_scene(dev, 2)
+        dend, dem_launches, dem_sps = phase_dem_main(
+            dscheme, dscene, DEM_STEPS, "dem-main", smi)
+        rscheme, rscene = dem_scene(dev, 2, "rowwin")
+        _, rw_launches, rw_sps = phase_dem_main(
+            rscheme, rscene, DEM_ROWWIN_STEPS, "dem-rowwin", smi)
+        del rscheme, rscene
+
+        # 9. DEM kernel steps against twin steps
+        phase_dem_parity(dscheme, dend)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     t2 = timings["2D"]
     errs = lambda k: max(timings[lab][k] for lab in timings)
+    dem_err = lambda labs: max(dem_t[lab]["err"] for lab in labs)
+    src = "rigid_body_2d_3d_pysph_tpu_torch/csrc/"
+    # each path's launches, read from its own counts (reset just before it)
+    by_path = lambda k: {p: c[k] for p, c in (
+        ("rigid", launches), ("dem-main", dem_launches),
+        ("dem-rowwin", rw_launches)) if c[k]}
     kernels = [
-        dict(name="pack_expand", route="cuda",
-             source="rigid_body_2d_3d_pysph_tpu_torch/csrc/pack_expand.cu",
+        dict(name="pack_expand", route="cuda", source=src + "pack_expand.cu",
              replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_pack.py:47",
-             launches=launches["pack_expand"], max_abs_err=errs("pack_err"),
-             ms=t2["pack_ms"], plain_ms=t2["pack_plain_ms"]),
-        dict(name="contact_sums", route="cuda",
-             source="rigid_body_2d_3d_pysph_tpu_torch/csrc/contact.cu",
+             launches=launches["pack_expand"],
+             launches_by_path=by_path("pack_expand"),
+             max_abs_err=errs("pack_err"),
+             ms=t2["pack_ms"], plain_ms=t2["pack_plain_ms"],
+             bound_ms=t2["pack_bound"], bound_by=t2["pack_bound_by"],
+             library_ms=None),
+        dict(name="contact_sums", route="cuda", source=src + "contact.cu",
              replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_contact.py:96",
-             launches=launches["contact"], max_abs_err=errs("contact_err"),
-             ms=t2["contact_ms"], plain_ms=t2["contact_plain_ms"]),
+             launches=launches["contact"],
+             launches_by_path=by_path("contact"),
+             max_abs_err=errs("contact_err"),
+             ms=t2["contact_ms"], plain_ms=t2["contact_plain_ms"],
+             bound_ms=t2["contact_bound"],
+             bound_by=t2["contact_bound_by"], library_ms=None),
+        dict(name="dem_cell", route="cuda", source=src + "dem.cu",
+             replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_dem.py:340",
+             launches=dem_launches["dem_cell"],
+             launches_by_path=by_path("dem_cell"),
+             max_abs_err=dem_err(("2D spill", "3D spill")),
+             ms=dem_t["2D spill"]["ms"],
+             plain_ms=dem_t["2D spill"]["plain_ms"],
+             bound_ms=dem_t["2D spill"]["bound_ms"],
+             bound_by=dem_t["2D spill"]["bound_by"], library_ms=None),
+        dict(name="dem_rowwin", route="cuda", source=src + "dem.cu",
+             replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_dem.py:546",
+             launches=rw_launches["dem_rowwin"],
+             launches_by_path=by_path("dem_rowwin"),
+             max_abs_err=dem_err(("2D rowwin",)),
+             ms=dem_t["2D rowwin"]["ms"],
+             plain_ms=dem_t["2D rowwin"]["plain_ms"],
+             bound_ms=dem_t["2D rowwin"]["bound_ms"],
+             bound_by=dem_t["2D rowwin"]["bound_by"], library_ms=None),
     ]
-    print(f"[done] {main_stats['steps_per_s']:.2f} steps/s at "
-          f"n={main_stats['n']} on {smi}", flush=True)
+    print(f"[done] rigid {main_stats['steps_per_s']:.2f} steps/s at "
+          f"n={main_stats['n']}; DEM spill {dem_sps:.2f} steps/s, row-window "
+          f"{rw_sps:.2f} steps/s at n={dend.n}; on {smi}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

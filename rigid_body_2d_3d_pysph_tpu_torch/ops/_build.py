@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+Each ``csrc/<source>.cu`` has a plain C interface (one or more entry
+points, ``KERNELS``) and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``<repo>/build/torch_kernels/``, then loaded with ``ctypes``.  The
 library's file name carries a hash of the source and the flags, so an
@@ -23,20 +24,28 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# per-kernel extra flags: the contact kernel must not contract a*b + c
-# into an FMA, or its pair distances drift an ulp from the plain
-# version's and a tie in the closest-source pick can flip
-EXTRA_FLAGS = {"pack_expand": [], "contact": ["--fmad=false"]}
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per-source extra flags: the contact and DEM kernels must not contract
+# a*b + c into an FMA, or their pair distances drift an ulp from the
+# plain versions' and a tie in the closest-source pick, or a gate that
+# decides contact-table membership, can flip
+EXTRA_FLAGS = {"pack_expand": [], "contact": ["--fmad=false"],
+               "dem": ["--fmad=false"]}
+SOURCES = tuple(EXTRA_FLAGS)
 
-# C signatures: every pointer and the stream are void*, sizes are int
+# kernel -> (source, C entry point, argument types): every pointer and
+# the stream are void*, sizes are int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-SIGNATURES = {
-    "pack_expand": ("pack_expand",
+KERNELS = {
+    "pack_expand": ("pack_expand", "pack_expand",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "contact": ("contact_sums",
+    "contact": ("contact", "contact_sums",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                  _P]),
+    "dem_cell": ("dem", "dem_cell",
+                 [_P] * 12 + [_I] * 6 + [_F, _F, _P]),
+    "dem_rowwin": ("dem", "dem_rowwin",
+                   [_P] * 6 + [_I] * 5 + [_F, _F, _P]),
 }
 
 
@@ -46,6 +55,9 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
                        "machine with the CUDA toolkit")
+
+
+BUILD_LOG: dict = {}
 
 
 def library_path(name: str) -> str:
@@ -59,7 +71,9 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> tuple[str, float]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    returns (path, seconds spent compiling)."""
+    returns (path, seconds spent compiling).  The compiler's report
+    (registers, shared memory, spills per kernel) goes to
+    ``BUILD_LOG[name]``."""
     out = library_path(name)
     if os.path.exists(out):
         return out, 0.0
@@ -72,16 +86,16 @@ def build(name: str) -> tuple[str, float]:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
     os.replace(tmp, out)   # atomic: concurrent builders never see half
+    BUILD_LOG[name] = res.stderr
     return out, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str):
-    """The ctypes function of kernel ``name``, built if needed."""
-    path, _ = build(name)
-    lib = ctypes.CDLL(path)
-    fname, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fname)
+def load(kernel: str):
+    """The ctypes function of ``kernel``, its source built if needed."""
+    source, fname, argtypes = KERNELS[kernel]
+    path, _ = build(source)
+    fn = getattr(ctypes.CDLL(path), fname)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -89,7 +103,7 @@ def load(name: str):
 
 # launches per kernel, counted by the wrappers where they launch (and
 # nowhere else); a run resets them to read how often its path launched
-LAUNCHES = {"pack_expand": 0, "contact": 0}
+LAUNCHES = {k: 0 for k in KERNELS}
 
 
 def reset_launches() -> None:

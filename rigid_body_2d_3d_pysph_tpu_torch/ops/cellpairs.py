@@ -66,18 +66,22 @@ class CellGridConfig:
 
 def config_from_positions(x, y, z, cutoff: float, dim: int,
                           cell_chunk: int = 512,
-                          capacity_boost: float = 1.0) -> CellGridConfig:
+                          capacity_boost: float = 1.0,
+                          cell_factor: float = 1.0,
+                          M: int = 16) -> CellGridConfig:
     """Host-side (numpy): the spill grid for these positions, as the
-    reference's ``config_from_positions`` builds it with its defaults
-    (cell = cutoff, M = 16, stencil radius 1, no skin).  The domain is
-    the initial bounding box widened by 0.75 x its extent; the slot
-    capacity is 1.6 x the occupied slots and the packed stencil width
-    1.6 x the worst initial stencil, every slack scaled by
-    ``capacity_boost`` (the overflow-rebuild rule raises it)."""
+    reference's ``config_from_positions`` builds it in spill mode
+    (stencil radius 1, no skin).  Bins are ``cell_factor`` x the cutoff
+    (the DEM grid's bins are coarser than its contact radius) and hold
+    ``M`` lanes per slot.  The domain is the initial bounding box
+    widened by 0.75 x its extent; the slot capacity is 1.6 x the
+    occupied slots and the packed stencil width 1.6 x the worst initial
+    stencil, every slack scaled by ``capacity_boost`` (the
+    overflow-rebuild rule raises it)."""
     slack = 0.75 * capacity_boost
     nc_factor = 1.6 * capacity_boost
-    sub, M = 1, 16
-    cell = float(cutoff)
+    sub = 1
+    cell = float(cell_factor) * float(cutoff)
     x = np.asarray(x); y = np.asarray(y); z = np.asarray(z)
     pts = [x, y] + ([z] if dim == 3 else [])
     lo = np.array([p.min() for p in pts])
@@ -113,7 +117,7 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
     # sides build the same table width
     lane_q = max(1, 128 // M)
     O_p = -(-O_p // lane_q) * lane_q
-    return CellGridConfig(cell=cell, M=M, NC_max=NC_max, origin=origin,
+    return CellGridConfig(cell=cell, M=int(M), NC_max=NC_max, origin=origin,
                           dims=dims, dim=dim, cell_chunk=cell_chunk,
                           cutoff=float(cutoff), sub=sub, skin=0.0,
                           spill=True, nbr_width=int(O_p))
@@ -362,12 +366,21 @@ def pack_fields(grid: CellGrid, cfg: CellGridConfig, fields, sentinels):
     return ext[grid.slot2p].reshape(cfg.NC_max, cfg.M, len(fields))
 
 
-def unpack(grid: CellGrid, cfg: CellGridConfig, dense, n: int):
+def pack_rows(grid: CellGrid, cfg: CellGridConfig, arr, sentinel=0.0):
+    """Per-particle [N, R] -> dense [NC_max, M, R] (empty lanes hold
+    ``sentinel``)."""
+    pad = torch.full((1, arr.shape[1]), sentinel, dtype=arr.dtype,
+                     device=arr.device)
+    return torch.cat([arr, pad], 0)[grid.slot2p].reshape(
+        cfg.NC_max, cfg.M, arr.shape[1])
+
+
+def unpack(grid: CellGrid, cfg: CellGridConfig, dense, n: int, fill=0.0):
     """Dense [NC_max, M, ...] -> per-particle [N, ...] (original order);
-    particles without a lane get 0."""
+    particles without a lane get ``fill``."""
     flat = dense.reshape((cfg.NC_max * cfg.M,) + tuple(dense.shape[2:]))
-    pad = torch.zeros((1,) + tuple(flat.shape[1:]), dtype=flat.dtype,
-                      device=flat.device)
+    pad = torch.full((1,) + tuple(flat.shape[1:]), fill, dtype=flat.dtype,
+                     device=flat.device)
     return torch.cat([flat, pad], 0)[grid.dense_pos]
 
 

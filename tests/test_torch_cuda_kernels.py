@@ -9,7 +9,11 @@ kernel's pick columns (closest distance, picked source fields) are a
 minimum and copies (bit-exact, the kernel is built without FMA
 contraction); its sum-derived columns differ from the twin's only by
 summation order (f32: rtol 1e-5, absolute floor 1e-5 of the column's
-largest magnitude).
+largest magnitude).  The DEM kernels' tables and counts are bit-exact
+(the gate decisions round as the twin's), their sums within the
+summation-order tolerance of ``tests/test_pallas_dem.py`` and their
+springs within rtol 1e-4, from an empty contact table, a filled one and
+one whose contacts open and close.
 """
 
 import numpy as np
@@ -159,3 +163,194 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         tck.contact_sums(dfT, q.int(), nbr.int(), 3, 0.1, 0.2,
                          QuinticSpline(dim=2))
+
+
+# ---------------------------------------------------------------------------
+# DEM kernels (csrc/dem.cu): table idx, dem, slot positions and counts bit
+# for bit; force and torque sums within 2e-5 |ref| + 2e-5 max |ref|
+# (summation order); springs within rtol 1e-4 (operation order)
+# ---------------------------------------------------------------------------
+
+def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24):
+    """A block of grains spaced 0.995 of a diameter (every lattice pair
+    overlaps) over a floor, seeded random velocities and spins, and a
+    contact table: ``"empty"`` as the setup leaves it (the kernel
+    allocates every contact), ``"filled"`` by one plain pass, or
+    ``"moved"``: advanced by a plain pass at positions jittered by up to
+    an overlap (1e-5), then met at positions jittered again, so contacts
+    open and close and slots are freed and reallocated."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models import DEMScheme
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    r, s = 1e-3, 1.99e-3
+    ax = np.arange(n_side) * s
+    if dim == 2:
+        xg, yg = (a.ravel() for a in np.meshgrid(ax, ax))
+        zg = np.zeros_like(xg)
+        xf = np.arange(-10, n_side + 10) * 2 * r
+        zf = np.zeros_like(xf)
+    else:
+        xg, yg, zg = (a.ravel() for a in np.meshgrid(ax, ax[:8], ax))
+        xf, zf = (a.ravel() for a in np.meshgrid(
+            np.arange(-3, n_side + 3) * 2 * r, np.arange(-3, n_side + 3) * 2 * r))
+    m = 2600.0 * r**dim
+    grains = make_group("sand", xg, yg + 0.99 * r, z=zg, m=m, h=2 * r,
+                        rho=2600.0, rad_s=r, role=ROLE_RIGID, dem_id=0)
+    floor = make_group("floor", xf, np.full(len(xf), -r), z=zf, m=m,
+                       h=2 * r, rho=2600.0, rad_s=r, role=ROLE_BOUNDARY,
+                       dem_id=1)
+    scene = build_scene([grains, floor], dim=dim, total_no_bodies=2,
+                        spacing0=s, device=dev, dtype=torch.float32)
+    scheme = DEMScheme(["sand"], ["floor"], dim=dim, gy=-9.81,
+                       max_tng_contacts_limit=8, dem_grid=grid)
+    scene = scheme.setup(scene)
+    rng = np.random.default_rng(11)
+    rnd = lambda a: torch.as_tensor(rng.uniform(-a, a, scene.n),
+                                    dtype=torch.float32, device=dev)
+    scene = scene.replace(u=rnd(0.05), v=rnd(0.05), wz=rnd(50.0))
+    if dim == 3:
+        scene = scene.replace(w=rnd(0.05), wx=rnd(50.0), wy=rnd(50.0))
+    if grid == "spill":
+        cfg, run = scheme.cell_config(scene), tdk.lvc_displacement_cell_kernel
+    else:
+        cfg, run = scheme.rowwin_config(scene), tdk.lvc_displacement_rowwin_kernel
+    axes = ("x", "y", "z")[:dim]
+    jitter = lambda sc: sc.replace(**{k: sc[k] + rnd(1e-5) for k in axes})
+
+    def plain_pass(sc):
+        p = run(sc, cfg, 1e-5, sc.tng_idx, sc.tng_idx_dem_id, sc.tng_x,
+                sc.tng_y, sc.tng_z, plain=True)
+        assert int(p.count.sum()) > 0
+        return sc.replace(tng_idx=p.tng_idx, tng_idx_dem_id=p.tng_dem,
+                          tng_x=p.tng_x, tng_y=p.tng_y, tng_z=p.tng_z)
+
+    if table == "filled":
+        scene = plain_pass(scene)
+    elif table == "moved":
+        scene = jitter(plain_pass(jitter(plain_pass(scene))))
+    return scene, cfg
+
+
+def _table_changes(before, idx, dem):
+    """(allocated, freed) slots from the table ``before`` to (idx, dem)."""
+    changed = (idx != before.tng_idx) | (dem != before.tng_idx_dem_id)
+    return (int((changed & (idx >= 0)).sum()),
+            int((changed & (before.tng_idx >= 0)).sum()))
+
+
+def _check_table_changes(table, before, idx, dem):
+    alloc, freed = _table_changes(before, idx, dem)
+    if table == "empty":
+        assert alloc > 0 and freed == 0
+    if table == "moved":
+        assert alloc > 0 and freed > 0
+
+
+def _check_sums(a, b, what):
+    tol = 2e-5 * b.abs() + 2e-5 * float(b.abs().max())
+    assert bool(((a - b).abs() <= tol).all()), \
+        f"{what}: off by {float((a - b).abs().max())}"
+
+
+TABLES = ["empty", "filled", "moved"]
+
+
+@pytest.mark.parametrize("table", TABLES)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_dem_cell_kernel_matches_twin(dev, dim, table):
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_cell as tdc
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    scene, cfg = _dem_scene(dim, dev, table=table)
+    grid, pt = tcell.build_cell_grid_packed(
+        scene.x, scene.y, scene.z, scene.active, cfg, tdk.dem_payload(scene))
+    dfT = tpe.expand_slots(pt.sorted_fields, pt.base, pt.cnt,
+                           torch.tensor(tdc.SENT, device=dev), cfg.M)
+    args = (dfT, grid.nbr_slots, scene.tng_idx, scene.tng_idx_dem_id,
+            scene.tng_x, scene.tng_y, scene.tng_z, tdk.material_table(scene),
+            1e-5, cfg)
+    before = _build.LAUNCHES["dem_cell"]
+    got = tdk.dem_cell_sums(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["dem_cell"] == before + 1
+    ref = tdk.dem_cell_sums_reference(*args)
+    assert int(ref[0][:, 7].sum()) > int(ref[0][:, 6].sum()) // 2 > 0
+    _check_table_changes(table, scene, ref[1], ref[2])
+    assert torch.equal(got[0][:, 6:], ref[0][:, 6:])      # counts, gated
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    _check_sums(got[0][:, :6], ref[0][:, :6], "sums")
+    for a, b in zip(got[3:], ref[3:]):
+        assert torch.allclose(a, b, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("table", TABLES)
+def test_dem_rowwin_kernel_matches_twin(dev, table):
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_cell as tdc
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import rowwin as trw
+
+    scene, cfg = _dem_scene(2, dev, grid="rowwin", table=table)
+    L = scene.tng_idx.shape[1]
+    tab = torch.cat([scene.tng_idx.float(), scene.tng_idx_dem_id.float(),
+                     scene.tng_x, scene.tng_y, scene.tng_z], 1).T
+    grid, pt = trw.build_row_window_grid(
+        scene.x, scene.y, scene.z, scene.active, cfg,
+        tdk.dem_payload(scene) + list(tab))
+    dfs = tpe.expand_slots(pt.sorted_fields[:tdc.NF], pt.base, pt.cnt,
+                           torch.tensor(tdc.SENT, device=dev), cfg.M)
+    dft = tpe.expand_slots(pt.sorted_fields[tdc.NF:], pt.base, pt.cnt,
+                           torch.tensor([-1.0] * (2 * L) + [0.0] * (3 * L),
+                                        device=dev), cfg.M)
+    args = (dfs, dft, grid.nbr_runs, grid.run_cnt, tdk.material_table(scene),
+            1e-5, scene.n, cfg)
+    before = _build.LAUNCHES["dem_rowwin"]
+    got = tdk.dem_rowwin_sums(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["dem_rowwin"] == before + 1
+    ref = tdk.dem_rowwin_sums_reference(*args)
+    assert int(ref[..., 6].sum()) > 0
+    _check_table_changes(table, scene, *tdk.unpack_dem_out(
+        ref, grid, cfg, scene.n, L)[1:3])
+    assert torch.equal(got[..., 6:8 + 2 * L], ref[..., 6:8 + 2 * L])
+    _check_sums(got[..., :6], ref[..., :6], "sums")
+    assert torch.allclose(got[..., 8 + 2 * L:], ref[..., 8 + 2 * L:],
+                          rtol=1e-4, atol=0)
+
+
+def _sorted_tables(scene):
+    """Per row, the table's (idx, dem) keys and springs sorted by key."""
+    key = torch.where(scene.tng_idx >= 0,
+                      scene.tng_idx.long() * 8 + scene.tng_idx_dem_id.long(),
+                      torch.full_like(scene.tng_idx, 2**62, dtype=torch.long))
+    key, order = torch.sort(key, 1)
+    spr = torch.stack([torch.gather(scene[k], 1, order)
+                       for k in ("tng_x", "tng_y", "tng_z")])
+    return key, spr
+
+
+def test_dem_step_kernels_match_plain_step(dev):
+    from rigid_body_2d_3d_pysph_tpu_torch.models import DEMScheme
+
+    # from an empty table (the first step allocates every contact) and
+    # from one whose contacts open and close
+    for grid, table in [(g, t) for g in ("spill", "rowwin")
+                        for t in ("empty", "moved")]:
+        scene, _ = _dem_scene(2, dev, grid, table)
+        scheme = DEMScheme(["sand"], ["floor"], dim=2, gy=-9.81,
+                           max_tng_contacts_limit=8, dem_grid=grid)
+        fast, plain = scheme.make_step(scene), scheme.make_step(scene, True)
+        a = b = scene
+        for _ in range(3):
+            a, b = fast(a, 1e-5), plain(b, 1e-5)
+        assert not bool(a.nbr_overflow)
+        for k in ("x", "y", "u", "v", "wz", "fx", "fy", "torz"):
+            x, y = a[k].cpu().numpy(), b[k].cpu().numpy()
+            np.testing.assert_allclose(x, y, rtol=1e-4,
+                                       atol=1e-4 * max(np.abs(y).max(), 1e-30),
+                                       err_msg=f"{grid} {table} {k}")
+        # the tables as (idx, dem) -> spring maps per row
+        ka, sa = _sorted_tables(a)
+        kb, sb = _sorted_tables(b)
+        assert torch.equal(ka, kb), (grid, table)
+        assert torch.allclose(sa, sb, rtol=1e-4,
+                              atol=1e-4 * float(sb.abs().max())), (grid, table)

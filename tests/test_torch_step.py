@@ -9,7 +9,8 @@
   the two sides sum the contact and body forces in different orders.
 * f64, 10 steps: the port against the reference's jitted cell-engine
   step (XLA fused contact pipeline), rtol 1e-10.
-* The port imports and steps in a process where ``jax`` cannot load.
+* The port imports and takes a rigid step and a DEM step in a process
+  where ``jax`` cannot load.
 
 The scene is two touching bodies resting just above a wall with random
 particle velocities, so contacts are real and the tangential springs
@@ -215,6 +216,21 @@ scheme = RigidBody2DScheme(["body"], ["wall"], dim=2, gy=-9.81)
 scene = scheme.setup(scene)
 scene = scheme.make_step(scene)(scene, 1e-4)
 assert torch.isfinite(scene.x).all() and not bool(scene.nbr_overflow)
+from rigid_body_2d_3d_pysph_tpu_torch.models.dem import DEMScheme
+r = 1e-3
+xg, yg = get_2d_block(1.99 * r, 0.02, 0.01)
+grains = make_group("sand", xg, yg - yg.min() + r, m=1e-5, h=2 * r,
+                    rho=2600.0, rad_s=r, role="rigid", dem_id=0)
+xf = np.arange(-0.01, 0.03, 2 * r)
+floor = make_group("floor", xf, np.full(len(xf), -r), m=1e-5, h=2 * r,
+                   rho=2600.0, rad_s=r, role="boundary", dem_id=1)
+dem = build_scene([grains, floor], dim=2, total_no_bodies=2, spacing0=2 * r,
+                  device=torch.device("cpu"), dtype=torch.float32)
+dscheme = DEMScheme(["sand"], ["floor"], gy=-9.81, max_tng_contacts_limit=8)
+dem = dscheme.setup(dem)
+dem = dscheme.make_step(dem)(dem, 5e-6)
+assert torch.isfinite(dem.fy).all() and not bool(dem.nbr_overflow)
+assert int(dem.total_tng_contacts.sum()) > 0
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
