@@ -39,7 +39,28 @@ no result line):
 8. the same on the row-window grid for 100 steps (one DEM launch and two
    pack expansions per step);
 9. 20 DEM kernel steps against 20 twin steps from one state;
-10. a JSON line of per-kernel numbers (``launches`` from the kernel's
+10. the coupling fluid kernels (B4 rates + wall sums, B5 forces +
+    contact) against their twins on the sinking box of
+    ``cases/rigid_body_rotating_and_sinking_in_tank_2d.py`` at bench.py's
+    coupling size (~96.9k particles, seeded random velocities) and on a
+    placement with the box resting 0.95 dx above the tank floor (gated
+    contact pairs > 0): sums within 2e-5 of each column's largest
+    magnitude (f32 summation order; the unit contact normals 2e-5
+    absolute), contact picks bit for bit; times, lanes and pairs;
+11. the coupling main path: ``RigidFluidCouplingScheme.setup`` ->
+    ``make_step`` -> ``step``, 200 fused kdkf steps of the sinking box at
+    the case's dt = 0.25 dx / (1.1 c0), in chunks with the
+    overflow-rebuild rule; checks one K1, one B4 and one B5 launch per
+    step and no K2, finiteness, overflow, fluid rho within 5 % of rho0
+    and the box's COM lower at the end; prints steps/s;
+12. the fluid-only tank (the same tank without the box): B4 (no rigid
+    body) and B6c against their twins on its pack, timed, then 50 steps:
+    one K1, one B4 and one B6c launch per step;
+13. 20 coupling kernel steps against 20 twin steps on the contact
+    placement with a box of 8 times the fluid's density, in contact to
+    the end (overlap and tangential springs nonzero in both runs); the
+    fluid, body and contact-slot fields within rtol 1e-4;
+14. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on),
     then the result line.
 
@@ -88,6 +109,23 @@ OPS_PER_DEM_PAIR = 140     # the LVC body per gated pair (csrc/dem.cu)
 # starts near rest; the 0.3-0.4 dx overlaps of a 0.6-0.7 dx gap throw it
 GAP = 0.95
 G = 9.81
+# coupling: bench.py's coupling workload at BENCH_N = 100000 (the sinking
+# box with its spacing scaled from 0.02 at ~33k particles)
+CPL_N = 100_000
+CPL_STEPS = 200
+CPL_TANK_STEPS = 50
+FLUID_SUM_RTOL = 2e-5      # f32 summation order of the fluid sums
+# the step comparison's box: 8 times the fluid's density (steel in
+# water), so the floor contact it starts in lasts the 20 steps (the
+# case's box, rho 2, is thrown off the floor within them)
+CPL_PARITY_RHO = 8.0
+# f32 operations per in-range pair (csrc/fluid.cu): flags, kernel and
+# gradient, then the rates or wall sums (B4) or the pressure gradient,
+# viscosity and FSI terms (forces); per gated contact pair, W and the
+# Mofidi accumulation
+OPS_PER_RATES_PAIR = 60
+OPS_PER_FORCE_PAIR = 55
+OPS_PER_CONTACT_PAIR = 35
 
 
 class PhaseError(RuntimeError):
@@ -811,6 +849,325 @@ def phase_dem_parity(scheme, scene):
           + ", ".join(worst), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# rigid-fluid coupling
+# ---------------------------------------------------------------------------
+
+def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
+                      rho_b=2.0):
+    """``cases/rigid_body_rotating_and_sinking_in_tank_2d.py`` built with
+    the port's geometry at bench.py's coupling size: a 4 x 3 fluid block
+    in a 3-layer tank, a 1 x 0.5 box (rho 2) at the surface with the
+    fluid void carved under it, hydrostatic pressure, the box's
+    displaced-fluid shadow mass and density.  ``floor`` rests the box
+    GAP dx above the tank floor's top layer instead; ``body=False``
+    leaves it out (the hydrostatic tank); ``rho_b`` is the box's
+    density.  Returns (scheme, scene, dt)."""
+    from rigid_body_2d_3d_pysph_tpu_torch import config
+    from rigid_body_2d_3d_pysph_tpu_torch.geom import (
+        get_2d_block, hydrostatic_tank_2d)
+    from rigid_body_2d_3d_pysph_tpu_torch.models import (
+        RigidFluidCouplingScheme)
+    from rigid_body_2d_3d_pysph_tpu_torch.state import (
+        make_group, build_scene, ROLE_RIGID, ROLE_BOUNDARY, ROLE_FLUID)
+
+    dx = 0.02 * np.sqrt(33_000.0 / max(n_target, 2000))
+    L, rho_f, gy = 1.0, 1.0, -1.0
+    h = dx                                      # hdx = 1
+    co = 10 * np.sqrt(2 * 9.81 * 3.0 * L)
+    xf, yf, xt, yt = hydrostatic_tank_2d(4.0 * L, 3.0 * L, 5.0 * L, 3, dx, dx)
+    p0 = -rho_f * gy * (yf.max() - yf)
+    groups = [make_group("tank", xt, yt, m=rho_f * dx**2, h=h, rho=rho_f,
+                         rad_s=dx / 2.0, role=ROLE_BOUNDARY, dem_id=1)]
+    if body:
+        xb, yb = get_2d_block(dx, L - dx, 0.5 * L - dx)
+        xb -= xb.min() - xf.min()
+        xb += 1.5 * L
+        if floor:                   # the floor's top layer is at y = -dx
+            yb += (-dx + GAP * dx) - yb.min()
+        else:
+            yb += yf.max() - yb.min() + dx
+            yb -= 0.25 * L + dx / 2.0
+        keep = ~((xf > xb.min() - dx) & (xf < xb.max() + dx)
+                 & (yf > yb.min() - dx) & (yf < yb.max() + dx))
+        xf, yf, p0 = xf[keep], yf[keep], p0[keep]
+        groups.append(make_group(
+            "body", xb, yb, m=rho_b * dx**2, h=h, rho=rho_b, rad_s=dx / 2.0,
+            role=ROLE_RIGID, body_id=np.zeros(len(xb), np.int32),
+            dem_id=np.zeros(len(xb), np.int32)))
+    groups.insert(0, make_group("fluid", xf, yf, m=rho_f * dx**2, h=h,
+                                rho=rho_f, role=ROLE_FLUID, p=p0))
+    scene = build_scene(groups, dim=2, total_no_bodies=2, spacing0=dx,
+                        device=dev, dtype=config.WORK_DTYPE)
+    scheme = RigidFluidCouplingScheme(
+        ["fluid"], ["tank"], ["body"] if body else [], dim=2, rho0=rho_f,
+        p0=rho_f * co**2, c0=co, h=h, nu=0.0, gy=gy)
+    scene = scheme.setup(scene)
+    if body:
+        rb = scene.is_rigid
+        scene = scene.replace(
+            m_fsi=torch.where(rb, scene.m_fsi + rho_f * dx**2, scene.m_fsi),
+            rho_fsi=torch.where(rb, rho_f, scene.rho_fsi))
+    return scheme, scene, 0.25 * dx / (co * 1.1)
+
+
+def fluid_pair_counts(dfT, nbr, cutoff, chunk=2048):
+    """(pairs in range between live lanes, gated contact pairs) of the
+    coupling pack: the work the passes' bodies do on this data."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+
+    NC, O = nbr.shape
+    M = dfT.shape[2]
+    in_range = gated = 0
+    for c0 in range(0, NC, chunk):
+        nb = nbr[c0:c0 + chunk]
+        B = nb.shape[0]
+        q = dfT[c0:c0 + B]
+        src = dfT[nb].permute(0, 2, 1, 3).reshape(B, dfT.shape[1], O * M)
+        d = [q[:, f, :, None] - src[:, f, None, :] for f in (0, 1, 2)]
+        near = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) <= cutoff
+        q_dem, _, _, _, q_rg = fk.decode_flags(q[:, fk.FFLAGS, :, None])
+        s_dem, s_cfib, _, s_fl, _ = fk.decode_flags(src[:, fk.FFLAGS, None])
+        live = (q[:, fk.FFLAGS, :, None] != -16.0) & \
+            (src[:, fk.FFLAGS, None] != -16.0)
+        in_range += int((near & live).sum())
+        gated += int((near & (q_rg == 1.0) & (s_cfib == 1.0)
+                      & (s_fl == 0.0) & (s_dem != q_dem)).sum())
+    return in_range, gated
+
+
+def check_fluid_columns(got, ref, cols, label, floor=0.0):
+    """Each column within FLUID_SUM_RTOL of its largest magnitude (at
+    least ``floor``); returns the max abs error."""
+    err = 0.0
+    for c in cols:
+        a, b = got[..., c], ref[..., c]
+        scale = max(float(b.abs().max()), floor)
+        e = float((a - b).abs().max())
+        check(e <= FLUID_SUM_RTOL * scale, f"{label}: column {c} off by "
+              f"{e:.3e} (scale {scale:.3e})")
+        err = max(err, e)
+    return err
+
+
+def phase_fluid_kernels(scheme, scene, label, timings, timed):
+    """The passes this scene's step runs against their twins on its pack,
+    with seeded random velocities: B4 and B5 with a rigid body, B4 and
+    B6c without; ``timed`` also times each and computes its bound."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    cfg = scheme.cell_config(scene, kernel)
+    dev = scene.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda: (torch.rand(scene.n, generator=gen, device=dev) - 0.5) * 0.2
+    scene = scene.replace(u=rnd(), v=rnd())
+    grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg)
+    check(not bool(grid.overflow), f"{label}: grid overflow")
+    nbr = grid.nbr_slots
+    S = scene.meta.total_no_bodies
+    init = 4.0 * scene.meta.spacing0
+    has_rigid = len(scheme.rigid_bodies) > 0
+    base = (dfT, nbr, kernel, cfg.radius)
+    calls = dict(fluid_rates_wall=(
+        fk.fluid_rates_wall, fk.fluid_rates_wall_reference,
+        base + (scheme.edac_nu, scheme.c0, scheme.edac, has_rigid,
+                (scheme.gx, scheme.gy, scheme.gz))))
+    if has_rigid:
+        calls["fluid_forces_contact"] = (
+            fk.fluid_forces_contact, fk.fluid_forces_contact_reference,
+            base + (scheme.fluid_alpha, scheme.c0, S, init))
+    else:
+        calls["fluid_forces"] = (fk.fluid_forces, fk.fluid_forces_reference,
+                                 base + (scheme.fluid_alpha, scheme.c0))
+    lanes = slot_lanes(pt.cnt, nbr)
+    in_range, gated = fluid_pair_counts(dfT, nbr, cfg.radius)
+    n_live = int(pt.n_valid)
+    out = {}
+    for name, (fast, plain, args) in calls.items():
+        got = fast(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite")
+        W = got.shape[-1]
+        if name == "fluid_forces_contact":
+            picks = got[..., 5 * S:12 * S], ref[..., 5 * S:12 * S]
+            check(torch.equal(*picks), f"{label} {name}: contact picks != "
+                  f"twin (max {float((picks[0] - picks[1]).abs().max())})")
+            n_found = int((ref[..., 5 * S:6 * S] < init).sum())
+            # the contact normals are unit vectors; the sums K2's way
+            err = check_fluid_columns(got, ref, range(3 * S), label + " " +
+                                      name, floor=1.0)
+            for c in (3, 4):
+                a, b = got[..., c * S:(c + 1) * S], ref[..., c * S:(c + 1) * S]
+                tol = SUM_RTOL * b.abs() + SUM_RTOL * float(b.abs().max())
+                check(bool(((a - b).abs() <= tol).all()), f"{label} {name}: "
+                      f"contact block {c} off by {float((a - b).abs().max())}")
+            err = max(err, check_fluid_columns(got, ref, range(12 * S, W),
+                                               label + " " + name))
+            err = max(err, float((got[..., :5 * S] - ref[..., :5 * S])
+                                 .abs().max()))
+        else:
+            err = check_fluid_columns(got, ref, range(W), label + " " + name)
+        t = dict(err=err)
+        if timed:
+            t["ms"] = cuda_ms(lambda: fast(*args))
+            t["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+            # least time: 14 pack fields in and W outputs per live lane
+            # once; the pair bodies' f32 operations on this data
+            ops = in_range * (OPS_PER_RATES_PAIR if name == "fluid_rates_wall"
+                              else OPS_PER_FORCE_PAIR) + lanes * OPS_PER_LANE
+            if name == "fluid_forces_contact":
+                ops += gated * OPS_PER_CONTACT_PAIR
+            t["bound_ms"], t["bound_by"] = bound(4 * n_live * (fk.NF + W),
+                                                 ops)
+        out[name] = t
+    picks = (f", contact slots with a pick {n_found}" if has_rigid else "")
+    print(f"[fluid-kernels] {label}: n={scene.n} NC={cfg.NC_max} M={cfg.M} "
+          f"O={cfg.O} S={S} | query lanes {n_live}, live candidate lanes "
+          f"{lanes}, pairs in range {in_range}, gated contact pairs {gated}"
+          f"{picks} | max abs err " + ", ".join(
+              f"{k} {v['err']:.3e}" for k, v in out.items()), flush=True)
+    if timed:
+        for k, v in out.items():
+            print(f"[fluid-kernels] {label}: {k} {v['ms']:.4f} ms (plain "
+                  f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+                  f"{v['bound_by']})", flush=True)
+    timings[label] = out
+    return gated
+
+
+def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
+    """The coupling step through its entry points, in chunks with the
+    overflow-rebuild rule; ``per_step`` maps each kernel to its expected
+    launches per step.  Returns (end scene, launches, steps/s)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    step = scheme.make_step(scene)
+    fl = scene.is_fluid
+    has_body = scene.meta.nb > 0
+    y0 = float(scene.xcm[0, 1]) if has_body else None
+    _build.reset_launches()
+    steps_run = done = rebuilds = 0
+    chunk_s = []
+    while done < n_steps:
+        chunk_start = scene
+        n = min(CHUNK, n_steps - done)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            scene = step(scene, dt)
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+        steps_run += n
+        if bool(scene.nbr_overflow):
+            rebuilds += 1
+            check(rebuilds <= 8, f"{label}: overflow persists after 8 "
+                  "rebuilds")
+            scheme.refresh_configs(chunk_start, grow=rebuilds > 1)
+            step = scheme.make_step(chunk_start)
+            scene = chunk_start
+            print(f"[{label}] step {done}: capacity overflow, rebuilt "
+                  f"(x{rebuilds}, boost {scheme.capacity_boost:.2f})",
+                  flush=True)
+            continue
+        rebuilds = 0
+        done += n
+        chunk_s.append(el)
+        rho = scene.rho[fl]
+        print(f"[{label}] steps {done - n}-{done}: {el:.3f} s, fluid rho "
+              f"{float(rho.min()):.6f}-{float(rho.max()):.6f}"
+              + (f", box COM y {float(scene.xcm[0, 1]):.7f}" if has_body
+                 else ""), flush=True)
+    launches = dict(_build.LAUNCHES)
+    for k in launches:
+        want = per_step.get(k, 0) * steps_run
+        check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
+              f"times in {steps_run} steps, expected {want}")
+    for k, v in scene.fields.items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
+    check(not bool(scene.nbr_overflow), f"{label}: overflow at the end")
+    dev_rho = float((scene.rho[fl] / scheme.rho0 - 1.0).abs().max())
+    check(dev_rho < 0.05, f"{label}: fluid rho off rho0 by {dev_rho:.3e}")
+    msg = ""
+    if has_body:
+        y1 = float(scene.xcm[0, 1])
+        check(y1 < y0, f"{label}: the box did not sink ({y0:.7f} -> "
+              f"{y1:.7f})")
+        msg = f" | box COM y {y0:.7f} -> {y1:.7f} ({y1 - y0:.3e})"
+    steady = chunk_s[1:] or chunk_s
+    sps = CHUNK * len(steady) / sum(steady)
+    print(f"[{label}] n={scene.n} dt={dt:.6g} steps={done} (run "
+          f"{steps_run}) launches " + " ".join(
+              f"{k}={v}" for k, v in launches.items() if v)
+          + f" | max |rho/rho0 - 1| {dev_rho:.3e}{msg}", flush=True)
+    print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
+          f"{done / sum(chunk_s):.2f} steps/s all chunks, on {smi}",
+          flush=True)
+    return scene, launches, sps
+
+
+def phase_coupling_parity(scheme, scene, dt):
+    """20 kernel steps against 20 twin steps from one state, in contact
+    throughout: the dense box starts GAP dx above the floor, engaged, and
+    moving down and sideways.  Sliding, because at zero tangential
+    velocity the Coulomb friction's direction is the rounding noise of
+    the tangent (the reference model's own discontinuity), which no
+    summation-order tolerance holds."""
+    scene = scene.replace(vcm=torch.tensor(
+        [[0.05, -0.5, 0.0]], dtype=scene.dtype, device=scene.device))
+    fast = scheme.make_step(scene)
+    plain = scheme.make_step(scene, plain=True)
+    a = b = scene
+    for _ in range(COMPARE_STEPS):
+        a, b = fast(a, dt), plain(b, dt)
+    torch.cuda.synchronize()
+    check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
+          "overflow during the coupling step comparison")
+    for c, who in ((a, "kernel"), (b, "twin")):
+        check(float(c.overlap.max()) > 0 and
+              float(c.delta_lt_x.abs().max()) > 0,
+              f"the coupling comparison's {who} run ended out of contact")
+    worst = []
+    eps = torch.finfo(scene.dtype).eps
+    # the box's particle positions set the contact distances: two ulps
+    # of the largest of them
+    pos_ulp = 2 * eps * float(torch.stack(
+        [scene.x.abs(), scene.y.abs()])[:, scene.is_rigid].max())
+    # a contact force component errs by the force's size times its unit
+    # normal's error, so fn_x and fn_y are held to the largest |fn|
+    fn_scale = float(torch.sqrt(b.fn_x ** 2 + b.fn_y ** 2).max())
+    bad = []
+    for k in ("x", "y", "u", "v", "rho", "p", "p_fsi", "fx", "fy", "xcm",
+              "vcm", "omega", "force", "contact_force_dist",
+              "closest_point_dist_to_source", "overlap", "fn_x", "fn_y",
+              "delta_lt_x"):
+        x, y, tol = a[k], b[k], 0.0
+        if k in ("x", "y", "xcm"):
+            # positions as displacements over the run; each drift rounds
+            # to the position's f32 grid, so two ulps of |x| on top (the
+            # tank is 4 m wide: one ulp is 1e-7 to 5e-7 m)
+            x, y, tol = x - scene[k], y - scene[k], 2 * eps * scene[k].abs()
+        elif k in ("contact_force_dist", "closest_point_dist_to_source",
+                   "overlap"):
+            tol = pos_ulp
+        err = float((x - y).abs().max())
+        scale = fn_scale if k in ("fn_x", "fn_y") else float(y.abs().max())
+        worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
+        if not bool(((x - y).abs() <= STEP_RTOL * y.abs()
+                     + STEP_RTOL * scale + tol).all()):
+            bad.append(f"{k} off by {err:.3e} (scale {scale:.3e})")
+    check(not bad, f"coupling kernel step vs twin step (rtol {STEP_RTOL}): "
+          + ", ".join(bad))
+    print(f"[cpl-parity] {COMPARE_STEPS} kernel steps vs {COMPARE_STEPS} "
+          f"twin steps (dense box on the floor, rho {CPL_PARITY_RHO}; end "
+          f"overlap {float(b.overlap.max()):.3e}, |delta_lt_x| "
+          f"{float(b.delta_lt_x.abs().max()):.3e}), max abs diff: "
+          + ", ".join(worst), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -899,6 +1256,45 @@ def main() -> int:
 
         # 9. DEM kernel steps against twin steps
         phase_dem_parity(dscheme, dend)
+        del dscheme, dend
+
+        # 10. coupling kernels against twins: the main path's scene (timed)
+        # and the contact placement
+        fl_t = {}
+        for label, floor in (("sinking box", False), ("box on floor", True)):
+            t0 = time.perf_counter()
+            cscheme, cscene, cdt = sinking_box_scene(dev, floor=floor)
+            print(f"[cpl-setup] {label}: n={cscene.n} dt={cdt:.6g} "
+                  f"cfg={cscheme._cell_cfg} boundary particles "
+                  f"{int(cscene.is_boundary.sum())} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            gated = phase_fluid_kernels(cscheme, cscene, label, fl_t,
+                                        timed=not floor)
+            if floor:
+                check(gated > 0, "no gated contact pair on the floor")
+            else:
+                mscheme, mscene = cscheme, cscene
+        del cscheme, cscene
+
+        # 11. the coupling main path (the sinking box)
+        _, cpl_launches, cpl_sps = phase_coupling_main(
+            mscheme, mscene, cdt, CPL_STEPS, "cpl-main", smi,
+            dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1))
+        del mscheme, mscene
+
+        # 12. the fluid-only tank (no rigid body: B6c in B5's place): its
+        # passes against their twins on its pack (timed), then its path
+        tscheme, tscene, tdt = sinking_box_scene(dev, body=False)
+        phase_fluid_kernels(tscheme, tscene, "tank", fl_t, timed=True)
+        _, tank_launches, tank_sps = phase_coupling_main(
+            tscheme, tscene, tdt, CPL_TANK_STEPS, "cpl-tank", smi,
+            dict(pack_expand=1, fluid_rates_wall=1, fluid_forces=1))
+        del tscheme, tscene
+
+        # 13. coupling kernel steps against twin steps
+        pscheme, pscene, pdt = sinking_box_scene(dev, floor=True,
+                                                 rho_b=CPL_PARITY_RHO)
+        phase_coupling_parity(pscheme, pscene, pdt)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -910,7 +1306,10 @@ def main() -> int:
     # each path's launches, read from its own counts (reset just before it)
     by_path = lambda k: {p: c[k] for p, c in (
         ("rigid", launches), ("dem-main", dem_launches),
-        ("dem-rowwin", rw_launches)) if c[k]}
+        ("dem-rowwin", rw_launches), ("coupling", cpl_launches),
+        ("coupling-tank", tank_launches)) if c[k]}
+    fluid_err = lambda k: max(fl_t[lab][k]["err"] for lab in fl_t
+                              if k in fl_t[lab])
     kernels = [
         dict(name="pack_expand", route="cuda", source=src + "pack_expand.cu",
              replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_pack.py:47",
@@ -947,9 +1346,23 @@ def main() -> int:
              bound_ms=dem_t["2D rowwin"]["bound_ms"],
              bound_by=dem_t["2D rowwin"]["bound_by"], library_ms=None),
     ]
+    # each timed on its first main path's scene
+    for name, line, path_launches, lab in (
+            ("fluid_rates_wall", 364, cpl_launches, "sinking box"),
+            ("fluid_forces_contact", 590, cpl_launches, "sinking box"),
+            ("fluid_forces", 562, tank_launches, "tank")):
+        fm = fl_t[lab][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "fluid.cu",
+            replaces=f"rigid_body_2d_3d_pysph_tpu/ops/pallas_fluid.py:{line}",
+            launches=path_launches[name], launches_by_path=by_path(name),
+            max_abs_err=fluid_err(name), ms=fm["ms"],
+            plain_ms=fm["plain_ms"], bound_ms=fm["bound_ms"],
+            bound_by=fm["bound_by"], library_ms=None))
     print(f"[done] rigid {main_stats['steps_per_s']:.2f} steps/s at "
           f"n={main_stats['n']}; DEM spill {dem_sps:.2f} steps/s, row-window "
-          f"{rw_sps:.2f} steps/s at n={dend.n}; on {smi}", flush=True)
+          f"{rw_sps:.2f} steps/s; coupling {cpl_sps:.2f} steps/s, fluid-only "
+          f"tank {tank_sps:.2f} steps/s; on {smi}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,36 +32,16 @@
 // memory in tiles of TILE stencil entries (all threads read the same
 // word at once: a broadcast, no bank conflicts), with their flags
 // decoded once at load.  Picks are copies of the shared-memory words,
-// so they are exact; nothing goes through a matrix unit.  Built with
-// --fmad=false so r = sqrt(x*x + y*y) rounds as the plain version's does.
-#include <cuda_runtime.h>
+// so they are exact; nothing goes through a matrix unit.  The quintic
+// kernel, the per-pair accumulation and the epilogue are csrc/mofidi.cuh,
+// shared with the fused forces + contact kernel of csrc/fluid.cu; built
+// with --fmad=false so r = sqrt(x*x + y*y) rounds as the plain version's.
+#include "mofidi.cuh"
 
 #define TILE 16
 #define S_MAX 64
 
 namespace {
-
-constexpr float kBig = 1.0e9f;
-
-__device__ __forceinline__ float pow4(float t) {
-  const float t2 = t * t;
-  return t2 * t2;
-}
-
-__device__ __forceinline__ float pow5(float t) { return t * pow4(t); }
-
-template <bool TWO_D>
-__device__ __forceinline__ float quintic_w(float rij, float h, float sig_num,
-                                           float sig_den) {
-  const float q = rij / h;
-  const float t3 = fmaxf(3.0f - q, 0.0f);
-  const float t2 = fmaxf(2.0f - q, 0.0f);
-  const float t1 = fmaxf(1.0f - q, 0.0f);
-  const float val = pow5(t3) - 6.0f * pow5(t2) + 15.0f * pow5(t1);
-  const float sig = TWO_D ? sig_num / (sig_den * h * h)
-                          : sig_num / (sig_den * h * h * h);
-  return sig * val;
-}
 
 __device__ __forceinline__ void decode_flags(float f, float& dem, float& bdry,
                                              float& fluid, float& rigid) {
@@ -115,9 +95,8 @@ __global__ void contact_sums_kernel(const float* __restrict__ dft,
   decode_flags(q[FFLAGS * M + l], q_dem, q_bdry, q_fluid, q_rigid);
   const bool active = (q_rigid == 1.0f) && (q_dem != sf);
 
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f, a6 = 0.f;
-  float minr = kBig;
-  float px = 0.f, py = 0.f, pz = 0.f, pu = 0.f, pv = 0.f, pw = 0.f;
+  mofidi::Acc acc;
+  acc.init();
 
   for (int o0 = 0; o0 < O; o0 += TILE) {
     const int nt = min(TILE, O - o0);
@@ -154,56 +133,13 @@ __global__ void contact_sums_kernel(const float* __restrict__ dft,
       const float rij = sqrtf(r2);
       if (!(rij <= cutoff)) continue;
       const float hij = 0.5f * (qh + sh[k]);
-      const float wij = quintic_w<TWO_D>(rij, hij, sig_num, sig_den);
-      const float rinv = 1.0f / fmaxf(rij, 1e-30f);
-      const float t1 = qvol * rinv * wij;
-      const float t2 = t1 * rij;
-      a0 += t1 * xij;
-      a1 += t1 * yij;
-      a3 += t2;
-      a4 += t2 * xij;
-      a5 += t2 * yij;
-      if (!TWO_D) {
-        a2 += t1 * zij;
-        a6 += t2 * zij;
-      }
-      if (rij < minr) {   // strict: the lowest lane keeps a tie
-        minr = rij;
-        px = sx[k];
-        py = sy[k];
-        pz = sz[k];
-        pu = su[k];
-        pv = sv[k];
-        pw = sw[k];
-      }
+      const float wij = mofidi::quintic_w<TWO_D>(rij, hij, sig_num, sig_den);
+      acc.add<TWO_D>(xij, yij, zij, rij, wij, qvol, sx[k], sy[k], sz[k],
+                     su[k], sv[k], sw[k]);
     }
   }
 
-  // epilogue (pallas_contact.py:313-328)
-  const bool has = a3 > 1e-12f;
-  const float inv_w = has ? 1.0f / fmaxf(a3, 1e-30f) : 0.0f;
-  const float mx = a0 * inv_w, my = a1 * inv_w, mz = a2 * inv_w;
-  const float mag = sqrtf(mx * mx + my * my + mz * mz);
-  const float inv_m = (has && mag > 0.0f) ? 1.0f / fmaxf(mag, 1e-30f) : 0.0f;
-  const float cx = mx * inv_m, cy = my * inv_m, cz = mz * inv_m;
-  const float num = cx * a4 + cy * a5 + cz * a6;
-  const float dist = has ? num / a3 : 0.0f;
-  const bool found = minr < init_dist;
-  const float mind = fminf(minr, init_dist);
-
-  float* o = out + ((long long)b * M + l) * (12 * S) + s;
-  o[0 * S] = cx;
-  o[1 * S] = cy;
-  o[2 * S] = cz;
-  o[3 * S] = a3;
-  o[4 * S] = dist;
-  o[5 * S] = mind;
-  o[6 * S] = found ? px : 0.0f;
-  o[7 * S] = found ? py : 0.0f;
-  o[8 * S] = found ? pz : 0.0f;
-  o[9 * S] = found ? pu : 0.0f;
-  o[10 * S] = found ? pv : 0.0f;
-  o[11 * S] = found ? pw : 0.0f;
+  acc.store(out + ((long long)b * M + l) * (12 * S) + s, S, init_dist);
 }
 
 }  // namespace

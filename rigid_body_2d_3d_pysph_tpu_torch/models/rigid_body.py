@@ -424,6 +424,30 @@ def _compact_contact_tail(scene, flat, pid, u_c, v_c, w_c, params, dt):
                          cl_pid=tgt, cl_state=new_state.to(fdt))
 
 
+def _contact_force_tail(scene, cfn_x, cfn_y, cfn_z, cfn_w, dinfo, params,
+                        dt, extra_fx=None):
+    """Eq.-24 tail on the full [N, S] slot schema: gravity, the contact
+    force, ``extra_fx`` (the coupling step's fluid -> rigid force) and
+    the per-body sums; stores the new slot state."""
+    fx, fy, fz = rops.body_force(scene, params["gx"], params["gy"],
+                                 params["gz"], scene.is_rigid)
+    dfx, dfy, dfz, slots = cops.contact_force(
+        scene, dt, params["kr"], params["kf"], params["fric_coeff"],
+        cfn_x, cfn_y, cfn_z, dinfo,
+        scene.delta_lt_x, scene.delta_lt_y, scene.delta_lt_z,
+        scene.fn_x, scene.fn_y, scene.fn_z)
+    fx, fy, fz = fx + dfx, fy + dfy, fz + dfz
+    if extra_fx is not None:
+        efx, efy, efz = extra_fx
+        fx, fy, fz = fx + efx, fy + efy, fz + efz
+    force, torque = rops.sum_up_external_forces(scene, fx, fy, fz)
+    return scene.replace(
+        fx=fx, fy=fy, fz=fz, force=force, torque=torque,
+        contact_force_normal_x=cfn_x, contact_force_normal_y=cfn_y,
+        contact_force_normal_z=cfn_z, contact_force_normal_wij=cfn_w,
+        **dinfo, **slots)
+
+
 def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,
                                ni_max: int, plain: bool = False):
     """One GTVF timestep on the compact contact path, as an eager

@@ -4,8 +4,9 @@ Each ``csrc/<source>.cu`` has a plain C interface (one or more entry
 points, ``KERNELS``) and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``<repo>/build/torch_kernels/``, then loaded with ``ctypes``.  The
-library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  The build
+library's file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  The build
 uses only sources in this package and needs no network.
 """
 
@@ -25,12 +26,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source extra flags: the contact and DEM kernels must not contract
-# a*b + c into an FMA, or their pair distances drift an ulp from the
-# plain versions' and a tie in the closest-source pick, or a gate that
-# decides contact-table membership, can flip
+# per-source extra flags: the contact, DEM and fluid kernels must not
+# contract a*b + c into an FMA, or their pair distances drift an ulp from
+# the plain versions' and a tie in the closest-source pick, or a gate
+# that decides contact-table membership, can flip
 EXTRA_FLAGS = {"pack_expand": [], "contact": ["--fmad=false"],
-               "dem": ["--fmad=false"]}
+               "dem": ["--fmad=false"], "fluid": ["--fmad=false"]}
 SOURCES = tuple(EXTRA_FLAGS)
 
 # kernel -> (source, C entry point, argument types): every pointer and
@@ -46,6 +47,12 @@ KERNELS = {
                  [_P] * 12 + [_I] * 6 + [_F, _F, _P]),
     "dem_rowwin": ("dem", "dem_rowwin",
                    [_P] * 6 + [_I] * 5 + [_F, _F, _P]),
+    "fluid_rates_wall": ("fluid", "fluid_rates_wall",
+                         [_P] * 3 + [_I] * 6 + [_F] * 8 + [_P]),
+    "fluid_forces_contact": ("fluid", "fluid_forces_contact",
+                             [_P] * 3 + [_I] * 6 + [_F] * 5 + [_P]),
+    "fluid_forces": ("fluid", "fluid_forces",
+                     [_P] * 3 + [_I] * 5 + [_F] * 4 + [_P]),
 }
 
 
@@ -61,11 +68,13 @@ BUILD_LOG: dict = {}
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
     flags = BASE_FLAGS + EXTRA_FLAGS[name]
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(flags).encode()
-                              ).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(flags).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 

@@ -215,10 +215,12 @@ def build_cell_grid(x, y, z, active, cfg: CellGridConfig) -> CellGrid:
 
 
 def _finish_spill_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
-                       head, idx, dom_overflow, want_pack: bool = False):
+                       head, idx, dom_overflow, want_pack: bool = False,
+                       want_dense_pos: bool = False):
     """Slot runs, the packed stencil table and (``want_pack``) the
-    per-slot expansion tables instead of the slot2p / dense_pos maps;
-    mirrors the reference step by step."""
+    per-slot expansion tables instead of the slot2p / dense_pos maps
+    (``want_dense_pos`` keeps dense_pos beside them); mirrors the
+    reference step by step."""
     M = cfg.M
     NC = cfg.NC_max
     O_p = cfg.O
@@ -239,13 +241,12 @@ def _finish_spill_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
     dense_pos_sorted = torch.where(
         slot_ok, torch.clamp(vslot, 0, NC - 1) * M + lane,
         torch.full_like(vslot, NC * M))
-    if want_pack:
-        slot2p = dense_pos = torch.zeros((0,), dtype=i64, device=dev)
-    else:
-        slot2p = _scatter_drop(NC * M, n, dense_pos_sorted, order, i64)
-        dense_pos = _scatter_drop(
-            n, NC * M, torch.where(slot_ok, order, torch.full_like(order, n)),
-            dense_pos_sorted, i64)
+    empty = torch.zeros((0,), dtype=i64, device=dev)
+    slot2p = empty if want_pack else _scatter_drop(
+        NC * M, n, dense_pos_sorted, order, i64)
+    dense_pos = empty if want_pack and not want_dense_pos else _scatter_drop(
+        n, NC * M, torch.where(slot_ok, order, torch.full_like(order, n)),
+        dense_pos_sorted, i64)
 
     # occupied cells compacted to the front: (cid, base slot[, start])
     n_cells = head.to(i64).sum()
@@ -335,17 +336,20 @@ def _finish_spill_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
     return grid, (base_slot, cnt_slot, n_valid, slot_cid)
 
 
-def build_cell_grid_packed(x, y, z, active, cfg: CellGridConfig, payload):
+def build_cell_grid_packed(x, y, z, active, cfg: CellGridConfig, payload,
+                           want_dense_pos: bool = False):
     """Spill grid build that carries ``payload`` (a list of [N] tensors
     of one floating dtype) into cell-sorted order with the sort's
-    permutation: returns ``(CellGrid, PackTables)``; ``slot2p`` and
-    ``dense_pos`` are empty (the sorted-pack path reads neither)."""
+    permutation: returns ``(CellGrid, PackTables)``; ``slot2p`` is
+    empty, and ``dense_pos`` too unless ``want_dense_pos`` (the
+    coupling step unpacks its dense outputs through it)."""
     _check_spill(cfg)
     n, G, ks, order, valid_s, head, idx, dom_overflow = _sort_grid(
         x, y, z, active, cfg)
     sorted_fields = torch.stack(list(payload), 0).index_select(1, order)
     grid, pack = _finish_spill_grid(cfg, n, G, ks, order, valid_s, head,
-                                    idx, dom_overflow, want_pack=True)
+                                    idx, dom_overflow, want_pack=True,
+                                    want_dense_pos=want_dense_pos)
     base, cnt, n_valid, slot_cid = pack
     return grid, PackTables(sorted_fields=sorted_fields.contiguous(),
                             base=base, cnt=cnt, n_valid=n_valid,

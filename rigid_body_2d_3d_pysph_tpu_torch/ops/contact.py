@@ -1,6 +1,6 @@
 """Mofidi et al. (2022) Eq. 24 contact force on explicit per-lane arrays.
 
-Counterpart of ``contact_force_core`` in
+Counterpart of ``contact_force`` and ``contact_force_core`` in
 ``rigid_body_2d_3d_pysph_tpu/ops/contact.py``: a normal spring-dashpot
 plus a Coulomb-capped tangential spring per (destination, source-entity
 slot), with the reference's quirks kept (the spring reset to the unit
@@ -13,6 +13,20 @@ from __future__ import annotations
 import torch
 
 from .rigid import gather_body_rows
+
+
+def contact_force(scene, dt, kr: float, kf: float, fric_coeff: float,
+                  cfn_x, cfn_y, cfn_z, dist_info,
+                  delta_lt_x, delta_lt_y, delta_lt_z,
+                  fn_x_prev, fn_y_prev, fn_z_prev):
+    """Eq. 24 on every particle's [N, S] slot map (the full schema, as
+    the coupling step keeps it)."""
+    return contact_force_core(
+        scene.u, scene.v, scene.w, scene.m, scene.body_id, scene.eta,
+        scene.meta.nb, scene.meta.spacing0, dt, kr, kf, fric_coeff,
+        cfn_x, cfn_y, cfn_z, dist_info,
+        delta_lt_x, delta_lt_y, delta_lt_z,
+        fn_x_prev, fn_y_prev, fn_z_prev)
 
 
 def contact_force_core(u, v, w, m, body_id, eta_body, nb: int,

@@ -16,7 +16,7 @@ holds the init row (zeros, closest distance = init_dist).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -55,6 +55,20 @@ def decode_flags(f):
     fluid = torch.floor(r * 0.5)
     rigid = r - 2.0 * fluid
     return dem, bdry, fluid, rigid
+
+
+class PackLayout(NamedTuple):
+    """How the contact pass reads a pack: the field rows (``vol``, or
+    ``m`` and ``rho`` for V = m / rho), the flags decoder (-> dem,
+    contact boundary, fluid, rigid) and whether the geometry is 2D."""
+    fields: dict
+    decode: Callable
+    two_d: bool
+
+
+def rigid_layout(two_d: bool) -> PackLayout:
+    """The contact pack's own layout (F = 7 in 2D, 9 in 3D)."""
+    return PackLayout(field_index(two_d), decode_flags, two_d)
 
 
 def contact_payload(scene, two_d: bool):
@@ -137,12 +151,16 @@ def _sigma_constants(kernel: QuinticSpline):
 
 
 def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
-                           init_dist: float, kernel: QuinticSpline):
+                           init_dist: float, kernel: QuinticSpline,
+                           layout: PackLayout | None = None):
     """Plain PyTorch version of the contact kernel (same inputs, same
     ``[NI, M, 12 S]`` output).  Rows are processed in chunks of at most
-    ``_MAX_PAIR_ELEMS`` pair lanes to bound memory."""
-    two_d = kernel.dim == 2
-    fi = field_index(two_d)
+    ``_MAX_PAIR_ELEMS`` pair lanes to bound memory.  ``layout`` reads
+    another pack (the coupling pack, ``ops/fluid_kernel.py``); the
+    kernel's sigma stays that of ``kernel.dim``."""
+    layout = layout or rigid_layout(kernel.dim == 2)
+    two_d = layout.two_d
+    fi = layout.fields
     NI, O = nbr.shape
     F, M = dfT.shape[1], dfT.shape[2]
     OM = O * M
@@ -174,13 +192,14 @@ def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
             rij = torch.sqrt(xij * xij + yij * yij + zij * zij)
         hij = 0.5 * (qcol("h") + srow("h"))
         wij = kernel.w(rij, hij)
-        s_dem, s_bdry, s_fluid, _ = decode_flags(srow("flags"))
-        q_dem, _, _, q_rigid = decode_flags(qcol("flags"))
+        s_dem, s_bdry, s_fluid, _ = layout.decode(srow("flags"))
+        q_dem, _, _, q_rigid = layout.decode(qcol("flags"))
         gate = ((s_bdry == 1.0) & (s_dem != q_dem) & (s_fluid == 0.0)
                 & (q_rigid == 1.0) & (rij <= cutoff))
         zero = torch.zeros_like(rij)
         rinv = 1.0 / torch.clamp(rij, min=1e-30)
-        t1 = torch.where(gate, qcol("vol") * rinv * wij, zero)
+        vol = qcol("vol") if "vol" in fi else qcol("m") / qcol("rho")
+        t1 = torch.where(gate, vol * rinv * wij, zero)
         t2 = t1 * rij
 
         # per-slot sums: [B, nq*M, OM] x one-hot [B, OM, S]

@@ -6,7 +6,8 @@ of that module are not ported yet.
 
 * ``w(rij, h)``            -> W_ij,
 * ``dwdq(rij, h)``         -> dW/dq with q = rij / h,
-* ``gradw_scalar(rij, h)`` -> s with DW_ij = s * x_ij (0 at rij = 0).
+* ``gradw_scalar(rij, h)`` -> s with DW_ij = s * x_ij (0 at rij = 0),
+* ``w_gradw(rij, h)``      -> both from one evaluation (the fluid passes).
 
 Integer powers are written as the multiplication chains XLA lowers
 ``x**n`` to (x^4 = (x^2)^2, x^5 = x * x^4), so the port's values follow
@@ -77,6 +78,18 @@ class QuinticSpline:
 
     def gradw_scalar(self, rij, h):
         return self.dwdq(rij, h) / h * _guarded_inv(rij)
+
+    def w_gradw(self, rij, h):
+        """(w, gradw_scalar) from one q, one sigma and the shared 4th
+        powers (t^5 = t^4 * t, the reference's chain), bit-identical to
+        :meth:`w` and :meth:`gradw_scalar`."""
+        q = rij / h
+        t3, t2, t1 = self._pieces(q)
+        t3_4, t2_4, t1_4 = _pow4(t3), _pow4(t2), _pow4(t1)
+        sig = self.sigma(h)
+        w = sig * (t3_4 * t3 - 6.0 * (t2_4 * t2) + 15.0 * (t1_4 * t1))
+        dval = -5.0 * t3_4 + 30.0 * t2_4 - 75.0 * t1_4
+        return w, sig * dval / h * _guarded_inv(rij)
 
 
 KERNELS = {"quintic": QuinticSpline}

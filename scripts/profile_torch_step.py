@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's step time goes on one CUDA card.
 
-    python3 scripts/profile_torch_step.py [--steps 20] [--paths rigid,dem,rowwin]
+    python3 scripts/profile_torch_step.py [--steps 20]
+        [--paths rigid,dem,rowwin,coupling]
 
 Run from the repository root on the machine with the card.  For each
 main path of ``chip_smoke.py`` (the 2D rigid contact step at ~105k
 particles, the 2D DEM step on the spill grid and on the row-window grid
-at ~104k particles), on the same scenes, it prints:
+at ~104k particles, the fused kdkf coupling step of the sinking box at
+~96.9k particles), on the same scenes, it prints:
 
 * untraced ms/step (host clock around ``--steps`` steps ending in a
   synchronise), after a warm-up chunk;
@@ -36,7 +38,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb  # noqa: E402
 from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as ck  # noqa: E402
+from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_fluid_coupling as cpl  # noqa: E402
 from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as dk  # noqa: E402
+from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk  # noqa: E402
 
 # layer spans: (module, function name, span label) per path
 SPANS = {
@@ -52,6 +56,12 @@ SPANS = {
                (dk, "expand_slots", "K1 pack expansion (x2)"),
                (dk, "dem_rowwin_sums", "K3 DEM row-window pass"),
                (dk, "unpack_dem_out", "unpack")],
+    "coupling": [(fk, "build_cell_grid_packed", "L1 grid build"),
+                 (fk, "expand_slots", "K1 pack expansion"),
+                 (fk, "fluid_rates_wall", "B4 rates + wall sums"),
+                 (fk, "fluid_forces_contact", "B5 forces + contact"),
+                 (cpl, "unpack", "unpack"),
+                 (cpl, "_contact_force_tail", "L3 Eq.-24 tail")],
 }
 
 
@@ -66,6 +76,8 @@ def _scene(path, dev):
     if path == "rigid":
         scheme, scene, _ = cs.contact_scene_2d(dev)
         dt = cs.DT
+    elif path == "coupling":
+        scheme, scene, dt = cs.sinking_box_scene(dev)
     else:
         scheme, scene = cs.dem_scene(dev, 2, "spill" if path == "dem"
                                      else "rowwin")
@@ -169,7 +181,7 @@ def profile_path(path, dev, n_steps):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--paths", default="rigid,dem,rowwin")
+    ap.add_argument("--paths", default="rigid,dem,rowwin,coupling")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)

@@ -13,7 +13,10 @@ largest magnitude).  The DEM kernels' tables and counts are bit-exact
 (the gate decisions round as the twin's), their sums within the
 summation-order tolerance of ``tests/test_pallas_dem.py`` and their
 springs within rtol 1e-4, from an empty contact table, a filled one and
-one whose contacts open and close.
+one whose contacts open and close.  The coupling fluid kernels' sums
+are within 2e-5 of each column's largest magnitude (the contact
+normals, unit vectors, 2e-5 absolute), their contact picks bit for bit,
+and 3 kernel coupling steps match 3 plain ones within rtol 1e-4.
 """
 
 import numpy as np
@@ -354,3 +357,153 @@ def test_dem_step_kernels_match_plain_step(dev):
         assert torch.equal(ka, kb), (grid, table)
         assert torch.allclose(sa, sb, rtol=1e-4,
                               atol=1e-4 * float(sb.abs().max())), (grid, table)
+
+
+# ---------------------------------------------------------------------------
+# coupling fluid kernels (csrc/fluid.cu): sums within 2e-5 of the column's
+# largest magnitude (the contact normals, unit vectors, 2e-5 absolute);
+# contact picks bit for bit
+# ---------------------------------------------------------------------------
+
+FLUID_GAP = 0.95   # the box's face gap to the tank floor's top layer, in dx
+
+
+def _coupling_scene(dev, with_body=True, dx=0.04):
+    """A small sinking-box tank: fluid, a 3-layer tank and a box (rho 2)
+    resting FLUID_GAP dx above the floor with the fluid void carved, so
+    gated contact pairs exist; seeded random velocities and body p_fsi."""
+    from rigid_body_2d_3d_pysph_tpu_torch.geom import hydrostatic_tank_2d
+    from rigid_body_2d_3d_pysph_tpu_torch.models import (
+        RigidFluidCouplingScheme)
+    from rigid_body_2d_3d_pysph_tpu_torch.state import ROLE_FLUID
+
+    gy, rho0 = -1.0, 1.0
+    xf, yf, xt, yt = hydrostatic_tank_2d(1.0, 0.8, 1.2, 3, dx, dx)
+    p0 = -rho0 * gy * (yf.max() - yf)
+    c0 = 10 * np.sqrt(2 * abs(gy) * 0.8)
+    groups = [make_group("tank", xt, yt, m=rho0 * dx * dx, h=dx, rho=rho0,
+                         rad_s=dx / 2, role=ROLE_BOUNDARY, dem_id=1)]
+    if with_body:
+        xb, yb = get_2d_block(dx, 0.3, 0.2)
+        xb += (xf.min() + xf.max()) / 2.0
+        yb += (-dx + FLUID_GAP * dx) - yb.min()
+        keep = ~((xf > xb.min() - dx) & (xf < xb.max() + dx)
+                 & (yf > yb.min() - dx) & (yf < yb.max() + dx))
+        xf, yf, p0 = xf[keep], yf[keep], p0[keep]
+        groups.append(make_group(
+            "body", xb, yb, m=2 * rho0 * dx * dx, h=dx, rho=2 * rho0,
+            rad_s=dx / 2, role=ROLE_RIGID, body_id=np.zeros(len(xb), np.int32),
+            dem_id=np.zeros(len(xb), np.int32)))
+    groups.insert(0, make_group("fluid", xf, yf, m=rho0 * dx * dx, h=dx,
+                                rho=rho0, role=ROLE_FLUID, p=p0))
+    scene = build_scene(groups, dim=2, total_no_bodies=2, spacing0=dx,
+                        device=dev, dtype=torch.float32)
+    scheme = RigidFluidCouplingScheme(
+        ["fluid"], ["tank"], ["body"] if with_body else [], dim=2,
+        rho0=rho0, p0=rho0 * c0**2, c0=c0, h=dx, nu=0.0, gy=gy)
+    scene = scheme.setup(scene)
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    rigid = scene.is_rigid
+    upd = dict(u=t(rng.uniform(-0.2, 0.2, scene.n)),
+               v=t(rng.uniform(-0.2, 0.2, scene.n)))
+    if with_body:
+        upd.update(
+            m_fsi=torch.where(rigid, rho0 * dx * dx, scene.m_fsi),
+            rho_fsi=torch.where(rigid, rho0, scene.rho_fsi),
+            p_fsi=torch.where(rigid, t(rng.uniform(0, 1, scene.n)),
+                              scene.p_fsi))
+    return scheme, scene.replace(**upd)
+
+
+def _check_fluid_columns(got, ref, what, unit=()):
+    for c in range(ref.shape[-1]):
+        a, b = got[..., c], ref[..., c]
+        scale = max(float(b.abs().max()), 1.0 if c in unit else 1e-30)
+        err = float((a - b).abs().max())
+        assert err <= 2e-5 * scale, f"{what} column {c}: {err} (scale {scale})"
+
+
+@pytest.mark.parametrize("which", ["rates_wall", "rates_wall_tank",
+                                   "forces_contact", "forces"])
+def test_fluid_kernels_match_twin(dev, which):
+    """Each pass against its twin on the scene its step runs it on: B4
+    with and without rigid bodies, B5 with, B6c without."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    with_body = which in ("rates_wall", "forces_contact")
+    scheme, scene = _coupling_scene(dev, with_body=with_body)
+    kernel = QuinticSpline(dim=2)
+    cfg = scheme.cell_config(scene, kernel)
+    grid, _, dfT = tfk.pack_fluid_sorted(scene, cfg)
+    assert not bool(grid.overflow)
+    S = scene.meta.total_no_bodies
+    init = 4.0 * scene.meta.spacing0
+    args = (dfT, grid.nbr_slots, kernel, cfg.radius)
+    if which.startswith("rates_wall"):
+        kname = "fluid_rates_wall"
+        extra = (scheme.edac_nu, scheme.c0, True, with_body,
+                 (0.0, -1.0, 0.0))
+        fast, plain = tfk.fluid_rates_wall, tfk.fluid_rates_wall_reference
+    elif which == "forces_contact":
+        kname = "fluid_forces_contact"
+        extra = (scheme.fluid_alpha, scheme.c0, S, init)
+        fast = tfk.fluid_forces_contact
+        plain = tfk.fluid_forces_contact_reference
+    else:
+        kname = "fluid_forces"
+        extra = (scheme.fluid_alpha, scheme.c0)
+        fast, plain = tfk.fluid_forces, tfk.fluid_forces_reference
+    before = _build.LAUNCHES[kname]
+    got = fast(*args, *extra)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kname] == before + 1
+    ref = plain(*args, *extra)
+    assert bool(torch.isfinite(got).all())
+    assert float(ref.abs().max()) > 0
+    if which != "forces_contact":
+        _check_fluid_columns(got, ref, which)
+        return
+    assert int((ref[..., 5 * S:6 * S] < init).sum()) > 0      # gated pairs
+    assert torch.equal(got[..., 5 * S:12 * S], ref[..., 5 * S:12 * S])
+    _check_fluid_columns(got[..., :5 * S], ref[..., :5 * S], which,
+                         unit=range(3 * S))
+    _check_fluid_columns(got[..., 12 * S:], ref[..., 12 * S:], which)
+
+
+def test_coupling_kernel_step_matches_plain_step(dev):
+    scheme, scene = _coupling_scene(dev)
+    # the box slides: at zero tangential velocity the friction's direction
+    # is rounding noise, which no summation-order tolerance holds
+    scene = scene.replace(vcm=torch.tensor([[0.05, -0.02, 0.0]], device=dev))
+    fast, plain = scheme.make_step(scene), scheme.make_step(scene, plain=True)
+    a = b = scene
+    _build.reset_launches()
+    for _ in range(3):
+        a, b = fast(a, 1e-5), plain(b, 1e-5)
+    assert _build.LAUNCHES["fluid_rates_wall"] == 3
+    assert _build.LAUNCHES["fluid_forces_contact"] == 3
+    assert _build.LAUNCHES["pack_expand"] == 3
+    assert not bool(a.nbr_overflow)
+    for k in ("x", "y", "u", "v", "rho", "p", "p_fsi", "fx", "fy", "xcm",
+              "vcm", "omega"):
+        x, y = a[k].cpu().numpy(), b[k].cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(y).max(), 1.0),
+                                   err_msg=k)
+
+
+def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    kernel = QuinticSpline(dim=2)
+    dfT = torch.zeros((5, tfk.NF, 16), device=dev)
+    nbr = torch.zeros((4, 9), dtype=torch.int64, device=dev)
+    g = (0.0, -1.0, 0.0)
+    with pytest.raises(ValueError):
+        tfk.fluid_rates_wall(dfT.double(), nbr, kernel, 0.1, 0.1, 1.0,
+                             True, True, g)
+    with pytest.raises(ValueError):
+        tfk.fluid_forces(dfT, nbr.int(), kernel, 0.1, 0.1, 1.0)
+    with pytest.raises(ValueError):
+        tfk.fluid_forces_contact(dfT[:4], nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)

@@ -9,8 +9,8 @@
   the two sides sum the contact and body forces in different orders.
 * f64, 10 steps: the port against the reference's jitted cell-engine
   step (XLA fused contact pipeline), rtol 1e-10.
-* The port imports and takes a rigid step and a DEM step in a process
-  where ``jax`` cannot load.
+* The port imports and takes a rigid step, a DEM step and a coupling
+  step in a process where ``jax`` cannot load.
 
 The scene is two touching bodies resting just above a wall with random
 particle velocities, so contacts are real and the tangential springs
@@ -231,6 +231,32 @@ dem = dscheme.setup(dem)
 dem = dscheme.make_step(dem)(dem, 5e-6)
 assert torch.isfinite(dem.fy).all() and not bool(dem.nbr_overflow)
 assert int(dem.total_tng_contacts.sum()) > 0
+from rigid_body_2d_3d_pysph_tpu_torch.geom import hydrostatic_tank_2d
+from rigid_body_2d_3d_pysph_tpu_torch.models import RigidFluidCouplingScheme
+dx = 0.1
+xf, yf, xt, yt = hydrostatic_tank_2d(0.6, 0.5, 0.8, 3, dx, dx)
+xb, yb = get_2d_block(dx, 0.2, 0.1)
+xb += xf.mean(); yb += yf.max() - yb.min() - 0.05
+keep = ~((xf > xb.min() - dx) & (xf < xb.max() + dx) & (yf > yb.min() - dx))
+fkw = dict(m=dx * dx, h=dx, rho=1.0)
+cpl = build_scene(
+    [make_group("fluid", xf[keep], yf[keep], role="fluid",
+                p=yf.max() - yf[keep], **fkw),
+     make_group("tank", xt, yt, role="boundary", dem_id=1, **fkw),
+     make_group("body", xb, yb, m=2 * dx * dx, h=dx, rho=2.0, role="rigid",
+                body_id=0, dem_id=0)],
+    dim=2, total_no_bodies=2, spacing0=dx, device=torch.device("cpu"),
+    dtype=torch.float32)
+cscheme = RigidFluidCouplingScheme(["fluid"], ["tank"], ["body"], dim=2,
+                                   rho0=1.0, p0=100.0, c0=10.0, h=dx, nu=0.0,
+                                   gy=-1.0)
+cpl = cscheme.setup(cpl)
+rb = cpl.is_rigid           # the displaced-fluid shadow of the body
+cpl = cpl.replace(m_fsi=torch.where(rb, dx * dx, cpl.m_fsi),
+                  rho_fsi=torch.where(rb, 1.0, cpl.rho_fsi))
+cpl = cscheme.make_step(cpl)(cpl, 1e-4)
+assert torch.isfinite(cpl.rho).all() and torch.isfinite(cpl.force).all()
+assert not bool(cpl.nbr_overflow) and float(cpl.fx.abs().max()) > 0
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
