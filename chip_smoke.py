@@ -60,7 +60,23 @@ no result line):
     placement with a box of 8 times the fluid's density, in contact to
     the end (overlap and tangential springs nonzero in both runs); the
     fluid, body and contact-slot fields within rtol 1e-4;
-14. a JSON line of per-kernel numbers (``launches`` from the kernel's
+14. (run beside phase 10, on its two scenes) the split fluid passes of
+    the kdk and reference orderings (B6a with EDAC and with Tait, B6b,
+    B6c with rigid bodies) and K2 on every slot of the contact pack laid
+    out from the coupling pack, against their twins on the sinking box
+    (timed) and with the box on the floor (contact picks > 0): sums as
+    in phase 10, K2's picks bit for bit; times, lanes and pairs;
+15. the kdk ordering: ``gtvf_ordering="kdk"``, 200 steps of the sinking
+    box as in phase 11; checks two K1, one B6a, one B6b, one B6c and one
+    K2 launch per step and nothing else, and the gates of phase 11;
+16. the reference ordering, the same with one K1 launch per step;
+17. the no-fluid route: an RFC scheme with ``fluids=[]`` on phase 4's
+    resting stack, 50 steps at dt = 1e-4 (kdkf routed to kdk): K2 on
+    every slot of its pack against its twin, then one K1 and one K2
+    launch per step and nothing else, overlap > 0, finite fields;
+18. 20 kdk and 20 reference kernel steps against as many twin steps on
+    phase 13's placement, in contact to the end, as in phase 13;
+19. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on),
     then the result line.
 
@@ -114,17 +130,27 @@ G = 9.81
 CPL_N = 100_000
 CPL_STEPS = 200
 CPL_TANK_STEPS = 50
+CPL_NOFLUID_STEPS = 50
 FLUID_SUM_RTOL = 2e-5      # f32 summation order of the fluid sums
 # the step comparison's box: 8 times the fluid's density (steel in
 # water), so the floor contact it starts in lasts the 20 steps (the
 # case's box, rho 2, is thrown off the floor within them)
 CPL_PARITY_RHO = 8.0
-# f32 operations per in-range pair (csrc/fluid.cu): flags, kernel and
-# gradient, then the rates or wall sums (B4) or the pressure gradient,
-# viscosity and FSI terms (forces); per gated contact pair, W and the
-# Mofidi accumulation
-OPS_PER_RATES_PAIR = 60
-OPS_PER_FORCE_PAIR = 55
+# f32 operations of the fluid pair bodies (csrc/fluid.cu), counted from
+# the source (an add, mul, div, sqrt, floor, min or max is one): per
+# in-range pair of the classes a body runs on, the flags decode and h_ij,
+# the spline's gradient or W, then the body's own terms; per gated
+# contact pair, W and the Mofidi accumulation
+OPS_PAIR_HEAD = 18         # flags decode (16), h_ij (2)
+OPS_GRADW = 27             # dW/dr / r of the quintic spline
+OPS_W = 24                 # W of the quintic spline
+OPS_CONTINUITY = 15        # dW vector, v_ij . dW, rho_i m_j / rho_j term
+OPS_EDAC = 28              # the EDAC pressure rate's further terms
+OPS_WALL = 16              # g . x_ij and the five Shepard sums
+OPS_PGRAD = 13             # dW vector, p_i/rho_i^2 + p_j/rho_j^2, 3 sums
+OPS_VISC_TEST = 9          # v_ij . x_ij and its sign (fluid sources)
+OPS_VISC = 16              # the viscous term where v_ij . x_ij < 0
+OPS_FSI = 14               # dW vector, the fluid -> rigid term, 3 sums
 OPS_PER_CONTACT_PAIR = 35
 
 
@@ -189,16 +215,19 @@ def slot_lanes(cnt, nbr):
 # scenes
 # ---------------------------------------------------------------------------
 
-def contact_scene_2d(dev, n_target=100_000):
+def contact_scene_2d(dev, n_target=100_000, coupling=False):
     """8 blocks of side 0.2 in two rows of 4 on the floor of a 3-layer
     tank (the bench's body size and count), a resting stack: the bottom
     row sits GAP dx above the floor's surface layer, neighbours GAP dx
     apart, the top row GAP dx above the bottom row.  A contact engages
-    below 1 dx, so every block is in contact at once."""
+    below 1 dx, so every block is in contact at once.  ``coupling`` sets
+    it up under a rigid-fluid coupling scheme with no fluid group (the
+    reference's stack-of-cylinders setup) instead of the rigid scheme."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, create_tank_2d_from_block_2d)
-    from rigid_body_2d_3d_pysph_tpu_torch.models import RigidBody2DScheme
+    from rigid_body_2d_3d_pysph_tpu_torch.models import (
+        RigidBody2DScheme, RigidFluidCouplingScheme)
     from rigid_body_2d_3d_pysph_tpu_torch.state import (
         make_group, build_scene, ROLE_RIGID, ROLE_BOUNDARY)
 
@@ -227,8 +256,13 @@ def contact_scene_2d(dev, n_target=100_000):
     scene = build_scene(bodies + [tank], dim=2,
                         total_no_bodies=n_bodies + 1, spacing0=dx,
                         device=dev, dtype=config.WORK_DTYPE)
-    scheme = RigidBody2DScheme([g.name for g in bodies], ["tank"], dim=2,
-                               gy=-9.81)
+    names = [g.name for g in bodies]
+    if coupling:
+        scheme = RigidFluidCouplingScheme(
+            [], ["tank"], names, dim=2, rho0=2000.0, p0=0.0, c0=1.0,
+            h=1.3 * dx, nu=0.0, gy=-9.81)
+    else:
+        scheme = RigidBody2DScheme(names, ["tank"], dim=2, gy=-9.81)
     return scheme, scheme.setup(scene), dx
 
 
@@ -324,6 +358,10 @@ def phase_kernels(scheme, scene, label, timings):
               f"{label}: contact block {c} off by "
               f"{float((a - b).abs().max())}")
     k2_err = float((out - out_ref).abs().max())
+    # the every-slot instance (block skip) on the same rows: the same
+    # output; its time below says what the skip would cost this path
+    check(torch.equal(tck.contact_sums(*k2_args, skip_idle=True), out),
+          f"{label}: K2's skip_idle instance != its culled instance")
     n_pairs = int(valid.sum()) * cfg.M * nbr.shape[1] * cfg.M
     print(f"[kernels] {label}: NC={cfg.NC_max} M={cfg.M} O={cfg.O} "
           f"F={dfT.shape[1]} S={S} interesting={n_int} (kernel rows "
@@ -335,6 +373,8 @@ def phase_kernels(scheme, scene, label, timings):
         pack_ms=cuda_ms(lambda: tpe.expand_slots(*k1_args)),
         pack_plain_ms=cuda_ms(lambda: tpe.expand_slots_reference(*k1_args)),
         contact_ms=cuda_ms(lambda: tck.contact_sums(*k2_args)),
+        contact_skip_ms=cuda_ms(
+            lambda: tck.contact_sums(*k2_args, skip_idle=True)),
         contact_plain_ms=cuda_ms(
             lambda: tck.contact_sums_reference(*k2_args)),
         pack_err=k1_err, contact_err=k2_err)
@@ -366,7 +406,8 @@ def phase_kernels(scheme, scene, label, timings):
           f"{t['contact_ms']:.4f} ms (plain {t['contact_plain_ms']:.4f} ms, "
           f"bound {t['contact_bound']:.4f} ms by {t['contact_bound_by']}; "
           f"{live_lanes} live candidate lanes, {n_src} source and "
-          f"{n_query} query particles)", flush=True)
+          f"{n_query} query particles); the skip_idle instance on the same "
+          f"rows {t['contact_skip_ms']:.4f} ms", flush=True)
     timings[label] = t
 
 
@@ -911,29 +952,89 @@ def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
     return scheme, scene, 0.25 * dx / (co * 1.1)
 
 
-def fluid_pair_counts(dfT, nbr, cutoff, chunk=2048):
-    """(pairs in range between live lanes, gated contact pairs) of the
-    coupling pack: the work the passes' bodies do on this data."""
+def fluid_pass_work(dfT, nbr, cnt, cutoff, chunk=2048):
+    """The work of the coupling passes' bodies on the pack ``dfT`` over
+    the stencil rows ``nbr`` (``cnt`` live lanes per slot), by the classes
+    each body runs on: the candidate lanes scanned by the query lanes of
+    each destination class (``lanes_<classes>``), and the pairs in range
+    by (destination, source) class: ``fl_flbd`` fluid <- fluid or wall,
+    ``fl_rg`` fluid <- body, ``fl_fl`` fluid <- fluid (``visc`` those
+    approaching), ``solid_fl`` wall or body <- fluid, ``rg_fl`` body <-
+    fluid; ``in_range`` every live pair, ``gated`` the contact gate's."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
 
     NC, O = nbr.shape
     M = dfT.shape[2]
-    in_range = gated = 0
+    _, _, sb, fl, rg = (c == 1.0 for c in
+                        fk.decode_flags(dfT[:NC, fk.FFLAGS]))
+    ext = torch.cat([cnt, cnt.new_zeros(1)])
+    src_lanes = ext[torch.clamp(nbr, 0, NC)].sum(1)
+    lanes = lambda q: int((q.sum(1) * src_lanes).sum())
+    work = dict(lanes_fluid=lanes(fl), lanes_solid=lanes(sb | rg),
+                lanes_fluid_solid=lanes(fl | sb | rg),
+                lanes_fluid_rigid=lanes(fl | rg))
+    work.update(dict.fromkeys(("in_range", "gated", "fl_flbd", "fl_rg",
+                               "fl_fl", "visc", "solid_fl", "rg_fl"), 0))
     for c0 in range(0, NC, chunk):
         nb = nbr[c0:c0 + chunk]
         B = nb.shape[0]
         q = dfT[c0:c0 + B]
         src = dfT[nb].permute(0, 2, 1, 3).reshape(B, dfT.shape[1], O * M)
-        d = [q[:, f, :, None] - src[:, f, None, :] for f in (0, 1, 2)]
-        near = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) <= cutoff
-        q_dem, _, _, _, q_rg = fk.decode_flags(q[:, fk.FFLAGS, :, None])
-        s_dem, s_cfib, _, s_fl, _ = fk.decode_flags(src[:, fk.FFLAGS, None])
+        d = [q[:, f, :, None] - src[:, f, None, :] for f in
+             (fk.FX, fk.FY, fk.FZ, fk.FU, fk.FV, fk.FW)]
         live = (q[:, fk.FFLAGS, :, None] != -16.0) & \
             (src[:, fk.FFLAGS, None] != -16.0)
-        in_range += int((near & live).sum())
-        gated += int((near & (q_rg == 1.0) & (s_cfib == 1.0)
-                      & (s_fl == 0.0) & (s_dem != q_dem)).sum())
-    return in_range, gated
+        near = live & (torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+                       <= cutoff)
+        q_dem, _, q_sb, q_fl, q_rg = fk.decode_flags(q[:, fk.FFLAGS, :, None])
+        s_dem, s_cfib, s_sb, s_fl, s_rg = fk.decode_flags(
+            src[:, fk.FFLAGS, None])
+        qf, qr = q_fl == 1.0, q_rg == 1.0
+        sf = s_fl == 1.0
+        approach = d[3] * d[0] + d[4] * d[1] + d[5] * d[2] < 0.0
+        for k, m in (("in_range", near),
+                     ("gated", qr & (s_cfib == 1.0) & ~sf & (s_dem != q_dem)),
+                     ("fl_flbd", qf & (sf | (s_sb == 1.0))),
+                     ("fl_rg", qf & (s_rg == 1.0)), ("fl_fl", qf & sf),
+                     ("visc", qf & sf & approach),
+                     ("solid_fl", ((q_sb == 1.0) | qr) & sf),
+                     ("rg_fl", qr & sf)):
+            work[k] += int((near & m).sum())
+    return work
+
+
+def fluid_pass_cost(work, name, n_live, edac=True, has_rigid=True,
+                    visc=True, width=0):
+    """(bytes, f32 operations) the pass ``name`` needs on this data: the
+    pack fields it reads and its ``width`` outputs per live lane once,
+    and the operations on the candidate lanes of its destination classes
+    and on the pairs its bodies run on (``fluid_pass_work``)."""
+    w = work
+    rates = w["fl_flbd"] + (w["fl_rg"] if has_rigid else 0)
+    rates_ops = rates * (OPS_PAIR_HEAD + OPS_GRADW + OPS_CONTINUITY
+                         + (OPS_EDAC if edac else 0))
+    wall_ops = w["solid_fl"] * (OPS_PAIR_HEAD + OPS_W + OPS_WALL)
+    force_ops = rates * (OPS_PAIR_HEAD + OPS_GRADW + OPS_PGRAD)
+    if visc:
+        force_ops += w["fl_fl"] * OPS_VISC_TEST + w["visc"] * OPS_VISC
+    if has_rigid:
+        force_ops += w["rg_fl"] * (OPS_PAIR_HEAD + OPS_GRADW + OPS_FSI)
+    # fields read: x y z u v w m rho h p flags, and m_fsi rho_fsi p_fsi
+    # with bodies; B6a reads p and p_fsi only for EDAC, B6b no m
+    fsi = 3 if has_rigid else 0
+    rates_fields = 11 + fsi - (0 if edac else 1 + (fsi > 0))
+    lanes, ops, fields = {
+        "fluid_rates": ("lanes_fluid", rates_ops, rates_fields),
+        "wall_bc": ("lanes_solid", wall_ops, 10),
+        "fluid_rates_wall": ("lanes_fluid_solid", rates_ops + wall_ops,
+                             11 + fsi),
+        "fluid_forces": ("lanes_fluid_rigid" if has_rigid else
+                         "lanes_fluid", force_ops, 11 + fsi),
+        "fluid_forces_contact": ("lanes_fluid_rigid", force_ops
+                                 + w["gated"] * OPS_PER_CONTACT_PAIR,
+                                 11 + fsi),
+    }[name]
+    return 4 * n_live * (fields + width), w[lanes] * OPS_PER_LANE + ops
 
 
 def check_fluid_columns(got, ref, cols, label, floor=0.0):
@@ -981,8 +1082,7 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed):
     else:
         calls["fluid_forces"] = (fk.fluid_forces, fk.fluid_forces_reference,
                                  base + (scheme.fluid_alpha, scheme.c0))
-    lanes = slot_lanes(pt.cnt, nbr)
-    in_range, gated = fluid_pair_counts(dfT, nbr, cfg.radius)
+    work = fluid_pass_work(dfT, nbr, pt.cnt, cfg.radius)
     n_live = int(pt.n_valid)
     out = {}
     for name, (fast, plain, args) in calls.items():
@@ -1014,20 +1114,16 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed):
         if timed:
             t["ms"] = cuda_ms(lambda: fast(*args))
             t["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
-            # least time: 14 pack fields in and W outputs per live lane
-            # once; the pair bodies' f32 operations on this data
-            ops = in_range * (OPS_PER_RATES_PAIR if name == "fluid_rates_wall"
-                              else OPS_PER_FORCE_PAIR) + lanes * OPS_PER_LANE
-            if name == "fluid_forces_contact":
-                ops += gated * OPS_PER_CONTACT_PAIR
-            t["bound_ms"], t["bound_by"] = bound(4 * n_live * (fk.NF + W),
-                                                 ops)
+            # least time: the fields read and W outputs per live lane
+            # once; the f32 operations of this data's pairs
+            t["bound_ms"], t["bound_by"] = bound(*fluid_pass_cost(
+                work, name, n_live, scheme.edac, has_rigid,
+                abs(scheme.fluid_alpha) > 1e-14, W))
         out[name] = t
     picks = (f", contact slots with a pick {n_found}" if has_rigid else "")
     print(f"[fluid-kernels] {label}: n={scene.n} NC={cfg.NC_max} M={cfg.M} "
-          f"O={cfg.O} S={S} | query lanes {n_live}, live candidate lanes "
-          f"{lanes}, pairs in range {in_range}, gated contact pairs {gated}"
-          f"{picks} | max abs err " + ", ".join(
+          f"O={cfg.O} S={S} | query lanes {n_live}, {work}{picks} | max "
+          "abs err " + ", ".join(
               f"{k} {v['err']:.3e}" for k, v in out.items()), flush=True)
     if timed:
         for k, v in out.items():
@@ -1035,7 +1131,7 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed):
                   f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
                   f"{v['bound_by']})", flush=True)
     timings[label] = out
-    return gated
+    return work["gated"]
 
 
 def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
@@ -1046,6 +1142,7 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
 
     step = scheme.make_step(scene)
     fl = scene.is_fluid
+    has_fluid = len(scheme.fluids) > 0
     has_body = scene.meta.nb > 0
     y0 = float(scene.xcm[0, 1]) if has_body else None
     _build.reset_launches()
@@ -1075,11 +1172,16 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
         rebuilds = 0
         done += n
         chunk_s.append(el)
-        rho = scene.rho[fl]
-        print(f"[{label}] steps {done - n}-{done}: {el:.3f} s, fluid rho "
-              f"{float(rho.min()):.6f}-{float(rho.max()):.6f}"
-              + (f", box COM y {float(scene.xcm[0, 1]):.7f}" if has_body
-                 else ""), flush=True)
+        if has_fluid:
+            rho = scene.rho[fl]
+            state = (f"fluid rho {float(rho.min()):.6f}-"
+                     f"{float(rho.max()):.6f}")
+            if has_body:
+                state += f", box COM y {float(scene.xcm[0, 1]):.7f}"
+        else:
+            state = f"max overlap {float(scene.overlap.max()):.3e}"
+        print(f"[{label}] steps {done - n}-{done}: {el:.3f} s, {state}",
+              flush=True)
     launches = dict(_build.LAUNCHES)
     for k in launches:
         want = per_step.get(k, 0) * steps_run
@@ -1089,33 +1191,39 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
         if v.is_floating_point():
             check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
     check(not bool(scene.nbr_overflow), f"{label}: overflow at the end")
-    dev_rho = float((scene.rho[fl] / scheme.rho0 - 1.0).abs().max())
-    check(dev_rho < 0.05, f"{label}: fluid rho off rho0 by {dev_rho:.3e}")
-    msg = ""
-    if has_body:
+    if has_fluid:
+        dev_rho = float((scene.rho[fl] / scheme.rho0 - 1.0).abs().max())
+        check(dev_rho < 0.05, f"{label}: fluid rho off rho0 by "
+              f"{dev_rho:.3e}")
+        msg = f" | max |rho/rho0 - 1| {dev_rho:.3e}"
+    else:
+        ov = float(scene.overlap.max())
+        check(ov > 0, f"{label}: no overlap: the contact kernel did no work")
+        msg = f" | max overlap {ov:.4e}"
+    if has_body and has_fluid:
         y1 = float(scene.xcm[0, 1])
         check(y1 < y0, f"{label}: the box did not sink ({y0:.7f} -> "
               f"{y1:.7f})")
-        msg = f" | box COM y {y0:.7f} -> {y1:.7f} ({y1 - y0:.3e})"
+        msg += f" | box COM y {y0:.7f} -> {y1:.7f} ({y1 - y0:.3e})"
     steady = chunk_s[1:] or chunk_s
     sps = CHUNK * len(steady) / sum(steady)
     print(f"[{label}] n={scene.n} dt={dt:.6g} steps={done} (run "
           f"{steps_run}) launches " + " ".join(
-              f"{k}={v}" for k, v in launches.items() if v)
-          + f" | max |rho/rho0 - 1| {dev_rho:.3e}{msg}", flush=True)
+              f"{k}={v}" for k, v in launches.items() if v) + msg,
+          flush=True)
     print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
           f"{done / sum(chunk_s):.2f} steps/s all chunks, on {smi}",
           flush=True)
     return scene, launches, sps
 
 
-def phase_coupling_parity(scheme, scene, dt):
-    """20 kernel steps against 20 twin steps from one state, in contact
-    throughout: the dense box starts GAP dx above the floor, engaged, and
-    moving down and sideways.  Sliding, because at zero tangential
-    velocity the Coulomb friction's direction is the rounding noise of
-    the tangent (the reference model's own discontinuity), which no
-    summation-order tolerance holds."""
+def phase_coupling_parity(scheme, scene, dt, label="cpl-parity"):
+    """20 kernel steps against 20 twin steps from one state in the
+    scheme's ordering, in contact throughout: the dense box starts GAP dx
+    above the floor, engaged, and moving down and sideways.  Sliding,
+    because at zero tangential velocity the Coulomb friction's direction
+    is the rounding noise of the tangent (the reference model's own
+    discontinuity), which no summation-order tolerance holds."""
     scene = scene.replace(vcm=torch.tensor(
         [[0.05, -0.5, 0.0]], dtype=scene.dtype, device=scene.device))
     fast = scheme.make_step(scene)
@@ -1125,11 +1233,11 @@ def phase_coupling_parity(scheme, scene, dt):
         a, b = fast(a, dt), plain(b, dt)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
-          "overflow during the coupling step comparison")
+          f"{label}: overflow during the coupling step comparison")
     for c, who in ((a, "kernel"), (b, "twin")):
         check(float(c.overlap.max()) > 0 and
               float(c.delta_lt_x.abs().max()) > 0,
-              f"the coupling comparison's {who} run ended out of contact")
+              f"{label}: the comparison's {who} run ended out of contact")
     worst = []
     eps = torch.finfo(scene.dtype).eps
     # the box's particle positions set the contact distances: two ulps
@@ -1159,13 +1267,139 @@ def phase_coupling_parity(scheme, scene, dt):
         if not bool(((x - y).abs() <= STEP_RTOL * y.abs()
                      + STEP_RTOL * scale + tol).all()):
             bad.append(f"{k} off by {err:.3e} (scale {scale:.3e})")
-    check(not bad, f"coupling kernel step vs twin step (rtol {STEP_RTOL}): "
-          + ", ".join(bad))
-    print(f"[cpl-parity] {COMPARE_STEPS} kernel steps vs {COMPARE_STEPS} "
-          f"twin steps (dense box on the floor, rho {CPL_PARITY_RHO}; end "
+    check(not bad, f"{label}: coupling kernel step vs twin step (rtol "
+          f"{STEP_RTOL}): " + ", ".join(bad))
+    print(f"[{label}] {scheme.gtvf_ordering}: {COMPARE_STEPS} kernel steps "
+          f"vs {COMPARE_STEPS} twin steps (dense box on the floor, rho "
+          f"{CPL_PARITY_RHO}; end "
           f"overlap {float(b.overlap.max()):.3e}, |delta_lt_x| "
           f"{float(b.delta_lt_x.abs().max()):.3e}), max abs diff: "
           + ", ".join(worst), flush=True)
+
+
+def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed):
+    """K2 on every slot of the contact pack ``dfT`` (the kdk and reference
+    orderings' cell pipeline) against its twin: picks bit for bit, the
+    sums as in phase 3; ``timed`` also times both and computes the bound.
+    Returns (numbers, query lanes with a pick)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+
+    NC = cfg.NC_max
+    nbr = grid.nbr_slots
+    args = (dfT, torch.arange(NC, device=dfT.device), nbr, S, cfg.radius,
+            init, kernel)
+    out = tck.contact_sums(*args, skip_idle=True)
+    ref = tck.contact_sums_reference(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{label}: K2 non-finite output")
+    check(torch.equal(out[..., 5 * S:], ref[..., 5 * S:]),
+          f"{label}: K2 picks on every slot != twin (max "
+          f"{float((out[..., 5 * S:] - ref[..., 5 * S:]).abs().max())})")
+    for c in range(5):
+        a, b = out[..., c * S:(c + 1) * S], ref[..., c * S:(c + 1) * S]
+        # the normals (blocks 0-2) are unit vectors: a component near 0
+        # carries the rounding of the others, so their scale is 1
+        scale = max(float(b.abs().max()), 1.0 if c < 3 else 0.0)
+        tol = SUM_RTOL * b.abs() + SUM_RTOL * scale
+        check(bool(((a - b).abs() <= tol).all()), f"{label}: K2 block {c} "
+              f"off by {float((a - b).abs().max())}")
+    t = dict(err=float((out - ref).abs().max()))
+    n_pick = int((ref[..., 5 * S:6 * S] < init).sum())
+    if timed:
+        t["ms"] = cuda_ms(lambda: tck.contact_sums(*args, skip_idle=True))
+        t["plain_ms"] = cuda_ms(lambda: tck.contact_sums_reference(*args),
+                                reps=3, warmup=1)
+        # least time: F fields in and 12S words out per live lane; 9 ops
+        # per candidate lane of the rigid query lanes (a block with none
+        # writes its init row and scans nothing)
+        F = dfT.shape[1]
+        flags = dfT[:NC, F - 1]
+        n_rigid = (tck.decode_flags(flags)[3] == 1.0).sum(1)
+        cnt = (flags != -8.0).sum(1)
+        ext = torch.cat([cnt, torch.zeros(1, dtype=cnt.dtype,
+                                          device=cnt.device)])
+        lanes = int((n_rigid * ext[torch.clamp(nbr, max=NC)].sum(1)).sum())
+        t["bound_ms"], t["bound_by"] = bound(
+            4 * int(cnt.sum()) * (F + 12 * S), lanes * OPS_PER_LANE)
+        t["lanes"] = lanes
+        t["rigid_slots"] = int((n_rigid > 0).sum())
+        print(f"[{label}] K2 on all {NC} slots ({t['rigid_slots']} with a "
+              f"rigid lane, {lanes} rigid candidate lanes): "
+              f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']})", flush=True)
+    return t, n_pick
+
+
+def phase_split_kernels(scheme, scene, label, timings, timed):
+    """The kdk and reference orderings' passes against their twins on this
+    scene's coupling pack, with seeded random velocities and body p_fsi:
+    B6a with EDAC and with Tait, B6b and B6c with rigid bodies, and K2 on
+    every slot of the contact pack laid out from the pack; ``timed`` also
+    times each and computes its bound.  Returns (gated contact pairs,
+    query lanes with a pick)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    cfg = scheme.cell_config(scene, kernel)
+    dev = scene.device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rnd = lambda a: (torch.rand(scene.n, generator=gen, device=dev) - 0.5) * a
+    scene = scene.replace(u=rnd(0.2), v=rnd(0.2), p_fsi=torch.where(
+        scene.is_rigid, rnd(2.0), scene.p_fsi))
+    grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg)
+    check(not bool(grid.overflow), f"{label}: grid overflow")
+    nbr = grid.nbr_slots
+    S = scene.meta.total_no_bodies
+    base = (dfT, nbr, kernel, cfg.radius)
+    nu, c0 = scheme.edac_nu, scheme.c0
+    # pass -> (kernel, twin, arguments, its name and EDAC flag for the cost)
+    calls = dict(
+        fluid_rates=(fk.fluid_rates, fk.fluid_rates_reference,
+                     base + (nu, c0, True, True), "fluid_rates", True),
+        fluid_rates_tait=(fk.fluid_rates, fk.fluid_rates_reference,
+                          base + (nu, c0, False, True), "fluid_rates", False),
+        wall_bc=(fk.wall_bc, fk.wall_bc_reference,
+                 base + ((scheme.gx, scheme.gy, scheme.gz),), "wall_bc",
+                 True),
+        fluid_forces_rigid=(fk.fluid_forces, fk.fluid_forces_reference,
+                            base + (scheme.fluid_alpha, c0, True),
+                            "fluid_forces", True))
+    work = fluid_pass_work(dfT, nbr, pt.cnt, cfg.radius)
+    n_live = int(pt.n_valid)
+    out = {}
+    for name, (fast, plain, args, cost_name, edac) in calls.items():
+        got = fast(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite")
+        check(float(ref.abs().max()) > 0, f"{label} {name}: all zero")
+        W = got.shape[-1]
+        t = dict(err=check_fluid_columns(got, ref, range(W),
+                                         label + " " + name))
+        if timed:
+            t["ms"] = cuda_ms(lambda: fast(*args))
+            t["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+            # least time as in phase 10, on the classes this pass reads
+            t["bound_ms"], t["bound_by"] = bound(*fluid_pass_cost(
+                work, cost_name, n_live, edac, True,
+                abs(scheme.fluid_alpha) > 1e-14, W))
+        out[name] = t
+    out["contact_all_slots"], n_pick = contact_all_slots(
+        tck.contact_pack(dfT, fk.UNION_LAYOUT, cfg.dim == 2), grid, cfg,
+        kernel, S, 4.0 * scene.meta.spacing0, label, timed)
+    print(f"[split-kernels] {label}: n={scene.n} NC={cfg.NC_max} M={cfg.M} "
+          f"O={cfg.O} S={S} | query lanes {n_live}, {work}, K2 query lanes "
+          f"with a pick {n_pick} | max abs err " + ", ".join(
+              f"{k} {v['err']:.3e}" for k, v in out.items()), flush=True)
+    if timed:
+        for k, v in out.items():
+            print(f"[split-kernels] {label}: {k} {v['ms']:.4f} ms (plain "
+                  f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+                  f"{v['bound_by']})", flush=True)
+    timings[label] = out
+    return work["gated"], n_pick
 
 
 def main() -> int:
@@ -1259,8 +1493,8 @@ def main() -> int:
         del dscheme, dend
 
         # 10. coupling kernels against twins: the main path's scene (timed)
-        # and the contact placement
-        fl_t = {}
+        # and the contact placement; 14. the split passes on the same two
+        fl_t, sp_t = {}, {}
         for label, floor in (("sinking box", False), ("box on floor", True)):
             t0 = time.perf_counter()
             cscheme, cscene, cdt = sinking_box_scene(dev, floor=floor)
@@ -1270,17 +1504,19 @@ def main() -> int:
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
             gated = phase_fluid_kernels(cscheme, cscene, label, fl_t,
                                         timed=not floor)
+            _, n_pick = phase_split_kernels(cscheme, cscene, label, sp_t,
+                                            timed=not floor)
             if floor:
-                check(gated > 0, "no gated contact pair on the floor")
+                check(gated > 0 and n_pick > 0,
+                      "no gated contact pair on the floor")
             else:
                 mscheme, mscene = cscheme, cscene
         del cscheme, cscene
 
-        # 11. the coupling main path (the sinking box)
+        # 11. the coupling main path (the sinking box, fused kdkf)
         _, cpl_launches, cpl_sps = phase_coupling_main(
             mscheme, mscene, cdt, CPL_STEPS, "cpl-main", smi,
             dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1))
-        del mscheme, mscene
 
         # 12. the fluid-only tank (no rigid body: B6c in B5's place): its
         # passes against their twins on its pack (timed), then its path
@@ -1295,6 +1531,43 @@ def main() -> int:
         pscheme, pscene, pdt = sinking_box_scene(dev, floor=True,
                                                  rho_b=CPL_PARITY_RHO)
         phase_coupling_parity(pscheme, pscene, pdt)
+
+        # 15. the kdk ordering, 16. the reference ordering, from the
+        # sinking box's set-up state
+        split = dict(fluid_rates=1, wall_bc=1, fluid_forces=1, contact=1)
+        sps_by, launches_by = {}, {}
+        for ordering, n_pack in (("kdk", 2), ("reference", 1)):
+            mscheme.gtvf_ordering = ordering
+            _, launches_by[ordering], sps_by[ordering] = phase_coupling_main(
+                mscheme, mscene, cdt, CPL_STEPS, f"cpl-{ordering}", smi,
+                dict(split, pack_expand=n_pack))
+        del mscheme, mscene
+
+        # 17. the no-fluid route on the resting stack
+        t0 = time.perf_counter()
+        nscheme, nscene, _ = contact_scene_2d(dev, coupling=True)
+        print(f"[nofluid-setup] n={nscene.n} cfg={nscheme._cell_cfg} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel
+        from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+        nkernel = get_kernel(nscheme.kernel_name, 2)
+        ncfg = nscheme.cell_config(nscene, nkernel)
+        ngrid, _, ndfT = contact_kernel.pack_scene(nscene, ncfg)
+        nf_k2, n_pick = contact_all_slots(
+            ndfT, ngrid, ncfg, nkernel,
+            nscene.meta.total_no_bodies, 4.0 * nscene.meta.spacing0,
+            "stack (no fluid)", timed=True)
+        check(n_pick > 0, "no contact pick on the stack")
+        del ngrid, ndfT
+        _, nf_launches, nf_sps = phase_coupling_main(
+            nscheme, nscene, DT, CPL_NOFLUID_STEPS, "cpl-nofluid", smi,
+            dict(pack_expand=1, contact=1))
+        del nscheme, nscene
+
+        # 18. kdk and reference kernel steps against twin steps
+        for ordering in ("kdk", "reference"):
+            pscheme.gtvf_ordering = ordering
+            phase_coupling_parity(pscheme, pscene, pdt, f"{ordering}-parity")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1307,9 +1580,15 @@ def main() -> int:
     by_path = lambda k: {p: c[k] for p, c in (
         ("rigid", launches), ("dem-main", dem_launches),
         ("dem-rowwin", rw_launches), ("coupling", cpl_launches),
-        ("coupling-tank", tank_launches)) if c[k]}
+        ("coupling-tank", tank_launches),
+        ("coupling-kdk", launches_by["kdk"]),
+        ("coupling-reference", launches_by["reference"]),
+        ("coupling-nofluid", nf_launches)) if c[k]}
     fluid_err = lambda k: max(fl_t[lab][k]["err"] for lab in fl_t
                               if k in fl_t[lab])
+    split_err = lambda k: max(sp_t[lab][k]["err"] for lab in sp_t)
+    sb = sp_t["sinking box"]
+    k2all = sb["contact_all_slots"]
     kernels = [
         dict(name="pack_expand", route="cuda", source=src + "pack_expand.cu",
              replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_pack.py:47",
@@ -1323,10 +1602,18 @@ def main() -> int:
              replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_contact.py:96",
              launches=launches["contact"],
              launches_by_path=by_path("contact"),
-             max_abs_err=errs("contact_err"),
+             max_abs_err=max(errs("contact_err"), split_err(
+                 "contact_all_slots"), nf_k2["err"]),
              ms=t2["contact_ms"], plain_ms=t2["contact_plain_ms"],
              bound_ms=t2["contact_bound"],
-             bound_by=t2["contact_bound_by"], library_ms=None),
+             bound_by=t2["contact_bound_by"], library_ms=None,
+             skip_instance_culled_ms=t2["contact_skip_ms"],
+             # on every slot: the coupling orderings' cell pipeline
+             all_slots_ms=k2all["ms"], all_slots_plain_ms=k2all["plain_ms"],
+             all_slots_bound_ms=k2all["bound_ms"],
+             all_slots_bound_by=k2all["bound_by"],
+             nofluid_all_slots_ms=nf_k2["ms"],
+             nofluid_all_slots_bound_ms=nf_k2["bound_ms"]),
         dict(name="dem_cell", route="cuda", source=src + "dem.cu",
              replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_dem.py:340",
              launches=dem_launches["dem_cell"],
@@ -1359,10 +1646,37 @@ def main() -> int:
             max_abs_err=fluid_err(name), ms=fm["ms"],
             plain_ms=fm["plain_ms"], bound_ms=fm["bound_ms"],
             bound_by=fm["bound_by"], library_ms=None))
+    # B6c's rigid instance (the kdk and reference orderings) beside the
+    # tank's no-body one
+    fr = sb["fluid_forces_rigid"]
+    kernels[-1].update(
+        max_abs_err=max(kernels[-1]["max_abs_err"],
+                        split_err("fluid_forces_rigid")),
+        rigid_ms=fr["ms"], rigid_plain_ms=fr["plain_ms"],
+        rigid_bound_ms=fr["bound_ms"], rigid_bound_by=fr["bound_by"])
+    for name, line, extra in (
+            ("fluid_rates", 302, ("fluid_rates_tait",)),
+            ("wall_bc", 460, ())):
+        fm = sb[name]
+        entry = dict(
+            name=name, route="cuda", source=src + "fluid.cu",
+            replaces=f"rigid_body_2d_3d_pysph_tpu/ops/pallas_fluid.py:{line}",
+            launches=launches_by["kdk"][name], launches_by_path=by_path(name),
+            max_abs_err=max(split_err(k) for k in (name,) + extra),
+            ms=fm["ms"], plain_ms=fm["plain_ms"], bound_ms=fm["bound_ms"],
+            bound_by=fm["bound_by"], library_ms=None)
+        if extra:
+            ft = sb["fluid_rates_tait"]
+            entry.update(tait_ms=ft["ms"], tait_plain_ms=ft["plain_ms"],
+                         tait_bound_ms=ft["bound_ms"])
+        kernels.append(entry)
     print(f"[done] rigid {main_stats['steps_per_s']:.2f} steps/s at "
           f"n={main_stats['n']}; DEM spill {dem_sps:.2f} steps/s, row-window "
-          f"{rw_sps:.2f} steps/s; coupling {cpl_sps:.2f} steps/s, fluid-only "
-          f"tank {tank_sps:.2f} steps/s; on {smi}", flush=True)
+          f"{rw_sps:.2f} steps/s; coupling kdkf {cpl_sps:.2f} steps/s, "
+          f"fluid-only tank {tank_sps:.2f} steps/s, kdk "
+          f"{sps_by['kdk']:.2f} steps/s, reference "
+          f"{sps_by['reference']:.2f} steps/s, no fluid {nf_sps:.2f} "
+          f"steps/s; on {smi}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

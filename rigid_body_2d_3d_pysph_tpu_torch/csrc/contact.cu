@@ -24,10 +24,13 @@
 // Bound on the card: latency and instruction issue, not bytes.  A block
 // reads O x M x F floats (a few KB in 2D, ~100 KB in 3D) and does
 // M x O x M pair tests, few of them gated; the main path launches it on
-// the few hundred slots the interest cull keeps.  Design: one block per
-// query slot, one thread per (query lane, entity slot), so every running
-// sum and the (min r, lane) pair sit in registers with no cross-thread
-// reduction, and the scan in ascending lane order with a strict "<"
+// the few hundred slots the interest cull keeps.  The coupling steps' cell
+// pipeline launches it on every slot, most of them without a rigid lane;
+// its instance (skip_idle) lets such a block write the init row and
+// return, and the culled path's instance has no such test.  Design: one
+// block per query slot, one thread per (query lane, entity slot), so
+// every running sum and the (min r, lane) pair sit in registers with no
+// cross-thread reduction, and the scan in ascending lane order with a strict "<"
 // gives the lowest lane on a tie.  Source lanes come through shared
 // memory in tiles of TILE stencil entries (all threads read the same
 // word at once: a broadcast, no bank conflicts), with their flags
@@ -53,7 +56,7 @@ __device__ __forceinline__ void decode_flags(float f, float& dem, float& bdry,
   rigid = r - 2.0f * fluid;
 }
 
-template <bool TWO_D>
+template <bool TWO_D, bool SKIP_IDLE>
 __global__ void contact_sums_kernel(const float* __restrict__ dft,
                                     const long long* __restrict__ qslot,
                                     const long long* __restrict__ nbr,
@@ -97,6 +100,12 @@ __global__ void contact_sums_kernel(const float* __restrict__ dft,
 
   mofidi::Acc acc;
   acc.init();
+  // SKIP_IDLE (every slot a query): a block with no active thread writes
+  // the init row without loading the stencil
+  if (SKIP_IDLE && !__syncthreads_or(active)) {
+    acc.store(out + ((long long)b * M + l) * (12 * S) + s, S, init_dist);
+    return;
+  }
 
   for (int o0 = 0; o0 < O; o0 += TILE) {
     const int nt = min(TILE, O - o0);
@@ -147,23 +156,23 @@ __global__ void contact_sums_kernel(const float* __restrict__ dft,
 extern "C" int contact_sums(const void* dft, const void* qslot,
                             const void* nbr, void* out, int NI, int O,
                             int nrows, int M, int S, int two_d,
-                            float cutoff, float init_dist, float sig_num,
-                            float sig_den, void* stream) {
+                            int skip_idle, float cutoff, float init_dist,
+                            float sig_num, float sig_den, void* stream) {
   if (S < 1 || S > S_MAX || M < 1 || M * S > 1024 || nrows < 1)
     return (int)cudaErrorInvalidValue;
   if (NI == 0) return 0;
   const size_t smem = (size_t)TILE * M * 8 * sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (two_d) {
-    contact_sums_kernel<true><<<NI, M * S, smem, st>>>(
-        (const float*)dft, (const long long*)qslot,
-        (const long long*)nbr, (float*)out,
-        O, nrows, M, S, cutoff, init_dist, sig_num, sig_den);
-  } else {
-    contact_sums_kernel<false><<<NI, M * S, smem, st>>>(
-        (const float*)dft, (const long long*)qslot,
-        (const long long*)nbr, (float*)out,
-        O, nrows, M, S, cutoff, init_dist, sig_num, sig_den);
+#define CS(T, K)                                                          \
+  contact_sums_kernel<T, K><<<NI, M * S, smem, st>>>(                     \
+      (const float*)dft, (const long long*)qslot, (const long long*)nbr, \
+      (float*)out, O, nrows, M, S, cutoff, init_dist, sig_num, sig_den)
+  switch ((two_d ? 2 : 0) + (skip_idle ? 1 : 0)) {
+    case 0: CS(false, false); break;
+    case 1: CS(false, true); break;
+    case 2: CS(true, false); break;
+    default: CS(true, true); break;
   }
+#undef CS
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-// The rigid-fluid coupling step's fluid pair passes on the spill cell grid.
+// The rigid-fluid coupling steps' fluid pair passes on the spill cell grid.
 //
 // Replaces the TPU kernels of rigid_body_2d_3d_pysph_tpu/ops/pallas_fluid.py
-// that the fused kdkf step runs (the _scaffold / cell_pair_pallas scaffold
-// with three compute bodies):
+// (the _scaffold / cell_pair_pallas scaffold with five compute bodies).
+// The fused kdkf step runs the first two, the kdk and reference orderings
+// the split passes:
 //
 //   fluid_rates_wall      fluid_rates_wall_pallas :364 (B4) -> [NC, M, 7]
 //                         arho, ap (fluid queries); uf, vf, wf, sw, p_num
@@ -11,8 +12,14 @@
 //                         :494 + pallas_contact._pair_body(union=True))
 //                         -> [NC, M, 12 S + 6]: the Mofidi contact columns
 //                         in K2's order, then au, av, aw, fx, fy, fz
+//   fluid_rates           fluid_rates_pallas :302 (B6a) -> [NC, M, 2],
+//                         B4's rates alone, the fluid/boundary and the
+//                         FSI-rigid source classes summed apart
+//   wall_bc               wall_bc_pallas :460 (B6b) -> [NC, M, 5], B4's
+//                         wall sums alone
 //   fluid_forces          fluid_forces_pallas :562 (B6c) -> [NC, M, 6],
-//                         the forces alone (B5 without its contact part)
+//                         the forces alone (B5 without its contact part),
+//                         with or without the FSI terms
 //
 // Inputs: the coupling pack dft [NC + 1, 14, M] (x y z u v w m rho h p
 // m_fsi rho_fsi p_fsi flags; flags = dem*16 + cfib*8 + static_boundary*4 +
@@ -23,7 +30,7 @@
 //
 // Bound on the card: latency and instruction issue, not bytes.  The pack
 // is 56 bytes a lane and every query lane tests O x M candidate lanes,
-// about a tenth of them in range.  Design, the same for all three passes:
+// about a tenth of them in range.  Design, the same for all five passes:
 // one thread per query lane, blocks of 128 threads (8 slots of M = 16),
 // each thread scanning its slot's stencil rows in order with every sum in
 // a register.  The 16 threads of a slot read the same source word at once
@@ -115,26 +122,36 @@ __device__ __forceinline__ float quintic_gradw(float rij, float h,
 
 // ---------------------------------------------------------------------------
 // B4: rates (fluid queries) and the Adami wall sums (wall and body queries)
+// in one sweep; B6a the rates alone, B6b the wall sums alone
 // ---------------------------------------------------------------------------
 
-template <bool KDIM2, bool EDAC, bool HAS_RIGID>
+// which columns a rates/wall instance writes
+enum { kRatesWall = 0, kRates = 1, kWall = 2 };
+
+template <bool KDIM2, bool EDAC, bool HAS_RIGID, int MODE>
 __global__ void rates_wall_kernel(const float* __restrict__ dft,
                                   const long long* __restrict__ nbr,
                                   float* __restrict__ out, int NC, int O,
                                   int M, float cutoff, float nu2, float cs2,
                                   float gx, float gy, float gz, float sig_num,
                                   float sig_den) {
+  constexpr bool RATES = MODE != kWall, WALL = MODE != kRates;
+  // B6a sums the fluid/boundary and the FSI-rigid source classes apart
+  // (pallas_fluid.py:348-351), B4 in one term (:423-433)
+  constexpr bool SPLIT = MODE == kRates && HAS_RIGID;
+  constexpr int W = MODE == kRatesWall ? 7 : (MODE == kRates ? 2 : 5);
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long slot = g / M;
   const int l = (int)(g - slot * M);
   if (slot >= NC) return;
   const float* q = dft + slot * NF * M;
   const Flags qf = decode(field(q, FFLAGS, M, l));
-  const bool dest_fluid = qf.fluid == 1.0f;
-  const bool dest_solid = qf.sbdry == 1.0f || qf.rigid == 1.0f;
+  const bool dest_fluid = RATES && qf.fluid == 1.0f;
+  const bool dest_solid = WALL && (qf.sbdry == 1.0f || qf.rigid == 1.0f);
 
-  float arho = 0.f, ap = 0.f, uf = 0.f, vf = 0.f, wf = 0.f, sw = 0.f,
-        pn = 0.f;
+  // arho2, ap2: the FSI-rigid class of B6a
+  float arho = 0.f, ap = 0.f, arho2 = 0.f, ap2 = 0.f;
+  float uf = 0.f, vf = 0.f, wf = 0.f, sw = 0.f, pn = 0.f;
   if (dest_fluid || dest_solid) {
     const float qx = field(q, FX, M, l), qy = field(q, FY, M, l),
                 qz = field(q, FZ, M, l);
@@ -159,10 +176,14 @@ __global__ void rates_wall_kernel(const float* __restrict__ dft,
         const bool src_fluid = sf.fluid == 1.0f;
         const bool src_flbd = src_fluid || sf.sbdry == 1.0f;
         const bool src_rigid = sf.rigid == 1.0f;
+        const bool rates =
+            dest_fluid && (src_flbd || (HAS_RIGID && src_rigid));
+        const bool wall = dest_solid && src_fluid;
+        if (!(rates || wall)) continue;
         const float hij = 0.5f * (qh + field(s, FH, M, k));
         float w, dw;
         quintic_w_gradw<KDIM2>(rij, hij, sig_num, sig_den, w, dw);
-        if (dest_fluid && (src_flbd || (HAS_RIGID && src_rigid))) {
+        if (rates) {
           const bool fsi = HAS_RIGID && src_rigid;
           const float mj = field(s, fsi ? FMFSI : FM, M, k);
           const float rhoj = field(s, fsi ? FRHOFSI : FRHO, M, k);
@@ -170,7 +191,8 @@ __global__ void rates_wall_kernel(const float* __restrict__ dft,
           const float vdotdw = (qu - field(s, FU, M, k)) * dwx +
                                (qv - field(s, FV, M, k)) * dwy +
                                (qw - field(s, FW, M, k)) * dwz;
-          arho += rhoi * mj / rhoj * vdotdw;
+          const float da = rhoi * mj / rhoj * vdotdw;
+          float dp = 0.f;
           if (EDAC) {
             const float pj = field(s, fsi ? FPFSI : FP, M, k);
             const float xdotdw = xij * dwx + yij * dwy + zij * dwz;
@@ -180,10 +202,17 @@ __global__ void rates_wall_kernel(const float* __restrict__ dft,
             const float etaij = nu2 * (rhoi * rhoj) / (rhoi + rhoj);
             const float tmp = inv_m * (Vi * Vi + Vj * Vj) * etaij * xdotdw /
                               (r2 + eps);
-            ap += ap1 + tmp * (pi - pj);
+            dp = ap1 + tmp * (pi - pj);
+          }
+          if (SPLIT && fsi) {
+            arho2 += da;
+            ap2 += dp;
+          } else {
+            arho += da;
+            ap += dp;
           }
         }
-        if (dest_solid && src_fluid) {
+        if (wall) {
           const float gdotx = gx * xij + gy * yij + gz * zij;
           uf += field(s, FU, M, k) * w;
           vf += field(s, FV, M, k) * w;
@@ -194,23 +223,29 @@ __global__ void rates_wall_kernel(const float* __restrict__ dft,
       }
     }
   }
-  float* o = out + (slot * M + l) * 7;
-  o[0] = arho;
-  o[1] = ap;
-  o[2] = uf;
-  o[3] = vf;
-  o[4] = wf;
-  o[5] = sw;
-  o[6] = pn;
+  float* o = out + (slot * M + l) * W;
+  if (RATES) {
+    o[0] = SPLIT ? arho + arho2 : arho;
+    o[1] = SPLIT ? ap + ap2 : ap;
+    o += 2;
+  }
+  if (WALL) {
+    o[0] = uf;
+    o[1] = vf;
+    o[2] = wf;
+    o[3] = sw;
+    o[4] = pn;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// B5 / B6c: pressure gradient + artificial viscosity, and with RIGID (B5:
-// rigid bodies present) the FSI source class, the fluid -> rigid force and
-// the Mofidi contact columns on the union layout; B6c is RIGID = false
+// B5 / B6c: pressure gradient + artificial viscosity; with FSI (rigid
+// bodies present) the FSI source class and the fluid -> rigid force; with
+// CONTACT the Mofidi contact columns on the union layout first.  B5 is
+// FSI and CONTACT, B6c FSI (kdk and reference orderings) or neither.
 // ---------------------------------------------------------------------------
 
-template <bool KDIM2, bool VISC, bool RIGID>
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
 __global__ void forces_kernel(const float* __restrict__ dft,
                               const long long* __restrict__ nbr,
                               float* __restrict__ out, int NC, int O, int M,
@@ -220,12 +255,12 @@ __global__ void forces_kernel(const float* __restrict__ dft,
   const long long slot = g / M;
   const int l = (int)(g - slot * M);
   if (slot >= NC) return;
-  const int W = RIGID ? 12 * S + 6 : 6;
+  const int W = CONTACT ? 12 * S + 6 : 6;
   float* orow = out + (slot * M + l) * W;
   const float* q = dft + slot * NF * M;
   const Flags qf = decode(field(q, FFLAGS, M, l));
   const bool dest_fluid = qf.fluid == 1.0f;
-  const bool dest_rigid = RIGID && qf.rigid == 1.0f;
+  const bool dest_rigid = FSI && qf.rigid == 1.0f;
   const float qx = field(q, FX, M, l), qy = field(q, FY, M, l),
               qz = field(q, FZ, M, l);
   const float qh = field(q, FH, M, l);
@@ -240,7 +275,7 @@ __global__ void forces_kernel(const float* __restrict__ dft,
     const float rhoi = field(q, FRHO, M, l), pi = field(q, FP, M, l);
     const float pi_term = pi / (rhoi * rhoi);
     float mfsi_i = 0.f, pfsi_term = 0.f;
-    if (RIGID) {
+    if (FSI) {
       const float rhofsi_i = field(q, FRHOFSI, M, l);
       mfsi_i = field(q, FMFSI, M, l);
       pfsi_term = field(q, FPFSI, M, l) / fmaxf(rhofsi_i * rhofsi_i, 1e-30f);
@@ -259,7 +294,7 @@ __global__ void forces_kernel(const float* __restrict__ dft,
         const Flags sf = decode(field(s, FFLAGS, M, k));
         const bool src_fluid = sf.fluid == 1.0f;
         const bool src_flbd = src_fluid || sf.sbdry == 1.0f;
-        const bool src_rigid = RIGID && sf.rigid == 1.0f;
+        const bool src_rigid = FSI && sf.rigid == 1.0f;
         if (!(src_flbd || src_rigid)) continue;
         const float hij = 0.5f * (qh + field(s, FH, M, k));
         const float dw = quintic_gradw<KDIM2>(rij, hij, sig_num, sig_den);
@@ -301,7 +336,7 @@ __global__ void forces_kernel(const float* __restrict__ dft,
       }
     }
   }
-  float* of = orow + (RIGID ? 12 * S : 0);
+  float* of = orow + (CONTACT ? 12 * S : 0);
   of[0] = au + vu;
   of[1] = av + vv;
   of[2] = aw + vw;
@@ -309,7 +344,7 @@ __global__ void forces_kernel(const float* __restrict__ dft,
   of[4] = fy;
   of[5] = fz;
 
-  if (RIGID) {
+  if (CONTACT) {
     // gate: contact-boundary (cfib), non-fluid source of entity s != the
     // query's dem; rigid query; r <= cutoff.  V_q = m / rho (the patched
     // rho column; rigid lanes are never patched)
@@ -354,35 +389,54 @@ inline unsigned blocks_for(long long lanes) {
   return (unsigned)((lanes + kThreads - 1) / kThreads);
 }
 
-template <bool KDIM2, bool EDAC, bool HAS_RIGID>
-void launch_rates_wall(const float* dft, const long long* nbr, float* out,
-                       int NC, int O, int M, float cutoff, float nu2,
-                       float cs2, float gx, float gy, float gz, float sig_num,
-                       float sig_den, cudaStream_t st) {
-  rates_wall_kernel<KDIM2, EDAC, HAS_RIGID>
-      <<<blocks_for((long long)NC * M), kThreads, 0, st>>>(
-          dft, nbr, out, NC, O, M, cutoff, nu2, cs2, gx, gy, gz, sig_num,
-          sig_den);
+template <int MODE>
+int rates_wall_entry(const void* dft, const void* nbr, void* out, int NC,
+                     int O, int M, int kdim2, int edac, int has_rigid,
+                     float cutoff, float nu2, float cs2, float gx, float gy,
+                     float gz, float sig_num, float sig_den, void* stream) {
+  if (NC < 0 || O < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  if (NC == 0) return 0;
+  const auto* d = (const float*)dft;
+  const auto* nb = (const long long*)nbr;
+  auto* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned nblk = blocks_for((long long)NC * M);
+  const int sel = (kdim2 ? 4 : 0) + (edac ? 2 : 0) + (has_rigid ? 1 : 0);
+#define RW(K, E, H)                                                        \
+  rates_wall_kernel<K, E, H, MODE><<<nblk, kThreads, 0, st>>>(             \
+      d, nb, o, NC, O, M, cutoff, nu2, cs2, gx, gy, gz, sig_num, sig_den)
+  switch (sel) {
+    case 0: RW(false, false, false); break;
+    case 1: RW(false, false, true); break;
+    case 2: RW(false, true, false); break;
+    case 3: RW(false, true, true); break;
+    case 4: RW(true, false, false); break;
+    case 5: RW(true, false, true); break;
+    case 6: RW(true, true, false); break;
+    default: RW(true, true, true); break;
+  }
+#undef RW
+  return (int)cudaGetLastError();
 }
 
-template <bool KDIM2, bool VISC, bool RIGID>
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
 void launch_forces(const float* dft, const long long* nbr, float* out, int NC,
                    int O, int M, int S, float cutoff, float alpha_c0,
                    float init_dist, float sig_num, float sig_den,
                    cudaStream_t st) {
-  forces_kernel<KDIM2, VISC, RIGID>
+  forces_kernel<KDIM2, VISC, FSI, CONTACT>
       <<<blocks_for((long long)NC * M), kThreads, 0, st>>>(
           dft, nbr, out, NC, O, M, S, cutoff, alpha_c0, init_dist, sig_num,
           sig_den);
 }
 
 // runtime flags -> the template instance
-template <bool RIGID>
+template <bool FSI, bool CONTACT>
 int forces_entry(const void* dft, const void* nbr, void* out, int NC, int O,
                  int M, int S, int kdim2, int visc, float cutoff,
                  float alpha_c0, float init_dist, float sig_num,
                  float sig_den, void* stream) {
-  if (NC < 0 || O < 1 || M < 1 || (RIGID && S < 1))
+  if (NC < 0 || O < 1 || M < 1 || (CONTACT && S < 1))
     return (int)cudaErrorInvalidValue;
   if (NC == 0) return 0;
   const auto* d = (const float*)dft;
@@ -390,8 +444,9 @@ int forces_entry(const void* dft, const void* nbr, void* out, int NC, int O,
   auto* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
 #define FC(K, V)                                                            \
-  launch_forces<K, V, RIGID>(d, nb, o, NC, O, M, S, cutoff, alpha_c0,       \
-                             init_dist, sig_num, sig_den, st)
+  launch_forces<K, V, FSI, CONTACT>(d, nb, o, NC, O, M, S, cutoff,         \
+                                    alpha_c0, init_dist, sig_num, sig_den, \
+                                    st)
   switch ((kdim2 ? 2 : 0) + (visc ? 1 : 0)) {
     case 0: FC(false, false); break;
     case 1: FC(false, true); break;
@@ -409,36 +464,55 @@ extern "C" int fluid_rates_wall(const void* dft, const void* nbr, void* out,
                                 int has_rigid, float cutoff, float nu2,
                                 float cs2, float gx, float gy, float gz,
                                 float sig_num, float sig_den, void* stream) {
+  return rates_wall_entry<kRatesWall>(dft, nbr, out, NC, O, M, kdim2, edac,
+                                      has_rigid, cutoff, nu2, cs2, gx, gy, gz,
+                                      sig_num, sig_den, stream);
+}
+
+extern "C" int fluid_rates(const void* dft, const void* nbr, void* out,
+                           int NC, int O, int M, int kdim2, int edac,
+                           int has_rigid, float cutoff, float nu2, float cs2,
+                           float sig_num, float sig_den, void* stream) {
+  return rates_wall_entry<kRates>(dft, nbr, out, NC, O, M, kdim2, edac,
+                                  has_rigid, cutoff, nu2, cs2, 0.0f, 0.0f,
+                                  0.0f, sig_num, sig_den, stream);
+}
+
+// the wall sums do not depend on EDAC or the rigid source class: one
+// instance per kernel dimension
+extern "C" int wall_bc(const void* dft, const void* nbr, void* out, int NC,
+                       int O, int M, int kdim2, float cutoff, float gx,
+                       float gy, float gz, float sig_num, float sig_den,
+                       void* stream) {
   if (NC < 0 || O < 1 || M < 1) return (int)cudaErrorInvalidValue;
   if (NC == 0) return 0;
   const auto* d = (const float*)dft;
   const auto* nb = (const long long*)nbr;
   auto* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int sel = (kdim2 ? 4 : 0) + (edac ? 2 : 0) + (has_rigid ? 1 : 0);
-#define RW(K, E, H)                                                        \
-  launch_rates_wall<K, E, H>(d, nb, o, NC, O, M, cutoff, nu2, cs2, gx, gy, \
-                             gz, sig_num, sig_den, st)
-  switch (sel) {
-    case 0: RW(false, false, false); break;
-    case 1: RW(false, false, true); break;
-    case 2: RW(false, true, false); break;
-    case 3: RW(false, true, true); break;
-    case 4: RW(true, false, false); break;
-    case 5: RW(true, false, true); break;
-    case 6: RW(true, true, false); break;
-    default: RW(true, true, true); break;
-  }
-#undef RW
+  const unsigned nblk = blocks_for((long long)NC * M);
+  if (kdim2)
+    rates_wall_kernel<true, false, false, kWall><<<nblk, kThreads, 0, st>>>(
+        d, nb, o, NC, O, M, cutoff, 0.0f, 0.0f, gx, gy, gz, sig_num,
+        sig_den);
+  else
+    rates_wall_kernel<false, false, false, kWall><<<nblk, kThreads, 0, st>>>(
+        d, nb, o, NC, O, M, cutoff, 0.0f, 0.0f, gx, gy, gz, sig_num,
+        sig_den);
   return (int)cudaGetLastError();
 }
 
 extern "C" int fluid_forces(const void* dft, const void* nbr, void* out,
                             int NC, int O, int M, int kdim2, int visc,
-                            float cutoff, float alpha_c0, float sig_num,
-                            float sig_den, void* stream) {
-  return forces_entry<false>(dft, nbr, out, NC, O, M, 0, kdim2, visc, cutoff,
-                             alpha_c0, 0.0f, sig_num, sig_den, stream);
+                            int has_rigid, float cutoff, float alpha_c0,
+                            float sig_num, float sig_den, void* stream) {
+  if (has_rigid)
+    return forces_entry<true, false>(dft, nbr, out, NC, O, M, 0, kdim2, visc,
+                                     cutoff, alpha_c0, 0.0f, sig_num, sig_den,
+                                     stream);
+  return forces_entry<false, false>(dft, nbr, out, NC, O, M, 0, kdim2, visc,
+                                    cutoff, alpha_c0, 0.0f, sig_num, sig_den,
+                                    stream);
 }
 
 extern "C" int fluid_forces_contact(const void* dft, const void* nbr,
@@ -447,6 +521,7 @@ extern "C" int fluid_forces_contact(const void* dft, const void* nbr,
                                     float alpha_c0, float init_dist,
                                     float sig_num, float sig_den,
                                     void* stream) {
-  return forces_entry<true>(dft, nbr, out, NC, O, M, S, kdim2, visc, cutoff,
-                            alpha_c0, init_dist, sig_num, sig_den, stream);
+  return forces_entry<true, true>(dft, nbr, out, NC, O, M, S, kdim2, visc,
+                                  cutoff, alpha_c0, init_dist, sig_num,
+                                  sig_den, stream);
 }

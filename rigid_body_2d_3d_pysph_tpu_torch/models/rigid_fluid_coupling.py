@@ -1,14 +1,17 @@
 """Rigid-fluid coupling scheme: WCSPH (EDAC or Tait) fluid, Adami wall
-conditions, two-way FSI and the Mofidi rigid contact, in the fused
-kick-drift-kick step (the "kdkf" GTVF ordering).
+conditions, two-way FSI and the Mofidi rigid contact, in the three GTVF
+orderings of the reference.
 
 Counterpart of ``RigidFluidCouplingScheme`` in
 ``rigid_body_2d_3d_pysph_tpu/models/rigid_fluid_coupling.py``, the
-branch of ``_make_step_cell_kdkf`` (:421-746) that the JAX package runs
-off the TPU: one grid build and one 14-field pack per step, three pair
-passes on that pack with the thermo updates patched into its columns
-between them, one unpack, and the contact tail on the full ``[N, S]``
-slot schema (``_contact_force_tail``).  One step:
+branches the JAX package runs off the TPU, as eager functions
+``step(scene, dt) -> scene`` on the full ``[N, S]`` slot schema
+(``_contact_force_tail``):
+
+* kdkf, the fused kick-drift-kick (``_make_step_cell_kdkf`` :421-746):
+  one grid build and one 14-field pack per step, three pair passes on
+  that pack with the thermo updates patched into its columns between
+  them, one unpack::
 
     kick -> drift -> build + pack (K1) -> rates + wall sums (B4) ->
     patch rho (and p: EDAC or Tait) -> patch the wall and body
@@ -16,9 +19,30 @@ slot schema (``_contact_force_tail``).  One step:
     one unpack -> thermo, wall and force updates -> contact tail with
     the fluid -> rigid force -> kick
 
+* kdk (``_make_step_cell`` :809-917), two grids a step::
+
+    kick -> build + pack at x_n (K1) -> rates (B6a) -> drift -> Tait ->
+    build + pack at x_n+1 (K1) -> wall sums (B6b) -> patch p, p_fsi ->
+    forces (B6c) -> contact on every slot (K2) -> kick
+
+* reference, the PySPH staging (``_make_step_cell`` :919-1018), one
+  grid a step::
+
+    build + pack at x_n (K1) -> rates (B6a) on the pre-kick velocities
+    -> kick -> Tait -> patch u, v, w, p -> wall sums (B6b) -> patch p,
+    p_fsi -> forces (B6c) -> contact on every slot (K2) -> drift -> kick
+
+A scheme with no fluid group runs kdk for kdkf, as the reference does
+(``make_step`` :279-289): kicks, drift, one grid with the contact pack
+alone (K1), contact, kick.  The kdk and reference steps patch their
+pack's columns where the reference repacks (``pack_fluid_pallas`` at
+:771/:784/:797): the passes see the same values.  With fluid, their
+contact pack is laid out from the coupling pack
+(``contact_kernel.contact_pack``), so a grid costs one K1 launch.
+
 Bodies are integrated in 3D (``two_d=False``) even in 2D scenes, as the
-reference does.  Not ported: the kdk and reference orderings, the RK2
-fluid stepper and the compact contact tail at S >= 8 (ROADMAP A8).
+reference does.  Not ported: the RK2 fluid stepper and the compact
+contact tail at S >= 8 (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -29,6 +53,7 @@ import torch
 from ..ops import cellpairs as cellmod
 from ..ops import fluid_kernel as fk
 from ..ops.cellpairs import unpack
+from ..ops import contact_kernel as tck
 from ..ops.fluid import tait_eos
 from ..ops.kernels import get_kernel
 from ..state import rigid_setup
@@ -124,27 +149,120 @@ class RigidFluidCouplingScheme(Scheme):
 
     # -- the step -----------------------------------------------------------
     def make_step(self, scene: Scene, plain: bool = False):
-        """The fused kdkf step as an eager ``step(scene, dt) -> scene``.
+        """The step of ``gtvf_ordering`` as an eager ``step(scene, dt) ->
+        scene``; kdkf with no fluid group runs kdk (reference :279-289).
         ``plain=True`` runs the kernels' plain versions even on CUDA
         tensors (the kernel step's reference on the card)."""
         if self.fluid_stepper != "gtvf":
             raise NotImplementedError(
                 f"fluid_stepper={self.fluid_stepper!r}: the RK2 fluid "
                 "stepper is not ported (ROADMAP A8)")
-        if self.gtvf_ordering != "kdkf" or not self.fluids:
-            raise NotImplementedError(
-                f"gtvf_ordering={self.gtvf_ordering!r} with "
-                f"{len(self.fluids)} fluid group(s): only the fused kdkf "
-                "step with fluid is ported (the kdk and reference "
-                "orderings, ROADMAP A8 / B6)")
+        ordering = self.gtvf_ordering
+        if ordering == "kdkf" and not self.fluids:
+            ordering = "kdk"
+        step_builds = dict(kdkf=build_coupling_kdkf_step,
+                        kdk=build_coupling_kdk_step,
+                        reference=build_coupling_reference_step)
+        if ordering not in step_builds:
+            raise ValueError(f"gtvf_ordering={ordering!r}: one of "
+                             f"{sorted(step_builds)}")
         kernel = get_kernel(self.kernel_name, self.dim)
-        return build_coupling_kdkf_step(
-            kernel, self.cell_config(scene, kernel),
-            dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
-                 gx=self.gx, gy=self.gy, gz=self.gz),
+        args = dict(
+            kernel=kernel, cfg=self.cell_config(scene, kernel),
+            params=dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
+                        gx=self.gx, gy=self.gy, gz=self.gz),
             edac=self.edac, nu_edac=self.edac_nu, c0=self.c0,
             rho0=self.rho0, gamma=self.gamma, fluid_alpha=self.fluid_alpha,
             has_rigid=len(self.rigid_bodies) > 0, plain=plain)
+        if ordering != "kdkf":
+            args["has_fluid"] = len(self.fluids) > 0
+        return step_builds[ordering](**args)
+
+
+def _masks(scene):
+    """(fluid, static boundary, rigid, solid) over the active particles."""
+    fl = scene.is_fluid & scene.active
+    bd = scene.is_static_boundary & scene.active
+    rb = scene.is_rigid & scene.active
+    return fl, bd, rb, bd | rb
+
+
+def _kick(scene, dt, fl, has_fluid, has_rigid):
+    """Half-kick of the fluid velocities and the bodies, and the body
+    particles' velocities from their bodies."""
+    if has_fluid:
+        scene = scene.replace(
+            u=torch.where(fl, scene.u + 0.5 * dt * scene.au, scene.u),
+            v=torch.where(fl, scene.v + 0.5 * dt * scene.av, scene.v),
+            w=torch.where(fl, scene.w + 0.5 * dt * scene.aw, scene.w))
+    if has_rigid:
+        scene = _particles_from_body_velocity(
+            _body_half_kick(scene, dt, two_d=False))
+    return scene
+
+
+def _drift(scene, dt, fl, edac, has_fluid, has_rigid):
+    """Fluid positions, density, volume (and the EDAC pressure) from the
+    stored rates; the bodies and their particles' positions."""
+    if has_fluid:
+        rho_new = scene.rho + dt * scene.arho
+        upd = dict(
+            x=torch.where(fl, scene.x + dt * scene.u, scene.x),
+            y=torch.where(fl, scene.y + dt * scene.v, scene.y),
+            z=torch.where(fl, scene.z + dt * scene.w, scene.z),
+            rho=torch.where(fl, rho_new, scene.rho),
+            vol=torch.where(fl, scene.m / rho_new, scene.vol))
+        if edac:
+            upd["p"] = torch.where(fl, scene.p + dt * scene.ap, scene.p)
+        scene = scene.replace(**upd)
+    if has_rigid:
+        scene = _particles_from_body_position(
+            _body_drift(scene, dt, two_d=False))
+    return scene
+
+
+def _wall_pressure(sw, p_num):
+    """The Shepard wall pressure p_num / sw where sw > 1e-14."""
+    has = sw > 1e-14
+    return torch.where(has, p_num / torch.where(has, sw, 1.0), p_num), has
+
+
+def _apply_wall_forces(scene, wall, forces, gvec):
+    """The wall and body updates from the Adami sums ``wall [N, 5]`` (uf,
+    vf, wf, sw, p_num) and the fluid accelerations from the force columns
+    ``forces [N, >= 3]`` (au, av, aw, ...)."""
+    fl, bd, rb, solid = _masks(scene)
+    zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
+    sw = wall[:, 3]
+    p_bc, has = _wall_pressure(sw, wall[:, 4])
+    inv = torch.where(has, 1.0 / torch.clamp(sw, min=1e-300), zero)
+    ufn, vfn, wfn = wall[:, 0] * inv, wall[:, 1] * inv, wall[:, 2] * inv
+    return scene.replace(
+        p=torch.where(bd, torch.clamp(p_bc, min=0.0), scene.p),
+        p_fsi=torch.where(rb, p_bc, scene.p_fsi),
+        uf=torch.where(solid, ufn, scene.uf),
+        vf=torch.where(solid, vfn, scene.vf),
+        wf=torch.where(solid, wfn, scene.wf),
+        ug=torch.where(solid, 2.0 * scene.u - ufn, scene.ug),
+        vg=torch.where(solid, 2.0 * scene.v - vfn, scene.vg),
+        wg=torch.where(solid, 2.0 * scene.w - wfn, scene.wg),
+        wij_adami=torch.where(solid, sw, scene.wij_adami),
+        au=torch.where(fl, gvec[0] + forces[:, 0], zero),
+        av=torch.where(fl, gvec[1] + forces[:, 1], zero),
+        aw=torch.where(fl, gvec[2] + forces[:, 2], zero))
+
+
+def _contact_tail(scene, cp, params, dt, extra_fx):
+    """``_contact_force_tail`` on the unpacked contact columns ``cp [N,
+    12, S]`` with the fluid -> rigid force ``extra_fx`` (or None)."""
+    dinfo = dict(
+        contact_force_dist=cp[:, 4],
+        closest_point_dist_to_source=cp[:, 5],
+        x_source=cp[:, 6], y_source=cp[:, 7], z_source=cp[:, 8],
+        vx_source=cp[:, 9], vy_source=cp[:, 10], vz_source=cp[:, 11])
+    return _contact_force_tail(scene, cp[:, 0], cp[:, 1], cp[:, 2],
+                               cp[:, 3], dinfo, params, dt,
+                               extra_fx=extra_fx)
 
 
 def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
@@ -186,10 +304,7 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
                                 p_d)
         # the wall pressures: Shepard p_num / sw where sw > 1e-14,
         # clamped at 0 on walls, unclamped on bodies (p_fsi)
-        sw = rw[..., 5]
-        has = sw > 1e-14
-        pbc = torch.where(has, rw[..., 6] / torch.where(has, sw, 1.0),
-                          rw[..., 6])
+        pbc, _ = _wall_pressure(rw[..., 5], rw[..., 6])
         p2 = torch.where(bd_l, torch.clamp(pbc, min=0.0), p_new)
         pfsi2 = torch.where(rb_l, pbc, dfT[:NC, fk.FPFSI])
         # the patches write the step's fresh pack in place
@@ -209,23 +324,11 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
         return grid, out, flat[:, 7:7 + 12 * S].reshape(scene.n, 12, S)
 
     def step(scene: Scene, dt: float) -> Scene:
-        fl = scene.is_fluid & scene.active
-        bd = scene.is_static_boundary & scene.active
-        rb = scene.is_rigid & scene.active
-        solid = bd | rb
+        fl, _, rb, _ = _masks(scene)
         zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
 
-        def kick(s):
-            s = s.replace(u=torch.where(fl, s.u + 0.5 * dt * s.au, s.u),
-                          v=torch.where(fl, s.v + 0.5 * dt * s.av, s.v),
-                          w=torch.where(fl, s.w + 0.5 * dt * s.aw, s.w))
-            if has_rigid:
-                s = _particles_from_body_velocity(
-                    _body_half_kick(s, dt, two_d=False))
-            return s
-
         # kick, then drift the positions (the thermo update rides the pack)
-        scene = kick(scene)
+        scene = _kick(scene, dt, fl, True, has_rigid)
         scene = scene.replace(
             x=torch.where(fl, scene.x + dt * scene.u, scene.x),
             y=torch.where(fl, scene.y + dt * scene.v, scene.y),
@@ -246,41 +349,155 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
         else:
             upd["p"], upd["cs"] = tait_eos(scene.replace(rho=upd["rho"]),
                                            rho0, c0, gamma, fl)
-        scene = scene.replace(**upd)
-
-        sw = out[:, 5]
-        has = sw > 1e-14
-        p_bc = torch.where(has, out[:, 6] / torch.where(has, sw, 1.0),
-                           out[:, 6])
-        inv = torch.where(has, 1.0 / torch.clamp(sw, min=1e-300), zero)
-        ufn, vfn, wfn = out[:, 2] * inv, out[:, 3] * inv, out[:, 4] * inv
-        scene = scene.replace(
-            p=torch.where(bd, torch.clamp(p_bc, min=0.0), scene.p),
-            p_fsi=torch.where(rb, p_bc, scene.p_fsi),
-            uf=torch.where(solid, ufn, scene.uf),
-            vf=torch.where(solid, vfn, scene.vf),
-            wf=torch.where(solid, wfn, scene.wf),
-            ug=torch.where(solid, 2.0 * scene.u - ufn, scene.ug),
-            vg=torch.where(solid, 2.0 * scene.v - vfn, scene.vg),
-            wg=torch.where(solid, 2.0 * scene.w - wfn, scene.wg),
-            wij_adami=torch.where(solid, sw, scene.wij_adami),
-            au=torch.where(fl, params["gx"] + out[:, 7], zero),
-            av=torch.where(fl, params["gy"] + out[:, 8], zero),
-            aw=torch.where(fl, params["gz"] + out[:, 9], zero))
+        scene = _apply_wall_forces(scene.replace(**upd), out[:, 2:7],
+                                   out[:, 7:], gvec)
         if has_rigid:
             extra = tuple(torch.where(rb, out[:, c], zero)
                           for c in (10, 11, 12))
-            dinfo = dict(
-                contact_force_dist=cp[:, 4],
-                closest_point_dist_to_source=cp[:, 5],
-                x_source=cp[:, 6], y_source=cp[:, 7], z_source=cp[:, 8],
-                vx_source=cp[:, 9], vy_source=cp[:, 10],
-                vz_source=cp[:, 11])
-            scene = _contact_force_tail(scene, cp[:, 0], cp[:, 1], cp[:, 2],
-                                        cp[:, 3], dinfo, params, dt,
-                                        extra_fx=extra)
+            scene = _contact_tail(scene, cp, params, dt, extra)
         scene = scene.replace(nbr_overflow=scene.nbr_overflow
                               | grid.overflow)
-        return kick(scene)
+        return _kick(scene, dt, fl, True, has_rigid)
+
+    return step
+
+
+def _split_passes(kernel, cfg, params: dict, fluid_alpha: float, c0: float,
+                  has_fluid: bool, has_rigid: bool, plain: bool):
+    """The forces evaluation that the kdk and reference orderings share,
+    on one grid and its pack ``dfT`` (:func:`_pack`) holding the current
+    state: the wall sums (B6b), the wall and body pressures patched into
+    the pack, the forces (B6c), then the contact on every slot (K2) on
+    the contact pack laid out from the coupling pack (with no fluid,
+    ``dfT`` is the contact pack).  Returns ``forces(scene, grid, dfT,
+    dt) -> scene`` with the wall, force and contact updates applied."""
+    gvec = (params["gx"], params["gy"], params["gz"])
+    NC = cfg.NC_max
+    cutoff = cfg.radius
+
+    def evaluate(scene, grid, dfT, dt):
+        wall = fk.wall_bc_reference if plain else fk.wall_bc
+        forces = fk.fluid_forces_reference if plain else fk.fluid_forces
+        n, S = scene.n, scene.meta.total_no_bodies
+        nbr = grid.nbr_slots
+        extra = None
+        if has_fluid:
+            wb = wall(dfT, nbr, kernel, cutoff, gvec)         # [NC, M, 5]
+            _, _, sb, _, rg = fk.decode_flags(dfT[:NC, fk.FFLAGS])
+            pbc, _ = _wall_pressure(wb[..., 3], wb[..., 4])
+            dfT[:NC, fk.FP] = torch.where(sb == 1.0, torch.clamp(pbc, min=0.0),
+                                          dfT[:NC, fk.FP])
+            dfT[:NC, fk.FPFSI] = torch.where(rg == 1.0, pbc,
+                                             dfT[:NC, fk.FPFSI])
+            fo = forces(dfT, nbr, kernel, cutoff, fluid_alpha, c0,
+                        has_rigid)                             # [NC, M, 6]
+            out = unpack(grid, cfg, torch.cat([wb, fo], -1), n,
+                         0.0).to(scene.dtype)
+            scene = _apply_wall_forces(scene, out[:, :5], out[:, 5:], gvec)
+            rb = scene.is_rigid & scene.active
+            zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
+            extra = tuple(torch.where(rb, out[:, c], zero)
+                          for c in (8, 9, 10))
+        if has_rigid:
+            cdfT = (tck.contact_pack(dfT, fk.UNION_LAYOUT, cfg.dim == 2)
+                    if has_fluid else dfT)
+            cp = tck.contact_pipeline_cell(
+                cdfT, grid, cfg, kernel, S, 4.0 * scene.meta.spacing0, n,
+                plain).to(scene.dtype)
+            scene = _contact_tail(scene, cp, params, dt, extra)
+        return scene
+
+    return evaluate
+
+
+def _pack(scene, cfg, has_fluid: bool, plain: bool):
+    """(grid, pack) of the forces evaluation: the coupling pack, or with
+    no fluid the contact pack itself; one K1 launch either way."""
+    if has_fluid:
+        grid, _, dfT = fk.pack_fluid_sorted(scene, cfg, plain)
+    else:
+        grid, _, dfT = tck.pack_scene(scene, cfg, plain, want_dense_pos=True)
+    return grid, dfT
+
+
+def _rates(scene, grid, dfT, kernel, cfg, nu_edac, c0, edac, has_rigid,
+           plain):
+    """B6a on the pack ``dfT`` -> the scene with arho, ap on the fluid."""
+    rates = fk.fluid_rates_reference if plain else fk.fluid_rates
+    r = unpack(grid, cfg, rates(dfT, grid.nbr_slots, kernel, cfg.radius,
+                                nu_edac, c0, edac, has_rigid),
+               scene.n, 0.0).to(scene.dtype)
+    fl = scene.is_fluid & scene.active
+    zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
+    return scene.replace(arho=torch.where(fl, r[:, 0], zero),
+                         ap=torch.where(fl, r[:, 1], zero))
+
+
+def build_coupling_kdk_step(kernel, cfg, params: dict, edac: bool,
+                            nu_edac: float, c0: float, rho0: float,
+                            gamma: float, fluid_alpha: float,
+                            has_fluid: bool, has_rigid: bool,
+                            plain: bool = False):
+    """One kdk timestep (see the module docstring): the rates on a grid at
+    x_n, the wall sums, forces and contact on a grid at x_n+1."""
+    evaluate = _split_passes(kernel, cfg, params, fluid_alpha, c0,
+                             has_fluid, has_rigid, plain)
+
+    def step(scene: Scene, dt: float) -> Scene:
+        fl = _masks(scene)[0]
+        scene = _kick(scene, dt, fl, has_fluid, has_rigid)
+        ovf = scene.nbr_overflow
+        if has_fluid:
+            grid, _, dfT = fk.pack_fluid_sorted(scene, cfg, plain)
+            ovf = ovf | grid.overflow
+            scene = _rates(scene, grid, dfT, kernel, cfg, nu_edac, c0, edac,
+                           has_rigid, plain)
+        scene = _drift(scene, dt, fl, edac, has_fluid, has_rigid)
+        if has_fluid and not edac:
+            p, cs = tait_eos(scene, rho0, c0, gamma, fl)
+            scene = scene.replace(p=p, cs=cs)
+        grid, dfT = _pack(scene, cfg, has_fluid, plain)
+        scene = evaluate(scene, grid, dfT, dt)
+        scene = scene.replace(nbr_overflow=ovf | grid.overflow)
+        return _kick(scene, dt, fl, has_fluid, has_rigid)
+
+    return step
+
+
+def build_coupling_reference_step(kernel, cfg, params: dict, edac: bool,
+                                  nu_edac: float, c0: float, rho0: float,
+                                  gamma: float, fluid_alpha: float,
+                                  has_fluid: bool, has_rigid: bool,
+                                  plain: bool = False):
+    """One step in the reference's staging (see the module docstring): one
+    grid at x_n; the rates on the pre-kick velocities, the rest after the
+    kick, then the drift and the second kick."""
+    evaluate = _split_passes(kernel, cfg, params, fluid_alpha, c0,
+                             has_fluid, has_rigid, plain)
+
+    def step(scene: Scene, dt: float) -> Scene:
+        fl = _masks(scene)[0]
+        if has_fluid:
+            grid, dfT = _pack(scene, cfg, True, plain)
+            scene = _rates(scene, grid, dfT, kernel, cfg, nu_edac, c0, edac,
+                           has_rigid, plain)
+        scene = _kick(scene, dt, fl, has_fluid, has_rigid)
+        if has_fluid:
+            if not edac:
+                p, cs = tait_eos(scene, rho0, c0, gamma, fl)
+                scene = scene.replace(p=p, cs=cs)
+            # the kick and the equation of state, in the pack's lanes
+            fk.patch_columns(dfT, grid.dense_pos, {
+                fk.FU: scene.u, fk.FV: scene.v, fk.FW: scene.w,
+                fk.FP: scene.p})
+        else:
+            # the positions are still x_n: the contact pack of the kicked
+            # state is the x_n pack with the kicked velocities
+            grid, dfT = _pack(scene, cfg, False, plain)
+        scene = evaluate(scene, grid, dfT, dt)
+        scene = scene.replace(nbr_overflow=scene.nbr_overflow
+                              | grid.overflow)
+        scene = _drift(scene, dt, fl, edac, has_fluid, has_rigid)
+        return _kick(scene, dt, fl, has_fluid, has_rigid)
 
     return step

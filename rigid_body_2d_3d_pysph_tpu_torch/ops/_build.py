@@ -41,8 +41,7 @@ KERNELS = {
     "pack_expand": ("pack_expand", "pack_expand",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "contact": ("contact", "contact_sums",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
-                 _P]),
+                [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P]),
     "dem_cell": ("dem", "dem_cell",
                  [_P] * 12 + [_I] * 6 + [_F, _F, _P]),
     "dem_rowwin": ("dem", "dem_rowwin",
@@ -52,7 +51,10 @@ KERNELS = {
     "fluid_forces_contact": ("fluid", "fluid_forces_contact",
                              [_P] * 3 + [_I] * 6 + [_F] * 5 + [_P]),
     "fluid_forces": ("fluid", "fluid_forces",
-                     [_P] * 3 + [_I] * 5 + [_F] * 4 + [_P]),
+                     [_P] * 3 + [_I] * 6 + [_F] * 4 + [_P]),
+    "fluid_rates": ("fluid", "fluid_rates",
+                    [_P] * 3 + [_I] * 6 + [_F] * 5 + [_P]),
+    "wall_bc": ("fluid", "wall_bc", [_P] * 3 + [_I] * 4 + [_F] * 6 + [_P]),
 }
 
 

@@ -7,6 +7,11 @@ the contact sums (``contact_sums``: ``csrc/contact.cu`` for CUDA
 tensors, :func:`contact_sums_reference` for CPU tensors) and the compact
 pipeline that drives pack expansion, cull and contact sums.
 
+The cell pipeline (:func:`contact_pipeline_cell`, the coupling steps'
+contact pass) runs the same sums on every slot of a grid that exists, on
+this pack built directly (:func:`pack_scene`) or laid out from the rows
+of another pack (:func:`contact_pack`, the coupling pack).
+
 Output of the contact sums: ``[NI, M, 12 S]`` with column ``c * S + s``
 for block c of (cfn x/y/z, wij sum, contact distance, closest distance,
 picked source x/y/z/u/v/w) and source-entity slot s.  Every row is
@@ -21,7 +26,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _build
-from .cellpairs import CellGridConfig, build_cell_grid_packed
+from .cellpairs import CellGridConfig, build_cell_grid_packed, unpack
 from .kernels import QuinticSpline
 from .pack_expand import expand_slots, expand_slots_reference
 
@@ -44,6 +49,11 @@ def sent_fields(two_d: bool):
 def field_index(two_d: bool):
     names = _FIELDS_2D if two_d else _FIELDS_3D
     return {k: i for i, k in enumerate(names)}
+
+
+def encode_flags(dem, bdry, fluid, rigid):
+    """The flags word from its parts (floats or 0/1 tensors)."""
+    return dem * 8.0 + bdry * 4.0 + fluid * 2.0 + rigid
 
 
 def decode_flags(f):
@@ -75,10 +85,9 @@ def contact_payload(scene, two_d: bool):
     """The packed contact fields as per-particle [N] tensors (2D drops
     z and w, identically zero there)."""
     fdt = scene.dtype
-    flags = (scene.dem_id.to(fdt) * 8.0
-             + scene.contact_force_is_boundary * 4.0
-             + scene.is_fluid.to(fdt) * 2.0
-             + scene.is_rigid.to(fdt))
+    flags = encode_flags(scene.dem_id.to(fdt),
+                         scene.contact_force_is_boundary,
+                         scene.is_fluid.to(fdt), scene.is_rigid.to(fdt))
     vol = scene.m / scene.rho
     if two_d:
         return [scene.x, scene.y, scene.u, scene.v, vol, scene.h, flags]
@@ -264,9 +273,12 @@ def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
 
 
 def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
-                 kernel: QuinticSpline):
+                 kernel: QuinticSpline, skip_idle: bool = False):
     """Contact sums for the query slots ``qslot [NI]`` over the stencil
-    rows ``nbr [NI, O]`` of the dense pack ``dfT [R, F, M]``."""
+    rows ``nbr [NI, O]`` of the dense pack ``dfT [R, F, M]``.
+    ``skip_idle`` launches the instance for callers whose slots mostly
+    hold no rigid lane (every slot a query): such a block writes the init
+    row and loads no stencil tile.  The output is the same."""
     two_d = kernel.dim == 2
     F = len(_FIELDS_2D if two_d else _FIELDS_3D)
     if dfT.dim() != 3 or dfT.shape[1] != F or qslot.dim() != 1 \
@@ -296,11 +308,27 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
     stream = torch.cuda.current_stream(dfT.device).cuda_stream
     err = fn(dfT.data_ptr(), qslot.data_ptr(), nbr.data_ptr(),
              out.data_ptr(), NI, O, dfT.shape[0], M, S, int(two_d),
-             float(cutoff), float(init_dist), float(sig_num),
+             int(skip_idle), float(cutoff), float(init_dist), float(sig_num),
              float(sig_den), stream)
     _build.check(err, "contact_sums")
     _build.LAUNCHES["contact"] += 1
     return out
+
+
+def contact_pipeline_cell(dfT, grid, cfg: CellGridConfig,
+                          kernel: QuinticSpline, S: int, init_dist: float,
+                          n: int, plain: bool = False):
+    """The cell pipeline (``pallas_contact.py:433-475``): the contact sums
+    on every slot of the contact pack ``dfT [NC + 1, F, M]`` of ``grid``
+    (no interest cull), unpacked to particle order as ``[N, 12, S]``
+    (block c of the 12, source-entity slot s; a particle without a lane
+    gets zeros).  ``plain`` runs the sums' plain version even on CUDA
+    tensors."""
+    qslot = torch.arange(cfg.NC_max, dtype=torch.int64, device=dfT.device)
+    args = (dfT, qslot, grid.nbr_slots, S, cfg.radius, init_dist, kernel)
+    out = (contact_sums_reference(*args) if plain
+           else contact_sums(*args, skip_idle=True))
+    return unpack(grid, cfg, out, n, 0.0).reshape(n, 12, S)
 
 
 class CompactContact(NamedTuple):
@@ -313,19 +341,36 @@ class CompactContact(NamedTuple):
     n_interesting: torch.Tensor  # 0-d: slots the cull found
 
 
-def pack_scene(scene, cfg: CellGridConfig, plain: bool = False):
+def pack_scene(scene, cfg: CellGridConfig, plain: bool = False,
+               want_dense_pos: bool = False):
     """Grid build with the pack fields riding the sort, then pack
     expansion: ``(grid, pack tables, dfT [NC + 1, F, M])``.  ``plain``
     runs the expansion's plain version even on CUDA tensors (for
-    comparisons on the card)."""
+    comparisons on the card); ``want_dense_pos`` keeps the grid's
+    ``dense_pos`` for an unpack (the cell pipeline)."""
     two_d = cfg.dim == 2
     grid, pt = build_cell_grid_packed(
         scene.x, scene.y, scene.z, scene.active, cfg,
-        contact_payload(scene, two_d))
+        contact_payload(scene, two_d), want_dense_pos=want_dense_pos)
     sent = torch.tensor(sent_fields(two_d), dtype=scene.dtype,
                         device=scene.device)
     expand = expand_slots_reference if plain else expand_slots
     return grid, pt, expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+
+
+def contact_pack(dfT, layout: PackLayout, two_d: bool):
+    """This module's pack (F = 7 in 2D, 9 in 3D) laid out from the rows
+    of another pack ``dfT [R, F', M]`` that ``layout`` reads (the
+    coupling pack: ``fluid_kernel.UNION_LAYOUT``): V = m / rho and the
+    flags word re-encoded from the layout's decoder, so the other pack's
+    sentinel lanes become this pack's."""
+    fi = layout.fields
+    dem, bdry, fluid, rigid = layout.decode(dfT[:, fi["flags"]])
+    rows = dict(vol=dfT[:, fi["m"]] / dfT[:, fi["rho"]],
+                flags=encode_flags(dem, bdry, fluid, rigid))
+    names = _FIELDS_2D if two_d else _FIELDS_3D
+    return torch.stack([rows[k] if k in rows else dfT[:, fi[k]]
+                        for k in names], 1)
 
 
 def select_queries(dfT, grid, pt, cfg: CellGridConfig, ni_max: int):

@@ -2,8 +2,9 @@
 
 Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/pallas_fluid.py``: the
 14-field coupling pack, its sentinels and flags word, the sorted pack
-build (grid build + pack expansion K1 with F = 14), and the three pair
-passes the fused kdkf step runs, each with its plain PyTorch twin:
+build (grid build + pack expansion K1 with F = 14), and the pair passes
+of the coupling steps, each with its plain PyTorch twin.  The fused kdkf
+step runs
 
 * :func:`fluid_rates_wall` (B4): per query lane, continuity ``arho`` and
   EDAC ``ap`` for fluid queries and the Adami Shepard sums
@@ -12,8 +13,14 @@ passes the fused kdkf step runs, each with its plain PyTorch twin:
   K2's order (the union layout: 3D geometry, V = m / rho, the contact
   gate's boundary bit is ``contact_force_is_boundary``), then (au, av,
   aw, fx, fy, fz) -> ``[NC, M, 12 S + 6]``;
-* :func:`fluid_forces` (B6c): the 6 force columns alone, the step's
-  pass when there is no rigid body -> ``[NC, M, 6]``.
+
+and the kdk and reference orderings run the split passes
+
+* :func:`fluid_rates` (B6a): ``arho`` and ``ap`` alone -> ``[NC, M, 2]``;
+* :func:`wall_bc` (B6b): the Adami sums alone -> ``[NC, M, 5]``;
+* :func:`fluid_forces` (B6c): the 6 force columns, with or without the
+  FSI terms of rigid bodies -> ``[NC, M, 6]`` (the kdkf step's pass
+  too when there is no rigid body).
 
 Each wrapper runs its twin for CPU tensors and ``csrc/fluid.cu`` for
 CUDA tensors (float32); it raises on any other device.  The pack is
@@ -22,9 +29,10 @@ neighbour) reads the all-sentinel row NC.  Unlike the TPU kernels, every
 row's output is written (sentinel lanes hold zeros and the contact init
 row), and nothing is padded to 128 columns.
 
-With rigid bodies, the fluid/boundary and the FSI-rigid source classes
-are summed in one term over per-lane selected (m, rho, p), as the TPU
-kernels do (``pallas_fluid.py:423-433, 519-531``).
+With rigid bodies, B4, B5 and B6c sum the fluid/boundary and the
+FSI-rigid source classes in one term over per-lane selected (m, rho, p),
+as the TPU kernels do (``pallas_fluid.py:423-433, 519-531``); B6a sums
+the two classes apart and adds the sums (``:348-351``).
 """
 
 from __future__ import annotations
@@ -103,6 +111,22 @@ def pack_fluid_sorted(scene, cfg: CellGridConfig, plain: bool = False):
     sent = torch.tensor(SENT, dtype=scene.dtype, device=scene.device)
     expand = expand_slots_reference if plain else expand_slots
     return grid, pt, expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+
+
+def patch_columns(dfT, dense_pos, values: dict):
+    """Write per-particle ``values`` ({pack row: [N] tensor}) into their
+    lanes of the pack ``dfT [NC + 1, 14, M]`` in place.  A particle
+    without a lane (``dense_pos == NC M``) writes the row's sentinel
+    into the all-sentinel row NC, which leaves it unchanged."""
+    NC1, F, M = dfT.shape
+    has = dense_pos < (NC1 - 1) * M
+    base = (dense_pos // M) * (F * M) + dense_pos % M
+    rows = list(values)
+    idx = torch.stack([base + r * M for r in rows])
+    vals = torch.stack([torch.where(has, values[r].to(dfT.dtype),
+                                    torch.full_like(dfT[0, 0, :1], SENT[r]))
+                        for r in rows])
+    dfT.view(-1)[idx.reshape(-1)] = vals.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +224,75 @@ def fluid_rates_wall_reference(dfT, nbr, kernel: QuinticSpline,
     return _over_slots(dfT, nbr, 7, body)
 
 
+def fluid_rates_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+                          nu_edac: float, c0: float, edac: bool,
+                          has_rigid: bool):
+    """Plain version of B6a (``pallas_fluid.py:315-352``): ``[NC, M, 2]``
+    = (arho, ap) on fluid queries; with rigid bodies the FSI-rigid source
+    class (m_fsi, rho_fsi, p_fsi) is summed apart from the fluid/boundary
+    class and the two sums are added."""
+    cs2 = c0 * c0
+
+    def body(q, src):
+        qc, sr, xij, yij, zij, rij, r2, hij = _pair_geom(q, src, kernel)
+        in_range = rij <= cutoff
+        q_fl = decode_flags(qc(FFLAGS))[3]
+        _, _, s_sb, s_fl, s_rg = decode_flags(sr(FFLAGS))
+        dest_fluid = q_fl == 1.0
+        zero = torch.zeros_like(rij)
+
+        dw = kernel.gradw_scalar(rij, hij)
+        dwx, dwy, dwz = dw * xij, dw * yij, dw * zij
+        vdotdw = ((qc(FU) - sr(FU)) * dwx + (qc(FV) - sr(FV)) * dwy
+                  + (qc(FW) - sr(FW)) * dwz)
+        xdotdw = xij * dwx + yij * dwy + zij * dwz
+        eps = 0.01 * hij * hij
+        rhoi, pi, mi = qc(FRHO), qc(FP), qc(FM)
+
+        def rates(mj, rhoj, pj, gate):
+            g = gate & dest_fluid & in_range
+            arho = torch.where(g, rhoi * mj / rhoj * vdotdw, zero).sum(-1)
+            if not edac:
+                return arho, torch.zeros_like(arho)
+            ap1 = rhoi / rhoj * cs2 * mj * vdotdw
+            Vi = mi / rhoi
+            Vj = mj / rhoj
+            etaij = 2.0 * nu_edac * (rhoi * rhoj) / (rhoi + rhoj)
+            tmp = (1.0 / torch.clamp(mi, min=1e-30)) * (Vi * Vi + Vj * Vj) \
+                * etaij * xdotdw / (r2 + eps)
+            return arho, torch.where(g, ap1 + tmp * (pi - pj), zero).sum(-1)
+
+        arho, ap = rates(sr(FM), sr(FRHO), sr(FP), (s_fl == 1.0) | (s_sb == 1.0))
+        if has_rigid:
+            a2, p2 = rates(sr(FMFSI), sr(FRHOFSI), sr(FPFSI), s_rg == 1.0)
+            arho, ap = arho + a2, ap + p2
+        return torch.stack([arho, ap], -1)
+
+    return _over_slots(dfT, nbr, 2, body)
+
+
+def wall_bc_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float, g):
+    """Plain version of B6b (``pallas_fluid.py:468-482``): ``[NC, M, 5]``
+    = (uf, vf, wf, sw, p_num) on wall and body queries over fluid
+    sources, the formulas of B4's columns 2-6."""
+    gx, gy, gz = g
+
+    def body(q, src):
+        qc, sr, xij, yij, zij, rij, r2, hij = _pair_geom(q, src, kernel)
+        _, _, q_sb, _, q_rg = decode_flags(qc(FFLAGS))
+        s_fl = decode_flags(sr(FFLAGS))[3]
+        gate = ((q_sb == 1.0) | (q_rg == 1.0)) & (s_fl == 1.0) \
+            & (rij <= cutoff)
+        w = torch.where(gate, kernel.w(rij, hij), torch.zeros_like(rij))
+        gdotx = gx * xij + gy * yij + gz * zij
+        return torch.stack(
+            [(sr(FU) * w).sum(-1), (sr(FV) * w).sum(-1),
+             (sr(FW) * w).sum(-1), w.sum(-1),
+             ((sr(FP) + sr(FRHO) * gdotx) * w).sum(-1)], -1)
+
+    return _over_slots(dfT, nbr, 5, body)
+
+
 def _forces_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
                       fluid_alpha: float, c0: float, has_rigid: bool):
     """The force columns (``pallas_fluid.py:494-559``): ``[NC, M, 6]`` =
@@ -261,10 +354,12 @@ def _forces_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
 
 
 def fluid_forces_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
-                           fluid_alpha: float, c0: float):
-    """Plain version of B6c: the force columns with no rigid body."""
+                           fluid_alpha: float, c0: float,
+                           has_rigid: bool = False):
+    """Plain version of B6c: the force columns, with the FSI terms when
+    ``has_rigid``."""
     return _forces_reference(dfT, nbr, kernel, cutoff, fluid_alpha, c0,
-                             False)
+                             has_rigid)
 
 
 def fluid_forces_contact_reference(dfT, nbr, kernel: QuinticSpline,
@@ -336,16 +431,41 @@ def fluid_rates_wall(dfT, nbr, kernel: QuinticSpline, cutoff: float,
                    float(g[1]), float(g[2]), float(sig_num), float(sig_den))
 
 
+def fluid_rates(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+                nu_edac: float, c0: float, edac: bool, has_rigid: bool):
+    """B6a: continuity and EDAC rates -> ``[NC, M, 2]``."""
+    if not _check("fluid_rates", dfT, nbr):
+        return fluid_rates_reference(dfT, nbr, kernel, cutoff, nu_edac, c0,
+                                     edac, has_rigid)
+    sig_num, sig_den = _sigma_constants(kernel)
+    return _launch("fluid_rates", dfT, nbr, 2, int(kernel.dim == 2),
+                   int(edac), int(has_rigid), float(cutoff),
+                   float(2.0 * nu_edac), float(c0 * c0), float(sig_num),
+                   float(sig_den))
+
+
+def wall_bc(dfT, nbr, kernel: QuinticSpline, cutoff: float, g):
+    """B6b: the Adami wall sums -> ``[NC, M, 5]``."""
+    if not _check("wall_bc", dfT, nbr):
+        return wall_bc_reference(dfT, nbr, kernel, cutoff, g)
+    sig_num, sig_den = _sigma_constants(kernel)
+    return _launch("wall_bc", dfT, nbr, 5, int(kernel.dim == 2),
+                   float(cutoff), float(g[0]), float(g[1]), float(g[2]),
+                   float(sig_num), float(sig_den))
+
+
 def fluid_forces(dfT, nbr, kernel: QuinticSpline, cutoff: float,
-                 fluid_alpha: float, c0: float):
-    """B6c: the 6 force columns with no rigid body -> ``[NC, M, 6]``."""
+                 fluid_alpha: float, c0: float, has_rigid: bool = False):
+    """B6c: the 6 force columns -> ``[NC, M, 6]``; ``has_rigid`` adds the
+    FSI source class and the fluid -> rigid force."""
     if not _check("fluid_forces", dfT, nbr):
         return fluid_forces_reference(dfT, nbr, kernel, cutoff, fluid_alpha,
-                                      c0)
+                                      c0, has_rigid)
     sig_num, sig_den = _sigma_constants(kernel)
     return _launch("fluid_forces", dfT, nbr, 6, int(kernel.dim == 2),
-                   int(abs(fluid_alpha) > 1e-14), float(cutoff),
-                   float(-fluid_alpha * c0), float(sig_num), float(sig_den))
+                   int(abs(fluid_alpha) > 1e-14), int(has_rigid),
+                   float(cutoff), float(-fluid_alpha * c0), float(sig_num),
+                   float(sig_den))
 
 
 def fluid_forces_contact(dfT, nbr, kernel: QuinticSpline, cutoff: float,

@@ -2,13 +2,14 @@
 """Where the PyTorch port's step time goes on one CUDA card.
 
     python3 scripts/profile_torch_step.py [--steps 20]
-        [--paths rigid,dem,rowwin,coupling]
+        [--paths rigid,dem,rowwin,coupling,coupling-kdk,coupling-reference]
 
 Run from the repository root on the machine with the card.  For each
 main path of ``chip_smoke.py`` (the 2D rigid contact step at ~105k
 particles, the 2D DEM step on the spill grid and on the row-window grid
-at ~104k particles, the fused kdkf coupling step of the sinking box at
-~96.9k particles), on the same scenes, it prints:
+at ~104k particles, the coupling step of the sinking box at ~96.9k
+particles in the fused kdkf ordering, the kdk and the reference
+ordering), on the same scenes, it prints:
 
 * untraced ms/step (host clock around ``--steps`` steps ending in a
   synchronise), after a warm-up chunk;
@@ -63,6 +64,17 @@ SPANS = {
                  (cpl, "unpack", "unpack"),
                  (cpl, "_contact_force_tail", "L3 Eq.-24 tail")],
 }
+# the kdk and reference orderings: the split passes and K2 on every slot
+SPANS["coupling-kdk"] = SPANS["coupling-reference"] = [
+    (fk, "build_cell_grid_packed", "L1 grid build"),
+    (fk, "expand_slots", "K1 pack expansion"),
+    (fk, "fluid_rates", "B6a rates"),
+    (fk, "wall_bc", "B6b wall sums"),
+    (fk, "fluid_forces", "B6c forces"),
+    (ck, "contact_sums", "K2 contact sums (every slot)"),
+    (cpl, "unpack", "unpack (fluid)"),
+    (ck, "unpack", "unpack (contact)"),
+    (cpl, "_contact_force_tail", "L3 Eq.-24 tail")]
 
 
 def _wrap(fn, label):
@@ -76,8 +88,10 @@ def _scene(path, dev):
     if path == "rigid":
         scheme, scene, _ = cs.contact_scene_2d(dev)
         dt = cs.DT
-    elif path == "coupling":
+    elif path.startswith("coupling"):
         scheme, scene, dt = cs.sinking_box_scene(dev)
+        if path != "coupling":
+            scheme.gtvf_ordering = path.split("-")[1]
     else:
         scheme, scene = cs.dem_scene(dev, 2, "spill" if path == "dem"
                                      else "rowwin")

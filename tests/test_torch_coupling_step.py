@@ -268,13 +268,13 @@ def test_f64_branches_match_xla_kdkf(case):
 
 
 def test_unported_orderings_raise():
+    """Every GTVF ordering is ported (``test_torch_coupling_orderings``);
+    the RK2 fluid stepper is not, in any ordering."""
     tsch, tscene, _, _ = coupling_scene(
         tmake_group, tbuild_scene, tgeom, TRFC, False, device=CPU,
         dtype=torch.float64)
-    for attr, val in (("gtvf_ordering", "kdk"),
-                      ("gtvf_ordering", "reference"),
-                      ("fluid_stepper", "rk2")):
-        setattr(tsch, attr, val)
+    tsch.fluid_stepper = "rk2"
+    for ordering in ("kdkf", "kdk", "reference"):
+        tsch.gtvf_ordering = ordering
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsch.make_step(tscene)
-        tsch.gtvf_ordering, tsch.fluid_stepper = "kdkf", "gtvf"

@@ -16,7 +16,8 @@ springs within rtol 1e-4, from an empty contact table, a filled one and
 one whose contacts open and close.  The coupling fluid kernels' sums
 are within 2e-5 of each column's largest magnitude (the contact
 normals, unit vectors, 2e-5 absolute), their contact picks bit for bit,
-and 3 kernel coupling steps match 3 plain ones within rtol 1e-4.
+and 3 kernel coupling steps match 3 plain ones within rtol 1e-4, in each
+GTVF ordering and with no fluid group, each with its launches per step.
 """
 
 import numpy as np
@@ -425,13 +426,16 @@ def _check_fluid_columns(got, ref, what, unit=()):
 
 
 @pytest.mark.parametrize("which", ["rates_wall", "rates_wall_tank",
-                                   "forces_contact", "forces"])
+                                   "forces_contact", "forces", "rates",
+                                   "rates_tait", "wall_bc", "forces_rigid"])
 def test_fluid_kernels_match_twin(dev, which):
     """Each pass against its twin on the scene its step runs it on: B4
-    with and without rigid bodies, B5 with, B6c without."""
+    with and without rigid bodies, B5 with, B6c without (the kdkf step);
+    B6a with rigid bodies, EDAC and Tait, B6b and B6c with rigid bodies
+    (the kdk and reference orderings)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
 
-    with_body = which in ("rates_wall", "forces_contact")
+    with_body = which not in ("rates_wall_tank", "forces")
     scheme, scene = _coupling_scene(dev, with_body=with_body)
     kernel = QuinticSpline(dim=2)
     cfg = scheme.cell_config(scene, kernel)
@@ -450,9 +454,17 @@ def test_fluid_kernels_match_twin(dev, which):
         extra = (scheme.fluid_alpha, scheme.c0, S, init)
         fast = tfk.fluid_forces_contact
         plain = tfk.fluid_forces_contact_reference
+    elif which.startswith("rates"):
+        kname = "fluid_rates"
+        extra = (scheme.edac_nu, scheme.c0, which == "rates", True)
+        fast, plain = tfk.fluid_rates, tfk.fluid_rates_reference
+    elif which == "wall_bc":
+        kname = "wall_bc"
+        extra = ((0.0, -1.0, 0.0),)
+        fast, plain = tfk.wall_bc, tfk.wall_bc_reference
     else:
         kname = "fluid_forces"
-        extra = (scheme.fluid_alpha, scheme.c0)
+        extra = (scheme.fluid_alpha, scheme.c0, which == "forces_rigid")
         fast, plain = tfk.fluid_forces, tfk.fluid_forces_reference
     before = _build.LAUNCHES[kname]
     got = fast(*args, *extra)
@@ -493,6 +505,80 @@ def test_coupling_kernel_step_matches_plain_step(dev):
                                    err_msg=k)
 
 
+def test_contact_kernel_on_every_slot_matches_twin(dev):
+    """K2's every-slot instance (``skip_idle``) on every slot of the
+    contact pack laid out from a coupling pack (the kdk and reference
+    orderings' cell pipeline): picks bit for bit, sums within tolerance,
+    and the init row on every slot that the block skip leaves out (no
+    rigid lane)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    scheme, scene = _coupling_scene(dev)
+    kernel = QuinticSpline(dim=2)
+    cfg = scheme.cell_config(scene, kernel)
+    grid, _, dfT = tfk.pack_fluid_sorted(scene, cfg)
+    cdfT = tck.contact_pack(dfT, tfk.UNION_LAYOUT, True)
+    S = scene.meta.total_no_bodies
+    init = 4.0 * scene.meta.spacing0
+    qslot = torch.arange(cfg.NC_max, device=dev)
+    args = (cdfT, qslot, grid.nbr_slots, S, cfg.radius, init, kernel)
+    before = _build.LAUNCHES["contact"]
+    got = tck.contact_sums(*args, skip_idle=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["contact"] == before + 1
+    ref = tck.contact_sums_reference(*args)
+    assert int((ref[..., 5 * S:6 * S] < init).sum()) > 0
+    assert torch.equal(got[..., 5 * S:], ref[..., 5 * S:])
+    for c in range(5):
+        a, b = got[..., c * S:(c + 1) * S], ref[..., c * S:(c + 1) * S]
+        # unit normals (blocks 0-2): scale 1, as in _check_fluid_columns
+        scale = max(float(b.abs().max()), 1.0 if c < 3 else 1e-30)
+        assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * scale).all()), c
+    no_rigid = ~(tfk.decode_flags(dfT[:cfg.NC_max, tfk.FFLAGS])[4]
+                 == 1.0).any(1)
+    assert bool(no_rigid.any())
+    init_row = torch.zeros(12 * S, device=dev)
+    init_row[5 * S:6 * S] = init
+    assert torch.equal(got[no_rigid],
+                       init_row.expand(int(no_rigid.sum()), cfg.M, -1))
+
+
+# per-step launches of each ordering's step on the box scene
+ORDERING_LAUNCHES = {
+    "kdk": dict(pack_expand=2, fluid_rates=1, wall_bc=1, fluid_forces=1,
+                contact=1),
+    "reference": dict(pack_expand=1, fluid_rates=1, wall_bc=1,
+                      fluid_forces=1, contact=1),
+    "no_fluid": dict(pack_expand=1, contact=1)}
+
+
+@pytest.mark.parametrize("ordering", list(ORDERING_LAUNCHES))
+def test_coupling_orderings_kernel_step_matches_plain_step(dev, ordering):
+    scheme, scene = _coupling_scene(dev)
+    scene = scene.replace(vcm=torch.tensor([[0.05, -0.02, 0.0]], device=dev))
+    if ordering == "no_fluid":
+        scheme.fluids = []       # kdkf routes to kdk; the fluid stays put
+    else:
+        scheme.gtvf_ordering = ordering
+    fast, plain = scheme.make_step(scene), scheme.make_step(scene, plain=True)
+    a = b = scene
+    _build.reset_launches()
+    for _ in range(3):
+        a, b = fast(a, 1e-5), plain(b, 1e-5)
+    for k, n in ORDERING_LAUNCHES[ordering].items():
+        assert _build.LAUNCHES[k] == 3 * n, k
+    assert sum(_build.LAUNCHES.values()) == 3 * sum(
+        ORDERING_LAUNCHES[ordering].values())
+    assert not bool(a.nbr_overflow)
+    assert float(b.overlap.max()) > 0
+    for k in ("x", "y", "u", "v", "rho", "p", "p_fsi", "fx", "fy", "xcm",
+              "vcm", "omega", "overlap"):
+        x, y = a[k].cpu().numpy(), b[k].cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(y).max(), 1.0),
+                                   err_msg=f"{ordering} {k}")
+
+
 def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
 
@@ -507,3 +593,7 @@ def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfk.fluid_forces(dfT, nbr.int(), kernel, 0.1, 0.1, 1.0)
     with pytest.raises(ValueError):
         tfk.fluid_forces_contact(dfT[:4], nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
+    with pytest.raises(ValueError):
+        tfk.fluid_rates(dfT.double(), nbr, kernel, 0.1, 0.1, 1.0, True, True)
+    with pytest.raises(ValueError):
+        tfk.wall_bc(dfT[:, :7], nbr, kernel, 0.1, g)
