@@ -25,19 +25,22 @@ no result line):
    steps/s;
 5. 20 rigid kernel steps against 20 twin steps from one state;
 6. DEM kernels against their twins on ~100k grains in contact (2D spill
-   grid, 3D spill grid, 2D row-window grid), each from an empty contact
-   table (every contact allocated), a filled one, and one whose contacts
-   open and close (positions jittered by up to an overlap: slots freed
-   and reallocated): tables, slot positions and counts bit for bit,
-   force and torque sums within 2e-5 |ref| + 2e-5 max |ref|, springs
-   within rtol 1e-4; times, gated pairs, candidate lanes;
+   grid, 3D spill grid, 2D row-window grid, 3D row-window grid), each
+   from an empty contact table (every contact allocated), a filled one,
+   and one whose contacts open and close (positions jittered by up to an
+   overlap: slots freed and reallocated); the 2D grids also on a crowded
+   column (grains at half the spacing, so each has ~12 gated partners
+   for its 8 slots: full tables, new contacts dropped, pair lists
+   emptied many times a warp): tables, slot positions and counts bit for
+   bit, force and torque sums within 2e-5 |ref| + 2e-5 max |ref|,
+   springs within rtol 1e-4; times, gated pairs, candidate lanes;
 7. the DEM main path (``DEMScheme`` LVC displacement, spill grid): 200
    steps at dt = 5e-6 of a granular column whose grains start 0.5 %
    overlapped, in chunks with the overflow-rebuild rule; checks one
    kernel launch per step, live contacts every step, finiteness,
    overflow, the floor and the overlap; prints steps/s;
-8. the same on the row-window grid for 100 steps (one DEM launch and two
-   pack expansions per step);
+8. the same on the row-window grid for 100 steps (one DEM launch and one
+   pack expansion per step);
 9. 20 DEM kernel steps against 20 twin steps from one state;
 10. the coupling fluid kernels (B4 rates + wall sums, B5 forces +
     contact) against their twins on the sinking box of
@@ -83,6 +86,7 @@ no result line):
 It imports nothing from JAX or the JAX package.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -98,6 +102,7 @@ N_STEPS = 200
 CHUNK = 50
 COMPARE_STEPS = 20
 REPS = 20
+SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's ~2 GHz: REPS launches queue
 # step-vs-step tolerance: the contact sums' f32 summation order differs
 # between kernel and twin, and 20 steps of a stiff contact carry it on
 STEP_RTOL = 1e-4
@@ -113,6 +118,10 @@ DEM_STEPS = 200
 DEM_ROWWIN_STEPS = 100
 DEM_SUM_RTOL = 2e-5        # summation order (tests/test_pallas_dem.py)
 DEM_SPRING_RTOL = 1e-4     # operation order
+# the crowded column: grains at this fraction of DEM_SPACING (0.995 r),
+# so the 4 axial, 4 diagonal and 4 second axial lattice neighbours all
+# overlap: 12 gated partners for an L = 8 table
+DEM_CROWD = 0.5
 # the least time a kernel could take: H100 SXM HBM rate and f32 peak
 # outside the tensor cores (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -177,12 +186,16 @@ def smi_line():
 
 
 def cuda_ms(fn, reps=REPS, warmup=3):
-    """Mean device time of ``fn()`` in ms over ``reps`` calls."""
+    """Mean device time of ``fn()`` in ms over ``reps`` calls.  The card
+    first spins for SLEEP_CYCLES while the host queues the calls, so a
+    call whose host side (checks, allocations, the launch) outlasts its
+    kernels is not timed as host time."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -582,8 +595,8 @@ def dem_scene(dev, dim, grid="spill", n_target=100_000):
 def dem_kernel_call(scheme, scene, cfg, tables):
     """The DEM kernel wrapper, its twin and their arguments for ``scene``
     with the contact ``tables`` (idx, dem, sx, sy, sz in particle order),
-    built as the main path builds them; also the grid, the candidate
-    lanes and (idx, dem) in particle order of an output."""
+    built as the main path builds them; also the grid and the candidate
+    lanes."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_cell as tdc
     from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
     from rigid_body_2d_3d_pysph_tpu_torch.ops import pack_expand as tpe
@@ -592,78 +605,61 @@ def dem_kernel_call(scheme, scene, cfg, tables):
     from rigid_body_2d_3d_pysph_tpu_torch.ops.rowwin import (
         build_row_window_grid)
 
-    dev = scene.device
     mat = tdk.material_table(scene)
-    sent = torch.tensor(tdc.SENT, device=dev)
-    L = tables[0].shape[1]
-    if scheme.dem_grid == "spill":
-        grid, pt = build_cell_grid_packed(scene.x, scene.y, scene.z,
-                                          scene.active, cfg,
-                                          tdk.dem_payload(scene))
-        dfT = tpe.expand_slots(pt.sorted_fields, pt.base, pt.cnt, sent,
-                               cfg.M)
-        args = (dfT, grid.nbr_slots, *tables, mat, DEM_DT, cfg)
+    sent = torch.tensor(tdc.SENT, device=scene.device)
+    spill = scheme.dem_grid == "spill"
+    build = build_cell_grid_packed if spill else build_row_window_grid
+    grid, pt = build(scene.x, scene.y, scene.z, scene.active, cfg,
+                     tdk.dem_payload(scene))
+    pack = tpe.expand_slots(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+    if spill:
+        args = (pack, grid.nbr_slots, *tables, mat, DEM_DT, cfg)
         return (tdk.dem_cell_sums, tdk.dem_cell_sums_reference, args, grid,
-                slot_lanes(pt.cnt, grid.nbr_slots), lambda out: out[1:3])
-    tab = torch.cat([tables[0].float(), tables[1].float(), *tables[2:]], 1).T
-    grid, pt = build_row_window_grid(scene.x, scene.y, scene.z, scene.active,
-                                     cfg, tdk.dem_payload(scene) + list(tab))
-    dfs = tpe.expand_slots(pt.sorted_fields[:tdc.NF], pt.base, pt.cnt, sent,
-                           cfg.M)
-    dft = tpe.expand_slots(
-        pt.sorted_fields[tdc.NF:], pt.base, pt.cnt,
-        torch.tensor([-1.0] * (2 * L) + [0.0] * (3 * L), device=dev), cfg.M)
-    args = (dfs, dft, grid.nbr_runs, grid.run_cnt, mat, DEM_DT, scene.n, cfg)
+                slot_lanes(pt.cnt, grid.nbr_slots))
+    args = (pack, grid.nbr_runs, grid.run_cnt, *tables, mat, DEM_DT, cfg)
     lanes = slot_lanes(pt.cnt, tdk.rowwin_sources(grid.nbr_runs,
                                                   grid.run_cnt, cfg))
     return (tdk.dem_rowwin_sums, tdk.dem_rowwin_sums_reference, args, grid,
-            lanes,
-            lambda out: tdk.unpack_dem_out(out, grid, cfg, scene.n, L)[1:3])
+            lanes)
 
 
-def dem_compare(spill, got, ref, L, label):
-    """Kernel output against twin output: table idx, dem, slot positions
-    and counts bit for bit, sums and springs within tolerance.  Returns
-    (twin sums [..., 8], sums max abs error, springs max abs error)."""
-    if spill:
-        outs_got = got
-        sums_got, sums_ref = got[0], ref[0]
-        exact = [(got[0][:, 6:], ref[0][:, 6:]), (got[1], ref[1]),
-                 (got[2], ref[2])]
-        springs = list(zip(got[3:], ref[3:]))
-    else:
-        outs_got = (got,)
-        sums_got, sums_ref = got[..., :8], ref[..., :8]
-        exact = [(got[..., 6:8 + 2 * L], ref[..., 6:8 + 2 * L])]
-        springs = [(got[..., 8 + 2 * L:], ref[..., 8 + 2 * L:])]
-    for a in outs_got:
+def dem_compare(got, ref, label):
+    """Kernel output against twin output (sums [N, 8], idx, dem, sx, sy,
+    sz [N, L]): table idx, dem, slot positions and counts bit for bit,
+    sums and springs within tolerance.  Returns (sums max abs error,
+    springs max abs error)."""
+    for a in got:
         check(bool(torch.isfinite(a.float()).all()),
               f"{label}: non-finite kernel output")
-    for a, b in exact:
+    for a, b in ((got[0][:, 6:], ref[0][:, 6:]), (got[1], ref[1]),
+                 (got[2], ref[2])):
         check(torch.equal(a, b), f"{label}: tables or counts != twin "
               f"({int((a != b).sum())} entries differ)")
-    a, b = sums_got[..., :6], sums_ref[..., :6]
+    a, b = got[0][:, :6], ref[0][:, :6]
     err = float((a - b).abs().max())
     tol = DEM_SUM_RTOL * b.abs() + DEM_SUM_RTOL * float(b.abs().max())
     check(bool(((a - b).abs() <= tol).all()),
           f"{label}: force/torque sums off by {err:.3e}")
     spring_err = 0.0
-    for a, b in springs:
+    for a, b in zip(got[3:], ref[3:]):
         d = (a - b).abs()
         spring_err = max(spring_err, float(d.max()))
         check(bool((d <= DEM_SPRING_RTOL * b.abs()).all()),
               f"{label}: springs off by {float(d.max()):.3e}")
-    return sums_ref, err, spring_err
+    return err, spring_err
 
 
-def phase_dem_kernels(scheme, scene, label, timings):
+def phase_dem_kernels(scheme, scene, label, timings, crowded=False):
     """A DEM kernel against its twin at the main path's shapes, with
     seeded random velocities and spins, on three contact tables: the
     setup's empty one (every contact is allocated), one filled by a twin
     pass at the same positions (the timed case: the main path's steady
     state), and one advanced by a twin pass at positions jittered by up
     to an overlap, then met at positions jittered again (contacts open
-    and close: slots are freed and reallocated)."""
+    and close: slots are freed and reallocated).  ``crowded`` adds the
+    column at DEM_CROWD of its spacing (its own grid), met the same way
+    as the moved table: full tables, new contacts beyond the free slots
+    dropped."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
 
     dev = scene.device
@@ -674,14 +670,16 @@ def phase_dem_kernels(scheme, scene, label, timings):
         vel.update(w=rnd(0.1), wx=rnd(100.0), wy=rnd(100.0))
     scene = scene.replace(**vel)
     axes = ("x", "y", "z")[:scheme.dim]
-    jitter = lambda: scene.replace(
-        **{k: scene[k] + rnd(2 * DEM_OVERLAP) for k in axes})
+    jitter = lambda sc: sc.replace(
+        **{k: sc[k] + rnd(2 * DEM_OVERLAP) for k in axes})
     spill = scheme.dem_grid == "spill"
-    cfg = scheme.cell_config(scene) if spill else scheme.rowwin_config(scene)
+    config = lambda sch, sc: (sch.cell_config(sc) if spill
+                              else sch.rowwin_config(sc))
+    cfg = config(scheme, scene)
     run = (tdk.lvc_displacement_cell_kernel if spill
            else tdk.lvc_displacement_rowwin_kernel)
 
-    def twin_pass(sc, tables):
+    def twin_pass(sc, tables, cfg=cfg):
         p = run(sc, cfg, DEM_DT, *tables, plain=True)
         check(not bool(p.overflow), f"{label}: grid overflow")
         return (p.tng_idx, p.tng_dem, p.tng_x, p.tng_y, p.tng_z)
@@ -689,39 +687,64 @@ def phase_dem_kernels(scheme, scene, label, timings):
     empty = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x, scene.tng_y,
              scene.tng_z)
     filled = twin_pass(scene, empty)
-    moved1, moved2 = jitter(), jitter()
-    cases = [("empty", scene, empty), ("filled", scene, filled),
-             ("moved", moved2, twin_pass(moved1, filled))]
+    cases = [("empty", scene, empty, cfg), ("filled", scene, filled, cfg),
+             ("moved", jitter(scene), twin_pass(jitter(scene), filled), cfg)]
+    if crowded:
+        # the grains squeezed towards the column's lowest corner (the
+        # floor stays), on a grid sized for them with bins of the contact
+        # radius (the default spill bins would need more than max_spill
+        # slots a cell)
+        sand = scene.meta.group("sand")
+        mob = torch.zeros(scene.n, dtype=torch.bool, device=dev)
+        mob[sand.start:sand.stop] = True
+        lo = {k: scene[k][sand.start:sand.stop].min() for k in axes}
+        crowd = scene.replace(**{k: torch.where(
+            mob, lo[k] + DEM_CROWD * (scene[k] - lo[k]), scene[k])
+            for k in axes})
+        cscheme = copy.copy(scheme)
+        cscheme.cell_factor = 1.0
+        cscheme.refresh_configs(crowd)
+        ccfg = config(cscheme, crowd)
+        cases.append(("crowded", jitter(crowd),
+                      twin_pass(jitter(crowd), empty, ccfg), ccfg))
     L = empty[0].shape[1]
     errs, lines = [], []
-    for case, sc, tables in cases:
-        kern, plain, args, grid, lanes, tabs_of = dem_kernel_call(
-            scheme, sc, cfg, tables)
+    for case, sc, tables, ccfg in cases:
+        kern, plain, args, grid, lanes = dem_kernel_call(scheme, sc, ccfg,
+                                                         tables)
         check(not bool(grid.overflow), f"{label} {case}: grid overflow")
         got = kern(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
-        sums_ref, err, spring_err = dem_compare(spill, got, ref, L,
-                                                f"{label} {case}")
+        err, spring_err = dem_compare(got, ref, f"{label} {case}")
         errs += [err, spring_err]
-        gated = int(sums_ref[..., 7].sum())
-        live = int(sums_ref[..., 6].sum())
+        gated_i, live_i = ref[0][:, 7], ref[0][:, 6]
+        gated, live = int(gated_i.sum()), int(live_i.sum())
         check(gated > 0 and live > 0, f"{label} {case}: no contact")
         # table changes in particle order: a slot whose (idx, dem) the
         # pass changed was freed if it held a contact, allocated if it
         # holds one now
-        oi, od = tabs_of(ref)
-        changed = (oi != tables[0]) | (od != tables[1])
-        n_alloc = int((changed & (oi >= 0)).sum())
+        changed = (ref[1] != tables[0]) | (ref[2] != tables[1])
+        n_alloc = int((changed & (ref[1] >= 0)).sum())
         n_free = int((changed & (tables[0] >= 0)).sum())
         if case == "empty":
             check(n_alloc == live, f"{label} empty: {n_alloc} allocations "
                   f"for {live} live entries")
-        if case == "moved":
-            check(n_alloc > 0 and n_free > 0, f"{label} moved: {n_alloc} "
+        if case in ("moved", "crowded"):
+            check(n_alloc > 0 and n_free > 0, f"{label} {case}: {n_alloc} "
                   f"allocations, {n_free} frees")
+        extra = ""
+        if case == "crowded":
+            n_over = int((gated_i > L).sum())
+            n_full = int((live_i == L).sum())
+            check(n_over > 0 and n_full > 0, f"{label} crowded: {n_over} "
+                  f"grains with more than {L} gated partners, {n_full} "
+                  "full tables")
+            extra = (f" ({n_over} grains over {L} gated, {n_full} full "
+                     f"tables, max {int(gated_i.max())} gated, "
+                     f"{lanes} candidate lanes)")
         lines.append(f"{case}: {live} live, {n_alloc} allocated, {n_free} "
-                     f"freed, {gated} gated, sums {err:.3e}, springs "
+                     f"freed, {gated} gated{extra}, sums {err:.3e}, springs "
                      f"{spring_err:.3e}")
         if case == "filled":
             timed = (kern, plain, args, lanes, gated)
@@ -812,9 +835,8 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
     lv, gt = np.concatenate(lives), np.concatenate(gateds)
     check(launches[kname] == steps_run, f"{label}: {kname} launched "
           f"{launches[kname]} times in {steps_run} steps")
-    n_pack = steps_run * (1 if spill else 2)
-    check(launches["pack_expand"] == n_pack, f"{label}: pack_expand "
-          f"launched {launches['pack_expand']} times, expected {n_pack}")
+    check(launches["pack_expand"] == steps_run, f"{label}: pack_expand "
+          f"launched {launches['pack_expand']} times in {steps_run} steps")
     check(bool((lv > 0).all()), f"{label}: a step had no live contact")
     for k, v in scene.fields.items():
         if v.is_floating_point():
@@ -1437,7 +1459,8 @@ def main() -> int:
             print(f"[build] {name}: {sec:.2f} s -> "
                   f"{os.path.relpath(path, ROOT)}", flush=True)
             for line in _build.BUILD_LOG.get(name, "").splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line \
+                        or "entry function" in line:
                     print(f"[build] {name}: {line.strip()}", flush=True)
         for k in _build.KERNELS:
             _build.load(k)
@@ -1471,12 +1494,14 @@ def main() -> int:
         dem_t = {}
         for label, dim, grid in (("2D spill", 2, "spill"),
                                  ("3D spill", 3, "spill"),
-                                 ("2D rowwin", 2, "rowwin")):
+                                 ("2D rowwin", 2, "rowwin"),
+                                 ("3D rowwin", 3, "rowwin")):
             t0 = time.perf_counter()
             dscheme, dscene = dem_scene(dev, dim, grid)
             print(f"[dem-setup] {label}: n={dscene.n} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
-            phase_dem_kernels(dscheme, dscene, label, dem_t)
+            phase_dem_kernels(dscheme, dscene, label, dem_t,
+                              crowded=dim == 2)
             del dscheme, dscene
 
         # 7. the DEM main path (spill grid), 8. the row-window path
@@ -1574,7 +1599,6 @@ def main() -> int:
 
     t2 = timings["2D"]
     errs = lambda k: max(timings[lab][k] for lab in timings)
-    dem_err = lambda labs: max(dem_t[lab]["err"] for lab in labs)
     src = "rigid_body_2d_3d_pysph_tpu_torch/csrc/"
     # each path's launches, read from its own counts (reset just before it)
     by_path = lambda k: {p: c[k] for p, c in (
@@ -1614,25 +1638,21 @@ def main() -> int:
              all_slots_bound_by=k2all["bound_by"],
              nofluid_all_slots_ms=nf_k2["ms"],
              nofluid_all_slots_bound_ms=nf_k2["bound_ms"]),
-        dict(name="dem_cell", route="cuda", source=src + "dem.cu",
-             replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_dem.py:340",
-             launches=dem_launches["dem_cell"],
-             launches_by_path=by_path("dem_cell"),
-             max_abs_err=dem_err(("2D spill", "3D spill")),
-             ms=dem_t["2D spill"]["ms"],
-             plain_ms=dem_t["2D spill"]["plain_ms"],
-             bound_ms=dem_t["2D spill"]["bound_ms"],
-             bound_by=dem_t["2D spill"]["bound_by"], library_ms=None),
-        dict(name="dem_rowwin", route="cuda", source=src + "dem.cu",
-             replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_dem.py:546",
-             launches=rw_launches["dem_rowwin"],
-             launches_by_path=by_path("dem_rowwin"),
-             max_abs_err=dem_err(("2D rowwin",)),
-             ms=dem_t["2D rowwin"]["ms"],
-             plain_ms=dem_t["2D rowwin"]["plain_ms"],
-             bound_ms=dem_t["2D rowwin"]["bound_ms"],
-             bound_by=dem_t["2D rowwin"]["bound_by"], library_ms=None),
     ]
+    # each timed on its main path's 2D scene, the 3D scene beside it
+    for name, line, path_launches, grid in (
+            ("dem_cell", 340, dem_launches, "spill"),
+            ("dem_rowwin", 546, rw_launches, "rowwin")):
+        d2, d3 = dem_t[f"2D {grid}"], dem_t[f"3D {grid}"]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "dem.cu",
+            replaces=f"rigid_body_2d_3d_pysph_tpu/ops/pallas_dem.py:{line}",
+            launches=path_launches[name], launches_by_path=by_path(name),
+            max_abs_err=max(d2["err"], d3["err"]), ms=d2["ms"],
+            plain_ms=d2["plain_ms"], bound_ms=d2["bound_ms"],
+            bound_by=d2["bound_by"], library_ms=None, ms_3d=d3["ms"],
+            plain_ms_3d=d3["plain_ms"], bound_ms_3d=d3["bound_ms"],
+            bound_by_3d=d3["bound_by"]))
     # each timed on its first main path's scene
     for name, line, path_launches, lab in (
             ("fluid_rates_wall", 364, cpl_launches, "sinking box"),

@@ -45,7 +45,7 @@ KERNELS = {
     "dem_cell": ("dem", "dem_cell",
                  [_P] * 12 + [_I] * 6 + [_F, _F, _P]),
     "dem_rowwin": ("dem", "dem_rowwin",
-                   [_P] * 6 + [_I] * 5 + [_F, _F, _P]),
+                   [_P] * 13 + [_I] * 6 + [_F, _F, _P]),
     "fluid_rates_wall": ("fluid", "fluid_rates_wall",
                          [_P] * 3 + [_I] * 6 + [_F] * 8 + [_P]),
     "fluid_forces_contact": ("fluid", "fluid_forces_contact",

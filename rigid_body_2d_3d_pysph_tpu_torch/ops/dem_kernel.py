@@ -9,10 +9,10 @@ still-overlapping partner is a candidate):
   the cell sort, pack expansion (K1) and :func:`dem_cell_sums`
   (``csrc/dem.cu`` ``dem_cell`` for CUDA tensors), which reads and
   writes the ``[N, L]`` contact table in particle order;
-* the row-window grid: the 13 fields and the 5L table columns ride the
-  window sort, two pack expansions (sources, tables) and
-  :func:`dem_rowwin_sums` (``dem_rowwin``), unpacked through the grid's
-  lane map.
+* the row-window grid: the 13 source fields ride the window sort, one
+  pack expansion (K1) and :func:`dem_rowwin_sums` (``dem_rowwin``),
+  which reads and writes the table in particle order as the spill
+  kernel does.
 
 Each kernel wrapper runs its plain version for CPU tensors: the
 reference package's prune followed by the dense-block pair pass
@@ -28,16 +28,17 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .cellpairs import CellGridConfig, build_cell_grid_packed, pack_rows, unpack
+from .cellpairs import CellGridConfig, build_cell_grid_packed
 from .dem import prune_contact_table
 from .dem_cell import (NF, SENT, PackedParticles, grid_from_pack,
-                       lvc_cell_dense, lvc_displacement_cell)
+                       lvc_displacement_cell)
 from .pack_expand import expand_slots, expand_slots_reference
 from .rowwin import RowWinConfig, build_row_window_grid
 
 MAX_PARTICLES = 1 << 24   # exact float integers in the f32 source pack
 L_MAX = 8                 # compile-time bounds of csrc/dem.cu
 E_MAX = 8
+KERNEL_M = (8, 16)        # the lane widths csrc/dem.cu is instantiated for
 
 
 def dem_payload(scene):
@@ -65,7 +66,7 @@ def check_sizes(n: int, L: int, E: int) -> None:
         raise NotImplementedError(f"DEM kernels: {E} entities (max {E_MAX})")
 
 
-def _check_cuda(name, floats, ints64=(), ints32=()):
+def _check_cuda(name, M, floats, ints64=(), ints32=()):
     dev = floats[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -74,6 +75,31 @@ def _check_cuda(name, floats, ints64=(), ints32=()):
     if any(t.dtype != torch.int64 for t in ints64) or \
             any(t.dtype != torch.int32 for t in ints32):
         raise ValueError(f"{name}: index tables have the wrong dtype")
+    if M not in KERNEL_M:
+        raise ValueError(f"{name}: {M} lanes a slot (the kernel takes "
+                         f"{KERNEL_M})")
+
+
+def _launch(kernel, pack, index_tables, tables, mat, sizes, dt, cutoff):
+    """Allocate the per-particle outputs with the fill of a particle that
+    has no lane (zero sums, -1 table entries, zero springs), launch
+    ``kernel`` and return ``(sums [N, 8], idx, dem, sx, sy, sz [N, L])``."""
+    n, L = tables[0].shape
+    dev = pack.device
+    args = [t.contiguous() for t in (pack, *index_tables, *tables, mat)]
+    # two fills: the sums and springs in one float buffer, idx and dem in
+    # one int buffer
+    flt = torch.zeros(n * (8 + 3 * L), dtype=torch.float32, device=dev)
+    o_sum, o_spr = flt[:n * 8].view(n, 8), flt[n * 8:].view(3, n, L)
+    o_idx, o_dem = torch.full((2, n, L), -1, dtype=torch.int32, device=dev)
+    fn = _build.load(kernel)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*[t.data_ptr() for t in args], o_sum.data_ptr(),
+             o_idx.data_ptr(), o_dem.data_ptr(), o_spr.data_ptr(), n,
+             *sizes, L, mat.shape[0], float(dt), float(cutoff), stream)
+    _build.check(err, kernel)
+    _build.LAUNCHES[kernel] += 1
+    return o_sum, o_idx, o_dem, o_spr[0], o_spr[1], o_spr[2]
 
 
 # ---------------------------------------------------------------------------
@@ -107,25 +133,12 @@ def dem_cell_sums(dfT, nbr, tng_idx, tng_dem, tng_x, tng_y, tng_z, mat, dt,
     if dfT.device.type == "cpu":
         return dem_cell_sums_reference(dfT, nbr, tng_idx, tng_dem, tng_x,
                                        tng_y, tng_z, mat, dt, cfg)
-    _check_cuda("dem_cell_sums", (dfT, tng_x, tng_y, tng_z, mat), (nbr,),
-                (tng_idx, tng_dem))
-    args = [t.contiguous() for t in (dfT, nbr, tng_idx, tng_dem, tng_x,
-                                     tng_y, tng_z, mat)]
-    dev = dfT.device
-    o_sum = torch.zeros((n, 8), dtype=torch.float32, device=dev)
-    o_idx = torch.full((n, L), -1, dtype=torch.int32, device=dev)
-    o_dem = torch.full((n, L), -1, dtype=torch.int32, device=dev)
-    o_spr = torch.zeros((3, n, L), dtype=torch.float32, device=dev)
+    _check_cuda("dem_cell_sums", dfT.shape[2],
+                (dfT, tng_x, tng_y, tng_z, mat), (nbr,), (tng_idx, tng_dem))
     NC, O = nbr.shape
-    fn = _build.load("dem_cell")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*[t.data_ptr() for t in args], o_sum.data_ptr(),
-             o_idx.data_ptr(), o_dem.data_ptr(), o_spr.data_ptr(), n, NC, O,
-             dfT.shape[2], L, mat.shape[0], float(dt), float(cfg.radius),
-             stream)
-    _build.check(err, "dem_cell_sums")
-    _build.LAUNCHES["dem_cell"] += 1
-    return o_sum, o_idx, o_dem, o_spr[0], o_spr[1], o_spr[2]
+    return _launch("dem_cell", dfT, (nbr,),
+                   (tng_idx, tng_dem, tng_x, tng_y, tng_z), mat,
+                   (NC, O, dfT.shape[2]), dt, cfg.radius)
 
 
 # ---------------------------------------------------------------------------
@@ -143,55 +156,40 @@ def rowwin_sources(nbr_runs, run_cnt, cfg: RowWinConfig):
     return torch.where(ok, torch.clamp(slots, 0, NCW), NCW).reshape(NCW, -1)
 
 
-def dem_rowwin_sums_reference(dfs, dft, nbr_runs, run_cnt, mat, dt, n: int,
+def dem_rowwin_sums_reference(dfs, nbr_runs, run_cnt, tng_idx, tng_dem,
+                              tng_x, tng_y, tng_z, mat, dt,
                               cfg: RowWinConfig):
-    """Plain version of the row-window kernel: the prune, then the pair
-    pass over each window's runs with the overhang slots masked.
-    ``dfs [NCW + 1, 13, M]`` source pack, ``dft [NCW + 1, 5L, M]`` table
-    pack (idx | dem | sx | sy | sz).  Returns ``[NCW, M, 8 + 5L]``: the
-    8 sums, then the table as floats."""
-    L = dft.shape[1] // 5
-    df = dfs.transpose(1, 2)
-    nbr = rowwin_sources(nbr_runs, run_cnt, cfg)
-    grid = grid_from_pack(df, nbr, n)
-    tab = unpack(grid, cfg, dft[:cfg.NC_max].transpose(1, 2), n, -1.0)
-    ti, td = tab[:, :L].to(torch.int32), tab[:, L:2 * L].to(torch.int32)
-    pruned = prune_contact_table(
-        PackedParticles(grid, cfg, df, n), ti, td, tab[:, 2 * L:3 * L],
-        tab[:, 3 * L:4 * L], tab[:, 4 * L:])[:5]
-    dense = [pack_rows(grid, cfg, t, -1 if i < 2 else 0.0)
-             for i, t in enumerate(pruned)]
-    sums, ti, td, ta, tb, tc = lvc_cell_dense(df, nbr, *dense, mat, dt, cfg)
-    fdt = sums.dtype
-    return torch.cat([sums, ti.to(fdt), td.to(fdt), ta, tb, tc], 2)
+    """Plain version of the row-window kernel: the spill kernel's plain
+    version over each window's runs (:func:`rowwin_sources`, the overhang
+    slots masked).  ``dfs [NCW + 1, 13, M]`` source pack, ``nbr_runs``,
+    ``run_cnt [NCW, R]``, tables [N, L].  Returns ``(sums [N, 8], idx,
+    dem, sx, sy, sz [N, L])``; a particle with no lane gets zero sums and
+    an empty table."""
+    return dem_cell_sums_reference(
+        dfs, rowwin_sources(nbr_runs, run_cnt, cfg), tng_idx, tng_dem, tng_x,
+        tng_y, tng_z, mat, dt, cfg)
 
 
-def dem_rowwin_sums(dfs, dft, nbr_runs, run_cnt, mat, dt, n: int,
-                    cfg: RowWinConfig):
-    """The row-window DEM pass (see :func:`dem_rowwin_sums_reference`);
-    every lane of every window is written."""
+def dem_rowwin_sums(dfs, nbr_runs, run_cnt, tng_idx, tng_dem, tng_x, tng_y,
+                    tng_z, mat, dt, cfg: RowWinConfig):
+    """The row-window DEM pass (see :func:`dem_rowwin_sums_reference`)."""
     NCW, M, R = cfg.NC_max, cfg.M, cfg.R
-    L = dft.shape[1] // 5
-    if dfs.shape != (NCW + 1, NF, M) or dft.shape != (NCW + 1, 5 * L, M) \
-            or nbr_runs.shape != (NCW, R) or run_cnt.shape != (NCW, R):
+    n, L = tng_idx.shape
+    if dfs.shape != (NCW + 1, NF, M) or nbr_runs.shape != (NCW, R) \
+            or run_cnt.shape != (NCW, R) or mat.shape[1:] != (4,):
         raise ValueError("dem_rowwin_sums: bad shapes "
-                         f"{tuple(dfs.shape)}, {tuple(dft.shape)}, "
-                         f"{tuple(nbr_runs.shape)}, {tuple(run_cnt.shape)}")
+                         f"{tuple(dfs.shape)}, {tuple(nbr_runs.shape)}, "
+                         f"{tuple(run_cnt.shape)}, {tuple(mat.shape)}")
     check_sizes(n, L, mat.shape[0])
     if dfs.device.type == "cpu":
-        return dem_rowwin_sums_reference(dfs, dft, nbr_runs, run_cnt, mat,
-                                         dt, n, cfg)
-    _check_cuda("dem_rowwin_sums", (dfs, dft, mat), (nbr_runs, run_cnt))
-    args = [t.contiguous() for t in (dfs, dft, nbr_runs, run_cnt, mat)]
-    out = torch.empty((NCW, M, 8 + 5 * L), dtype=torch.float32,
-                      device=dfs.device)
-    fn = _build.load("dem_rowwin")
-    stream = torch.cuda.current_stream(dfs.device).cuda_stream
-    err = fn(*[t.data_ptr() for t in args], out.data_ptr(), NCW, R, M, L,
-             mat.shape[0], float(dt), float(cfg.radius), stream)
-    _build.check(err, "dem_rowwin_sums")
-    _build.LAUNCHES["dem_rowwin"] += 1
-    return out
+        return dem_rowwin_sums_reference(dfs, nbr_runs, run_cnt, tng_idx,
+                                         tng_dem, tng_x, tng_y, tng_z, mat,
+                                         dt, cfg)
+    _check_cuda("dem_rowwin_sums", M, (dfs, tng_x, tng_y, tng_z, mat),
+                (nbr_runs, run_cnt), (tng_idx, tng_dem))
+    return _launch("dem_rowwin", dfs, (nbr_runs, run_cnt),
+                   (tng_idx, tng_dem, tng_x, tng_y, tng_z), mat,
+                   (NCW, R, M), dt, cfg.radius)
 
 
 # ---------------------------------------------------------------------------
@@ -238,36 +236,17 @@ def lvc_displacement_cell_kernel(scene, cfg: CellGridConfig, dt,
     return _pass(*out, grid.overflow, scene.dtype)
 
 
-def unpack_dem_out(dense, grid, cfg, n: int, L: int):
-    """[NC, M, 8 + 5L] -> (sums [N, 8], idx, dem [N, L] int32, sx, sy, sz
-    [N, L]) in particle order, with one gather; a particle with no lane
-    gets zero sums and an empty table."""
-    flat = unpack(grid, cfg, dense, n, 0.0)
-    dropped = grid.dense_pos >= cfg.NC_max * cfg.M
-    tabi = torch.where(dropped[:, None], -1.0, flat[:, 8:8 + 2 * L]
-                       ).to(torch.int32)
-    return (flat[:, :8], tabi[:, :L], tabi[:, L:], flat[:, 8 + 2 * L:8 + 3 * L],
-            flat[:, 8 + 3 * L:8 + 4 * L], flat[:, 8 + 4 * L:])
-
-
 def lvc_displacement_rowwin_kernel(scene, cfg: RowWinConfig, dt,
                                    tng_idx, tng_dem, tng_x, tng_y, tng_z,
                                    plain: bool = False) -> DemPass:
-    """The row-window pass (prune fused): the sources and the table ride
-    the window sort, two pack expansions, the kernel, one unpack."""
-    n, L = tng_idx.shape
-    fdt = scene.dtype
-    tab = torch.cat([tng_idx.to(fdt), tng_dem.to(fdt), tng_x, tng_y, tng_z],
-                    1).T
+    """The row-window pass (prune fused): the sources ride the window
+    sort, one pack expansion, the kernel on the per-particle table."""
     grid, pt = build_row_window_grid(scene.x, scene.y, scene.z,
-                                     scene.active, cfg,
-                                     dem_payload(scene) + list(tab))
+                                     scene.active, cfg, dem_payload(scene))
+    sent = torch.tensor(SENT, dtype=scene.dtype, device=scene.device)
     expand = expand_slots_reference if plain else expand_slots
     sums_fn = dem_rowwin_sums_reference if plain else dem_rowwin_sums
-    mk = lambda v: torch.tensor(v, dtype=fdt, device=scene.device)
-    dfs = expand(pt.sorted_fields[:NF], pt.base, pt.cnt, mk(SENT), cfg.M)
-    dft = expand(pt.sorted_fields[NF:], pt.base, pt.cnt,
-                 mk([-1.0] * (2 * L) + [0.0] * (3 * L)), cfg.M)
-    dense = sums_fn(dfs, dft, grid.nbr_runs, grid.run_cnt,
-                    material_table(scene), dt, n, cfg)
-    return _pass(*unpack_dem_out(dense, grid, cfg, n, L), grid.overflow, fdt)
+    dfs = expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+    out = sums_fn(dfs, grid.nbr_runs, grid.run_cnt, tng_idx, tng_dem, tng_x,
+                  tng_y, tng_z, material_table(scene), dt, cfg)
+    return _pass(*out, grid.overflow, scene.dtype)

@@ -54,9 +54,8 @@ SPANS = {
             (dk, "expand_slots", "K1 pack expansion"),
             (dk, "dem_cell_sums", "K4 DEM spill pass")],
     "rowwin": [(dk, "build_row_window_grid", "L1 row-window build"),
-               (dk, "expand_slots", "K1 pack expansion (x2)"),
-               (dk, "dem_rowwin_sums", "K3 DEM row-window pass"),
-               (dk, "unpack_dem_out", "unpack")],
+               (dk, "expand_slots", "K1 pack expansion"),
+               (dk, "dem_rowwin_sums", "K3 DEM row-window pass")],
     "coupling": [(fk, "build_cell_grid_packed", "L1 grid build"),
                  (fk, "expand_slots", "K1 pack expansion"),
                  (fk, "fluid_rates_wall", "B4 rates + wall sums"),

@@ -12,8 +12,9 @@ summation order (f32: rtol 1e-5, absolute floor 1e-5 of the column's
 largest magnitude).  The DEM kernels' tables and counts are bit-exact
 (the gate decisions round as the twin's), their sums within the
 summation-order tolerance of ``tests/test_pallas_dem.py`` and their
-springs within rtol 1e-4, from an empty contact table, a filled one and
-one whose contacts open and close.  The coupling fluid kernels' sums
+springs within rtol 1e-4, from an empty contact table, a filled one,
+one whose contacts open and close and a crowded one (more gated partners
+than table slots).  The coupling fluid kernels' sums
 are within 2e-5 of each column's largest magnitude (the contact
 normals, unit vectors, 2e-5 absolute), their contact picks bit for bit,
 and 3 kernel coupling steps match 3 plain ones within rtol 1e-4, in each
@@ -175,14 +176,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 # (summation order); springs within rtol 1e-4 (operation order)
 # ---------------------------------------------------------------------------
 
-def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24):
+def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24, L=8):
     """A block of grains spaced 0.995 of a diameter (every lattice pair
     overlaps) over a floor, seeded random velocities and spins, and a
     contact table: ``"empty"`` as the setup leaves it (the kernel
     allocates every contact), ``"filled"`` by one plain pass, or
     ``"moved"``: advanced by a plain pass at positions jittered by up to
     an overlap (1e-5), then met at positions jittered again, so contacts
-    open and close and slots are freed and reallocated."""
+    open and close and slots are freed and reallocated.  ``"crowded"``
+    squeezes the block (2D: both axes to 0.5; 3D: x to 0.7, y to 0.5) so
+    every inner grain has 12 gated partners for its 8 slots, on a grid
+    with bins of the contact radius, and meets it as ``"moved"`` from the
+    empty table: full tables, new contacts dropped."""
     from rigid_body_2d_3d_pysph_tpu_torch.models import DEMScheme
     from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
 
@@ -197,6 +202,8 @@ def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24):
         xg, yg, zg = (a.ravel() for a in np.meshgrid(ax, ax[:8], ax))
         xf, zf = (a.ravel() for a in np.meshgrid(
             np.arange(-3, n_side + 3) * 2 * r, np.arange(-3, n_side + 3) * 2 * r))
+    if table == "crowded":
+        xg, yg = xg * (0.5 if dim == 2 else 0.7), yg * 0.5
     m = 2600.0 * r**dim
     grains = make_group("sand", xg, yg + 0.99 * r, z=zg, m=m, h=2 * r,
                         rho=2600.0, rad_s=r, role=ROLE_RIGID, dem_id=0)
@@ -206,7 +213,9 @@ def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24):
     scene = build_scene([grains, floor], dim=dim, total_no_bodies=2,
                         spacing0=s, device=dev, dtype=torch.float32)
     scheme = DEMScheme(["sand"], ["floor"], dim=dim, gy=-9.81,
-                       max_tng_contacts_limit=8, dem_grid=grid)
+                       max_tng_contacts_limit=L, dem_grid=grid)
+    if table == "crowded":
+        scheme.cell_factor = 1.0
     scene = scheme.setup(scene)
     rng = np.random.default_rng(11)
     rnd = lambda a: torch.as_tensor(rng.uniform(-a, a, scene.n),
@@ -232,6 +241,8 @@ def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24):
         scene = plain_pass(scene)
     elif table == "moved":
         scene = jitter(plain_pass(jitter(plain_pass(scene))))
+    elif table == "crowded":
+        scene = jitter(plain_pass(jitter(scene)))
     return scene, cfg
 
 
@@ -242,12 +253,24 @@ def _table_changes(before, idx, dem):
             int((changed & (before.tng_idx >= 0)).sum()))
 
 
-def _check_table_changes(table, before, idx, dem):
+def _check_table_changes(table, before, sums, idx, dem):
     alloc, freed = _table_changes(before, idx, dem)
     if table == "empty":
         assert alloc > 0 and freed == 0
-    if table == "moved":
+    if table in ("moved", "crowded"):
         assert alloc > 0 and freed > 0
+    if table == "crowded":   # more gated partners than slots; full tables
+        L = idx.shape[1]
+        assert bool((sums[:, 7] > L).any()) and bool((sums[:, 6] == L).any())
+
+
+def _check_dem_outputs(got, ref):
+    """Kernel against twin (sums [N, 8], idx, dem, sx, sy, sz [N, L])."""
+    assert torch.equal(got[0][:, 6:], ref[0][:, 6:])      # counts, gated
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    _check_sums(got[0][:, :6], ref[0][:, :6], "sums")
+    for a, b in zip(got[3:], ref[3:]):
+        assert torch.allclose(a, b, rtol=1e-4, atol=0)
 
 
 def _check_sums(a, b, what):
@@ -256,7 +279,7 @@ def _check_sums(a, b, what):
         f"{what}: off by {float((a - b).abs().max())}"
 
 
-TABLES = ["empty", "filled", "moved"]
+TABLES = ["empty", "filled", "moved", "crowded"]
 
 
 @pytest.mark.parametrize("table", TABLES)
@@ -268,6 +291,7 @@ def test_dem_cell_kernel_matches_twin(dev, dim, table):
     scene, cfg = _dem_scene(dim, dev, table=table)
     grid, pt = tcell.build_cell_grid_packed(
         scene.x, scene.y, scene.z, scene.active, cfg, tdk.dem_payload(scene))
+    assert not bool(grid.overflow)
     dfT = tpe.expand_slots(pt.sorted_fields, pt.base, pt.cnt,
                            torch.tensor(tdc.SENT, device=dev), cfg.M)
     args = (dfT, grid.nbr_slots, scene.tng_idx, scene.tng_idx_dem_id,
@@ -279,46 +303,64 @@ def test_dem_cell_kernel_matches_twin(dev, dim, table):
     assert _build.LAUNCHES["dem_cell"] == before + 1
     ref = tdk.dem_cell_sums_reference(*args)
     assert int(ref[0][:, 7].sum()) > int(ref[0][:, 6].sum()) // 2 > 0
-    _check_table_changes(table, scene, ref[1], ref[2])
-    assert torch.equal(got[0][:, 6:], ref[0][:, 6:])      # counts, gated
-    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
-    _check_sums(got[0][:, :6], ref[0][:, :6], "sums")
-    for a, b in zip(got[3:], ref[3:]):
-        assert torch.allclose(a, b, rtol=1e-4, atol=0)
+    _check_table_changes(table, scene, *ref[:3])
+    _check_dem_outputs(got, ref)
 
 
 @pytest.mark.parametrize("table", TABLES)
-def test_dem_rowwin_kernel_matches_twin(dev, table):
+@pytest.mark.parametrize("dim", [2, 3])
+def test_dem_rowwin_kernel_matches_twin(dev, dim, table):
     from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_cell as tdc
     from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
     from rigid_body_2d_3d_pysph_tpu_torch.ops import rowwin as trw
 
-    scene, cfg = _dem_scene(2, dev, grid="rowwin", table=table)
-    L = scene.tng_idx.shape[1]
-    tab = torch.cat([scene.tng_idx.float(), scene.tng_idx_dem_id.float(),
-                     scene.tng_x, scene.tng_y, scene.tng_z], 1).T
+    scene, cfg = _dem_scene(dim, dev, grid="rowwin", table=table)
     grid, pt = trw.build_row_window_grid(
-        scene.x, scene.y, scene.z, scene.active, cfg,
-        tdk.dem_payload(scene) + list(tab))
-    dfs = tpe.expand_slots(pt.sorted_fields[:tdc.NF], pt.base, pt.cnt,
+        scene.x, scene.y, scene.z, scene.active, cfg, tdk.dem_payload(scene))
+    assert not bool(grid.overflow)
+    dfs = tpe.expand_slots(pt.sorted_fields, pt.base, pt.cnt,
                            torch.tensor(tdc.SENT, device=dev), cfg.M)
-    dft = tpe.expand_slots(pt.sorted_fields[tdc.NF:], pt.base, pt.cnt,
-                           torch.tensor([-1.0] * (2 * L) + [0.0] * (3 * L),
-                                        device=dev), cfg.M)
-    args = (dfs, dft, grid.nbr_runs, grid.run_cnt, tdk.material_table(scene),
-            1e-5, scene.n, cfg)
+    args = (dfs, grid.nbr_runs, grid.run_cnt, scene.tng_idx,
+            scene.tng_idx_dem_id, scene.tng_x, scene.tng_y, scene.tng_z,
+            tdk.material_table(scene), 1e-5, cfg)
     before = _build.LAUNCHES["dem_rowwin"]
     got = tdk.dem_rowwin_sums(*args)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["dem_rowwin"] == before + 1
     ref = tdk.dem_rowwin_sums_reference(*args)
-    assert int(ref[..., 6].sum()) > 0
-    _check_table_changes(table, scene, *tdk.unpack_dem_out(
-        ref, grid, cfg, scene.n, L)[1:3])
-    assert torch.equal(got[..., 6:8 + 2 * L], ref[..., 6:8 + 2 * L])
-    _check_sums(got[..., :6], ref[..., :6], "sums")
-    assert torch.allclose(got[..., 8 + 2 * L:], ref[..., 8 + 2 * L:],
-                          rtol=1e-4, atol=0)
+    assert int(ref[0][:, 6].sum()) > 0
+    _check_table_changes(table, scene, *ref[:3])
+    _check_dem_outputs(got, ref)
+
+
+@pytest.mark.parametrize("grid", ["spill", "rowwin"])
+def test_dem_kernels_take_a_narrow_table(dev, grid):
+    # the scheme's default table of 6 slots: rows of 24 bytes, read and
+    # written a word at a time
+    from rigid_body_2d_3d_pysph_tpu_torch.models import DEMScheme
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    scene, _ = _dem_scene(2, dev, grid, "moved", L=6)
+    assert scene.tng_idx.shape[1] == 6
+    scheme = DEMScheme(["sand"], ["floor"], dim=2, gy=-9.81,
+                       max_tng_contacts_limit=6, dem_grid=grid)
+    cfg = (scheme.cell_config(scene) if grid == "spill"
+           else scheme.rowwin_config(scene))
+    run = (tdk.lvc_displacement_cell_kernel if grid == "spill"
+           else tdk.lvc_displacement_rowwin_kernel)
+    tabs = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x, scene.tng_y,
+            scene.tng_z)
+    got = run(scene, cfg, 1e-5, *tabs)
+    ref = run(scene, cfg, 1e-5, *tabs, plain=True)
+    torch.cuda.synchronize()
+    assert int(ref.count.sum()) > 0
+    for k in ("tng_idx", "tng_dem", "count", "n_gated"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    for k in ("tng_x", "tng_y", "tng_z"):
+        assert torch.allclose(getattr(got, k), getattr(ref, k), rtol=1e-4,
+                              atol=0), k
+    _check_sums(torch.stack([got.fx, got.fy, got.torz]),
+                torch.stack([ref.fx, ref.fy, ref.torz]), "sums")
 
 
 def _sorted_tables(scene):

@@ -11,6 +11,10 @@
   f32 summation-order tolerance, as ``tests/test_pallas_dem.py``'s
   row-window test does: sums rtol 2e-4 / atol 5e-3, springs rtol 1e-3 /
   atol 1e-8, live counts exact.
+* The port's row-window interface (no JAX): a DEM step on the row-window
+  grid expands one pack, of the 13 source fields, and the pass reads and
+  writes the contact table per particle, a particle with no lane getting
+  zero sums and an empty table.
 """
 
 import dataclasses
@@ -26,9 +30,13 @@ from rigid_body_2d_3d_pysph_tpu.ops import dem as jdem
 from rigid_body_2d_3d_pysph_tpu.ops import dem_cell as jdc
 from rigid_body_2d_3d_pysph_tpu.ops import rowwin as jrw
 
+from rigid_body_2d_3d_pysph_tpu_torch.models import DEMScheme
 from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_cell as tdc
 from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
 from rigid_body_2d_3d_pysph_tpu_torch.ops import rowwin as trw
+from rigid_body_2d_3d_pysph_tpu_torch.state import (
+    make_group, build_scene, ROLE_RIGID, ROLE_BOUNDARY)
 from rigid_body_2d_3d_pysph_tpu_torch.state.convert import scene_from_numpy
 
 from test_pallas_dem import _grain_scene_f32, _table_map
@@ -156,3 +164,82 @@ def test_rowwin_pass_matches_reference_cell_engine():
         assert int(r.count.sum()) > 0 and int(r.n_gated.sum()) > 0
         scene, tscene = advance_j(scene, out_c), advance_t(tscene, r)
     assert _build.LAUNCHES == launches   # CPU tensors: no kernel launched
+
+
+def _port_grains(n_side=10):
+    """A 2D block of grains spaced 0.995 of a diameter over a floor (the
+    port's scene, float32 on the CPU), with seeded random velocities, and
+    the row-window scheme set up on it."""
+    r, s = 1e-3, 1.99e-3
+    ax = np.arange(n_side) * s
+    xg, yg = (a.ravel() for a in np.meshgrid(ax, ax))
+    xf = np.arange(-4, n_side + 4) * 2 * r
+    m = 2600.0 * r**2
+    grains = make_group("sand", xg, yg + 0.99 * r, m=m, h=2 * r, rho=2600.0,
+                        rad_s=r, role=ROLE_RIGID, dem_id=0)
+    floor = make_group("floor", xf, np.full(len(xf), -r), m=m, h=2 * r,
+                       rho=2600.0, rad_s=r, role=ROLE_BOUNDARY, dem_id=1)
+    scene = build_scene([grains, floor], dim=2, total_no_bodies=2,
+                        spacing0=s, device=CPU, dtype=torch.float32)
+    scheme = DEMScheme(["sand"], ["floor"], dim=2, gy=-9.81,
+                       max_tng_contacts_limit=8, dem_grid="rowwin")
+    scene = scheme.setup(scene)
+    rng = np.random.default_rng(5)
+    vel = lambda a: torch.as_tensor(rng.uniform(-a, a, scene.n),
+                                    dtype=torch.float32)
+    return scheme, scene.replace(u=vel(0.05), v=vel(0.05), wz=vel(50.0))
+
+
+def test_rowwin_step_expands_one_pack_of_the_source_fields(monkeypatch):
+    scheme, scene = _port_grains()
+    cfg = scheme.rowwin_config(scene)
+    packs = []
+    expand = tdk.expand_slots
+
+    def counted(sorted_fields, base, cnt, sent, M):
+        packs.append((sorted_fields.shape[0], M))
+        return expand(sorted_fields, base, cnt, sent, M)
+
+    monkeypatch.setattr(tdk, "expand_slots", counted)
+    step = scheme.make_step(scene)
+    for n in range(1, 4):
+        scene = step(scene, 1e-5)
+        assert len(packs) == n
+    assert packs == [(tdc.NF, cfg.M)] * 3
+    assert not bool(scene.nbr_overflow)
+    assert int(scene.total_tng_contacts.sum()) > 0
+
+
+def test_rowwin_reference_writes_the_table_per_particle():
+    scheme, scene = _port_grains()
+    cfg = scheme.rowwin_config(scene)
+    p = tdk.lvc_displacement_rowwin_kernel(
+        scene, cfg, 1e-5, scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x,
+        scene.tng_y, scene.tng_z)
+    tables = (p.tng_idx, p.tng_dem, p.tng_x, p.tng_y, p.tng_z)
+    # grain 5 leaves the domain: the grid flags it and gives it no lane
+    gone = 5
+    assert int((p.tng_idx[gone] >= 0).sum()) > 0
+    x = scene.x.clone()
+    x[gone] = x.max() + 10.0
+    grid, pt = trw.build_row_window_grid(x, scene.y, scene.z, scene.active,
+                                         cfg, tdk.dem_payload(
+                                             scene.replace(x=x)))
+    assert bool(grid.overflow)
+    assert int(grid.dense_pos[gone]) == cfg.NC_max * cfg.M
+    dfs = tdk.expand_slots(pt.sorted_fields, pt.base, pt.cnt,
+                           torch.tensor(tdc.SENT), cfg.M)
+    args = (dfs, grid.nbr_runs, grid.run_cnt, *tables,
+            tdk.material_table(scene), 1e-5, cfg)
+    out = tdk.dem_rowwin_sums_reference(*args)
+    n, L = scene.n, tables[0].shape[1]
+    assert [tuple(t.shape) for t in out] == [(n, 8)] + [(n, L)] * 5
+    assert out[1].dtype == out[2].dtype == torch.int32
+    assert bool((out[0][gone] == 0).all())
+    assert bool((out[1][gone] == -1).all()) and bool((out[2][gone] == -1).all())
+    assert all(bool((t[gone] == 0).all()) for t in out[3:])
+    # every other grain keeps its contacts, and the wrapper on CPU tensors
+    # is the plain version
+    assert int(out[0][:, 6].sum()) > 0
+    for a, b in zip(tdk.dem_rowwin_sums(*args), out):
+        assert torch.equal(a, b)
