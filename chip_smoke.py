@@ -12,9 +12,13 @@ no result line):
 2. build: every hand-written kernel source in ``csrc/`` (one nvcc each,
    all started together; sm_90a), with seconds and register reports;
 3. rigid kernels against their plain twins on the card at the main
-   path's shapes (2D, F = 7) and on a 3D case (F = 9, 27-cell stencil):
-   pack expansion bit for bit, contact picks bit for bit, contact sums
-   within rtol 1e-5 (f32 summation order); kernel and twin times in ms;
+   path's shapes (2D, F = 7) and on phase 5a's 3D scene (F = 9, 27-cell
+   stencil): pack expansion bit for bit, contact picks bit for bit,
+   contact sums within rtol 1e-5 (f32 summation order), K2 on every slot
+   equal bit for bit to K2 on the culled rows at their slots; kernel and
+   twin times in ms; in 3D
+   K2 also on every interesting row (the rows the 3D path runs once its
+   overflow rebuilds have raised ``ni_max``), timed with its bound;
 4. the rigid main path: ``RigidBody2DScheme.setup`` -> ``make_step`` ->
    ``step`` for 200 steps at dt = 1e-4 on a ~105k-particle scene that is
    in contact from the first step (a resting stack of 8 blocks in two
@@ -24,6 +28,12 @@ no result line):
    free-fall distance (the stack is carried by contact), and prints
    steps/s;
 5. 20 rigid kernel steps against 20 twin steps from one state;
+5a. the 3D main path: ``RigidBody3DScheme.setup`` -> ``make_step`` ->
+   ``step`` for 200 steps at dt = 1e-4 on 8 cubes at rest on a floor slab
+   (~116.5k particles, S = 9), in chunks with the overflow-rebuild rule
+   (each rebuild and the final ``ni_max``, NC and O printed), under
+   phase 4's gates (COM drift over x, y and z); prints steps/s;
+5b. 20 3D kernel steps against 20 twin steps from 5a's end state;
 6. DEM kernels against their twins on ~100k grains in contact (2D spill
    grid, 3D spill grid, 2D row-window grid, 3D row-window grid), each
    from an empty contact table (every contact allocated), a filled one,
@@ -80,8 +90,9 @@ no result line):
 18. 20 kdk and 20 reference kernel steps against as many twin steps on
     phase 13's placement, in contact to the end, as in phase 13;
 19. a JSON line of per-kernel numbers (``launches`` from the kernel's
-    first main path, ``launches_by_path`` from every path it ran on),
-    then the result line.
+    first main path, ``launches_by_path`` from every path it ran on,
+    ``rigid-3d`` among them; K2's 3D times at the set-up ``ni_max`` and
+    on every interesting row beside its 2D time), then the result line.
 
 It imports nothing from JAX or the JAX package.
 """
@@ -134,6 +145,11 @@ OPS_PER_DEM_PAIR = 140     # the LVC body per gated pair (csrc/dem.cu)
 # starts near rest; the 0.3-0.4 dx overlaps of a 0.6-0.7 dx gap throw it
 GAP = 0.95
 G = 9.81
+# the 3D scene's cube faces over the 3-layer floor slab: their Eq.-21
+# contact distance exceeds the gap by this many dx near a gap of dx (the
+# lower layers' share of the weighted sums; 0.99819 dx at a gap of
+# 0.99341 dx, at dx = 0.025 and 0.0154 alike, as the sums scale with dx)
+FLOOR_EPS = 0.00478
 # coupling: bench.py's coupling workload at BENCH_N = 100000 (the sinking
 # box with its spacing scaled from 0.02 at ~33k particles)
 CPL_N = 100_000
@@ -280,11 +296,17 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False):
 
 
 def contact_scene_3d(dev, n_target=100_000):
-    """8 cubes of side 0.2 in a 4 x 2 layout on a 3-layer floor slab, in
-    contact with it and with their neighbours (the 3D bench's body size).
-    The gaps are 0.95 dx: a 3.9 dx cell then never holds 5 lattice rows
-    along an axis, so no cell needs more than the grid's 4 slots of 16
-    (a closer 3D stack overflows ``max_spill`` in the reference too)."""
+    """8 cubes of side 0.2 in a 4 x 2 layout on a 3-layer floor slab, at
+    rest on it (the 3D bench's body size).  Each cube's bottom face sits
+    where the floor carries its weight: the face's overlap is m g / (kr
+    n_face), a few 1e-4 dx, and the gap is dx less that overlap and
+    FLOOR_EPS (the Eq.-21 distance of a face over the slab exceeds the gap
+    by that much, the lower layers' share of the sums).  Neighbours stand
+    0.95 dx apart: a 3.9 dx cell then never holds 5 lattice rows along an
+    axis, so no cell needs more than the grid's 4 slots of 16 (a closer 3D
+    stack overflows ``max_spill`` in the reference too); the cubes are one
+    group, so the faces between neighbours are interior to the surface
+    identification and carry no contact."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import get_3d_block
     from rigid_body_2d_3d_pysph_tpu_torch.models import RigidBody3DScheme
@@ -295,20 +317,23 @@ def contact_scene_3d(dev, n_target=100_000):
     side = max(int(round((n_target / n_bodies) ** (1 / 3))), 5)
     dx = 0.2 / (side - 1)
     xb1, yb1, zb1 = get_3d_block(dx, 0.2, 0.2, 0.2)
-    gap = 0.95 * dx
-    pitch = 0.2 + gap
+    scheme = RigidBody3DScheme(["body"], ["floor"], dim=3, gy=-G)
+    m = 2000.0 * dx**3
+    n_face = side * side
+    rest = m * len(xb1) * G / (scheme.kr * n_face)
+    floor_gap = dx - rest - FLOOR_EPS * dx
+    pitch = 0.2 + 0.95 * dx
     xs, ys, zs, bid = [], [], [], []
     for b in range(n_bodies):
         col, row = b % 4, b // 4
         xs.append(xb1 + col * pitch)
-        ys.append(yb1 + 0.1 + gap)
+        ys.append(yb1 + 0.1 + floor_gap)
         zs.append(zb1 + row * pitch)
         bid.append(np.full(len(xb1), b, np.int32))
     fx, fz = np.meshgrid(np.arange(-0.15, 0.8, dx), np.arange(-0.15, 0.4, dx))
     xf = np.concatenate([fx.ravel()] * 3)
     zf = np.concatenate([fz.ravel()] * 3)
     yf = np.concatenate([np.full(fx.size, -k * dx) for k in range(3)])
-    m = 2000.0 * dx**3
     body = make_group("body", np.concatenate(xs), np.concatenate(ys),
                       z=np.concatenate(zs), m=m, h=1.3 * dx, rho=2000.0,
                       rad_s=dx / 2, role=ROLE_RIGID,
@@ -317,7 +342,6 @@ def contact_scene_3d(dev, n_target=100_000):
                        rad_s=dx / 2, role=ROLE_BOUNDARY, dem_id=n_bodies)
     scene = build_scene([body, floor], dim=3, total_no_bodies=n_bodies + 1,
                         spacing0=dx, device=dev, dtype=config.WORK_DTYPE)
-    scheme = RigidBody3DScheme(["body"], ["floor"], dim=3, gy=-9.81)
     return scheme, scheme.setup(scene), dx
 
 
@@ -325,9 +349,65 @@ def contact_scene_3d(dev, n_target=100_000):
 # phases
 # ---------------------------------------------------------------------------
 
+def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label):
+    """K2 on the first ``ni`` interesting rows against its twin (picks
+    bit for bit, sums within SUM_RTOL), timed, with its bound.  Returns
+    the numbers (with the rows' interesting-slot count), the output and
+    the rows' slots and validity."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+
+    qsel, nbr, valid, _, n_int = tck.select_queries(dfT, grid, pt, cfg, ni)
+    n_int = int(n_int)
+    check(n_int > 0, f"{label}: no interesting slots")
+    args = (dfT, qsel, nbr, S, cfg.radius, init, kernel)
+    out = tck.contact_sums(*args)
+    out_ref = tck.contact_sums_reference(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    check(torch.equal(out[..., 5 * S:], out_ref[..., 5 * S:]),
+          f"{label}: contact picks != twin (max "
+          f"{float((out[..., 5 * S:] - out_ref[..., 5 * S:]).abs().max())})")
+    for c in range(5):
+        a, b = out[..., c * S:(c + 1) * S], out_ref[..., c * S:(c + 1) * S]
+        tol = SUM_RTOL * b.abs() + SUM_RTOL * float(b.abs().max())
+        check(bool(((a - b).abs() <= tol).all()),
+              f"{label}: contact block {c} off by "
+              f"{float((a - b).abs().max())}")
+    rows = int(valid.sum())
+    t = dict(err=float((out - out_ref).abs().max()), rows=rows,
+             ni=qsel.shape[0], n_int=n_int,
+             ms=cuda_ms(lambda: tck.contact_sums(*args)),
+             plain_ms=cuda_ms(lambda: tck.contact_sums_reference(*args)))
+    # least time: K2 needs the F fields of the particles in the slots that
+    # the rows' stencils reach and writes 12S values per live query lane
+    # (the sentinel lanes of the pack and the stencil are layout, not
+    # work), and tests every live candidate lane of a live query lane
+    NC = cfg.NC_max
+    cnt_ext = torch.cat([pt.cnt, torch.zeros(1, dtype=pt.cnt.dtype,
+                                             device=pt.cnt.device)])
+    t["lanes"] = int((cnt_ext[torch.clamp(qsel, max=NC)]
+                      * cnt_ext[torch.clamp(nbr, max=NC)].sum(1)).sum())
+    reached = torch.zeros(NC + 1, dtype=torch.bool, device=dfT.device)
+    reached[nbr[valid].reshape(-1)] = True
+    n_src = int(pt.cnt[reached[:NC]].sum())
+    n_query = int(pt.cnt[qsel[valid]].sum())
+    t["bound"], t["bound_by"] = bound(
+        4 * (n_src * dfT.shape[1] + n_query * 12 * S),
+        t["lanes"] * OPS_PER_LANE)
+    print(f"[kernels] {label}: K2 on {rows} rows (ni {t['ni']}, interesting "
+          f"{n_int}, O {nbr.shape[1]}): {t['ms']:.4f} ms (plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound']:.4f} ms by "
+          f"{t['bound_by']}; {t['lanes']} live candidate lanes, {n_src} "
+          f"source and {n_query} query particles); picks exact, max_abs_err "
+          f"{t['err']:.3e}", flush=True)
+    return t, out, qsel, valid
+
+
 def phase_kernels(scheme, scene, label, timings):
     """Kernels against twins at this scene's main-path shapes (with
-    seeded random velocities so the picked u/v/w are not all zero)."""
+    seeded random velocities so the picked u/v/w are not all zero); in
+    3D, K2 also on every interesting row, as the 3D path runs it once
+    its overflow rebuilds have raised ``ni_max``."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
     from rigid_body_2d_3d_pysph_tpu_torch.ops import pack_expand as tpe
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
@@ -342,6 +422,7 @@ def phase_kernels(scheme, scene, label, timings):
     scene = scene.replace(**vel)
     S = scene.meta.total_no_bodies
     two_d = scheme.dim == 2
+    init = 4.0 * scene.meta.spacing0
 
     grid, pt, dfT = tck.pack_scene(scene, cfg)
     sent = torch.tensor(tck.sent_fields(two_d), device=scene.device)
@@ -350,81 +431,44 @@ def phase_kernels(scheme, scene, label, timings):
     torch.cuda.synchronize()
     k1_err = float((dfT - ref).abs().max())
     check(torch.equal(dfT, ref), f"{label}: pack expansion != twin")
-
-    qsel, nbr, valid, _, n_int = tck.select_queries(
-        dfT, grid, pt, cfg, scheme.ni_max(cfg))
-    n_int = int(n_int)
-    check(n_int > 0, f"{label}: no interesting slots")
-    k2_args = (dfT, qsel, nbr, S, cfg.radius, 4.0 * scene.meta.spacing0,
-               kernel)
-    out = tck.contact_sums(*k2_args)
-    out_ref = tck.contact_sums_reference(*k2_args)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
-    check(torch.equal(out[..., 5 * S:], out_ref[..., 5 * S:]),
-          f"{label}: contact picks != twin (max "
-          f"{float((out[..., 5 * S:] - out_ref[..., 5 * S:]).abs().max())})")
-    for c in range(5):
-        a, b = out[..., c * S:(c + 1) * S], out_ref[..., c * S:(c + 1) * S]
-        tol = SUM_RTOL * b.abs() + SUM_RTOL * float(b.abs().max())
-        check(bool(((a - b).abs() <= tol).all()),
-              f"{label}: contact block {c} off by "
-              f"{float((a - b).abs().max())}")
-    k2_err = float((out - out_ref).abs().max())
-    # the every-slot instance (block skip) on the same rows: the same
-    # output; its time below says what the skip would cost this path
-    check(torch.equal(tck.contact_sums(*k2_args, skip_idle=True), out),
-          f"{label}: K2's skip_idle instance != its culled instance")
-    n_pairs = int(valid.sum()) * cfg.M * nbr.shape[1] * cfg.M
     print(f"[kernels] {label}: NC={cfg.NC_max} M={cfg.M} O={cfg.O} "
-          f"F={dfT.shape[1]} S={S} interesting={n_int} (kernel rows "
-          f"{int(valid.sum())} of ni_max {qsel.shape[0]}) "
-          f"candidate_lanes={n_pairs} | pack max_abs_err={k1_err} | "
-          f"contact picks exact, max_abs_err={k2_err:.3e}", flush=True)
+          f"F={dfT.shape[1]} S={S} | pack max_abs_err={k1_err}", flush=True)
 
+    k2, culled, qsel, valid = contact_rows(dfT, grid, pt, cfg, kernel, S,
+                                           init, scheme.ni_max(cfg), label)
+    # the every-slot launch (the cell pipeline's) at the culled rows: the
+    # same output bit for bit
+    every = tck.contact_sums(dfT, torch.arange(cfg.NC_max, device=dfT.device),
+                             grid.nbr_slots, S, cfg.radius, init, kernel)
+    torch.cuda.synchronize()
+    check(torch.equal(culled[valid], every[qsel[valid]]),
+          f"{label}: K2 on every slot != K2 on the culled rows")
+    del every, culled
     t = dict(
         pack_ms=cuda_ms(lambda: tpe.expand_slots(*k1_args)),
         pack_plain_ms=cuda_ms(lambda: tpe.expand_slots_reference(*k1_args)),
-        contact_ms=cuda_ms(lambda: tck.contact_sums(*k2_args)),
-        contact_skip_ms=cuda_ms(
-            lambda: tck.contact_sums(*k2_args, skip_idle=True)),
-        contact_plain_ms=cuda_ms(
-            lambda: tck.contact_sums_reference(*k2_args)),
-        pack_err=k1_err, contact_err=k2_err)
-    # least times: K1 moves its inputs and output once; K2 reads its
-    # inputs, writes its rows and tests every live candidate lane
-    cnt_ext = torch.cat([pt.cnt, torch.zeros(1, dtype=pt.cnt.dtype,
-                                             device=pt.cnt.device)])
-    live_lanes = int((cnt_ext[torch.clamp(qsel, max=cfg.NC_max)]
-                      * cnt_ext[torch.clamp(nbr, max=cfg.NC_max)].sum(1)
-                      ).sum())
+        contact_ms=k2["ms"], contact_plain_ms=k2["plain_ms"],
+        contact_bound=k2["bound"], contact_bound_by=k2["bound_by"],
+        pack_err=k1_err, contact_err=k2["err"])
     t["pack_bound"], t["pack_bound_by"] = bound(
         nbytes(pt.sorted_fields, pt.base, pt.cnt, sent, dfT), 0)
-    # K2 needs the F fields of the particles in the slots that the
-    # interesting rows' stencils reach, and writes 12S values per live
-    # query lane; the sentinel lanes of the pack and the stencil are
-    # layout, not work
-    NC = cfg.NC_max
-    reached = torch.zeros(NC + 1, dtype=torch.bool, device=scene.device)
-    reached[nbr[valid].reshape(-1)] = True
-    reached = reached[:NC]
-    n_src = int(pt.cnt[reached].sum())
-    n_query = int(pt.cnt[qsel[valid]].sum())
-    t["contact_bound"], t["contact_bound_by"] = bound(
-        4 * (n_src * dfT.shape[1] + n_query * 12 * S),
-        live_lanes * OPS_PER_LANE)
+    if not two_d:
+        k2all, _, _, _ = contact_rows(
+            dfT, grid, pt, cfg, kernel, S, init,
+            max(scheme.ni_max(cfg), k2["n_int"]), f"{label} all rows")
+        t.update(contact_all_rows_ms=k2all["ms"],
+                 contact_all_rows_plain_ms=k2all["plain_ms"],
+                 contact_all_rows_bound=k2all["bound"],
+                 contact_all_rows_bound_by=k2all["bound_by"],
+                 contact_all_rows=k2all["rows"],
+                 contact_err=max(k2["err"], k2all["err"]))
     print(f"[kernels] {label}: pack {t['pack_ms']:.4f} ms "
           f"(plain {t['pack_plain_ms']:.4f} ms, bound "
-          f"{t['pack_bound']:.4f} ms by {t['pack_bound_by']}), contact "
-          f"{t['contact_ms']:.4f} ms (plain {t['contact_plain_ms']:.4f} ms, "
-          f"bound {t['contact_bound']:.4f} ms by {t['contact_bound_by']}; "
-          f"{live_lanes} live candidate lanes, {n_src} source and "
-          f"{n_query} query particles); the skip_idle instance on the same "
-          f"rows {t['contact_skip_ms']:.4f} ms", flush=True)
+          f"{t['pack_bound']:.4f} ms by {t['pack_bound_by']})", flush=True)
     timings[label] = t
 
 
-def phase_main_path(scheme, scene, dx, smi):
+def phase_main_path(scheme, scene, dx, smi, label="main"):
     from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
@@ -456,10 +500,11 @@ def phase_main_path(scheme, scene, dx, smi):
             chunk_start = scheme.adapt_scene(chunk_start)
             step = scheme.make_step(chunk_start)
             scene = chunk_start
-            print(f"[main] step {done}: capacity overflow, rebuilt "
+            cfg = scheme.cell_config(scene, kernel)
+            print(f"[{label}] step {done}: capacity overflow, rebuilt "
                   f"(x{rebuilds}, boost {scheme.capacity_boost:.2f}, "
-                  f"ni_max {scheme.ni_max(scheme.cell_config(scene, kernel))})",
-                  flush=True)
+                  f"ni_max {scheme.ni_max(cfg)}, NC {cfg.NC_max}, O "
+                  f"{cfg.O})", flush=True)
             continue
         rebuilds = 0
         done += CHUNK
@@ -468,7 +513,7 @@ def phase_main_path(scheme, scene, dx, smi):
         lanes.append(ni * cfg.M * cfg.O * cfg.M)
         chunk_s.append(el)
         ov = float(scheme.export_scene(scene).overlap.max())
-        print(f"[main] steps {done - CHUNK}-{done}: {el:.3f} s, interesting "
+        print(f"[{label}] steps {done - CHUNK}-{done}: {el:.3f} s, interesting "
               f"slots {ni.min()}-{ni.max()}, max overlap {ov:.3e}",
               flush=True)
 
@@ -489,7 +534,8 @@ def phase_main_path(scheme, scene, dx, smi):
         if v.is_floating_point():
             check(bool(torch.isfinite(v).all()), f"non-finite field {k}")
     check(not bool(scene.nbr_overflow), "overflow at the end")
-    drift = float((scene.xcm[:, :2] - xcm0[:, :2]).norm(dim=1).max())
+    dim = scheme.dim
+    drift = float((scene.xcm[:, :dim] - xcm0[:, :dim]).norm(dim=1).max())
     check(drift < 2 * dx, f"COM drift {drift:.3e} >= 2 dx = {2 * dx:.3e}")
     # static stack: with no contact force every block would have dropped
     # the free-fall distance g t^2 / 2 (GTVF is exact for constant force);
@@ -500,7 +546,7 @@ def phase_main_path(scheme, scene, dx, smi):
           f"free-fall distance {fall:.3e}: the stack is not carried")
     steady = chunk_s[1:] or chunk_s
     sps = CHUNK * len(steady) / sum(steady)
-    print(f"[main] n={scene.n} dx={dx:.6g} steps={done} (run {steps_run}) "
+    print(f"[{label}] n={scene.n} dx={dx:.6g} steps={done} (run {steps_run}) "
           f"launches pack={launches['pack_expand']} "
           f"contact={launches['contact']} | interesting slots/step "
           f"min {n_int.min()} mean {n_int.mean():.1f} max {n_int.max()} | "
@@ -508,7 +554,11 @@ def phase_main_path(scheme, scene, dx, smi):
           f"{max_overlap:.4e} ({max_overlap / dx:.3f} dx) | max COM drift "
           f"{drift:.4e} ({drift / dx:.3f} dx) | max drop {drop:.4e} "
           f"(free fall {fall:.4e})", flush=True)
-    print(f"[main] {sps:.2f} steps/s steady (chunks 2+), "
+    cfg = scheme.cell_config(scene, kernel)
+    print(f"[{label}] final config: ni_max {scheme.ni_max(cfg)}, NC "
+          f"{cfg.NC_max}, O {cfg.O}, capacity boost "
+          f"{scheme.capacity_boost:.4g}", flush=True)
+    print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
           f"{CHUNK * len(chunk_s) / sum(chunk_s):.2f} steps/s all chunks, "
           f"on {smi}", flush=True)
     return scene, launches, dict(steps_per_s=sps, n=scene.n)
@@ -524,14 +574,15 @@ def phase_step_parity(scheme, scene):
                   gx=scheme.gx, gy=scheme.gy, gz=scheme.gz)
     fast = trb.make_multi_step(scheme.make_step(scene), COMPARE_STEPS)
     plain = trb.make_multi_step(trb.build_rigid_gtvf_step_cell(
-        kernel, cfg, params, True, scheme.ni_max(cfg), plain=True),
+        kernel, cfg, params, scheme.two_d, scheme.ni_max(cfg), plain=True),
         COMPARE_STEPS)
     a, b = fast(scene, DT), plain(scene, DT)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
           "overflow during the step comparison")
     worst = []
-    for k in ("xcm", "vcm", "omega", "fx", "fy"):
+    for k in ("xcm", "vcm", "omega", "fx", "fy") + (
+            () if scheme.two_d else ("fz",)):
         x, y = a[k], b[k]
         err = float((x - y).abs().max())
         scale = float(y.abs().max())
@@ -540,7 +591,8 @@ def phase_step_parity(scheme, scene):
         worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
         check(ok, f"kernel step vs twin step: {k} off by {err:.3e} "
                   f"(scale {scale:.3e}, rtol {STEP_RTOL})")
-    print(f"[parity] {COMPARE_STEPS} kernel steps vs {COMPARE_STEPS} twin "
+    print(f"[parity] {scheme.dim}D: {COMPARE_STEPS} kernel steps vs "
+          f"{COMPARE_STEPS} twin "
           f"steps, max abs diff: " + ", ".join(worst), flush=True)
 
 
@@ -1310,7 +1362,7 @@ def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed):
     nbr = grid.nbr_slots
     args = (dfT, torch.arange(NC, device=dfT.device), nbr, S, cfg.radius,
             init, kernel)
-    out = tck.contact_sums(*args, skip_idle=True)
+    out = tck.contact_sums(*args)
     ref = tck.contact_sums_reference(*args)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"{label}: K2 non-finite output")
@@ -1328,7 +1380,7 @@ def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed):
     t = dict(err=float((out - ref).abs().max()))
     n_pick = int((ref[..., 5 * S:6 * S] < init).sum())
     if timed:
-        t["ms"] = cuda_ms(lambda: tck.contact_sums(*args, skip_idle=True))
+        t["ms"] = cuda_ms(lambda: tck.contact_sums(*args))
         t["plain_ms"] = cuda_ms(lambda: tck.contact_sums_reference(*args),
                                 reps=3, warmup=1)
         # least time: F fields in and 12S words out per live lane; 9 ops
@@ -1477,11 +1529,10 @@ def main() -> int:
         timings = {}
         phase_kernels(scheme, scene, "2D", timings)
         t0 = time.perf_counter()
-        scheme3, scene3, _ = contact_scene_3d(dev)
+        scheme3, scene3, dx3 = contact_scene_3d(dev)
         print(f"[setup] 3D: n={scene3.n} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         phase_kernels(scheme3, scene3, "3D", timings)
-        del scheme3, scene3
 
         # 4. the main path
         end, launches, main_stats = phase_main_path(scheme, scene, dx, smi)
@@ -1489,6 +1540,13 @@ def main() -> int:
         # 5. kernel steps against twin steps
         phase_step_parity(scheme, end)
         del scheme, scene, end
+
+        # 5a. the 3D main path from the 3D scene's set-up state, 5b. its
+        # kernel steps against twin steps
+        end3, launches3, stats3 = phase_main_path(scheme3, scene3, dx3, smi,
+                                                  "main-3d")
+        phase_step_parity(scheme3, end3)
+        del scheme3, scene3, end3
 
         # 6. DEM kernels against twins
         dem_t = {}
@@ -1597,12 +1655,13 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    t2 = timings["2D"]
+    t2, t3 = timings["2D"], timings["3D"]
     errs = lambda k: max(timings[lab][k] for lab in timings)
     src = "rigid_body_2d_3d_pysph_tpu_torch/csrc/"
     # each path's launches, read from its own counts (reset just before it)
     by_path = lambda k: {p: c[k] for p, c in (
-        ("rigid", launches), ("dem-main", dem_launches),
+        ("rigid", launches), ("rigid-3d", launches3),
+        ("dem-main", dem_launches),
         ("dem-rowwin", rw_launches), ("coupling", cpl_launches),
         ("coupling-tank", tank_launches),
         ("coupling-kdk", launches_by["kdk"]),
@@ -1631,7 +1690,15 @@ def main() -> int:
              ms=t2["contact_ms"], plain_ms=t2["contact_plain_ms"],
              bound_ms=t2["contact_bound"],
              bound_by=t2["contact_bound_by"], library_ms=None,
-             skip_instance_culled_ms=t2["contact_skip_ms"],
+             # 3D: at the 3D scene's set-up ni_max, and on every
+             # interesting row (the rows the 3D path runs after its
+             # overflow rebuilds)
+             ms_3d=t3["contact_ms"], plain_ms_3d=t3["contact_plain_ms"],
+             bound_ms_3d=t3["contact_bound"],
+             ms_3d_all_rows=t3["contact_all_rows_ms"],
+             plain_ms_3d_all_rows=t3["contact_all_rows_plain_ms"],
+             bound_ms_3d_all_rows=t3["contact_all_rows_bound"],
+             rows_3d_all_rows=t3["contact_all_rows"],
              # on every slot: the coupling orderings' cell pipeline
              all_slots_ms=k2all["ms"], all_slots_plain_ms=k2all["plain_ms"],
              all_slots_bound_ms=k2all["bound_ms"],
@@ -1691,7 +1758,8 @@ def main() -> int:
                          tait_bound_ms=ft["bound_ms"])
         kernels.append(entry)
     print(f"[done] rigid {main_stats['steps_per_s']:.2f} steps/s at "
-          f"n={main_stats['n']}; DEM spill {dem_sps:.2f} steps/s, row-window "
+          f"n={main_stats['n']}, 3D {stats3['steps_per_s']:.2f} steps/s at "
+          f"n={stats3['n']}; DEM spill {dem_sps:.2f} steps/s, row-window "
           f"{rw_sps:.2f} steps/s; coupling kdkf {cpl_sps:.2f} steps/s, "
           f"fluid-only tank {tank_sps:.2f} steps/s, kdk "
           f"{sps_by['kdk']:.2f} steps/s, reference "

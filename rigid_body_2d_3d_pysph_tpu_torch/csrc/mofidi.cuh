@@ -43,6 +43,40 @@ __device__ __forceinline__ float quintic_w(float rij, float h, float sig_num,
   return quintic_sigma<KDIM2>(h, sig_num, sig_den) * val;
 }
 
+// the epilogue of pallas_contact.py:313-328 for one (query lane, entity
+// slot): from the running sums a0..a6, the closest distance and the
+// picked source's x/y/z/u/v/w, the 12 column blocks (cfn x/y/z, wij sum,
+// contact distance, closest distance, picked source x/y/z/u/v/w) at
+// o[c * S]
+__device__ __forceinline__ void store_row(float* o, int S, float init_dist,
+                                          float a0, float a1, float a2,
+                                          float a3, float a4, float a5,
+                                          float a6, float minr, float px,
+                                          float py, float pz, float pu,
+                                          float pv, float pw) {
+  const bool has = a3 > 1e-12f;
+  const float inv_w = has ? 1.0f / fmaxf(a3, 1e-30f) : 0.0f;
+  const float mx = a0 * inv_w, my = a1 * inv_w, mz = a2 * inv_w;
+  const float mag = sqrtf(mx * mx + my * my + mz * mz);
+  const float inv_m = (has && mag > 0.0f) ? 1.0f / fmaxf(mag, 1e-30f) : 0.0f;
+  const float cx = mx * inv_m, cy = my * inv_m, cz = mz * inv_m;
+  const float num = cx * a4 + cy * a5 + cz * a6;
+  const float dist = has ? num / a3 : 0.0f;
+  const bool found = minr < init_dist;
+  o[0 * S] = cx;
+  o[1 * S] = cy;
+  o[2 * S] = cz;
+  o[3 * S] = a3;
+  o[4 * S] = dist;
+  o[5 * S] = fminf(minr, init_dist);
+  o[6 * S] = found ? px : 0.0f;
+  o[7 * S] = found ? py : 0.0f;
+  o[8 * S] = found ? pz : 0.0f;
+  o[9 * S] = found ? pu : 0.0f;
+  o[10 * S] = found ? pv : 0.0f;
+  o[11 * S] = found ? pw : 0.0f;
+}
+
 // The running state of one (query lane, source-entity slot): the Eq. 22
 // sums a0..a2 = sum t1 (xij, yij, zij), t1 = V_q W / r; the Eq. 21 sums
 // a3 = sum t2, a4..a6 = sum t2 (xij, yij, zij), t2 = t1 r; and the closest
@@ -88,33 +122,10 @@ struct Acc {
     }
   }
 
-  // the epilogue of pallas_contact.py:313-328: the 12 column blocks (cfn
-  // x/y/z, wij sum, contact distance, closest distance, picked source
-  // x/y/z/u/v/w) at o[c * S]
   __device__ __forceinline__ void store(float* o, int S,
                                         float init_dist) const {
-    const bool has = a3 > 1e-12f;
-    const float inv_w = has ? 1.0f / fmaxf(a3, 1e-30f) : 0.0f;
-    const float mx = a0 * inv_w, my = a1 * inv_w, mz = a2 * inv_w;
-    const float mag = sqrtf(mx * mx + my * my + mz * mz);
-    const float inv_m =
-        (has && mag > 0.0f) ? 1.0f / fmaxf(mag, 1e-30f) : 0.0f;
-    const float cx = mx * inv_m, cy = my * inv_m, cz = mz * inv_m;
-    const float num = cx * a4 + cy * a5 + cz * a6;
-    const float dist = has ? num / a3 : 0.0f;
-    const bool found = minr < init_dist;
-    o[0 * S] = cx;
-    o[1 * S] = cy;
-    o[2 * S] = cz;
-    o[3 * S] = a3;
-    o[4 * S] = dist;
-    o[5 * S] = fminf(minr, init_dist);
-    o[6 * S] = found ? px : 0.0f;
-    o[7 * S] = found ? py : 0.0f;
-    o[8 * S] = found ? pz : 0.0f;
-    o[9 * S] = found ? pu : 0.0f;
-    o[10 * S] = found ? pv : 0.0f;
-    o[11 * S] = found ? pw : 0.0f;
+    store_row(o, S, init_dist, a0, a1, a2, a3, a4, a5, a6, minr, px, py, pz,
+              pu, pv, pw);
   }
 };
 

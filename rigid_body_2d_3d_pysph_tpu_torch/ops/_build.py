@@ -41,7 +41,7 @@ KERNELS = {
     "pack_expand": ("pack_expand", "pack_expand",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "contact": ("contact", "contact_sums",
-                [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P]),
+                [_P] * 4 + [_I] * 6 + [_F] * 4 + [_P]),
     "dem_cell": ("dem", "dem_cell",
                  [_P] * 12 + [_I] * 6 + [_F, _F, _P]),
     "dem_rowwin": ("dem", "dem_rowwin",

@@ -32,6 +32,7 @@ from .pack_expand import expand_slots, expand_slots_reference
 
 _BIG = 1.0e9
 S_MAX = 64   # compile-time bound of csrc/contact.cu
+_MAX_PACK_LANES = 1 << 31   # csrc/contact.cu keeps a pack lane in an int
 _MAX_PAIR_ELEMS = 1 << 22   # pair lanes per chunk of the plain version
 
 # Pack field order.  The flags word is dem_id*8 + boundary*4 + fluid*2
@@ -273,12 +274,12 @@ def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
 
 
 def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
-                 kernel: QuinticSpline, skip_idle: bool = False):
+                 kernel: QuinticSpline):
     """Contact sums for the query slots ``qslot [NI]`` over the stencil
-    rows ``nbr [NI, O]`` of the dense pack ``dfT [R, F, M]``.
-    ``skip_idle`` launches the instance for callers whose slots mostly
-    hold no rigid lane (every slot a query): such a block writes the init
-    row and loads no stencil tile.  The output is the same."""
+    rows ``nbr [NI, O]`` of the dense pack ``dfT [R, F, M]``: the culled
+    rows of the compact path, or every slot of a grid (the cell
+    pipeline), where a row without a rigid lane costs the kernel only its
+    init row."""
     two_d = kernel.dim == 2
     F = len(_FIELDS_2D if two_d else _FIELDS_3D)
     if dfT.dim() != 3 or dfT.shape[1] != F or qslot.dim() != 1 \
@@ -295,10 +296,11 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
         raise ValueError("the contact kernel takes float32")
     if qslot.dtype != torch.int64 or nbr.dtype != torch.int64:
         raise ValueError("the contact kernel takes int64 qslot/nbr")
-    M = dfT.shape[2]
-    if S > S_MAX or M * S > 1024:
-        raise ValueError(f"contact kernel limits: S={S} (max {S_MAX}), "
-                         f"M*S={M * S} (max 1024)")
+    R, M = dfT.shape[0], dfT.shape[2]
+    if not 1 <= S <= S_MAX or M != 16 or R * M >= _MAX_PACK_LANES:
+        raise ValueError(f"contact kernel limits: S={S} (1..{S_MAX}), "
+                         f"M={M} (16), {R * M} pack lanes (below "
+                         f"{_MAX_PACK_LANES})")
     NI, O = nbr.shape
     dfT, qslot, nbr = dfT.contiguous(), qslot.contiguous(), nbr.contiguous()
     out = torch.empty((NI, M, 12 * S), dtype=torch.float32,
@@ -307,9 +309,8 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
     fn = _build.load("contact")
     stream = torch.cuda.current_stream(dfT.device).cuda_stream
     err = fn(dfT.data_ptr(), qslot.data_ptr(), nbr.data_ptr(),
-             out.data_ptr(), NI, O, dfT.shape[0], M, S, int(two_d),
-             int(skip_idle), float(cutoff), float(init_dist), float(sig_num),
-             float(sig_den), stream)
+             out.data_ptr(), NI, O, R, M, S, int(two_d), float(cutoff),
+             float(init_dist), float(sig_num), float(sig_den), stream)
     _build.check(err, "contact_sums")
     _build.LAUNCHES["contact"] += 1
     return out
@@ -326,8 +327,7 @@ def contact_pipeline_cell(dfT, grid, cfg: CellGridConfig,
     tensors."""
     qslot = torch.arange(cfg.NC_max, dtype=torch.int64, device=dfT.device)
     args = (dfT, qslot, grid.nbr_slots, S, cfg.radius, init_dist, kernel)
-    out = (contact_sums_reference(*args) if plain
-           else contact_sums(*args, skip_idle=True))
+    out = (contact_sums_reference if plain else contact_sums)(*args)
     return unpack(grid, cfg, out, n, 0.0).reshape(n, 12, S)
 
 

@@ -129,6 +129,170 @@ def test_contact_kernel_matches_twin(dev, dim):
                                    err_msg=f"block {c}")
 
 
+def _check_contact(got, ref, S):
+    """Picks (blocks 5-11) bit for bit, sums within the f32 summation
+    order's tolerance (the unit normals, blocks 0-2, on a scale of 1)."""
+    assert torch.equal(got[..., 5 * S:], ref[..., 5 * S:])
+    for c in range(5):
+        a, b = got[..., c * S:(c + 1) * S], ref[..., c * S:(c + 1) * S]
+        scale = max(float(b.abs().max()), 1.0 if c < 3 else 1e-30)
+        assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * scale).all()), c
+
+
+def _contact_pack(dim, S, dev, seed, nrows=48, NI=40, O=12, M=16, box=5):
+    """A random contact pack on a lattice of spacing 2^-6 (coordinates and
+    their differences exact in f32, so equal distances tie exactly):
+    lanes live with p 0.6, dems uniform in [0, S), contact surface with p
+    0.7, fluid with p 0.1, rigid with p 0.7; the last row all-sentinel;
+    stencil rows drawn at random (the sentinel row among them) and a few
+    padding query rows.  Returns the kernel's arguments."""
+    rng = np.random.default_rng(seed)
+    two_d = dim == 2
+    fi = tck.field_index(two_d)
+    sp = 2.0 ** -6
+    dfT = np.tile(np.asarray(tck.sent_fields(two_d), np.float32)[None, :, None],
+                  (nrows, 1, M))
+    live = rng.random((nrows - 1, M)) < 0.6
+    shape = (nrows - 1, M)
+    vals = dict(x=rng.integers(0, box, shape) * sp,
+                y=rng.integers(0, box, shape) * sp,
+                u=rng.uniform(-1, 1, shape), v=rng.uniform(-1, 1, shape),
+                vol=np.full(shape, 1e-6), h=np.full(shape, 1.3 * sp),
+                flags=tck.encode_flags(
+                    rng.integers(0, S, shape).astype(np.float64),
+                    (rng.random(shape) < 0.7).astype(np.float64),
+                    (rng.random(shape) < 0.1).astype(np.float64),
+                    (rng.random(shape) < 0.7).astype(np.float64)))
+    if not two_d:
+        vals.update(z=rng.integers(0, box, shape) * sp,
+                    w=rng.uniform(-1, 1, shape))
+    for k, v in vals.items():
+        dfT[:-1, fi[k]] = np.where(live, v, dfT[:-1, fi[k]])
+    nbr = rng.integers(0, nrows, (NI, O))
+    qslot = rng.integers(0, nrows - 1, NI)
+    qslot[-3:] = nrows - 1                     # padding rows
+    nbr[-3:] = nrows - 1
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    return (t(dfT, torch.float32), t(qslot, torch.int64),
+            t(nbr, torch.int64), S, 2.5 * sp, 4.0 * sp, QuinticSpline(dim=dim))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("S", [3, 9, 34, 64])
+def test_contact_kernel_random_packs(dev, dim, S):
+    """Random packs with many dems a query lane (S = 34 is the stack of
+    cylinders, 64 the kernel's bound; more than the kernel's K
+    accumulators a lane, so its extra passes run) and exact distance
+    ties: the kernel equals its twin."""
+    args = _contact_pack(dim, S, dev, seed=S + 10 * dim)
+    got = tck.contact_sums(*args)
+    ref = tck.contact_sums_reference(*args)
+    torch.cuda.synchronize()
+    init = args[5]
+    picked = ref[..., 5 * S:6 * S] < init
+    assert int(picked.sum()) > 0
+    if S >= 34:   # some lanes reach more dems than one pass takes
+        assert int(picked.sum(-1).max()) > 4
+    _check_contact(got, ref, S)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_crowded_stencil(dev, dim):
+    """Stencils of 640 entries, most lanes candidates of 3 dems: more
+    candidates than the kernel sorts at once (1,536: three windows here),
+    so it sums them in windows and carries a dem's sums and pick across
+    them."""
+    S = 3
+    args = _contact_pack(dim, S, dev, seed=7 + dim, nrows=40, NI=10, O=640,
+                         box=4)
+    got = tck.contact_sums(*args)
+    ref = tck.contact_sums_reference(*args)
+    torch.cuda.synchronize()
+    dfT, qslot, nbr = args[:3]
+    flags = tck.decode_flags(dfT[:, -1])
+    cand = ((flags[1] == 1.0) & (flags[2] == 0.0) & (flags[0] >= 0)).sum(1)
+    assert int(cand[nbr[0]].sum()) > 2 * 1536
+    assert int((ref[..., 5 * S:6 * S] < args[5]).sum()) > 0
+    _check_contact(got, ref, S)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_picks_the_lowest_lane_on_a_tie(dev, dim):
+    """One query lane at the origin and three sources of one dem at the
+    same distance: in stencil entries 1 and 2 (entry 0 is the sentinel
+    row) and in a later lane of entry 1.  The pick is the lowest stencil
+    lane, entry 1 lane 3."""
+    two_d = dim == 2
+    fi = tck.field_index(two_d)
+    M, S, sp = 16, 3, 2.0 ** -6
+    dfT = np.tile(np.asarray(tck.sent_fields(two_d), np.float32)[None, :, None],
+                  (4, 1, M))
+
+    def put(row, lane, x, y, dem, rigid, u):
+        for k, v in dict(x=x, y=y, u=u, v=-u, vol=1e-6, h=1.3 * sp,
+                         flags=tck.encode_flags(dem, 1.0, 0.0, rigid)).items():
+            dfT[row, fi[k], lane] = v
+        if not two_d:
+            dfT[row, fi["z"], lane] = 0.0
+            dfT[row, fi["w"], lane] = 0.0
+
+    put(0, 0, 0.0, 0.0, 0, 1.0, 0.0)       # the query
+    put(1, 3, sp, 0.0, 1, 1.0, 0.25)       # the first of the tie
+    put(1, 9, 0.0, -sp, 1, 1.0, 0.5)
+    put(2, 0, -sp, 0.0, 1, 1.0, 0.75)
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    args = (t(dfT, torch.float32), t([0], torch.int64),
+            t([[3, 1, 2]], torch.int64), S, 2.5 * sp, 4.0 * sp,
+            QuinticSpline(dim=dim))
+    got = tck.contact_sums(*args)
+    ref = tck.contact_sums_reference(*args)
+    torch.cuda.synchronize()
+    _check_contact(got, ref, S)
+    assert float(got[0, 0, 5 * S + 1]) == sp       # closest distance
+    assert float(got[0, 0, 6 * S + 1]) == sp       # picked x
+    assert float(got[0, 0, 9 * S + 1]) == 0.25     # picked u
+
+
+def test_contact_kernel_one_dem_pack_gives_the_init_row(dev):
+    """Every lane rigid and on the contact surface, all of one dem: no
+    pair passes the gate, so every row of every slot is the init row."""
+    dfT, qslot, nbr, S, cut, init, kern = _contact_pack(2, 9, dev, seed=5)
+    flags = dfT[:, 6]
+    dfT[:, 6] = torch.where(flags == -8.0, flags,
+                            torch.full_like(flags, float(tck.encode_flags(
+                                4.0, 1.0, 0.0, 1.0))))
+    qslot = torch.arange(dfT.shape[0] - 1, device=dev)
+    nbr = torch.randint(0, dfT.shape[0], (qslot.shape[0], 12), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    args = (dfT, qslot, nbr, S, cut, init, kern)
+    got = tck.contact_sums(*args)
+    torch.cuda.synchronize()
+    init_row = torch.zeros(12 * S, device=dev)
+    init_row[5 * S:6 * S] = init
+    assert torch.equal(got, init_row.expand_as(got))
+    assert torch.equal(got, tck.contact_sums_reference(*args))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_culled_rows_equal_every_slot_rows(dev, dim):
+    """The culled rows (the rigid path) and every slot (the cell
+    pipeline) of one pack: the culled rows' output is bit for bit the
+    every-slot output at those slots."""
+    scene, cfg = _scene(dim, dev)
+    kernel = QuinticSpline(dim=dim)
+    S = scene.meta.total_no_bodies
+    grid, pt, dfT = tck.pack_scene(scene, cfg)
+    qsel, nbr, valid, _, _ = tck.select_queries(dfT, grid, pt, cfg,
+                                                cfg.NC_max)
+    init = 4.0 * scene.meta.spacing0
+    culled = tck.contact_sums(dfT, qsel, nbr, S, cfg.radius, init, kernel)
+    every = tck.contact_sums(dfT, torch.arange(cfg.NC_max, device=dev),
+                             grid.nbr_slots, S, cfg.radius, init, kernel)
+    torch.cuda.synchronize()
+    assert int(valid.sum()) > 0
+    assert torch.equal(culled[valid], every[qsel[valid]])
+
+
 def test_kernel_step_matches_plain_step(dev):
     scene, cfg = _scene(2, dev)
     ni = cfg.NC_max
@@ -548,11 +712,10 @@ def test_coupling_kernel_step_matches_plain_step(dev):
 
 
 def test_contact_kernel_on_every_slot_matches_twin(dev):
-    """K2's every-slot instance (``skip_idle``) on every slot of the
-    contact pack laid out from a coupling pack (the kdk and reference
-    orderings' cell pipeline): picks bit for bit, sums within tolerance,
-    and the init row on every slot that the block skip leaves out (no
-    rigid lane)."""
+    """K2 on every slot of the contact pack laid out from a coupling pack
+    (the kdk and reference orderings' cell pipeline): picks bit for bit,
+    sums within tolerance, and the init row on every slot without a
+    rigid lane."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
 
     scheme, scene = _coupling_scene(dev)
@@ -565,7 +728,7 @@ def test_contact_kernel_on_every_slot_matches_twin(dev):
     qslot = torch.arange(cfg.NC_max, device=dev)
     args = (cdfT, qslot, grid.nbr_slots, S, cfg.radius, init, kernel)
     before = _build.LAUNCHES["contact"]
-    got = tck.contact_sums(*args, skip_idle=True)
+    got = tck.contact_sums(*args)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["contact"] == before + 1
     ref = tck.contact_sums_reference(*args)
