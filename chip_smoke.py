@@ -59,7 +59,8 @@ no result line):
     placement with the box resting 0.95 dx above the tank floor (gated
     contact pairs > 0): sums within 2e-5 of each column's largest
     magnitude (f32 summation order; the unit contact normals 2e-5
-    absolute), contact picks bit for bit; times, lanes and pairs;
+    absolute), contact picks bit for bit, two launches on the same
+    inputs bit for bit; times, lanes and pairs;
 11. the coupling main path: ``RigidFluidCouplingScheme.setup`` ->
     ``make_step`` -> ``step``, 200 fused kdkf steps of the sinking box at
     the case's dt = 0.25 dx / (1.1 c0), in chunks with the
@@ -67,7 +68,8 @@ no result line):
     step and no K2, finiteness, overflow, fluid rho within 5 % of rho0
     and the box's COM lower at the end; prints steps/s;
 12. the fluid-only tank (the same tank without the box): B4 (no rigid
-    body) and B6c against their twins on its pack, timed, then 50 steps:
+    body) and B6c against their twins on its pack as in phase 10, timed,
+    then 50 steps:
     one K1, one B4 and one B6c launch per step;
 13. 20 coupling kernel steps against 20 twin steps on the contact
     placement with a box of 8 times the fluid's density, in contact to
@@ -78,7 +80,8 @@ no result line):
     B6c with rigid bodies) and K2 on every slot of the contact pack laid
     out from the coupling pack, against their twins on the sinking box
     (timed) and with the box on the floor (contact picks > 0): sums as
-    in phase 10, K2's picks bit for bit; times, lanes and pairs;
+    in phase 10 (two launches bit for bit), K2's picks bit for bit;
+    times, lanes and pairs;
 15. the kdk ordering: ``gtvf_ordering="kdk"``, 200 steps of the sinking
     box as in phase 11; checks two K1, one B6a, one B6b, one B6c and one
     K2 launch per step and nothing else, and the gates of phase 11;
@@ -92,7 +95,9 @@ no result line):
 19. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d`` among them; K2's 3D times at the set-up ``ni_max`` and
-    on every interesting row beside its 2D time), then the result line.
+    on every interesting row beside its 2D time; ptxas's registers,
+    static and dynamic shared memory and spills of B5 and both B6c
+    instances), then the result line.
 
 It imports nothing from JAX or the JAX package.
 """
@@ -1111,6 +1116,28 @@ def fluid_pass_cost(work, name, n_live, edac=True, has_rigid=True,
     return 4 * n_live * (fields + width), w[lanes] * OPS_PER_LANE + ops
 
 
+def forces_resources(fsi, contact, t):
+    """ptxas's registers, static shared memory and spills of the 2D
+    forces_kernel instance with viscosity (``fsi``, ``contact``), and the
+    dynamic shared memory a block takes at the lanes a slot and output
+    columns of the timed pass ``t``."""
+    import ctypes
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    key = "forces_kernelI" + "".join(
+        f"Lb{int(b)}E" for b in (True, True, fsi, contact)) + "E"
+    usage = [u for e, u in _build.ptxas_usage(
+        _build.BUILD_LOG.get("fluid", "")).items() if key in e]
+    lib = ctypes.CDLL(_build.library_path("fluid"))
+    lib.fluid_forces_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    u = usage[0] if usage else {}
+    return dict(registers=u.get("registers"), smem_static=u.get("smem"),
+                smem_dynamic_per_block=lib.fluid_forces_smem(t["M"],
+                                                             t["width"]),
+                spill_bytes=(u["spill_stores"] + u["spill_loads"]
+                             if u else None))
+
+
 def check_fluid_columns(got, ref, cols, label, floor=0.0):
     """Each column within FLUID_SUM_RTOL of its largest magnitude (at
     least ``floor``); returns the max abs error."""
@@ -1161,9 +1188,12 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed):
     out = {}
     for name, (fast, plain, args) in calls.items():
         got = fast(*args)
+        again = fast(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite")
+        check(torch.equal(got, again), f"{label} {name}: two launches on "
+              "the same inputs differ")
         W = got.shape[-1]
         if name == "fluid_forces_contact":
             picks = got[..., 5 * S:12 * S], ref[..., 5 * S:12 * S]
@@ -1184,7 +1214,7 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed):
                                  .abs().max()))
         else:
             err = check_fluid_columns(got, ref, range(W), label + " " + name)
-        t = dict(err=err)
+        t = dict(err=err, M=got.shape[1], width=W)
         if timed:
             t["ms"] = cuda_ms(lambda: fast(*args))
             t["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
@@ -1445,13 +1475,17 @@ def phase_split_kernels(scheme, scene, label, timings, timed):
     out = {}
     for name, (fast, plain, args, cost_name, edac) in calls.items():
         got = fast(*args)
+        again = fast(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite")
+        check(torch.equal(got, again), f"{label} {name}: two launches on "
+              "the same inputs differ")
         check(float(ref.abs().max()) > 0, f"{label} {name}: all zero")
         W = got.shape[-1]
         t = dict(err=check_fluid_columns(got, ref, range(W),
-                                         label + " " + name))
+                                         label + " " + name),
+                 M=got.shape[1], width=W)
         if timed:
             t["ms"] = cuda_ms(lambda: fast(*args))
             t["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
@@ -1741,6 +1775,14 @@ def main() -> int:
                         split_err("fluid_forces_rigid")),
         rigid_ms=fr["ms"], rigid_plain_ms=fr["plain_ms"],
         rigid_bound_ms=fr["bound_ms"], rigid_bound_by=fr["bound_by"])
+    # the forces template's resources: B5, B6c without and with bodies, in
+    # 2D with viscosity (the instances these paths launch)
+    for k, fsi, contact, pre, t in (
+            (-2, True, True, "", fl_t["sinking box"]["fluid_forces_contact"]),
+            (-1, False, False, "", fl_t["tank"]["fluid_forces"]),
+            (-1, True, False, "rigid_", fr)):
+        kernels[k].update({pre + key: v for key, v in forces_resources(
+            fsi, contact, t).items()})
     for name, line, extra in (
             ("fluid_rates", 302, ("fluid_rates_tait",)),
             ("wall_bc", 460, ())):

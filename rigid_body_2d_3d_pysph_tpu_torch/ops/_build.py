@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -99,6 +100,32 @@ def build(name: str) -> tuple[str, float]:
     os.replace(tmp, out)   # atomic: concurrent builders never see half
     BUILD_LOG[name] = res.stderr
     return out, time.perf_counter() - t0
+
+
+def ptxas_usage(report: str) -> dict:
+    """ptxas's ``-v`` report -> {entry function: {registers, smem (static
+    bytes), spill_stores, spill_loads}}."""
+    usage, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = dict(registers=0, smem=0, spill_stores=0,
+                                spill_loads=0)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[entry].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[entry]["smem"] = int(m.group(1)) if m else 0
+    return usage
 
 
 @functools.lru_cache(maxsize=None)

@@ -454,6 +454,13 @@ def wall_bc(dfT, nbr, kernel: QuinticSpline, cutoff: float, g):
                    float(sig_num), float(sig_den))
 
 
+def _check_slot_width(name, dfT):
+    """The forces kernel runs a slot's M lanes in one warp."""
+    if dfT.shape[2] > 32:
+        raise ValueError(f"{name}: the kernel takes M <= 32 lanes a slot, "
+                         f"got {dfT.shape[2]}")
+
+
 def fluid_forces(dfT, nbr, kernel: QuinticSpline, cutoff: float,
                  fluid_alpha: float, c0: float, has_rigid: bool = False):
     """B6c: the 6 force columns -> ``[NC, M, 6]``; ``has_rigid`` adds the
@@ -461,6 +468,7 @@ def fluid_forces(dfT, nbr, kernel: QuinticSpline, cutoff: float,
     if not _check("fluid_forces", dfT, nbr):
         return fluid_forces_reference(dfT, nbr, kernel, cutoff, fluid_alpha,
                                       c0, has_rigid)
+    _check_slot_width("fluid_forces", dfT)
     sig_num, sig_den = _sigma_constants(kernel)
     return _launch("fluid_forces", dfT, nbr, 6, int(kernel.dim == 2),
                    int(abs(fluid_alpha) > 1e-14), int(has_rigid),
@@ -478,6 +486,7 @@ def fluid_forces_contact(dfT, nbr, kernel: QuinticSpline, cutoff: float,
                                               fluid_alpha, c0, S, init_dist)
     if S < 1:
         raise ValueError(f"fluid_forces_contact: S={S}")
+    _check_slot_width("fluid_forces_contact", dfT)
     sig_num, sig_den = _sigma_constants(kernel)
     return _launch("fluid_forces_contact", dfT, nbr, 12 * S + 6, S,
                    int(kernel.dim == 2), int(abs(fluid_alpha) > 1e-14),

@@ -16,11 +16,11 @@ into ``build/contact_variants/``:
   epilogue);
 
 and, with ``--parent DIR``, the ``csrc/contact.cu`` of another checkout
-(one whose entry point takes a ``skip_idle`` argument after ``two_d``,
-as before this kernel's redesign; set on the every-slot cases as its
-wrapper did).  On ``chip_smoke.py``'s scenes it prints each build's time
-per launch for the four instances of the rigid and coupling paths: the
-2D culled rows (the main path), the 3D culled rows at the set-up
+(its entry point as this one's, or with the ``skip_idle`` argument after
+``two_d`` of before this kernel's redesign, set on the every-slot cases
+as its wrapper did).  On ``chip_smoke.py``'s scenes it prints each build's
+time per launch for the four instances of the rigid and coupling paths:
+the 2D culled rows (the main path), the 3D culled rows at the set-up
 ``ni_max`` and at every interesting row, and every slot of the sinking
 box and of the no-fluid stack.  Times are CUDA events over 50 launches
 into a preallocated output, behind a device sleep so the host's enqueue
@@ -139,7 +139,14 @@ def cases(dev):
     return out
 
 
-def time_case(label, args, every_slot, libs):
+def takes_skip_idle(path):
+    """Whether the contact.cu at ``path`` has the entry point of before
+    the redesign (a ``skip_idle`` argument after ``two_d``)."""
+    with open(path) as f:
+        return "skip_idle" in f.read()
+
+
+def time_case(label, args, every_slot, libs, skip_idle=()):
     dfT, qslot, nbr, S, cutoff, init, kernel = args
     ref = tck.contact_sums(*args)
     NI, O = nbr.shape
@@ -155,7 +162,7 @@ def time_case(label, args, every_slot, libs):
             f"{cs.cuda_ms(lambda: tck.contact_sums(*args), reps=REPS):.4f} ms"]
     for name, lib in libs.items():
         fn = lib.contact_sums
-        if name == "parent":   # ... M, S, two_d, skip_idle, floats, stream
+        if name in skip_idle:   # ... M, S, two_d, skip_idle, floats, stream
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
                 [ctypes.c_float] * 4 + [ctypes.c_void_p]
             ints = (NI, O, R, M, S, two_d, int(every_slot))
@@ -195,9 +202,11 @@ def main():
         libs[name] = ctypes.CDLL(path)
     print(f"[contact-variants] {cs.smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
+    skip_idle = {name for name in ("parent",)
+                 if name in srcs and takes_skip_idle(srcs[name])}
     try:
         for label, kargs, every_slot in cases(dev):
-            time_case(label, kargs, every_slot, libs)
+            time_case(label, kargs, every_slot, libs, skip_idle)
     except cs.PhaseError as e:
         print(f"contact_variants: FAILED: {e}", file=sys.stderr)
         return 1

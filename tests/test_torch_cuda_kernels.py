@@ -689,6 +689,191 @@ def test_fluid_kernels_match_twin(dev, which):
     _check_fluid_columns(got[..., 12 * S:], ref[..., 12 * S:], which)
 
 
+def _fluid_pack(dim, S, seed, NC=48, O=12, M=16, box=5):
+    """A random coupling pack ``[NC + 1, 14, M]`` on a lattice of spacing
+    2^-6 (coordinates and their differences exact in f32, so equal
+    distances tie exactly): slot s holds a prefix of live lanes (slots
+    0-2 hold 0, 1 and 16, the others a random count), each lane fluid
+    (p 0.5), static boundary (0.2) or rigid (0.3); the non-fluid lanes on
+    the contact boundary with p 0.7; rigid lanes of dems drawn from
+    [0, S), so a slot holds several, the boundary of dem S - 1; the
+    stencil rows drawn at random, the no-neighbour entry NC among them.
+    Returns numpy (dfT, nbr) and h = 2^-6."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    rng = np.random.default_rng(seed)
+    sp = 2.0 ** -6
+    dfT = np.tile(np.asarray(tfk.SENT, np.float32)[None, :, None],
+                  (NC + 1, 1, M))
+    cnt = rng.integers(0, M + 1, NC)
+    cnt[:3] = (0, 1, M)
+    live = np.arange(M)[None, :] < cnt[:, None]
+    shape = (NC, M)
+    kind = rng.choice(3, size=shape, p=[0.5, 0.2, 0.3])
+    fluid, sb, rigid = (kind == k for k in range(3))
+    cfib = ~fluid & (rng.random(shape) < 0.7)
+    dem = np.where(rigid, rng.integers(0, S, shape), S - 1)
+    lattice = lambda: rng.integers(0, box, shape) * sp
+    uni = lambda lo, hi: rng.uniform(lo, hi, shape)
+    vol = sp ** dim
+    vals = {tfk.FX: lattice(), tfk.FY: lattice(),
+            tfk.FZ: lattice() if dim == 3 else np.zeros(shape),
+            tfk.FU: uni(-1, 1), tfk.FV: uni(-1, 1),
+            tfk.FW: uni(-1, 1) if dim == 3 else np.zeros(shape),
+            tfk.FM: uni(0.5, 1.5) * vol, tfk.FRHO: uni(0.9, 1.1),
+            tfk.FH: np.full(shape, sp), tfk.FP: uni(-0.5, 1.0),
+            tfk.FMFSI: uni(0.5, 1.5) * vol, tfk.FRHOFSI: uni(0.9, 1.1),
+            tfk.FPFSI: uni(-0.5, 1.0),
+            tfk.FFLAGS: dem * 16.0 + cfib * 8.0 + sb * 4.0 + fluid * 2.0
+            + rigid}
+    for f, v in vals.items():
+        dfT[:NC, f] = np.where(live, v, dfT[:NC, f])
+    nbr = rng.integers(0, NC + 1, (NC, O))
+    return dfT, nbr, sp
+
+
+def _fluid_pack_args(dim, S, dev, seed, alpha=0.1, **kw):
+    """The pack of :func:`_fluid_pack` on ``dev`` with B5's arguments
+    (cutoff 3 h, c0 10, the contact init distance 4 h)."""
+    dfT, nbr, h = _fluid_pack(dim, S, seed, **kw)
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    return (t(dfT, torch.float32), t(nbr, torch.int64),
+            QuinticSpline(dim=dim), 3.0 * h, alpha, 10.0, S, 4.0 * h)
+
+
+def _check_forces_contact(got, ref, S):
+    """B5 against its twin: the contact columns as K2's (picks bit for
+    bit), the force columns within 2e-5 of each column's largest
+    magnitude."""
+    _check_contact(got[..., :12 * S], ref[..., :12 * S], S)
+    _check_fluid_columns(got[..., 12 * S:], ref[..., 12 * S:], "forces")
+
+
+@pytest.mark.parametrize("visc", [True, False])
+@pytest.mark.parametrize("S", [1, 2, 3, 9])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fluid_forces_kernels_random_packs(dev, dim, S, visc):
+    """B5 and B6c (with and without the FSI terms) against their twins on
+    random packs: slots of 0, 1 and 16 live lanes, empty stencil
+    entries, rigid lanes of several dems in one slot (S = 9: more than 32
+    (rigid lane, entity slot) threads a slot), viscosity on and off."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    args = _fluid_pack_args(dim, S, dev, seed=100 * dim + 10 * S + visc,
+                            alpha=0.1 if visc else 0.0)
+    dfT, nbr, S, init = args[0], args[1], args[6], args[7]
+    flags = tfk.decode_flags(dfT[:-1, tfk.FFLAGS])
+    assert int((nbr == nbr.shape[0]).sum()) > 0          # empty entries
+    rigid_dems = torch.where(flags[4] == 1.0, flags[0], -1.0)
+    n_dems = [len(set(r.tolist()) - {-1.0}) for r in rigid_dems]
+    assert max(n_dems) >= min(S, 3)
+    got = tfk.fluid_forces_contact(*args)
+    ref = tfk.fluid_forces_contact_reference(*args)
+    torch.cuda.synchronize()
+    if S > 1:
+        assert int((ref[..., 5 * S:6 * S] < init).sum()) > 0
+    _check_forces_contact(got, ref, S)
+    for rigid in (True, False):
+        fargs = args[:6] + (rigid,)
+        got = tfk.fluid_forces(*fargs)
+        ref = tfk.fluid_forces_reference(*fargs)
+        torch.cuda.synchronize()
+        assert float(ref.abs().max()) > 0
+        _check_fluid_columns(got, ref, f"B6c rigid={rigid}")
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fluid_forces_kernels_staging_windows(dev, dim):
+    """Stencils of 64 entries: more live candidates than one staging
+    window holds (224), so the kernels stage and sum in windows carried
+    in stencil order, and B5 (S = 9) walks them again for each further
+    group of 32 contact threads."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    args = _fluid_pack_args(dim, 9, dev, seed=70 + dim, NC=24, O=64, box=4)
+    dfT, nbr = args[0], args[1]
+    live = (dfT[:, tfk.FFLAGS] != -16.0).sum(1)
+    assert int(live[nbr].sum(1).max()) > 2 * 224
+    got = tfk.fluid_forces_contact(*args)
+    ref = tfk.fluid_forces_contact_reference(*args)
+    torch.cuda.synchronize()
+    assert int((ref[..., 5 * 9:6 * 9] < args[7]).sum()) > 0
+    _check_forces_contact(got, ref, 9)
+    got = tfk.fluid_forces(*args[:6], True)
+    ref = tfk.fluid_forces_reference(*args[:6], True)
+    torch.cuda.synchronize()
+    _check_fluid_columns(got, ref, "B6c windows")
+
+
+@pytest.mark.parametrize("M", [5, 32])
+def test_fluid_forces_kernels_other_slot_widths(dev, M):
+    """Slots of 5 lanes (an output block not a multiple of 16 bytes: the
+    rows written a word at a time, six stencil entries a staging step) and
+    of 32 (one entry a step, a whole warp of queries)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    args = _fluid_pack_args(2, 3, dev, seed=40 + M, M=M)
+    got = tfk.fluid_forces_contact(*args)
+    ref = tfk.fluid_forces_contact_reference(*args)
+    torch.cuda.synchronize()
+    assert int((ref[..., 5 * 3:6 * 3] < args[7]).sum()) > 0
+    _check_forces_contact(got, ref, 3)
+    got = tfk.fluid_forces(*args[:6], True)
+    ref = tfk.fluid_forces_reference(*args[:6], True)
+    torch.cuda.synchronize()
+    _check_fluid_columns(got, ref, f"B6c M={M}")
+
+
+def test_fluid_forces_kernels_are_deterministic(dev):
+    """Two launches on the same inputs give the same bits: B5 and B6c on
+    the coupling scene and on a random 3D pack of several windows."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    scheme, scene = _coupling_scene(dev)
+    kernel = QuinticSpline(dim=2)
+    cfg = scheme.cell_config(scene, kernel)
+    grid, _, dfT = tfk.pack_fluid_sorted(scene, cfg)
+    packs = [(dfT, grid.nbr_slots, kernel, cfg.radius, scheme.fluid_alpha,
+              scheme.c0, scene.meta.total_no_bodies,
+              4.0 * scene.meta.spacing0),
+             _fluid_pack_args(3, 3, dev, seed=5, NC=24, O=64, box=4)]
+    for args in packs:
+        for fn, a in ((tfk.fluid_forces_contact, args),
+                      (tfk.fluid_forces, args[:6] + (True,)),
+                      (tfk.fluid_forces, args[:6] + (False,))):
+            one, two = fn(*a), fn(*a)
+            torch.cuda.synchronize()
+            assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("pack", ["coupling", "2d", "3d"])
+def test_fluid_forces_contact_equals_contact_kernel(dev, pack):
+    """B5's 12 S contact columns are bit for bit those of K2 on every slot
+    of the contact pack laid out from the same coupling pack (both add
+    each lane's gated pairs in stencil order)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    if pack == "coupling":
+        scheme, scene = _coupling_scene(dev)
+        kernel = QuinticSpline(dim=2)
+        cfg = scheme.cell_config(scene, kernel)
+        grid, _, dfT = tfk.pack_fluid_sorted(scene, cfg)
+        args = (dfT, grid.nbr_slots, kernel, cfg.radius, scheme.fluid_alpha,
+                scheme.c0, scene.meta.total_no_bodies,
+                4.0 * scene.meta.spacing0)
+    else:
+        args = _fluid_pack_args(int(pack[0]), 3, dev, seed=31)
+    dfT, nbr, kernel, cutoff, S, init = (args[0], args[1], args[2], args[3],
+                                         args[6], args[7])
+    got = tfk.fluid_forces_contact(*args)
+    cdfT = tck.contact_pack(dfT, tfk.UNION_LAYOUT, kernel.dim == 2)
+    k2 = tck.contact_sums(cdfT, torch.arange(nbr.shape[0], device=dev), nbr,
+                          S, cutoff, init, kernel)
+    torch.cuda.synchronize()
+    assert int((k2[..., 5 * S:6 * S] < init).sum()) > 0
+    assert torch.equal(got[..., :12 * S], k2)
+
+
 def test_coupling_kernel_step_matches_plain_step(dev):
     scheme, scene = _coupling_scene(dev)
     # the box slides: at zero tangential velocity the friction's direction
@@ -802,3 +987,8 @@ def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfk.fluid_rates(dfT.double(), nbr, kernel, 0.1, 0.1, 1.0, True, True)
     with pytest.raises(ValueError):
         tfk.wall_bc(dfT[:, :7], nbr, kernel, 0.1, g)
+    wide = torch.zeros((5, tfk.NF, 64), device=dev)   # a slot is a warp
+    with pytest.raises(ValueError):
+        tfk.fluid_forces(wide, nbr, kernel, 0.1, 0.1, 1.0)
+    with pytest.raises(ValueError):
+        tfk.fluid_forces_contact(wide, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
