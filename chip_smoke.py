@@ -60,7 +60,8 @@ no result line):
     contact pairs > 0): sums within 2e-5 of each column's largest
     magnitude (f32 summation order; the unit contact normals 2e-5
     absolute), contact picks bit for bit, two launches on the same
-    inputs bit for bit; times, lanes and pairs;
+    inputs bit for bit; times, lanes and pairs; K1 on the sinking box's
+    coupling pack (F = 14) bit for bit, timed with its bound;
 11. the coupling main path: ``RigidFluidCouplingScheme.setup`` ->
     ``make_step`` -> ``step``, 200 fused kdkf steps of the sinking box at
     the case's dt = 0.25 dx / (1.1 c0), in chunks with the
@@ -92,12 +93,18 @@ no result line):
     launch per step and nothing else, overlap > 0, finite fields;
 18. 20 kdk and 20 reference kernel steps against as many twin steps on
     phase 13's placement, in contact to the end, as in phase 13;
-19. a JSON line of per-kernel numbers (``launches`` from the kernel's
+19. the sinking box in 3D (``RigidFluidCouplingScheme(dim=3)`` set-up,
+    ~97k particles): every fluid pass (B4, B5, B6a with EDAC and with
+    Tait, B6b, B6c with and without bodies) and K1 on its pack against
+    their twins as in phase 10, each timed with its bound;
+20. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d`` among them; K2's 3D times at the set-up ``ni_max`` and
-    on every interesting row beside its 2D time; ptxas's registers,
-    static and dynamic shared memory and spills of B5 and both B6c
-    instances), then the result line.
+    on every interesting row beside its 2D time; K1 on the 3D rigid pack
+    and on the 2D and 3D coupling packs; every fluid pass's 3D time;
+    ptxas's registers, static and dynamic shared memory and spills of
+    every rates/wall and forces instance the paths launch), then the
+    result line.
 
 It imports nothing from JAX or the JAX package.
 """
@@ -1116,26 +1123,39 @@ def fluid_pass_cost(work, name, n_live, edac=True, has_rigid=True,
     return 4 * n_live * (fields + width), w[lanes] * OPS_PER_LANE + ops
 
 
-def forces_resources(fsi, contact, t):
-    """ptxas's registers, static shared memory and spills of the 2D
-    forces_kernel instance with viscosity (``fsi``, ``contact``), and the
-    dynamic shared memory a block takes at the lanes a slot and output
-    columns of the timed pass ``t``."""
-    import ctypes
+def kernel_resources(template, args, helper, t):
+    """ptxas's registers, static shared memory and spills of the
+    ``csrc/fluid.cu`` instance ``template<args>`` (bools and ints), and
+    the dynamic shared memory a block takes (the C entry ``helper``) at
+    the lanes a slot and output columns of the timed pass ``t``."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
-    key = "forces_kernelI" + "".join(
-        f"Lb{int(b)}E" for b in (True, True, fsi, contact)) + "E"
+    key = template + "I" + "".join(
+        f"Lb{int(a)}E" if isinstance(a, bool) else f"Li{a}E"
+        for a in args) + "E"
     usage = [u for e, u in _build.ptxas_usage(
         _build.BUILD_LOG.get("fluid", "")).items() if key in e]
-    lib = ctypes.CDLL(_build.library_path("fluid"))
-    lib.fluid_forces_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     u = usage[0] if usage else {}
     return dict(registers=u.get("registers"), smem_static=u.get("smem"),
-                smem_dynamic_per_block=lib.fluid_forces_smem(t["M"],
-                                                             t["width"]),
+                smem_dynamic_per_block=_build.load(helper)(t["M"],
+                                                          t["width"]),
                 spill_bytes=(u["spill_stores"] + u["spill_loads"]
                              if u else None))
+
+
+def forces_resources(fsi, contact, t):
+    """The 2D forces_kernel instance with viscosity (``fsi``,
+    ``contact``): see ``kernel_resources``."""
+    return kernel_resources("forces_kernel", (True, True, fsi, contact),
+                            "fluid_forces_smem", t)
+
+
+def rates_resources(edac, has_rigid, mode, t):
+    """The 2D rates_wall_kernel instance (``edac``, ``has_rigid``, the
+    columns ``mode``: 0 B4, 1 B6a, 2 B6b): see ``kernel_resources``."""
+    return kernel_resources("rates_wall_kernel", (True, edac, has_rigid,
+                                                  mode),
+                            "fluid_rates_wall_smem", t)
 
 
 def check_fluid_columns(got, ref, cols, label, floor=0.0):
@@ -1152,41 +1172,20 @@ def check_fluid_columns(got, ref, cols, label, floor=0.0):
     return err
 
 
-def phase_fluid_kernels(scheme, scene, label, timings, timed):
-    """The passes this scene's step runs against their twins on its pack,
-    with seeded random velocities: B4 and B5 with a rigid body, B4 and
-    B6c without; ``timed`` also times each and computes its bound."""
-    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
-    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
-
-    kernel = get_kernel(scheme.kernel_name, scheme.dim)
-    cfg = scheme.cell_config(scene, kernel)
-    dev = scene.device
-    gen = torch.Generator(device=dev).manual_seed(13)
-    rnd = lambda: (torch.rand(scene.n, generator=gen, device=dev) - 0.5) * 0.2
-    scene = scene.replace(u=rnd(), v=rnd())
-    grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg)
-    check(not bool(grid.overflow), f"{label}: grid overflow")
-    nbr = grid.nbr_slots
-    S = scene.meta.total_no_bodies
-    init = 4.0 * scene.meta.spacing0
-    has_rigid = len(scheme.rigid_bodies) > 0
-    base = (dfT, nbr, kernel, cfg.radius)
-    calls = dict(fluid_rates_wall=(
-        fk.fluid_rates_wall, fk.fluid_rates_wall_reference,
-        base + (scheme.edac_nu, scheme.c0, scheme.edac, has_rigid,
-                (scheme.gx, scheme.gy, scheme.gz))))
-    if has_rigid:
-        calls["fluid_forces_contact"] = (
-            fk.fluid_forces_contact, fk.fluid_forces_contact_reference,
-            base + (scheme.fluid_alpha, scheme.c0, S, init))
-    else:
-        calls["fluid_forces"] = (fk.fluid_forces, fk.fluid_forces_reference,
-                                 base + (scheme.fluid_alpha, scheme.c0))
-    work = fluid_pass_work(dfT, nbr, pt.cnt, cfg.radius)
+def fluid_pass_checks(calls, dfT, nbr, pt, cutoff, S, init, visc, label,
+                      timed):
+    """Each pass of ``calls`` ({name: (kernel wrapper, twin, arguments,
+    its name for the cost, EDAC, bodies)}) against its twin on the pack
+    ``dfT``: finite, two launches bit for bit, not all zero, sums within
+    FLUID_SUM_RTOL of each column's largest magnitude; for B5 the contact
+    picks bit for bit, the unit contact normals within FLUID_SUM_RTOL
+    absolute, the contact sums as K2's.  ``timed`` also times each and
+    computes its bound.  Returns ({name: numbers}, the work counts, B5's
+    contact slots with a pick or None)."""
+    work = fluid_pass_work(dfT, nbr, pt.cnt, cutoff)
     n_live = int(pt.n_valid)
-    out = {}
-    for name, (fast, plain, args) in calls.items():
+    out, n_found = {}, None
+    for name, (fast, plain, args, cost_name, edac, bodies) in calls.items():
         got = fast(*args)
         again = fast(*args)
         ref = plain(*args)
@@ -1194,8 +1193,9 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed):
         check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite")
         check(torch.equal(got, again), f"{label} {name}: two launches on "
               "the same inputs differ")
+        check(float(ref.abs().max()) > 0, f"{label} {name}: all zero")
         W = got.shape[-1]
-        if name == "fluid_forces_contact":
+        if cost_name == "fluid_forces_contact":
             picks = got[..., 5 * S:12 * S], ref[..., 5 * S:12 * S]
             check(torch.equal(*picks), f"{label} {name}: contact picks != "
                   f"twin (max {float((picks[0] - picks[1]).abs().max())})")
@@ -1221,19 +1221,123 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed):
             # least time: the fields read and W outputs per live lane
             # once; the f32 operations of this data's pairs
             t["bound_ms"], t["bound_by"] = bound(*fluid_pass_cost(
-                work, name, n_live, scheme.edac, has_rigid,
-                abs(scheme.fluid_alpha) > 1e-14, W))
+                work, cost_name, n_live, edac, bodies, visc, W))
         out[name] = t
-    picks = (f", contact slots with a pick {n_found}" if has_rigid else "")
-    print(f"[fluid-kernels] {label}: n={scene.n} NC={cfg.NC_max} M={cfg.M} "
-          f"O={cfg.O} S={S} | query lanes {n_live}, {work}{picks} | max "
-          "abs err " + ", ".join(
-              f"{k} {v['err']:.3e}" for k, v in out.items()), flush=True)
-    if timed:
-        for k, v in out.items():
-            print(f"[fluid-kernels] {label}: {k} {v['ms']:.4f} ms (plain "
+    return out, work, n_found
+
+
+def print_fluid_passes(tag, label, out):
+    for k, v in out.items():
+        if "ms" in v:
+            print(f"[{tag}] {label}: {k} {v['ms']:.4f} ms (plain "
                   f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
                   f"{v['bound_by']})", flush=True)
+
+
+def fluid_scene_pack(scheme, scene, label, seed, p_fsi=False):
+    """This scene's coupling pack with seeded random velocities (and body
+    ``p_fsi``): (kernel, cfg, grid, pack tables, dfT, S, contact init
+    distance)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    cfg = scheme.cell_config(scene, kernel)
+    dev = scene.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda a: (torch.rand(scene.n, generator=gen, device=dev) - 0.5) * a
+    vel = dict(u=rnd(0.2), v=rnd(0.2))
+    if scheme.dim == 3:
+        vel["w"] = rnd(0.2)
+    if p_fsi:
+        vel["p_fsi"] = torch.where(scene.is_rigid, rnd(2.0), scene.p_fsi)
+    scene = scene.replace(**vel)
+    grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg)
+    check(not bool(grid.overflow), f"{label}: grid overflow")
+    return (kernel, cfg, grid, pt, dfT, scene.meta.total_no_bodies,
+            4.0 * scene.meta.spacing0)
+
+
+def fluid_calls(scheme, dfT, nbr, kernel, cutoff, S, init, names):
+    """{name: (wrapper, twin, arguments, cost name, EDAC, bodies)} of the
+    fluid passes ``names`` on this pack: B4 and B5 as the kdkf step runs
+    them (B4 without bodies and B6c for the fluid-only tank), the split
+    passes of the kdk and reference orderings (B6a with EDAC and with
+    Tait, B6b, B6c with bodies)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+
+    has_rigid = len(scheme.rigid_bodies) > 0
+    base = (dfT, nbr, kernel, cutoff)
+    nu, c0, g = scheme.edac_nu, scheme.c0, (scheme.gx, scheme.gy, scheme.gz)
+    alpha = scheme.fluid_alpha
+    every = dict(
+        fluid_rates_wall=(fk.fluid_rates_wall, fk.fluid_rates_wall_reference,
+                          base + (nu, c0, scheme.edac, has_rigid, g),
+                          "fluid_rates_wall", scheme.edac, has_rigid),
+        fluid_forces_contact=(fk.fluid_forces_contact,
+                              fk.fluid_forces_contact_reference,
+                              base + (alpha, c0, S, init),
+                              "fluid_forces_contact", True, True),
+        fluid_forces=(fk.fluid_forces, fk.fluid_forces_reference,
+                      base + (alpha, c0), "fluid_forces", True, False),
+        fluid_rates=(fk.fluid_rates, fk.fluid_rates_reference,
+                     base + (nu, c0, True, True), "fluid_rates", True, True),
+        fluid_rates_tait=(fk.fluid_rates, fk.fluid_rates_reference,
+                          base + (nu, c0, False, True), "fluid_rates", False,
+                          True),
+        wall_bc=(fk.wall_bc, fk.wall_bc_reference, base + (g,), "wall_bc",
+                 True, True),
+        fluid_forces_rigid=(fk.fluid_forces, fk.fluid_forces_reference,
+                            base + (alpha, c0, True), "fluid_forces", True,
+                            True))
+    return {k: every[k] for k in names}
+
+
+def pack_expand_check(pt, dfT, cfg, label, timings):
+    """K1 on this coupling pack (F = 14) against its twin, bit for bit,
+    timed, with its bound."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import pack_expand as tpe
+
+    sent = torch.tensor(fk.SENT, dtype=dfT.dtype, device=dfT.device)
+    args = (pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+    ref = tpe.expand_slots_reference(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(dfT, ref), f"{label}: pack expansion != twin")
+    t = dict(ms=cuda_ms(lambda: tpe.expand_slots(*args)),
+             plain_ms=cuda_ms(lambda: tpe.expand_slots_reference(*args)))
+    t["bound_ms"], t["bound_by"] = bound(
+        nbytes(pt.sorted_fields, pt.base, pt.cnt, sent, dfT), 0)
+    print(f"[fluid-kernels] {label}: K1 (F = {dfT.shape[1]}) "
+          f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms by {t['bound_by']}), bit for bit",
+          flush=True)
+    timings[label] = t
+
+
+def phase_fluid_kernels(scheme, scene, label, timings, timed, k1=None):
+    """The passes this scene's step runs against their twins on its pack,
+    with seeded random velocities: B4 and B5 with a rigid body, B4 and
+    B6c without; ``timed`` also times each and computes its bound, and K1
+    on the pack into ``k1``.  Returns the gated contact pairs."""
+    kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(scheme, scene,
+                                                           label, 13)
+    if k1 is not None:
+        pack_expand_check(pt, dfT, cfg, label, k1)
+    has_rigid = len(scheme.rigid_bodies) > 0
+    names = ["fluid_rates_wall",
+             "fluid_forces_contact" if has_rigid else "fluid_forces"]
+    out, work, n_found = fluid_pass_checks(
+        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
+                    init, names),
+        dfT, grid.nbr_slots, pt, cfg.radius, S, init,
+        abs(scheme.fluid_alpha) > 1e-14, label, timed)
+    picks = (f", contact slots with a pick {n_found}" if has_rigid else "")
+    print(f"[fluid-kernels] {label}: n={scene.n} NC={cfg.NC_max} M={cfg.M} "
+          f"O={cfg.O} S={S} | query lanes {int(pt.n_valid)}, {work}{picks} "
+          "| max abs err " + ", ".join(
+              f"{k} {v['err']:.3e}" for k, v in out.items()), flush=True)
+    print_fluid_passes("fluid-kernels", label, out)
     timings[label] = out
     return work["gated"]
 
@@ -1443,71 +1547,101 @@ def phase_split_kernels(scheme, scene, label, timings, timed):
     query lanes with a pick)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
-    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
-    kernel = get_kernel(scheme.kernel_name, scheme.dim)
-    cfg = scheme.cell_config(scene, kernel)
-    dev = scene.device
-    gen = torch.Generator(device=dev).manual_seed(17)
-    rnd = lambda a: (torch.rand(scene.n, generator=gen, device=dev) - 0.5) * a
-    scene = scene.replace(u=rnd(0.2), v=rnd(0.2), p_fsi=torch.where(
-        scene.is_rigid, rnd(2.0), scene.p_fsi))
-    grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg)
-    check(not bool(grid.overflow), f"{label}: grid overflow")
-    nbr = grid.nbr_slots
-    S = scene.meta.total_no_bodies
-    base = (dfT, nbr, kernel, cfg.radius)
-    nu, c0 = scheme.edac_nu, scheme.c0
-    # pass -> (kernel, twin, arguments, its name and EDAC flag for the cost)
-    calls = dict(
-        fluid_rates=(fk.fluid_rates, fk.fluid_rates_reference,
-                     base + (nu, c0, True, True), "fluid_rates", True),
-        fluid_rates_tait=(fk.fluid_rates, fk.fluid_rates_reference,
-                          base + (nu, c0, False, True), "fluid_rates", False),
-        wall_bc=(fk.wall_bc, fk.wall_bc_reference,
-                 base + ((scheme.gx, scheme.gy, scheme.gz),), "wall_bc",
-                 True),
-        fluid_forces_rigid=(fk.fluid_forces, fk.fluid_forces_reference,
-                            base + (scheme.fluid_alpha, c0, True),
-                            "fluid_forces", True))
-    work = fluid_pass_work(dfT, nbr, pt.cnt, cfg.radius)
-    n_live = int(pt.n_valid)
-    out = {}
-    for name, (fast, plain, args, cost_name, edac) in calls.items():
-        got = fast(*args)
-        again = fast(*args)
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite")
-        check(torch.equal(got, again), f"{label} {name}: two launches on "
-              "the same inputs differ")
-        check(float(ref.abs().max()) > 0, f"{label} {name}: all zero")
-        W = got.shape[-1]
-        t = dict(err=check_fluid_columns(got, ref, range(W),
-                                         label + " " + name),
-                 M=got.shape[1], width=W)
-        if timed:
-            t["ms"] = cuda_ms(lambda: fast(*args))
-            t["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
-            # least time as in phase 10, on the classes this pass reads
-            t["bound_ms"], t["bound_by"] = bound(*fluid_pass_cost(
-                work, cost_name, n_live, edac, True,
-                abs(scheme.fluid_alpha) > 1e-14, W))
-        out[name] = t
+    kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(
+        scheme, scene, label, 17, p_fsi=True)
+    out, work, _ = fluid_pass_checks(
+        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
+                    init, ["fluid_rates", "fluid_rates_tait", "wall_bc",
+                           "fluid_forces_rigid"]),
+        dfT, grid.nbr_slots, pt, cfg.radius, S, init,
+        abs(scheme.fluid_alpha) > 1e-14, label, timed)
     out["contact_all_slots"], n_pick = contact_all_slots(
         tck.contact_pack(dfT, fk.UNION_LAYOUT, cfg.dim == 2), grid, cfg,
-        kernel, S, 4.0 * scene.meta.spacing0, label, timed)
+        kernel, S, init, label, timed)
     print(f"[split-kernels] {label}: n={scene.n} NC={cfg.NC_max} M={cfg.M} "
-          f"O={cfg.O} S={S} | query lanes {n_live}, {work}, K2 query lanes "
-          f"with a pick {n_pick} | max abs err " + ", ".join(
+          f"O={cfg.O} S={S} | query lanes {int(pt.n_valid)}, {work}, K2 "
+          f"query lanes with a pick {n_pick} | max abs err " + ", ".join(
               f"{k} {v['err']:.3e}" for k, v in out.items()), flush=True)
-    if timed:
-        for k, v in out.items():
-            print(f"[split-kernels] {label}: {k} {v['ms']:.4f} ms (plain "
-                  f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
-                  f"{v['bound_by']})", flush=True)
+    print_fluid_passes("split-kernels", label, out)
     timings[label] = out
     return work["gated"], n_pick
+
+
+def sinking_box_scene_3d(dev, n_target=CPL_N):
+    """The sinking box in 3D, set up through the port's
+    ``RigidFluidCouplingScheme(dim=3)``: a 1.0 x 0.6 x 0.5 fluid block
+    (x, y, z) in a 3-layer hydrostatic tank (``get_fluid_tank_3d``), a
+    0.3 x 0.15 x 0.3 box of rho 2 centred in x and z, dipped into the
+    surface, the fluid void carved under it, hydrostatic pressure, the box's displaced-fluid shadow mass and
+    density; the 2D case's h = dx, c0 = 10 sqrt(2 g H) and fluid rho 1.
+    dx = 0.0175 at ~97k particles.  Returns (scheme, scene)."""
+    from rigid_body_2d_3d_pysph_tpu_torch import config
+    from rigid_body_2d_3d_pysph_tpu_torch.geom import (
+        get_3d_block, get_fluid_tank_3d)
+    from rigid_body_2d_3d_pysph_tpu_torch.models import (
+        RigidFluidCouplingScheme)
+    from rigid_body_2d_3d_pysph_tpu_torch.state import (
+        make_group, build_scene, ROLE_RIGID, ROLE_BOUNDARY, ROLE_FLUID)
+
+    dx = 0.0175 * (96_921.0 / n_target) ** (1.0 / 3.0)
+    H, rho_f, rho_b, gy = 0.6, 1.0, 2.0, -1.0
+    co = 10 * np.sqrt(2 * 9.81 * H)
+    xf, yf, zf, xt, yt, zt = get_fluid_tank_3d(1.0, H, 0.5, 1.0, 0.8, 3, dx,
+                                               dx, hydrostatic=True)
+    p0 = -rho_f * gy * (yf.max() - yf)
+    xb, yb, zb = get_3d_block(dx, 0.3 - dx, 0.15 - dx, 0.3 - dx)
+    xb += 0.5 * (xf.min() + xf.max()) - 0.5 * (xb.min() + xb.max())
+    zb += 0.5 * (zf.min() + zf.max()) - 0.5 * (zb.min() + zb.max())
+    yb += yf.max() + dx - yb.min() - 0.25 * 0.15
+    keep = ~((xf > xb.min() - dx) & (xf < xb.max() + dx)
+             & (yf > yb.min() - dx) & (yf < yb.max() + dx)
+             & (zf > zb.min() - dx) & (zf < zb.max() + dx))
+    m = dx ** 3
+    groups = [
+        make_group("fluid", xf[keep], yf[keep], z=zf[keep], m=rho_f * m,
+                   h=dx, rho=rho_f, role=ROLE_FLUID, p=p0[keep]),
+        make_group("tank", xt, yt, z=zt, m=rho_f * m, h=dx, rho=rho_f,
+                   rad_s=dx / 2.0, role=ROLE_BOUNDARY, dem_id=1),
+        make_group("body", xb, yb, z=zb, m=rho_b * m, h=dx, rho=rho_b,
+                   rad_s=dx / 2.0, role=ROLE_RIGID,
+                   body_id=np.zeros(len(xb), np.int32),
+                   dem_id=np.zeros(len(xb), np.int32))]
+    scene = build_scene(groups, dim=3, total_no_bodies=2, spacing0=dx,
+                        device=dev, dtype=config.WORK_DTYPE)
+    scheme = RigidFluidCouplingScheme(
+        ["fluid"], ["tank"], ["body"], dim=3, rho0=rho_f, p0=rho_f * co**2,
+        c0=co, h=dx, nu=0.0, gy=gy)
+    scene = scheme.setup(scene)
+    rb = scene.is_rigid
+    scene = scene.replace(
+        m_fsi=torch.where(rb, scene.m_fsi + rho_f * m, scene.m_fsi),
+        rho_fsi=torch.where(rb, rho_f, scene.rho_fsi))
+    return scheme, scene
+
+
+def phase_fluid_3d(scheme, scene, timings, k1):
+    """Every fluid pass on the 3D sinking box's pack against its twin
+    (seeded random velocities and body p_fsi): B4 and B5 (the kdkf step),
+    B6a with EDAC and with Tait, B6b, B6c with and without bodies, each
+    timed with its bound; K1 on the same pack into ``k1``."""
+    label = "3D box"
+    kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(
+        scheme, scene, label, 19, p_fsi=True)
+    pack_expand_check(pt, dfT, cfg, label, k1)
+    out, work, n_found = fluid_pass_checks(
+        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
+                    init, ["fluid_rates_wall", "fluid_forces_contact",
+                           "fluid_rates", "fluid_rates_tait", "wall_bc",
+                           "fluid_forces", "fluid_forces_rigid"]),
+        dfT, grid.nbr_slots, pt, cfg.radius, S, init,
+        abs(scheme.fluid_alpha) > 1e-14, label, True)
+    print(f"[fluid-3d] n={scene.n} NC={cfg.NC_max} M={cfg.M} O={cfg.O} "
+          f"S={S} | query lanes {int(pt.n_valid)}, {work}, contact slots "
+          f"with a pick {n_found} | max abs err " + ", ".join(
+              f"{k} {v['err']:.3e}" for k, v in out.items()), flush=True)
+    print_fluid_passes("fluid-3d", label, out)
+    timings[label] = out
 
 
 def main() -> int:
@@ -1611,7 +1745,7 @@ def main() -> int:
 
         # 10. coupling kernels against twins: the main path's scene (timed)
         # and the contact placement; 14. the split passes on the same two
-        fl_t, sp_t = {}, {}
+        fl_t, sp_t, k1_t = {}, {}, {}
         for label, floor in (("sinking box", False), ("box on floor", True)):
             t0 = time.perf_counter()
             cscheme, cscene, cdt = sinking_box_scene(dev, floor=floor)
@@ -1620,7 +1754,8 @@ def main() -> int:
                   f"{int(cscene.is_boundary.sum())} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
             gated = phase_fluid_kernels(cscheme, cscene, label, fl_t,
-                                        timed=not floor)
+                                        timed=not floor,
+                                        k1=None if floor else k1_t)
             _, n_pick = phase_split_kernels(cscheme, cscene, label, sp_t,
                                             timed=not floor)
             if floor:
@@ -1685,6 +1820,17 @@ def main() -> int:
         for ordering in ("kdk", "reference"):
             pscheme.gtvf_ordering = ordering
             phase_coupling_parity(pscheme, pscene, pdt, f"{ordering}-parity")
+        del pscheme, pscene
+
+        # 19. every fluid pass on the 3D sinking box
+        t0 = time.perf_counter()
+        scheme3f, scene3f = sinking_box_scene_3d(dev)
+        print(f"[cpl3d-setup] n={scene3f.n} cfg={scheme3f._cell_cfg} "
+              f"boundary particles {int(scene3f.is_boundary.sum())} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        fl3_t = {}
+        phase_fluid_3d(scheme3f, scene3f, fl3_t, k1_t)
+        del scheme3f, scene3f
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1714,7 +1860,16 @@ def main() -> int:
              max_abs_err=errs("pack_err"),
              ms=t2["pack_ms"], plain_ms=t2["pack_plain_ms"],
              bound_ms=t2["pack_bound"], bound_by=t2["pack_bound_by"],
-             library_ms=None),
+             library_ms=None,
+             # the 3D rigid pack (F = 9); the coupling packs (F = 14) of
+             # the sinking box and of the 3D box
+             ms_3d=t3["pack_ms"], plain_ms_3d=t3["pack_plain_ms"],
+             bound_ms_3d=t3["pack_bound"],
+             coupling_ms=k1_t["sinking box"]["ms"],
+             coupling_plain_ms=k1_t["sinking box"]["plain_ms"],
+             coupling_bound_ms=k1_t["sinking box"]["bound_ms"],
+             coupling_3d_ms=k1_t["3D box"]["ms"],
+             coupling_3d_bound_ms=k1_t["3D box"]["bound_ms"]),
         dict(name="contact_sums", route="cuda", source=src + "contact.cu",
              replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_contact.py:96",
              launches=launches["contact"],
@@ -1754,7 +1909,12 @@ def main() -> int:
             bound_by=d2["bound_by"], library_ms=None, ms_3d=d3["ms"],
             plain_ms_3d=d3["plain_ms"], bound_ms_3d=d3["bound_ms"],
             bound_by_3d=d3["bound_by"]))
-    # each timed on its first main path's scene
+    # each timed on its first main path's scene, the 3D box beside it
+    f3 = fl3_t["3D box"]
+    at_3d = lambda k, pre="": {f"{pre}ms_3d": f3[k]["ms"],
+                               f"{pre}plain_ms_3d": f3[k]["plain_ms"],
+                               f"{pre}bound_ms_3d": f3[k]["bound_ms"],
+                               f"{pre}bound_by_3d": f3[k]["bound_by"]}
     for name, line, path_launches, lab in (
             ("fluid_rates_wall", 364, cpl_launches, "sinking box"),
             ("fluid_forces_contact", 590, cpl_launches, "sinking box"),
@@ -1764,40 +1924,58 @@ def main() -> int:
             name=name, route="cuda", source=src + "fluid.cu",
             replaces=f"rigid_body_2d_3d_pysph_tpu/ops/pallas_fluid.py:{line}",
             launches=path_launches[name], launches_by_path=by_path(name),
-            max_abs_err=fluid_err(name), ms=fm["ms"],
+            max_abs_err=max(fluid_err(name), f3[name]["err"]), ms=fm["ms"],
             plain_ms=fm["plain_ms"], bound_ms=fm["bound_ms"],
-            bound_by=fm["bound_by"], library_ms=None))
+            bound_by=fm["bound_by"], library_ms=None, **at_3d(name)))
+    # B4's no-body instance (the fluid-only tank)
+    ft = fl_t["tank"]["fluid_rates_wall"]
+    kernels[-3].update(
+        tank_ms=ft["ms"], tank_plain_ms=ft["plain_ms"],
+        tank_bound_ms=ft["bound_ms"], tank_bound_by=ft["bound_by"])
     # B6c's rigid instance (the kdk and reference orderings) beside the
     # tank's no-body one
     fr = sb["fluid_forces_rigid"]
     kernels[-1].update(
         max_abs_err=max(kernels[-1]["max_abs_err"],
-                        split_err("fluid_forces_rigid")),
+                        split_err("fluid_forces_rigid"),
+                        f3["fluid_forces_rigid"]["err"]),
         rigid_ms=fr["ms"], rigid_plain_ms=fr["plain_ms"],
-        rigid_bound_ms=fr["bound_ms"], rigid_bound_by=fr["bound_by"])
-    # the forces template's resources: B5, B6c without and with bodies, in
-    # 2D with viscosity (the instances these paths launch)
-    for k, fsi, contact, pre, t in (
-            (-2, True, True, "", fl_t["sinking box"]["fluid_forces_contact"]),
-            (-1, False, False, "", fl_t["tank"]["fluid_forces"]),
-            (-1, True, False, "rigid_", fr)):
-        kernels[k].update({pre + key: v for key, v in forces_resources(
-            fsi, contact, t).items()})
-    for name, line, extra in (
-            ("fluid_rates", 302, ("fluid_rates_tait",)),
-            ("wall_bc", 460, ())):
+        rigid_bound_ms=fr["bound_ms"], rigid_bound_by=fr["bound_by"],
+        **at_3d("fluid_forces_rigid", "rigid_"))
+    # the templates' resources, the 2D instances these paths launch: B4
+    # with and without bodies (EDAC), B5, B6c without and with bodies (with
+    # viscosity)
+    for k, pre, res in (
+            (-3, "", rates_resources(True, True, 0,
+                                     fl_t["sinking box"]["fluid_rates_wall"])),
+            (-3, "tank_", rates_resources(True, False, 0, ft)),
+            (-2, "", forces_resources(
+                True, True, fl_t["sinking box"]["fluid_forces_contact"])),
+            (-1, "", forces_resources(False, False,
+                                      fl_t["tank"]["fluid_forces"])),
+            (-1, "rigid_", forces_resources(True, False, fr))):
+        kernels[k].update({pre + key: v for key, v in res.items()})
+    for name, line, mode in (("fluid_rates", 302, 1), ("wall_bc", 460, 2)):
         fm = sb[name]
         entry = dict(
             name=name, route="cuda", source=src + "fluid.cu",
             replaces=f"rigid_body_2d_3d_pysph_tpu/ops/pallas_fluid.py:{line}",
             launches=launches_by["kdk"][name], launches_by_path=by_path(name),
-            max_abs_err=max(split_err(k) for k in (name,) + extra),
+            max_abs_err=max(split_err(name), f3[name]["err"]),
             ms=fm["ms"], plain_ms=fm["plain_ms"], bound_ms=fm["bound_ms"],
-            bound_by=fm["bound_by"], library_ms=None)
-        if extra:
+            bound_by=fm["bound_by"], library_ms=None, **at_3d(name),
+            **rates_resources(mode == 1, mode == 1, mode, fm))
+        if mode == 1:
             ft = sb["fluid_rates_tait"]
-            entry.update(tait_ms=ft["ms"], tait_plain_ms=ft["plain_ms"],
-                         tait_bound_ms=ft["bound_ms"])
+            entry.update(
+                max_abs_err=max(entry["max_abs_err"],
+                                split_err("fluid_rates_tait"),
+                                f3["fluid_rates_tait"]["err"]),
+                tait_ms=ft["ms"], tait_plain_ms=ft["plain_ms"],
+                tait_bound_ms=ft["bound_ms"], tait_bound_by=ft["bound_by"],
+                **at_3d("fluid_rates_tait", "tait_"),
+                **{"tait_" + k: v for k, v in rates_resources(
+                    False, True, 1, ft).items()})
         kernels.append(entry)
     print(f"[done] rigid {main_stats['steps_per_s']:.2f} steps/s at "
           f"n={main_stats['n']}, 3D {stats3['steps_per_s']:.2f} steps/s at "

@@ -30,17 +30,20 @@
 //
 // Bound on the card: latency and instruction issue, not bytes.  The pack
 // is 56 bytes a lane and every query lane tests O x M candidate lanes,
-// about a tenth of them in range.  The rates and wall passes (B4, B6a,
-// B6b): one thread per query lane, blocks of 128 threads (8 slots of
-// M = 16), each thread scanning its slot's stencil rows in order with
-// every sum in a register; the 16 threads of a slot read the same source
-// word at once (a broadcast through the read-only cache).  The forces
-// passes (B5, B6c) run one warp a slot over candidates staged in shared
-// memory (see forces_kernel): a one-lane scan there ran each pair body
-// for the whole warp whenever one of its lanes had a pair in range, and
-// wrote B5's 12 S + 6 columns a lane at a stride.  The compile-time
-// choices of the TPU kernels (EDAC, rigid bodies present, artificial
-// viscosity on, the kernel's dimension) are template parameters, not
+// about a third of them in range.  Both templates (rates_wall_kernel for
+// B4, B6a, B6b; forces_kernel for B5, B6c) run one warp a query slot (M <=
+// 32): the slot's query lanes are listed by a ballot (a slot with none
+// writes its rows and stops), the candidates the listed queries can sum
+// are staged in shared memory in stencil order by one shared stencil walk
+// (StencilWalk), each query's candidates are split among the warp's
+// threads (range tests into a hit mask, then the pair bodies of the hits
+// only), the partial sums are added by a shuffle tree of fixed shape, and
+// the slot's block is written whole from shared memory.  A one-lane scan
+// (a thread a query lane over every candidate lane) ran each pair body for
+// the whole warp whenever one of its lanes had a pair in range, and left
+// the sentinel lanes' threads idle.  The compile-time choices of the TPU
+// kernels (EDAC, rigid bodies present, artificial viscosity on, the
+// kernel's dimension, the columns written) are template parameters, not
 // branches per pair.
 //
 // Built with --fmad=false, so every per-pair term rounds as the plain
@@ -56,7 +59,6 @@ enum {
   FX, FY, FZ, FU, FV, FW, FM, FRHO, FH, FP, FMFSI, FRHOFSI, FPFSI, FFLAGS,
   NF
 };
-constexpr int kThreads = 128;
 
 struct Flags {
   float dem, cfib, sbdry, fluid, rigid;
@@ -73,10 +75,6 @@ __device__ __forceinline__ Flags decode(float f) {
   d.fluid = floorf(r * 0.5f);
   d.rigid = r - 2.0f * d.fluid;
   return d;
-}
-
-__device__ __forceinline__ float field(const float* row, int f, int M, int l) {
-  return __ldg(row + f * M + l);
 }
 
 // dW/dr / r of the quintic spline with the guarded 1/r (0 at r = 0), and
@@ -107,165 +105,9 @@ __device__ __forceinline__ float quintic_gradw(float rij, float h,
 }
 
 // ---------------------------------------------------------------------------
-// B4: rates (fluid queries) and the Adami wall sums (wall and body queries)
-// in one sweep; B6a the rates alone, B6b the wall sums alone
-// ---------------------------------------------------------------------------
-
-// which columns a rates/wall instance writes
-enum { kRatesWall = 0, kRates = 1, kWall = 2 };
-
-template <bool KDIM2, bool EDAC, bool HAS_RIGID, int MODE>
-__global__ void rates_wall_kernel(const float* __restrict__ dft,
-                                  const long long* __restrict__ nbr,
-                                  float* __restrict__ out, int NC, int O,
-                                  int M, float cutoff, float nu2, float cs2,
-                                  float gx, float gy, float gz, float sig_num,
-                                  float sig_den) {
-  constexpr bool RATES = MODE != kWall, WALL = MODE != kRates;
-  // B6a sums the fluid/boundary and the FSI-rigid source classes apart
-  // (pallas_fluid.py:348-351), B4 in one term (:423-433)
-  constexpr bool SPLIT = MODE == kRates && HAS_RIGID;
-  constexpr int W = MODE == kRatesWall ? 7 : (MODE == kRates ? 2 : 5);
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long slot = g / M;
-  const int l = (int)(g - slot * M);
-  if (slot >= NC) return;
-  const float* q = dft + slot * NF * M;
-  const Flags qf = decode(field(q, FFLAGS, M, l));
-  const bool dest_fluid = RATES && qf.fluid == 1.0f;
-  const bool dest_solid = WALL && (qf.sbdry == 1.0f || qf.rigid == 1.0f);
-
-  // arho2, ap2: the FSI-rigid class of B6a
-  float arho = 0.f, ap = 0.f, arho2 = 0.f, ap2 = 0.f;
-  float uf = 0.f, vf = 0.f, wf = 0.f, sw = 0.f, pn = 0.f;
-  if (dest_fluid || dest_solid) {
-    const float qx = field(q, FX, M, l), qy = field(q, FY, M, l),
-                qz = field(q, FZ, M, l);
-    const float qu = field(q, FU, M, l), qv = field(q, FV, M, l),
-                qw = field(q, FW, M, l);
-    const float mi = field(q, FM, M, l), rhoi = field(q, FRHO, M, l);
-    const float qh = field(q, FH, M, l), pi = field(q, FP, M, l);
-    const float inv_m = 1.0f / fmaxf(mi, 1e-30f);
-    const float Vi = mi / rhoi;
-    for (int o = 0; o < O; ++o) {
-      const long long sl = nbr[slot * O + o];
-      if (sl < 0 || sl >= NC) continue;   // no neighbour: the sentinel row
-      const float* s = dft + sl * NF * M;
-      for (int k = 0; k < M; ++k) {
-        const float xij = qx - field(s, FX, M, k);
-        const float yij = qy - field(s, FY, M, k);
-        const float zij = qz - field(s, FZ, M, k);
-        const float r2 = xij * xij + yij * yij + zij * zij;
-        const float rij = sqrtf(r2);
-        if (!(rij <= cutoff)) continue;
-        const Flags sf = decode(field(s, FFLAGS, M, k));
-        const bool src_fluid = sf.fluid == 1.0f;
-        const bool src_flbd = src_fluid || sf.sbdry == 1.0f;
-        const bool src_rigid = sf.rigid == 1.0f;
-        const bool rates =
-            dest_fluid && (src_flbd || (HAS_RIGID && src_rigid));
-        const bool wall = dest_solid && src_fluid;
-        if (!(rates || wall)) continue;
-        const float hij = 0.5f * (qh + field(s, FH, M, k));
-        float w, dw;
-        quintic_w_gradw<KDIM2>(rij, hij, sig_num, sig_den, w, dw);
-        if (rates) {
-          const bool fsi = HAS_RIGID && src_rigid;
-          const float mj = field(s, fsi ? FMFSI : FM, M, k);
-          const float rhoj = field(s, fsi ? FRHOFSI : FRHO, M, k);
-          const float dwx = dw * xij, dwy = dw * yij, dwz = dw * zij;
-          const float vdotdw = (qu - field(s, FU, M, k)) * dwx +
-                               (qv - field(s, FV, M, k)) * dwy +
-                               (qw - field(s, FW, M, k)) * dwz;
-          const float da = rhoi * mj / rhoj * vdotdw;
-          float dp = 0.f;
-          if (EDAC) {
-            const float pj = field(s, fsi ? FPFSI : FP, M, k);
-            const float xdotdw = xij * dwx + yij * dwy + zij * dwz;
-            const float eps = 0.01f * hij * hij;
-            const float ap1 = rhoi / rhoj * cs2 * mj * vdotdw;
-            const float Vj = mj / rhoj;
-            const float etaij = nu2 * (rhoi * rhoj) / (rhoi + rhoj);
-            const float tmp = inv_m * (Vi * Vi + Vj * Vj) * etaij * xdotdw /
-                              (r2 + eps);
-            dp = ap1 + tmp * (pi - pj);
-          }
-          if (SPLIT && fsi) {
-            arho2 += da;
-            ap2 += dp;
-          } else {
-            arho += da;
-            ap += dp;
-          }
-        }
-        if (wall) {
-          const float gdotx = gx * xij + gy * yij + gz * zij;
-          uf += field(s, FU, M, k) * w;
-          vf += field(s, FV, M, k) * w;
-          wf += field(s, FW, M, k) * w;
-          sw += w;
-          pn += (field(s, FP, M, k) + field(s, FRHO, M, k) * gdotx) * w;
-        }
-      }
-    }
-  }
-  float* o = out + (slot * M + l) * W;
-  if (RATES) {
-    o[0] = SPLIT ? arho + arho2 : arho;
-    o[1] = SPLIT ? ap + ap2 : ap;
-    o += 2;
-  }
-  if (WALL) {
-    o[0] = uf;
-    o[1] = vf;
-    o[2] = wf;
-    o[3] = sw;
-    o[4] = pn;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B5 / B6c: pressure gradient + artificial viscosity; with FSI (rigid
-// bodies present) the FSI source class and the fluid -> rigid force; with
-// CONTACT the Mofidi contact columns on the union layout first.  B5 is
-// FSI and CONTACT, B6c FSI (kdk and reference orderings) or neither.
-//
-// One warp a query slot (kWarps slots a block), every sum in a fixed
-// order:
-// 1. The slot's query lanes: the lanes a force sum runs for (fluid, and
-//    rigid with FSI) are listed by a ballot; a slot with none writes its
-//    rows (zeros and the contact init row) and stops.
-// 2. Staging: the warp walks the stencil in order, 32 / M entries a
-//    step and kUnroll steps' loads in flight, and copies the candidates
-//    a sum can use (fluid, boundary, FSI-rigid, contact-eligible) into
-//    shared memory in stencil order, as structure of arrays of what the
-//    bodies read: x y z h u v w, the source class's m and p / rho^2
-//    (m_fsi and p_fsi / rho_fsi^2 for an FSI-rigid source, the same
-//    rounding as the per-pair division), rho, and the class bits with
-//    the dem.  Missing stencil entries cost nothing past their index;
-//    sentinel lanes go no further.  A stencil with more than kCap
-//    candidates is staged and summed in windows of whole entries,
-//    carried in order.
-// 3. Forces: with q listed queries, thread (i, p) takes query i and the
-//    staged candidates p, p + P, p + 2P, ... (P = 32 / q), 32 at a time:
-//    first the range tests (r2 <= r2max, the exact image of r <= cutoff,
-//    and the classes the query sums), then the bodies of the pairs that
-//    passed, each the one-lane kernel's arithmetic, so the warp runs as
-//    many bodies as its busiest thread has pairs.  The P partial sums of
-//    a query are added by a shuffle tree of fixed shape.
-// 4. Contact (B5, slots with a rigid lane): the staged candidates that
-//    pass the flag part of the gate (contact boundary, not fluid, a dem
-//    some rigid lane of the slot wants) are listed in stencil order, and
-//    one thread a (rigid lane, entity slot s != its dem) walks that list,
-//    adding its gated pairs (dem s, r <= cutoff) into a mofidi::Acc in
-//    stencil order: the sums and the pick are a sequential walk's, bit
-//    for bit the one-lane kernel's.  This runs after the force sums (so
-//    the two sets of running sums never share the registers), on the
-//    staged window when one window held the stencil, else over the
-//    windows staged again; more than 32 such threads run in groups.
-// 5. The slot's [M, W] block is assembled in shared memory (the zero and
-//    init rows, then the force and contact columns) and written
-//    contiguously with 16-byte stores.
+// What the two templates share: one warp a query slot, the candidates
+// staged in shared memory in stencil order by StencilWalk, the slot's
+// block assembled in shared memory and written whole.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;         // query slots a block, one warp each
@@ -280,107 +122,99 @@ enum { kSrcFluid = 1, kSrcFlbd = 2, kSrcRigid = 4 };
 // the pack fields staging loads for every lane of an entry
 constexpr int kLoads = 11;        // x y z u v w m rho h p flags
 
-// a warp's shared memory in words: staging, the contact list, the query
-// and rigid lane lists (32 each), the output block
-__host__ __device__ constexpr int forces_warp_words(int M, int W) {
-  return NS * kCap + kCap + 64 + ((M * W + 3) & ~3);
+// a warp's shared memory in words: staging, a candidate list of kCap
+// words (the forces template's contact list), the query and rigid lane
+// lists (32 each), the output block [M, W]
+__host__ __device__ constexpr int warp_words(int M, int W, bool clist) {
+  return NS * kCap + (clist ? kCap : 0) + 64 + ((M * W + 3) & ~3);
 }
 
-template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
-__global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
-    forces_kernel(const float* __restrict__ dft,
-                  const long long* __restrict__ nbr, float* __restrict__ out,
-                  int NC, int O, int M, int S, float r2max,
-                  float alpha_c0, float init_dist, float sig_num,
-                  float sig_den) {
-  extern __shared__ float4 smem4[];
-  const int lane = threadIdx.x & 31;
-  const long long slot =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (slot >= NC) return;                    // the whole warp
-  const int W = CONTACT ? 12 * S + 6 : 6;
-  const int F0 = CONTACT ? 12 * S : 0;       // the first force column
-  float* st = reinterpret_cast<float*>(smem4) +
-              (threadIdx.x >> 5) * forces_warp_words(M, W);
-  int* clist = reinterpret_cast<int*>(st + NS * kCap);
-  int* qlist = clist + kCap;
-  int* rlist = qlist + 32;
-  float* obuf = st + NS * kCap + kCap + 64;
-  float* orow = out + slot * M * W;
-  const unsigned lt = (1u << lane) - 1u;
-  const float* q = dft + slot * NF * M;
-  const bool vec = (M * W) % 4 == 0 &&
-                   (reinterpret_cast<unsigned long long>(out) & 15ull) == 0;
-  // the default rows (zeros, and the contact init row in block 5) over
-  // the slot's block at o: each thread steps its column on, no division
-  // an element
-  auto fill_default = [&](float* o, bool by4) {
-    const int w = by4 ? 4 : 1, step = (32 * w) % W;
-    int c = (w * lane) % W;
-    auto at = [&](int j) -> float {
-      const int cj = c + j < W ? c + j : c + j - W;
-      return (CONTACT && cj >= 5 * S && cj < 6 * S) ? init_dist : 0.0f;
-    };
-    for (int i = lane; i < M * W / w; i += 32) {
-      if (by4)
-        reinterpret_cast<float4*>(o)[i] = make_float4(at(0), at(1), at(2),
-                                                      at(3));
-      else
-        o[i] = at(0);
-      c += step;
-      if (c >= W) c -= W;
-    }
-  };
+// the dynamic shared memory of a block (bytes) and its warps: kWarps
+// unless the output block is so wide that fewer fit; 0 if none fits
+inline int block_bytes(int M, int W, bool clist, int& warps) {
+  const long long warp_bytes = 4LL * warp_words(M, W, clist);
+  for (warps = kWarps; warps > 0; --warps)
+    if (warps * warp_bytes <= kMaxSmem) return (int)(warps * warp_bytes);
+  return 0;
+}
 
-  // the stencil row 32 entries at a time, lane j holding entry nb_base + j
-  // (loaded beside the query flags: one wait for both)
-  const long long* nb = nbr + slot * O;
-  int nb_base = 0;
-  long long nb_lane = lane < O ? nb[lane] : -1LL;
+// the largest r^2 whose sqrtf is <= cutoff: sqrtf rounds correctly, so it
+// is monotone, and r = sqrtf(r2) <= cutoff exactly when r2 <= this
+inline float r2_limit(float cutoff) {
+  float t = cutoff * cutoff;
+  if (!(t < INFINITY)) return t;
+  while (sqrtf(nextafterf(t, INFINITY)) <= cutoff)
+    t = nextafterf(t, INFINITY);
+  while (t > 0.0f && sqrtf(t) > cutoff) t = nextafterf(t, 0.0f);
+  return t;
+}
 
-  // 1. the query lanes
-  Flags qf{-1.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (lane < M) qf = decode(__ldg(q + FFLAGS * M + lane));
-  const bool act = qf.fluid == 1.0f || (FSI && qf.rigid == 1.0f);
-  const bool rig = CONTACT && qf.rigid == 1.0f;
-  const unsigned amask = __ballot_sync(kFull, act);
-  const unsigned rmask = __ballot_sync(kFull, rig);
-  const int nq = __popc(amask), nr = __popc(rmask);
-  if (nq == 0) {
-    fill_default(orow, vec);
-    return;
+// zeros over a slot's block o of n words, the warp's lanes striding (16
+// bytes a store when by4)
+__device__ __forceinline__ void fill_zero(float* o, int n, bool by4,
+                                          int lane) {
+  if (by4) {
+    for (int i = lane; i < n / 4; i += 32)
+      reinterpret_cast<float4*>(o)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int i = lane; i < n; i += 32) o[i] = 0.0f;
   }
-  if (act) qlist[__popc(amask & lt)] = lane;
-  if (rig) rlist[__popc(rmask & lt)] = lane;
-  fill_default(obuf, (M * W) % 4 == 0);
-  // the dems the slot's rigid lanes want: every s but their own, so all
-  // of them unless the rigid lanes share one dem
-  int skip_dem = -1;
-  if (CONTACT && nr > 0) {
-    const int d = (int)qf.dem;
-    const int lo = __reduce_min_sync(kFull, rig ? d : 0x7fffffff);
-    const int hi = __reduce_max_sync(kFull, rig ? d : -0x7fffffff);
-    if (lo == hi) skip_dem = lo;
+}
+
+// the slot's block b of n words to o, contiguous (16 bytes a store when
+// by4)
+__device__ __forceinline__ void copy_block(float* o, const float* b, int n,
+                                           bool by4, int lane) {
+  if (by4) {
+    float4* o4 = reinterpret_cast<float4*>(o);
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    for (int i = lane; i < n / 4; i += 32) o4[i] = b4[i];
+  } else {
+    for (int i = lane; i < n; i += 32) o[i] = b[i];
   }
-  __syncwarp();
+}
 
-  // the force sums' threads: query fi, candidates fp, fp + P, ...
-  const int P = 32 / nq;
-  const int fi = lane / P, fp = lane - fi * P;
-  const bool fact = fi < nq;
+// The walk of one slot's stencil row by its warp.  A step covers E = 32 /
+// M entries (lane j loads lane sk of entry e + sj), kUnroll steps' loads
+// in flight; the row's indices are held 32 entries at a time, entry
+// nb_base + j in lane j (the first batch is loaded at construction, beside
+// the caller's query flags: one wait for both).  stage() fills a window:
+// from entry e on, every lane's kLoads fields are loaded, keep(fl) gives
+// the candidate's code (flags word fl, an exact integer; not 0: staged),
+// and put(v, row, fl, code, pos, fits) is called on every lane of the warp
+// (it may run warp collectives) to store a kept candidate at pos.  Whole
+// entries go in, in stencil order, while the window has room; it returns
+// the first entry not staged (O: the stencil's end) and the count in n.
+// Missing stencil entries cost nothing past their index; sentinel lanes
+// go no further than their flags.
+struct StencilWalk {
+  const float* dft;
+  const long long* nb;
+  int NC, O, M, E, sj, sk, nb_base;
+  bool in_step;
+  unsigned step_lanes, upto, lt;
+  long long nb_lane;
 
-  // 2. staging: the window of candidates from stencil entry e on; returns
-  // the first entry not staged (O: the stencil's end)
-  const int E = 32 / M;                      // stencil entries a step
-  const int sj = lane / M, sk = lane - sj * M;
-  const bool in_step = sj < E;
-  const unsigned step_lanes = E * M == 32 ? kFull : (1u << (E * M)) - 1u;
-  const unsigned upto = !in_step ? step_lanes
-                        : (sj + 1) * M == 32 ? kFull
-                                             : (1u << ((sj + 1) * M)) - 1u;
-  auto stage = [&](int e, int& n, int& cn) -> int {
+  __device__ __forceinline__ StencilWalk(const float* dft_,
+                                         const long long* nb_, int NC_,
+                                         int O_, int M_, int lane)
+      : dft(dft_), nb(nb_), NC(NC_), O(O_), M(M_), nb_base(0) {
+    E = 32 / M;
+    sj = lane / M;
+    sk = lane - sj * M;
+    in_step = sj < E;
+    step_lanes = E * M == 32 ? kFull : (1u << (E * M)) - 1u;
+    upto = !in_step ? step_lanes
+           : (sj + 1) * M == 32 ? kFull
+                                : (1u << ((sj + 1) * M)) - 1u;
+    lt = (1u << lane) - 1u;
+    nb_lane = lane < O ? nb[lane] : -1LL;
+  }
+
+  template <class Keep, class Put>
+  __device__ __forceinline__ int stage(int e, int& n, Keep keep, Put put) {
+    const int lane = threadIdx.x & 31;
     n = 0;
-    cn = 0;
     for (; e < O; e += kUnroll * E) {
       if (e < nb_base || e + kUnroll * E > nb_base + 32) {
         nb_base = e;                         // warp-uniform
@@ -407,63 +241,455 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
       for (int u = 0; u < kUnroll; ++u) {
         // the flags word is an exact integer: decode() by shifts
         const int fl = (int)v[u][kLoads - 1];
-        const int dem = fl >> 4;
-        const bool s_fluid = fl & 2;
-        const bool s_flbd = s_fluid || (fl & 4);
-        const bool s_rigid = FSI && (fl & 1);
-        const bool elig = CONTACT && nr > 0 && (fl & 8) && !s_fluid &&
-                          dem >= 0 && dem < S && dem != skip_dem;
-        const bool keep = s_flbd || s_rigid || elig;
-        const unsigned bal = __ballot_sync(kFull, keep);
-        // whole entries, in order, while the window has room
+        const unsigned code = keep(fl);
+        const unsigned bal = __ballot_sync(kFull, code != 0u);
         const bool fits = n + __popc(bal & upto) <= kCap;
         const unsigned fitl = __ballot_sync(kFull, in_step && fits);
-        const int pos = n + __popc(bal & lt);
-        if (keep && fits) {
-          float mj = v[u][FM], pt;
-          if (s_rigid) {
-            const float* s = dft + rows[u] * NF * M + sk;
-            const float rf = __ldg(s + FRHOFSI * M);
-            mj = __ldg(s + FMFSI * M);
-            pt = __ldg(s + FPFSI * M) / (rf * rf);
-          } else {
-            pt = v[u][FP] / (v[u][FRHO] * v[u][FRHO]);
-          }
-          st[SX * kCap + pos] = v[u][FX];
-          st[SY * kCap + pos] = v[u][FY];
-          st[SZ * kCap + pos] = v[u][FZ];
-          st[SH * kCap + pos] = v[u][FH];
-          st[SU * kCap + pos] = v[u][FU];
-          st[SV * kCap + pos] = v[u][FV];
-          st[SW * kCap + pos] = v[u][FW];
-          st[SMJ * kCap + pos] = mj;
-          st[SRHO * kCap + pos] = v[u][FRHO];
-          st[SPT * kCap + pos] = pt;
-          st[SCLS * kCap + pos] = __int_as_float(
-              dem * 8 + (s_fluid ? kSrcFluid : 0) + (s_flbd ? kSrcFlbd : 0) +
-              (s_rigid ? kSrcRigid : 0));
-        }
-        if (CONTACT) {
-          const unsigned cb = __ballot_sync(kFull, elig && fits);
-          if (elig && fits) clist[cn + __popc(cb & lt)] = pos;
-          cn += __popc(cb);
-        }
+        put(v[u], rows[u], fl, code, n + __popc(bal & lt), fits);
         n += __popc(bal & fitl);
         if (fitl != step_lanes) return e + u * E + __popc(fitl) / M;
       }
     }
     return O;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// B4: rates (fluid queries) and the Adami wall sums (wall and body queries)
+// in one sweep; B6a the rates alone, B6b the wall sums alone.
+//
+// One warp a query slot (kWarps slots a block):
+// 1. The query ballot: the lanes a sum of this instance runs for (fluid
+//    for the rates; static boundary or rigid for the wall sums) are
+//    listed; a slot with none writes its zero rows and stops (every
+//    sentinel slot, and most of B6b's slots).
+// 2. Staging (StencilWalk): the candidates some listed query sums, as
+//    structure of arrays: x y z h u v w, the source class's m, rho and p
+//    (m_fsi, rho_fsi, p_fsi for an FSI-rigid source), and the class bits.
+//    The rates' sources are fluid and static boundary, and FSI-rigid with
+//    HAS_RIGID; the wall sums' are fluid, which is never rigid, so one
+//    staged (m, rho, p) serves both sums.  A stencil with more than kCap
+//    candidates is staged and summed in windows of whole entries, carried
+//    in order.
+// 3. Thread (i, p) takes listed query i and the staged candidates p, p +
+//    P, ... (P = 32 / q), 32 at a time: first the exact r^2 <= r2max test
+//    and the query's classes into a hit mask, then the bodies of the hits
+//    only, each with the one-lane kernel's arithmetic (pallas_fluid.py
+//    :315-352, :389-448, :468-482).
+// 4. The P partial sums of a query are added by a shuffle tree of fixed
+//    shape (two launches give the same bits).  B6a with bodies keeps the
+//    FSI-rigid class's sums apart to the end and adds them last
+//    (pallas_fluid.py:348-351); B4 keeps one term per sum (:423-433).
+// 5. The slot's [M, W] block, zeros on every lane not listed, is written
+//    contiguously from shared memory (16-byte stores where M W allows).
+// ---------------------------------------------------------------------------
+
+// which columns a rates/wall instance writes
+enum { kRatesWall = 0, kRates = 1, kWall = 2 };
+
+template <int MODE>
+__host__ __device__ constexpr int rates_wall_width() {
+  return MODE == kRatesWall ? 7 : (MODE == kRates ? 2 : 5);
+}
+
+template <bool KDIM2, bool EDAC, bool HAS_RIGID, int MODE>
+__global__ void __launch_bounds__(kWarps * 32, 6)
+    rates_wall_kernel(const float* __restrict__ dft,
+                      const long long* __restrict__ nbr,
+                      float* __restrict__ out, int NC, int O, int M,
+                      float r2max, float nu2, float cs2, float gx, float gy,
+                      float gz, float sig_num, float sig_den) {
+  constexpr bool RATES = MODE != kWall, WALL = MODE != kRates;
+  constexpr bool SPLIT = MODE == kRates && HAS_RIGID;
+  constexpr int W = rates_wall_width<MODE>();
+  // running sums: arho ap (and the FSI class's arho ap with SPLIT), then
+  // uf vf wf sw p_num
+  constexpr int NR = RATES ? (SPLIT ? 4 : 2) : 0;
+  constexpr int NA = NR + (WALL ? 5 : 0);
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const long long slot =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (slot >= NC) return;                    // the whole warp
+  float* st = reinterpret_cast<float*>(smem4) +
+              (threadIdx.x >> 5) * warp_words(M, W, false);
+  int* qlist = reinterpret_cast<int*>(st + NS * kCap);
+  float* obuf = st + NS * kCap + 64;
+  float* orow = out + slot * M * W;
+  const float* q = dft + slot * NF * M;
+  const bool vec = (M * W) % 4 == 0 &&
+                   (reinterpret_cast<unsigned long long>(out) & 15ull) == 0;
+  StencilWalk walk(dft, nbr + slot * O, NC, O, M, lane);
+
+  // 1. the query ballot
+  Flags qf{-1.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (lane < M) qf = decode(__ldg(q + FFLAGS * M + lane));
+  const bool q_rates = RATES && qf.fluid == 1.0f;
+  const bool q_wall = WALL && (qf.sbdry == 1.0f || qf.rigid == 1.0f);
+  const unsigned amask = __ballot_sync(kFull, q_rates || q_wall);
+  if (amask == 0u) {
+    fill_zero(orow, M * W, vec, lane);
+    return;
+  }
+  const bool any_rates = __any_sync(kFull, q_rates);
+  const bool any_wall = __any_sync(kFull, q_wall);
+  const int nq = __popc(amask);
+  if (q_rates || q_wall) qlist[__popc(amask & walk.lt)] = lane;
+  fill_zero(obuf, M * W, (M * W) % 4 == 0, lane);
+  __syncwarp();
+
+  // thread (qi, qp): query qi, candidates qp, qp + P, ...
+  const int P = 32 / nq;
+  const int qi = lane / P, qp = lane - qi * P;
+  const bool qact = qi < nq;
+
+  // 2. staging: what some listed query sums
+  auto keep = [&](int fl) -> unsigned {
+    const bool s_fluid = fl & 2;
+    const bool s_rates = s_fluid || (fl & 4) || (HAS_RIGID && (fl & 1));
+    return (any_rates && s_rates) || (any_wall && s_fluid);
+  };
+  auto put = [&](const float* v, long long row, int fl, unsigned code,
+                 int pos, bool fits) {
+    if (!(code && fits)) return;
+    const bool s_fluid = fl & 2;
+    const bool s_flbd = s_fluid || (fl & 4);
+    const bool s_rigid = HAS_RIGID && (fl & 1);
+    float mj = v[FM], rhoj = v[FRHO], pj = v[FP];
+    if (s_rigid) {
+      const float* s = dft + row * NF * M + walk.sk;
+      mj = __ldg(s + FMFSI * M);
+      rhoj = __ldg(s + FRHOFSI * M);
+      pj = __ldg(s + FPFSI * M);
+    }
+    st[SX * kCap + pos] = v[FX];
+    st[SY * kCap + pos] = v[FY];
+    st[SZ * kCap + pos] = v[FZ];
+    st[SH * kCap + pos] = v[FH];
+    st[SU * kCap + pos] = v[FU];
+    st[SV * kCap + pos] = v[FV];
+    st[SW * kCap + pos] = v[FW];
+    st[SMJ * kCap + pos] = mj;
+    st[SRHO * kCap + pos] = rhoj;
+    st[SPT * kCap + pos] = pj;
+    st[SCLS * kCap + pos] = __int_as_float(
+        (s_fluid ? kSrcFluid : 0) + (s_flbd ? kSrcFlbd : 0) +
+        (s_rigid ? kSrcRigid : 0));
+  };
+
+  // 3. the sums, window by window (the partial sums carried)
+  float acc[NA];
+#pragma unroll
+  for (int m = 0; m < NA; ++m) acc[m] = 0.0f;
+  int n = 0, e = 0;
+  do {
+    __syncwarp();                            // the last window is read
+    e = walk.stage(e, n, keep, put);
+    __syncwarp();
+    // this thread's query, loaded after the staging (not live across it)
+    const int ql = qact ? qlist[qi] : 0;
+    const float* qq = q + ql;
+    const float qx = __ldg(qq + FX * M), qy = __ldg(qq + FY * M),
+                qz = __ldg(qq + FZ * M), qh = __ldg(qq + FH * M);
+    const Flags qd = decode(__ldg(qq + FFLAGS * M));
+    const bool dest_fluid = qact && RATES && qd.fluid == 1.0f;
+    const bool dest_solid =
+        qact && WALL && (qd.sbdry == 1.0f || qd.rigid == 1.0f);
+    const int want = (dest_fluid ? kSrcFlbd | kSrcRigid : 0) |
+                     (dest_solid ? kSrcFluid : 0);
+    for (int c0 = qp; qact && c0 < n; c0 += 32 * P) {
+      unsigned hits = 0u;
+      for (int k = 0; k < 32; ++k) {
+        const int c = c0 + k * P;
+        if (c >= n) break;
+        const float xij = qx - st[SX * kCap + c];
+        const float yij = qy - st[SY * kCap + c];
+        const float zij = qz - st[SZ * kCap + c];
+        const float r2 = xij * xij + yij * yij + zij * zij;
+        if (!(r2 <= r2max)) continue;
+        if (__float_as_int(st[SCLS * kCap + c]) & want) hits |= 1u << k;
+      }
+      if (!hits) continue;
+      float qu = 0.f, qv = 0.f, qw = 0.f, rhoi = 0.f, pi = 0.f, inv_m = 0.f,
+            Vi = 0.f;
+      if (RATES) {
+        qu = __ldg(qq + FU * M);
+        qv = __ldg(qq + FV * M);
+        qw = __ldg(qq + FW * M);
+        rhoi = __ldg(qq + FRHO * M);
+        if (EDAC) {
+          const float mi = __ldg(qq + FM * M);
+          pi = __ldg(qq + FP * M);
+          inv_m = 1.0f / fmaxf(mi, 1e-30f);
+          Vi = mi / rhoi;
+        }
+      }
+      for (; hits; hits &= hits - 1u) {
+        const int c = c0 + (__ffs(hits) - 1) * P;
+        const float xij = qx - st[SX * kCap + c];
+        const float yij = qy - st[SY * kCap + c];
+        const float zij = qz - st[SZ * kCap + c];
+        const float r2 = xij * xij + yij * yij + zij * zij;
+        const float rij = sqrtf(r2);
+        const int cls = __float_as_int(st[SCLS * kCap + c]);
+        const float hij = 0.5f * (qh + st[SH * kCap + c]);
+        const bool rates = dest_fluid && (cls & (kSrcFlbd | kSrcRigid));
+        const bool wall = dest_solid && (cls & kSrcFluid);
+        float w = 0.f, dw = 0.f;
+        if constexpr (MODE == kRatesWall)
+          quintic_w_gradw<KDIM2>(rij, hij, sig_num, sig_den, w, dw);
+        else if constexpr (RATES)
+          dw = quintic_gradw<KDIM2>(rij, hij, sig_num, sig_den);
+        else
+          w = mofidi::quintic_w<KDIM2>(rij, hij, sig_num, sig_den);
+        const float mj = st[SMJ * kCap + c];     // m_fsi for FSI-rigid
+        const float rhoj = st[SRHO * kCap + c];  // rho_fsi for FSI-rigid
+        const float pj = st[SPT * kCap + c];     // p_fsi for FSI-rigid
+        if constexpr (RATES) if (rates) {
+          const float dwx = dw * xij, dwy = dw * yij, dwz = dw * zij;
+          const float vdotdw = (qu - st[SU * kCap + c]) * dwx +
+                               (qv - st[SV * kCap + c]) * dwy +
+                               (qw - st[SW * kCap + c]) * dwz;
+          const float da = rhoi * mj / rhoj * vdotdw;
+          float dp = 0.f;
+          if (EDAC) {
+            const float xdotdw = xij * dwx + yij * dwy + zij * dwz;
+            const float eps = 0.01f * hij * hij;
+            const float ap1 = rhoi / rhoj * cs2 * mj * vdotdw;
+            const float Vj = mj / rhoj;
+            const float etaij = nu2 * (rhoi * rhoj) / (rhoi + rhoj);
+            const float tmp = inv_m * (Vi * Vi + Vj * Vj) * etaij * xdotdw /
+                              (r2 + eps);
+            dp = ap1 + tmp * (pi - pj);
+          }
+          if constexpr (SPLIT) if (cls & kSrcRigid) {
+            acc[2] += da;
+            acc[3] += dp;
+            continue;                        // a source of one class
+          }
+          acc[0] += da;
+          acc[1] += dp;
+        }
+        if constexpr (WALL) if (wall) {
+          const float gdotx = gx * xij + gy * yij + gz * zij;
+          acc[NR] += st[SU * kCap + c] * w;
+          acc[NR + 1] += st[SV * kCap + c] * w;
+          acc[NR + 2] += st[SW * kCap + c] * w;
+          acc[NR + 3] += w;
+          acc[NR + 4] += (pj + rhoj * gdotx) * w;
+        }
+      }
+    }
+  } while (e < O);
+
+  // 4. the P partial sums of each query, by a tree of fixed shape
+  for (int off = 1; off < P; off <<= 1) {
+#pragma unroll
+    for (int m = 0; m < NA; ++m) {
+      const float o = __shfl_down_sync(kFull, acc[m], off);
+      if ((qp & (2 * off - 1)) == 0 && qp + off < P) acc[m] += o;
+    }
+  }
+  if (qact && qp == 0) {
+    float* o = obuf + qlist[qi] * W;
+    if constexpr (SPLIT) {
+      o[0] = acc[0] + acc[2];
+      o[1] = acc[1] + acc[3];
+    } else if constexpr (RATES) {
+      o[0] = acc[0];
+      o[1] = acc[1];
+    }
+    if constexpr (WALL) {
+#pragma unroll
+      for (int m = 0; m < 5; ++m) o[NR + m] = acc[NR + m];
+    }
+  }
+  __syncwarp();
+  // 5. the slot's block, contiguous
+  copy_block(orow, obuf, M * W, vec, lane);
+}
+
+// ---------------------------------------------------------------------------
+// B5 / B6c: pressure gradient + artificial viscosity; with FSI (rigid
+// bodies present) the FSI source class and the fluid -> rigid force; with
+// CONTACT the Mofidi contact columns on the union layout first.  B5 is
+// FSI and CONTACT, B6c FSI (kdk and reference orderings) or neither.
+//
+// One warp a query slot (kWarps slots a block), every sum in a fixed
+// order:
+// 1. The slot's query lanes: the lanes a force sum runs for (fluid, and
+//    rigid with FSI) are listed by a ballot; a slot with none writes its
+//    rows (zeros and the contact init row) and stops.
+// 2. Staging (StencilWalk): the candidates a sum can use (fluid,
+//    boundary, FSI-rigid, contact-eligible) go to shared memory in
+//    stencil order, as structure of arrays of what the bodies read: x y z
+//    h u v w, the source class's m and p / rho^2 (m_fsi and p_fsi /
+//    rho_fsi^2 for an FSI-rigid source, the same rounding as the per-pair
+//    division), rho, and the class bits with the dem.  A stencil with
+//    more than kCap candidates is staged and summed in windows of whole
+//    entries, carried in order.
+// 3. Forces: with q listed queries, thread (i, p) takes query i and the
+//    staged candidates p, p + P, p + 2P, ... (P = 32 / q), 32 at a time:
+//    first the range tests (r2 <= r2max, the exact image of r <= cutoff,
+//    and the classes the query sums), then the bodies of the pairs that
+//    passed, each the one-lane kernel's arithmetic, so the warp runs as
+//    many bodies as its busiest thread has pairs.  The P partial sums of
+//    a query are added by a shuffle tree of fixed shape.
+// 4. Contact (B5, slots with a rigid lane): the staged candidates that
+//    pass the flag part of the gate (contact boundary, not fluid, a dem
+//    some rigid lane of the slot wants) are listed in stencil order, and
+//    one thread a (rigid lane, entity slot s != its dem) walks that list,
+//    adding its gated pairs (dem s, r <= cutoff) into a mofidi::Acc in
+//    stencil order: the sums and the pick are a sequential walk's, bit
+//    for bit the one-lane kernel's.  This runs after the force sums (so
+//    the two sets of running sums never share the registers), on the
+//    staged window when one window held the stencil, else over the
+//    windows staged again; more than 32 such threads run in groups.
+// 5. The slot's [M, W] block is assembled in shared memory (the zero and
+//    init rows, then the force and contact columns) and written
+//    contiguously with 16-byte stores.
+// ---------------------------------------------------------------------------
+
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
+__global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
+    forces_kernel(const float* __restrict__ dft,
+                  const long long* __restrict__ nbr, float* __restrict__ out,
+                  int NC, int O, int M, int S, float r2max,
+                  float alpha_c0, float init_dist, float sig_num,
+                  float sig_den) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const long long slot =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (slot >= NC) return;                    // the whole warp
+  const int W = CONTACT ? 12 * S + 6 : 6;
+  const int F0 = CONTACT ? 12 * S : 0;       // the first force column
+  float* st = reinterpret_cast<float*>(smem4) +
+              (threadIdx.x >> 5) * warp_words(M, W, true);
+  int* clist = reinterpret_cast<int*>(st + NS * kCap);
+  int* qlist = clist + kCap;
+  int* rlist = qlist + 32;
+  float* obuf = st + NS * kCap + kCap + 64;
+  float* orow = out + slot * M * W;
+  const float* q = dft + slot * NF * M;
+  const bool vec = (M * W) % 4 == 0 &&
+                   (reinterpret_cast<unsigned long long>(out) & 15ull) == 0;
+  // the default rows (zeros, and the contact init row in block 5) over
+  // the slot's block at o: each thread steps its column on, no division
+  // an element
+  auto fill_default = [&](float* o, bool by4) {
+    const int w = by4 ? 4 : 1, step = (32 * w) % W;
+    int c = (w * lane) % W;
+    auto at = [&](int j) -> float {
+      const int cj = c + j < W ? c + j : c + j - W;
+      return (CONTACT && cj >= 5 * S && cj < 6 * S) ? init_dist : 0.0f;
+    };
+    for (int i = lane; i < M * W / w; i += 32) {
+      if (by4)
+        reinterpret_cast<float4*>(o)[i] = make_float4(at(0), at(1), at(2),
+                                                      at(3));
+      else
+        o[i] = at(0);
+      c += step;
+      if (c >= W) c -= W;
+    }
+  };
+  StencilWalk walk(dft, nbr + slot * O, NC, O, M, lane);
+
+  // 1. the query lanes
+  Flags qf{-1.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (lane < M) qf = decode(__ldg(q + FFLAGS * M + lane));
+  const bool act = qf.fluid == 1.0f || (FSI && qf.rigid == 1.0f);
+  const bool rig = CONTACT && qf.rigid == 1.0f;
+  const unsigned amask = __ballot_sync(kFull, act);
+  const unsigned rmask = __ballot_sync(kFull, rig);
+  const int nq = __popc(amask), nr = __popc(rmask);
+  if (nq == 0) {
+    fill_default(orow, vec);
+    return;
+  }
+  const unsigned lt = walk.lt;
+  if (act) qlist[__popc(amask & lt)] = lane;
+  if (rig) rlist[__popc(rmask & lt)] = lane;
+  fill_default(obuf, (M * W) % 4 == 0);
+  // the dems the slot's rigid lanes want: every s but their own, so all
+  // of them unless the rigid lanes share one dem
+  int skip_dem = -1;
+  if (CONTACT && nr > 0) {
+    const int d = (int)qf.dem;
+    const int lo = __reduce_min_sync(kFull, rig ? d : 0x7fffffff);
+    const int hi = __reduce_max_sync(kFull, rig ? d : -0x7fffffff);
+    if (lo == hi) skip_dem = lo;
+  }
+  __syncwarp();
+
+  // the force sums' threads: query fi, candidates fp, fp + P, ...
+  const int P = 32 / nq;
+  const int fi = lane / P, fp = lane - fi * P;
+  const bool fact = fi < nq;
+
+  // 2. staging: the window of candidates from stencil entry e on, and
+  // the contact list (cn entries) of the eligible ones
+  // a candidate's code: 1 staged for the force sums, 2 for contact (and
+  // listed)
+  int cn = 0;
+  auto keep = [&](int fl) -> unsigned {
+    const int dem = fl >> 4;
+    const bool elig = CONTACT && nr > 0 && (fl & 8) && !(fl & 2) &&
+                      dem >= 0 && dem < S && dem != skip_dem;
+    return ((fl & 2) || (fl & 4) || (FSI && (fl & 1)) ? 1u : 0u) |
+           (elig ? 2u : 0u);
+  };
+  auto put = [&](const float* v, long long row, int fl, unsigned code,
+                 int pos, bool fits) {
+    if (code && fits) {
+      const bool s_fluid = fl & 2;
+      const bool s_flbd = s_fluid || (fl & 4);
+      const bool s_rigid = FSI && (fl & 1);
+      float mj = v[FM], pt;
+      if (s_rigid) {
+        const float* s = dft + row * NF * M + walk.sk;
+        const float rf = __ldg(s + FRHOFSI * M);
+        mj = __ldg(s + FMFSI * M);
+        pt = __ldg(s + FPFSI * M) / (rf * rf);
+      } else {
+        pt = v[FP] / (v[FRHO] * v[FRHO]);
+      }
+      st[SX * kCap + pos] = v[FX];
+      st[SY * kCap + pos] = v[FY];
+      st[SZ * kCap + pos] = v[FZ];
+      st[SH * kCap + pos] = v[FH];
+      st[SU * kCap + pos] = v[FU];
+      st[SV * kCap + pos] = v[FV];
+      st[SW * kCap + pos] = v[FW];
+      st[SMJ * kCap + pos] = mj;
+      st[SRHO * kCap + pos] = v[FRHO];
+      st[SPT * kCap + pos] = pt;
+      st[SCLS * kCap + pos] = __int_as_float(
+          (fl >> 4) * 8 + (s_fluid ? kSrcFluid : 0) +
+          (s_flbd ? kSrcFlbd : 0) + (s_rigid ? kSrcRigid : 0));
+    }
+    if (CONTACT) {
+      const bool el = (code & 2u) && fits;
+      const unsigned cb = __ballot_sync(kFull, el);
+      if (el) clist[cn + __popc(cb & lt)] = pos;
+      cn += __popc(cb);
+    }
+  };
+  auto stage = [&](int e, int& n) -> int {
+    cn = 0;
+    return walk.stage(e, n, keep, put);
   };
 
   // 3. the force sums, window by window (the partial sums carried)
   float au = 0.f, av = 0.f, aw = 0.f, vu = 0.f, vv = 0.f, vw = 0.f;
   float fx = 0.f, fy = 0.f, fz = 0.f;
-  int n = 0, cn = 0, e = 0;
+  int n = 0, e = 0;
   bool whole = false;                        // one window held the stencil
   do {
     __syncwarp();                            // the last window is read
     whole = e == 0;
-    e = stage(e, n, cn);
+    e = stage(e, n);
     whole = whole && e == O;
     __syncwarp();
     // this thread's query, loaded after the staging (not live across it)
@@ -586,7 +812,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     do {
       if (!whole) {
         __syncwarp();
-        e = stage(e, n, cn);
+        e = stage(e, n);
         __syncwarp();
       } else {
         e = O;
@@ -622,67 +848,69 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
 
   __syncwarp();
   // 5. the slot's block, contiguous
-  if (vec) {
-    float4* o4 = reinterpret_cast<float4*>(orow);
-    const float4* b4 = reinterpret_cast<const float4*>(obuf);
-    for (int i = lane; i < M * W / 4; i += 32) o4[i] = b4[i];
-  } else {
-    for (int i = lane; i < M * W; i += 32) orow[i] = obuf[i];
-  }
+  copy_block(orow, obuf, M * W, vec, lane);
 }
 
-inline unsigned blocks_for(long long lanes) {
-  return (unsigned)((lanes + kThreads - 1) / kThreads);
+// the dynamic shared memory a kernel may take, raised once per instance
+template <class K>
+int allow_smem(K kern, int bytes, int& opted) {
+  if (bytes <= opted) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  opted = bytes;
+  return 0;
 }
 
+template <bool KDIM2, bool EDAC, bool HAS_RIGID, int MODE>
+int launch_rates_wall(const float* dft, const long long* nbr, float* out,
+                      int NC, int O, int M, float cutoff, float nu2,
+                      float cs2, float gx, float gy, float gz, float sig_num,
+                      float sig_den, cudaStream_t st) {
+  int warps;
+  const int bytes = block_bytes(M, rates_wall_width<MODE>(), false, warps);
+  if (bytes == 0) return (int)cudaErrorInvalidValue;
+  auto kern = rates_wall_kernel<KDIM2, EDAC, HAS_RIGID, MODE>;
+  static int opted = 48 * 1024;   // the dynamic shared memory allowed so far
+  if (const int err = allow_smem(kern, bytes, opted)) return err;
+  kern<<<(unsigned)((NC + warps - 1) / warps), warps * 32, bytes, st>>>(
+      dft, nbr, out, NC, O, M, r2_limit(cutoff), nu2, cs2, gx, gy, gz,
+      sig_num, sig_den);
+  return (int)cudaGetLastError();
+}
+
+// runtime flags -> the template instance; the wall sums depend on neither
+// EDAC nor the rigid source class (one instance per kernel dimension)
 template <int MODE>
 int rates_wall_entry(const void* dft, const void* nbr, void* out, int NC,
                      int O, int M, int kdim2, int edac, int has_rigid,
                      float cutoff, float nu2, float cs2, float gx, float gy,
                      float gz, float sig_num, float sig_den, void* stream) {
-  if (NC < 0 || O < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  // a slot's lanes are one warp's
+  if (NC < 0 || O < 1 || M < 1 || M > 32) return (int)cudaErrorInvalidValue;
   if (NC == 0) return 0;
   const auto* d = (const float*)dft;
   const auto* nb = (const long long*)nbr;
   auto* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned nblk = blocks_for((long long)NC * M);
-  const int sel = (kdim2 ? 4 : 0) + (edac ? 2 : 0) + (has_rigid ? 1 : 0);
 #define RW(K, E, H)                                                        \
-  rates_wall_kernel<K, E, H, MODE><<<nblk, kThreads, 0, st>>>(             \
-      d, nb, o, NC, O, M, cutoff, nu2, cs2, gx, gy, gz, sig_num, sig_den)
-  switch (sel) {
-    case 0: RW(false, false, false); break;
-    case 1: RW(false, false, true); break;
-    case 2: RW(false, true, false); break;
-    case 3: RW(false, true, true); break;
-    case 4: RW(true, false, false); break;
-    case 5: RW(true, false, true); break;
-    case 6: RW(true, true, false); break;
-    default: RW(true, true, true); break;
+  launch_rates_wall<K, E, H, MODE>(d, nb, o, NC, O, M, cutoff, nu2, cs2,  \
+                                   gx, gy, gz, sig_num, sig_den, st)
+  if constexpr (MODE == kWall) {
+    return kdim2 ? RW(true, false, false) : RW(false, false, false);
+  } else {
+    switch ((kdim2 ? 4 : 0) + (edac ? 2 : 0) + (has_rigid ? 1 : 0)) {
+      case 0: return RW(false, false, false);
+      case 1: return RW(false, false, true);
+      case 2: return RW(false, true, false);
+      case 3: return RW(false, true, true);
+      case 4: return RW(true, false, false);
+      case 5: return RW(true, false, true);
+      case 6: return RW(true, true, false);
+      default: return RW(true, true, true);
+    }
   }
 #undef RW
-  return (int)cudaGetLastError();
-}
-
-// the largest r^2 whose sqrtf is <= cutoff: sqrtf rounds correctly, so it
-// is monotone, and r = sqrtf(r2) <= cutoff exactly when r2 <= this
-inline float r2_limit(float cutoff) {
-  float t = cutoff * cutoff;
-  if (!(t < INFINITY)) return t;
-  while (sqrtf(nextafterf(t, INFINITY)) <= cutoff)
-    t = nextafterf(t, INFINITY);
-  while (t > 0.0f && sqrtf(t) > cutoff) t = nextafterf(t, 0.0f);
-  return t;
-}
-
-// the dynamic shared memory of a forces block (bytes) and its warps: kWarps
-// unless the output block is so wide that fewer fit; 0 if none fits
-inline int forces_block_bytes(int M, int W, int& warps) {
-  const long long warp_bytes = 4LL * forces_warp_words(M, W);
-  for (warps = kWarps; warps > 0; --warps)
-    if (warps * warp_bytes <= kMaxSmem) return (int)(warps * warp_bytes);
-  return 0;
 }
 
 template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
@@ -691,16 +919,12 @@ int launch_forces(const float* dft, const long long* nbr, float* out, int NC,
                   float init_dist, float sig_num, float sig_den,
                   cudaStream_t st) {
   int warps;
-  const int bytes = forces_block_bytes(M, CONTACT ? 12 * S + 6 : 6, warps);
+  const int bytes =
+      block_bytes(M, CONTACT ? 12 * S + 6 : 6, true, warps);
   if (bytes == 0) return (int)cudaErrorInvalidValue;
   auto kern = forces_kernel<KDIM2, VISC, FSI, CONTACT>;
   static int opted = 48 * 1024;   // the dynamic shared memory allowed so far
-  if (bytes > opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    opted = bytes;
-  }
+  if (const int err = allow_smem(kern, bytes, opted)) return err;
   kern<<<(unsigned)((NC + warps - 1) / warps), warps * 32, bytes, st>>>(
       dft, nbr, out, NC, O, M, S, r2_limit(cutoff), alpha_c0, init_dist,
       sig_num, sig_den);
@@ -755,28 +979,13 @@ extern "C" int fluid_rates(const void* dft, const void* nbr, void* out,
                                   0.0f, sig_num, sig_den, stream);
 }
 
-// the wall sums do not depend on EDAC or the rigid source class: one
-// instance per kernel dimension
 extern "C" int wall_bc(const void* dft, const void* nbr, void* out, int NC,
                        int O, int M, int kdim2, float cutoff, float gx,
                        float gy, float gz, float sig_num, float sig_den,
                        void* stream) {
-  if (NC < 0 || O < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  if (NC == 0) return 0;
-  const auto* d = (const float*)dft;
-  const auto* nb = (const long long*)nbr;
-  auto* o = (float*)out;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned nblk = blocks_for((long long)NC * M);
-  if (kdim2)
-    rates_wall_kernel<true, false, false, kWall><<<nblk, kThreads, 0, st>>>(
-        d, nb, o, NC, O, M, cutoff, 0.0f, 0.0f, gx, gy, gz, sig_num,
-        sig_den);
-  else
-    rates_wall_kernel<false, false, false, kWall><<<nblk, kThreads, 0, st>>>(
-        d, nb, o, NC, O, M, cutoff, 0.0f, 0.0f, gx, gy, gz, sig_num,
-        sig_den);
-  return (int)cudaGetLastError();
+  return rates_wall_entry<kWall>(dft, nbr, out, NC, O, M, kdim2, 0, 0,
+                                 cutoff, 0.0f, 0.0f, gx, gy, gz, sig_num,
+                                 sig_den, stream);
 }
 
 extern "C" int fluid_forces(const void* dft, const void* nbr, void* out,
@@ -807,5 +1016,12 @@ extern "C" int fluid_forces_contact(const void* dft, const void* nbr,
 // fluid_forces_contact (W = 12 S + 6) takes at M lanes a slot
 extern "C" int fluid_forces_smem(int M, int W) {
   int warps;
-  return forces_block_bytes(M, W, warps);
+  return block_bytes(M, W, true, warps);
+}
+
+// the dynamic shared memory (bytes) a block of fluid_rates_wall (W = 7),
+// fluid_rates (W = 2) or wall_bc (W = 5) takes at M lanes a slot
+extern "C" int fluid_rates_wall_smem(int M, int W) {
+  int warps;
+  return block_bytes(M, W, false, warps);
 }

@@ -4,7 +4,8 @@ A copy of the lattice builders the rigid-contact slice needs from
 ``rigid_body_2d_3d_pysph_tpu/geom/geometry.py`` (importing that module
 would import ``jax`` through the reference package's ``__init__``).
 Semantics follow PySPH's ``get_2d_block`` / ``get_3d_block`` /
-``get_2d_tank``.
+``get_2d_tank``; ``get_fluid_tank_3d`` follows the reference's 3D tank
+(``code/geometry.py:27-102``).
 """
 
 from __future__ import annotations
@@ -96,3 +97,62 @@ def create_tank_2d_from_block_2d(xf, yf, tank_length, tank_height,
     yb += np.min(yl) - np.max(yb) - dx
 
     return np.concatenate([xl, xr, xb]), np.concatenate([yl, yr, yb])
+
+
+def _abut(a, to, at_max=False, gap=0.0):
+    """``a`` shifted so that its lowest (``at_max``: highest) value sits at
+    ``to + gap``."""
+    edge = np.max(a) if at_max else np.min(a)
+    return a + ((to - edge) + gap)
+
+
+def get_fluid_tank_3d(fluid_length, fluid_height, fluid_depth, tank_length,
+                      tank_height, tank_layers, fluid_spacing, tank_spacing,
+                      hydrostatic=False):
+    """A 3D fluid block (length along x, height along y, depth along z) in
+    an open five-sided tank: ``(xf, yf, zf, xt, yt, zt)``.
+
+    The fluid block stays where ``get_3d_block`` puts it (centred on the
+    origin) and the walls are placed around it.  Every wall is a lattice
+    of the fluid spacing, ``tank_spacing * (tank_layers - 1)`` thick, one
+    ``tank_spacing`` off what it faces: a left and a right wall as deep as
+    the fluid and standing on its bottom level, a front and a back wall
+    over the side walls' x extent, and a floor slab under all four.  The
+    right wall stands ``tank_length - fluid_length`` further out unless
+    ``hydrostatic``."""
+    dx, gap = fluid_spacing, tank_spacing
+    thick = tank_spacing * (tank_layers - 1)
+    xf, yf, zf = get_3d_block(dx, fluid_length, fluid_height, fluid_depth)
+    y_base = np.min(yf)
+
+    # the side walls, one gap off the fluid's x faces
+    xl, yl, zl = get_3d_block(dx, thick, tank_height, fluid_depth)
+    xl = _abut(xl, np.min(xf), at_max=True, gap=-gap)
+    yl = _abut(yl, y_base)
+    xr, yr, zr = get_3d_block(dx, thick, tank_height, fluid_depth)
+    xr = _abut(xr, np.max(xf), gap=gap)
+    if not hydrostatic:
+        xr = xr + (tank_length - fluid_length)
+    yr = _abut(yr, y_base)
+
+    # the front (+z) and back (-z) walls across the side walls' x span
+    span = np.max(xr) - np.min(xl)
+    walls = []
+    for front in (True, False):
+        xw, yw, zw = get_3d_block(dx, span, tank_height, thick)
+        xw = _abut(xw, np.min(xl))
+        yw = _abut(yw, y_base)
+        zw = (_abut(zw, np.max(zl), gap=gap) if front else
+              _abut(zw, np.min(zl), at_max=True, gap=-gap))
+        walls.append((xw, yw, zw))
+    (xfr, yfr, zfr), (xbk, ybk, zbk) = walls
+
+    # the floor slab under all four walls
+    xs, ys, zs = get_3d_block(dx, span, thick, np.max(zfr) - np.min(zbk))
+    xs = _abut(xs, np.min(xl))
+    ys = _abut(ys, np.min(yl), at_max=True, gap=-gap)
+
+    parts = [(xl, yl, zl), (xr, yr, zr), (xfr, yfr, zfr), (xbk, ybk, zbk),
+             (xs, ys, zs)]
+    xt, yt, zt = (np.concatenate([p[i] for p in parts]) for i in range(3))
+    return xf, yf, zf, xt, yt, zt

@@ -57,6 +57,12 @@ KERNELS = {
                     [_P] * 3 + [_I] * 6 + [_F] * 5 + [_P]),
     "wall_bc": ("fluid", "wall_bc", [_P] * 3 + [_I] * 4 + [_F] * 6 + [_P]),
 }
+# entry points that launch nothing: the dynamic shared memory (bytes) a
+# block of a fluid template takes at (M lanes a slot, W output columns)
+HELPERS = {
+    "fluid_forces_smem": ("fluid", "fluid_forces_smem", [_I, _I]),
+    "fluid_rates_wall_smem": ("fluid", "fluid_rates_wall_smem", [_I, _I]),
+}
 
 
 def _nvcc() -> str:
@@ -85,9 +91,13 @@ def build(name: str) -> tuple[str, float]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
     returns (path, seconds spent compiling).  The compiler's report
     (registers, shared memory, spills per kernel) goes to
-    ``BUILD_LOG[name]``."""
+    ``BUILD_LOG[name]``, and beside the library (``<library>.ptxas``) so
+    that a build reused later still has it."""
     out = library_path(name)
     if os.path.exists(out):
+        if name not in BUILD_LOG and os.path.exists(out + ".ptxas"):
+            with open(out + ".ptxas") as f:
+                BUILD_LOG[name] = f.read()
         return out, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
@@ -97,6 +107,9 @@ def build(name: str) -> tuple[str, float]:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+    with open(f"{tmp}.ptxas", "w") as f:
+        f.write(res.stderr)
+    os.replace(f"{tmp}.ptxas", out + ".ptxas")
     os.replace(tmp, out)   # atomic: concurrent builders never see half
     BUILD_LOG[name] = res.stderr
     return out, time.perf_counter() - t0
@@ -130,8 +143,9 @@ def ptxas_usage(report: str) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def load(kernel: str):
-    """The ctypes function of ``kernel``, its source built if needed."""
-    source, fname, argtypes = KERNELS[kernel]
+    """The ctypes function of ``kernel`` (or of a ``HELPERS`` entry), its
+    source built if needed."""
+    source, fname, argtypes = KERNELS.get(kernel) or HELPERS[kernel]
     path, _ = build(source)
     fn = getattr(ctypes.CDLL(path), fname)
     fn.argtypes = argtypes

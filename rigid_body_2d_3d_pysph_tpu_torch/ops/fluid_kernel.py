@@ -385,7 +385,9 @@ def _sigma_constants(kernel: QuinticSpline):
 
 
 def _check(name, dfT, nbr):
-    """The common shape checks; True when the kernel runs (CUDA)."""
+    """The common shape checks; True when the kernel runs (CUDA: float32,
+    int64 stencil rows, M <= 32 lanes a slot, since a slot is one warp's
+    work in both templates)."""
     if dfT.dim() != 3 or dfT.shape[1] != NF or nbr.dim() != 2 \
             or dfT.shape[0] != nbr.shape[0] + 1:
         raise ValueError(f"{name}: bad shapes {tuple(dfT.shape)}, "
@@ -399,6 +401,9 @@ def _check(name, dfT, nbr):
         raise ValueError(f"{name}: the kernel takes float32")
     if nbr.dtype != torch.int64:
         raise ValueError(f"{name}: the kernel takes an int64 stencil table")
+    if dfT.shape[2] > 32:
+        raise ValueError(f"{name}: the kernel takes M <= 32 lanes a slot, "
+                         f"got {dfT.shape[2]}")
     return True
 
 
@@ -454,13 +459,6 @@ def wall_bc(dfT, nbr, kernel: QuinticSpline, cutoff: float, g):
                    float(sig_num), float(sig_den))
 
 
-def _check_slot_width(name, dfT):
-    """The forces kernel runs a slot's M lanes in one warp."""
-    if dfT.shape[2] > 32:
-        raise ValueError(f"{name}: the kernel takes M <= 32 lanes a slot, "
-                         f"got {dfT.shape[2]}")
-
-
 def fluid_forces(dfT, nbr, kernel: QuinticSpline, cutoff: float,
                  fluid_alpha: float, c0: float, has_rigid: bool = False):
     """B6c: the 6 force columns -> ``[NC, M, 6]``; ``has_rigid`` adds the
@@ -468,7 +466,6 @@ def fluid_forces(dfT, nbr, kernel: QuinticSpline, cutoff: float,
     if not _check("fluid_forces", dfT, nbr):
         return fluid_forces_reference(dfT, nbr, kernel, cutoff, fluid_alpha,
                                       c0, has_rigid)
-    _check_slot_width("fluid_forces", dfT)
     sig_num, sig_den = _sigma_constants(kernel)
     return _launch("fluid_forces", dfT, nbr, 6, int(kernel.dim == 2),
                    int(abs(fluid_alpha) > 1e-14), int(has_rigid),
@@ -486,7 +483,6 @@ def fluid_forces_contact(dfT, nbr, kernel: QuinticSpline, cutoff: float,
                                               fluid_alpha, c0, S, init_dist)
     if S < 1:
         raise ValueError(f"fluid_forces_contact: S={S}")
-    _check_slot_width("fluid_forces_contact", dfT)
     sig_num, sig_den = _sigma_constants(kernel)
     return _launch("fluid_forces_contact", dfT, nbr, 12 * S + 6, S,
                    int(kernel.dim == 2), int(abs(fluid_alpha) > 1e-14),

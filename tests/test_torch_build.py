@@ -1,8 +1,9 @@
-"""The kernel table of ``ops/_build.py`` against the C entry points of
-``csrc/*.cu``: every kernel's argument types, in order, are those of its
-``extern "C"`` signature (a pointer or the stream as ``void*``, ``int``,
-``float``).  ``ctypes`` only finds a mismatch at the first launch on the
-card; this finds it here."""
+"""The kernel table of ``ops/_build.py`` (and its table of helper
+entries) against the C entry points of ``csrc/*.cu``: every entry's
+argument types, in order, are those of its ``extern "C"`` signature (a
+pointer or the stream as ``void*``, ``int``, ``float``).  ``ctypes``
+only finds a mismatch at the first launch on the card; this finds it
+here."""
 
 import ctypes
 import os
@@ -29,9 +30,11 @@ def _signatures(source):
     return sigs
 
 
-@pytest.mark.parametrize("kernel", sorted(_build.KERNELS))
+@pytest.mark.parametrize("kernel", sorted(_build.KERNELS)
+                         + sorted(_build.HELPERS))
 def test_kernel_table_matches_the_c_entry_point(kernel):
-    source, entry, argtypes = _build.KERNELS[kernel]
+    source, entry, argtypes = (_build.KERNELS.get(kernel)
+                               or _build.HELPERS[kernel])
     assert source in _build.SOURCES
     sigs = _signatures(source)
     assert entry in sigs, f"{entry} not in csrc/{source}.cu"

@@ -204,6 +204,71 @@ def test_setup_matches_reference_f64():
                                       np.asarray(jscene[k]), err_msg=k)
 
 
+def coupling_scene_3d(make_group, build_scene, geom, scheme_cls,
+                      **build_kw):
+    """A small 3D sinking box built with either package: a 0.5 x 0.3 x
+    0.3 fluid block in a 3-layer hydrostatic tank (``get_fluid_tank_3d``)
+    and a box of rho 2 dipped into its surface, the fluid carved under
+    it.  Returns (scheme, unset-up scene)."""
+    dx, gy, rho0 = 0.05, -1.0, 1.0
+    xf, yf, zf, xt, yt, zt = geom.get_fluid_tank_3d(
+        0.5, 0.3, 0.3, 0.5, 0.45, 3, dx, dx, hydrostatic=True)
+    p0 = -rho0 * gy * (yf.max() - yf)
+    xb, yb, zb = geom.get_3d_block(dx, 0.15, 0.1, 0.15)
+    xb += (xf.min() + xf.max()) / 2 - (xb.min() + xb.max()) / 2
+    zb += (zf.min() + zf.max()) / 2 - (zb.min() + zb.max()) / 2
+    yb += yf.max() - yb.min() - 0.05
+    keep = ~((xf > xb.min() - dx) & (xf < xb.max() + dx)
+             & (yf > yb.min() - dx) & (yf < yb.max() + dx)
+             & (zf > zb.min() - dx) & (zf < zb.max() + dx))
+    m = rho0 * dx**3
+    c0 = 10 * np.sqrt(2 * abs(gy) * 0.3)
+    groups = [
+        make_group("fluid", xf[keep], yf[keep], z=zf[keep], m=m, h=dx,
+                   rho=rho0, role="fluid", p=p0[keep]),
+        make_group("tank", xt, yt, z=zt, m=m, h=dx, rho=rho0, rad_s=dx / 2,
+                   role="boundary", dem_id=1),
+        make_group("body", xb, yb, z=zb, m=2.0 * m, h=dx, rho=2.0 * rho0,
+                   rad_s=dx / 2, role="rigid",
+                   body_id=np.zeros(len(xb), np.int32),
+                   dem_id=np.zeros(len(xb), np.int32))]
+    scene = build_scene(groups, dim=3, total_no_bodies=2, spacing0=dx,
+                        **build_kw)
+    scheme = scheme_cls(
+        rigid_bodies=["body"], fluids=["fluid"], boundaries=["tank"], dim=3,
+        rho0=rho0, p0=rho0 * c0**2, c0=c0, gy=gy, nu=0.0, h=dx)
+    return scheme, scene
+
+
+def test_setup_3d_matches_reference_f64():
+    """The 3D set-up (the cell grid, surface identification of the tank
+    and the box, body state, FSI and Adami fields) equals the reference's
+    on the cell engine, field for field (the reference's RK2 saved state
+    apart, which the port does not carry)."""
+    jsch, jscene = coupling_scene_3d(jmake_group, jbuild_scene, jgeom, JRFC)
+    jsch.engine = "cell"
+    jscene = jsch.setup(jscene)
+    tsch, tscene = coupling_scene_3d(tmake_group, tbuild_scene, tgeom, TRFC,
+                                     device=CPU, dtype=torch.float64)
+    tscene = tsch.setup(tscene)
+    assert tscene.n == jscene.n
+    assert dataclasses.asdict(tsch._cell_cfg) == {
+        f.name: getattr(jsch._cell_cfg, f.name)
+        for f in dataclasses.fields(tcell.CellGridConfig)}
+    isb = np.asarray(jscene.is_boundary)
+    assert 0 < int(isb[jscene.is_rigid].sum()) < int(jscene.is_rigid.sum())
+    assert set(jscene.fields) - set(tscene.fields) == {
+        "x0", "y0", "z0", "u0", "v0", "w0", "rho0_rk"}
+    for k in sorted(tscene.fields):
+        a, b = tscene[k].numpy(), np.asarray(jscene[k])
+        assert a.shape == b.shape, k
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # f32 against the Pallas kdkf branch (interpret mode)
 # ---------------------------------------------------------------------------

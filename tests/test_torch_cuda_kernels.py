@@ -103,6 +103,29 @@ def test_pack_expand_kernel_is_bitwise_twin(dev, dim):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("F,M,NC", [(7, 16, 40), (9, 8, 33), (13, 5, 20),
+                                    (14, 32, 17), (14, 16, 300), (7, 16, 0)])
+def test_pack_expand_kernel_random_packs(dev, F, M, NC):
+    """Random sorted fields and slot counts (the first slots empty, some
+    full): slot widths of 5 (no 16-byte stores) and 32, the coupling
+    pack's 13 and 14 fields, no slot at all (only the sentinel row)."""
+    rng = np.random.default_rng(F * 1000 + M * 10 + NC)
+    cnt = rng.integers(0, M + 1, NC)
+    cnt[:min(NC, 2)] = 0
+    cnt[2:4] = M
+    base = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int64)
+    n = max(int(cnt.sum()), 1)
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    sorted_f = t(rng.standard_normal((F, n)), torch.float32)
+    sent = t(rng.standard_normal(F), torch.float32)
+    base, cnt = t(base[:NC], torch.int64), t(cnt, torch.int64)
+    got = tpe.expand_slots(sorted_f, base, cnt, sent, M)
+    torch.cuda.synchronize()
+    ref = tpe.expand_slots_reference(sorted_f, base, cnt, sent, M)
+    assert got.shape == (NC + 1, F, M)
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_contact_kernel_matches_twin(dev, dim):
     scene, cfg = _scene(dim, dev)
@@ -846,6 +869,132 @@ def test_fluid_forces_kernels_are_deterministic(dev):
             assert torch.equal(one, two)
 
 
+def _rates_wall_calls(dfT, nbr, kernel, cutoff, nu=0.02, c0=10.0,
+                      g=(0.1, -1.0, 0.3)):
+    """(label, kernel launch name, wrapper, twin, arguments) for every
+    instance of the rates/wall template: B4 and B6a with EDAC and with
+    Tait, each with and without the FSI-rigid source class, and B6b."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    base = (dfT, nbr, kernel, cutoff)
+    calls = []
+    for edac in (True, False):
+        for rigid in (True, False):
+            tag = f"edac={edac} rigid={rigid}"
+            calls.append((f"B4 {tag}", "fluid_rates_wall",
+                          tfk.fluid_rates_wall, tfk.fluid_rates_wall_reference,
+                          base + (nu, c0, edac, rigid, g)))
+            calls.append((f"B6a {tag}", "fluid_rates", tfk.fluid_rates,
+                          tfk.fluid_rates_reference,
+                          base + (nu, c0, edac, rigid)))
+    calls.append(("B6b", "wall_bc", tfk.wall_bc, tfk.wall_bc_reference,
+                  base + (g,)))
+    return calls
+
+
+def _check_rates_wall(dfT, nbr, kernel, cutoff, **kw):
+    """Every rates/wall instance against its twin, one launch each;
+    returns {label: kernel output}."""
+    outs = {}
+    for label, kname, fast, plain, args in _rates_wall_calls(
+            dfT, nbr, kernel, cutoff, **kw):
+        before = _build.LAUNCHES[kname]
+        got = fast(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[kname] == before + 1
+        ref = plain(*args)
+        assert bool(torch.isfinite(got).all()), label
+        _check_fluid_columns(got, ref, label)
+        outs[label] = got
+    return outs
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_rates_wall_kernels_random_packs(dev, dim):
+    """B4, B6a (EDAC and Tait, with and without bodies) and B6b against
+    their twins on random packs: slots of 0, 1 and 16 live lanes, empty
+    stencil entries, fluid, wall and rigid lanes mixed in a slot."""
+    args = _fluid_pack_args(dim, 3, dev, seed=300 + dim)
+    dfT, nbr, kernel, cutoff = args[:4]
+    assert int((nbr == nbr.shape[0]).sum()) > 0          # empty entries
+    outs = _check_rates_wall(dfT, nbr, kernel, cutoff)
+    assert float(outs["B6b"].abs().max()) > 0
+    assert float(outs["B4 edac=True rigid=True"][..., :2].abs().max()) > 0
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_rates_wall_kernels_staging_windows(dev, dim):
+    """Stencils of 64 entries: more live candidates than one staging
+    window holds (160), so the sums are staged and carried in windows."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    args = _fluid_pack_args(dim, 3, dev, seed=310 + dim, NC=24, O=64, box=4)
+    dfT, nbr = args[0], args[1]
+    live = (dfT[:, tfk.FFLAGS] != -16.0).sum(1)
+    assert int(live[nbr].sum(1).max()) > 2 * 160
+    _check_rates_wall(dfT, nbr, args[2], args[3])
+
+
+@pytest.mark.parametrize("M", [5, 32])
+def test_rates_wall_kernels_other_slot_widths(dev, M):
+    """Slots of 5 lanes (output blocks not a multiple of 16 bytes, six
+    stencil entries a staging step) and of 32 (a whole warp of queries)."""
+    args = _fluid_pack_args(2, 3, dev, seed=320 + M, M=M)
+    _check_rates_wall(*args[:4])
+
+
+def test_rates_wall_kernels_one_class_slots(dev):
+    """Slots whose lanes are all sentinels, all fluid, all static boundary
+    or all rigid, beside mixed ones, so the query ballot's early stop runs
+    for each instance: B6b writes zeros on the fluid and sentinel slots,
+    B6a on the wall, rigid and sentinel slots, B4 on the sentinel slots."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    dfT, nbr, h = _fluid_pack(2, 3, seed=330, NC=60)
+    kind = np.arange(dfT.shape[0] - 1) % 5    # sentinel fluid wall rigid mixed
+    flags = dfT[:-1, tfk.FFLAGS]
+    live = flags != -16.0
+    one = {1: 2.0, 2: 8.0 + 4.0, 3: 2 * 16.0 + 8.0 + 1.0}
+    for k, f in one.items():
+        rows = kind == k
+        flags[rows] = np.where(live[rows], f, -16.0)
+    sent = np.asarray(tfk.SENT, np.float32)[:, None]
+    dfT[:-1][kind == 0] = sent
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    dfT, nbr = t(dfT, torch.float32), t(nbr, torch.int64)
+    outs = _check_rates_wall(dfT, nbr, QuinticSpline(dim=2), 3.0 * h)
+    kind = torch.as_tensor(kind, device=dev)
+    zero = lambda out, ks: all(
+        bool((out[kind == k] == 0).all()) for k in ks)
+    assert zero(outs["B6b"], (0, 1))
+    assert float(outs["B6b"][kind == 2].abs().max()) > 0
+    for label, out in outs.items():
+        if label.startswith("B6a"):
+            assert zero(out, (0, 2, 3)), label
+            assert float(out[kind == 1].abs().max()) > 0, label
+        elif label.startswith("B4"):
+            assert zero(out, (0,)), label
+
+
+def test_rates_wall_kernels_are_deterministic(dev):
+    """Two launches on the same inputs give the same bits: every rates/wall
+    instance on the coupling scene and on a random 3D pack of several
+    windows."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    scheme, scene = _coupling_scene(dev)
+    kernel = QuinticSpline(dim=2)
+    cfg = scheme.cell_config(scene, kernel)
+    grid, _, dfT = tfk.pack_fluid_sorted(scene, cfg)
+    packs = [(dfT, grid.nbr_slots, kernel, cfg.radius),
+             _fluid_pack_args(3, 3, dev, seed=6, NC=24, O=64, box=4)[:4]]
+    for args in packs:
+        for label, _, fast, _, a in _rates_wall_calls(*args):
+            one, two = fast(*a), fast(*a)
+            torch.cuda.synchronize()
+            assert torch.equal(one, two), label
+
+
 @pytest.mark.parametrize("pack", ["coupling", "2d", "3d"])
 def test_fluid_forces_contact_equals_contact_kernel(dev, pack):
     """B5's 12 S contact columns are bit for bit those of K2 on every slot
@@ -990,5 +1139,11 @@ def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
     wide = torch.zeros((5, tfk.NF, 64), device=dev)   # a slot is a warp
     with pytest.raises(ValueError):
         tfk.fluid_forces(wide, nbr, kernel, 0.1, 0.1, 1.0)
+    with pytest.raises(ValueError):
+        tfk.fluid_rates_wall(wide, nbr, kernel, 0.1, 0.1, 1.0, True, True, g)
+    with pytest.raises(ValueError):
+        tfk.fluid_rates(wide, nbr, kernel, 0.1, 0.1, 1.0, True, True)
+    with pytest.raises(ValueError):
+        tfk.wall_bc(wide, nbr, kernel, 0.1, g)
     with pytest.raises(ValueError):
         tfk.fluid_forces_contact(wide, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
