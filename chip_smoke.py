@@ -97,9 +97,26 @@ no result line):
     ~97k particles): every fluid pass (B4, B5, B6a with EDAC and with
     Tait, B6b, B6c with and without bodies) and K1 on its pack against
     their twins as in phase 10, each timed with its bound;
-20. a JSON line of per-kernel numbers (``launches`` from the kernel's
+20. the 3D coupling main path: phase 19's box through ``make_step``,
+    driven by the port's ``Solver`` (chunks of 50, the overflow rule,
+    snapshots): 200 fused kdkf steps under phase 11's gates (one K1, B4
+    and B5 launch a step and nothing else); then 20 kernel steps against
+    20 twin steps (rtol 1e-4); prints steps/s;
+21. benchmark 5 in 2D with two cubes, run to its own tf (5,000 steps)
+    through the port's ``Application``, gated by the port's
+    ``check_benchmark_5`` (COM displacement < 2 spacings); one K1 and
+    one K2 launch a step; prints steps/s and the displacement;
+22. the sinking box at the case's size (spacing 0.02) through the
+    port's ``Application``: 1,000 steps with a snapshot every 100 and a
+    checkpoint; 500 steps in a second directory, then a third run
+    resumed there to 1,000: its last snapshot equals the uninterrupted
+    run's bit for bit; the uninterrupted run's step-500 snapshot, written
+    by the background writer while the steps went on, equals the second
+    run's step-500 state written synchronously;
+23. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
-    ``rigid-3d`` among them; K2's 3D times at the set-up ``ni_max`` and
+    ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d`` and
+    ``sinking-box-case`` among them; K2's 3D times at the set-up ``ni_max`` and
     on every interesting row beside its 2D time; K1 on the 3D rigid pack
     and on the 2D and 3D coupling packs; every fluid pass's 3D time;
     ptxas's registers, static and dynamic shared memory and spills of
@@ -114,6 +131,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1644,6 +1662,214 @@ def phase_fluid_3d(scheme, scene, timings, k1):
     timings[label] = out
 
 
+def phase_coupling_3d(scheme, scene, tmp, smi):
+    """The 3D coupling main path: phase 19's box through ``make_step``,
+    driven by the port's ``Solver`` (chunks of CHUNK steps, the overflow
+    rule, snapshots), CPL_STEPS fused kdkf steps at dt = 0.25 dx / (1.1
+    c0) under phase 11's gates; then 20 kernel steps against 20 twin
+    steps from the end state.  Returns (launches, steps/s)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.app.application import Solver
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    label = "cpl-3d"
+    dt = 0.25 * scheme.h / (1.1 * scheme.c0)
+    fl = scene.is_fluid
+    y0 = float(scene.xcm[0, 1])
+    solver = Solver(scheme, scene, dt, CPL_STEPS * dt, pfreq=CHUNK,
+                    output_dir=os.path.join(tmp, "cpl3d"))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    end = solver.solve(quiet=True)
+    el = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    per_step = dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1)
+    for k in launches:
+        want = per_step.get(k, 0) * solver.steps_run
+        check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
+              f"times in {solver.steps_run} steps, expected {want}")
+    check(solver.count == CPL_STEPS, f"{label}: {solver.count} steps done")
+    for k, v in end.fields.items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
+    check(not bool(end.nbr_overflow), f"{label}: overflow at the end")
+    dev_rho = float((end.rho[fl] / scheme.rho0 - 1.0).abs().max())
+    check(dev_rho < 0.05, f"{label}: fluid rho off rho0 by {dev_rho:.3e}")
+    y1 = float(end.xcm[0, 1])
+    check(y1 < y0, f"{label}: the box did not sink ({y0:.7f} -> {y1:.7f})")
+    check(len(solver.output_files) == CPL_STEPS // CHUNK + 1 and all(
+        os.path.exists(p) for p in solver.output_files),
+        f"{label}: snapshots missing")
+    print(f"[{label}] n={end.n} dt={dt:.6g} steps={solver.count} (run "
+          f"{solver.steps_run}, rebuilds {solver.rebuilds_total}) launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items() if v)
+          + f" | max |rho/rho0 - 1| {dev_rho:.3e} | box COM y {y0:.7f} -> "
+          f"{y1:.7f} ({y1 - y0:.3e})", flush=True)
+    print(f"[{label}] {solver.steps_per_sec:.2f} steps/s through the Solver "
+          f"(snapshots every {CHUNK} steps; {el:.2f} s in all), on {smi}",
+          flush=True)
+
+    # 20 kernel steps against 20 twin steps from the end state
+    fast, plain = scheme.make_step(end), scheme.make_step(end, plain=True)
+    a = b = end
+    for _ in range(COMPARE_STEPS):
+        a, b = fast(a, dt), plain(b, dt)
+    torch.cuda.synchronize()
+    check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
+          f"{label}: overflow during the step comparison")
+    eps = torch.finfo(end.dtype).eps
+    # the box is symmetric: its spin and torque are rounding noise, held
+    # to the scale a spin or torque of the box's own motion would have
+    # (|force| x its half extent, |vcm| / its half extent)
+    rb = end.is_rigid
+    half = 0.5 * float(max(float(end[k][rb].max() - end[k][rb].min())
+                           for k in ("x", "y", "z")))
+    floor = dict(omega=float(b.vcm.abs().max()) / half,
+                 torque=float(b.force.abs().max()) * half)
+    worst, bad = [], []
+    for k in ("x", "y", "z", "u", "v", "w", "rho", "p", "p_fsi", "fx", "fy",
+              "fz", "xcm", "vcm", "omega", "force", "torque"):
+        x, y, tol = a[k], b[k], 0.0
+        if k in ("x", "y", "z", "xcm"):
+            # displacements over the run, two ulps of |x| on top (each
+            # drift rounds to the position's f32 grid)
+            x, y, tol = x - end[k], y - end[k], 2 * eps * end[k].abs()
+        err = float((x - y).abs().max())
+        scale = max(float(y.abs().max()), floor.get(k, 0.0))
+        worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
+        if not bool(((x - y).abs() <= STEP_RTOL * y.abs()
+                     + STEP_RTOL * scale + tol).all()):
+            bad.append(f"{k} off by {err:.3e} (scale {scale:.3e})")
+    check(not bad, f"{label}: kernel step vs twin step (rtol {STEP_RTOL}): "
+          + ", ".join(bad))
+    print(f"[{label}-parity] {COMPARE_STEPS} kernel steps vs "
+          f"{COMPARE_STEPS} twin steps, max abs diff: " + ", ".join(worst),
+          flush=True)
+    return launches, solver.steps_per_sec
+
+
+def phase_benchmark_5(tmp, smi):
+    """Benchmark 5 in 2D with two cubes, run to its own tf (0.5 s at dt
+    1e-4: 5,000 steps) through the port's ``Application``, then the port's
+    ``check_benchmark_5`` on its snapshots: COM displacement < 2 spacings.
+    Returns (launches, steps/s)."""
+    from rigid_body_2d_3d_pysph_tpu_torch import validate as tval
+    from rigid_body_2d_3d_pysph_tpu_torch.cases import (
+        benchmark_5_steady_cubes_on_a_wall_2d as b5)
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    label = "b5-2d"
+    app = b5.Benchmark5_2D(fname="benchmark_5_2d")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    app.run(["--two-cubes", "-d",
+             os.path.join(tmp, "benchmark_5_2d_two_output"), "--quiet"])
+    el = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    steps = app.solver.steps_run
+    check(app.solver.count == 5000, f"{label}: {app.solver.count} steps")
+    for k in launches:
+        want = steps if k in ("pack_expand", "contact") else 0
+        check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
+              f"times in {steps} steps, expected {want}")
+    res = tval.check_benchmark_5(tmp, "benchmark_5_2d_two")
+    check(res is not None and res["ok"], f"{label}: validation {res}")
+    print(f"[{label}] n={app.scene.n} steps={app.solver.count} (run {steps}, "
+          f"rebuilds {app.solver.rebuilds_total}) launches " + " ".join(
+              f"{k}={v}" for k, v in launches.items() if v)
+          + f" | check_benchmark_5: {json.dumps(res)}", flush=True)
+    print(f"[{label}] {app.solver.steps_per_sec:.2f} steps/s through the "
+          f"Application ({el:.2f} s with set-up), COM displacement "
+          f"{res['max_com_displacement']:.4e} (limit 0.05), on {smi}",
+          flush=True)
+    return launches, app.solver.steps_per_sec
+
+
+def _npz_equal(p, q):
+    """Names of the arrays that differ (bits, shape or dtype) between two
+    npz files, and of those only one of them holds."""
+    with np.load(p) as a, np.load(q) as b:
+        diff = sorted(set(a.files) ^ set(b.files))
+        for k in set(a.files) & set(b.files):
+            x, y = a[k], b[k]
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    x.tobytes() != y.tobytes():
+                diff.append(k)
+    return diff
+
+
+def phase_sinking_box_resume(tmp, smi):
+    """The sinking box at the case's own size (spacing 0.02) through the
+    port's ``Application``: 1,000 steps with snapshots every 100 and a
+    checkpoint; a second run of 500 steps and a third resumed from its
+    checkpoint to 1,000; the resumed run's last snapshot equals the
+    uninterrupted one's bit for bit, and the uninterrupted run's snapshot
+    at step 500 (written by the background writer while the steps went
+    on) equals the second run's state at step 500 written synchronously.
+    Returns (launches, steps/s)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.app import output as out_mod
+    from rigid_body_2d_3d_pysph_tpu_torch.cases import (
+        rigid_body_rotating_and_sinking_in_tank_2d as sb)
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    label = "sinking-box"
+    d_full = os.path.join(tmp, "sb_full")
+    d_res = os.path.join(tmp, "sb_resumed")
+    full = sb.SinkingBox(fname="sinking_box")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    full.run(["-d", d_full, "--max-steps", "1000", "--pfreq", "100",
+              "--quiet"])
+    el = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    steps = full.solver.steps_run
+    per_step = dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1)
+    for k in launches:
+        want = per_step.get(k, 0) * steps
+        check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
+              f"times in {steps} steps, expected {want}")
+    files = out_mod.get_files(d_full)
+    check(len(files) == 11, f"{label}: {len(files)} snapshots, expected 11")
+    check(os.path.exists(os.path.join(d_full, "checkpoint.npz")),
+          f"{label}: no checkpoint")
+    fl = full.scene.is_fluid
+    dev_rho = float((full.scene.rho[fl] - 1.0).abs().max())
+    check(bool(torch.isfinite(full.scene.x).all()) and dev_rho < 0.05,
+          f"{label}: fluid rho off rho0 by {dev_rho:.3e}")
+    print(f"[{label}] n={full.scene.n} dt={full.solver.dt:.6g} steps "
+          f"{full.solver.count} (run {steps}, rebuilds "
+          f"{full.solver.rebuilds_total}) launches " + " ".join(
+              f"{k}={v}" for k, v in launches.items() if v)
+          + f" | max |rho/rho0 - 1| {dev_rho:.3e}", flush=True)
+    print(f"[{label}] {full.solver.steps_per_sec:.2f} steps/s through the "
+          f"Application ({el:.2f} s with set-up), on {smi}", flush=True)
+
+    half = sb.SinkingBox(fname="sinking_box")
+    half.run(["-d", d_res, "--max-steps", "500", "--pfreq", "100",
+              "--quiet"])
+    sync_path = os.path.join(tmp, "sync_000500.npz")
+    out_mod.write_snapshot(sync_path, half.scheme.export_scene(half.scene),
+                           half.solver.t, half.solver.dt, half.solver.count)
+    diff = _npz_equal(os.path.join(d_full, "snapshot_000500.npz"), sync_path)
+    check(not diff, f"{label}: the background writer's snapshot at step 500 "
+          f"differs from the state written synchronously in {diff}")
+    resumed = sb.SinkingBox(fname="sinking_box")
+    resumed.run(["-d", d_res, "--max-steps", "1000", "--pfreq", "100",
+                 "--quiet", "--resume"])
+    check(resumed.solver.steps_run == 500, f"{label}: the resumed run took "
+          f"{resumed.solver.steps_run} steps")
+    diff = _npz_equal(os.path.join(d_full, "snapshot_001000.npz"),
+                      os.path.join(d_res, "snapshot_001000.npz"))
+    check(not diff, f"{label}: the resumed run's last snapshot differs from "
+          f"the uninterrupted run's in {diff}")
+    with np.load(os.path.join(d_full, "snapshot_001000.npz")) as z:
+        n_keys = len(z.files)
+    print(f"[{label}] resumed at step 500 to 1000: the last snapshot equals "
+          f"the uninterrupted run's bit for bit ({n_keys} arrays); the "
+          f"background writer's step-500 snapshot equals the synchronous "
+          f"write of the same state", flush=True)
+    return launches, full.solver.steps_per_sec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -1830,7 +2056,17 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         fl3_t = {}
         phase_fluid_3d(scheme3f, scene3f, fl3_t, k1_t)
-        del scheme3f, scene3f
+
+        # 20. the 3D coupling step through the Solver, and its 20-step
+        # parity; 21. benchmark 5 (2D, two cubes) to its tf with its gate;
+        # 22. the sinking box at the case's size: snapshots, checkpoint,
+        # resume bit for bit
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            cpl3d_launches, cpl3d_sps = phase_coupling_3d(
+                scheme3f, scene3f, tmp, smi)
+            del scheme3f, scene3f
+            b5_launches, b5_sps = phase_benchmark_5(tmp, smi)
+            sbr_launches, sbr_sps = phase_sinking_box_resume(tmp, smi)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1846,7 +2082,9 @@ def main() -> int:
         ("coupling-tank", tank_launches),
         ("coupling-kdk", launches_by["kdk"]),
         ("coupling-reference", launches_by["reference"]),
-        ("coupling-nofluid", nf_launches)) if c[k]}
+        ("coupling-nofluid", nf_launches), ("coupling-3d", cpl3d_launches),
+        ("benchmark-5-2d", b5_launches),
+        ("sinking-box-case", sbr_launches)) if c[k]}
     fluid_err = lambda k: max(fl_t[lab][k]["err"] for lab in fl_t
                               if k in fl_t[lab])
     split_err = lambda k: max(sp_t[lab][k]["err"] for lab in sp_t)
@@ -1984,6 +2222,8 @@ def main() -> int:
           f"fluid-only tank {tank_sps:.2f} steps/s, kdk "
           f"{sps_by['kdk']:.2f} steps/s, reference "
           f"{sps_by['reference']:.2f} steps/s, no fluid {nf_sps:.2f} "
+          f"steps/s, 3D kdkf {cpl3d_sps:.2f} steps/s; benchmark 5 2D "
+          f"{b5_sps:.2f} steps/s, sinking box (case size) {sbr_sps:.2f} "
           f"steps/s; on {smi}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -156,3 +156,39 @@ def get_fluid_tank_3d(fluid_length, fluid_height, fluid_depth, tank_length,
              (xs, ys, zs)]
     xt, yt, zt = (np.concatenate([p[i] for p in parts]) for i in range(3))
     return xf, yf, zf, xt, yt, zt
+
+
+def create_circle_1(diameter=1.0, spacing=0.05, center=None):
+    """Concentric-ring circle fill (the stack of cylinders' cylinder; its
+    particle count sizes the cylinders' body-id blocks)."""
+    radius = diameter / 2.0
+    xs, ys = [0.0], [0.0]
+    ring_r = radius - spacing / 2.0
+    i = 0
+    while ring_r > spacing / 2.0:
+        perimeter = 2.0 * np.pi * ring_r
+        n_pts = int(perimeter / spacing) + 1
+        theta = np.linspace(0.0, 2.0 * np.pi, n_pts)
+        for t in theta[:-1]:
+            xs.append(ring_r * np.cos(t))
+            ys.append(ring_r * np.sin(t))
+        i += 1
+        ring_r = radius - spacing / 2.0 - i * spacing
+    x = np.asarray(xs)
+    y = np.asarray(ys)
+    if center is not None:
+        x = x + center[0]
+        y = y + center[1]
+    return x, y
+
+
+def create_circle(diameter=1.0, spacing=0.05, center=None):
+    """Block-masked circle fill."""
+    radius = diameter / 2.0
+    xt, yt = get_2d_block(spacing, diameter + spacing, diameter + spacing)
+    keep = xt**2 + yt**2 < radius**2
+    x, y = xt[keep], yt[keep]
+    if center is not None:
+        x = x + center[0]
+        y = y + center[1]
+    return x, y

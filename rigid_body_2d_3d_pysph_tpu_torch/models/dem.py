@@ -60,6 +60,20 @@ class DEMScheme(Scheme):
         self._cell_cfg = None
         self._rowwin_cfg = None
 
+    def add_user_options(self, group):
+        group.add_argument("--contact-model", dest="contact_model",
+                           default="LVCDisplacement",
+                           choices=["LVCDisplacement", "LVCForce"],
+                           help="DEM contact model")
+
+    def consume_user_options(self, options):
+        if hasattr(options, "contact_model"):
+            if options.contact_model != "LVCDisplacement":
+                raise NotImplementedError(
+                    f"contact model {options.contact_model!r} is not "
+                    "ported (ROADMAP A7)")
+            self.contact_model = options.contact_model
+
     def derived_lvc_constants(self):
         """kt = 2/7 kn; alpha from the restitution coefficient."""
         log_en = np.log(self.en)

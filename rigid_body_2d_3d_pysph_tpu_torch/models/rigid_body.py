@@ -127,6 +127,25 @@ class _RigidBodySchemeBase(Scheme):
         self.kernel_name = "quintic"
         self._cell_cfg = None
 
+    def add_user_options(self, group):
+        group.add_argument("--kr-stiffness", dest="kr", default=1e5,
+                           type=float, help="Repulsive spring stiffness")
+        group.add_argument("--kf-stiffness", dest="kf", default=1e3,
+                           type=float, help="Tangential spring stiffness")
+        group.add_argument("--fric-coeff", dest="fric_coeff", default=0.5,
+                           type=float, help="Friction coefficient")
+
+    def consume_user_options(self, options):
+        for k in ("kr", "kf", "fric_coeff"):
+            if hasattr(options, k):
+                setattr(self, k, getattr(options, k))
+
+    def set_linear_velocity(self, scene: Scene, vel) -> Scene:
+        return rigid_setup.set_linear_velocity(scene, vel)
+
+    def set_angular_velocity(self, scene: Scene, omega) -> Scene:
+        return rigid_setup.set_angular_velocity(scene, omega)
+
     def setup(self, scene: Scene, coeff_of_rest=None) -> Scene:
         scene = _attach_contact_fields(scene)
         scene = rigid_setup.setup_body_state(scene, coeff_of_rest)

@@ -109,6 +109,38 @@ class RigidFluidCouplingScheme(Scheme):
         """nu_edac = alpha h c0 / 8."""
         return self.fluid_alpha * self.h * self.c0 / 8.0
 
+    def add_user_options(self, group):
+        group.add_argument("--kr-stiffness", dest="kr", default=1e5,
+                           type=float)
+        group.add_argument("--kf-stiffness", dest="kf", default=1e3,
+                           type=float)
+        group.add_argument("--fric-coeff", dest="fric_coeff", default=0.5,
+                           type=float)
+        group.add_argument("--fluid-alpha", dest="fluid_alpha", default=0.5,
+                           type=float, help="Artificial viscosity")
+        group.add_argument("--edac", dest="edac", action="store_true",
+                           default=True)
+        group.add_argument("--no-edac", dest="edac", action="store_false")
+        group.add_argument("--gtvf-ordering", dest="gtvf_ordering",
+                           choices=("kdk", "kdkf", "reference"),
+                           default=None,
+                           help="GTVF stage ordering: kdk (two grids a "
+                                "step), kdkf (one fused grid a step), "
+                                "reference (PySPH staging)")
+
+    def consume_user_options(self, options):
+        for k in ("kr", "kf", "fric_coeff", "fluid_alpha", "edac"):
+            if hasattr(options, k):
+                setattr(self, k, getattr(options, k))
+        if getattr(options, "gtvf_ordering", None):
+            self.gtvf_ordering = options.gtvf_ordering
+
+    def set_linear_velocity(self, scene: Scene, vel) -> Scene:
+        return rigid_setup.set_linear_velocity(scene, vel)
+
+    def set_angular_velocity(self, scene: Scene, omega) -> Scene:
+        return rigid_setup.set_angular_velocity(scene, omega)
+
     # -- setup ------------------------------------------------------------
     def setup(self, scene: Scene, coeff_of_rest=None,
               identify_boundaries: bool = True) -> Scene:

@@ -14,6 +14,7 @@ import torch
 
 from .cellpairs import (CellGrid, CellGridConfig, gather_source_block,
                         map_over_cells, pack_fields, unpack)
+from .ieee import sqrt
 
 _BIG = 1.0e9
 _BX, _BY, _BZ, _BM, _BRHO, _BH, _BGRP = range(7)
@@ -27,7 +28,7 @@ def _geom(qf, sf):
     xij = q[..., _BX] - s[..., _BX]
     yij = q[..., _BY] - s[..., _BY]
     zij = q[..., _BZ] - s[..., _BZ]
-    rij = torch.sqrt(xij**2 + yij**2 + zij**2)
+    rij = sqrt(xij**2 + yij**2 + zij**2)
     hij = 0.5 * (q[..., _BH] + s[..., _BH])
     return s, q, xij, yij, zij, rij, hij
 

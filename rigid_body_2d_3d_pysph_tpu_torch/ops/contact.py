@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .ieee import sqrt
 from .rigid import gather_body_rows
 
 
@@ -48,20 +49,20 @@ def contact_force_core(u, v, w, m, body_id, eta_body, nb: int,
 
     # damping: eta[body_id(i), slot] * sqrt(m_i / 2 * kr)
     bid = torch.clamp(body_id, 0, nb - 1).to(torch.int64)
-    eta = gather_body_rows(eta_body, bid) * torch.sqrt(m[:, None] / 2.0 * kr)
+    eta = gather_body_rows(eta_body, bid) * sqrt(m[:, None] / 2.0 * kr)
 
     tmp = kr * overlap
     fn_nx = (tmp - eta * vij_dot_n) * cfn_x
     fn_ny = (tmp - eta * vij_dot_n) * cfn_y
     fn_nz = (tmp - eta * vij_dot_n) * cfn_z
 
-    vij_magn = torch.sqrt(vij_x**2 + vij_y**2 + vij_z**2)
+    vij_magn = sqrt(vij_x**2 + vij_y**2 + vij_z**2)
     moving = vij_magn >= 1e-12
 
     tx = vij_x - cfn_x * vij_dot_n
     ty = vij_y - cfn_y * vij_dot_n
     tz = vij_z - cfn_z * vij_dot_n
-    ti_magn = torch.sqrt(tx * tx + ty * ty + tz * tz)
+    ti_magn = sqrt(tx * tx + ty * ty + tz * tz)
     has_t = ti_magn > 1e-12
     inv_t = torch.where(has_t, 1.0 / torch.clamp(ti_magn, min=1e-300), zero)
     ti_x, ti_y, ti_z = tx * inv_t, ty * inv_t, tz * inv_t
@@ -74,9 +75,9 @@ def contact_force_core(u, v, w, m, body_id, eta_body, nb: int,
     new_dl_y = dl_dot_t * ti_y
     new_dl_z = dl_dot_t * ti_z
 
-    ft_magn = torch.sqrt((kf * new_dl_x) ** 2 + (kf * new_dl_y) ** 2
-                         + (kf * new_dl_z) ** 2)
-    fn_magn = torch.sqrt(fn_nx**2 + fn_ny**2 + fn_nz**2)
+    ft_magn = sqrt((kf * new_dl_x) ** 2 + (kf * new_dl_y) ** 2
+                   + (kf * new_dl_z) ** 2)
+    fn_magn = sqrt(fn_nx**2 + fn_ny**2 + fn_nz**2)
     ft_star = torch.minimum(fric_coeff * fn_magn, ft_magn)
     ft_nx = -ft_star * ti_x
     ft_ny = -ft_star * ti_y

@@ -27,6 +27,7 @@ import torch
 
 from . import _build
 from .cellpairs import CellGridConfig, build_cell_grid_packed, unpack
+from .ieee import sqrt
 from .kernels import QuinticSpline
 from .pack_expand import expand_slots, expand_slots_reference
 
@@ -196,10 +197,10 @@ def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
         xij = qcol("x") - srow("x")
         yij = qcol("y") - srow("y")
         if two_d:
-            rij = torch.sqrt(xij * xij + yij * yij)
+            rij = sqrt(xij * xij + yij * yij)
         else:
             zij = qcol("z") - srow("z")
-            rij = torch.sqrt(xij * xij + yij * yij + zij * zij)
+            rij = sqrt(xij * xij + yij * yij + zij * zij)
         hij = 0.5 * (qcol("h") + srow("h"))
         wij = kernel.w(rij, hij)
         s_dem, s_bdry, s_fluid, _ = layout.decode(srow("flags"))
@@ -256,7 +257,7 @@ def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
         zq = torch.zeros_like(q3)
         inv_w = torch.where(has, 1.0 / torch.clamp(q3, min=1e-30), zq)
         mx, my, mz = q0 * inv_w, q1 * inv_w, q2 * inv_w
-        mag = torch.sqrt(mx * mx + my * my + mz * mz)
+        mag = sqrt(mx * mx + my * my + mz * mz)
         inv_m = torch.where(has & (mag > 0),
                             1.0 / torch.clamp(mag, min=1e-30), zq)
         cfn_x, cfn_y, cfn_z = mx * inv_m, my * inv_m, mz * inv_m

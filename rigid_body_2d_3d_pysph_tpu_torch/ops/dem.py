@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .ieee import sqrt
+
 
 def prune_contact_table(scene, tng_idx, tng_dem, tng_a, tng_b, tng_c):
     """Free the slots whose pair no longer overlaps or whose partner's
@@ -26,7 +28,7 @@ def prune_contact_table(scene, tng_idx, tng_dem, tng_a, tng_b, tng_c):
     dx = scene.x[:, None] - scene.x[j]
     dy = scene.y[:, None] - scene.y[j]
     dz = scene.z[:, None] - scene.z[j]
-    rij = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    rij = sqrt(dx * dx + dy * dy + dz * dz)
     overlap = scene.rad_s[:, None] + scene.rad_s[j] - rij
     keep = live & (overlap > 0.0) & (tng_dem == scene.dem_id[j])
     zero = torch.zeros((), dtype=tng_a.dtype, device=tng_a.device)
@@ -96,7 +98,7 @@ def lvc_displacement_core(q, s, xij, yij, zij, rij, cand, j, dem_j, dt,
     vt_z = vij_z - vdotn * nz
 
     m_eff = q["m"] * s["m"] / (q["m"] + s["m"])
-    eta_n = alpha * torch.sqrt(m_eff)
+    eta_n = alpha * sqrt(m_eff)
     fn = kn * overlap - eta_n * vdotn
     fn_x, fn_y, fn_z = fn * nx, fn * ny, fn * nz
 
@@ -118,7 +120,7 @@ def lvc_displacement_core(q, s, xij, yij, zij, rij, cand, j, dem_j, dt,
     ft_x = -kt * sx - eta_n * vt_x
     ft_y = -kt * sy - eta_n * vt_y
     ft_z = -kt * sz - eta_n * vt_z
-    ft_magn = torch.sqrt(ft_x * ft_x + ft_y * ft_y + ft_z * ft_z)
+    ft_magn = sqrt(ft_x * ft_x + ft_y * ft_y + ft_z * ft_z)
     has_t = ft_magn > 1e-12
     inv_ft = torch.where(has_t, 1.0 / torch.clamp(ft_magn, min=1e-300),
                          zero)

@@ -21,6 +21,7 @@ import torch
 
 from .cellpairs import CellGrid, map_over_cells, pack_rows, unpack
 from .dem import _material_rows, lvc_displacement_core
+from .ieee import sqrt
 
 _BIG = 1.0e9
 (DX, DY, DZ, DU, DV, DW, DWX, DWY, DWZ, DRAD, DM, DDEM, DIDX) = range(13)
@@ -88,7 +89,7 @@ def lvc_cell_dense(df, nbr, t_idx, t_dem, t_x, t_y, t_z, mat, dt, cfg):
         xij = q_of(DX) - s_of(DX)
         yij = q_of(DY) - s_of(DY)
         zij = q_of(DZ) - s_of(DZ)
-        rij = torch.sqrt(xij * xij + yij * yij + zij * zij)
+        rij = sqrt(xij * xij + yij * yij + zij * zij)
         j = s_of(DIDX).to(torch.int64)
         dem_j = s_of(DDEM).to(torch.int64)
         cand = (j >= 0) & (j != q_of(DIDX).to(torch.int64)) & (rij <= cutoff)

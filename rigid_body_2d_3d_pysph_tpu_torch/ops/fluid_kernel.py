@@ -42,6 +42,7 @@ import torch
 from . import _build
 from .cellpairs import CellGridConfig, build_cell_grid_packed
 from .contact_kernel import PackLayout, contact_sums_reference
+from .ieee import sqrt
 from .kernels import QuinticSpline
 from .pack_expand import expand_slots, expand_slots_reference
 
@@ -161,7 +162,7 @@ def _pair_geom(q, src, kernel: QuinticSpline):
     yij = qc(FY) - sr(FY)
     zij = qc(FZ) - sr(FZ)
     r2 = xij * xij + yij * yij + zij * zij
-    rij = torch.sqrt(r2)
+    rij = sqrt(r2)
     hij = 0.5 * (qc(FH) + sr(FH))
     return qc, sr, xij, yij, zij, rij, r2, hij
 

@@ -136,3 +136,49 @@ def setup_body_state(scene: Scene,
         eta=t(eta), coeff_of_rest=t(coeff_of_rest),
     )
     return scene.with_fields(**fields)
+
+
+def _body_rows(vals, nb: int) -> np.ndarray:
+    """[nb, 3] from a flat 3 nb vector, an [nb, 3] array, or one row
+    broadcast to every body."""
+    v = np.asarray(vals, np.float64).reshape(-1, 3)
+    if v.shape[0] == 1 and nb > 1:
+        v = np.broadcast_to(v, (nb, 3))
+    return np.array(v)
+
+
+def set_linear_velocity(scene: Scene, linear_vel) -> Scene:
+    """Set every body's vcm, then its particles' velocities."""
+    v = _body_rows(linear_vel, scene.meta.nb)
+    scene = scene.replace(vcm=torch.as_tensor(
+        v, dtype=scene.dtype, device=scene.device))
+    return _set_particle_velocities(scene)
+
+
+def set_angular_velocity(scene: Scene, angular_vel) -> Scene:
+    """Set every body's omega and ang_mom = I_global omega, then its
+    particles' velocities."""
+    w = _body_rows(angular_vel, scene.meta.nb)
+    host = lambda k: scene[k].detach().cpu().numpy().astype(np.float64)
+    ang_mom = np.einsum("bij,bj->bi", host("inertia_tensor_global_frame"), w)
+    t = lambda a: torch.as_tensor(a, dtype=scene.dtype, device=scene.device)
+    scene = scene.replace(omega=t(w), ang_mom=t(ang_mom))
+    return _set_particle_velocities(scene)
+
+
+def _set_particle_velocities(scene: Scene) -> Scene:
+    """u = vcm + omega x (R dr0) on the rigid particles (host float64)."""
+    host = lambda k: scene[k].detach().cpu().numpy()
+    R = host("R").astype(np.float64)
+    vcm = host("vcm").astype(np.float64)
+    om = host("omega").astype(np.float64)
+    is_r = host("is_rigid")
+    bid = np.where(is_r, host("body_id"), 0)
+    dr0 = np.stack([host("dx0"), host("dy0"), host("dz0")],
+                   -1).astype(np.float64)
+    dr = np.einsum("nij,nj->ni", R[bid], dr0)
+    vel = vcm[bid] + np.cross(om[bid], dr)
+    t = lambda a: torch.as_tensor(a, dtype=scene.dtype, device=scene.device)
+    return scene.replace(**{
+        k: t(np.where(is_r, vel[:, i], host(k).astype(np.float64)))
+        for i, k in enumerate(("u", "v", "w"))})
