@@ -16,7 +16,8 @@ no result line):
    stencil): pack expansion bit for bit, contact picks bit for bit,
    contact sums within rtol 1e-5 (f32 summation order), K2 on every slot
    equal bit for bit to K2 on the culled rows at their slots; kernel and
-   twin times in ms; in 3D
+   twin times in ms; in 3D K2 on every slot against its twin, timed
+   with its bound (the leapfrog path's launch), and
    K2 also on every interesting row (the rows the 3D path runs once its
    overflow rebuilds have raised ``ni_max``), timed with its bound;
 4. the rigid main path: ``RigidBody2DScheme.setup`` -> ``make_step`` ->
@@ -113,10 +114,34 @@ no result line):
     run's bit for bit; the uninterrupted run's step-500 snapshot, written
     by the background writer while the steps went on, equals the second
     run's step-500 state written synchronously;
-23. a JSON line of per-kernel numbers (``launches`` from the kernel's
+23. the rigid RK2 step (``integrator="rk2"``, full ``[N, S]`` schema)
+    on phase 4's resting stack: 100 steps in chunks with the overflow
+    rule, two K1 and two K2 launches (every slot) a step and nothing
+    else, no compact store, phase 4's gates (overlap, finiteness,
+    overflow, COM drift, no free fall); prints steps/s; then 20 kernel
+    steps against 20 twin steps as in phase 5;
+24. the leapfrog step (``integrator="leapfrog"``) on phase 5a's 3D
+    cubes, the same way with one K1 and one K2 launch a step;
+25. the RK2 coupling step (``fluid_stepper="rk2"``, Tait) on the sinking
+    box of phase 11: 200 steps (as phase 11: at y = 3 the box's f32 COM
+    moves only once a step's displacement passes half an ulp, after
+    ~100 steps from rest), two K1, B6a, B6b, B6c and K2 launches a step
+    and nothing else, phase 11's gates; then 20 kernel steps against 20
+    twin steps on phase 13's placement as in phase 13;
+26. the DEM step with ``contact_model="LVCForce"`` (no kernel: the
+    reference runs it in XLA only) on phase 7's column for 200 steps at
+    dt = 5e-6: live contacts every step, finiteness, no overflow, the
+    floor holds, overlap < 0.1 r, no kernel launched; prints steps/s;
+27. benchmark 2 (two cubes colliding head-on, no boundary,
+    ``RigidBody3DScheme`` on the 2D scene) to its own tf (~3,000 steps)
+    through the port's ``Application``, gated by the port's
+    ``check_benchmark_2`` (momentum < 1e-2, both cubes rebound); one K1
+    and one K2 launch a step; prints steps/s;
+28. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
-    ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d`` and
-    ``sinking-box-case`` among them; K2's 3D times at the set-up ``ni_max`` and
+    ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
+    ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
+    ``coupling-rk2`` and ``benchmark-2`` among them; K2's 3D times at the set-up ``ni_max`` and
     on every interesting row beside its 2D time; K1 on the 3D rigid pack
     and on the 2D and 3D coupling packs; every fluid pass's 3D time;
     ptxas's registers, static and dynamic shared memory and spills of
@@ -186,6 +211,8 @@ CPL_N = 100_000
 CPL_STEPS = 200
 CPL_TANK_STEPS = 50
 CPL_NOFLUID_STEPS = 50
+# the rigid steppers' main paths (phases 23-24)
+STEPPER_STEPS = 100
 FLUID_SUM_RTOL = 2e-5      # f32 summation order of the fluid sums
 # the step comparison's box: 8 times the fluid's density (steel in
 # water), so the floor contact it starts in lasts the 20 steps (the
@@ -274,14 +301,16 @@ def slot_lanes(cnt, nbr):
 # scenes
 # ---------------------------------------------------------------------------
 
-def contact_scene_2d(dev, n_target=100_000, coupling=False):
+def contact_scene_2d(dev, n_target=100_000, coupling=False,
+                     integrator="gtvf"):
     """8 blocks of side 0.2 in two rows of 4 on the floor of a 3-layer
     tank (the bench's body size and count), a resting stack: the bottom
     row sits GAP dx above the floor's surface layer, neighbours GAP dx
     apart, the top row GAP dx above the bottom row.  A contact engages
     below 1 dx, so every block is in contact at once.  ``coupling`` sets
     it up under a rigid-fluid coupling scheme with no fluid group (the
-    reference's stack-of-cylinders setup) instead of the rigid scheme."""
+    reference's stack-of-cylinders setup) instead of the rigid scheme;
+    ``integrator`` is the rigid scheme's stepper."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, create_tank_2d_from_block_2d)
@@ -322,10 +351,11 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False):
             h=1.3 * dx, nu=0.0, gy=-9.81)
     else:
         scheme = RigidBody2DScheme(names, ["tank"], dim=2, gy=-9.81)
+        scheme.integrator = integrator
     return scheme, scheme.setup(scene), dx
 
 
-def contact_scene_3d(dev, n_target=100_000):
+def contact_scene_3d(dev, n_target=100_000, integrator="gtvf"):
     """8 cubes of side 0.2 in a 4 x 2 layout on a 3-layer floor slab, at
     rest on it (the 3D bench's body size).  Each cube's bottom face sits
     where the floor carries its weight: the face's overlap is m g / (kr
@@ -336,7 +366,8 @@ def contact_scene_3d(dev, n_target=100_000):
     axis, so no cell needs more than the grid's 4 slots of 16 (a closer 3D
     stack overflows ``max_spill`` in the reference too); the cubes are one
     group, so the faces between neighbours are interior to the surface
-    identification and carry no contact."""
+    identification and carry no contact.  ``integrator`` is the scheme's
+    stepper."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import get_3d_block
     from rigid_body_2d_3d_pysph_tpu_torch.models import RigidBody3DScheme
@@ -348,6 +379,7 @@ def contact_scene_3d(dev, n_target=100_000):
     dx = 0.2 / (side - 1)
     xb1, yb1, zb1 = get_3d_block(dx, 0.2, 0.2, 0.2)
     scheme = RigidBody3DScheme(["body"], ["floor"], dim=3, gy=-G)
+    scheme.integrator = integrator
     m = 2000.0 * dx**3
     n_face = side * side
     rest = m * len(xb1) * G / (scheme.kr * n_face)
@@ -483,6 +515,13 @@ def phase_kernels(scheme, scene, label, timings):
     t["pack_bound"], t["pack_bound_by"] = bound(
         nbytes(pt.sorted_fields, pt.base, pt.cnt, sent, dfT), 0)
     if not two_d:
+        # on every slot: the leapfrog path's K2 (phase 24)
+        k2slots, _ = contact_all_slots(dfT, grid, cfg, kernel, S, init,
+                                       f"{label} every slot", timed=True)
+        t.update(contact_all_slots_ms=k2slots["ms"],
+                 contact_all_slots_plain_ms=k2slots["plain_ms"],
+                 contact_all_slots_bound=k2slots["bound_ms"],
+                 contact_all_slots_bound_by=k2slots["bound_by"])
         k2all, _, _, _ = contact_rows(
             dfT, grid, pt, cfg, kernel, S, init,
             max(scheme.ni_max(cfg), k2["n_int"]), f"{label} all rows")
@@ -491,25 +530,34 @@ def phase_kernels(scheme, scene, label, timings):
                  contact_all_rows_bound=k2all["bound"],
                  contact_all_rows_bound_by=k2all["bound_by"],
                  contact_all_rows=k2all["rows"],
-                 contact_err=max(k2["err"], k2all["err"]))
+                 contact_err=max(k2["err"], k2all["err"], k2slots["err"]))
     print(f"[kernels] {label}: pack {t['pack_ms']:.4f} ms "
           f"(plain {t['pack_plain_ms']:.4f} ms, bound "
           f"{t['pack_bound']:.4f} ms by {t['pack_bound_by']})", flush=True)
     timings[label] = t
 
 
-def phase_main_path(scheme, scene, dx, smi, label="main"):
-    from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
+def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
+                    evals=1):
+    """The rigid step through its entry points for ``n_steps`` steps in
+    chunks with the overflow-rebuild rule, under phase 4's gates.  GTVF
+    runs the compact path (interesting slots counted); RK2 and leapfrog
+    the full [N, S] schema (no compact store) with ``evals`` force
+    evaluations a step.  Each evaluation launches one K1 and one K2 and
+    nothing else.  Returns (end scene, launches, stats)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
     kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    compact = scheme.integrator == "gtvf"
+    check(compact == ("cl_pid" in scene), f"{label}: the compact slot "
+          f"store is {'missing' if compact else 'there'}")
     step = scheme.make_step(scene)
     xcm0 = scene.xcm.clone()
     _build.reset_launches()
     steps_run = done = rebuilds = 0
     chunk_s, n_int, lanes = [], [], []
-    while done < N_STEPS:
+    while done < n_steps:
         chunk_start = scene
         cfg = scheme.cell_config(scene, kernel)
         torch.cuda.synchronize()
@@ -517,7 +565,8 @@ def phase_main_path(scheme, scene, dx, smi, label="main"):
         stats = []
         for _ in range(CHUNK):
             scene = step(scene, DT)
-            stats.append(scene.n_interesting)
+            if compact:
+                stats.append(scene.n_interesting)
         torch.cuda.synchronize()
         el = time.perf_counter() - t0
         steps_run += CHUNK
@@ -538,25 +587,24 @@ def phase_main_path(scheme, scene, dx, smi, label="main"):
             continue
         rebuilds = 0
         done += CHUNK
-        ni = torch.stack(stats).cpu().numpy()
-        n_int.append(ni)
-        lanes.append(ni * cfg.M * cfg.O * cfg.M)
         chunk_s.append(el)
         ov = float(scheme.export_scene(scene).overlap.max())
-        print(f"[{label}] steps {done - CHUNK}-{done}: {el:.3f} s, interesting "
-              f"slots {ni.min()}-{ni.max()}, max overlap {ov:.3e}",
+        msg = f"max overlap {ov:.3e}"
+        if compact:
+            ni = torch.stack(stats).cpu().numpy()
+            n_int.append(ni)
+            lanes.append(ni * cfg.M * cfg.O * cfg.M)
+            msg = f"interesting slots {ni.min()}-{ni.max()}, " + msg
+        print(f"[{label}] steps {done - CHUNK}-{done}: {el:.3f} s, {msg}",
               flush=True)
 
-    n_int = np.concatenate(n_int)
-    lanes = np.concatenate(lanes)
     launches = dict(_build.LAUNCHES)
-    check(launches["pack_expand"] == steps_run,
-          f"pack kernel launched {launches['pack_expand']} times in "
-          f"{steps_run} steps")
-    check(launches["contact"] == steps_run,
-          f"contact kernel launched {launches['contact']} times in "
-          f"{steps_run} steps")
-    check(bool((n_int > 0).all()), "a step had no interesting slot")
+    for k, v in launches.items():
+        want = evals * steps_run if k in ("pack_expand", "contact") else 0
+        check(v == want, f"{label}: {k} launched {v} times in {steps_run} "
+              f"steps, expected {want}")
+    check(compact == ("cl_pid" in scene), f"{label}: the step changed the "
+          "slot schema")
     full = scheme.export_scene(scene)
     max_overlap = float(full.overlap.max())
     check(max_overlap > 0, "no overlap: the contact kernel did no work")
@@ -574,17 +622,24 @@ def phase_main_path(scheme, scene, dx, smi, label="main"):
     drop = float((xcm0[:, 1] - scene.xcm[:, 1]).max())
     check(drop < 0.5 * fall, f"a block dropped {drop:.3e}, >= half the "
           f"free-fall distance {fall:.3e}: the stack is not carried")
+    cfg = scheme.cell_config(scene, kernel)
+    if compact:
+        n_int, lanes = np.concatenate(n_int), np.concatenate(lanes)
+        check(bool((n_int > 0).all()), "a step had no interesting slot")
+        work = (f"interesting slots/step min {n_int.min()} mean "
+                f"{n_int.mean():.1f} max {n_int.max()} | candidate "
+                f"lanes/step mean {lanes.mean():.4g}")
+    else:
+        work = (f"{evals} evaluation(s) a step, K2 on all {cfg.NC_max} "
+                f"slots (O {cfg.O})")
     steady = chunk_s[1:] or chunk_s
     sps = CHUNK * len(steady) / sum(steady)
-    print(f"[{label}] n={scene.n} dx={dx:.6g} steps={done} (run {steps_run}) "
-          f"launches pack={launches['pack_expand']} "
-          f"contact={launches['contact']} | interesting slots/step "
-          f"min {n_int.min()} mean {n_int.mean():.1f} max {n_int.max()} | "
-          f"candidate lanes/step mean {lanes.mean():.4g} | max overlap "
-          f"{max_overlap:.4e} ({max_overlap / dx:.3f} dx) | max COM drift "
-          f"{drift:.4e} ({drift / dx:.3f} dx) | max drop {drop:.4e} "
-          f"(free fall {fall:.4e})", flush=True)
-    cfg = scheme.cell_config(scene, kernel)
+    print(f"[{label}] n={scene.n} dx={dx:.6g} {scheme.integrator} "
+          f"steps={done} (run {steps_run}) launches pack="
+          f"{launches['pack_expand']} contact={launches['contact']} | "
+          f"{work} | max overlap {max_overlap:.4e} ({max_overlap / dx:.3f} "
+          f"dx) | max COM drift {drift:.4e} ({drift / dx:.3f} dx) | max "
+          f"drop {drop:.4e} (free fall {fall:.4e})", flush=True)
     print(f"[{label}] final config: ni_max {scheme.ni_max(cfg)}, NC "
           f"{cfg.NC_max}, O {cfg.O}, capacity boost "
           f"{scheme.capacity_boost:.4g}", flush=True)
@@ -594,18 +649,14 @@ def phase_main_path(scheme, scene, dx, smi, label="main"):
     return scene, launches, dict(steps_per_s=sps, n=scene.n)
 
 
-def phase_step_parity(scheme, scene):
+def phase_step_parity(scheme, scene, label="parity"):
+    """20 kernel steps of the scheme's stepper against 20 steps of its
+    twin (the kernels' plain versions) from one state."""
     from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
-    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
-    kernel = get_kernel(scheme.kernel_name, scheme.dim)
-    cfg = scheme.cell_config(scene, kernel)
-    params = dict(kr=scheme.kr, kf=scheme.kf, fric_coeff=scheme.fric_coeff,
-                  gx=scheme.gx, gy=scheme.gy, gz=scheme.gz)
     fast = trb.make_multi_step(scheme.make_step(scene), COMPARE_STEPS)
-    plain = trb.make_multi_step(trb.build_rigid_gtvf_step_cell(
-        kernel, cfg, params, scheme.two_d, scheme.ni_max(cfg), plain=True),
-        COMPARE_STEPS)
+    plain = trb.make_multi_step(scheme.make_step(scene, plain=True),
+                                COMPARE_STEPS)
     a, b = fast(scene, DT), plain(scene, DT)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
@@ -621,8 +672,8 @@ def phase_step_parity(scheme, scene):
         worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
         check(ok, f"kernel step vs twin step: {k} off by {err:.3e} "
                   f"(scale {scale:.3e}, rtol {STEP_RTOL})")
-    print(f"[parity] {scheme.dim}D: {COMPARE_STEPS} kernel steps vs "
-          f"{COMPARE_STEPS} twin "
+    print(f"[{label}] {scheme.dim}D {scheme.integrator}: {COMPARE_STEPS} "
+          f"kernel steps vs {COMPARE_STEPS} twin "
           f"steps, max abs diff: " + ", ".join(worst), flush=True)
 
 
@@ -630,7 +681,8 @@ def phase_step_parity(scheme, scene):
 # DEM
 # ---------------------------------------------------------------------------
 
-def dem_scene(dev, dim, grid="spill", n_target=100_000):
+def dem_scene(dev, dim, grid="spill", n_target=100_000,
+              contact_model="LVCDisplacement"):
     """The bench's granular column over a floor (``bench.py``
     ``build_dem_scene`` / ``build_dem_scene_3d`` geometry at ~n_target
     grains) with grains spaced DEM_SPACING: every lattice neighbour and
@@ -670,7 +722,7 @@ def dem_scene(dev, dim, grid="spill", n_target=100_000):
                         spacing0=s, device=dev, dtype=config.WORK_DTYPE)
     scheme = DEMScheme(["sand"], ["floor"], kn=1e5, en=0.5, mu=0.5,
                        dim=dim, gy=-9.81, max_tng_contacts_limit=8,
-                       dem_grid=grid)
+                       dem_grid=grid, contact_model=contact_model)
     return scheme, scheme.setup(scene)
 
 
@@ -871,6 +923,8 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
     overflow-rebuild rule; returns (end scene, launches, steps/s)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
+    # LVCForce launches no kernel (the reference runs it in XLA only)
+    force_model = scheme.contact_model == "LVCForce"
     spill = scheme.dem_grid == "spill"
     kname = "dem_cell" if spill else "dem_rowwin"
     step = scheme.make_step(scene)
@@ -878,6 +932,7 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
     floor = scene.meta.group("floor")
     floor_top = float((scene.y + scene.rad_s)[floor.start:floor.stop].max())
     _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     steps_run = done = rebuilds = 0
     chunk_s, lives, gateds = [], [], []
     while done < n_steps:
@@ -915,10 +970,11 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
               f"{gt.min()}-{gt.max()}", flush=True)
     launches = dict(_build.LAUNCHES)
     lv, gt = np.concatenate(lives), np.concatenate(gateds)
-    check(launches[kname] == steps_run, f"{label}: {kname} launched "
-          f"{launches[kname]} times in {steps_run} steps")
-    check(launches["pack_expand"] == steps_run, f"{label}: pack_expand "
-          f"launched {launches['pack_expand']} times in {steps_run} steps")
+    for k, v in launches.items():
+        want = steps_run if k in (kname, "pack_expand") and not force_model \
+            else 0
+        check(v == want, f"{label}: {k} launched {v} times in {steps_run} "
+              f"steps, expected {want}")
     check(bool((lv > 0).all()), f"{label}: a step had no live contact")
     for k, v in scene.fields.items():
         if v.is_floating_point():
@@ -933,15 +989,17 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
     steady = chunk_s[1:] or chunk_s
     sps = CHUNK * len(steady) / sum(steady)
     print(f"[{label}] n={scene.n} ({sand.stop - sand.start} grains) "
-          f"steps={done} (run {steps_run}) launches {kname}="
-          f"{launches[kname]} pack_expand={launches['pack_expand']} | live "
+          f"{scheme.contact_model} steps={done} (run {steps_run}) launches "
+          f"{kname}={launches[kname]} pack_expand="
+          f"{launches['pack_expand']} | live "
           f"entries/step min {lv.min()} mean {lv.mean():.1f} | gated "
           f"pairs/step mean {gt.mean():.1f} | max overlap {ov:.4e} "
           f"({ov / DEM_R:.4f} r) | lowest grain bottom {bottom:.4e} "
           f"(floor top {floor_top:.4e})", flush=True)
     print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
           f"{CHUNK * len(chunk_s) / sum(chunk_s):.2f} steps/s all chunks, "
-          f"on {smi}", flush=True)
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB, on {smi}", flush=True)
     return scene, launches, sps
 
 
@@ -1487,6 +1545,16 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity"):
         elif k in ("contact_force_dist", "closest_point_dist_to_source",
                    "overlap"):
             tol = pos_ulp
+        elif k == "p" and not scheme.edac:
+            # Tait: a fluid particle's p = c0^2 rho0 / gamma ((rho /
+            # rho0)^gamma - 1) is a function of its rho, so the two runs'
+            # rho difference (held above) reaches p times dp/drho = c0^2
+            # (rho / rho0)^(gamma - 1), ~590 here: one f32 ulp of rho is
+            # ~7e-5 of p
+            dpdrho = scheme.c0 ** 2 * (b.rho / scheme.rho0) ** (
+                scheme.gamma - 1.0)
+            tol = torch.where(b.is_fluid, dpdrho * (a.rho - b.rho).abs(),
+                              torch.zeros_like(dpdrho))
         err = float((x - y).abs().max())
         scale = fn_scale if k in ("fn_x", "fn_y") else float(y.abs().max())
         worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
@@ -1495,7 +1563,9 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity"):
             bad.append(f"{k} off by {err:.3e} (scale {scale:.3e})")
     check(not bad, f"{label}: coupling kernel step vs twin step (rtol "
           f"{STEP_RTOL}): " + ", ".join(bad))
-    print(f"[{label}] {scheme.gtvf_ordering}: {COMPARE_STEPS} kernel steps "
+    stepper = (scheme.gtvf_ordering if scheme.fluid_stepper == "gtvf"
+               else scheme.fluid_stepper)
+    print(f"[{label}] {stepper}: {COMPARE_STEPS} kernel steps "
           f"vs {COMPARE_STEPS} twin steps (dense box on the floor, rho "
           f"{CPL_PARITY_RHO}; end "
           f"overlap {float(b.overlap.max()):.3e}, |delta_lt_x| "
@@ -1784,6 +1854,42 @@ def phase_benchmark_5(tmp, smi):
     return launches, app.solver.steps_per_sec
 
 
+def phase_benchmark_2(tmp, smi):
+    """Benchmark 2 (two cubes colliding head-on, no boundary,
+    ``RigidBody3DScheme`` on the 2D scene) to its own tf through the
+    port's ``Application``, then the port's ``check_benchmark_2``.
+    Returns (launches, steps/s)."""
+    from rigid_body_2d_3d_pysph_tpu_torch import validate as tval
+    from rigid_body_2d_3d_pysph_tpu_torch.cases import (
+        benchmark_2_multiple_rigid_bodies_colliding as b2)
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    label = "b2"
+    app = b2.Benchmark2(fname="benchmark_2")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    app.run(["-d", os.path.join(tmp, "benchmark_2_output"), "--quiet"])
+    el = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    steps = app.solver.steps_run
+    want_count = int(round(app.solver.tf / app.solver.dt))
+    check(app.solver.count == want_count,
+          f"{label}: {app.solver.count} steps, expected {want_count}")
+    for k in launches:
+        want = steps if k in ("pack_expand", "contact") else 0
+        check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
+              f"times in {steps} steps, expected {want}")
+    res = tval.check_benchmark_2(tmp)
+    check(res is not None and res["ok"], f"{label}: validation {res}")
+    print(f"[{label}] n={app.scene.n} steps={app.solver.count} (run {steps}, "
+          f"rebuilds {app.solver.rebuilds_total}) launches " + " ".join(
+              f"{k}={v}" for k, v in launches.items() if v)
+          + f" | check_benchmark_2: {json.dumps(res)}", flush=True)
+    print(f"[{label}] {app.solver.steps_per_sec:.2f} steps/s through the "
+          f"Application ({el:.2f} s with set-up), on {smi}", flush=True)
+    return launches, app.solver.steps_per_sec
+
+
 def _npz_equal(p, q):
     """Names of the arrays that differ (bits, shape or dtype) between two
     npz files, and of those only one of them holds."""
@@ -2067,6 +2173,51 @@ def main() -> int:
             del scheme3f, scene3f
             b5_launches, b5_sps = phase_benchmark_5(tmp, smi)
             sbr_launches, sbr_sps = phase_sinking_box_resume(tmp, smi)
+
+        # 23. the rigid RK2 step on the resting stack, and its parity
+        t0 = time.perf_counter()
+        kscheme, kscene, kdx = contact_scene_2d(dev, integrator="rk2")
+        print(f"[rk2-setup] n={kscene.n} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        kend, rk2_launches, rk2_stats = phase_main_path(
+            kscheme, kscene, kdx, smi, "rigid-rk2", STEPPER_STEPS, evals=2)
+        phase_step_parity(kscheme, kend, "rk2-parity")
+        del kscheme, kscene, kend
+
+        # 24. the leapfrog step on the 3D cubes, and its parity
+        t0 = time.perf_counter()
+        lscheme, lscene, ldx = contact_scene_3d(dev, integrator="leapfrog")
+        print(f"[leapfrog-setup] n={lscene.n} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        lend, lf_launches, lf_stats = phase_main_path(
+            lscheme, lscene, ldx, smi, "rigid-leapfrog", STEPPER_STEPS)
+        phase_step_parity(lscheme, lend, "leapfrog-parity")
+        del lscheme, lscene, lend
+
+        # 25. the RK2 coupling step (Tait) on the sinking box, and its
+        # parity on the contact placement
+        rscheme, rscene, rdt = sinking_box_scene(dev)
+        rscheme.edac, rscheme.fluid_stepper = False, "rk2"
+        _, crk2_launches, crk2_sps = phase_coupling_main(
+            rscheme, rscene, rdt, CPL_STEPS, "cpl-rk2", smi,
+            dict(pack_expand=2, fluid_rates=2, wall_bc=2, fluid_forces=2,
+                 contact=2))
+        del rscheme, rscene
+        pscheme, pscene, pdt = sinking_box_scene(dev, floor=True,
+                                                 rho_b=CPL_PARITY_RHO)
+        pscheme.edac, pscheme.fluid_stepper = False, "rk2"
+        phase_coupling_parity(pscheme, pscene, pdt, "rk2-cpl-parity")
+        del pscheme, pscene
+
+        # 26. the LVCForce DEM step on the column
+        fscheme, fscene = dem_scene(dev, 2, contact_model="LVCForce")
+        _, lvcf_launches, lvcf_sps = phase_dem_main(
+            fscheme, fscene, DEM_STEPS, "dem-lvcforce", smi)
+        del fscheme, fscene
+
+        # 27. benchmark 2 to its tf through the Application
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            b2_launches, b2_sps = phase_benchmark_2(tmp, smi)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2084,7 +2235,10 @@ def main() -> int:
         ("coupling-reference", launches_by["reference"]),
         ("coupling-nofluid", nf_launches), ("coupling-3d", cpl3d_launches),
         ("benchmark-5-2d", b5_launches),
-        ("sinking-box-case", sbr_launches)) if c[k]}
+        ("sinking-box-case", sbr_launches), ("rigid-rk2", rk2_launches),
+        ("rigid-leapfrog", lf_launches), ("coupling-rk2", crk2_launches),
+        ("dem-lvcforce", lvcf_launches), ("benchmark-2", b2_launches))
+        if c[k]}
     fluid_err = lambda k: max(fl_t[lab][k]["err"] for lab in fl_t
                               if k in fl_t[lab])
     split_err = lambda k: max(sp_t[lab][k]["err"] for lab in sp_t)
@@ -2131,7 +2285,11 @@ def main() -> int:
              all_slots_bound_ms=k2all["bound_ms"],
              all_slots_bound_by=k2all["bound_by"],
              nofluid_all_slots_ms=nf_k2["ms"],
-             nofluid_all_slots_bound_ms=nf_k2["bound_ms"]),
+             nofluid_all_slots_bound_ms=nf_k2["bound_ms"],
+             # on every slot of the 3D pack: the leapfrog path's
+             all_slots_ms_3d=t3["contact_all_slots_ms"],
+             all_slots_plain_ms_3d=t3["contact_all_slots_plain_ms"],
+             all_slots_bound_ms_3d=t3["contact_all_slots_bound"]),
     ]
     # each timed on its main path's 2D scene, the 3D scene beside it
     for name, line, path_launches, grid in (
@@ -2224,6 +2382,9 @@ def main() -> int:
           f"{sps_by['reference']:.2f} steps/s, no fluid {nf_sps:.2f} "
           f"steps/s, 3D kdkf {cpl3d_sps:.2f} steps/s; benchmark 5 2D "
           f"{b5_sps:.2f} steps/s, sinking box (case size) {sbr_sps:.2f} "
+          f"steps/s; rigid RK2 {rk2_stats['steps_per_s']:.2f} steps/s, "
+          f"leapfrog 3D {lf_stats['steps_per_s']:.2f} steps/s, coupling RK2 {crk2_sps:.2f} steps/s, DEM "
+          f"LVCForce {lvcf_sps:.2f} steps/s, benchmark 2 {b2_sps:.2f} "
           f"steps/s; on {smi}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,22 +1,29 @@
 """DEM granular scheme: Luding LVC contact with the GTVF stage order.
 
-Counterpart of ``rigid_body_2d_3d_pysph_tpu/models/dem.py`` (the
-``LVCDisplacement`` model).  One step is, in order: half-kick of
-velocity and spin with the stored force and torque; the contact pass
-with the table prune fused into it (``ops/dem_kernel.py``); force and
-torque assembly on the mobile groups (boundaries stay static and carry
-zero force); drift; the second half-kick.
+Counterpart of ``rigid_body_2d_3d_pysph_tpu/models/dem.py``.  One step
+is, in order: half-kick of velocity and spin with the stored force and
+torque; the contact pass (``ops/dem_kernel.py``); force and torque
+assembly on the mobile groups (boundaries stay static and carry zero
+force); drift; the second half-kick.
 
 Per-particle state: angular velocity ``wx/wy/wz``, torque, the scalar
 moment of inertia ``moi`` and the ``[N, L]`` tangential contact table.
-Per-entity material vectors ``dem_kn/dem_kt/dem_alpha/dem_mu`` are read
-by source dem id.
 
-The grid is a constructor argument: ``dem_grid="spill"`` (default, the
-cell-keyed spill grid, kernel ``dem_cell``) or ``"rowwin"`` (the
-row-window grid, kernel ``dem_rowwin``).  Unlike the reference package,
-which takes its kernel path only on a TPU, the port takes it on every
-device; the kernel wrappers run their plain versions on CPU tensors.
+``contact_model`` (``--contact-model``) picks the contact law:
+
+* ``"LVCDisplacement"`` (default): displacement springs
+  ``tng_x/y/z``, per-entity material vectors
+  ``dem_kn/dem_kt/dem_alpha/dem_mu`` read by source dem id, the table
+  prune fused into the kernel's pass.  The grid is a constructor
+  argument: ``dem_grid="spill"`` (default, the cell-keyed spill grid,
+  kernel ``dem_cell``) or ``"rowwin"`` (the row-window grid, kernel
+  ``dem_rowwin``).  Unlike the reference package, which takes its kernel
+  path only on a TPU, the port takes it on every device; the kernel
+  wrappers run their plain versions on CPU tensors.
+* ``"LVCForce"``: tangential-force springs ``tng_fx/fy/fz`` and the
+  scheme's scalar kn, mu, en; the prune, then the pair pass on a spill
+  grid of the cubic spline's support, in PyTorch ops on every device
+  (the reference package runs it in XLA only: it has no kernel).
 """
 
 from __future__ import annotations
@@ -38,9 +45,8 @@ class DEMScheme(Scheme):
                  dim=2, gx=0.0, gy=0.0, gz=0.0,
                  contact_model="LVCDisplacement", max_tng_contacts_limit=6,
                  mu=0.5, dem_grid="spill"):
-        if contact_model != "LVCDisplacement":
-            raise NotImplementedError(
-                f"contact model {contact_model!r} is not ported")
+        if contact_model not in ("LVCDisplacement", "LVCForce"):
+            raise ValueError(f"unknown contact model {contact_model!r}")
         if dem_grid not in ("spill", "rowwin"):
             raise ValueError(f"unknown DEM grid {dem_grid!r}")
         self.granular_particles = list(granular_particles or [])
@@ -68,10 +74,6 @@ class DEMScheme(Scheme):
 
     def consume_user_options(self, options):
         if hasattr(options, "contact_model"):
-            if options.contact_model != "LVCDisplacement":
-                raise NotImplementedError(
-                    f"contact model {options.contact_model!r} is not "
-                    "ported (ROADMAP A7)")
             self.contact_model = options.contact_model
 
     def derived_lvc_constants(self):
@@ -105,16 +107,23 @@ class DEMScheme(Scheme):
             torx=zeros(n), tory=zeros(n), torz=zeros(n),
             tng_idx=empty(), tng_idx_dem_id=empty(),
             total_tng_contacts=torch.zeros(n, dtype=torch.int32, device=dev),
-            tng_x=zeros(n, L), tng_y=zeros(n, L), tng_z=zeros(n, L),
             dem_kn=tab(dem_kn, self.kn), dem_kt=tab(dem_kt, kt_d),
             dem_alpha=tab(dem_alpha, alpha_d), dem_mu=tab(dem_mu, self.mu),
             nbr_overflow=torch.zeros((), dtype=torch.bool, device=dev),
         )
+        for k in self._springs():
+            fields[k] = zeros(n, L)
         if "moi" not in scene:
             host = lambda k: scene[k].detach().cpu().numpy()
             fields["moi"] = torch.as_tensor(
                 0.4 * host("m") * host("rad_s") ** 2, dtype=fdt, device=dev)
         return scene.with_fields(**fields)
+
+    def _springs(self):
+        """The contact table's spring fields."""
+        if self.contact_model == "LVCDisplacement":
+            return ("tng_x", "tng_y", "tng_z")
+        return ("tng_fx", "tng_fy", "tng_fz")
 
     def _contact_radius(self, scene: Scene) -> float:
         # the fused prune needs every overlapping pair to be a
@@ -123,13 +132,24 @@ class DEMScheme(Scheme):
 
     def cell_config(self, scene: Scene) -> cellmod.CellGridConfig:
         """The spill grid of the DEM kernel: cutoff = the contact radius,
-        bins ``cell_factor`` x coarser, ``cell_M`` lanes a slot."""
+        bins ``cell_factor`` x coarser, ``cell_M`` lanes a slot.  For
+        LVCForce, the reference package's grid of that model: cutoff =
+        the cubic spline's support 2 max(h), bins of the cutoff, 16
+        lanes a slot; its pass runs in PyTorch ops a chunk of slots at a
+        time, and on the card in chunks of 4,096 slots (fewer launches;
+        a [query lane, candidate] tensor of such a chunk is 64 MiB in
+        float32 at 16 lanes and 16 stencil slots)."""
         if self._cell_cfg is None:
             host = lambda k: scene[k].detach().cpu().numpy()
+            kw = dict(cell_factor=self.cell_factor, M=self.cell_M)
+            cutoff = self._contact_radius(scene)
+            if self.contact_model == "LVCForce":
+                cutoff = 2.0 * float(host("h").max())
+                kw = dict(cell_factor=1.0, M=16, cell_chunk=(
+                    4096 if scene.device.type == "cuda" else 512))
             self._cell_cfg = cellmod.config_from_positions(
-                host("x"), host("y"), host("z"), self._contact_radius(scene),
-                self.dim, capacity_boost=self.capacity_boost,
-                cell_factor=self.cell_factor, M=self.cell_M)
+                host("x"), host("y"), host("z"), cutoff, self.dim,
+                capacity_boost=self.capacity_boost, **kw)
         return self._cell_cfg
 
     def rowwin_config(self, scene: Scene) -> rwmod.RowWinConfig:
@@ -151,15 +171,25 @@ class DEMScheme(Scheme):
         read without a sync per step).  ``plain=True`` runs the kernels'
         plain versions even on CUDA tensors: the kernel step's reference
         on the card."""
-        if self.dem_grid == "rowwin":
-            cfg = self.rowwin_config(scene)
-            contact = dk.lvc_displacement_rowwin_kernel
-        else:
+        springs = self._springs()
+        if self.contact_model == "LVCForce":
             cfg = self.cell_config(scene)
-            contact = dk.lvc_displacement_cell_kernel
-        if cfg.radius < self._contact_radius(scene):
-            raise ValueError("the DEM grid's cutoff is below 2 max(rad_s): "
-                             "the fused prune would miss overlapping pairs")
+            kn, mu, en = self.kn, self.mu, self.en
+
+            def contact(scene, cfg, dt, *tables, plain):
+                return dk.lvc_force_pass(scene, cfg, dt, kn, mu, en,
+                                         *tables)
+        else:
+            if self.dem_grid == "rowwin":
+                cfg = self.rowwin_config(scene)
+                contact = dk.lvc_displacement_rowwin_kernel
+            else:
+                cfg = self.cell_config(scene)
+                contact = dk.lvc_displacement_cell_kernel
+            if cfg.radius < self._contact_radius(scene):
+                raise ValueError("the DEM grid's cutoff is below 2 "
+                                 "max(rad_s): the fused prune would miss "
+                                 "overlapping pairs")
         gx, gy, gz = self.gx, self.gy, self.gz
         # only the granular groups move (boundaries static)
         mob = np.zeros(scene.n, bool)
@@ -184,12 +214,12 @@ class DEMScheme(Scheme):
             half = 0.5 * dt
             scene = half_kick(scene, half)
             r = contact(scene, cfg, dt, scene.tng_idx, scene.tng_idx_dem_id,
-                        scene.tng_x, scene.tng_y, scene.tng_z, plain=plain)
+                        *(scene[k] for k in springs), plain=plain)
             gmask = mobile & scene.active
             zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
             scene = scene.replace(
                 tng_idx=r.tng_idx, tng_idx_dem_id=r.tng_dem,
-                tng_x=r.tng_x, tng_y=r.tng_y, tng_z=r.tng_z,
+                **dict(zip(springs, (r.tng_x, r.tng_y, r.tng_z))),
                 total_tng_contacts=r.count,
                 nbr_overflow=scene.nbr_overflow | r.overflow,
                 fx=torch.where(gmask, scene.m * gx + r.fx, zero),

@@ -1,19 +1,32 @@
 """Rigid-body contact schemes (3D rotation-matrix dynamics, 2D scalar
-inertia) with the GTVF kick-drift-kick integrator, on the compact
-interesting-slot contact path.
+inertia) with the GTVF kick-drift-kick integrator on the compact
+interesting-slot contact path, or the RK2 and leapfrog steppers on the
+full ``[N, S]`` slot schema.
 
-Counterpart of ``rigid_body_2d_3d_pysph_tpu/models/rigid_body.py``
-(GTVF only).  One step is, in order: body half-kick with the stored
-force and particle velocities from the bodies; the stage-2 contact
-evaluation (grid build, pack expansion, interest cull, contact sums,
-the Eq.-24 tail on the culled lanes, force assembly and the per-body
-force/torque sums); drift and particle positions; the second half-kick
-with the fresh force and particle velocities.
+Counterpart of ``rigid_body_2d_3d_pysph_tpu/models/rigid_body.py``.
+The scheme's ``integrator`` attribute picks the stepper:
+
+* ``"gtvf"`` (default): body half-kick with the stored force and
+  particle velocities from the bodies; the stage-2 contact evaluation
+  (grid build, pack expansion, interest cull, contact sums, the Eq.-24
+  tail on the culled lanes, force assembly and the per-body force/torque
+  sums); drift and particle positions; the second half-kick with the
+  fresh force and particle velocities;
+* ``"rk2"``: save the body state, evaluate, advance half a step from the
+  saved state, evaluate again, advance a full step from the saved state
+  (two evaluations a step);
+* ``"leapfrog"`` (3D only, as in the reference): save, advance half a
+  step with the stored force, evaluate, advance a full step from the
+  saved state.
+
+The RK2 and leapfrog evaluations run the contact on every slot of the
+grid (``contact_kernel.contact_pipeline_cell``) and the Eq.-24 tail on
+every particle, as the reference's ``_make_force_eval`` does.
 
 Unlike the reference, which takes the compact path only on its TPU,
 the port takes it on every device; only the kernel wrappers look at
 the device (kernel for CUDA tensors, plain version for CPU tensors).
-The step is an eager Python function.
+The steps are eager Python functions.
 
 Slot state is stored compactly: ``cl_pid [L]`` (covered particle ids,
 n = empty) and ``cl_state [L, 25 S]`` (their slot rows, ``CL_FIELDS``
@@ -33,6 +46,7 @@ from ..ops import cellpairs as cellmod
 from ..ops import contact as cops
 from ..ops import rigid as rops
 from ..ops.boundary_cell import boundary_identification_cell
+from ..ops import contact_kernel as tck
 from ..ops.contact_kernel import contact_pipeline_compact
 from ..ops.kernels import get_kernel
 from ..state import rigid_setup
@@ -125,6 +139,8 @@ class _RigidBodySchemeBase(Scheme):
         self.fric_coeff = fric_coeff
         self.gx, self.gy, self.gz = gx, gy, gz
         self.kernel_name = "quintic"
+        # "gtvf", "rk2" or "leapfrog" (3D only)
+        self.integrator = "gtvf"
         self._cell_cfg = None
 
     def add_user_options(self, group):
@@ -155,6 +171,9 @@ class _RigidBodySchemeBase(Scheme):
             self.rigid_bodies + self.boundaries)
         scene = scene.replace(
             contact_force_is_boundary=scene.is_boundary.to(scene.dtype))
+        if self.integrator != "gtvf":
+            # the RK2 and leapfrog steps keep the full [N, S] schema
+            return scene
         cfg = self.cell_config(scene, kernel)
         return compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
 
@@ -188,13 +207,28 @@ class _RigidBodySchemeBase(Scheme):
         ni = int(np.ceil(max(512, nc // 16) * self.capacity_boost))
         return min(nc, ni)
 
-    def make_step(self, scene: Scene):
+    def make_step(self, scene: Scene, plain: bool = False):
+        """The ``integrator``'s step as an eager ``step(scene, dt) ->
+        scene``.  ``plain=True`` runs the kernels' plain versions even
+        on CUDA tensors (the kernel step's reference on the card)."""
         kernel = get_kernel(self.kernel_name, self.dim)
         params = dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
                       gx=self.gx, gy=self.gy, gz=self.gz)
         cfg = self.cell_config(scene, kernel)
+        if self.integrator == "rk2":
+            return build_rigid_rk2_step(kernel, cfg, params, self.two_d,
+                                        plain)
+        if self.integrator == "leapfrog":
+            if self.two_d:
+                raise ValueError("leapfrog stepper is 3D-only "
+                                 "(reference rigid_body_3d.py:228)")
+            return build_rigid_leapfrog_step(kernel, cfg, params, plain)
+        if self.integrator != "gtvf":
+            raise ValueError(f"integrator={self.integrator!r}: one of "
+                             "'gtvf', 'rk2', 'leapfrog'")
         return build_rigid_gtvf_step_cell(kernel, cfg, params, self.two_d,
-                                          ni_max=self.ni_max(cfg))
+                                          ni_max=self.ni_max(cfg),
+                                          plain=plain)
 
 
 class RigidBody3DScheme(_RigidBodySchemeBase):
@@ -467,6 +501,19 @@ def _contact_force_tail(scene, cfn_x, cfn_y, cfn_z, cfn_w, dinfo, params,
         **dinfo, **slots)
 
 
+def _contact_tail(scene, cp, params, dt, extra_fx=None):
+    """``_contact_force_tail`` on the unpacked contact columns ``cp [N,
+    12, S]`` (the cell pipeline's output) with ``extra_fx`` (or None)."""
+    dinfo = dict(
+        contact_force_dist=cp[:, 4],
+        closest_point_dist_to_source=cp[:, 5],
+        x_source=cp[:, 6], y_source=cp[:, 7], z_source=cp[:, 8],
+        vx_source=cp[:, 9], vy_source=cp[:, 10], vz_source=cp[:, 11])
+    return _contact_force_tail(scene, cp[:, 0], cp[:, 1], cp[:, 2],
+                               cp[:, 3], dinfo, params, dt,
+                               extra_fx=extra_fx)
+
+
 def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,
                                ni_max: int, plain: bool = False):
     """One GTVF timestep on the compact contact path, as an eager
@@ -490,6 +537,126 @@ def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,
         scene = _body_half_kick(scene, dt, two_d)
         scene = _particles_from_body_velocity(scene)
         return scene
+
+    return step
+
+
+def _make_force_eval(kernel, cell_cfg, params: dict, plain: bool = False):
+    """The RK2 and leapfrog steppers' stage-2 evaluation on the full
+    ``[N, S]`` schema: a grid build with the contact pack (K1), the
+    contact sums on every slot (K2), the Eq.-24 tail on every particle,
+    and the grid's overflow ORed into ``nbr_overflow``.  ``plain`` runs
+    both kernels' plain versions even on CUDA tensors."""
+
+    def ev(scene, dt):
+        grid, _, dfT = tck.pack_scene(scene, cell_cfg, plain,
+                                      want_dense_pos=True)
+        cp = tck.contact_pipeline_cell(
+            dfT, grid, cell_cfg, kernel, scene.meta.total_no_bodies,
+            4.0 * scene.meta.spacing0, scene.n, plain).to(scene.dtype)
+        scene = _contact_tail(scene, cp, params, dt)
+        return scene.replace(nbr_overflow=scene.nbr_overflow
+                             | grid.overflow)
+
+    return ev
+
+
+def _rotate_from_saved(scene, frac_dt):
+    """R = GS(R0 + frac_dt Omega(omega) R) and, with it, the global
+    inverse inertia R I_body^-1 R^T."""
+    Om = rops.omega_cross_matrix(scene.omega)
+    R = rops.gram_schmidt_columns(
+        scene.R0 + frac_dt * torch.einsum("bij,bjk->bik", Om, scene.R))
+    Iinv = torch.einsum("bij,bjk,blk->bil", R,
+                        scene.inertia_tensor_inverse_body_frame, R)
+    return R, Iinv
+
+
+def _rk2_body_stage(scene, frac_dt, two_d):
+    """RK2 predictor/corrector body update from the saved state: the COM
+    and velocity advance from the saved ``xcm0``/``vcm0`` with the
+    current velocity and force, R from ``R0`` with the current omega.
+    ``ang_mom0`` is saved per body (the reference's initialise keeps
+    body 0's only, an indexing slip; the JAX package saves every body's,
+    as here)."""
+    M = scene.total_mass[:, None]
+    R, Iinv = _rotate_from_saved(scene, frac_dt)
+    if two_d:
+        vxy = scene.vcm0[:, :2] + frac_dt * scene.force[:, :2] / M
+        xy = scene.xcm0[:, :2] + frac_dt * scene.vcm[:, :2]
+        izz = torch.where(scene.izz > 0, scene.izz,
+                          torch.ones_like(scene.izz))
+        oz = scene.omega0[:, 2] + frac_dt * scene.torque[:, 2] / izz
+        return scene.replace(
+            xcm=torch.cat([xy, scene.xcm0[:, 2:]], 1),
+            vcm=torch.cat([vxy, scene.vcm0[:, 2:]], 1), R=R,
+            omega=torch.cat([scene.omega0[:, :2], oz[:, None]], 1))
+    ang_mom = scene.ang_mom0 + frac_dt * scene.torque
+    return scene.replace(
+        xcm=scene.xcm0 + frac_dt * scene.vcm,
+        vcm=scene.vcm0 + frac_dt * scene.force / M, R=R,
+        inertia_tensor_inverse_global_frame=Iinv, ang_mom=ang_mom,
+        omega=torch.einsum("bij,bj->bi", Iinv, ang_mom))
+
+
+def build_rigid_rk2_step(kernel, cell_cfg, params: dict, two_d: bool,
+                         plain: bool = False):
+    """Predict-evaluate-correct RK2 timestep (the reference's
+    ``RK2RigidBody3DStep``): two force evaluations a step, each one K1
+    and one K2 on every slot.  ``plain`` as in
+    :func:`build_rigid_gtvf_step_cell`."""
+    force_eval = _make_force_eval(kernel, cell_cfg, params, plain)
+
+    def stage(scene, frac_dt):
+        scene = _rk2_body_stage(scene, frac_dt, two_d)
+        return _particles_from_body_velocity(
+            _particles_from_body_position(scene))
+
+    def step(scene: Scene, dt: float) -> Scene:
+        scene = scene.replace(xcm0=scene.xcm, vcm0=scene.vcm,
+                              ang_mom0=scene.ang_mom, omega0=scene.omega,
+                              R0=scene.R)
+        # predictor: forces at t, half a step; corrector: forces at the
+        # midpoint, a full step from the saved state
+        scene = stage(force_eval(scene, dt), 0.5 * dt)
+        return stage(force_eval(scene, dt), dt)
+
+    return step
+
+
+def _leapfrog_body_stage(scene, frac_dt):
+    """The reference's ``LeapFrogRigidBody3DStep`` body update: the COM
+    advances from the saved state with the pre-update velocity, the
+    velocity with the current force, R from ``R0`` with the current
+    omega (``ang_mom0`` saved per body, as for RK2)."""
+    M = scene.total_mass[:, None]
+    R, Iinv = _rotate_from_saved(scene, frac_dt)
+    ang_mom = scene.ang_mom0 + frac_dt * scene.torque
+    return scene.replace(
+        xcm=scene.xcm0 + frac_dt * scene.vcm,
+        vcm=scene.vcm0 + frac_dt * scene.force / M, R=R, ang_mom=ang_mom,
+        omega=torch.einsum("bij,bj->bi", Iinv, ang_mom),
+        inertia_tensor_inverse_global_frame=Iinv)
+
+
+def build_rigid_leapfrog_step(kernel, cell_cfg, params: dict,
+                              plain: bool = False):
+    """The reference's ``LeapFrogRigidBody3DStep`` under the GTVF
+    sequencing (save, half a step with the stored force, one force
+    evaluation, a full step from the saved state); 3D only.  One K1 and
+    one K2 on every slot a step."""
+    force_eval = _make_force_eval(kernel, cell_cfg, params, plain)
+
+    def stage(scene, frac_dt):
+        scene = _leapfrog_body_stage(scene, frac_dt)
+        return _particles_from_body_velocity(
+            _particles_from_body_position(scene))
+
+    def step(scene: Scene, dt: float) -> Scene:
+        scene = scene.replace(xcm0=scene.xcm, vcm0=scene.vcm,
+                              ang_mom0=scene.ang_mom, R0=scene.R)
+        scene = stage(scene, 0.5 * dt)
+        return stage(force_eval(scene, dt), dt)
 
     return step
 

@@ -1,6 +1,6 @@
 """Rigid-fluid coupling scheme: WCSPH (EDAC or Tait) fluid, Adami wall
 conditions, two-way FSI and the Mofidi rigid contact, in the three GTVF
-orderings of the reference.
+orderings of the reference, or the RK2 predictor-corrector step.
 
 Counterpart of ``RigidFluidCouplingScheme`` in
 ``rigid_body_2d_3d_pysph_tpu/models/rigid_fluid_coupling.py``, the
@@ -32,6 +32,17 @@ branches the JAX package runs off the TPU, as eager functions
     -> kick -> Tait -> patch u, v, w, p -> wall sums (B6b) -> patch p,
     p_fsi -> forces (B6c) -> contact on every slot (K2) -> drift -> kick
 
+* rk2 (``fluid_stepper = "rk2"``, ``_make_step_cell_rk2`` :294-419;
+  Tait only), two evaluations a step, each on one grid::
+
+    save -> [Tait -> build + pack (K1) -> rates (B6a) -> wall sums (B6b)
+    -> patch p, p_fsi -> forces (B6c) -> contact on every slot (K2)] ->
+    stage dt/2 from the saved state -> [the same] -> stage dt
+
+  A stage moves the fluid's x from the saved state with the current
+  velocity, then its velocity and density with the current rates, and
+  runs the rigid RK2 body stage.
+
 A scheme with no fluid group runs kdk for kdkf, as the reference does
 (``make_step`` :279-289): kicks, drift, one grid with the contact pack
 alone (K1), contact, kick.  The kdk and reference steps patch their
@@ -41,8 +52,8 @@ contact pack is laid out from the coupling pack
 (``contact_kernel.contact_pack``), so a grid costs one K1 launch.
 
 Bodies are integrated in 3D (``two_d=False``) even in 2D scenes, as the
-reference does.  Not ported: the RK2 fluid stepper and the compact
-contact tail at S >= 8 (ROADMAP A8).
+reference does.  Not ported: the compact contact tail at S >= 8
+(ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -63,17 +74,18 @@ from .rigid_body import (
     _attach_contact_fields,
     _body_drift,
     _body_half_kick,
-    _contact_force_tail,
+    _contact_tail,
     _particles_from_body_position,
     _particles_from_body_velocity,
+    _rk2_body_stage,
     run_boundary_identification_cell,
 )
 
-# per-particle fields the scheme attaches (the reference also attaches
-# the RK2 stepper's saved state, which the port does not carry)
+# per-particle fields the scheme attaches, the RK2 step's saved state
+# (x0 ... rho0_rk) last
 FLUID_FIELDS = ("rho_fsi", "m_fsi", "p_fsi", "wij_adami", "uf", "vf", "wf",
                 "ug", "vg", "wg", "arho", "ap", "au", "av", "aw", "vol",
-                "cs")
+                "cs", "x0", "y0", "z0", "u0", "v0", "w0", "rho0_rk")
 
 
 class RigidFluidCouplingScheme(Scheme):
@@ -101,6 +113,7 @@ class RigidFluidCouplingScheme(Scheme):
         self.edac_alpha = edac_alpha
         self.kernel_name = "quintic"
         self.gtvf_ordering = "kdkf"
+        # "gtvf" (in ``gtvf_ordering``) or "rk2" (Tait only)
         self.fluid_stepper = "gtvf"
         self._cell_cfg = None
 
@@ -181,23 +194,31 @@ class RigidFluidCouplingScheme(Scheme):
 
     # -- the step -----------------------------------------------------------
     def make_step(self, scene: Scene, plain: bool = False):
-        """The step of ``gtvf_ordering`` as an eager ``step(scene, dt) ->
-        scene``; kdkf with no fluid group runs kdk (reference :279-289).
-        ``plain=True`` runs the kernels' plain versions even on CUDA
-        tensors (the kernel step's reference on the card)."""
-        if self.fluid_stepper != "gtvf":
+        """The step of ``fluid_stepper`` (and, for GTVF, of
+        ``gtvf_ordering``) as an eager ``step(scene, dt) -> scene``; kdkf
+        with no fluid group runs kdk (reference :279-289).  ``plain=True``
+        runs the kernels' plain versions even on CUDA tensors (the kernel
+        step's reference on the card)."""
+        if self.fluid_stepper not in ("gtvf", "rk2"):
+            raise ValueError(f"fluid_stepper={self.fluid_stepper!r}: one "
+                             "of 'gtvf', 'rk2'")
+        if self.fluid_stepper == "rk2" and self.edac:
             raise NotImplementedError(
-                f"fluid_stepper={self.fluid_stepper!r}: the RK2 fluid "
-                "stepper is not ported (ROADMAP A8)")
-        ordering = self.gtvf_ordering
-        if ordering == "kdkf" and not self.fluids:
-            ordering = "kdk"
+                "rk2 fluid stepper integrates rho only (reference "
+                "RK2FluidStep :228-271 has no p0/ap state) — use "
+                "Tait EOS (edac=False)")
         step_builds = dict(kdkf=build_coupling_kdkf_step,
-                        kdk=build_coupling_kdk_step,
-                        reference=build_coupling_reference_step)
+                           kdk=build_coupling_kdk_step,
+                           reference=build_coupling_reference_step)
+        ordering = self.gtvf_ordering
         if ordering not in step_builds:
             raise ValueError(f"gtvf_ordering={ordering!r}: one of "
                              f"{sorted(step_builds)}")
+        if self.fluid_stepper == "rk2":
+            ordering = "rk2"
+            step_builds["rk2"] = build_coupling_rk2_step
+        elif ordering == "kdkf" and not self.fluids:
+            ordering = "kdk"
         kernel = get_kernel(self.kernel_name, self.dim)
         args = dict(
             kernel=kernel, cfg=self.cell_config(scene, kernel),
@@ -208,6 +229,8 @@ class RigidFluidCouplingScheme(Scheme):
             has_rigid=len(self.rigid_bodies) > 0, plain=plain)
         if ordering != "kdkf":
             args["has_fluid"] = len(self.fluids) > 0
+        if ordering == "rk2":
+            del args["edac"]
         return step_builds[ordering](**args)
 
 
@@ -282,19 +305,6 @@ def _apply_wall_forces(scene, wall, forces, gvec):
         au=torch.where(fl, gvec[0] + forces[:, 0], zero),
         av=torch.where(fl, gvec[1] + forces[:, 1], zero),
         aw=torch.where(fl, gvec[2] + forces[:, 2], zero))
-
-
-def _contact_tail(scene, cp, params, dt, extra_fx):
-    """``_contact_force_tail`` on the unpacked contact columns ``cp [N,
-    12, S]`` with the fluid -> rigid force ``extra_fx`` (or None)."""
-    dinfo = dict(
-        contact_force_dist=cp[:, 4],
-        closest_point_dist_to_source=cp[:, 5],
-        x_source=cp[:, 6], y_source=cp[:, 7], z_source=cp[:, 8],
-        vx_source=cp[:, 9], vy_source=cp[:, 10], vz_source=cp[:, 11])
-    return _contact_force_tail(scene, cp[:, 0], cp[:, 1], cp[:, 2],
-                               cp[:, 3], dinfo, params, dt,
-                               extra_fx=extra_fx)
 
 
 def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
@@ -531,5 +541,69 @@ def build_coupling_reference_step(kernel, cfg, params: dict, edac: bool,
                               | grid.overflow)
         scene = _drift(scene, dt, fl, edac, has_fluid, has_rigid)
         return _kick(scene, dt, fl, has_fluid, has_rigid)
+
+    return step
+
+
+def build_coupling_rk2_step(kernel, cfg, params: dict, nu_edac: float,
+                            c0: float, rho0: float, gamma: float,
+                            fluid_alpha: float, has_fluid: bool,
+                            has_rigid: bool, plain: bool = False):
+    """One RK2 timestep (see the module docstring), Tait only: two
+    evaluations a step, each the kdk ordering's passes on one grid."""
+    passes = _split_passes(kernel, cfg, params, fluid_alpha, c0, has_fluid,
+                           has_rigid, plain)
+
+    def evaluate(scene, dt, fl):
+        """Tait, rates, wall sums, forces and contact at the current
+        state -> (scene, the grid's overflow)."""
+        if has_fluid:
+            p, cs = tait_eos(scene, rho0, c0, gamma, fl)
+            scene = scene.replace(p=p, cs=cs)
+        grid, dfT = _pack(scene, cfg, has_fluid, plain)
+        if has_fluid:
+            # the Tait rates: arho only (the reference step has no ap)
+            scene = scene.replace(arho=_rates(
+                scene, grid, dfT, kernel, cfg, nu_edac, c0, False,
+                has_rigid, plain).arho)
+        return passes(scene, grid, dfT, dt), grid.overflow
+
+    def stage(scene, frac_dt, fl):
+        """The fluid from the saved state (x with the current velocity,
+        then the velocity and density with the current rates) and the
+        RK2 body stage."""
+        if has_fluid:
+            rho_new = scene.rho0_rk + frac_dt * scene.arho
+            scene = scene.replace(
+                x=torch.where(fl, scene.x0 + frac_dt * scene.u, scene.x),
+                y=torch.where(fl, scene.y0 + frac_dt * scene.v, scene.y),
+                z=torch.where(fl, scene.z0 + frac_dt * scene.w, scene.z),
+                u=torch.where(fl, scene.u0 + frac_dt * scene.au, scene.u),
+                v=torch.where(fl, scene.v0 + frac_dt * scene.av, scene.v),
+                w=torch.where(fl, scene.w0 + frac_dt * scene.aw, scene.w),
+                rho=torch.where(fl, rho_new, scene.rho),
+                vol=torch.where(fl, scene.m / rho_new, scene.vol))
+        if has_rigid:
+            scene = _particles_from_body_velocity(
+                _particles_from_body_position(
+                    _rk2_body_stage(scene, frac_dt, two_d=False)))
+        return scene
+
+    def step(scene: Scene, dt: float) -> Scene:
+        fl = _masks(scene)[0]
+        save = {}
+        if has_fluid:
+            save.update(x0=scene.x, y0=scene.y, z0=scene.z, u0=scene.u,
+                        v0=scene.v, w0=scene.w, rho0_rk=scene.rho)
+        if has_rigid:
+            save.update(xcm0=scene.xcm, vcm0=scene.vcm,
+                        ang_mom0=scene.ang_mom, omega0=scene.omega,
+                        R0=scene.R)
+        scene = scene.replace(**save)
+        scene, ovf1 = evaluate(scene, dt, fl)
+        scene = stage(scene, 0.5 * dt, fl)
+        scene, ovf2 = evaluate(scene, dt, fl)
+        scene = stage(scene, dt, fl)
+        return scene.replace(nbr_overflow=scene.nbr_overflow | ovf1 | ovf2)
 
     return step

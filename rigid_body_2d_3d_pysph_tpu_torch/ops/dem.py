@@ -1,18 +1,23 @@
 """Granular DEM: Luding linear viscoelastic contact (LVC) with Coulomb
-friction and a persistent per-pair tangential displacement spring.
+friction and a persistent per-pair tangential history.
 
-Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/dem.py`` (the
-displacement model only; the ``[N, K]`` list entry points and the
-``LVCForce`` core are not ported).  The contact table is a fixed
-``[N, L]`` slot array keyed by (partner index, partner dem id): the
-prune frees slots whose pair no longer overlaps, and new contacts take
-the lowest free slots in candidate order.
+Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/dem.py``: the
+``LVCDisplacement`` core (the tangential spring stores a displacement)
+and the ``LVCForce`` core (it stores the tangential force); the
+``[N, K]`` list entry points are not ported.  The contact table is a
+fixed ``[N, L]`` slot array keyed by (partner index, partner dem id):
+the prune frees slots whose pair no longer overlaps, and new contacts
+take the lowest free slots in candidate order.
 
-Deviation kept from the reference package: the torque is reset at every
-force evaluation (the original never zeroes it).
+Deviations kept from the reference package: the torque is reset at
+every force evaluation (the original never zeroes it); ``LVCForce``
+uses the repulsive normal force and the unsquared Coulomb comparison
+(the original's are sign and square slips in code it never runs).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -193,3 +198,102 @@ def _material_rows(dem_j, table):
     for e in range(table.shape[0]):
         out = torch.where(dem_j == e, table[e], out)
     return out
+
+
+def lvc_force_core(q, s, xij, yij, zij, rij, cand, j, dem_j, dt,
+                   kn: float, mu: float, en: float,
+                   tng_idx, tng_dem, tng_fx, tng_fy, tng_fz):
+    """Layout-agnostic LVCForce pair pass (tangential-force springs;
+    scalar material constants: kt = 2/7 kn, alpha from the restitution
+    coefficient).  Arguments as :func:`lvc_displacement_core`, with
+    ``cand`` already excluding zero distances; returns the same 13
+    values, the table's springs being tangential forces."""
+    kt = 2.0 / 7.0 * kn
+    log_en = math.log(en)
+    alpha = 2.0 * math.sqrt(kn) * abs(log_en) / math.sqrt(
+        math.pi ** 2 + log_en ** 2)
+
+    overlap = q["rad"] + s["rad"] - rij
+    gate = cand & (overlap > 0)
+    rinv = 1.0 / torch.clamp(rij, min=1e-300)
+    nx, ny, nz = xij * rinv, yij * rinv, zij * rinv
+
+    a_i = q["rad"] - overlap / 2.0
+    a_j = s["rad"] - overlap / 2.0
+    vi_x = q["u"] + (q["wy"] * nz - q["wz"] * ny) * a_i
+    vi_y = q["v"] + (q["wz"] * nx - q["wx"] * nz) * a_i
+    vi_z = q["w"] + (q["wx"] * ny - q["wy"] * nx) * a_i
+    vj_x = s["u"] + (-s["wy"] * nz + s["wz"] * ny) * a_j
+    vj_y = s["v"] + (-s["wz"] * nx + s["wx"] * nz) * a_j
+    vj_z = s["w"] + (-s["wx"] * ny + s["wy"] * nx) * a_j
+    vr_x, vr_y, vr_z = vi_x - vj_x, vi_y - vj_y, vi_z - vj_z
+    vdotn = vr_x * nx + vr_y * ny + vr_z * nz
+    vt_x = vr_x - vdotn * nx
+    vt_y = vr_y - vdotn * ny
+    vt_z = vr_z - vdotn * nz
+
+    m_eff = q["m"] * s["m"] / (q["m"] + s["m"])
+    eta_n = alpha * sqrt(m_eff)
+    fn = kn * overlap - eta_n * vdotn
+    fn_x, fn_y, fn_z = fn * nx, fn * ny, fn * nz
+
+    found, slot_found = _match_slots(tng_idx, tng_dem, j, dem_j)
+    found = found & gate
+    new_mask = gate & ~found
+    slot_new = _allocate_slots(tng_idx < 0, new_mask)
+    Lc = tng_fx.shape[1]
+    sf = torch.clamp(slot_found, 0, Lc - 1)
+    # the slot this pair writes: its found slot or a fresh one
+    eff = torch.where(found, sf, slot_new)
+    live = eff >= 0
+
+    zero = torch.zeros((), dtype=rij.dtype, device=rij.device)
+    fx_s = torch.where(found, torch.gather(tng_fx, 1, sf), zero) \
+        - kt * vt_x * dt
+    fy_s = torch.where(found, torch.gather(tng_fy, 1, sf), zero) \
+        - kt * vt_y * dt
+    fz_s = torch.where(found, torch.gather(tng_fz, 1, sf), zero) \
+        - kt * vt_z * dt
+
+    # Coulomb cap
+    fn_magn = sqrt(fn_x * fn_x + fn_y * fn_y + fn_z * fn_z)
+    ft_magn = sqrt(fx_s * fx_s + fy_s * fy_s + fz_s * fz_s)
+    fn_mu = mu * fn_magn
+    slip = ft_magn >= fn_mu
+    inv = torch.where(ft_magn > 0, 1.0 / torch.clamp(ft_magn, min=1e-300),
+                      zero)
+    fx_s = torch.where(slip, fn_mu * fx_s * inv, fx_s)
+    fy_s = torch.where(slip, fn_mu * fy_s * inv, fy_s)
+    fz_s = torch.where(slip, fn_mu * fz_s * inv, fz_s)
+
+    # write-back: each (row, slot) takes at most one pair (candidate
+    # lists hold no duplicates); the pairs that write nothing go to a
+    # spare column that is dropped
+    def write(tab, where_to, val):
+        ext = torch.cat([tab, torch.zeros_like(tab[:, :1])], 1)
+        ext.scatter_(1, torch.where(where_to >= 0, where_to, Lc),
+                     torch.where(where_to >= 0, val,
+                                 torch.zeros_like(val)).to(tab.dtype))
+        return ext[:, :Lc]
+
+    tng_fx = write(tng_fx, eff, fx_s)
+    tng_fy = write(tng_fy, eff, fy_s)
+    tng_fz = write(tng_fz, eff, fz_s)
+    tng_idx = write(tng_idx, slot_new, j)
+    tng_dem = write(tng_dem, slot_new, dem_j)
+
+    gl = gate & live
+
+    def gsum(v):
+        return torch.where(gl, v, zero).sum(1)
+
+    fx = gsum(fn_x + fx_s)
+    fy = gsum(fn_y + fy_s)
+    fz = gsum(fn_z + fz_s)
+    torx = gsum((ny * fz_s - nz * fy_s) * a_i)
+    tory = gsum((nz * fx_s - nx * fz_s) * a_i)
+    torz = gsum((nx * fy_s - ny * fx_s) * a_i)
+    count = (tng_idx >= 0).sum(1).to(torch.int32)
+    n_gated = gate.sum(1).to(torch.int32)
+    return (fx, fy, fz, torx, tory, torz,
+            tng_idx, tng_dem, tng_fx, tng_fy, tng_fz, count, n_gated)

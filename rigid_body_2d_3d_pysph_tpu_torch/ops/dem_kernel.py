@@ -1,4 +1,5 @@
-"""The DEM LVC-displacement step's contact pass on the two DEM grids.
+"""The DEM step's contact pass: LVC displacement on the two DEM grids,
+and LVCForce.
 
 Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/pallas_dem.py``.  Both
 paths fuse the contact-table prune into the pair pass's slot matching
@@ -16,7 +17,12 @@ still-overlapping partner is a candidate):
 
 Each kernel wrapper runs its plain version for CPU tensors: the
 reference package's prune followed by the dense-block pair pass
-(``ops/dem_cell.py``) on the same inputs.  Integers ride the f32 source
+(``ops/dem_cell.py``) on the same inputs.
+
+The LVCForce pass (:func:`lvc_force_pass`) has no kernel: the reference
+package runs it in XLA only (its Pallas DEM kernels cover LVC
+displacement).  It is the reference's cell-engine sequence in PyTorch
+ops: the prune, a grid build and the dense-block pass.  Integers ride the f32 source
 pack as exact floats, so the wrappers take fewer than 2^24 particles,
 at most 8 entities and at most 8 table slots.
 """
@@ -29,9 +35,10 @@ import torch
 
 from . import _build
 from .cellpairs import CellGridConfig, build_cell_grid_packed
+from .cellpairs import build_cell_grid
 from .dem import prune_contact_table
-from .dem_cell import (NF, SENT, PackedParticles, grid_from_pack,
-                       lvc_displacement_cell)
+from .dem_cell import (NF, SENT, PackedParticles, dem_payload,
+                       grid_from_pack, lvc_displacement_cell, lvc_force_cell)
 from .pack_expand import expand_slots, expand_slots_reference
 from .rowwin import RowWinConfig, build_row_window_grid
 
@@ -39,15 +46,6 @@ MAX_PARTICLES = 1 << 24   # exact float integers in the f32 source pack
 L_MAX = 8                 # compile-time bounds of csrc/dem.cu
 E_MAX = 8
 KERNEL_M = (8, 16)        # the lane widths csrc/dem.cu is instantiated for
-
-
-def dem_payload(scene):
-    """The source pack's 13 fields as per-particle [N] tensors."""
-    fdt = scene.dtype
-    ident = torch.arange(scene.n, dtype=fdt, device=scene.device)
-    return [scene.x, scene.y, scene.z, scene.u, scene.v, scene.w,
-            scene.wx, scene.wy, scene.wz, scene.rad_s, scene.m,
-            scene.dem_id.to(fdt), ident]
 
 
 def material_table(scene):
@@ -249,4 +247,18 @@ def lvc_displacement_rowwin_kernel(scene, cfg: RowWinConfig, dt,
     dfs = expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
     out = sums_fn(dfs, grid.nbr_runs, grid.run_cnt, tng_idx, tng_dem, tng_x,
                   tng_y, tng_z, material_table(scene), dt, cfg)
+    return _pass(*out, grid.overflow, scene.dtype)
+
+
+def lvc_force_pass(scene, cfg: CellGridConfig, dt, kn: float, mu: float,
+                   en: float, tng_idx, tng_dem, tng_fx, tng_fy,
+                   tng_fz) -> DemPass:
+    """The LVCForce pass (the reference package's cell-engine branch):
+    the table pruned on the scene's positions, a grid build on ``cfg``
+    and :func:`dem_cell.lvc_force_cell`.  The pass's ``tng_x/y/z`` are
+    the tangential-force springs."""
+    pruned = prune_contact_table(scene, tng_idx, tng_dem, tng_fx, tng_fy,
+                                 tng_fz)[:5]
+    grid = build_cell_grid(scene.x, scene.y, scene.z, scene.active, cfg)
+    out = lvc_force_cell(scene, grid, cfg, dt, kn, mu, en, *pruned)
     return _pass(*out, grid.overflow, scene.dtype)

@@ -287,7 +287,8 @@ def _parse(chooser, argv):
 
 @pytest.mark.parametrize("argv", [
     [], ["--scheme", "rb3d", "--kr-stiffness", "2e5", "--fric-coeff", "0.3"],
-    ["--scheme", "dem", "--contact-model", "LVCDisplacement"]])
+    ["--scheme", "dem", "--contact-model", "LVCDisplacement"],
+    ["--scheme", "dem", "--contact-model", "LVCForce"]])
 def test_scheme_chooser_parses_the_reference_options(argv):
     jc, tc = _choosers(jrb, jdem, jbase), _choosers(trb, tdem, tbase)
     pj, oj = _parse(jc, argv)

@@ -1,22 +1,25 @@
 """The port's case applications against the reference's case scripts.
 
-* Benchmark 5 (2D, two cubes) through both ``Application``s in float64
-  for 20 steps in chunks of 10 (the reference on its XLA cell engine,
-  ``RB_TPU_ENGINE=cell``): every snapshot's arrays at rtol 1e-10, read
-  by the reference's ``load``.
+* Benchmark 5 (2D, two cubes) and benchmark 2 (two cubes colliding
+  head-on with no boundary, ``RigidBody3DScheme`` on the 2D scene)
+  through both ``Application``s in float64 for 20 steps in chunks of 10
+  (the reference on its XLA cell engine, ``RB_TPU_ENGINE=cell``): every
+  snapshot's arrays at rtol 1e-10, read by the reference's ``load``.
 * ``identify_template``: the port's flags (cell engine) equal the
   reference's (``[N, K]`` list engine) bit for bit on every template the
   ported cases build.
-* The set-up scenes of the other four cases (benchmark 5 in 3D, the
-  sinking box at spacing 0.1, the column collapse at column scale 0.3,
-  the stack of cylinders) equal the reference cases' field for field,
-  before any step.
+* The set-up scenes of the other cases (benchmarks 1-4, benchmark 5 in
+  3D, the sinking box at spacing 0.1, the column collapse at column
+  scale 0.3, the stack of cylinders and its two-cylinder test through
+  the coupling scheme with no fluid) equal the reference cases' field
+  for field, before any step.
 * The port's ``validate`` checks give the dicts of the root
   ``validate.py``'s checks on the same output directories (a few steps
   of each ported case).
 """
 
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -34,6 +37,12 @@ from rigid_body_2d_3d_pysph_tpu.app import output as jout  # noqa: E402
 from rigid_body_2d_3d_pysph_tpu_torch import validate as tvalidate  # noqa
 from rigid_body_2d_3d_pysph_tpu_torch.app import boundary_utils as tbu  # noqa
 from rigid_body_2d_3d_pysph_tpu_torch.cases import (  # noqa: E402
+    benchmark_1_rigid_body_rotating_and_translating_freely as tb1,
+    benchmark_2_multiple_rigid_bodies_colliding as tb2,
+    benchmark_2_multiple_rigid_bodies_colliding_same_particle_array as tb2s,
+    benchmark_3_multiple_rigid_bodies_colliding_same_particle_array as tb3,
+    benchmark_4_rigid_cube_bouncing_on_a_wall as tb4,
+    stack_of_cylinders_test_1 as tstack1,
     benchmark_5_steady_cubes_on_a_wall_2d as tb5_2d,
     benchmark_5_steady_cubes_on_a_wall_3d as tb5_3d,
     dem_granular_column_collapse as tdem,
@@ -43,7 +52,8 @@ from rigid_body_2d_3d_pysph_tpu_torch.geom import (  # noqa: E402
     create_circle_1, get_2d_block, get_3d_block)
 
 CPU_ARGS = ["--device", "cpu"]
-# the reference's RK2 saved state, which the port does not carry
+# the reference's RK2 saved state (the port's coupling set-up carries it
+# too, as of the RK2 step's port)
 RK2_FIELDS = {"x0", "y0", "z0", "u0", "v0", "w0", "rho0_rk"}
 
 
@@ -54,14 +64,13 @@ def cell_engine(monkeypatch):
     monkeypatch.setenv("RB_TPU_ENGINE", "cell")
 
 
-def test_benchmark_5_2d_app_matches_reference_f64(tmp_path, cell_engine):
-    import benchmark_5_steady_cubes_on_a_wall_2d as jb5
-
-    argv = ["--two-cubes", "--max-steps", "20", "--pfreq", "10", "--quiet"]
+def _app_snapshots_match(tmp_path, japp, tapp, argv):
+    """Run both ``Application``s for 20 steps (snapshots every 10) and
+    hold every snapshot's arrays to each other at rtol 1e-10; returns
+    the port's snapshot files."""
+    argv = argv + ["--max-steps", "20", "--pfreq", "10", "--quiet"]
     dj, dt = str(tmp_path / "jax"), str(tmp_path / "port")
-    japp = jb5.Benchmark5_2D(fname="benchmark_5_2d")
     japp.run(["-d", dj] + argv)
-    tapp = tb5_2d.Benchmark5_2D(fname="benchmark_5_2d")
     tapp.dtype = torch.float64
     tapp.run(["-d", dt] + argv + CPU_ARGS)
     assert tapp.solver.count == 20 and tapp.solver.rebuilds_total == 0
@@ -84,9 +93,35 @@ def test_benchmark_5_2d_app_matches_reference_f64(tmp_path, cell_engine):
                 np.testing.assert_allclose(y, x, rtol=1e-10,
                                            atol=1e-10 * scale,
                                            err_msg=f"{b}: {g}/{k}")
+    return ft
+
+
+def test_benchmark_5_2d_app_matches_reference_f64(tmp_path, cell_engine):
+    import benchmark_5_steady_cubes_on_a_wall_2d as jb5
+
+    ft = _app_snapshots_match(
+        tmp_path, jb5.Benchmark5_2D(fname="benchmark_5_2d"),
+        tb5_2d.Benchmark5_2D(fname="benchmark_5_2d"), ["--two-cubes"])
     # the cubes are in contact with the floor and each other
     sd, g = jout.load(ft[-1])
     assert np.abs(g["body"].fy).max() > 0
+
+
+def test_benchmark_2_app_matches_reference_f64(tmp_path, cell_engine):
+    """The no-boundary path, the 3D body update on a 2D scene: the cubes
+    start 0.2 apart, so no slot is interesting for the whole run (the
+    interest cull finds none and the contact pass writes init rows)."""
+    import benchmark_2_multiple_rigid_bodies_colliding as jb2
+
+    ft = _app_snapshots_match(
+        tmp_path, jb2.Benchmark2(fname="benchmark_2"),
+        tb2.Benchmark2(fname="benchmark_2"), [])
+    # no contact yet: the cubes coast at their initial velocities
+    sd, g = jout.load(ft[-1])
+    np.testing.assert_allclose(g["body1"].vcm_mat[0], [0.5, 0.0, 0.0],
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(g["body2"].vcm_mat[0], [-0.5, 0.0, 0.0],
+                               rtol=0, atol=1e-12)
 
 
 def _templates():
@@ -140,6 +175,20 @@ SETUPS = {
                             ["--column-scale", "0.3"], None),
     "stack_of_cylinders": ("stack_of_cylinders", tstack,
                            "ZhangStackOfCylinders", [], None),
+    "benchmark_1": ("benchmark_1_rigid_body_rotating_and_translating_freely",
+                    tb1, "Case0", [], None),
+    "benchmark_2": ("benchmark_2_multiple_rigid_bodies_colliding", tb2,
+                    "Benchmark2", [], None),
+    "benchmark_2_same_array": (
+        "benchmark_2_multiple_rigid_bodies_colliding_same_particle_array",
+        tb2s, "Benchmark2SameArray", [], None),
+    "benchmark_3": (
+        "benchmark_3_multiple_rigid_bodies_colliding_same_particle_array",
+        tb3, "Benchmark3", [], None),
+    "benchmark_4": ("benchmark_4_rigid_cube_bouncing_on_a_wall", tb4,
+                    "Benchmark4", ["--coeff-of-restitution", "0.8"], None),
+    "stack_of_cylinders_test_1": ("stack_of_cylinders_test_1", tstack1,
+                                  "StackOfCylindersTest1", [], None),
 }
 
 
@@ -189,18 +238,29 @@ def _short_runs(root):
     run(tdem, "GranularColumnCollapse", "dem_column_collapse",
         ["--column-scale", "0.3"])
     run(tstack, "ZhangStackOfCylinders", "stack_of_cylinders", [])
+    run(tb1, "Case0", "benchmark_1", [])
+    run(tb2, "Benchmark2", "benchmark_2", [])
+    run(tb2s, "Benchmark2SameArray", "benchmark_2_same_array", [])
+    run(tb3, "Benchmark3", "benchmark_3", [])
+    run(tb4, "Benchmark4", "benchmark_4_en_0.8",
+        ["--coeff-of-restitution", "0.8"])
 
 
 def test_validate_checks_match_the_root_validate(tmp_path, monkeypatch):
     root = str(tmp_path)
     _short_runs(root)
     monkeypatch.setattr(jvalidate, "HERE", root)
+    # the root check reads benchmark 4's oracle data under its HERE
+    os.makedirs(os.path.join(root, "cases", "data"))
+    shutil.copy(os.path.join(ROOT, "cases", "data",
+                             "benchmark_4_oracle.json"),
+                os.path.join(root, "cases", "data"))
     seen = 0
     for name, check in tvalidate.CHECKS.items():
         got, want = check(root), jvalidate.CHECKS[name]()
         assert got == want, name
         seen += got is not None
-    assert seen == 4
+    assert seen == 9
     # the CLI's exit code and JSON agree with the checks
     out = str(tmp_path / "v.json")
     rc = tvalidate.main(["--root", root, "--json", out,

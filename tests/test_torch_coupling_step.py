@@ -242,9 +242,8 @@ def coupling_scene_3d(make_group, build_scene, geom, scheme_cls,
 
 def test_setup_3d_matches_reference_f64():
     """The 3D set-up (the cell grid, surface identification of the tank
-    and the box, body state, FSI and Adami fields) equals the reference's
-    on the cell engine, field for field (the reference's RK2 saved state
-    apart, which the port does not carry)."""
+    and the box, body state, FSI and Adami fields, the RK2 step's saved
+    state) equals the reference's on the cell engine, field for field."""
     jsch, jscene = coupling_scene_3d(jmake_group, jbuild_scene, jgeom, JRFC)
     jsch.engine = "cell"
     jscene = jsch.setup(jscene)
@@ -257,8 +256,7 @@ def test_setup_3d_matches_reference_f64():
         for f in dataclasses.fields(tcell.CellGridConfig)}
     isb = np.asarray(jscene.is_boundary)
     assert 0 < int(isb[jscene.is_rigid].sum()) < int(jscene.is_rigid.sum())
-    assert set(jscene.fields) - set(tscene.fields) == {
-        "x0", "y0", "z0", "u0", "v0", "w0", "rho0_rk"}
+    assert set(jscene.fields) == set(tscene.fields)
     for k in sorted(tscene.fields):
         a, b = tscene[k].numpy(), np.asarray(jscene[k])
         assert a.shape == b.shape, k
@@ -333,13 +331,21 @@ def test_f64_branches_match_xla_kdkf(case):
 
 
 def test_unported_orderings_raise():
-    """Every GTVF ordering is ported (``test_torch_coupling_orderings``);
-    the RK2 fluid stepper is not, in any ordering."""
+    """Every GTVF ordering is ported (``test_torch_coupling_orderings``)
+    and so is the RK2 fluid stepper (``test_torch_coupling_rk2``), which
+    takes Tait only: with EDAC it raises in any ordering, as the
+    reference does; an unknown stepper or ordering raises too."""
     tsch, tscene, _, _ = coupling_scene(
         tmake_group, tbuild_scene, tgeom, TRFC, False, device=CPU,
         dtype=torch.float64)
     tsch.fluid_stepper = "rk2"
     for ordering in ("kdkf", "kdk", "reference"):
         tsch.gtvf_ordering = ordering
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="Tait"):
             tsch.make_step(tscene)
+    tsch.fluid_stepper = "euler"
+    with pytest.raises(ValueError):
+        tsch.make_step(tscene)
+    tsch.fluid_stepper, tsch.gtvf_ordering = "gtvf", "kdkdk"
+    with pytest.raises(ValueError):
+        tsch.make_step(tscene)

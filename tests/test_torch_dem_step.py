@@ -123,7 +123,11 @@ def test_3d_steps_match_reference_cell_engine_f64():
 
 
 def test_scheme_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        DEMScheme(["g"], [], contact_model="LVCForce")
+    """Both contact models are ported (LVCForce: ``test_torch_lvc_force``);
+    the ``[N, K]`` list grid and unknown models are not."""
+    assert DEMScheme(["g"], [], contact_model="LVCForce").contact_model \
+        == "LVCForce"
+    with pytest.raises(ValueError):
+        DEMScheme(["g"], [], contact_model="Hertz")
     with pytest.raises(ValueError):
         DEMScheme(["g"], [], dem_grid="nklist")
