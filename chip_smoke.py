@@ -137,11 +137,36 @@ no result line):
     through the port's ``Application``, gated by the port's
     ``check_benchmark_2`` (momentum < 1e-2, both cubes rebound); one K1
     and one K2 launch a step; prints steps/s;
-28. a JSON line of per-kernel numbers (``launches`` from the kernel's
+28. the rigid slab step (``parallel/slab.py``) on phase 4's stack,
+    SLAB_P = 4 slabs on the card, blob route: 20 slab steps against 20
+    single-device steps and against 20 slab steps on the kernels'
+    plain versions, from one state with the blocks sliding (velocities
+    and the bodies' state within STEP_RTOL, positions as their change
+    over the steps, by gid); 4 K1 and 4 K2 launches a step and nothing
+    else; some slab with interesting slots; K1 and K2 on each slab's
+    extended scene against their twins, timed; then 200 steps with an
+    on-device redistribution every 50 under phase 4's gates, and the
+    steps/s of 4 slabs and of one;
+29. the 3D cubes of phase 5a on the most slabs of at least 2 cell
+    columns each, on the blob and the full ``[N, S]`` routes (K2 on
+    every slot of each slab), each route's 20-step comparisons (against
+    the slab step on one slab in place of the single-device step) and
+    per-slab K2 as in phase 28;
+30. the DEM slab step on phase 7's column, 4 slabs on the card: 20
+    steps against 20 single-device and 20 plain slab steps (the tables
+    as gid-keyed maps), 4 K1 and 4 K4 launches a step, live contacts
+    every step, the tables unchanged by an on-device redistribution,
+    K4 on each slab's extended scene against its twin, timed, and 100
+    steps with a redistribution every 50;
+31. with 2 or more cards, phase 28's comparisons with one slab a card
+    (on one card it prints that it did not run);
+32. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
-    ``coupling-rk2`` and ``benchmark-2`` among them; K2's 3D times at the set-up ``ni_max`` and
+    ``coupling-rk2``, ``benchmark-2``, ``slab-rigid-2d``,
+    ``slab-rigid-3d`` and ``slab-dem-2d`` among them, with each slab's
+    K1, K2 and K4 times; K2's 3D times at the set-up ``ni_max`` and
     on every interesting row beside its 2D time; K1 on the 3D rigid pack
     and on the 2D and 3D coupling packs; every fluid pass's 3D time;
     ptxas's registers, static and dynamic shared memory and spills of
@@ -213,6 +238,19 @@ CPL_TANK_STEPS = 50
 CPL_NOFLUID_STEPS = 50
 # the rigid steppers' main paths (phases 23-24)
 STEPPER_STEPS = 100
+# the slab phases (28-31): slabs on the card (2D rigid, DEM); the 3D
+# phase takes the most slabs of at least 2 cell columns each
+SLAB_P = 4
+# the slab comparisons' bodies slide: each gets a seeded velocity of up
+# to this (m/s) in each axis of the plane (as the coupling comparisons'
+# box slides: at zero tangential velocity the Coulomb friction's
+# direction is the rounding noise of the tangent, and the kernels' sums
+# round apart from their plain versions')
+SLAB_SLIDE = 0.01
+# the rigid slab comparisons hold positions and xcm as the change over
+# the 20 steps (~SLAB_SLIDE x 20 DT = 2e-5 m), which float32 positions
+# of up to ~1 m resolve only to ~1e-7 m: a floor of 2 ulp of the largest
+SLAB_ULPS = 2
 FLUID_SUM_RTOL = 2e-5      # f32 summation order of the fluid sums
 # the step comparison's box: 8 times the fluid's density (steel in
 # water), so the floor contact it starts in lasts the 20 steps (the
@@ -411,11 +449,13 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf"):
 # phases
 # ---------------------------------------------------------------------------
 
-def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label):
+def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label,
+                 plain_reps=REPS):
     """K2 on the first ``ni`` interesting rows against its twin (picks
-    bit for bit, sums within SUM_RTOL), timed, with its bound.  Returns
-    the numbers (with the rows' interesting-slot count), the output and
-    the rows' slots and validity."""
+    bit for bit, sums within SUM_RTOL), timed (the twin over
+    ``plain_reps`` calls), with its bound.  Returns the numbers (with
+    the rows' interesting-slot count), the output and the rows' slots
+    and validity."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
 
     qsel, nbr, valid, _, n_int = tck.select_queries(dfT, grid, pt, cfg, ni)
@@ -439,7 +479,8 @@ def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label):
     t = dict(err=float((out - out_ref).abs().max()), rows=rows,
              ni=qsel.shape[0], n_int=n_int,
              ms=cuda_ms(lambda: tck.contact_sums(*args)),
-             plain_ms=cuda_ms(lambda: tck.contact_sums_reference(*args)))
+             plain_ms=cuda_ms(lambda: tck.contact_sums_reference(*args),
+                              reps=plain_reps, warmup=min(3, plain_reps)))
     # least time: K2 needs the F fields of the particles in the slots that
     # the rows' stencils reach and writes 12S values per live query lane
     # (the sentinel lanes of the pack and the stencil are layout, not
@@ -1976,6 +2017,521 @@ def phase_sinking_box_resume(tmp, smi):
     return launches, full.solver.steps_per_sec
 
 
+# ---------------------------------------------------------------------------
+# slab decomposition (parallel/slab.py): P slabs on a list of devices
+# ---------------------------------------------------------------------------
+
+def _slab_gathered(parts):
+    """The slabs gathered on slab 0's device, and its active rows in gid
+    order."""
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+
+    g = sl.gather_slab_scene(parts)
+    rows = torch.nonzero(g.active).squeeze(1)
+    return g, rows[torch.argsort(g.gid[rows])]
+
+
+def _slab_close(label, what, a, b, floor=0.0, gate=True):
+    """a within STEP_RTOL of b (|a - b| <= rtol |b| + rtol max |b|
+    + floor), checked if ``gate``; returns the largest difference."""
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    if gate:
+        check(bool(((a - b).abs() <= STEP_RTOL * b.abs()
+                    + STEP_RTOL * scale + floor).all()),
+              f"{label}: {what} off by {err:.3e} (scale {scale:.3e}, rtol "
+              f"{STEP_RTOL})")
+    return f"{what} {err:.3e} (scale {scale:.3e})"
+
+
+def _slab_compare(label, a, ra, b, rb, keys, body_keys=(), x0=None,
+                  ulps=0, gate=True):
+    """The rows ``ra`` of the gathered slab state ``a`` against the rows
+    ``rb`` of ``b`` (another gathered slab state or a single-device
+    scene), and the body fields.  A field in ``x0`` (the start state: by
+    gid for a row field) is compared as the change from it, within
+    STEP_RTOL of the change plus ``ulps`` x eps x max |start value|:
+    a particle's position is its body's xcm plus its rotated offset, so
+    a float32 position resolves the change of a few steps only to the
+    ulp of the largest coordinates.  ``gate=False`` only reports."""
+    x0 = x0 or {}
+
+    def one(k, x, y):
+        floor = 0.0
+        if k in x0:
+            x, y = x - x0[k], y - x0[k]
+            floor = ulps * torch.finfo(x.dtype).eps * float(
+                x0[k].abs().max())
+        return _slab_close(label, k, x, y, floor, gate)
+
+    out = [one(k, a[k][ra], b[k][rb]) for k in keys]
+    out += [one(k, a[k], b[k]) for k in body_keys]
+    return out
+
+
+def _slab_launch_gate(label, launches, want):
+    for k, v in launches.items():
+        check(v == want.get(k, 0), f"{label}: {k} launched {v} times, "
+              f"expected {want.get(k, 0)}")
+
+
+def _slab_stat(p):
+    """A slab's work a step: interesting slots (rigid blob route), live
+    contacts (DEM), else 0."""
+    if "n_interesting" in p:
+        return p.n_interesting
+    if "total_tng_contacts" in p:
+        return p.total_tng_contacts.sum()
+    return torch.zeros((), dtype=torch.int64, device=p.device)
+
+
+def _slab_steps(make, parts, n, dt, label, scheme=None):
+    """``n`` steps of ``make()``'s step from ``parts``; on an overflow
+    (the cull's row capacity, the halo or the local grid) the rigid
+    scheme's capacity boost is raised 1.5x and the run repeated, as the
+    Solver's rule does.  Returns (end parts, launches, per-step n_interesting
+    or live contacts as tensors, seconds)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    for attempt in range(5):
+        step = make()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, stats = parts, []
+        for _ in range(n):
+            a = step(a, dt)
+            stats.append(torch.stack([_slab_stat(p).to(a[0].device)
+                                      for p in a]))
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        if not any(bool(p.nbr_overflow) for p in a):
+            return a, launches, torch.stack(stats).cpu().numpy(), el
+        check(scheme is not None and attempt < 4,
+              f"{label}: overflow in the slab steps")
+        scheme.capacity_boost = float(scheme.capacity_boost) * 1.5
+        print(f"[{label}] overflow: capacity boost raised to "
+              f"{scheme.capacity_boost:.3g}, steps repeated", flush=True)
+
+
+def _single_steps(scheme, scene, label):
+    """COMPARE_STEPS single-device steps from ``scene`` under the
+    overflow-rebuild rule of phase 4 (from the same start)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
+
+    start = scene
+    for rebuilds in range(5):
+        out = trb.make_multi_step(scheme.make_step(start),
+                                  COMPARE_STEPS)(start, DT)
+        if not bool(out.nbr_overflow):
+            return out
+        check(rebuilds < 4, f"{label}: single-device overflow persists")
+        scheme.refresh_configs(start, grow=rebuilds > 0)
+        start = scheme.adapt_scene(start)
+        print(f"[{label}] single-device steps: capacity overflow, rebuilt "
+              f"(x{rebuilds + 1})", flush=True)
+
+
+def slab_config_for(scene, base, P, label):
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+
+    cfg = sl.make_slab_config(scene, base, P)
+    interior = base.dims[0] - 2 * base.sub
+    last = interior - (P - 1) * cfg.slab_cells
+    check(cfg.slab_cells >= 2 and last >= 2, f"{label}: a slab under 2 "
+          f"cells wide (slab_cells {cfg.slab_cells}, last {last})")
+    print(f"[{label}] P={P}: slab_cells {cfg.slab_cells} of {interior} "
+          f"interior columns (last slab {last}), n_cap {cfg.n_cap}, "
+          f"halo_cap {cfg.halo_cap}, nc_max_local {cfg.nc_max_local}, "
+          f"O {base.O}", flush=True)
+    return cfg
+
+
+def largest_slab_count(base):
+    """The most slabs with every slab at least 2 interior cell columns."""
+    interior = base.dims[0] - 2 * base.sub
+    for P in range(interior // 2, 0, -1):
+        w = -(-interior // P)
+        if w >= 2 and interior - (P - 1) * w >= 2:
+            return P
+    return 1
+
+
+def slab_k2_per_slab(step, parts, cfg, scheme, label, every_slot=False):
+    """K1 and K2 on each slab's extended scene (the slab step's own
+    exchange), against their twins, timed: the culled rows of a slab
+    with interesting slots, or every slot.  Returns per-slab numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+
+    kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    lcfg = sl.local_grid_config(cfg)
+    _, exts, _ = step.exchange(parts, DT)
+    out = []
+    for d, e in enumerate(exts):
+        with sl.on_device(e.device):
+            t = _slab_k2(e, d, lcfg, kernel, scheme, label, every_slot)
+        if t is not None:
+            out.append(t)
+    check(len(out) > 0, f"{label}: no slab with interesting slots")
+    return out
+
+
+def _slab_k2(e, d, lcfg, kernel, scheme, label, every_slot):
+    """K1 and K2 on slab d's extended scene ``e`` (None: no interesting
+    slot)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import pack_expand as tpe
+
+    S = e.meta.total_no_bodies
+    init = 4.0 * e.meta.spacing0
+    grid, pt, dfT = tck.pack_scene(e, lcfg)
+    sent = torch.tensor(tck.sent_fields(scheme.dim == 2),
+                        device=e.device)
+    k1 = (pt.sorted_fields, pt.base, pt.cnt, sent, lcfg.M)
+    check(torch.equal(dfT, tpe.expand_slots_reference(*k1)),
+          f"{label} slab {d}: pack expansion != twin")
+    check(not bool(grid.overflow), f"{label} slab {d}: grid overflow")
+    n_int = int(tck.select_queries(dfT, grid, pt, lcfg,
+                                   scheme.ni_max(lcfg))[4])
+    if n_int == 0:
+        return None
+    if every_slot:
+        t, _ = contact_all_slots(dfT, grid, lcfg, kernel, S, init,
+                                 f"{label} slab {d} every slot",
+                                 timed=True)
+        t["bound"] = t["bound_ms"]
+    else:
+        t = contact_rows(dfT, grid, pt, lcfg, kernel, S, init,
+                         scheme.ni_max(lcfg), f"{label} slab {d}",
+                         plain_reps=3)[0]
+    t.update(slab=d, n=int(e.active.sum()), n_int=n_int,
+             pack_ms=cuda_ms(lambda: tpe.expand_slots(*k1)))
+    return t
+
+
+def phase_slab_rigid(scheme, scene, dx, smi, label, P, devices=None,
+                     routes=("blob",), long_steps=0, single_steps=0,
+                     one_slab_ref=False):
+    """The rigid slab step (``parallel/slab.py``) on ``P`` slabs of
+    ``devices`` (default: P slabs on the first card): for each route,
+    20 kernel steps against 20 single-device steps and against 20 steps
+    of the slab step on the kernels' plain versions, from one state with
+    the bodies sliding (SLAB_SLIDE; particle and body velocities within
+    STEP_RTOL, positions and xcm as the change from the start state
+    within STEP_RTOL of it plus SLAB_ULPS ulp, by gid); P x (K1, K2)
+    launches a step and nothing else; K1 and K2 on
+    each slab's extended scene against their twins, timed.  The
+    single-device steps are the scheme's ``make_step``, or with
+    ``one_slab_ref`` the slab step on one slab of one device (the same
+    float64 body sums: ``make_step`` sums in float32, whose rounding the
+    3D cubes' contact amplifies past STEP_RTOL in 20 steps; its numbers
+    are printed, not gated).  Then, with
+    ``long_steps``, that many blob steps in chunks of 50 with an
+    on-device redistribution after each, under phase 4's gates, and the
+    steps/s of P slabs and (``single_steps``) of one slab.  Returns the
+    numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel.mesh import make_mesh
+
+    kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    base = scheme.cell_config(scene, kernel)
+    scene = sl.attach_gids(scene)
+    cfg = slab_config_for(scene, base, P, label)
+    mesh = make_mesh(P, devices or [scene.device] * P)
+    dim = scheme.dim
+    keys = ("x", "y", "z")[:dim] + ("u", "v", "w")[:dim]
+    body = ("xcm", "vcm", "omega")
+    # the start state (rows in gid order): positions and xcm compared as
+    # their change from it
+    x0 = {k: scene[k].clone() for k in ("x", "y", "z")[:dim] + ("xcm",)}
+    rng = np.random.default_rng(17)
+    slide = rng.uniform(-SLAB_SLIDE, SLAB_SLIDE, (scene.meta.nb, 3))
+    slide[:, 2 if dim == 2 else 1] = 0.0   # 3D: sliding on the floor
+    rest, scene = scene, scheme.set_linear_velocity(scene, slide)
+    res = dict(P=P, slab_cells=cfg.slab_cells, launches={}, k2={})
+    single = None
+    for route in routes:
+        rl = f"{label} {route}"
+        parts0 = sl.shard_slab_scene(
+            sl.slab_decompose(scene, cfg, use_blob=route == "blob"), mesh)
+        a, launches, stats, _ = _slab_steps(
+            lambda: sl.make_slab_step(scheme, parts0, mesh, cfg), parts0,
+            COMPARE_STEPS, DT, rl, scheme)
+        _slab_launch_gate(rl, launches, dict(
+            pack_expand=P * COMPARE_STEPS, contact=P * COMPARE_STEPS))
+        res["launches"][route] = launches
+        if route == "blob":
+            check(bool((stats.max(1) > 0).all()), f"{rl}: a step with no "
+                  "interesting slot on any slab")
+        b, _, _, _ = _slab_steps(
+            lambda: sl.make_slab_step(scheme, parts0, mesh, cfg,
+                                      plain=True), parts0, COMPARE_STEPS,
+            DT, rl + " plain")
+        if single is None:
+            single = _single_steps(scheme, scene, label)
+        ga, ra = _slab_gathered(a)
+        gb, rb = _slab_gathered(b)
+        check(ra.shape[0] == scene.n, f"{rl}: {ra.shape[0]} active rows "
+              f"for {scene.n} particles")
+        all_rows = torch.arange(scene.n, device=scene.device)
+        ref, ref_rows, ref_name = single, all_rows, "single-device steps"
+        if one_slab_ref:
+            print(f"[{label}] {route} route: vs make_step (float32 body "
+                  f"sums; not gated): " + ", ".join(_slab_compare(
+                      rl, ga, ra, single, all_rows, keys, body, x0,
+                      gate=False)), flush=True)
+            cfg1 = slab_config_for(scene, base, 1, f"{rl} P=1")
+            mesh1 = make_mesh(1, [scene.device])
+            parts1 = sl.shard_slab_scene(sl.slab_decompose(
+                scene, cfg1, use_blob=route == "blob"), mesh1)
+            # one slab culls more rows than any of the P: its overflow
+            # boost stays out of the P-slab measurements that follow
+            boost = scheme.capacity_boost
+            one, _, _, _ = _slab_steps(
+                lambda: sl.make_slab_step(scheme, parts1, mesh1, cfg1),
+                parts1, COMPARE_STEPS, DT, rl + " P=1", scheme)
+            scheme.capacity_boost = boost
+            ref, ref_rows = _slab_gathered(one)
+            ref_name = "steps of one slab"
+        w1 = _slab_compare(f"{rl} vs {ref_name}", ga, ra, ref, ref_rows,
+                           keys, body, x0, SLAB_ULPS)
+        w2 = _slab_compare(f"{rl} vs plain", ga, ra, gb, rb, keys, body, x0,
+                           SLAB_ULPS)
+        print(f"[{label}] {route} route: {COMPARE_STEPS} slab steps "
+              f"(interesting slots a slab a step max "
+              f"{int(stats.max()) if route == 'blob' else '-'}) vs "
+              f"{COMPARE_STEPS} {ref_name}: " + ", ".join(w1), flush=True)
+        print(f"[{label}] {route} route: {COMPARE_STEPS} kernel slab steps "
+              f"vs {COMPARE_STEPS} plain slab steps: " + ", ".join(w2),
+              flush=True)
+        step = sl.make_slab_step(scheme, a, mesh, cfg)
+        res["k2"][route] = slab_k2_per_slab(step, a, cfg, scheme, rl,
+                                            every_slot=route == "full")
+        del a, b, ga, gb, parts0
+    if long_steps:
+        res.update(slab_rigid_long(scheme, rest, dx, smi, label, cfg, mesh,
+                                   long_steps))
+    if single_steps:
+        cfg1 = slab_config_for(rest, base, 1, f"{label} P=1")
+        mesh1 = make_mesh(1, [rest.device])
+        res["sps_p1"] = slab_rigid_long(
+            scheme, rest, dx, smi, f"{label} P=1", cfg1, mesh1,
+            single_steps)["sps"]
+    return res
+
+
+def slab_rigid_long(scheme, scene, dx, smi, label, cfg, mesh, n_steps):
+    """``n_steps`` blob slab steps in chunks of CHUNK with an on-device
+    redistribution after each chunk (the overflow rule on a chunk that
+    overflows), under phase 4's gates.  Returns launches and steps/s."""
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+
+    P = mesh.size
+    parts = sl.shard_slab_scene(sl.slab_decompose(scene, cfg, True), mesh)
+    redis = sl.make_slab_redistribute(parts, mesh, cfg)
+    done, chunk_s, launches = 0, [], {}
+    xcm0 = scene.xcm.clone()
+    n_int = []
+    while done < n_steps:
+        start = parts
+        parts, lc, stats, el = _slab_steps(
+            lambda: sl.make_slab_step(scheme, start, mesh, cfg), start,
+            CHUNK, DT, label, scheme)
+        _slab_launch_gate(label, lc, dict(pack_expand=P * CHUNK,
+                                          contact=P * CHUNK))
+        for k, v in lc.items():
+            launches[k] = launches.get(k, 0) + v
+        t0 = time.perf_counter()
+        parts = redis(parts)
+        torch.cuda.synchronize()
+        el_r = time.perf_counter() - t0
+        check(not any(bool(p.nbr_overflow) for p in parts),
+              f"{label}: overflow in the redistribution")
+        chunk_s.append(el + el_r)
+        n_int.append(stats.max(1))
+        done += CHUNK
+        print(f"[{label}] steps {done - CHUNK}-{done}: {el:.3f} s + "
+              f"redistribution {el_r * 1e3:.2f} ms, interesting slots a "
+              f"step (max over slabs) {int(stats.max(1).min())}-"
+              f"{int(stats.max(1).max())}", flush=True)
+    g, _ = _slab_gathered(parts)
+    S = g.meta.total_no_bodies
+    for k, v in g.fields.items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
+    ov = float(g.slot_blob[:, 21 * S:22 * S].max())
+    check(ov > 0, f"{label}: no overlap: the contact kernel did no work")
+    d = scheme.dim
+    drift = float((g.xcm[:, :d] - xcm0[:, :d]).norm(dim=1).max())
+    check(drift < 2 * dx, f"{label}: COM drift {drift:.3e} >= 2 dx")
+    fall = 0.5 * G * (done * DT) ** 2
+    drop = float((xcm0[:, 1] - g.xcm[:, 1]).max())
+    check(drop < 0.5 * fall, f"{label}: a block dropped {drop:.3e}, >= "
+          f"half the free-fall distance {fall:.3e}")
+    steady = chunk_s[1:] or chunk_s
+    sps = CHUNK * len(steady) / sum(steady)
+    print(f"[{label}] P={P} n={scene.n} steps={done} launches "
+          f"pack={launches['pack_expand']} contact={launches['contact']} "
+          f"({P} each a step) | max overlap {ov:.4e} ({ov / dx:.3f} dx) | "
+          f"max COM drift {drift:.4e} | max drop {drop:.4e} (free fall "
+          f"{fall:.4e}) | {sps:.2f} steps/s steady (chunks 2+, with the "
+          f"redistributions), on {smi}", flush=True)
+    return dict(launches_long=launches, sps=sps)
+
+
+def phase_slab_dem(smi, P, dev, timings):
+    """The DEM slab step on phase 7's column, P slabs on ``dev``: 20
+    kernel steps against 20 single-device steps and 20 plain slab steps
+    (positions as displacements, velocities, spin, force and torque
+    within STEP_RTOL; the tables equal as gid-keyed (partner, dem) ->
+    spring maps); P x (K1, K4) launches a step; live contacts every step;
+    an on-device redistribution keeps the tables; K4 on each slab's
+    extended scene against its twin, timed; then 100 steps in chunks of
+    50 with a redistribution after each.  Returns the numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel.mesh import make_mesh
+
+    label = "slab-dem-2d"
+    scheme, scene = dem_scene(dev, 2)
+    scene = sl.attach_gids(scene)
+    n = scene.n
+    cfg = slab_config_for(scene, scheme.cell_config(scene), P, label)
+    mesh = make_mesh(P, [dev] * P)
+    parts0 = sl.shard_slab_scene(sl.slab_decompose(scene, cfg), mesh)
+    make = lambda plain=False: (
+        lambda: sl.make_slab_dem_step(scheme, parts0, mesh, cfg, n,
+                                      plain=plain))
+    a, launches, live, el = _slab_steps(make(), parts0, COMPARE_STEPS,
+                                        DEM_DT, label)
+    _slab_launch_gate(label, launches, dict(pack_expand=P * COMPARE_STEPS,
+                                            dem_cell=P * COMPARE_STEPS))
+    check(bool((live.sum(1) > 0).all()), f"{label}: a step with no live "
+          "contact")
+    b, _, _, _ = _slab_steps(make(True), parts0, COMPARE_STEPS, DEM_DT,
+                             label + " plain")
+    single = scene
+    sstep = scheme.make_step(scene)
+    for _ in range(COMPARE_STEPS):
+        single = sstep(single, DEM_DT)
+    torch.cuda.synchronize()
+    check(not bool(single.nbr_overflow), f"{label}: single-device overflow")
+    ga, ra = _slab_gathered(a)
+    gb, rb = _slab_gathered(b)
+    check(ra.shape[0] == n, f"{label}: {ra.shape[0]} active rows for {n}")
+    keys = ("x", "y", "u", "v", "wz", "fx", "fy", "torz")
+    x0 = {k: scene[k] for k in ("x", "y")}
+    all_rows = torch.arange(n, device=dev)
+    w1 = _slab_compare(f"{label} vs single device", ga, ra, single,
+                       all_rows, keys, x0=x0)
+    w2 = _slab_compare(f"{label} vs plain", ga, ra, gb, rb, keys, x0=x0)
+
+    def tables(sc, rows):
+        t = sc.with_fields(**{k: sc[k][rows] for k in (
+            "tng_idx", "tng_idx_dem_id", "tng_x", "tng_y", "tng_z")})
+        return _sorted_tables(t)
+
+    def same_tables(what, p, q):
+        (ka, sa), (kb, sb) = p, q
+        rows = int((ka != kb).any(1).sum())
+        check(rows == 0, f"{label}: {what}: {rows} rows hold other "
+              "contacts")
+        d = (sa - sb).abs()
+        check(bool((d <= STEP_RTOL * sb.abs()
+                    + STEP_RTOL * float(sb.abs().max())).all()),
+              f"{label}: {what}: springs off by {float(d.max()):.3e}")
+        return float(d.max())
+
+    ta = tables(ga, ra)
+    e1 = same_tables("vs single device", ta, tables(single, all_rows))
+    e2 = same_tables("vs plain", ta, tables(gb, rb))
+    redis = sl.make_slab_redistribute(a, mesh, cfg)
+    a2 = redis(a)
+    check(not any(bool(p.nbr_overflow) for p in a2),
+          f"{label}: overflow in the redistribution")
+    g2, r2 = _slab_gathered(a2)
+    same_tables("after the redistribution", tables(g2, r2), ta)
+    print(f"[{label}] {COMPARE_STEPS} slab steps vs {COMPARE_STEPS} "
+          f"single-device steps: " + ", ".join(w1) + f"; tables equal as "
+          f"gid-keyed maps (springs {e1:.3e})", flush=True)
+    print(f"[{label}] {COMPARE_STEPS} kernel slab steps vs {COMPARE_STEPS} "
+          f"plain slab steps: " + ", ".join(w2) + f"; tables equal (springs "
+          f"{e2:.3e}); after an on-device redistribution the tables are "
+          "the same gid-keyed maps", flush=True)
+
+    # K4 on each slab's extended scene (tables translated to rows, as
+    # the step does), against its twin, timed
+    step = make()()
+    _, exts, _ = step.exchange(a2, DEM_DT)
+    lcfg = sl.local_grid_config(cfg)
+    per = []
+    for d, e in enumerate(exts):
+        if int(e.is_rigid.sum()) == 0:
+            continue
+        row = tdk.gid_rows(e, n)[torch.clamp(e.tng_idx.long(), 0, n)]
+        idx = torch.where((e.tng_idx >= 0) & (row < e.n), row,
+                          -1).to(torch.int32)
+        tabs = (idx, e.tng_idx_dem_id, e.tng_x, e.tng_y, e.tng_z)
+        kern, plain, args, grid, lanes = dem_kernel_call(scheme, e, lcfg,
+                                                         tabs)
+        check(not bool(grid.overflow), f"{label} slab {d}: grid overflow")
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err, spring_err = dem_compare(got, ref, f"{label} slab {d}")
+        gated = int(ref[0][:, 7].sum())
+        L = idx.shape[1]
+        n_bytes = 4 * int(e.active.sum()) * (tdk.NF + 8 + 2 * 5 * L)
+        bms, bby = bound(n_bytes, lanes * OPS_PER_LANE
+                         + gated * OPS_PER_DEM_PAIR)
+        t = dict(slab=d, n=int(e.active.sum()), gated=gated, lanes=lanes,
+                 err=max(err, spring_err), ms=cuda_ms(lambda: kern(*args)),
+                 plain_ms=cuda_ms(lambda: plain(*args), reps=3, warmup=1),
+                 bound_ms=bms, bound_by=bby)
+        print(f"[{label}] slab {d}: K4 on {t['n']} rows with ghosts, "
+              f"{gated} gated pairs, {lanes} candidate lanes: "
+              f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+              f"{bms:.4f} ms by {bby}); tables exact, max abs err "
+              f"{t['err']:.3e}", flush=True)
+        per.append(t)
+    check(len(per) > 0, f"{label}: no slab holds grains")
+    timings[label] = per
+
+    # 100 steps in chunks of 50, a redistribution after each
+    parts, done, chunk_s, tot = a2, 0, [], {}
+    while done < 2 * CHUNK:
+        start = parts
+        parts, lc, live, el = _slab_steps(
+            lambda: sl.make_slab_dem_step(scheme, start, mesh, cfg, n),
+            start, CHUNK, DEM_DT, label)
+        _slab_launch_gate(label, lc, dict(pack_expand=P * CHUNK,
+                                          dem_cell=P * CHUNK))
+        check(bool((live.sum(1) > 0).all()), f"{label}: a step with no "
+              "live contact")
+        for k, v in lc.items():
+            tot[k] = tot.get(k, 0) + v
+        t0 = time.perf_counter()
+        parts = redis(parts)
+        torch.cuda.synchronize()
+        chunk_s.append(el + time.perf_counter() - t0)
+        check(not any(bool(p.nbr_overflow) for p in parts),
+              f"{label}: overflow in the redistribution")
+        done += CHUNK
+    g, _ = _slab_gathered(parts)
+    for k, v in g.fields.items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
+    sps = CHUNK * len(chunk_s[1:]) / sum(chunk_s[1:])
+    print(f"[{label}] P={P} n={n} {COMPARE_STEPS} + {done} steps, launches "
+          f"{tot} ({P} K1 and {P} K4 a step) | live contacts every step | "
+          f"{sps:.2f} steps/s (chunk 2, with its redistribution), on {smi}",
+          flush=True)
+    tot = {k: launches.get(k, 0) + tot.get(k, 0) for k in launches}
+    return dict(launches=launches, launches_long=tot, sps=sps, P=P)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -2218,6 +2774,45 @@ def main() -> int:
         # 27. benchmark 2 to its tf through the Application
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             b2_launches, b2_sps = phase_benchmark_2(tmp, smi)
+
+        # 28. the rigid slab step on phase 4's stack, SLAB_P slabs on the
+        # card (blob route), its 200-step run with redistributions, and
+        # the steps/s of one slab
+        from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+        sscheme, sscene, sdx = contact_scene_2d(dev)
+        slab2 = phase_slab_rigid(sscheme, sscene, sdx, smi, "slab-rigid-2d",
+                                 SLAB_P, long_steps=N_STEPS,
+                                 single_steps=2 * CHUNK)
+        del sscheme, sscene
+
+        # 29. the 3D cubes on the most slabs of at least 2 cell columns,
+        # the blob and the full [N, S] routes
+        s3scheme, s3scene, s3dx = contact_scene_3d(dev)
+        P3 = largest_slab_count(s3scheme.cell_config(
+            s3scene, get_kernel(s3scheme.kernel_name, 3)))
+        slab3 = phase_slab_rigid(s3scheme, s3scene, s3dx, smi,
+                                 "slab-rigid-3d", P3, routes=("blob", "full"),
+                                 one_slab_ref=True)
+        del s3scheme, s3scene
+
+        # 30. the DEM slab step on phase 7's column
+        slab_t = {}
+        slabd = phase_slab_dem(smi, SLAB_P, dev, slab_t)
+
+        # 31. the 2D rigid slab step with one slab a card
+        n_cards = torch.cuda.device_count()
+        slab_cards = None
+        if n_cards >= 2:
+            P_cards = min(n_cards, SLAB_P)
+            cscheme, cscene, cdx = contact_scene_2d(dev)
+            slab_cards = phase_slab_rigid(
+                cscheme, cscene, cdx, smi, "slab-rigid-2d-cards", P_cards,
+                devices=[torch.device("cuda", d) for d in range(P_cards)])
+            del cscheme, cscene
+        else:
+            print("[slab-rigid-2d-cards] not run: one card on this machine "
+                  "(the phase puts one slab on each of 2-4 cards)",
+                  flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2237,7 +2832,14 @@ def main() -> int:
         ("benchmark-5-2d", b5_launches),
         ("sinking-box-case", sbr_launches), ("rigid-rk2", rk2_launches),
         ("rigid-leapfrog", lf_launches), ("coupling-rk2", crk2_launches),
-        ("dem-lvcforce", lvcf_launches), ("benchmark-2", b2_launches))
+        ("dem-lvcforce", lvcf_launches), ("benchmark-2", b2_launches),
+        ("slab-rigid-2d", slab2["launches_long"]),
+        ("slab-rigid-3d", {q: slab3["launches"]["blob"][q]
+                           + slab3["launches"]["full"][q]
+                           for q in slab3["launches"]["blob"]}),
+        ("slab-dem-2d", slabd["launches_long"]))
+        + ((("slab-rigid-2d-cards", slab_cards["launches"]["blob"]),)
+           if slab_cards else ())
         if c[k]}
     fluid_err = lambda k: max(fl_t[lab][k]["err"] for lab in fl_t
                               if k in fl_t[lab])
@@ -2373,6 +2975,30 @@ def main() -> int:
                 **{"tait_" + k: v for k, v in rates_resources(
                     False, True, 1, ft).items()})
         kernels.append(entry)
+    # the slab paths' kernels, slab by slab (phases 28-30)
+    cols = ("slab", "n", "n_int", "ms", "plain_ms", "bound", "bound_by",
+            "err")
+    per = lambda rows, ks=cols: [{k: r[k] for k in ks} for r in rows]
+    by_name = {kd["name"]: kd for kd in kernels}
+    slab_k2 = slab2["k2"]["blob"] + slab3["k2"]["blob"] + slab3["k2"]["full"]
+    by_name["pack_expand"].update(
+        slab_rigid_2d_ms=[r["pack_ms"] for r in slab2["k2"]["blob"]],
+        slab_rigid_3d_ms=[r["pack_ms"] for r in slab3["k2"]["blob"]])
+    by_name["contact_sums"].update(
+        max_abs_err=max([by_name["contact_sums"]["max_abs_err"]]
+                        + [r["err"] for r in slab_k2]),
+        slab_rigid_2d=per(slab2["k2"]["blob"]),
+        slab_rigid_3d=per(slab3["k2"]["blob"]),
+        slab_rigid_3d_all_slots=per(slab3["k2"]["full"]))
+    sd = slab_t["slab-dem-2d"]
+    by_name["dem_cell"].update(
+        max_abs_err=max([by_name["dem_cell"]["max_abs_err"]]
+                        + [r["err"] for r in sd]),
+        slab_dem_2d=per(sd, ("slab", "n", "gated", "ms", "plain_ms",
+                             "bound_ms", "bound_by", "err")))
+    print(f"[done] slab: rigid 2D P={SLAB_P} {slab2['sps']:.2f} steps/s, "
+          f"P=1 {slab2['sps_p1']:.2f} steps/s; 3D P={slab3['P']}; DEM 2D "
+          f"P={SLAB_P} {slabd['sps']:.2f} steps/s; on {smi}", flush=True)
     print(f"[done] rigid {main_stats['steps_per_s']:.2f} steps/s at "
           f"n={main_stats['n']}, 3D {stats3['steps_per_s']:.2f} steps/s at "
           f"n={stats3['n']}; DEM spill {dem_sps:.2f} steps/s, row-window "

@@ -38,6 +38,49 @@ from ..state.scene import Scene
 from .base import Scheme
 
 
+def dem_half_kick(scene: Scene, mobile, half) -> Scene:
+    """Velocity and spin of the ``mobile`` rows kicked by ``half`` of a
+    step with the stored force and torque."""
+    m_inv = 1.0 / scene.m
+    I_inv = 1.0 / scene.moi
+    sel = lambda new, old: torch.where(mobile, new, old)
+    return scene.replace(
+        u=sel(scene.u + half * scene.fx * m_inv, scene.u),
+        v=sel(scene.v + half * scene.fy * m_inv, scene.v),
+        w=sel(scene.w + half * scene.fz * m_inv, scene.w),
+        wx=sel(scene.wx + half * scene.torx * I_inv, scene.wx),
+        wy=sel(scene.wy + half * scene.tory * I_inv, scene.wy),
+        wz=sel(scene.wz + half * scene.torz * I_inv, scene.wz))
+
+
+def dem_apply_pass(scene: Scene, r: dk.DemPass, springs, mobile,
+                   gx, gy, gz) -> Scene:
+    """The contact pass's tables and overflow, and the force and torque
+    assembly: gravity plus the contact sums on the mobile active rows,
+    zero elsewhere."""
+    gmask = mobile & scene.active
+    zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
+    return scene.replace(
+        tng_idx=r.tng_idx, tng_idx_dem_id=r.tng_dem,
+        **dict(zip(springs, (r.tng_x, r.tng_y, r.tng_z))),
+        total_tng_contacts=r.count,
+        nbr_overflow=scene.nbr_overflow | r.overflow,
+        fx=torch.where(gmask, scene.m * gx + r.fx, zero),
+        fy=torch.where(gmask, scene.m * gy + r.fy, zero),
+        fz=torch.where(gmask, scene.m * gz + r.fz, zero),
+        torx=torch.where(gmask, r.torx, zero),
+        tory=torch.where(gmask, r.tory, zero),
+        torz=torch.where(gmask, r.torz, zero))
+
+
+def dem_drift(scene: Scene, mobile, dt) -> Scene:
+    """Positions of the ``mobile`` rows advanced by ``dt``."""
+    sel = lambda new, old: torch.where(mobile, new, old)
+    return scene.replace(x=sel(scene.x + dt * scene.u, scene.x),
+                         y=sel(scene.y + dt * scene.v, scene.y),
+                         z=sel(scene.z + dt * scene.w, scene.z))
+
+
 class DEMScheme(Scheme):
     name = "dem"
 
@@ -198,41 +241,14 @@ class DEMScheme(Scheme):
                 mob[g.start:g.stop] = True
         mobile = torch.as_tensor(mob, device=scene.device)
 
-        def half_kick(scene, half):
-            m_inv = 1.0 / scene.m
-            I_inv = 1.0 / scene.moi
-            sel = lambda new, old: torch.where(mobile, new, old)
-            return scene.replace(
-                u=sel(scene.u + half * scene.fx * m_inv, scene.u),
-                v=sel(scene.v + half * scene.fy * m_inv, scene.v),
-                w=sel(scene.w + half * scene.fz * m_inv, scene.w),
-                wx=sel(scene.wx + half * scene.torx * I_inv, scene.wx),
-                wy=sel(scene.wy + half * scene.tory * I_inv, scene.wy),
-                wz=sel(scene.wz + half * scene.torz * I_inv, scene.wz))
-
         def step(scene: Scene, dt: float) -> Scene:
             half = 0.5 * dt
-            scene = half_kick(scene, half)
+            scene = dem_half_kick(scene, mobile, half)
             r = contact(scene, cfg, dt, scene.tng_idx, scene.tng_idx_dem_id,
                         *(scene[k] for k in springs), plain=plain)
-            gmask = mobile & scene.active
-            zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
-            scene = scene.replace(
-                tng_idx=r.tng_idx, tng_idx_dem_id=r.tng_dem,
-                **dict(zip(springs, (r.tng_x, r.tng_y, r.tng_z))),
-                total_tng_contacts=r.count,
-                nbr_overflow=scene.nbr_overflow | r.overflow,
-                fx=torch.where(gmask, scene.m * gx + r.fx, zero),
-                fy=torch.where(gmask, scene.m * gy + r.fy, zero),
-                fz=torch.where(gmask, scene.m * gz + r.fz, zero),
-                torx=torch.where(gmask, r.torx, zero),
-                tory=torch.where(gmask, r.tory, zero),
-                torz=torch.where(gmask, r.torz, zero))
+            scene = dem_apply_pass(scene, r, springs, mobile, gx, gy, gz)
             scene = scene.with_fields(n_gated=r.n_gated.sum())
-            sel = lambda new, old: torch.where(mobile, new, old)
-            scene = scene.replace(x=sel(scene.x + dt * scene.u, scene.x),
-                                  y=sel(scene.y + dt * scene.v, scene.y),
-                                  z=sel(scene.z + dt * scene.w, scene.z))
-            return half_kick(scene, half)
+            scene = dem_drift(scene, mobile, dt)
+            return dem_half_kick(scene, mobile, half)
 
         return step

@@ -32,7 +32,11 @@ Slot state is stored compactly: ``cl_pid [L]`` (covered particle ids,
 n = empty) and ``cl_state [L, 25 S]`` (their slot rows, ``CL_FIELDS``
 block order, in the scene's dtype), with L = ni_max * M.  Uncovered
 particles implicitly hold the init row (zeros, closest distance =
-4 * spacing0).  ``expand_slot_scene`` materialises the [N, S] view.
+4 * spacing0).  ``expand_slot_scene`` materialises the [N, S] view.  The
+slab step (``parallel/slab.py``) keeps the slot state row-aligned
+instead, as one ``slot_blob [N, 25 S]`` (``blobify_slot_scene``), which
+rides its exchanges like any particle field
+(``rigid_contact_force_eval_compact_blob``).
 """
 
 from __future__ import annotations
@@ -396,6 +400,40 @@ def expand_slot_scene(scene: Scene) -> Scene:
     return scene.with_fields(**upd)
 
 
+def strip_compact_fields(scene: Scene) -> Scene:
+    """Drop ``cl_pid``/``cl_state`` (after :func:`expand_slot_scene`):
+    the slab path carries the full schema or the row-aligned blob."""
+    if "cl_pid" not in scene:
+        return scene
+    return Scene({k: v for k, v in scene.fields.items()
+                  if k not in ("cl_pid", "cl_state")}, scene.meta)
+
+
+def blobify_slot_scene(scene: Scene) -> Scene:
+    """Replace the 25 [N, S] slot fields with one row-aligned
+    ``slot_blob [N, 25 S]`` (``CL_FIELDS`` block order), the slab path's
+    slot layout: it rides the halo and redistribution exchanges like any
+    per-particle field.  A row with no contact work is all zero (the
+    closest-distance block included: write-only, never an input)."""
+    blob = torch.cat([scene[name].to(scene.dtype) for name in CL_FIELDS],
+                     dim=1)
+    fields = {k: v for k, v in scene.fields.items() if k not in CL_FIELDS}
+    fields["slot_blob"] = blob
+    return Scene(fields, scene.meta)
+
+
+def deblobify_slot_scene(scene: Scene) -> Scene:
+    """Inverse of :func:`blobify_slot_scene` (tests and IO)."""
+    if "slot_blob" not in scene:
+        return scene
+    S = scene.meta.total_no_bodies
+    blob = scene.slot_blob
+    fields = {k: v for k, v in scene.fields.items() if k != "slot_blob"}
+    for i, name in enumerate(CL_FIELDS):
+        fields[name] = blob[:, i * S:(i + 1) * S]
+    return Scene(fields, scene.meta)
+
+
 # ---------------------------------------------------------------------------
 # stage-2 evaluation on the compact path
 # ---------------------------------------------------------------------------
@@ -412,6 +450,64 @@ def rigid_contact_force_eval_compact(scene, cell_cfg, kernel, params, dt,
     scene = _compact_contact_tail(scene, flat, cc.pid, cc.u, cc.v, cc.w,
                                   params=params, dt=dt)
     return scene, cc
+
+
+def rigid_contact_force_eval_compact_blob(scene, cell_cfg, kernel, params,
+                                          dt, ni_max: int,
+                                          plain: bool = False):
+    """The compact evaluation for blob scenes (the slab step's local
+    evaluation): K1, the cull and K2 on the culled rows as
+    :func:`rigid_contact_force_eval_compact`, but the springs come from a
+    row gather of ``slot_blob`` at the lanes' particles and the new blob
+    is a full rewrite (zeros and one row scatter), so ghost and stale
+    rows need no bookkeeping.  Returns ``(scene, CompactContact)`` with
+    the per-particle forces and no body sums (the slab step sums its
+    slabs' forces itself)."""
+    cc = contact_pipeline_compact(scene, cell_cfg, kernel, ni_max, plain)
+    n, S = scene.n, scene.meta.total_no_bodies
+    NI, M = cc.pid.shape
+    L = NI * M
+    fdt, dev = scene.dtype, scene.device
+    flat = cc.out.reshape(L, cc.out.shape[-1]).to(fdt)
+
+    def blk(i):
+        return flat[:, i * S:(i + 1) * S]
+
+    dinfo = dict(
+        contact_force_dist=blk(4), closest_point_dist_to_source=blk(5),
+        x_source=blk(6), y_source=blk(7), z_source=blk(8),
+        vx_source=blk(9), vy_source=blk(10), vz_source=blk(11))
+    pidf = cc.pid.reshape(L)
+    valid_lane = pidf < n
+    pclip = torch.clamp(pidf, max=n - 1)
+    zero = torch.zeros((), dtype=fdt, device=dev)
+    m_c = torch.where(valid_lane, scene.m[pclip], zero)
+    bid_c = torch.where(valid_lane, scene.body_id[pclip].to(torch.int64), 0)
+    spr_c = torch.where(
+        valid_lane[:, None],
+        scene.slot_blob[pclip, _CL_SPRING0 * S:(_CL_SPRING0 + 6) * S],
+        zero)
+    dfx, dfy, dfz, slots = cops.contact_force_core(
+        cc.u.reshape(L).to(fdt), cc.v.reshape(L).to(fdt),
+        cc.w.reshape(L).to(fdt), m_c, bid_c, scene.eta, scene.meta.nb,
+        scene.meta.spacing0, dt, params["kr"], params["kf"],
+        params["fric_coeff"], blk(0), blk(1), blk(2), dinfo,
+        spr_c[:, 0:S], spr_c[:, S:2 * S], spr_c[:, 2 * S:3 * S],
+        spr_c[:, 3 * S:4 * S], spr_c[:, 4 * S:5 * S], spr_c[:, 5 * S:6 * S])
+
+    tgt = torch.where(valid_lane, pidf, torch.full_like(pidf, n))
+    fxg, fyg, fzg = rops.body_force(scene, params["gx"], params["gy"],
+                                    params["gz"], scene.is_rigid)
+    dxyz = torch.zeros((n + 1, 3), dtype=fdt, device=dev)
+    dxyz[tgt] = torch.stack([dfx, dfy, dfz], dim=1)
+    fx = fxg + dxyz[:n, 0]
+    fy = fyg + dxyz[:n, 1]
+    fz = fzg + dxyz[:n, 2]
+    new_rows = torch.cat([flat[:, :12 * S]]
+                         + [slots[k] for k in CL_FIELDS[12:]], dim=1)
+    blob = torch.zeros((n + 1, 25 * S), dtype=fdt, device=dev)
+    blob[tgt] = new_rows.to(fdt)
+    return scene.replace(fx=fx, fy=fy, fz=fz, slot_blob=blob[:n]), cc
 
 
 def _compact_contact_tail(scene, flat, pid, u_c, v_c, w_c, params, dt):
@@ -477,11 +573,18 @@ def _compact_contact_tail(scene, flat, pid, u_c, v_c, w_c, params, dt):
                          cl_pid=tgt, cl_state=new_state.to(fdt))
 
 
-def _contact_force_tail(scene, cfn_x, cfn_y, cfn_z, cfn_w, dinfo, params,
-                        dt, extra_fx=None):
-    """Eq.-24 tail on the full [N, S] slot schema: gravity, the contact
-    force, ``extra_fx`` (the coupling step's fluid -> rigid force) and
-    the per-body sums; stores the new slot state."""
+def _contact_forces(scene, cp, params, dt, extra_fx=None):
+    """Eq.-24 tail on the full [N, S] slot schema from the unpacked
+    contact columns ``cp [N, 12, S]`` (the cell pipeline's output):
+    gravity, the contact force and ``extra_fx`` (the coupling step's
+    fluid -> rigid force, or None) per particle, and the new slot state;
+    no body sums."""
+    cfn_x, cfn_y, cfn_z, cfn_w = cp[:, 0], cp[:, 1], cp[:, 2], cp[:, 3]
+    dinfo = dict(
+        contact_force_dist=cp[:, 4],
+        closest_point_dist_to_source=cp[:, 5],
+        x_source=cp[:, 6], y_source=cp[:, 7], z_source=cp[:, 8],
+        vx_source=cp[:, 9], vy_source=cp[:, 10], vz_source=cp[:, 11])
     fx, fy, fz = rops.body_force(scene, params["gx"], params["gy"],
                                  params["gz"], scene.is_rigid)
     dfx, dfy, dfz, slots = cops.contact_force(
@@ -493,25 +596,19 @@ def _contact_force_tail(scene, cfn_x, cfn_y, cfn_z, cfn_w, dinfo, params,
     if extra_fx is not None:
         efx, efy, efz = extra_fx
         fx, fy, fz = fx + efx, fy + efy, fz + efz
-    force, torque = rops.sum_up_external_forces(scene, fx, fy, fz)
     return scene.replace(
-        fx=fx, fy=fy, fz=fz, force=force, torque=torque,
+        fx=fx, fy=fy, fz=fz,
         contact_force_normal_x=cfn_x, contact_force_normal_y=cfn_y,
         contact_force_normal_z=cfn_z, contact_force_normal_wij=cfn_w,
         **dinfo, **slots)
 
 
 def _contact_tail(scene, cp, params, dt, extra_fx=None):
-    """``_contact_force_tail`` on the unpacked contact columns ``cp [N,
-    12, S]`` (the cell pipeline's output) with ``extra_fx`` (or None)."""
-    dinfo = dict(
-        contact_force_dist=cp[:, 4],
-        closest_point_dist_to_source=cp[:, 5],
-        x_source=cp[:, 6], y_source=cp[:, 7], z_source=cp[:, 8],
-        vx_source=cp[:, 9], vy_source=cp[:, 10], vz_source=cp[:, 11])
-    return _contact_force_tail(scene, cp[:, 0], cp[:, 1], cp[:, 2],
-                               cp[:, 3], dinfo, params, dt,
-                               extra_fx=extra_fx)
+    """:func:`_contact_forces` and the per-body sums."""
+    scene = _contact_forces(scene, cp, params, dt, extra_fx)
+    force, torque = rops.sum_up_external_forces(scene, scene.fx, scene.fy,
+                                                scene.fz)
+    return scene.replace(force=force, torque=torque)
 
 
 def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,

@@ -6,7 +6,7 @@ Counterpart of ``RigidFluidCouplingScheme`` in
 ``rigid_body_2d_3d_pysph_tpu/models/rigid_fluid_coupling.py``, the
 branches the JAX package runs off the TPU, as eager functions
 ``step(scene, dt) -> scene`` on the full ``[N, S]`` slot schema
-(``_contact_force_tail``):
+(``_contact_tail``):
 
 * kdkf, the fused kick-drift-kick (``_make_step_cell_kdkf`` :421-746):
   one grid build and one 14-field pack per step, three pair passes on

@@ -32,7 +32,11 @@ SENT = [_BIG, _BIG, _BIG, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
 
 
 def dem_payload(scene):
-    """The source pack's 13 fields as per-particle [N] tensors."""
+    """The source pack's 13 fields as per-particle [N] tensors.  The
+    identity field is the row, also on a scene with ``gid``: the DEM
+    kernels and this module's pass address the ``[N, L]`` table by it,
+    and a gid-keyed table is translated to rows around the pass
+    (``dem_kernel.lvc_displacement_cell_kernel``)."""
     fdt = scene.dtype
     ident = torch.arange(scene.n, dtype=fdt, device=scene.device)
     return [scene.x, scene.y, scene.z, scene.u, scene.v, scene.w,

@@ -218,11 +218,36 @@ def _pass(sums, ti, td, ta, tb, tc, overflow, fdt):
                    sums[:, 7].to(torch.int32), overflow)
 
 
+def gid_rows(scene, n_ident: int):
+    """``[n_ident + 1]``: the row of each gid among the scene's active
+    rows, ``scene.n`` for a gid that is absent."""
+    n, dev = scene.n, scene.device
+    key = torch.where(scene.active & (scene.gid >= 0),
+                      scene.gid.to(torch.int64), n_ident)
+    row_of = torch.full((n_ident + 1,), n, dtype=torch.int64, device=dev)
+    row_of = row_of.scatter(0, key, torch.arange(n, device=dev))
+    return torch.cat([row_of[:n_ident], row_of.new_full((1,), n)])
+
+
 def lvc_displacement_cell_kernel(scene, cfg: CellGridConfig, dt,
                                  tng_idx, tng_dem, tng_x, tng_y, tng_z,
-                                 plain: bool = False) -> DemPass:
+                                 plain: bool = False,
+                                 n_ident: int | None = None) -> DemPass:
     """The spill-grid pass (prune fused).  ``plain`` runs K1's and K4's
-    plain versions even on CUDA tensors (the reference on the card)."""
+    plain versions even on CUDA tensors (the reference on the card).
+
+    ``n_ident``: the table entries are the partners' gids (below
+    ``n_ident``; the slab step's tables), not their rows.  K4 reads and
+    writes the table at the row its pack's index field names, so the
+    index field stays the row: the entries go to rows before the pass (a
+    partner absent from the scene to -1, freed as a separated pair) and
+    back to gids after it, the table the reference's gid-keyed pass
+    (``pallas_dem.py:467``) gives."""
+    if n_ident is not None:
+        row = gid_rows(scene, n_ident)[
+            torch.clamp(tng_idx.to(torch.int64), 0, n_ident)]
+        tng_idx = torch.where((tng_idx >= 0) & (row < scene.n), row,
+                              -1).to(torch.int32)
     grid, pt = build_cell_grid_packed(scene.x, scene.y, scene.z,
                                       scene.active, cfg, dem_payload(scene))
     sent = torch.tensor(SENT, dtype=scene.dtype, device=scene.device)
@@ -231,7 +256,13 @@ def lvc_displacement_cell_kernel(scene, cfg: CellGridConfig, dt,
     dfT = expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
     out = sums_fn(dfT, grid.nbr_slots, tng_idx, tng_dem, tng_x, tng_y,
                   tng_z, material_table(scene), dt, cfg)
-    return _pass(*out, grid.overflow, scene.dtype)
+    res = _pass(*out, grid.overflow, scene.dtype)
+    if n_ident is None:
+        return res
+    idx = res.tng_idx
+    gid = scene.gid[torch.clamp(idx.to(torch.int64), min=0)]
+    return res._replace(tng_idx=torch.where(idx >= 0, gid, -1).to(
+        torch.int32))
 
 
 def lvc_displacement_rowwin_kernel(scene, cfg: RowWinConfig, dt,

@@ -6,7 +6,9 @@ reference's one-hot MXU contractions for body-row gathers are a TPU
 device; here a body row is an index gather.  The per-body sums stay a
 one-hot matrix product: it is deterministic (no atomics), so repeated
 runs give identical bits, and it runs in full precision (the caller
-keeps TF32 off, as the card's default is).
+keeps TF32 off, as the card's default is).  :func:`body_sums` gives the
+same sums in another dtype: the slab step adds its slabs' partial sums
+in float64 and rounds once.
 """
 
 from __future__ import annotations
@@ -29,6 +31,14 @@ def body_force(scene, gx: float, gy: float, gz: float, dest_mask):
 def sum_up_external_forces(scene, fx, fy, fz):
     """Per-body total force and torque about the body's COM:
     ``frc[b] = sum_i f_i``, ``trq[b] = sum_i (r_i - xcm_b) x f_i``."""
+    tot = body_sums(scene, fx, fy, fz, fx.dtype)
+    return tot[:, :3], tot[:, 3:]
+
+
+def body_sums(scene, fx, fy, fz, dtype):
+    """``[B, 6]``: the per-body force and torque of
+    :func:`sum_up_external_forces`, accumulated and returned in
+    ``dtype``."""
     nb = scene.meta.nb
     rigid = scene.is_rigid & scene.active
     zero = torch.zeros_like(fx)
@@ -46,10 +56,9 @@ def sum_up_external_forces(scene, fx, fy, fz):
     tz = dx * fy - dy * fx
 
     oh = ((bid[:, None] == torch.arange(nb, device=bid.device)[None, :])
-          & rigid[:, None]).to(fx.dtype)                   # [N, B]
-    vec = torch.stack([fx, fy, fz, tx, ty, tz], dim=-1)    # [N, 6]
-    tot = torch.matmul(oh.transpose(0, 1), vec)            # [B, 6]
-    return tot[:, :3], tot[:, 3:]
+          & rigid[:, None]).to(dtype)                      # [N, B]
+    vec = torch.stack([fx, fy, fz, tx, ty, tz], dim=-1).to(dtype)  # [N, 6]
+    return torch.matmul(oh.transpose(0, 1), vec)           # [B, 6]
 
 
 def gram_schmidt_columns(R):

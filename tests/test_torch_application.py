@@ -29,6 +29,7 @@ import os
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu import geom as jgeom
 from rigid_body_2d_3d_pysph_tpu.app import output as jout

@@ -25,6 +25,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -64,20 +65,21 @@ def cell_engine(monkeypatch):
     monkeypatch.setenv("RB_TPU_ENGINE", "cell")
 
 
-def _app_snapshots_match(tmp_path, japp, tapp, argv):
-    """Run both ``Application``s for 20 steps (snapshots every 10) and
-    hold every snapshot's arrays to each other at rtol 1e-10; returns
-    the port's snapshot files."""
-    argv = argv + ["--max-steps", "20", "--pfreq", "10", "--quiet"]
+def _app_snapshots_match(tmp_path, japp, tapp, argv, steps=20, pfreq=10):
+    """Run both ``Application``s for ``steps`` steps (snapshots every
+    ``pfreq``) and hold every snapshot's arrays to each other at rtol
+    1e-10; returns the port's snapshot files."""
+    argv = argv + ["--max-steps", str(steps), "--pfreq", str(pfreq),
+                   "--quiet"]
     dj, dt = str(tmp_path / "jax"), str(tmp_path / "port")
     japp.run(["-d", dj] + argv)
     tapp.dtype = torch.float64
     tapp.run(["-d", dt] + argv + CPU_ARGS)
-    assert tapp.solver.count == 20 and tapp.solver.rebuilds_total == 0
+    assert tapp.solver.count == steps and tapp.solver.rebuilds_total == 0
     fj, ft = jout.get_files(dj), jout.get_files(dt)
     assert [os.path.basename(f) for f in fj] == \
         [os.path.basename(f) for f in ft] == \
-        [f"snapshot_{c:06d}.npz" for c in (0, 10, 20)]
+        [f"snapshot_{c:06d}.npz" for c in range(0, steps + 1, pfreq)]
     for a, b in zip(fj, ft):
         sdj, gj = jout.load(a)
         sdt, gt = jout.load(b)
@@ -122,6 +124,51 @@ def test_benchmark_2_app_matches_reference_f64(tmp_path, cell_engine):
                                rtol=0, atol=1e-12)
     np.testing.assert_allclose(g["body2"].vcm_mat[0], [-0.5, 0.0, 0.0],
                                rtol=0, atol=1e-12)
+
+
+# benchmark 2's second cube started this much closer (x), so the cubes
+# meet within the first steps (at the case's 0.2 gap, after ~1,050)
+B2_SHIFT = -0.17
+
+
+def _closer_b2(jb2):
+    """The two packages' benchmark 2 with the second cube moved by
+    B2_SHIFT after the set-up (particles and centre of mass alike)."""
+
+    class J(jb2.Benchmark2):
+        def create_particles(self):
+            scene = super().create_particles()
+            g = scene.meta.group("body2")
+            return scene.replace(
+                x=scene.x.at[g.start:g.stop].add(B2_SHIFT),
+                xcm=scene.xcm.at[1, 0].add(B2_SHIFT))
+
+    class T(tb2.Benchmark2):
+        def create_particles(self):
+            scene = super().create_particles()
+            g = scene.meta.group("body2")
+            x, xcm = scene.x.clone(), scene.xcm.clone()
+            x[g.start:g.stop] += B2_SHIFT
+            xcm[1, 0] += B2_SHIFT
+            return scene.replace(x=x, xcm=xcm)
+
+    return J(fname="benchmark_2"), T(fname="benchmark_2")
+
+
+def test_benchmark_2_app_past_the_collision_f64(tmp_path, cell_engine):
+    """The head-on collision through both ``Application``s in float64:
+    the second cube starts 0.17 closer, so the faces meet at ~step 30
+    and the cubes have rebounded by step 200; every snapshot (each 50
+    steps) at rtol 1e-10.  At the case's own gap the f64 runs of both
+    packages agree to 7e-14 through tf (2,998 steps)."""
+    import benchmark_2_multiple_rigid_bodies_colliding as jb2
+
+    ft = _app_snapshots_match(tmp_path, *_closer_b2(jb2), [], steps=200,
+                              pfreq=50)
+    sd, g = jout.load(ft[-1])
+    v1, v2 = g["body1"].vcm_mat[0], g["body2"].vcm_mat[0]
+    assert v1[0] < -0.4 and v2[0] > 0.4            # rebounded
+    assert np.abs(v1 + v2).max() < 1e-10           # momentum
 
 
 def _templates():

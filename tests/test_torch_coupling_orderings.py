@@ -26,6 +26,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu import geom as jgeom
 from rigid_body_2d_3d_pysph_tpu.models.rigid_fluid_coupling import (

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu_torch import geom as tgeom
 from rigid_body_2d_3d_pysph_tpu_torch.models import (

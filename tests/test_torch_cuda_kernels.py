@@ -24,6 +24,7 @@ GTVF ordering and with no fluid group, each with its launches per step.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu_torch.geom import get_2d_block, get_3d_block
 from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
@@ -587,6 +588,55 @@ def test_dem_step_kernels_match_plain_step(dev):
         assert torch.equal(ka, kb), (grid, table)
         assert torch.allclose(sa, sb, rtol=1e-4,
                               atol=1e-4 * float(sb.abs().max())), (grid, table)
+
+
+@pytest.mark.parametrize("table", ["empty", "filled", "moved", "crowded"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_dem_cell_kernel_with_gid_identity_matches_twin(dev, dim, table):
+    """K4 on a row-permuted scene whose tables key on gids (the slab
+    DEM step's tables), against its plain version on the same inputs,
+    and against the kernel on the unpermuted scene (rows = gids)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    scene, cfg = _dem_scene(dim, dev, table=table)
+    n = scene.n
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(n),
+                           device=dev)
+    sp = scene.with_fields(**{k: v[perm] for k, v in scene.fields.items()
+                              if v.dim() >= 1 and v.shape[0] == n},
+                           gid=perm.to(torch.int32))
+    tabs = (sp.tng_idx, sp.tng_idx_dem_id, sp.tng_x, sp.tng_y, sp.tng_z)
+    before = dict(_build.LAUNCHES)
+    got = tdk.lvc_displacement_cell_kernel(sp, cfg, 1e-5, *tabs, n_ident=n)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["dem_cell"] == before["dem_cell"] + 1
+    assert _build.LAUNCHES["pack_expand"] == before["pack_expand"] + 1
+    ref = tdk.lvc_displacement_cell_kernel(sp, cfg, 1e-5, *tabs, plain=True,
+                                           n_ident=n)
+    assert int(ref.count.sum()) > 0
+    assert torch.equal(got.tng_idx, ref.tng_idx)
+    assert torch.equal(got.tng_dem, ref.tng_dem)
+    assert torch.equal(got.count, ref.count)
+    assert torch.equal(got.n_gated, ref.n_gated)
+    sums = lambda p: torch.stack([p.fx, p.fy, p.fz, p.torx, p.tory, p.torz],
+                                 1)
+    _check_sums(sums(got), sums(ref), "sums")
+    for a, b in ((got.tng_x, ref.tng_x), (got.tng_y, ref.tng_y),
+                 (got.tng_z, ref.tng_z)):
+        assert torch.allclose(a, b, rtol=1e-4, atol=0)
+    if table == "crowded":
+        return   # full tables: which new contacts keep a slot follows
+                 # the candidate order, which the permutation changes
+    # gid-keyed entries: the unpermuted scene's pass, rows permuted
+    own = tdk.lvc_displacement_cell_kernel(
+        scene, cfg, 1e-5, scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x,
+        scene.tng_y, scene.tng_z)
+    key = lambda p, rows: torch.sort(torch.where(
+        p.tng_idx[rows] >= 0, p.tng_idx[rows].long() * 8
+        + p.tng_dem[rows].long(), 2**62), 1).values
+    all_rows = torch.arange(n, device=dev)
+    assert torch.equal(key(got, all_rows), key(own, perm))
+    _check_sums(sums(got), sums(own)[perm], "sums against the unpermuted")
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu.ops import cellpairs as jcell
 from rigid_body_2d_3d_pysph_tpu.ops import pallas_fluid as pfops

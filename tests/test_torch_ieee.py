@@ -20,6 +20,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
 from rigid_body_2d_3d_pysph_tpu_torch.ops import ieee

@@ -21,6 +21,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu.models.dem import DEMScheme as JDEMScheme
 from rigid_body_2d_3d_pysph_tpu.state import (

@@ -13,6 +13,7 @@ it reads is the port's.
 
 import numpy as np
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu.native import gtvf_step_n
 

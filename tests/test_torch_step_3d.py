@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # the suite runs one worker process a core
 
 from rigid_body_2d_3d_pysph_tpu.geom import get_3d_block
 from rigid_body_2d_3d_pysph_tpu.models import rigid_body as jrb
