@@ -160,18 +160,36 @@ no result line):
     steps with a redistribution every 50;
 31. with 2 or more cards, phase 28's comparisons with one slab a card
     (on one card it prints that it did not run);
-32. a JSON line of per-kernel numbers (``launches`` from the kernel's
+32. the coupling slab step (``make_slab_coupling_step``) on phase 13's
+    placement (the box of rho 8 on the floor, pushed down and sideways),
+    the grid cut to the tank in x so that each of SLAB_P slabs on the
+    card holds fluid, in the kdk and then the kdkf ordering: 20 slab
+    steps against 20 single-device steps of the ordering and 20 plain
+    slab steps (positions as their change, velocities, rho, p and the
+    body state within STEP_RTOL, by gid; overlap > 0 at the end); SLAB_P
+    x the ordering's kernels a step and nothing else (kdk: 2 K1, B6a,
+    B6b, B6c, K2; kdkf: K1, B4, B6c, K2); on each slab's extended scene
+    K1, the ordering's fluid passes and K2 on every slot against their
+    plain versions, timed with their bounds, and some slab with rigid
+    ghost rows; then 200 steps of the sinking box (phase 11's) with an
+    on-device redistribution every 50 under phase 11's gates, and the
+    steps/s of SLAB_P slabs and (kdkf) of one;
+33. the 3D box of phase 19 on SLAB_P slabs, kdkf, as phase 32 without
+    the long run (the box does not turn: its omega is printed, not
+    gated);
+34. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
     ``coupling-rk2``, ``benchmark-2``, ``slab-rigid-2d``,
-    ``slab-rigid-3d`` and ``slab-dem-2d`` among them, with each slab's
-    K1, K2 and K4 times; K2's 3D times at the set-up ``ni_max`` and
-    on every interesting row beside its 2D time; K1 on the 3D rigid pack
-    and on the 2D and 3D coupling packs; every fluid pass's 3D time;
-    ptxas's registers, static and dynamic shared memory and spills of
-    every rates/wall and forces instance the paths launch), then the
-    result line.
+    ``slab-rigid-3d``, ``slab-dem-2d``, ``slab-coupling-kdk-2d``,
+    ``slab-coupling-kdkf-2d`` and ``slab-coupling-kdkf-3d`` among them,
+    with each slab's K1, K2, K4 and fluid pass times; K2's 3D times at
+    the set-up ``ni_max`` and on every interesting row beside its 2D
+    time; K1 on the 3D rigid pack and on the 2D and 3D coupling packs;
+    every fluid pass's 3D time; ptxas's registers, static and dynamic
+    shared memory and spills of every rates/wall and forces instance the
+    paths launch), the script's seconds, then the result line.
 
 It imports nothing from JAX or the JAX package.
 """
@@ -2532,7 +2550,244 @@ def phase_slab_dem(smi, P, dev, timings):
     return dict(launches=launches, launches_long=tot, sps=sps, P=P)
 
 
+# the coupling slab step's kernel launches a slab a step, by ordering
+CPL_SLAB_KERNELS = dict(
+    kdk=dict(pack_expand=2, fluid_rates=1, wall_bc=1, fluid_forces=1,
+             contact=1),
+    kdkf=dict(pack_expand=1, fluid_rates_wall=1, fluid_forces=1, contact=1))
+
+
+def slab_grid_x(base, scene):
+    """``base`` cut in x to the particles' extent plus two cells a side
+    and the boundary ring: the scheme's grid pads 0.75 x the extent a
+    side, which leaves the outer slabs of a decomposition of a tank empty
+    (its particles stay inside their walls)."""
+    import dataclasses
+
+    x = scene.x[scene.active]
+    lo = float(x.min()) - (2 + base.sub) * base.cell
+    nx = int(np.ceil((float(x.max()) - lo) / base.cell)) + 2 + base.sub
+    return dataclasses.replace(base, origin=(lo,) + tuple(base.origin[1:]),
+                               dims=(nx,) + tuple(base.dims[1:]))
+
+
+def _slab_cpl_kernels(scheme, s, e, d, lcfg, label, ordering):
+    """K1, the ordering's fluid passes (kdk: B6a, B6b, B6c with bodies;
+    kdkf: B4, B6c) and K2 on every slot of the contact pack
+    (``coupling_contact_pack``) on slab d's extended scene ``e`` (local
+    rows ``s``), against their plain versions, timed with their bounds."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+
+    kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    lab = f"{label} slab {d}"
+    S = e.meta.total_no_bodies
+    init = 4.0 * e.meta.spacing0
+    grid, pt, dfT = fk.pack_fluid_sorted(e, lcfg)
+    check(not bool(grid.overflow), f"{lab}: grid overflow")
+    k1 = {}
+    pack_expand_check(pt, dfT, lcfg, lab, k1)
+    names = (["fluid_rates", "wall_bc", "fluid_forces_rigid"]
+             if ordering == "kdk" else
+             ["fluid_rates_wall", "fluid_forces_rigid"])
+    out, work, _ = fluid_pass_checks(
+        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, lcfg.radius, S,
+                    init, names),
+        dfT, grid.nbr_slots, pt, lcfg.radius, S, init,
+        abs(scheme.fluid_alpha) > 1e-14, lab, True)
+    cdfT = sl.coupling_contact_pack(dfT.clone(), grid, e, s.n,
+                                    scheme.dim == 2)
+    out["contact_all_slots"], n_pick = contact_all_slots(
+        cdfT, grid, lcfg, kernel, S, init, lab, True)
+    out["pack_expand"] = k1[lab]
+    n_ghost_rigid = int((e.is_rigid[s.n:] & e.active[s.n:]).sum())
+    print(f"[{label}] slab {d}: {int(e.active.sum())} active of {e.n} rows "
+          f"({s.n} local, {e.n - s.n} ghost; {n_ghost_rigid} rigid ghosts), "
+          f"NC {lcfg.NC_max}, query lanes "
+          f"{int(pt.n_valid)}, pairs {work['in_range']}, K2 lanes with a "
+          f"pick {n_pick} | max abs err " + ", ".join(
+              f"{k} {v['err']:.3e}" for k, v in out.items()
+              if "err" in v), flush=True)
+    print_fluid_passes(label, f"slab {d}", out)
+    return dict(slab=d, n=int(e.active.sum()), ghost_rigid=n_ghost_rigid,
+                **out)
+
+
+def phase_slab_coupling(smi, dev, ordering, dim, P, timings, long_steps=0,
+                        single_steps=0, n_target=CPL_N):
+    """The coupling slab step (``make_slab_coupling_step``) in
+    ``ordering`` on P slabs of the card, the grid cut to the tank in x
+    (``slab_grid_x``).  2D: phase 13's placement (the box of rho
+    CPL_PARITY_RHO on the floor, pushed down and sideways); 3D: phase
+    19's box (``n_target`` particles).  20 kernel slab steps against 20
+    single-device steps of the ordering and 20 plain slab steps, by gid
+    (positions as their change, SLAB_ULPS; the 3D box's omega, which is
+    rounding, printed only); P x the ordering's kernels a step and nothing
+    else; each slab's K1, fluid passes and K2 against their plain
+    versions, timed.  Then, with ``long_steps``, that many steps of the
+    sinking box (phase 11's) in chunks of CHUNK with an on-device
+    redistribution after each, under phase 11's gates, and with
+    ``single_steps`` the steps/s of one slab.  Returns the numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel.mesh import make_mesh
+
+    label = f"slab-coupling-{ordering}-{dim}d"
+    t0 = time.perf_counter()
+    if dim == 2:
+        scheme, scene, dt = sinking_box_scene(dev, n_target, floor=True,
+                                              rho_b=CPL_PARITY_RHO)
+        scene = scene.replace(vcm=torch.tensor(
+            [[0.05, -0.5, 0.0]], dtype=scene.dtype, device=dev))
+    else:
+        scheme, scene = sinking_box_scene_3d(dev, n_target)
+        dt = 0.25 * scheme.h / (1.1 * scheme.c0)
+    scheme.gtvf_ordering = ordering
+    scene = sl.attach_gids(scene)
+    kernel = get_kernel(scheme.kernel_name, dim)
+    base = slab_grid_x(scheme.cell_config(scene, kernel), scene)
+    print(f"[{label}] n={scene.n} dt={dt:.6g} ({time.perf_counter() - t0:.1f}"
+          " s set-up)", flush=True)
+    cfg = slab_config_for(scene, base, P, label)
+    mesh = make_mesh(P, [dev] * P)
+    per_step = {k: P * v for k, v in CPL_SLAB_KERNELS[ordering].items()}
+    parts0 = sl.shard_slab_scene(sl.slab_decompose(scene, cfg, False), mesh)
+    make = lambda plain=False: (lambda: sl.make_slab_coupling_step(
+        scheme, parts0, mesh, cfg, plain=plain))
+    a, launches, _, _ = _slab_steps(make(), parts0, COMPARE_STEPS, dt, label)
+    _slab_launch_gate(label, launches, {k: v * COMPARE_STEPS
+                                        for k, v in per_step.items()})
+    b, _, _, _ = _slab_steps(make(True), parts0, COMPARE_STEPS, dt,
+                             label + " plain")
+    single = scene
+    sstep = scheme.make_step(scene)
+    for _ in range(COMPARE_STEPS):
+        single = sstep(single, dt)
+    torch.cuda.synchronize()
+    check(not bool(single.nbr_overflow), f"{label}: single-device overflow")
+    ga, ra = _slab_gathered(a)
+    gb, rb = _slab_gathered(b)
+    check(ra.shape[0] == scene.n, f"{label}: {ra.shape[0]} active rows for "
+          f"{scene.n} particles")
+    if dim == 2:
+        for g, who in ((ga, "kernel"), (gb, "plain")):
+            check(float(g.overlap.max()) > 0, f"{label}: the {who} slab run "
+                  "ended out of contact")
+    keys = ("x", "y", "z")[:dim] + ("u", "v", "w")[:dim] + ("rho", "p")
+    # the 3D box does not turn: its omega (~1e-12) is the rounding of
+    # the torque sums, printed and not gated
+    body = ("xcm", "vcm", "omega") if dim == 2 else ("xcm", "vcm")
+    x0 = {k: scene[k] for k in ("x", "y", "z")[:dim] + ("xcm",)}
+    all_rows = torch.arange(scene.n, device=dev)
+    w1 = _slab_compare(f"{label} vs single device", ga, ra, single, all_rows,
+                       keys, body, x0, SLAB_ULPS)
+    w2 = _slab_compare(f"{label} vs plain", ga, ra, gb, rb, keys, body, x0,
+                       SLAB_ULPS)
+    if dim == 3:
+        w1 += _slab_compare(label, ga, ra, single, all_rows, (), ("omega",),
+                            gate=False)
+        w2 += _slab_compare(label, ga, ra, gb, rb, (), ("omega",),
+                            gate=False)
+    print(f"[{label}] {COMPARE_STEPS} slab steps vs {COMPARE_STEPS} "
+          f"single-device steps: " + ", ".join(w1), flush=True)
+    print(f"[{label}] {COMPARE_STEPS} kernel slab steps vs {COMPARE_STEPS} "
+          f"plain slab steps: " + ", ".join(w2), flush=True)
+
+    # the passes on the slabs' extended scenes of the comparisons' first
+    # step (phases 10 and 14 hold the single-device passes on the
+    # set-up state too: after 20 steps of the dense box driven into the
+    # floor, B6c's float32 sums on an outer slab read 6.6e-5 of the
+    # column's largest magnitude apart, over FLUID_SUM_RTOL)
+    lcfg = sl.local_grid_config(cfg)
+    locs, exts, _ = sl.make_slab_coupling_step(scheme, parts0, mesh,
+                                               cfg).exchange(parts0, dt)
+    per = []
+    for d, (s, e) in enumerate(zip(locs, exts)):
+        with sl.on_device(e.device):
+            per.append(_slab_cpl_kernels(scheme, s, e, d, lcfg, label,
+                                         ordering))
+    check(any(t["ghost_rigid"] > 0 for t in per), f"{label}: no slab "
+          "received rigid ghost rows")
+    timings[label] = per
+    res = dict(P=P, launches=launches)
+    del a, b, ga, gb, parts0, single, locs, exts
+    if long_steps or single_steps:
+        lscheme, lscene, ldt = sinking_box_scene(dev, n_target)
+        lscheme.gtvf_ordering = ordering
+        lscene = sl.attach_gids(lscene)
+        lbase = slab_grid_x(lscheme.cell_config(lscene, kernel), lscene)
+    if long_steps:
+        lcfg = slab_config_for(lscene, lbase, P, f"{label} long")
+        res.update(slab_coupling_long(lscheme, lscene, smi, label, lcfg,
+                                      mesh, ldt, long_steps, per_step))
+    if single_steps:
+        cfg1 = slab_config_for(lscene, lbase, 1, f"{label} P=1")
+        res["sps_p1"] = slab_coupling_long(
+            lscheme, lscene, smi, f"{label} P=1", cfg1, make_mesh(1, [dev]),
+            ldt, single_steps,
+            dict(CPL_SLAB_KERNELS[ordering]))["sps"]
+    return res
+
+
+def slab_coupling_long(scheme, scene, smi, label, cfg, mesh, dt, n_steps,
+                       per_step):
+    """``n_steps`` coupling slab steps in chunks of CHUNK with an
+    on-device redistribution after each, under phase 11's gates (the
+    launches a step, finiteness, no overflow, fluid rho within 5 % of
+    rho0, the box lower at the end of a run of CPL_STEPS or more).
+    Returns launches and steps/s."""
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+
+    P = mesh.size
+    parts = sl.shard_slab_scene(sl.slab_decompose(scene, cfg, False), mesh)
+    redis = sl.make_slab_redistribute(parts, mesh, cfg)
+    y0 = float(scene.xcm[0, 1])
+    done, chunk_s, launches = 0, [], {}
+    while done < n_steps:
+        start = parts
+        parts, lc, _, el = _slab_steps(
+            lambda: sl.make_slab_coupling_step(scheme, start, mesh, cfg),
+            start, CHUNK, dt, label)
+        _slab_launch_gate(label, lc, {k: v * CHUNK
+                                      for k, v in per_step.items()})
+        for k, v in lc.items():
+            launches[k] = launches.get(k, 0) + v
+        t0 = time.perf_counter()
+        parts = redis(parts)
+        torch.cuda.synchronize()
+        el_r = time.perf_counter() - t0
+        check(not any(bool(p.nbr_overflow) for p in parts),
+              f"{label}: overflow in the redistribution")
+        chunk_s.append(el + el_r)
+        done += CHUNK
+        print(f"[{label}] steps {done - CHUNK}-{done}: {el:.3f} s + "
+              f"redistribution {el_r * 1e3:.2f} ms", flush=True)
+    g, _ = _slab_gathered(parts)
+    for k, v in g.fields.items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
+    fl = g.is_fluid & g.active
+    dev_rho = float((g.rho[fl] / scheme.rho0 - 1.0).abs().max())
+    check(dev_rho < 0.05, f"{label}: fluid rho off rho0 by {dev_rho:.3e}")
+    y1 = float(g.xcm[0, 1])
+    if n_steps >= CPL_STEPS:
+        # as in phase 11: at y = 3 the box's float32 COM moves once a
+        # step's displacement passes half an ulp, after ~100 steps
+        check(y1 < y0, f"{label}: the box did not sink ({y0:.7f} -> "
+              f"{y1:.7f})")
+    steady = chunk_s[1:] or chunk_s
+    sps = CHUNK * len(steady) / sum(steady)
+    print(f"[{label}] P={P} n={scene.n} steps={done} launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items() if v)
+          + f" | max |rho/rho0 - 1| {dev_rho:.3e} | box COM y {y0:.7f} -> "
+          f"{y1:.7f} | {sps:.2f} steps/s steady (chunks 2+, with the "
+          f"redistributions), on {smi}", flush=True)
+    return dict(launches_long=launches, sps=sps)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
               "only", file=sys.stderr)
@@ -2813,6 +3068,16 @@ def main() -> int:
             print("[slab-rigid-2d-cards] not run: one card on this machine "
                   "(the phase puts one slab on each of 2-4 cards)",
                   flush=True)
+
+        # 32. the coupling slab step on the sinking box, kdk and kdkf on
+        # SLAB_P slabs of the card, each with its 200-step run; 33. the
+        # 3D box, kdkf
+        cpl_slab_t = {}
+        slabc = {o: phase_slab_coupling(
+            smi, dev, o, 2, SLAB_P, cpl_slab_t, long_steps=N_STEPS,
+            single_steps=2 * CHUNK if o == "kdkf" else 0)
+            for o in ("kdk", "kdkf")}
+        slabc3 = phase_slab_coupling(smi, dev, "kdkf", 3, SLAB_P, cpl_slab_t)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2837,7 +3102,10 @@ def main() -> int:
         ("slab-rigid-3d", {q: slab3["launches"]["blob"][q]
                            + slab3["launches"]["full"][q]
                            for q in slab3["launches"]["blob"]}),
-        ("slab-dem-2d", slabd["launches_long"]))
+        ("slab-dem-2d", slabd["launches_long"]),
+        ("slab-coupling-kdk-2d", slabc["kdk"]["launches_long"]),
+        ("slab-coupling-kdkf-2d", slabc["kdkf"]["launches_long"]),
+        ("slab-coupling-kdkf-3d", slabc3["launches"]))
         + ((("slab-rigid-2d-cards", slab_cards["launches"]["blob"]),)
            if slab_cards else ())
         if c[k]}
@@ -2996,6 +3264,29 @@ def main() -> int:
                         + [r["err"] for r in sd]),
         slab_dem_2d=per(sd, ("slab", "n", "gated", "ms", "plain_ms",
                              "bound_ms", "bound_by", "err")))
+    # the coupling slab paths' kernels, slab by slab (phases 32-33)
+    ccols = ("slab", "n", "ms", "plain_ms", "bound_ms", "bound_by", "err")
+    for name, key in (("pack_expand", "pack_expand"),
+                      ("contact_sums", "contact_all_slots"),
+                      ("fluid_rates", "fluid_rates"),
+                      ("wall_bc", "wall_bc"),
+                      ("fluid_rates_wall", "fluid_rates_wall"),
+                      ("fluid_forces", "fluid_forces_rigid")):
+        kd = by_name[name]
+        for path, rows in cpl_slab_t.items():
+            got = [dict(slab=r["slab"], n=r["n"],
+                        **{c: r[key][c] for c in ccols[2:] if c in r[key]})
+                   for r in rows if key in r]
+            if got:
+                kd[path.replace("-", "_")] = got
+                kd["max_abs_err"] = max([kd["max_abs_err"]]
+                                        + [r["err"] for r in got
+                                           if "err" in r])
+    print(f"[done] slab coupling: 2D kdk P={SLAB_P} "
+          f"{slabc['kdk']['sps']:.2f} steps/s, kdkf P={SLAB_P} "
+          f"{slabc['kdkf']['sps']:.2f} steps/s, P=1 "
+          f"{slabc['kdkf']['sps_p1']:.2f} steps/s; 3D kdkf P={slabc3['P']}; "
+          f"on {smi}", flush=True)
     print(f"[done] slab: rigid 2D P={SLAB_P} {slab2['sps']:.2f} steps/s, "
           f"P=1 {slab2['sps_p1']:.2f} steps/s; 3D P={slab3['P']}; DEM 2D "
           f"P={SLAB_P} {slabd['sps']:.2f} steps/s; on {smi}", flush=True)
@@ -3012,6 +3303,8 @@ def main() -> int:
           f"leapfrog 3D {lf_stats['steps_per_s']:.2f} steps/s, coupling RK2 {crk2_sps:.2f} steps/s, DEM "
           f"LVCForce {lvcf_sps:.2f} steps/s, benchmark 2 {b2_sps:.2f} "
           f"steps/s; on {smi}", flush=True)
+    print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

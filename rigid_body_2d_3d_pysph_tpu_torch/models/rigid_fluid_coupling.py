@@ -282,19 +282,28 @@ def _wall_pressure(sw, p_num):
     return torch.where(has, p_num / torch.where(has, sw, 1.0), p_num), has
 
 
+def wall_pressures(scene, wall):
+    """(p, p_fsi) after the Adami sums ``wall [N, 5]``: the Shepard
+    pressure clamped at 0 on the walls, unclamped on the bodies."""
+    _, bd, rb, _ = _masks(scene)
+    p_bc, _ = _wall_pressure(wall[:, 3], wall[:, 4])
+    return (torch.where(bd, torch.clamp(p_bc, min=0.0), scene.p),
+            torch.where(rb, p_bc, scene.p_fsi))
+
+
 def _apply_wall_forces(scene, wall, forces, gvec):
     """The wall and body updates from the Adami sums ``wall [N, 5]`` (uf,
     vf, wf, sw, p_num) and the fluid accelerations from the force columns
     ``forces [N, >= 3]`` (au, av, aw, ...)."""
-    fl, bd, rb, solid = _masks(scene)
+    fl, _, _, solid = _masks(scene)
     zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
     sw = wall[:, 3]
-    p_bc, has = _wall_pressure(sw, wall[:, 4])
+    _, has = _wall_pressure(sw, wall[:, 4])
     inv = torch.where(has, 1.0 / torch.clamp(sw, min=1e-300), zero)
     ufn, vfn, wfn = wall[:, 0] * inv, wall[:, 1] * inv, wall[:, 2] * inv
+    p, p_fsi = wall_pressures(scene, wall)
     return scene.replace(
-        p=torch.where(bd, torch.clamp(p_bc, min=0.0), scene.p),
-        p_fsi=torch.where(rb, p_bc, scene.p_fsi),
+        p=p, p_fsi=p_fsi,
         uf=torch.where(solid, ufn, scene.uf),
         vf=torch.where(solid, vfn, scene.vf),
         wf=torch.where(solid, wfn, scene.wf),

@@ -1,8 +1,8 @@
 """Spatially local multi-device execution: the x-slab decomposition of
-the rigid and DEM steps, with ring halo exchanges.
+the rigid, DEM and rigid-fluid coupling steps, with ring halo exchanges.
 
-Counterpart of ``rigid_body_2d_3d_pysph_tpu/parallel/slab.py`` (its
-rigid and DEM halves).  The reference is single-controller: one
+Counterpart of ``rigid_body_2d_3d_pysph_tpu/parallel/slab.py``.  The
+reference is single-controller: one
 ``shard_map`` over a 1D mesh runs every slab, halos move by
 ``ppermute`` and the per-body sums by ``psum``.  Here one process drives
 the list of devices of a :class:`~.mesh.Mesh` (slab d on
@@ -36,8 +36,10 @@ Each slab's evaluation runs the hand-written kernels of the
 single-device paths: the rigid blob route K1 (``csrc/pack_expand.cu``),
 the interest cull and K2 (``csrc/contact.cu``) on the culled rows; the
 full ``[N, S]`` route K1 and K2 on every slot; the DEM step K1 and K4
-(``csrc/dem.cu`` ``dem_cell``).  ``plain=True`` runs their plain
-versions instead, on any device.
+(``csrc/dem.cu`` ``dem_cell``); the coupling step K1, the fluid passes of
+its ordering (``csrc/fluid.cu``: kdk B6a, B6b, B6c; kdkf B4, B6c) and K2
+on every slot.  ``plain=True`` runs their plain versions instead, on any
+device.
 """
 
 from __future__ import annotations
@@ -52,10 +54,13 @@ import torch
 
 from ..models import dem as dem_model
 from ..models import rigid_body as rb
+from ..models import rigid_fluid_coupling as cpl
 from ..ops import cellpairs as cellmod
 from ..ops import contact_kernel as tck
 from ..ops import dem_kernel as dk
+from ..ops import fluid_kernel as fk
 from ..ops import rigid as rops
+from ..ops.fluid import tait_eos
 from ..ops.kernels import get_kernel
 from ..state.scene import Scene
 from .mesh import Mesh
@@ -275,44 +280,62 @@ def gather_slab_scene(parts: List[Scene]) -> Scene:
 # per-slab pieces of the steps
 # ---------------------------------------------------------------------------
 
-def _take_rows(cols, take, valid, flag_at):
+def _take_rows(cols, take, valid, flag_at=None):
     """``[cap, F + 1]``: rows ``take`` of the columns (zero where not
-    ``valid``) with the validity column inserted at ``flag_at``."""
+    ``valid``) with the validity column inserted at ``flag_at`` (last by
+    default)."""
+    flag_at = len(cols) if flag_at is None else flag_at
     buf = torch.stack(cols, 1)[take]
     buf = torch.where(valid[:, None], buf, torch.zeros_like(buf))
     flag = valid.to(buf.dtype)[:, None]
     return torch.cat([buf[:, :flag_at], flag, buf[:, flag_at:]], 1)
 
 
+def _first_rows(mask, cap: int):
+    """The first ``cap`` rows matching ``mask`` (stable order): (rows,
+    valid, whether more rows matched than fit)."""
+    n = mask.shape[0]
+    order = torch.argsort((~mask).to(torch.int32), stable=True)
+    count = mask.sum()
+    idx = torch.arange(cap, device=mask.device)
+    return order[torch.clamp(idx, max=n - 1)], idx < count, count > cap
+
+
 def _compact_rows(mask, cols, cap: int, flag_at=None):
     """The first ``cap`` rows matching ``mask`` (stable order) as a
     ``[cap, F + 1]`` buffer with a validity column (at ``flag_at``, last
     by default), and whether more rows matched than fit."""
-    n = mask.shape[0]
-    flag_at = len(cols) if flag_at is None else flag_at
-    order = torch.argsort((~mask).to(torch.int32), stable=True)
-    count = mask.sum()
-    idx = torch.arange(cap, device=mask.device)
-    take = order[torch.clamp(idx, max=n - 1)]
-    return _take_rows(cols, take, idx < count, flag_at), count > cap
+    take, valid, ovf = _first_rows(mask, cap)
+    return _take_rows(cols, take, valid, flag_at), ovf
 
 
-def _compact_two_faces(m_left, m_right, cols, cap: int, flag_at=None):
-    """Both faces' buffers from one stable 3-way sort (left band 0, right
-    band 1, rest 2): the sorted prefix is the left buffer, the following
-    run the right one.  The bands must be disjoint (slabs of at least 2
-    cells); the buffers equal two :func:`_compact_rows` calls."""
+def _face_rows(m_left, m_right, cap: int, two_faces: bool):
+    """Each face's first ``cap`` band rows as ((rows, valid) left,
+    (rows, valid) right, overflow).  ``two_faces`` takes both from one
+    stable 3-way sort (left band 0, right band 1, rest 2: the sorted
+    prefix is the left band, the following run the right one), which
+    needs disjoint bands (slabs of at least 2 cells); the rows equal two
+    :func:`_first_rows` calls."""
+    if not two_faces:
+        tl, vl, ovl = _first_rows(m_left, cap)
+        tr, vr, ovr = _first_rows(m_right, cap)
+        return (tl, vl), (tr, vr), ovl | ovr
     n = m_left.shape[0]
-    flag_at = len(cols) if flag_at is None else flag_at
     key = torch.where(m_left, 0, torch.where(m_right, 1, 2))
     order = torch.argsort(key.to(torch.int32), stable=True)
     nl, nr = m_left.sum(), m_right.sum()
     idx = torch.arange(cap, device=m_left.device)
-    take_l = order[torch.clamp(idx, max=n - 1)]
-    take_r = order[torch.clamp(nl + idx, max=n - 1)]
-    return (_take_rows(cols, take_l, idx < nl, flag_at),
-            _take_rows(cols, take_r, idx < nr, flag_at),
-            nl > cap, nr > cap)
+    return ((order[torch.clamp(idx, max=n - 1)], idx < nl),
+            (order[torch.clamp(nl + idx, max=n - 1)], idx < nr),
+            (nl > cap) | (nr > cap))
+
+
+def _face_masks(s: Scene, d: int, cfg: SlabConfig):
+    """Slab d's active rows within ``halo_width`` of its lower and upper
+    faces."""
+    w = cfg.halo_width
+    return (s.active & (s.x < cfg.slab_lo(d) + w),
+            s.active & (s.x >= cfg.slab_lo(d + 1) - w))
 
 
 def _ring(left_bufs, right_bufs, devices):
@@ -425,7 +448,6 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
     local_cfg = local_grid_config(cfg)
     ni_max = scheme.ni_max(local_cfg)
     H = cfg.halo_cap
-    w = cfg.halo_width
     NGF = len(GHOST_FIELDS)
     blob = "slot_blob" in parts[0]
     if not blob and "contact_force_normal_x" not in parts[0]:
@@ -457,18 +479,12 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
             fdt = s.dtype
             cols = ([s[k] for k in GHOST_FIELDS]
                     + [s.dem_id.to(fdt), s.is_fluid.to(fdt)])
-            m_left = s.active & (s.x < cfg.slab_lo(d) + w)
-            m_right = s.active & (s.x >= cfg.slab_lo(d + 1) - w)
-            if cfg.slab_cells >= 2:
-                lb, rbuf, ovl, ovr = _compact_two_faces(
-                    m_left, m_right, cols, H, flag_at=NGF)
-            else:
-                rbuf, ovr = _compact_rows(m_right, cols, H, flag_at=NGF)
-                lb, ovl = _compact_rows(m_left, cols, H, flag_at=NGF)
+            rows_l, rows_r, ovf = _face_rows(*_face_masks(s, d, cfg), H,
+                                             cfg.slab_cells >= 2)
             kicked.append(s)
-            lbufs.append(lb)
-            rbufs.append(rbuf)
-            ovfs.append(ovl | ovr)
+            lbufs.append(_take_rows(cols, *rows_l, NGF))
+            rbufs.append(_take_rows(cols, *rows_r, NGF))
+            ovfs.append(ovf)
         exts = []
         for s, g in zip(kicked, _ring(lbufs, rbufs, mesh.devices)):
             gv, tails = _ghost_tails(g, GHOST_FIELDS, NGF, NGF + 1)
@@ -628,7 +644,6 @@ def make_slab_dem_step(scheme, parts: List[Scene], mesh: Mesh,
         raise ValueError("the DEM grid's cutoff is below 2 max(rad_s): "
                          "the fused prune would miss overlapping pairs")
     H = cfg.halo_cap
-    w = cfg.halo_width
     NGF = len(DEM_GHOST_FIELDS)
     gx, gy, gz = scheme.gx, scheme.gy, scheme.gz
     springs = scheme._springs()
@@ -645,10 +660,9 @@ def make_slab_dem_step(scheme, parts: List[Scene], mesh: Mesh,
             fdt = s.dtype
             cols = ([s[k] for k in DEM_GHOST_FIELDS]
                     + [s.dem_id.to(fdt), s.gid.to(fdt)])
-            rbuf, ovr = _compact_rows(
-                s.active & (s.x >= cfg.slab_lo(d + 1) - w), cols, H)
-            lb, ovl = _compact_rows(s.active & (s.x < cfg.slab_lo(d) + w),
-                                    cols, H)
+            m_left, m_right = _face_masks(s, d, cfg)
+            rbuf, ovr = _compact_rows(m_right, cols, H)
+            lb, ovl = _compact_rows(m_left, cols, H)
             kicked.append(s)
             lbufs.append(lb)
             rbufs.append(rbuf)
@@ -686,4 +700,278 @@ def make_slab_dem_step(scheme, parts: List[Scene], mesh: Mesh,
         return out
 
     step.exchange = exchange
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the coupling slab step
+# ---------------------------------------------------------------------------
+
+# ghost columns of the coupling passes (fluid rates, wall sums, forces and
+# the FSI terms, the contact), then dem_id, is_fluid, is_static_boundary,
+# is_rigid and the validity flag
+CPL_GHOST_FIELDS = ("x", "y", "z", "u", "v", "w", "h", "m", "rho", "p",
+                    "m_fsi", "rho_fsi", "p_fsi",
+                    "contact_force_is_boundary")
+_CPL_FLAGS = ("dem_id", "is_fluid", "is_static_boundary", "is_rigid")
+
+
+def coupling_contact_pack(dfT, grid, scene_e: Scene, nl: int, two_d: bool):
+    """The contact pack of a slab's coupling pack ``dfT`` of the extended
+    scene ``scene_e`` (local rows first, ``nl`` of them): the ghost rows'
+    flags lose their rigid bit first (in ``dfT``, in place), so K2 takes
+    no ghost as a query, while the fluid passes before it saw ghost
+    bodies as rigid sources; then ``contact_kernel.contact_pack``."""
+    ghost = fk.fluid_flags(scene_e)[nl:] - scene_e.is_rigid[nl:].to(
+        scene_e.dtype)
+    fk.patch_columns(dfT, grid.dense_pos[nl:], {fk.FFLAGS: ghost})
+    return tck.contact_pack(dfT, fk.UNION_LAYOUT, two_d)
+
+
+def make_slab_coupling_step(scheme, parts: List[Scene], mesh: Mesh,
+                            cfg: SlabConfig, chain: int = 1,
+                            plain: bool = False):
+    """The rigid-fluid coupling step over the slabs in the scheme's
+    ``gtvf_ordering``, kdk or kdkf (``make_slab_coupling_step`` of the
+    reference, ``parallel/slab.py:738-1230``), as ``step(parts, dt) ->
+    parts``:
+
+    * kdk: kick -> exchange at x_n -> K1, rates (B6a) -> drift, Tait ->
+      exchange at x_n+1 -> K1, wall sums (B6b) -> the updated (p, p_fsi)
+      resent for the ghost rows and patched into the pack -> forces (B6c)
+      -> K2 on every slot -> rank-order body sums -> kick;
+    * kdkf: kick, drift -> exchange -> K1, rates + wall sums (B4) -> the
+      thermo update, (p, p_fsi, rho) resent and patched -> B6c -> K2 ->
+      body sums -> kick.  The single-device kdkf runs B5 in place of
+      B6c + K2: the same sums in another order.
+
+    An exchange sends ``CPL_GHOST_FIELDS`` and the flags of each face's
+    rows; a ghost is a rigid source for the fluid passes and never a
+    contact query (:func:`coupling_contact_pack`); the FSI forces of
+    ghost rows and their contact outputs are dropped, so a body's sum
+    holds its own slab's rows only.  With no fluid group kdkf runs kdk, as
+    the single-device step does.  The local scenes carry the full
+    ``[N, S]`` slot schema (``slab_decompose(..., use_blob=False)``).
+    ``chain`` steps a call; ``plain`` runs the kernels' plain versions.
+    ``step.exchange(parts, dt)`` runs the ordering's stage before its
+    forces evaluation: (local scenes, extended scenes as the fluid passes
+    see them, overflows)."""
+    _check_parts(parts, mesh, cfg)
+    if scheme.fluid_stepper != "gtvf":
+        raise NotImplementedError("the slab coupling step runs the GTVF "
+                                  f"stepper, not {scheme.fluid_stepper!r}")
+    if scheme.gtvf_ordering not in ("kdk", "kdkf"):
+        raise NotImplementedError("the slab coupling step runs the kdk and "
+                                  "kdkf orderings, not "
+                                  f"{scheme.gtvf_ordering!r}")
+    if "slot_blob" in parts[0] or "contact_force_normal_x" not in parts[0]:
+        raise ValueError("make_slab_coupling_step: the local scenes need the "
+                         "full [N, S] slot fields (slab_decompose(..., "
+                         "use_blob=False))")
+    kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    params = dict(kr=scheme.kr, kf=scheme.kf, fric_coeff=scheme.fric_coeff,
+                  gx=scheme.gx, gy=scheme.gy, gz=scheme.gz)
+    gvec = (scheme.gx, scheme.gy, scheme.gz)
+    edac, nu_edac, c0 = scheme.edac, scheme.edac_nu, scheme.c0
+    rho0, gamma, alpha = scheme.rho0, scheme.gamma, scheme.fluid_alpha
+    has_fluid = len(scheme.fluids) > 0
+    has_rigid = len(scheme.rigid_bodies) > 0
+    kdkf = scheme.gtvf_ordering == "kdkf" and has_fluid
+    local_cfg = local_grid_config(cfg)
+    cutoff = local_cfg.radius
+    two_d = local_cfg.dim == 2
+    H = cfg.halo_cap
+    NGF = len(CPL_GHOST_FIELDS)
+    if plain:
+        rates_wall, wall, forces = (fk.fluid_rates_wall_reference,
+                                    fk.wall_bc_reference,
+                                    fk.fluid_forces_reference)
+    else:
+        rates_wall, wall, forces = (fk.fluid_rates_wall, fk.wall_bc,
+                                    fk.fluid_forces)
+
+    def exchange(parts):
+        """The face rows at the current positions to the ring neighbours:
+        (extended scenes, face rows, face overflows).  With fluid a ghost
+        row keeps its owner's is_rigid (a rigid source for the fluid
+        passes; :func:`coupling_contact_pack` clears it for K2), else it
+        has is_rigid = 0 (the contact pack is packed from the scene)."""
+        rows, lbufs, rbufs, ovfs = [], [], [], []
+        for d, s in enumerate(parts):
+            cols = ([s[k] for k in CPL_GHOST_FIELDS]
+                    + [s[k].to(s.dtype) for k in _CPL_FLAGS])
+            rl, rr, ovf = _face_rows(*_face_masks(s, d, cfg), H,
+                                     cfg.slab_cells >= 2)
+            rows.append((rl, rr))
+            lbufs.append(_take_rows(cols, *rl))
+            rbufs.append(_take_rows(cols, *rr))
+            ovfs.append(ovf)
+        exts = []
+        for s, g in zip(parts, _ring(lbufs, rbufs, mesh.devices)):
+            gv, tails = _ghost_tails(g, CPL_GHOST_FIELDS, NGF + 4, NGF)
+            for k in ("rho", "rho_fsi", "m", "h"):
+                tails[k] = torch.where(gv, tails[k],
+                                       torch.ones_like(tails[k]))
+            for i, k in enumerate(_CPL_FLAGS[1:] if has_fluid
+                                  else _CPL_FLAGS[1:3]):
+                tails[k] = gv & (g[:, NGF + 1 + i] > 0.5)
+            exts.append(_extend(s, 2 * H, tails))
+        return exts, rows, ovfs
+
+    def resend(exts, rows, values):
+        """Each slab's ``values`` ({pack row: [nl] tensor}, its local
+        rows' updated columns) for the rows of its last exchange, to the
+        ring neighbours: {pack row: [nl + 2H] tensor} a slab, the
+        received values in the ghost rows (0 in an invalid ghost row,
+        which has no lane)."""
+        lbufs, rbufs = [], []
+        for (rl, rr), v in zip(rows, values):
+            cols = list(v.values())
+            lbufs.append(_take_rows(cols, *rl))
+            rbufs.append(_take_rows(cols, *rr))
+        out = []
+        for e, v, g in zip(exts, values, _ring(lbufs, rbufs, mesh.devices)):
+            gv = g[:, -1] > 0.5
+            out.append({r: torch.cat([x, torch.where(gv, g[:, i].to(x.dtype),
+                                                     x.new_zeros(()))])
+                        for i, (r, x) in enumerate(v.items())})
+        return out
+
+    def pack(e):
+        """(grid, pack) of an extended scene: the coupling pack, or with no
+        fluid the contact pack; one K1 launch."""
+        with on_device(e.device):
+            return cpl._pack(e, local_cfg, has_fluid, plain)
+
+    def unpacked(grid, dense, e, nl):
+        return cellmod.unpack(grid, local_cfg, dense, e.n, 0.0).to(
+            e.dtype)[:nl]
+
+    def stage(parts, dt):
+        """The step before its forces evaluation: (local scenes at x_n+1,
+        extended scenes, face rows, overflows)."""
+        locs = []
+        for s in parts:
+            fl = cpl._masks(s)[0]
+            s = cpl._kick(s, dt, fl, has_fluid, has_rigid)
+            if kdkf:   # the thermo update rides the pack
+                s = s.replace(
+                    x=torch.where(fl, s.x + dt * s.u, s.x),
+                    y=torch.where(fl, s.y + dt * s.v, s.y),
+                    z=torch.where(fl, s.z + dt * s.w, s.z))
+                if has_rigid:
+                    s = rb._particles_from_body_position(
+                        rb._body_drift(s, dt, two_d=False))
+            locs.append(s)
+        ovfs = [s.nbr_overflow for s in locs]
+        if not kdkf:
+            if has_fluid:   # the rates at x_n
+                exts, _, eovf = exchange(locs)
+                for d, (s, e) in enumerate(zip(locs, exts)):
+                    grid, dfT = pack(e)
+                    with on_device(e.device):
+                        r = cpl._rates(e, grid, dfT, kernel, local_cfg,
+                                       nu_edac, c0, edac, has_rigid, plain)
+                    locs[d] = s.replace(arho=r.arho[:s.n], ap=r.ap[:s.n])
+                    ovfs[d] = ovfs[d] | eovf[d] | grid.overflow
+            for d, s in enumerate(locs):
+                fl = cpl._masks(s)[0]
+                s = cpl._drift(s, dt, fl, edac, has_fluid, has_rigid)
+                if has_fluid and not edac:
+                    p, cs = tait_eos(s, rho0, c0, gamma, fl)
+                    s = s.replace(p=p, cs=cs)
+                locs[d] = s
+        exts, rows, eovf = exchange(locs)
+        return locs, exts, rows, [o | e for o, e in zip(ovfs, eovf)]
+
+    def one(parts, dt):
+        locs, exts, rows, ovfs = stage(parts, dt)
+        packs, walls, values = [], [], []
+        for d, (s, e) in enumerate(zip(locs, exts)):
+            grid, dfT = pack(e)
+            ovfs[d] = ovfs[d] | grid.overflow
+            packs.append((grid, dfT))
+            if not has_fluid:
+                continue
+            with on_device(e.device):
+                if kdkf:
+                    rw = rates_wall(dfT, grid.nbr_slots, kernel, cutoff,
+                                    nu_edac, c0, edac, has_rigid, gvec)
+                else:
+                    rw = wall(dfT, grid.nbr_slots, kernel, cutoff, gvec)
+            out = unpacked(grid, rw, e, s.n)
+            if kdkf:
+                # the thermo update of the local rows (the single-device
+                # kdkf step's, from the rates on the pre-update pack)
+                fl = cpl._masks(s)[0]
+                zero = torch.zeros((), dtype=s.dtype, device=s.device)
+                arho = torch.where(fl, out[:, 0], zero)
+                ap = torch.where(fl, out[:, 1], zero)
+                rho_new = s.rho + dt * arho
+                upd = dict(arho=arho, ap=ap,
+                           rho=torch.where(fl, rho_new, s.rho),
+                           vol=torch.where(fl, s.m / rho_new, s.vol))
+                if edac:
+                    upd["p"] = torch.where(fl, s.p + dt * ap, s.p)
+                else:
+                    upd["p"], upd["cs"] = tait_eos(s.replace(rho=upd["rho"]),
+                                                   rho0, c0, gamma, fl)
+                s = locs[d] = s.replace(**upd)
+                out = out[:, 2:]
+            walls.append(out)
+            p, p_fsi = cpl.wall_pressures(s, out)
+            v = {fk.FP: p, fk.FPFSI: p_fsi}
+            if kdkf:
+                v[fk.FRHO] = s.rho
+            values.append(v)
+        if has_fluid:
+            # the owners' updated columns in the ghost rows, then in the
+            # pack's lanes: a ghost's own sums saw only part of its stencil
+            for (grid, dfT), v in zip(packs, resend(exts, rows, values)):
+                fk.patch_columns(dfT, grid.dense_pos, v)
+
+        evald, sums = [], []
+        for d, (s, e, (grid, dfT)) in enumerate(zip(locs, exts, packs)):
+            nl = s.n
+            extra = None
+            with on_device(e.device):
+                if has_fluid:
+                    fo = unpacked(grid, forces(dfT, grid.nbr_slots, kernel,
+                                               cutoff, alpha, c0, has_rigid),
+                                  e, nl)
+                    s = cpl._apply_wall_forces(s, walls[d], fo, gvec)
+                    rbm = s.is_rigid & s.active
+                    zero = torch.zeros((), dtype=s.dtype, device=s.device)
+                    extra = tuple(torch.where(rbm, fo[:, c], zero)
+                                  for c in (3, 4, 5))
+                if has_rigid:
+                    cdfT = (coupling_contact_pack(dfT, grid, e, nl, two_d)
+                            if has_fluid else dfT)
+                    cp = tck.contact_pipeline_cell(
+                        cdfT, grid, local_cfg, kernel,
+                        s.meta.total_no_bodies, 4.0 * s.meta.spacing0, e.n,
+                        plain).to(s.dtype)[:nl]
+                    s = rb._contact_forces(s, cp, params, dt, extra)
+                    # the slab's partial body sums in float64, rounded
+                    # once after the rank-order sum
+                    sums.append(rops.body_sums(s, s.fx, s.fy, s.fz,
+                                               torch.float64))
+            evald.append(s.replace(nbr_overflow=ovfs[d]))
+        if has_rigid:
+            evald = [s.replace(force=ft[:, :3].to(s.dtype),
+                               torque=ft[:, 3:].to(s.dtype))
+                     for s, ft in zip(evald, _rank_sum(sums, mesh.devices))]
+        return [cpl._kick(s, dt, cpl._masks(s)[0], has_fluid, has_rigid)
+                for s in evald]
+
+    def step(parts, dt):
+        for _ in range(chain):
+            parts = one(parts, dt)
+        return parts
+
+    def stage_exchange(parts, dt):
+        locs, exts, _, ovfs = stage(parts, dt)
+        return locs, exts, ovfs
+
+    step.exchange = stage_exchange
     return step

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The slab phases of ``chip_smoke.py`` alone, on one CUDA card.
 
-    python3 scripts/slab_phases.py [2d] [3d] [dem]
+    python3 scripts/slab_phases.py [2d] [3d] [dem] [cpl2d] [cpl3d]
 
 Run from the repository root on the machine with the card.  It builds
 the kernels as ``chip_smoke.py`` does and runs its slab phases with
@@ -9,8 +9,11 @@ their checks: ``2d`` phase 28 (the 2D stack on SLAB_P slabs against the
 single-device and the plain slab steps, then 200 steps and the steps/s
 of SLAB_P slabs and of one), ``3d`` phase 29 (the 3D cubes on the most
 slabs of at least 2 cell columns, both routes, against the slab step on
-one slab), ``dem`` phase 30 (the DEM column on SLAB_P slabs); all three
-by default.  It exits 1 when a check fails and prints the phases'
+one slab), ``dem`` phase 30 (the DEM column on SLAB_P slabs), ``cpl2d``
+phase 32 (the coupling slab step on the sinking box, kdk and kdkf on
+SLAB_P slabs, each slab's kernels, 200 steps of each and the kdkf steps/s
+of one slab), ``cpl3d`` phase 33 (the 3D box, kdkf); all five by
+default.  It exits 1 when a check fails and prints the phases'
 numbers as one JSON line last.  It imports nothing from JAX.
 """
 
@@ -33,7 +36,7 @@ from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import (  # noqa: E402
 
 
 def main() -> int:
-    which = sys.argv[1:] or ["2d", "3d", "dem"]
+    which = sys.argv[1:] or ["2d", "3d", "dem", "cpl2d", "cpl3d"]
     smi = cs.smi_line()
     print(f"[env] {smi} torch {torch.__version__} cuda "
           f"{torch.version.cuda} devices {torch.cuda.device_count()}",
@@ -64,6 +67,16 @@ def main() -> int:
             k4 = {}
             out["dem"] = cs.phase_slab_dem(smi, cs.SLAB_P, dev, k4)
             out["dem_k4"] = k4
+        cpl = {}
+        if "cpl2d" in which:
+            for o in ("kdk", "kdkf"):
+                out[f"cpl2d_{o}"] = cs.phase_slab_coupling(
+                    smi, dev, o, 2, cs.SLAB_P, cpl, long_steps=cs.N_STEPS,
+                    single_steps=2 * cs.CHUNK if o == "kdkf" else 0)
+        if "cpl3d" in which:
+            out["cpl3d"] = cs.phase_slab_coupling(smi, dev, "kdkf", 3,
+                                                  cs.SLAB_P, cpl)
+        out["cpl_kernels"] = cpl
     except cs.PhaseError as e:
         print(f"FAILED: {e}", flush=True)
         return 1

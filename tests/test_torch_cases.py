@@ -171,6 +171,58 @@ def test_benchmark_2_app_past_the_collision_f64(tmp_path, cell_engine):
     assert np.abs(v1 + v2).max() < 1e-10           # momentum
 
 
+# benchmark 3's bodies moved down by B3_DROP (y) and started at B3_VY, the
+# speed the case's 0.4 m drop reaches (2.354 m/s at step 2,400), so both
+# hit the tank floor at about step 30
+B3_DROP, B3_VY = -0.29, -2.354
+
+
+def _lower_b3(jb3):
+    """The two packages' benchmark 3 with both bodies moved by B3_DROP and
+    moving down at B3_VY after the set-up."""
+
+    def lowered(scene, copy):
+        g = scene.meta.group("body")
+        y = copy(scene.y)
+        y[g.start:g.stop] += B3_DROP
+        xcm, vcm = copy(scene.xcm), copy(scene.vcm)
+        xcm[:, 1] += B3_DROP
+        vcm[:, 1] = B3_VY
+        return dict(y=y, xcm=xcm, vcm=vcm)
+
+    class J(jb3.Benchmark3):
+        def create_particles(self):
+            import jax.numpy as jnp
+            scene = super().create_particles()
+            upd = lowered(scene, np.array)
+            return scene.replace(**{k: jnp.asarray(v)
+                                    for k, v in upd.items()})
+
+    class T(tb3.Benchmark3):
+        def create_particles(self):
+            scene = super().create_particles()
+            return scene.replace(**lowered(scene, torch.clone))
+
+    return J(fname="benchmark_3"), T(fname="benchmark_3")
+
+
+def test_benchmark_3_app_through_the_first_impacts_f64(tmp_path,
+                                                       cell_engine):
+    """Both bodies hit the tank floor at ~2.35 m/s near step 30 and are
+    in contact to step 150 (their fall slowed to ~1.36 m/s): every snapshot (each 50 steps) at rtol
+    1e-10.  At the case's own height the f64 runs of both packages agree
+    to 1e-13 through the first impact (step ~2,450) and part ways after
+    it, as two runs of one package do (ROADMAP, Faults, benchmark 3)."""
+    import benchmark_3_multiple_rigid_bodies_colliding_same_particle_array \
+        as jb3
+
+    ft = _app_snapshots_match(tmp_path, *_lower_b3(jb3), [], steps=150,
+                              pfreq=50)
+    sd, g = jout.load(ft[-1])
+    # the floor slows both bodies (gravity alone would speed them up)
+    assert (g["body"].vcm_mat[:, 1] > B3_VY + 0.5).all()
+
+
 def _templates():
     s2, s3 = 0.025, 0.05
     x2, y2 = get_2d_block(s2, 0.2, 0.2)
