@@ -129,7 +129,7 @@ no result line):
     and nothing else, phase 11's gates; then 20 kernel steps against 20
     twin steps on phase 13's placement as in phase 13;
 26. the DEM step with ``contact_model="LVCForce"`` (no kernel: the
-    reference runs it in XLA only) on phase 7's column for 200 steps at
+    reference runs it in XLA only) on phase 7's column for 100 steps at
     dt = 5e-6: live contacts every step, finiteness, no overflow, the
     floor holds, overlap < 0.1 r, no kernel launched; prints steps/s;
 27. benchmark 2 (two cubes colliding head-on, no boundary,
@@ -177,7 +177,24 @@ no result line):
 33. the 3D box of phase 19 on SLAB_P slabs, kdkf, as phase 32 without
     the long run (the box does not turn: its omega is printed, not
     gated);
-34. a JSON line of per-kernel numbers (``launches`` from the kernel's
+34. (beside phases 5, 9 and 18, on their states) the list engine
+    against the cell engine: 20 list steps against 20 kernel steps of
+    the 2D GTVF stack (phase 5's state; the list step on its full
+    ``[N, S]`` view), of the DEM column (phase 9's; the tables as (idx,
+    dem) -> spring maps) and of the rho 8 box on the floor in the kdk
+    and reference orderings (phase 18's), each within STEP_RTOL as its
+    kernel-vs-twin parity;
+35. the ``[N, K]`` list engine (``engine="nklist"``) on phase 4's stack,
+    set up on lists: 100 GTVF steps under phase 4's gates, no kernel
+    launched, K, the gated contact pairs and the peak device memory
+    printed, steps/s;
+36. the same on phase 5a's 3D cubes: 50 GTVF steps, then 50 leapfrog
+    steps from a fresh set-up;
+37. the DEM column on lists: 100 LVCDisplacement steps under phase 7's
+    gates and 20 LVCForce steps, no kernel launched, K printed;
+38. the sinking box on lists: 200 kdk and 200 reference steps under
+    phase 11's gates, no kernel launched, K and the peak memory printed;
+39. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
@@ -225,6 +242,9 @@ DEM_OVERLAP = 2 * DEM_R - DEM_SPACING
 DEM_DT = 5e-6
 DEM_STEPS = 200
 DEM_ROWWIN_STEPS = 100
+# the LVCForce path in torch ops (~4.6 steps/s at ~104k grains): half
+# the spill path's depth keeps the script inside its time
+LVCF_STEPS = 100
 DEM_SUM_RTOL = 2e-5        # summation order (tests/test_pallas_dem.py)
 DEM_SPRING_RTOL = 1e-4     # operation order
 # the crowded column: grains at this fraction of DEM_SPACING (0.995 r),
@@ -256,6 +276,11 @@ CPL_TANK_STEPS = 50
 CPL_NOFLUID_STEPS = 50
 # the rigid steppers' main paths (phases 23-24)
 STEPPER_STEPS = 100
+# the list engine's paths (phases 35-38): the 2D stack and the DEM
+# column; the 3D cubes (K ~ 3,500 at 116.5k particles: each [N, K] f32
+# field ~1.6 GB)
+LIST_STEPS = 100
+LIST_3D_STEPS = 50
 # the slab phases (28-31): slabs on the card (2D rigid, DEM); the 3D
 # phase takes the most slabs of at least 2 cell columns each
 SLAB_P = 4
@@ -358,7 +383,7 @@ def slot_lanes(cnt, nbr):
 # ---------------------------------------------------------------------------
 
 def contact_scene_2d(dev, n_target=100_000, coupling=False,
-                     integrator="gtvf"):
+                     integrator="gtvf", engine="cell"):
     """8 blocks of side 0.2 in two rows of 4 on the floor of a 3-layer
     tank (the bench's body size and count), a resting stack: the bottom
     row sits GAP dx above the floor's surface layer, neighbours GAP dx
@@ -366,7 +391,8 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
     below 1 dx, so every block is in contact at once.  ``coupling`` sets
     it up under a rigid-fluid coupling scheme with no fluid group (the
     reference's stack-of-cylinders setup) instead of the rigid scheme;
-    ``integrator`` is the rigid scheme's stepper."""
+    ``integrator`` is the rigid scheme's stepper, ``engine`` its pair
+    engine (set before the set-up, which identifies the surfaces on it)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, create_tank_2d_from_block_2d)
@@ -408,10 +434,12 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
     else:
         scheme = RigidBody2DScheme(names, ["tank"], dim=2, gy=-9.81)
         scheme.integrator = integrator
+    scheme.engine = engine
     return scheme, scheme.setup(scene), dx
 
 
-def contact_scene_3d(dev, n_target=100_000, integrator="gtvf"):
+def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
+                     engine="cell"):
     """8 cubes of side 0.2 in a 4 x 2 layout on a 3-layer floor slab, at
     rest on it (the 3D bench's body size).  Each cube's bottom face sits
     where the floor carries its weight: the face's overlap is m g / (kr
@@ -423,7 +451,7 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf"):
     stack overflows ``max_spill`` in the reference too); the cubes are one
     group, so the faces between neighbours are interior to the surface
     identification and carry no contact.  ``integrator`` is the scheme's
-    stepper."""
+    stepper, ``engine`` its pair engine."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import get_3d_block
     from rigid_body_2d_3d_pysph_tpu_torch.models import RigidBody3DScheme
@@ -436,6 +464,7 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf"):
     xb1, yb1, zb1 = get_3d_block(dx, 0.2, 0.2, 0.2)
     scheme = RigidBody3DScheme(["body"], ["floor"], dim=3, gy=-G)
     scheme.integrator = integrator
+    scheme.engine = engine
     m = 2000.0 * dx**3
     n_face = side * side
     rest = m * len(xb1) * G / (scheme.kr * n_face)
@@ -596,39 +625,70 @@ def phase_kernels(scheme, scene, label, timings):
     timings[label] = t
 
 
+def config_line(scheme, scene, kernel):
+    """The capacities the scheme's step runs on: the list's K and M on
+    the list engine, the grid's ni_max, NC and O on the cell engine."""
+    if scheme.engine == "nklist":
+        lc = scheme.list_config(scene, kernel.radius_scale)
+        n_off = len(lc.stencil)
+        return (f"list K {n_off * lc.max_per_cell} ({n_off} stencil cells "
+                f"x M {lc.max_per_cell}), cutoff {lc.cutoff:.6g}, "
+                f"{lc.n_buckets} buckets")
+    cfg = scheme.cell_config(scene, kernel)
+    return f"ni_max {scheme.ni_max(cfg)}, NC {cfg.NC_max}, O {cfg.O}"
+
+
+def list_contact_pairs(scheme, scene):
+    """The gated contact pairs of ``scene`` on the scheme's list (the
+    Eq.-21/22 gate: rigid query, surface source of another entity)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact as cops
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import neighbors as nbmod
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.pairs import pair_data
+
+    nbrs = nbmod.build_neighbors(scene.x, scene.y, scene.z, scene.active,
+                                 scheme._nbr_cfg)
+    return int(cops._contact_gate(scene, pair_data(scene, nbrs)).sum())
+
+
 def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
                     evals=1):
     """The rigid step through its entry points for ``n_steps`` steps in
     chunks with the overflow-rebuild rule, under phase 4's gates.  GTVF
-    runs the compact path (interesting slots counted); RK2 and leapfrog
-    the full [N, S] schema (no compact store) with ``evals`` force
-    evaluations a step.  Each evaluation launches one K1 and one K2 and
-    nothing else.  Returns (end scene, launches, stats)."""
+    on the cell engine runs the compact path (interesting slots counted);
+    RK2 and leapfrog the full [N, S] schema (no compact store) with
+    ``evals`` force evaluations a step, each launching one K1 and one K2
+    and nothing else.  On the list engine every stepper keeps the full
+    schema and launches no kernel; K, the gated contact pairs and the
+    peak device memory are printed.  Returns (end scene, launches,
+    stats)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
     kernel = get_kernel(scheme.kernel_name, scheme.dim)
-    compact = scheme.integrator == "gtvf"
+    listed = scheme.engine == "nklist"
+    compact = scheme.integrator == "gtvf" and not listed
     check(compact == ("cl_pid" in scene), f"{label}: the compact slot "
           f"store is {'missing' if compact else 'there'}")
     step = scheme.make_step(scene)
     xcm0 = scene.xcm.clone()
     _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     steps_run = done = rebuilds = 0
-    chunk_s, n_int, lanes = [], [], []
+    chunk_s, chunk_n, n_int, lanes = [], [], [], []
     while done < n_steps:
         chunk_start = scene
-        cfg = scheme.cell_config(scene, kernel)
+        n = min(CHUNK, n_steps - done)
+        cfg = None if listed else scheme.cell_config(scene, kernel)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats = []
-        for _ in range(CHUNK):
+        for _ in range(n):
             scene = step(scene, DT)
             if compact:
                 stats.append(scene.n_interesting)
         torch.cuda.synchronize()
         el = time.perf_counter() - t0
-        steps_run += CHUNK
+        steps_run += n
         if bool(scene.nbr_overflow):
             # the reference Solver's rule: re-size from the chunk's start
             # state (1.5x slack from the second try on) and re-run it
@@ -638,15 +698,14 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
             chunk_start = scheme.adapt_scene(chunk_start)
             step = scheme.make_step(chunk_start)
             scene = chunk_start
-            cfg = scheme.cell_config(scene, kernel)
             print(f"[{label}] step {done}: capacity overflow, rebuilt "
                   f"(x{rebuilds}, boost {scheme.capacity_boost:.2f}, "
-                  f"ni_max {scheme.ni_max(cfg)}, NC {cfg.NC_max}, O "
-                  f"{cfg.O})", flush=True)
+                  f"{config_line(scheme, scene, kernel)})", flush=True)
             continue
         rebuilds = 0
-        done += CHUNK
+        done += n
         chunk_s.append(el)
+        chunk_n.append(n)
         ov = float(scheme.export_scene(scene).overlap.max())
         msg = f"max overlap {ov:.3e}"
         if compact:
@@ -654,19 +713,20 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
             n_int.append(ni)
             lanes.append(ni * cfg.M * cfg.O * cfg.M)
             msg = f"interesting slots {ni.min()}-{ni.max()}, " + msg
-        print(f"[{label}] steps {done - CHUNK}-{done}: {el:.3f} s, {msg}",
+        print(f"[{label}] steps {done - n}-{done}: {el:.3f} s, {msg}",
               flush=True)
 
     launches = dict(_build.LAUNCHES)
     for k, v in launches.items():
-        want = evals * steps_run if k in ("pack_expand", "contact") else 0
+        want = (evals * steps_run if k in ("pack_expand", "contact")
+                and not listed else 0)
         check(v == want, f"{label}: {k} launched {v} times in {steps_run} "
               f"steps, expected {want}")
     check(compact == ("cl_pid" in scene), f"{label}: the step changed the "
           "slot schema")
     full = scheme.export_scene(scene)
     max_overlap = float(full.overlap.max())
-    check(max_overlap > 0, "no overlap: the contact kernel did no work")
+    check(max_overlap > 0, "no overlap: the contact did no work")
     for k, v in full.fields.items():
         if v.is_floating_point():
             check(bool(torch.isfinite(v).all()), f"non-finite field {k}")
@@ -681,31 +741,38 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
     drop = float((xcm0[:, 1] - scene.xcm[:, 1]).max())
     check(drop < 0.5 * fall, f"a block dropped {drop:.3e}, >= half the "
           f"free-fall distance {fall:.3e}: the stack is not carried")
-    cfg = scheme.cell_config(scene, kernel)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     if compact:
+        cfg = scheme.cell_config(scene, kernel)
         n_int, lanes = np.concatenate(n_int), np.concatenate(lanes)
         check(bool((n_int > 0).all()), "a step had no interesting slot")
         work = (f"interesting slots/step min {n_int.min()} mean "
                 f"{n_int.mean():.1f} max {n_int.max()} | candidate "
                 f"lanes/step mean {lanes.mean():.4g}")
+    elif listed:
+        pairs = list_contact_pairs(scheme, scene)
+        check(pairs > 0, f"{label}: no gated contact pair at the end")
+        work = (f"{evals} list evaluation(s) a step | gated contact pairs "
+                f"at the end {pairs}")
     else:
+        cfg = scheme.cell_config(scene, kernel)
         work = (f"{evals} evaluation(s) a step, K2 on all {cfg.NC_max} "
                 f"slots (O {cfg.O})")
     steady = chunk_s[1:] or chunk_s
-    sps = CHUNK * len(steady) / sum(steady)
-    print(f"[{label}] n={scene.n} dx={dx:.6g} {scheme.integrator} "
-          f"steps={done} (run {steps_run}) launches pack="
+    sps = (sum(chunk_n[1:]) or sum(chunk_n)) / sum(steady)
+    print(f"[{label}] n={scene.n} dx={dx:.6g} {scheme.integrator} on "
+          f"{scheme.engine} steps={done} (run {steps_run}) launches pack="
           f"{launches['pack_expand']} contact={launches['contact']} | "
           f"{work} | max overlap {max_overlap:.4e} ({max_overlap / dx:.3f} "
           f"dx) | max COM drift {drift:.4e} ({drift / dx:.3f} dx) | max "
           f"drop {drop:.4e} (free fall {fall:.4e})", flush=True)
-    print(f"[{label}] final config: ni_max {scheme.ni_max(cfg)}, NC "
-          f"{cfg.NC_max}, O {cfg.O}, capacity boost "
-          f"{scheme.capacity_boost:.4g}", flush=True)
+    print(f"[{label}] final config: {config_line(scheme, scene, kernel)}, "
+          f"capacity boost {scheme.capacity_boost:.4g}; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
     print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
-          f"{CHUNK * len(chunk_s) / sum(chunk_s):.2f} steps/s all chunks, "
-          f"on {smi}", flush=True)
-    return scene, launches, dict(steps_per_s=sps, n=scene.n)
+          f"{done / sum(chunk_s):.2f} steps/s all chunks, on {smi}",
+          flush=True)
+    return scene, launches, dict(steps_per_s=sps, n=scene.n, peak_gib=peak)
 
 
 def phase_step_parity(scheme, scene, label="parity"):
@@ -736,12 +803,54 @@ def phase_step_parity(scheme, scene, label="parity"):
           f"steps, max abs diff: " + ", ".join(worst), flush=True)
 
 
+def list_twin(scheme):
+    """A copy of ``scheme`` on the list engine (its list sized at its
+    first step)."""
+    twin = copy.copy(scheme)
+    twin.engine = "nklist"
+    twin._nbr_cfg = None
+    return twin
+
+
+def phase_engine_parity_rigid(scheme, scene, label="engine-parity"):
+    """20 steps of the scheme's stepper on the list engine against 20
+    kernel steps on the cell engine from one state (the list step takes
+    the state's full [N, S] view)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
+
+    lscheme = list_twin(scheme)
+    lscene = trb.strip_compact_fields(trb.expand_slot_scene(scene))
+    a = trb.make_multi_step(scheme.make_step(scene), COMPARE_STEPS)(
+        scene, DT)
+    b = trb.make_multi_step(lscheme.make_step(lscene), COMPARE_STEPS)(
+        lscene, DT)
+    torch.cuda.synchronize()
+    check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
+          f"{label}: overflow during the engine comparison")
+    check(float(b.overlap.max()) > 0, f"{label}: the list run ended out "
+          "of contact")
+    worst = []
+    for k in ("xcm", "vcm", "omega", "fx", "fy") + (
+            () if scheme.two_d else ("fz",)):
+        x, y = a[k], b[k]
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
+        check(bool(((x - y).abs() <= STEP_RTOL * y.abs()
+                    + STEP_RTOL * scale).all()),
+              f"{label}: cell kernel step vs list step: {k} off by "
+              f"{err:.3e} (scale {scale:.3e}, rtol {STEP_RTOL})")
+    print(f"[{label}] {scheme.dim}D {scheme.integrator}: {COMPARE_STEPS} "
+          f"list steps vs {COMPARE_STEPS} cell kernel steps, max abs "
+          "diff: " + ", ".join(worst), flush=True)
+
+
 # ---------------------------------------------------------------------------
 # DEM
 # ---------------------------------------------------------------------------
 
 def dem_scene(dev, dim, grid="spill", n_target=100_000,
-              contact_model="LVCDisplacement"):
+              contact_model="LVCDisplacement", engine="cell"):
     """The bench's granular column over a floor (``bench.py``
     ``build_dem_scene`` / ``build_dem_scene_3d`` geometry at ~n_target
     grains) with grains spaced DEM_SPACING: every lattice neighbour and
@@ -782,6 +891,7 @@ def dem_scene(dev, dim, grid="spill", n_target=100_000,
     scheme = DEMScheme(["sand"], ["floor"], kn=1e5, en=0.5, mu=0.5,
                        dim=dim, gy=-9.81, max_tng_contacts_limit=8,
                        dem_grid=grid, contact_model=contact_model)
+    scheme.engine = engine
     return scheme, scheme.setup(scene)
 
 
@@ -982,8 +1092,10 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
     overflow-rebuild rule; returns (end scene, launches, steps/s)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
-    # LVCForce launches no kernel (the reference runs it in XLA only)
-    force_model = scheme.contact_model == "LVCForce"
+    # LVCForce launches no kernel (the reference runs it in XLA only),
+    # nor does the list engine
+    listed = scheme.engine == "nklist"
+    no_kernel = scheme.contact_model == "LVCForce" or listed
     spill = scheme.dem_grid == "spill"
     kname = "dem_cell" if spill else "dem_rowwin"
     step = scheme.make_step(scene)
@@ -993,19 +1105,20 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     steps_run = done = rebuilds = 0
-    chunk_s, lives, gateds = [], [], []
+    chunk_s, chunk_n, lives, gateds = [], [], [], []
     while done < n_steps:
         chunk_start = scene
+        n = min(CHUNK, n_steps - done)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         live, gated = [], []
-        for _ in range(CHUNK):
+        for _ in range(n):
             scene = step(scene, DEM_DT)
             live.append(scene.total_tng_contacts.sum())
             gated.append(scene.n_gated)
         torch.cuda.synchronize()
         el = time.perf_counter() - t0
-        steps_run += CHUNK
+        steps_run += n
         if bool(scene.nbr_overflow):
             rebuilds += 1
             check(rebuilds <= 8, f"{label}: overflow persists after 8 "
@@ -1018,19 +1131,20 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
                   flush=True)
             continue
         rebuilds = 0
-        done += CHUNK
+        done += n
         lv = torch.stack(live).cpu().numpy()
         gt = torch.stack(gated).cpu().numpy()
         lives.append(lv)
         gateds.append(gt)
         chunk_s.append(el)
-        print(f"[{label}] steps {done - CHUNK}-{done}: {el:.3f} s, live "
+        chunk_n.append(n)
+        print(f"[{label}] steps {done - n}-{done}: {el:.3f} s, live "
               f"table entries {lv.min()}-{lv.max()}, gated pairs/step "
               f"{gt.min()}-{gt.max()}", flush=True)
     launches = dict(_build.LAUNCHES)
     lv, gt = np.concatenate(lives), np.concatenate(gateds)
     for k, v in launches.items():
-        want = steps_run if k in (kname, "pack_expand") and not force_model \
+        want = steps_run if k in (kname, "pack_expand") and not no_kernel \
             else 0
         check(v == want, f"{label}: {k} launched {v} times in {steps_run} "
               f"steps, expected {want}")
@@ -1046,9 +1160,14 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
     check(0 < ov < 0.1 * DEM_R, f"{label}: max overlap {ov:.3e} not in "
           f"(0, 0.1 r)")
     steady = chunk_s[1:] or chunk_s
-    sps = CHUNK * len(steady) / sum(steady)
+    sps = (sum(chunk_n[1:]) or sum(chunk_n)) / sum(steady)
+    if listed:
+        lc = scheme._nbr_cfg
+        print(f"[{label}] list K {len(lc.stencil) * lc.max_per_cell} (M "
+              f"{lc.max_per_cell}), cutoff {lc.cutoff:.6g}", flush=True)
     print(f"[{label}] n={scene.n} ({sand.stop - sand.start} grains) "
-          f"{scheme.contact_model} steps={done} (run {steps_run}) launches "
+          f"{scheme.contact_model} on {scheme.engine} steps={done} (run "
+          f"{steps_run}) launches "
           f"{kname}={launches[kname]} pack_expand="
           f"{launches['pack_expand']} | live "
           f"entries/step min {lv.min()} mean {lv.mean():.1f} | gated "
@@ -1056,7 +1175,7 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
           f"({ov / DEM_R:.4f} r) | lowest grain bottom {bottom:.4e} "
           f"(floor top {floor_top:.4e})", flush=True)
     print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
-          f"{CHUNK * len(chunk_s) / sum(chunk_s):.2f} steps/s all chunks, "
+          f"{done / sum(chunk_s):.2f} steps/s all chunks, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB, on {smi}", flush=True)
     return scene, launches, sps
@@ -1073,16 +1192,19 @@ def _sorted_tables(scene):
     return key, spr
 
 
-def phase_dem_parity(scheme, scene):
-    """20 kernel steps against 20 twin steps from one state."""
+def phase_dem_parity(scheme, scene, other=None, label="dem-parity"):
+    """20 kernel steps against 20 twin steps from one state, or with
+    ``other`` (a scheme) against 20 of its steps."""
     fast = scheme.make_step(scene)
-    plain = scheme.make_step(scene, plain=True)
+    plain = (other.make_step(scene) if other is not None
+             else scheme.make_step(scene, plain=True))
+    ref = "twin" if other is None else f"{other.engine}"
     a = b = scene
     for _ in range(COMPARE_STEPS):
         a, b = fast(a, DEM_DT), plain(b, DEM_DT)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
-          "overflow during the DEM step comparison")
+          f"{label}: overflow during the DEM step comparison")
     worst = []
     for k in ("x", "y", "u", "v", "wz", "fx", "fy", "torz"):
         # positions as displacements over the run, so the tolerance is on
@@ -1094,19 +1216,21 @@ def phase_dem_parity(scheme, scene):
         worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
         check(bool(((x - y).abs() <= STEP_RTOL * y.abs()
                     + STEP_RTOL * scale).all()),
-              f"DEM kernel step vs twin step: {k} off by {err:.3e} "
+              f"{label}: DEM kernel step vs {ref} step: {k} off by "
+              f"{err:.3e} "
               f"(scale {scale:.3e}, rtol {STEP_RTOL})")
     ka, sa = _sorted_tables(a)
     kb, sb = _sorted_tables(b)
     rows = int((ka != kb).any(1).sum())
-    check(rows == 0, f"DEM kernel vs twin step: {rows} rows hold other "
-          "contacts")
+    check(rows == 0, f"{label}: DEM kernel vs {ref} step: {rows} rows hold "
+          "other contacts")
     d = (sa - sb).abs()
     check(bool((d <= STEP_RTOL * sb.abs()
                 + STEP_RTOL * float(sb.abs().max())).all()),
-          f"DEM kernel vs twin step: springs off by {float(d.max()):.3e}")
-    print(f"[dem-parity] {COMPARE_STEPS} kernel steps vs {COMPARE_STEPS} "
-          f"twin steps: contact tables equal as (idx, dem) -> spring maps "
+          f"{label}: DEM kernel vs {ref} step: springs off by "
+          f"{float(d.max()):.3e}")
+    print(f"[{label}] {COMPARE_STEPS} kernel steps vs {COMPARE_STEPS} "
+          f"{ref} steps: contact tables equal as (idx, dem) -> spring maps "
           f"(springs max abs diff {float(d.max()):.3e}), max abs diff: "
           + ", ".join(worst), flush=True)
 
@@ -1116,7 +1240,7 @@ def phase_dem_parity(scheme, scene):
 # ---------------------------------------------------------------------------
 
 def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
-                      rho_b=2.0):
+                      rho_b=2.0, engine="cell"):
     """``cases/rigid_body_rotating_and_sinking_in_tank_2d.py`` built with
     the port's geometry at bench.py's coupling size: a 4 x 3 fluid block
     in a 3-layer tank, a 1 x 0.5 box (rho 2) at the surface with the
@@ -1124,7 +1248,8 @@ def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
     displaced-fluid shadow mass and density.  ``floor`` rests the box
     GAP dx above the tank floor's top layer instead; ``body=False``
     leaves it out (the hydrostatic tank); ``rho_b`` is the box's
-    density.  Returns (scheme, scene, dt)."""
+    density, ``engine`` the scheme's pair engine.  Returns (scheme,
+    scene, dt)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, hydrostatic_tank_2d)
@@ -1164,6 +1289,7 @@ def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
     scheme = RigidFluidCouplingScheme(
         ["fluid"], ["tank"], ["body"] if body else [], dim=2, rho0=rho_f,
         p0=rho_f * co**2, c0=co, h=h, nu=0.0, gy=gy)
+    scheme.engine = engine
     scene = scheme.setup(scene)
     if body:
         rb = scene.is_rigid
@@ -1480,7 +1606,8 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed, k1=None):
 def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
     """The coupling step through its entry points, in chunks with the
     overflow-rebuild rule; ``per_step`` maps each kernel to its expected
-    launches per step.  Returns (end scene, launches, steps/s)."""
+    launches per step (none on the list engine).  Returns (end scene,
+    launches, steps/s)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
     step = scheme.make_step(scene)
@@ -1489,6 +1616,7 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
     has_body = scene.meta.nb > 0
     y0 = float(scene.xcm[0, 1]) if has_body else None
     _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     steps_run = done = rebuilds = 0
     chunk_s = []
     while done < n_steps:
@@ -1554,30 +1682,39 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
           f"{steps_run}) launches " + " ".join(
               f"{k}={v}" for k, v in launches.items() if v) + msg,
           flush=True)
+    if scheme.engine == "nklist":
+        lc = scheme._nbr_cfg
+        print(f"[{label}] list K {len(lc.stencil) * lc.max_per_cell} (M "
+              f"{lc.max_per_cell}), cutoff {lc.cutoff:.6g}", flush=True)
     print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
-          f"{done / sum(chunk_s):.2f} steps/s all chunks, on {smi}",
-          flush=True)
+          f"{done / sum(chunk_s):.2f} steps/s all chunks, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on "
+          f"{smi}", flush=True)
     return scene, launches, sps
 
 
-def phase_coupling_parity(scheme, scene, dt, label="cpl-parity"):
+def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
+                          other=None):
     """20 kernel steps against 20 twin steps from one state in the
     scheme's ordering, in contact throughout: the dense box starts GAP dx
     above the floor, engaged, and moving down and sideways.  Sliding,
     because at zero tangential velocity the Coulomb friction's direction
     is the rounding noise of the tangent (the reference model's own
-    discontinuity), which no summation-order tolerance holds."""
+    discontinuity), which no summation-order tolerance holds.  With
+    ``other`` (a scheme), its steps take the twin's place."""
     scene = scene.replace(vcm=torch.tensor(
         [[0.05, -0.5, 0.0]], dtype=scene.dtype, device=scene.device))
     fast = scheme.make_step(scene)
-    plain = scheme.make_step(scene, plain=True)
+    plain = (other.make_step(scene) if other is not None
+             else scheme.make_step(scene, plain=True))
+    ref = "twin" if other is None else other.engine
     a = b = scene
     for _ in range(COMPARE_STEPS):
         a, b = fast(a, dt), plain(b, dt)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
           f"{label}: overflow during the coupling step comparison")
-    for c, who in ((a, "kernel"), (b, "twin")):
+    for c, who in ((a, "kernel"), (b, ref)):
         check(float(c.overlap.max()) > 0 and
               float(c.delta_lt_x.abs().max()) > 0,
               f"{label}: the comparison's {who} run ended out of contact")
@@ -1620,12 +1757,12 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity"):
         if not bool(((x - y).abs() <= STEP_RTOL * y.abs()
                      + STEP_RTOL * scale + tol).all()):
             bad.append(f"{k} off by {err:.3e} (scale {scale:.3e})")
-    check(not bad, f"{label}: coupling kernel step vs twin step (rtol "
+    check(not bad, f"{label}: coupling kernel step vs {ref} step (rtol "
           f"{STEP_RTOL}): " + ", ".join(bad))
     stepper = (scheme.gtvf_ordering if scheme.fluid_stepper == "gtvf"
                else scheme.fluid_stepper)
     print(f"[{label}] {stepper}: {COMPARE_STEPS} kernel steps "
-          f"vs {COMPARE_STEPS} twin steps (dense box on the floor, rho "
+          f"vs {COMPARE_STEPS} {ref} steps (dense box on the floor, rho "
           f"{CPL_PARITY_RHO}; end "
           f"overlap {float(b.overlap.max()):.3e}, |delta_lt_x| "
           f"{float(b.delta_lt_x.abs().max()):.3e}), max abs diff: "
@@ -2848,8 +2985,9 @@ def main() -> int:
         # 4. the main path
         end, launches, main_stats = phase_main_path(scheme, scene, dx, smi)
 
-        # 5. kernel steps against twin steps
+        # 5. kernel steps against twin steps; 34. against list steps
         phase_step_parity(scheme, end)
+        phase_engine_parity_rigid(scheme, end, "engine-parity-2d")
         del scheme, scene, end
 
         # 5a. the 3D main path from the 3D scene's set-up state, 5b. its
@@ -2882,8 +3020,10 @@ def main() -> int:
             rscheme, rscene, DEM_ROWWIN_STEPS, "dem-rowwin", smi)
         del rscheme, rscene
 
-        # 9. DEM kernel steps against twin steps
+        # 9. DEM kernel steps against twin steps; 34. against list steps
         phase_dem_parity(dscheme, dend)
+        phase_dem_parity(dscheme, dend, other=list_twin(dscheme),
+                         label="dem-engine-parity")
         del dscheme, dend
 
         # 10. coupling kernels against twins: the main path's scene (timed)
@@ -2959,10 +3099,14 @@ def main() -> int:
             dict(pack_expand=1, contact=1))
         del nscheme, nscene
 
-        # 18. kdk and reference kernel steps against twin steps
+        # 18. kdk and reference kernel steps against twin steps; 34.
+        # against list steps
         for ordering in ("kdk", "reference"):
             pscheme.gtvf_ordering = ordering
             phase_coupling_parity(pscheme, pscene, pdt, f"{ordering}-parity")
+            phase_coupling_parity(pscheme, pscene, pdt,
+                                  f"{ordering}-engine-parity",
+                                  other=list_twin(pscheme))
         del pscheme, pscene
 
         # 19. every fluid pass on the 3D sinking box
@@ -3023,7 +3167,7 @@ def main() -> int:
         # 26. the LVCForce DEM step on the column
         fscheme, fscene = dem_scene(dev, 2, contact_model="LVCForce")
         _, lvcf_launches, lvcf_sps = phase_dem_main(
-            fscheme, fscene, DEM_STEPS, "dem-lvcforce", smi)
+            fscheme, fscene, LVCF_STEPS, "dem-lvcforce", smi)
         del fscheme, fscene
 
         # 27. benchmark 2 to its tf through the Application
@@ -3078,6 +3222,43 @@ def main() -> int:
             single_steps=2 * CHUNK if o == "kdkf" else 0)
             for o in ("kdk", "kdkf")}
         slabc3 = phase_slab_coupling(smi, dev, "kdkf", 3, SLAB_P, cpl_slab_t)
+
+        # 35-38. the [N, K] list engine on the cell paths' scenes
+        t_list = time.perf_counter()
+        lists = {}
+        t0 = time.perf_counter()
+        lscheme, lscene, ldx = contact_scene_2d(dev, engine="nklist")
+        print(f"[list-setup] 2D stack: n={lscene.n} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        lists["rigid-2d"] = phase_main_path(
+            lscheme, lscene, ldx, smi, "list-rigid-2d", LIST_STEPS)[2]
+        del lscheme, lscene
+        for integ in ("gtvf", "leapfrog"):
+            t0 = time.perf_counter()
+            lscheme, lscene, ldx = contact_scene_3d(dev, integrator=integ,
+                                                    engine="nklist")
+            print(f"[list-setup] 3D cubes ({integ}): n={lscene.n} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            lists[f"rigid-3d-{integ}"] = phase_main_path(
+                lscheme, lscene, ldx, smi, f"list-rigid-3d-{integ}",
+                LIST_3D_STEPS)[2]
+            del lscheme, lscene
+        for model, n_list in (("LVCDisplacement", LIST_STEPS),
+                              ("LVCForce", COMPARE_STEPS)):
+            lscheme, lscene = dem_scene(dev, 2, contact_model=model,
+                                        engine="nklist")
+            lists[f"dem-{model}"] = phase_dem_main(
+                lscheme, lscene, n_list, f"list-dem-{model}", smi)[2]
+            del lscheme, lscene
+        lscheme, lscene, ldt = sinking_box_scene(dev, engine="nklist")
+        for ordering in ("kdk", "reference"):
+            lscheme.gtvf_ordering = ordering
+            lists[f"coupling-{ordering}"] = phase_coupling_main(
+                lscheme, lscene, ldt, CPL_STEPS, f"list-cpl-{ordering}",
+                smi, {})[2]
+        del lscheme, lscene
+        print(f"[list] phases 35-38 in {time.perf_counter() - t_list:.1f} "
+              "s", flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3303,6 +3484,10 @@ def main() -> int:
           f"leapfrog 3D {lf_stats['steps_per_s']:.2f} steps/s, coupling RK2 {crk2_sps:.2f} steps/s, DEM "
           f"LVCForce {lvcf_sps:.2f} steps/s, benchmark 2 {b2_sps:.2f} "
           f"steps/s; on {smi}", flush=True)
+    sps_of = lambda v: v["steps_per_s"] if isinstance(v, dict) else v
+    print("[done] list engine: " + ", ".join(
+        f"{k} {sps_of(v):.2f} steps/s" for k, v in lists.items())
+        + f"; on {smi}", flush=True)
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(smi, flush=True)

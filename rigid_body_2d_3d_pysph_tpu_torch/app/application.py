@@ -9,7 +9,9 @@ boundary nearest their time (the reference's ``post_step`` pattern).
 ``Application`` is the base class of a case: ``initialize``,
 ``create_particles``, ``create_scheme``, ``configure_scheme``,
 ``add_user_options``, ``consume_user_options`` and ``post_process``,
-with the reference's CLI flags and ``--device`` (the card by default).
+with the reference's CLI flags, ``--device`` (the card by default) and
+``--engine`` (the scheme's pair engine: ``cell``, the default, or
+``nklist``; the counterpart of the reference's ``RB_TPU_ENGINE``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from .. import config
+from ..models.base import ENGINES
 from ..models.rigid_body import make_multi_step
 from ..state.scene import Scene
 from . import checkpoint as ckpt_mod
@@ -240,6 +243,9 @@ class Application:
         p.add_argument("--device", default=None,
                        help="torch device of the run (default: the first "
                             "CUDA card; there is no fallback to the CPU)")
+        p.add_argument("--engine", choices=ENGINES, default="cell",
+                       help="pair engine: the cell grid and its kernels "
+                            "(default) or the [N, K] neighbour lists")
         g = p.add_argument_group("scheme options")
         self.add_user_options(g)
         self.scheme = self.create_scheme()
@@ -250,6 +256,7 @@ class Application:
                        if self.options.device else config.device())
         self.consume_user_options()
         self.scheme.consume_user_options(self.options)
+        self.scheme.engine = self.options.engine
 
     def add_event(self, t: float, fn: Callable):
         """Schedule a host-side scene edit at simulated time t."""

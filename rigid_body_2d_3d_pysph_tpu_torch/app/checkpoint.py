@@ -8,7 +8,9 @@ the scheme's capacity state (the capacity boost and its grid configs),
 and the rigid compact store keeps the width it had when it was saved: a
 run resumed after an overflow rebuild widened the store (and re-sized the
 grid) carries on with the same store and the same grid, where the
-reference raises a shape mismatch.
+reference raises a shape mismatch.  The neighbour list's config is kept
+beside the grid configs, so a run on the list engine resumed after an
+overflow rebuild resumes with the list it had.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ import torch
 
 from ..models.base import SchemeChooser
 from ..ops.cellpairs import CellGridConfig
+from ..ops.neighbors import NeighborConfig
 from ..ops.rowwin import RowWinConfig
 from ..state.scene import Scene
 from .output import save_npz_atomic
 
-# the scheme attributes that hold a grid config, and their types
-_CONFIGS = {"_cell_cfg": CellGridConfig, "_rowwin_cfg": RowWinConfig}
+# the scheme attributes that hold a grid or list config, and their types
+_CONFIGS = {"_cell_cfg": CellGridConfig, "_rowwin_cfg": RowWinConfig,
+            "_nbr_cfg": NeighborConfig}
 # the compact store: its first dimension is the store width L
 _COMPACT = ("cl_pid", "cl_state")
 
@@ -38,7 +42,7 @@ def _selected(scheme):
 
 
 def scheme_state(scheme) -> dict:
-    """The capacity boost and the grid configs of ``scheme``."""
+    """The capacity boost and the grid and list configs of ``scheme``."""
     s = _selected(scheme)
     out = {"capacity_boost": float(s.capacity_boost)}
     for attr in _CONFIGS:

@@ -7,6 +7,13 @@ attachment), ``make_step(scene)`` (an eager ``step(scene, dt)`` for one
 integrator timestep) and the capacity bookkeeping of the
 overflow-rebuild rule.  ``SchemeChooser`` selects one of several schemes
 by the ``--scheme`` flag.
+
+Every scheme has an ``engine``: ``"cell"`` (the default: the cell grid,
+whose pair passes are the hand-written kernels on CUDA tensors and their
+plain versions on CPU tensors) or ``"nklist"`` (the ``[N, K]``
+neighbour-list engine, ``ops/neighbors.py``, in PyTorch ops on every
+device).  The reference package defaults to its list engine off the TPU;
+the port keeps the cell engine as its default on every device.
 """
 
 from __future__ import annotations
@@ -14,7 +21,10 @@ from __future__ import annotations
 import argparse
 from typing import Dict, Optional
 
+from ..ops import neighbors as nbmod
 from ..state.scene import Scene
+
+ENGINES = ("cell", "nklist")
 
 
 class Scheme:
@@ -26,10 +36,34 @@ class Scheme:
     #: snapshot overflows as the simulation spreads
     capacity_boost = 1.0
 
+    # the cached grid and list configs (``refresh_configs`` drops them)
+    _cell_cfg = None
+    _nbr_cfg = None
+
     # the solver's settings (``configure_solver``)
     dt: Optional[float] = None
     tf: Optional[float] = None
     pfreq = 100
+
+    @property
+    def engine(self) -> str:
+        return self.__dict__.get("_engine", "cell")
+
+    @engine.setter
+    def engine(self, value: str) -> None:
+        if value not in ENGINES:
+            raise ValueError(f"engine={value!r}: one of {ENGINES}")
+        self._engine = value
+
+    def check_kernel_engine(self) -> None:
+        """The hand kernels compute the quintic spline only: a scheme on
+        the cell engine with another kernel raises (it never drops to
+        the plain versions)."""
+        if self.engine == "cell" and self.kernel_name != "quintic":
+            raise ValueError(
+                f"kernel {self.kernel_name!r} runs on the list engine only "
+                "(engine='nklist'); the cell engine's kernels compute the "
+                "quintic spline")
 
     def add_user_options(self, group: argparse._ArgumentGroup) -> None:
         pass
@@ -70,13 +104,35 @@ class Scheme:
         return scene
 
     def refresh_configs(self, scene: Scene, grow: bool = False) -> None:
-        """Drop the cached cell-grid config so the next ``make_step``
+        """Drop the cached grid and list configs so the next ``make_step``
         re-sizes capacities from the current positions; ``grow=True``
         also widens every slack factor 1.5x (a rebuild from the same
         snapshot overflowed again)."""
         if grow:
             self.capacity_boost = float(self.capacity_boost) * 1.5
         self._cell_cfg = None
+        self._nbr_cfg = None
+
+    def neighbor_config(self, scene: Scene, radius_scale: float,
+                        safety: float = 2.0) -> nbmod.NeighborConfig:
+        """The list's config, sized from the scene's positions (host
+        side): cutoff = radius_scale max(h), the capacities with
+        ``safety x capacity_boost`` headroom."""
+        host = lambda k: scene[k].detach().cpu().numpy()
+        cutoff = float(radius_scale * host("h").max())
+        m, k = nbmod.estimate_capacities(host("x"), host("y"), host("z"),
+                                         cutoff, scene.meta.dim,
+                                         safety=safety * self.capacity_boost)
+        return nbmod.default_config(scene.meta.dim, cutoff, scene.n,
+                                    max_neighbors=k, max_per_cell=m)
+
+    def list_config(self, scene: Scene,
+                    radius_scale: float) -> nbmod.NeighborConfig:
+        """The list's config on ``engine = "nklist"``, sized from
+        ``scene`` at its first use (cached until ``refresh_configs``)."""
+        if self._nbr_cfg is None:
+            self._nbr_cfg = self.neighbor_config(scene, radius_scale)
+        return self._nbr_cfg
 
 
 class _Dedup:
@@ -132,6 +188,9 @@ class SchemeChooser(Scheme):
     def refresh_configs(self, scene, grow: bool = False):
         return self.scheme.refresh_configs(scene, grow=grow)
 
+    def list_config(self, scene, radius_scale):
+        return self.scheme.list_config(scene, radius_scale)
+
     def adapt_scene(self, scene):
         return self.scheme.adapt_scene(scene)
 
@@ -150,6 +209,7 @@ class SchemeChooser(Scheme):
     dt = _delegated("dt")
     tf = _delegated("tf")
     pfreq = _delegated("pfreq")
+    engine = _delegated("engine")
     del _delegated
 
     def configure(self, **kw) -> None:

@@ -24,6 +24,12 @@ moment of inertia ``moi`` and the ``[N, L]`` tangential contact table.
   scheme's scalar kn, mu, en; the prune, then the pair pass on a spill
   grid of the cubic spline's support, in PyTorch ops on every device
   (the reference package runs it in XLA only: it has no kernel).
+
+With ``engine = "nklist"`` both models run on the ``[N, K]`` neighbour
+list instead (cutoff: the support of ``kernel_name``, the cubic spline,
+2 max(h)): a list build, the table prune, then the list pass
+(``ops/dem.py`` ``lvc_displacement`` / ``lvc_force``), in PyTorch ops
+on every device, as the reference package's list branch.
 """
 
 from __future__ import annotations
@@ -32,8 +38,11 @@ import numpy as np
 import torch
 
 from ..ops import cellpairs as cellmod
+from ..ops import dem as dops
 from ..ops import dem_kernel as dk
+from ..ops import neighbors as nbmod
 from ..ops import rowwin as rwmod
+from ..ops.kernels import get_kernel
 from ..state.scene import Scene
 from .base import Scheme
 
@@ -100,6 +109,9 @@ class DEMScheme(Scheme):
         self.mu = mu
         self.gx, self.gy, self.gz = gx, gy, gz
         self.contact_model = contact_model
+        # the list engine's cutoff is this kernel's support (the
+        # reference's DEM default)
+        self.kernel_name = "cubic"
         self.max_tng_contacts_limit = int(max_tng_contacts_limit)
         self.dem_grid = dem_grid
         # spill-grid bins are cell_factor x the contact radius, M lanes a
@@ -173,6 +185,11 @@ class DEMScheme(Scheme):
         # candidate: cutoff = 2 max(rad_s), read once on the host
         return 2.0 * float(scene.rad_s.detach().cpu().max())
 
+    def _kernel_radius(self) -> float:
+        """The support of ``kernel_name`` in units of h: the LVCForce
+        grid's and the list's cutoff is this times max(h)."""
+        return get_kernel(self.kernel_name, self.dim).radius_scale
+
     def cell_config(self, scene: Scene) -> cellmod.CellGridConfig:
         """The spill grid of the DEM kernel: cutoff = the contact radius,
         bins ``cell_factor`` x coarser, ``cell_M`` lanes a slot.  For
@@ -187,7 +204,7 @@ class DEMScheme(Scheme):
             kw = dict(cell_factor=self.cell_factor, M=self.cell_M)
             cutoff = self._contact_radius(scene)
             if self.contact_model == "LVCForce":
-                cutoff = 2.0 * float(host("h").max())
+                cutoff = self._kernel_radius() * float(host("h").max())
                 kw = dict(cell_factor=1.0, M=16, cell_chunk=(
                     4096 if scene.device.type == "cuda" else 512))
             self._cell_cfg = cellmod.config_from_positions(
@@ -215,7 +232,20 @@ class DEMScheme(Scheme):
         plain versions even on CUDA tensors: the kernel step's reference
         on the card."""
         springs = self._springs()
-        if self.contact_model == "LVCForce":
+        if self.engine == "nklist":
+            cfg = self.list_config(scene, self._kernel_radius())
+            kn, mu, en = self.kn, self.mu, self.en
+            force_model = self.contact_model == "LVCForce"
+
+            def contact(scene, cfg, dt, *tables, plain):
+                nbrs = nbmod.build_neighbors(scene.x, scene.y, scene.z,
+                                             scene.active, cfg)
+                pruned = dops.prune_contact_table(scene, *tables)[:5]
+                out = (dops.lvc_force(scene, nbrs, dt, kn, mu, en, *pruned)
+                       if force_model else
+                       dops.lvc_displacement(scene, nbrs, dt, *pruned))
+                return dk.DemPass(*out, overflow=nbrs.overflow)
+        elif self.contact_model == "LVCForce":
             cfg = self.cell_config(scene)
             kn, mu, en = self.kn, self.mu, self.en
 

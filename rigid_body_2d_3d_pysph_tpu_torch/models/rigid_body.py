@@ -23,6 +23,14 @@ The RK2 and leapfrog evaluations run the contact on every slot of the
 grid (``contact_kernel.contact_pipeline_cell``) and the Eq.-24 tail on
 every particle, as the reference's ``_make_force_eval`` does.
 
+With ``engine = "nklist"`` every stepper runs on the ``[N, K]``
+neighbour list instead (``build_rigid_gtvf_step``, the list branch of
+``_make_force_eval``): a list build a force evaluation, the Eq.-22/21
+sums and the closest-source pick as masked list reductions
+(``ops/contact.py``), the Eq.-24 tail on every particle, and the full
+``[N, S]`` slot schema (no compact store); the surface identification
+of ``setup`` runs on a list too.  It launches no hand-written kernel.
+
 Unlike the reference, which takes the compact path only on its TPU,
 the port takes it on every device; only the kernel wrappers look at
 the device (kernel for CUDA tensors, plain version for CPU tensors).
@@ -48,7 +56,9 @@ import torch
 
 from ..ops import cellpairs as cellmod
 from ..ops import contact as cops
+from ..ops import neighbors as nbmod
 from ..ops import rigid as rops
+from ..ops.boundary import boundary_identification
 from ..ops.boundary_cell import boundary_identification_cell
 from ..ops import contact_kernel as tck
 from ..ops.contact_kernel import contact_pipeline_compact
@@ -129,6 +139,27 @@ def run_boundary_identification_cell(scene: Scene, kernel, cell_cfg,
     return scene.replace(normal=normal, normal0=normal, is_boundary=isb)
 
 
+def run_boundary_identification(scene: Scene, kernel,
+                                cfg: nbmod.NeighborConfig,
+                                group_names: Sequence[str]) -> Scene:
+    """Setup-time surface identification on one neighbour list (each
+    group identifies against itself)."""
+    nbrs = nbmod.build_neighbors(scene.x, scene.y, scene.z, scene.active,
+                                 cfg)
+    if bool(nbrs.overflow):
+        raise RuntimeError("neighbour-list overflow during boundary "
+                           "identification: increase its capacity")
+    normal, isb = scene.normal, scene.is_boundary
+    idx = torch.arange(scene.n, device=scene.device)
+    for name in group_names:
+        g = scene.meta.group(name)
+        mask = (idx >= g.start) & (idx < g.stop)
+        n_g, b_g = boundary_identification(scene, nbrs, kernel, mask, mask)
+        normal = torch.where(mask[:, None], n_g, normal)
+        isb = torch.where(mask, b_g, isb)
+    return scene.replace(normal=normal, normal0=normal, is_boundary=isb)
+
+
 class _RigidBodySchemeBase(Scheme):
     two_d = False
 
@@ -167,16 +198,23 @@ class _RigidBodySchemeBase(Scheme):
         return rigid_setup.set_angular_velocity(scene, omega)
 
     def setup(self, scene: Scene, coeff_of_rest=None) -> Scene:
+        self.check_kernel_engine()
         scene = _attach_contact_fields(scene)
         scene = rigid_setup.setup_body_state(scene, coeff_of_rest)
         kernel = get_kernel(self.kernel_name, self.dim)
-        scene = run_boundary_identification_cell(
-            scene, kernel, self.cell_config(scene, kernel),
-            self.rigid_bodies + self.boundaries)
+        names = self.rigid_bodies + self.boundaries
+        if self.engine == "nklist":
+            scene = run_boundary_identification(
+                scene, kernel, self.list_config(scene, kernel.radius_scale),
+                names)
+        else:
+            scene = run_boundary_identification_cell(
+                scene, kernel, self.cell_config(scene, kernel), names)
         scene = scene.replace(
             contact_force_is_boundary=scene.is_boundary.to(scene.dtype))
-        if self.integrator != "gtvf":
-            # the RK2 and leapfrog steps keep the full [N, S] schema
+        if self.integrator != "gtvf" or self.engine == "nklist":
+            # the RK2 and leapfrog steps and the list engine keep the
+            # full [N, S] schema
             return scene
         cfg = self.cell_config(scene, kernel)
         return compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
@@ -212,27 +250,35 @@ class _RigidBodySchemeBase(Scheme):
         return min(nc, ni)
 
     def make_step(self, scene: Scene, plain: bool = False):
-        """The ``integrator``'s step as an eager ``step(scene, dt) ->
-        scene``.  ``plain=True`` runs the kernels' plain versions even
-        on CUDA tensors (the kernel step's reference on the card)."""
+        """The ``integrator``'s step on the scheme's ``engine`` as an
+        eager ``step(scene, dt) -> scene``.  ``plain=True`` runs the
+        kernels' plain versions even on CUDA tensors (the cell engine's
+        kernel step's reference on the card; the list engine has no
+        kernel)."""
+        self.check_kernel_engine()
         kernel = get_kernel(self.kernel_name, self.dim)
         params = dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
                       gx=self.gx, gy=self.gy, gz=self.gz)
-        cfg = self.cell_config(scene, kernel)
-        if self.integrator == "rk2":
-            return build_rigid_rk2_step(kernel, cfg, params, self.two_d,
-                                        plain)
-        if self.integrator == "leapfrog":
-            if self.two_d:
-                raise ValueError("leapfrog stepper is 3D-only "
-                                 "(reference rigid_body_3d.py:228)")
-            return build_rigid_leapfrog_step(kernel, cfg, params, plain)
-        if self.integrator != "gtvf":
+        if self.integrator not in ("gtvf", "rk2", "leapfrog"):
             raise ValueError(f"integrator={self.integrator!r}: one of "
                              "'gtvf', 'rk2', 'leapfrog'")
-        return build_rigid_gtvf_step_cell(kernel, cfg, params, self.two_d,
-                                          ni_max=self.ni_max(cfg),
-                                          plain=plain)
+        if self.integrator == "leapfrog" and self.two_d:
+            raise ValueError("leapfrog stepper is 3D-only "
+                             "(reference rigid_body_3d.py:228)")
+        if self.engine == "nklist":
+            cfg = dict(nbr_cfg=self.list_config(scene, kernel.radius_scale))
+        else:
+            cfg = dict(cell_cfg=self.cell_config(scene, kernel), plain=plain)
+        if self.integrator == "rk2":
+            return build_rigid_rk2_step(kernel, params, self.two_d, **cfg)
+        if self.integrator == "leapfrog":
+            return build_rigid_leapfrog_step(kernel, params, **cfg)
+        if self.engine == "nklist":
+            return build_rigid_gtvf_step(kernel, cfg["nbr_cfg"], params,
+                                         self.two_d)
+        return build_rigid_gtvf_step_cell(
+            kernel, cfg["cell_cfg"], params, self.two_d,
+            ni_max=self.ni_max(cfg["cell_cfg"]), plain=plain)
 
 
 class RigidBody3DScheme(_RigidBodySchemeBase):
@@ -579,12 +625,19 @@ def _contact_forces(scene, cp, params, dt, extra_fx=None):
     gravity, the contact force and ``extra_fx`` (the coupling step's
     fluid -> rigid force, or None) per particle, and the new slot state;
     no body sums."""
-    cfn_x, cfn_y, cfn_z, cfn_w = cp[:, 0], cp[:, 1], cp[:, 2], cp[:, 3]
     dinfo = dict(
         contact_force_dist=cp[:, 4],
         closest_point_dist_to_source=cp[:, 5],
         x_source=cp[:, 6], y_source=cp[:, 7], z_source=cp[:, 8],
         vx_source=cp[:, 9], vy_source=cp[:, 10], vz_source=cp[:, 11])
+    return _slot_forces(scene, cp[:, 0], cp[:, 1], cp[:, 2], cp[:, 3], dinfo,
+                        params, dt, extra_fx)
+
+
+def _slot_forces(scene, cfn_x, cfn_y, cfn_z, cfn_w, dinfo, params, dt,
+                 extra_fx=None):
+    """:func:`_contact_forces` on the Eq.-22 normals and the Eq.-21
+    ``dinfo`` columns, each [N, S]."""
     fx, fy, fz = rops.body_force(scene, params["gx"], params["gy"],
                                  params["gz"], scene.is_rigid)
     dfx, dfy, dfz, slots = cops.contact_force(
@@ -603,12 +656,30 @@ def _contact_forces(scene, cp, params, dt, extra_fx=None):
         **dinfo, **slots)
 
 
-def _contact_tail(scene, cp, params, dt, extra_fx=None):
-    """:func:`_contact_forces` and the per-body sums."""
-    scene = _contact_forces(scene, cp, params, dt, extra_fx)
+def _with_body_sums(scene):
     force, torque = rops.sum_up_external_forces(scene, scene.fx, scene.fy,
                                                 scene.fz)
     return scene.replace(force=force, torque=torque)
+
+
+def _contact_tail(scene, cp, params, dt, extra_fx=None):
+    """:func:`_contact_forces` and the per-body sums."""
+    return _with_body_sums(_contact_forces(scene, cp, params, dt, extra_fx))
+
+
+def rigid_contact_force_eval(scene, nbrs, kernel, params, dt,
+                             extra_force=None):
+    """The stage-2 evaluation on a neighbour list: the Eq.-22 normals,
+    the Eq.-21 distance and closest sources, gravity, the Eq.-24 contact
+    force, ``extra_force(scene, nbrs)`` (the coupling step's fluid ->
+    rigid force, or None) and the per-body sums."""
+    cfn_x, cfn_y, cfn_z, cfn_w = cops.contact_force_normals(scene, nbrs,
+                                                            kernel)
+    dinfo = cops.contact_force_distance(scene, nbrs, kernel, cfn_x, cfn_y,
+                                        cfn_z)
+    extra_fx = None if extra_force is None else extra_force(scene, nbrs)
+    return _with_body_sums(_slot_forces(scene, cfn_x, cfn_y, cfn_z, cfn_w,
+                                        dinfo, params, dt, extra_fx))
 
 
 def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,
@@ -638,12 +709,46 @@ def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,
     return step
 
 
-def _make_force_eval(kernel, cell_cfg, params: dict, plain: bool = False):
+def build_rigid_gtvf_step(kernel, cfg: nbmod.NeighborConfig, params: dict,
+                          two_d: bool):
+    """One GTVF timestep on the neighbour-list engine, as an eager
+    ``step(scene, dt) -> scene``: the list is rebuilt at the kicked
+    state's positions for the stage-2 evaluation."""
+
+    def step(scene: Scene, dt: float) -> Scene:
+        scene = _body_half_kick(scene, dt, two_d)
+        scene = _particles_from_body_velocity(scene)
+        nbrs = nbmod.build_neighbors(scene.x, scene.y, scene.z,
+                                     scene.active, cfg)
+        scene = rigid_contact_force_eval(scene, nbrs, kernel, params, dt)
+        scene = scene.replace(nbr_overflow=scene.nbr_overflow
+                              | nbrs.overflow)
+        scene = _body_drift(scene, dt, two_d)
+        scene = _particles_from_body_position(scene)
+        scene = _body_half_kick(scene, dt, two_d)
+        return _particles_from_body_velocity(scene)
+
+    return step
+
+
+def _make_force_eval(kernel, params: dict, cell_cfg=None,
+                     plain: bool = False, nbr_cfg=None):
     """The RK2 and leapfrog steppers' stage-2 evaluation on the full
-    ``[N, S]`` schema: a grid build with the contact pack (K1), the
-    contact sums on every slot (K2), the Eq.-24 tail on every particle,
-    and the grid's overflow ORed into ``nbr_overflow``.  ``plain`` runs
-    both kernels' plain versions even on CUDA tensors."""
+    ``[N, S]`` schema, with the grid's or the list's overflow ORed into
+    ``nbr_overflow``.  With ``nbr_cfg``, a list build and
+    :func:`rigid_contact_force_eval`; else a grid build with the contact
+    pack (K1), the contact sums on every slot (K2) and the Eq.-24 tail on
+    every particle (``plain`` runs both kernels' plain versions even on
+    CUDA tensors)."""
+    if nbr_cfg is not None:
+        def ev(scene, dt):
+            nbrs = nbmod.build_neighbors(scene.x, scene.y, scene.z,
+                                         scene.active, nbr_cfg)
+            scene = rigid_contact_force_eval(scene, nbrs, kernel, params,
+                                             dt)
+            return scene.replace(nbr_overflow=scene.nbr_overflow
+                                 | nbrs.overflow)
+        return ev
 
     def ev(scene, dt):
         grid, _, dfT = tck.pack_scene(scene, cell_cfg, plain,
@@ -696,13 +801,13 @@ def _rk2_body_stage(scene, frac_dt, two_d):
         omega=torch.einsum("bij,bj->bi", Iinv, ang_mom))
 
 
-def build_rigid_rk2_step(kernel, cell_cfg, params: dict, two_d: bool,
-                         plain: bool = False):
+def build_rigid_rk2_step(kernel, params: dict, two_d: bool, cell_cfg=None,
+                         plain: bool = False, nbr_cfg=None):
     """Predict-evaluate-correct RK2 timestep (the reference's
     ``RK2RigidBody3DStep``): two force evaluations a step, each one K1
-    and one K2 on every slot.  ``plain`` as in
-    :func:`build_rigid_gtvf_step_cell`."""
-    force_eval = _make_force_eval(kernel, cell_cfg, params, plain)
+    and one K2 on every slot, or a list build and the list passes with
+    ``nbr_cfg``.  ``plain`` as in :func:`build_rigid_gtvf_step_cell`."""
+    force_eval = _make_force_eval(kernel, params, cell_cfg, plain, nbr_cfg)
 
     def stage(scene, frac_dt):
         scene = _rk2_body_stage(scene, frac_dt, two_d)
@@ -736,13 +841,14 @@ def _leapfrog_body_stage(scene, frac_dt):
         inertia_tensor_inverse_global_frame=Iinv)
 
 
-def build_rigid_leapfrog_step(kernel, cell_cfg, params: dict,
-                              plain: bool = False):
+def build_rigid_leapfrog_step(kernel, params: dict, cell_cfg=None,
+                              plain: bool = False, nbr_cfg=None):
     """The reference's ``LeapFrogRigidBody3DStep`` under the GTVF
     sequencing (save, half a step with the stored force, one force
     evaluation, a full step from the saved state); 3D only.  One K1 and
-    one K2 on every slot a step."""
-    force_eval = _make_force_eval(kernel, cell_cfg, params, plain)
+    one K2 on every slot a step, or one list evaluation with
+    ``nbr_cfg``."""
+    force_eval = _make_force_eval(kernel, params, cell_cfg, plain, nbr_cfg)
 
     def stage(scene, frac_dt):
         scene = _leapfrog_body_stage(scene, frac_dt)

@@ -51,6 +51,14 @@ pack's columns where the reference repacks (``pack_fluid_pallas`` at
 contact pack is laid out from the coupling pack
 (``contact_kernel.contact_pack``), so a grid costs one K1 launch.
 
+With ``engine = "nklist"`` the kdk and reference orderings run on the
+``[N, K]`` neighbour list instead (``build_coupling_nklist_step``, the
+reference's ``_make_step_nklist`` :1020-1259): the list passes of
+``ops/fluid.py`` and the rigid list evaluation, one list build at x_n+1
+for kdk's forces (and one at x_n for its rates), one at x_n for the
+reference staging; kdkf runs kdk there, and the RK2 stepper raises, as
+in the reference.  It launches no hand-written kernel.
+
 Bodies are integrated in 3D (``two_d=False``) even in 2D scenes, as the
 reference does.  Not ported: the compact contact tail at S >= 8
 (ROADMAP A4).
@@ -62,7 +70,9 @@ import numpy as np
 import torch
 
 from ..ops import cellpairs as cellmod
+from ..ops import fluid as fops
 from ..ops import fluid_kernel as fk
+from ..ops import neighbors as nbmod
 from ..ops.cellpairs import unpack
 from ..ops import contact_kernel as tck
 from ..ops.fluid import tait_eos
@@ -78,6 +88,8 @@ from .rigid_body import (
     _particles_from_body_position,
     _particles_from_body_velocity,
     _rk2_body_stage,
+    rigid_contact_force_eval,
+    run_boundary_identification,
     run_boundary_identification_cell,
 )
 
@@ -176,9 +188,14 @@ class RigidFluidCouplingScheme(Scheme):
             cs=torch.full((n,), self.c0, dtype=fdt, device=dev))
         if identify_boundaries and (self.rigid_bodies or self.boundaries):
             kernel = get_kernel(self.kernel_name, self.dim)
-            scene = run_boundary_identification_cell(
-                scene, kernel, self.cell_config(scene, kernel),
-                self.rigid_bodies + self.boundaries)
+            names = self.rigid_bodies + self.boundaries
+            if self.engine == "nklist":
+                scene = run_boundary_identification(
+                    scene, kernel,
+                    self.list_config(scene, kernel.radius_scale), names)
+            else:
+                scene = run_boundary_identification_cell(
+                    scene, kernel, self.cell_config(scene, kernel), names)
             scene = scene.replace(
                 contact_force_is_boundary=scene.is_boundary.to(fdt))
         return scene
@@ -199,9 +216,12 @@ class RigidFluidCouplingScheme(Scheme):
         with no fluid group runs kdk (reference :279-289).  ``plain=True``
         runs the kernels' plain versions even on CUDA tensors (the kernel
         step's reference on the card)."""
+        self.check_kernel_engine()
         if self.fluid_stepper not in ("gtvf", "rk2"):
             raise ValueError(f"fluid_stepper={self.fluid_stepper!r}: one "
                              "of 'gtvf', 'rk2'")
+        if self.fluid_stepper == "rk2" and self.engine == "nklist":
+            raise NotImplementedError("rk2 fluid stepper: cell engine")
         if self.fluid_stepper == "rk2" and self.edac:
             raise NotImplementedError(
                 "rk2 fluid stepper integrates rho only (reference "
@@ -217,13 +237,24 @@ class RigidFluidCouplingScheme(Scheme):
         if self.fluid_stepper == "rk2":
             ordering = "rk2"
             step_builds["rk2"] = build_coupling_rk2_step
-        elif ordering == "kdkf" and not self.fluids:
+        elif ordering == "kdkf" and (not self.fluids
+                                     or self.engine == "nklist"):
+            # the fusion changes the fluid's grid schedule only
             ordering = "kdk"
         kernel = get_kernel(self.kernel_name, self.dim)
+        params = dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
+                      gx=self.gx, gy=self.gy, gz=self.gz)
+        if self.engine == "nklist":
+            return build_coupling_nklist_step(
+                kernel, self.list_config(scene, kernel.radius_scale), params,
+                ordering,
+                edac=self.edac, nu_edac=self.edac_nu, c0=self.c0,
+                rho0=self.rho0, gamma=self.gamma,
+                fluid_alpha=self.fluid_alpha,
+                has_fluid=len(self.fluids) > 0,
+                has_rigid=len(self.rigid_bodies) > 0)
         args = dict(
-            kernel=kernel, cfg=self.cell_config(scene, kernel),
-            params=dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
-                        gx=self.gx, gy=self.gy, gz=self.gz),
+            kernel=kernel, cfg=self.cell_config(scene, kernel), params=params,
             edac=self.edac, nu_edac=self.edac_nu, c0=self.c0,
             rho0=self.rho0, gamma=self.gamma, fluid_alpha=self.fluid_alpha,
             has_rigid=len(self.rigid_bodies) > 0, plain=plain)
@@ -616,3 +647,114 @@ def build_coupling_rk2_step(kernel, cfg, params: dict, nu_edac: float,
         return scene.replace(nbr_overflow=scene.nbr_overflow | ovf1 | ovf2)
 
     return step
+
+
+def build_coupling_nklist_step(kernel, cfg: nbmod.NeighborConfig,
+                               params: dict, ordering: str, edac: bool,
+                               nu_edac: float, c0: float, rho0: float,
+                               gamma: float, fluid_alpha: float,
+                               has_fluid: bool, has_rigid: bool):
+    """One step of the kdk or reference ordering on the neighbour-list
+    engine (see the module docstring)."""
+    gx, gy, gz = params["gx"], params["gy"], params["gz"]
+
+    def build(scene):
+        return nbmod.build_neighbors(scene.x, scene.y, scene.z,
+                                     scene.active, cfg)
+
+    def rates(scene, nbrs, fl, rb, fl_bd):
+        """(arho, ap) of the continuity and EDAC passes."""
+        arho = fops.continuity(scene, nbrs, kernel, fl, fl_bd)
+        ap = (fops.edac(scene, nbrs, kernel, nu_edac, c0, fl, fl_bd)
+              if edac else torch.zeros_like(arho))
+        if has_rigid:
+            arho = arho + fops.continuity(scene, nbrs, kernel, fl, rb,
+                                          fsi=True)
+            if edac:
+                ap = ap + fops.edac(scene, nbrs, kernel, nu_edac, c0, fl, rb,
+                                    fsi=True)
+        return arho, ap
+
+    def wall(scene, nbrs, dest, fl, clamp, p_name):
+        """The Adami velocity and pressure of the ``dest`` rows."""
+        uf, vf, wf, ug, vg, wg, sw = fops.set_wall_velocity(
+            scene, nbrs, kernel, dest, fl)
+        p = fops.solid_wall_pressure_bc(scene, nbrs, kernel, gx, gy, gz,
+                                        dest, fl, sw, clamp=clamp)
+        upd = dict(uf=uf, vf=vf, wf=wf, ug=ug, vg=vg, wg=wg, wij_adami=sw)
+        upd[p_name] = p
+        return scene.replace(**{k: torch.where(dest, v, scene[k])
+                                for k, v in upd.items()})
+
+    def fluid_stage2(scene, nbrs, fl, bd, rb, fl_bd):
+        """The wall and body conditions and the fluid momentum."""
+        if not edac:
+            p, cs = tait_eos(scene, rho0, c0, gamma, fl)
+            scene = scene.replace(p=p, cs=cs)
+        scene = wall(scene, nbrs, bd, fl, True, "p")
+        if has_rigid:
+            scene = wall(scene, nbrs, rb, fl, False, "p_fsi")
+        aux, auy, auz = fops.momentum_pressure_gradient(scene, nbrs, kernel,
+                                                        fl, fl_bd)
+        if abs(fluid_alpha) > 1e-14:
+            vx, vy, vz = fops.momentum_artificial_viscosity(
+                scene, nbrs, kernel, fluid_alpha, c0, fl, fl)
+            aux, auy, auz = aux + vx, auy + vy, auz + vz
+        if has_rigid:
+            rx, ry, rz = fops.force_on_fluid_due_to_rigid_body(
+                scene, nbrs, kernel, fl, rb)
+            aux, auy, auz = aux + rx, auy + ry, auz + rz
+        zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
+        return scene.replace(au=torch.where(fl, gx + aux, zero),
+                             av=torch.where(fl, gy + auy, zero),
+                             aw=torch.where(fl, gz + auz, zero))
+
+    def forces(scene, nbrs, dt, fl, bd, rb, fl_bd):
+        """Stage 2: the fluid's, then the bodies' with the fluid ->
+        rigid force."""
+        if has_fluid:
+            scene = fluid_stage2(scene, nbrs, fl, bd, rb, fl_bd)
+        if has_rigid:
+            extra = None
+            if has_fluid:
+                def extra(sc, nb):
+                    return fops.force_on_rigid_body_due_to_fluid(
+                        sc, nb, kernel, rb, fl)
+            scene = rigid_contact_force_eval(scene, nbrs, kernel, params, dt,
+                                             extra_force=extra)
+        return scene
+
+    def step_kdk(scene: Scene, dt: float) -> Scene:
+        fl, bd, rb, _ = _masks(scene)
+        fl_bd = fl | bd
+        zero = torch.zeros((), dtype=scene.dtype, device=scene.device)
+        scene = _kick(scene, dt, fl, has_fluid, has_rigid)
+        ovf = scene.nbr_overflow
+        if has_fluid:
+            nbrs = build(scene)
+            ovf = ovf | nbrs.overflow
+            arho, ap = rates(scene, nbrs, fl, rb, fl_bd)
+            scene = scene.replace(arho=torch.where(fl, arho, zero),
+                                  ap=torch.where(fl, ap, zero))
+        scene = _drift(scene, dt, fl, edac, has_fluid, has_rigid)
+        nbrs = build(scene)
+        ovf = ovf | nbrs.overflow
+        scene = forces(scene, nbrs, dt, fl, bd, rb, fl_bd)
+        scene = scene.replace(nbr_overflow=ovf)
+        return _kick(scene, dt, fl, has_fluid, has_rigid)
+
+    def step_reference(scene: Scene, dt: float) -> Scene:
+        fl, bd, rb, _ = _masks(scene)
+        fl_bd = fl | bd
+        nbrs = build(scene)
+        if has_fluid:
+            arho, ap = rates(scene, nbrs, fl, rb, fl_bd)
+            scene = scene.replace(arho=arho, ap=ap)
+        scene = _kick(scene, dt, fl, has_fluid, has_rigid)
+        scene = forces(scene, nbrs, dt, fl, bd, rb, fl_bd)
+        scene = scene.replace(nbr_overflow=scene.nbr_overflow
+                              | nbrs.overflow)
+        scene = _drift(scene, dt, fl, edac, has_fluid, has_rigid)
+        return _kick(scene, dt, fl, has_fluid, has_rigid)
+
+    return step_kdk if ordering == "kdk" else step_reference

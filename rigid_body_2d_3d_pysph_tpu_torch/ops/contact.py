@@ -1,11 +1,21 @@
-"""Mofidi et al. (2022) Eq. 24 contact force on explicit per-lane arrays.
+"""Mofidi et al. (2022) contact: the Eq.-22 normals and Eq.-21 distance
+on neighbour lists, and the Eq.-24 force on explicit per-lane arrays;
+the Canelas (2016) Hertzian pair force.
 
-Counterpart of ``contact_force`` and ``contact_force_core`` in
-``rigid_body_2d_3d_pysph_tpu/ops/contact.py``: a normal spring-dashpot
-plus a Coulomb-capped tangential spring per (destination, source-entity
-slot), with the reference's quirks kept (the spring reset to the unit
-tangent, the stale normal force reused when the relative motion is
-zero, 0 instead of NaN for a degenerate tangent).
+Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/contact.py``:
+
+* ``contact_force_normals`` / ``contact_force_distance``: the ``[N, K]``
+  list engine's Eq.-22 and Eq.-21 sums into ``[N, S]`` slots by source
+  dem id, and the closest source particle of each slot (the first
+  minimum in neighbour order).  The cell engine computes the same in
+  ``csrc/contact.cu`` (K2) and its plain version;
+* ``contact_force`` / ``contact_force_core``: a normal spring-dashpot
+  plus a Coulomb-capped tangential spring per (destination,
+  source-entity slot), with the reference's quirks kept (the spring
+  reset to the unit tangent, the stale normal force reused when the
+  relative motion is zero, 0 instead of NaN for a degenerate tangent);
+* ``canelas_pair_force``: dormant in the reference's schemes, ported
+  for completeness.
 """
 
 from __future__ import annotations
@@ -13,7 +23,88 @@ from __future__ import annotations
 import torch
 
 from .ieee import sqrt
+from .neighbors import NeighborList
+from .pairs import argmin_to_slots, pair_data, scatter_to_slots
 from .rigid import gather_body_rows
+
+
+def _contact_gate(scene, pd):
+    """The pair gate: a rigid destination, a source flagged as a contact
+    surface, another dem entity, a non-fluid source."""
+    j = pd.j
+    return (pd.mask & scene.is_rigid[:, None]
+            & (scene.contact_force_is_boundary[j] == 1.0)
+            & (scene.dem_id[:, None] != scene.dem_id[j])
+            & ~scene.is_fluid[j])
+
+
+def contact_force_normals(scene, nbrs: NeighborList, kernel):
+    """Eq. 22: the SPH-averaged contact normal of each (particle, source
+    entity).  Returns (cfn_x, cfn_y, cfn_z, wij_norm), each [N, S]."""
+    S = scene.meta.total_no_bodies
+    pd = pair_data(scene, nbrs)
+    gate = _contact_gate(scene, pd)
+    wij = kernel.w(pd.rij, pd.hij)
+    rinv = 1.0 / torch.clamp(pd.rij, min=1e-300)
+    tmp = scene.m[:, None] / scene.rho[:, None] * rinv * wij
+    slot = scene.dem_id[pd.j]
+    sx = scatter_to_slots(pd.xij * tmp, slot, gate, S)
+    sy = scatter_to_slots(pd.yij * tmp, slot, gate, S)
+    sz = scatter_to_slots(pd.zij * tmp, slot, gate, S)
+    # tmp * r_ij == (m / rho) W
+    sw = scatter_to_slots(tmp * pd.rij, slot, gate, S)
+
+    zero = torch.zeros((), dtype=sw.dtype, device=sw.device)
+    has = sw > 1e-12
+    inv_w = torch.where(has, 1.0 / torch.clamp(sw, min=1e-300), zero)
+    mx, my, mz = sx * inv_w, sy * inv_w, sz * inv_w
+    mag = sqrt(mx * mx + my * my + mz * mz)
+    inv_m = torch.where(has & (mag > 0), 1.0 / torch.clamp(mag, min=1e-300),
+                        zero)
+    return mx * inv_m, my * inv_m, mz * inv_m, sw
+
+
+def contact_force_distance(scene, nbrs: NeighborList, kernel,
+                           cfn_x, cfn_y, cfn_z):
+    """Eq. 21: the SPH-mean penetration distance along each slot's
+    normal, and the closest source particle of each slot.  Returns the
+    dict of ``contact_force_dist``, ``closest_point_dist_to_source`` and
+    the closest source's position and velocity, each [N, S]."""
+    S = scene.meta.total_no_bodies
+    init_dist = 4.0 * scene.meta.spacing0
+    pd = pair_data(scene, nbrs)
+    j = pd.j
+    gate = _contact_gate(scene, pd)
+    wij = kernel.w(pd.rij, pd.hij)
+    tmp = scene.m[:, None] / scene.rho[:, None] * wij
+    slot = scene.dem_id[j]
+    # the slot's normal at each pair (a gated pair's slot is in range)
+    sl = torch.clamp(slot.to(torch.int64), 0, S - 1)
+    proj = (torch.gather(cfn_x, 1, sl) * pd.xij
+            + torch.gather(cfn_y, 1, sl) * pd.yij
+            + torch.gather(cfn_z, 1, sl) * pd.zij)
+
+    dist_tmp = scatter_to_slots(proj * tmp, slot, gate, S)
+    w_sum = scatter_to_slots(tmp, slot, gate, S)
+    has = w_sum > 1e-12
+    dist = torch.where(has, dist_tmp / torch.where(has, w_sum, 1.0),
+                       torch.zeros_like(w_sum))
+
+    # the closest source (strictly below init; ties go to the first
+    # candidate in neighbour order, as the reference's sequential scan)
+    min_d, arg_k, found = argmin_to_slots(pd.rij, slot, gate, S, init_dist)
+    src = torch.gather(j, 1, torch.clamp(arg_k, 0, j.shape[1] - 1))
+    src = torch.clamp(src.to(torch.int64), 0, scene.n - 1)
+
+    def pick(field):
+        return torch.where(found, field[src], torch.zeros_like(min_d))
+
+    return dict(
+        contact_force_dist=dist,
+        closest_point_dist_to_source=min_d,
+        x_source=pick(scene.x), y_source=pick(scene.y),
+        z_source=pick(scene.z), vx_source=pick(scene.u),
+        vy_source=pick(scene.v), vz_source=pick(scene.w))
 
 
 def contact_force(scene, dt, kr: float, kf: float, fric_coeff: float,
@@ -112,3 +203,51 @@ def contact_force_core(u, v, w, m, body_id, eta_body, nb: int,
     dfy = torch.sum(out["fn_y"] + out["ft_y"], dim=1)
     dfz = torch.sum(out["fn_z"] + out["ft_z"], dim=1)
     return dfx, dfy, dfz, out
+
+
+def canelas_pair_force(scene, nbrs: NeighborList, Cn: float = 1.4e-5,
+                       wall_mode: bool = False):
+    """Hertzian normal contact: F_n = kn delta^1.5 n - gamma_n (v . n) n
+    with kn = 4/3 E* sqrt(r*), gamma_n = Cn sqrt(6 m* E* sqrt(r*)).
+    ``wall_mode`` takes the destination's own mass and radius as the
+    effective ones (the reference's rigid-wall variant) instead of the
+    harmonic means.  E and the Poisson ratio are per-particle fields
+    ``E`` and ``poisson_ratio``.  Returns (fx, fy, fz) [N]."""
+    pd = pair_data(scene, nbrs)
+    j = pd.j
+    overlap = scene.rad_s[:, None] + scene.rad_s[j] - pd.rij
+    gate = (pd.mask & scene.is_rigid[:, None]
+            & (scene.dem_id[:, None] != scene.dem_id[j]) & (pd.rij > 0)
+            & ~scene.is_fluid[j] & (overlap > 0))
+
+    rinv = 1.0 / torch.clamp(pd.rij, min=1e-300)
+    nx, ny, nz = pd.xij * rinv, pd.yij * rinv, pd.zij * rinv
+    vr_dot_n = ((scene.u[:, None] - scene.u[j]) * nx
+                + (scene.v[:, None] - scene.v[j]) * ny
+                + (scene.w[:, None] - scene.w[j]) * nz)
+
+    nu_i = scene.poisson_ratio[:, None]
+    nu_j = scene.poisson_ratio[j]
+    E_eff = 1.0 / ((1 - nu_i**2) / scene.E[:, None]
+                   + (1 - nu_j**2) / scene.E[j])
+
+    nb = scene.meta.nb
+    bid = torch.clamp(scene.body_id.to(torch.int64), 0, nb - 1)
+    m_i = scene.total_mass[bid][:, None]
+    if wall_mode:
+        m_eff = m_i.expand(pd.rij.shape)
+        r_eff = scene.rad_s[:, None].expand(pd.rij.shape)
+    else:
+        m_j = scene.total_mass[torch.clamp(scene.body_id[j].to(torch.int64),
+                                           0, nb - 1)]
+        m_eff = m_i * m_j / (m_i + m_j)
+        r_i = scene.rad_s[:, None]
+        r_j = scene.rad_s[j]
+        r_eff = r_i * r_j / (r_i + r_j)
+
+    kn = 4.0 / 3.0 * E_eff * sqrt(r_eff)
+    gamma_n = Cn * sqrt(6.0 * m_eff * E_eff * sqrt(r_eff))
+    mag = kn * torch.clamp(overlap, min=0.0) ** 1.5 - gamma_n * vr_dot_n
+    zero = torch.zeros((), dtype=mag.dtype, device=mag.device)
+    return tuple(torch.where(gate, mag * c, zero).sum(1)
+                 for c in (nx, ny, nz))

@@ -3,8 +3,9 @@ friction and a persistent per-pair tangential history.
 
 Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/dem.py``: the
 ``LVCDisplacement`` core (the tangential spring stores a displacement)
-and the ``LVCForce`` core (it stores the tangential force); the
-``[N, K]`` list entry points are not ported.  The contact table is a
+and the ``LVCForce`` core (it stores the tangential force), and their
+``[N, K]`` neighbour-list entry points ``lvc_displacement`` and
+``lvc_force``.  The contact table is a
 fixed ``[N, L]`` slot array keyed by (partner index, partner dem id):
 the prune frees slots whose pair no longer overlaps, and new contacts
 take the lowest free slots in candidate order.
@@ -22,6 +23,8 @@ import math
 import torch
 
 from .ieee import sqrt
+from .neighbors import NeighborList
+from .pairs import pair_data
 
 
 def prune_contact_table(scene, tng_idx, tng_dem, tng_a, tng_b, tng_c):
@@ -297,3 +300,48 @@ def lvc_force_core(q, s, xij, yij, zij, rij, cand, j, dem_j, dt,
     n_gated = gate.sum(1).to(torch.int32)
     return (fx, fy, fz, torx, tory, torz,
             tng_idx, tng_dem, tng_fx, tng_fy, tng_fz, count, n_gated)
+
+
+def _list_columns(scene, j):
+    """The query columns [N, 1] and the source fields [N, K] of the
+    LVC cores."""
+    keys = ("u", "v", "w", "wx", "wy", "wz")
+    q = {k: scene[k][:, None] for k in keys}
+    s = {k: scene[k][j] for k in keys}
+    q.update(rad=scene.rad_s[:, None], m=scene.m[:, None])
+    s.update(rad=scene.rad_s[j], m=scene.m[j])
+    return q, s
+
+
+def _not_self(scene, j):
+    return j != torch.arange(scene.n, device=j.device)[:, None]
+
+
+def lvc_displacement(scene, nbrs: NeighborList, dt,
+                     tng_idx, tng_dem, tng_x, tng_y, tng_z):
+    """LVC with tangential-displacement springs on the ``[N, K]`` list;
+    the per-entity tables ``dem_kn, dem_kt, dem_alpha, dem_mu`` are read
+    by source dem id.  Returns the 13 values of
+    :func:`lvc_displacement_core`."""
+    pd = pair_data(scene, nbrs)
+    j = pd.j
+    dem_j = scene.dem_id[j]
+    q, s = _list_columns(scene, j)
+    return lvc_displacement_core(
+        q, s, pd.xij, pd.yij, pd.zij, pd.rij, pd.mask & _not_self(scene, j),
+        j, dem_j, dt, scene.dem_kn[dem_j], scene.dem_kt[dem_j],
+        scene.dem_alpha[dem_j], scene.dem_mu[dem_j],
+        tng_idx, tng_dem, tng_x, tng_y, tng_z)
+
+
+def lvc_force(scene, nbrs: NeighborList, dt, kn: float, mu: float, en: float,
+              tng_idx, tng_dem, tng_fx, tng_fy, tng_fz):
+    """LVC with tangential-force springs on the ``[N, K]`` list (scalar
+    kn, mu, en).  Returns the 13 values of :func:`lvc_force_core`."""
+    pd = pair_data(scene, nbrs)
+    j = pd.j
+    q, s = _list_columns(scene, j)
+    cand = pd.mask & _not_self(scene, j) & (pd.rij > 0)
+    return lvc_force_core(q, s, pd.xij, pd.yij, pd.zij, pd.rij, cand, j,
+                          scene.dem_id[j], dt, kn, mu, en,
+                          tng_idx, tng_dem, tng_fx, tng_fy, tng_fz)

@@ -1,4 +1,4 @@
-"""The IEEE square root on every device.
+"""The IEEE square root (and a thread-safe exponential) on every device.
 
 On CPU tensors ``torch.sqrt`` (torch 2.13.0+cpu) runs MKL VML's
 ``vmsSqrt`` / ``vmdSqrt`` on each OpenMP worker thread's share of the
@@ -22,3 +22,10 @@ def sqrt(t: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(t)
     with np.errstate(invalid="ignore"):
         return torch.from_numpy(np.sqrt(t.detach().numpy()))
+
+
+def exp(t: torch.Tensor) -> torch.Tensor:
+    """e**t; numpy's on the CPU (the same VML path as ``torch.sqrt``)."""
+    if t.device.type != "cpu":
+        return torch.exp(t)
+    return torch.from_numpy(np.exp(t.detach().numpy()))

@@ -1,8 +1,9 @@
-"""The quintic B-spline SPH kernel (support 3h), PySPH semantics.
+"""Closed-form SPH smoothing kernels, PySPH semantics.
 
-Counterpart of ``QuinticSpline`` in
-``rigid_body_2d_3d_pysph_tpu/ops/kernels.py``; the other five kernels
-of that module are not ported yet.
+Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/kernels.py``: the
+quintic B-spline (support 3h, the rigid and coupling schemes' default),
+the cubic B-spline (support 2h, the DEM scheme's), the Wendland C2 and
+C4 quintics (2h), the Gaussian and the super-Gaussian (3h).
 
 * ``w(rij, h)``            -> W_ij,
 * ``dwdq(rij, h)``         -> dW/dq with q = rij / h,
@@ -10,9 +11,11 @@ of that module are not ported yet.
 * ``w_gradw(rij, h)``      -> both from one evaluation (the fluid passes).
 
 Integer powers are written as the multiplication chains XLA lowers
-``x**n`` to (x^4 = (x^2)^2, x^5 = x * x^4), so the port's values follow
-the reference's rounding, and ``csrc/contact.cu`` evaluates the same
-chain.
+``x**n`` to (binary exponentiation: x^3 = x * x^2, x^4 = (x^2)^2,
+x^5 = x * x^4, x^6 = x^2 * x^4), so the port's values follow the
+reference's rounding, and ``csrc/contact.cu`` evaluates the quintic's
+chain.  The hand-written kernels compute the quintic only; the other
+kernels run on the ``[N, K]`` neighbour-list engine.
 """
 
 from __future__ import annotations
@@ -22,7 +25,17 @@ from dataclasses import dataclass
 
 import torch
 
+from .ieee import exp
+
 M_PI = math.pi
+
+
+def _pow2(t):
+    return t * t
+
+
+def _pow3(t):
+    return t * _pow2(t)
 
 
 def _pow4(t):
@@ -34,15 +47,60 @@ def _pow5(t):
     return t * _pow4(t)
 
 
+def _pow6(t):
+    t2 = t * t
+    return t2 * (t2 * t2)
+
+
+def _hpow(h, dim: int):
+    """h**dim (the integer-power chain)."""
+    return {1: lambda t: t, 2: _pow2, 3: _pow3}[dim](h)
+
+
 def _guarded_inv(r):
     eps = 1e-12
     return torch.where(r > eps, 1.0 / torch.clamp(r, min=eps),
                        torch.zeros_like(r))
 
 
+def _pos(t):
+    return torch.clamp(t, min=0.0)
+
+
+def _within(q, val, limit=3.0):
+    """``val`` where q <= limit, 0 beyond."""
+    return torch.where(q <= limit, val, torch.zeros_like(val))
+
+
 @dataclass(frozen=True)
-class QuinticSpline:
+class Kernel:
+    """Base class; ``radius_scale`` is the support radius in units of h."""
+
     dim: int = 2
+    radius_scale: float = 2.0
+
+    def sigma(self, h):
+        raise NotImplementedError
+
+    def w(self, rij, h):
+        raise NotImplementedError
+
+    def dwdq(self, rij, h):
+        raise NotImplementedError
+
+    def gradw_scalar(self, rij, h):
+        """s with DW_ij = s * x_ij: dW/dq / (h * rij), 0 at rij = 0."""
+        return self.dwdq(rij, h) / h * _guarded_inv(rij)
+
+    def w_gradw(self, rij, h):
+        """(w, gradw_scalar); the quintic overrides it to share pieces."""
+        return self.w(rij, h), self.gradw_scalar(rij, h)
+
+
+@dataclass(frozen=True)
+class QuinticSpline(Kernel):
+    """Quintic B-spline, support 3h."""
+
     radius_scale: float = 3.0
 
     @property
@@ -76,9 +134,6 @@ class QuinticSpline:
         val = -5.0 * _pow4(t3) + 30.0 * _pow4(t2) - 75.0 * _pow4(t1)
         return self.sigma(h) * val
 
-    def gradw_scalar(self, rij, h):
-        return self.dwdq(rij, h) / h * _guarded_inv(rij)
-
     def w_gradw(self, rij, h):
         """(w, gradw_scalar) from one q, one sigma and the shared 4th
         powers (t^5 = t^4 * t, the reference's chain), bit-identical to
@@ -92,8 +147,127 @@ class QuinticSpline:
         return w, sig * dval / h * _guarded_inv(rij)
 
 
-KERNELS = {"quintic": QuinticSpline}
+@dataclass(frozen=True)
+class CubicSpline(Kernel):
+    """Cubic B-spline, support 2h (the DEM scheme's default)."""
+
+    radius_scale: float = 2.0
+
+    def sigma(self, h):
+        if self.dim == 1:
+            return 2.0 / (3.0 * h)
+        if self.dim == 2:
+            return 10.0 / (7.0 * M_PI * h * h)
+        return 1.0 / (M_PI * h * h * h)
+
+    def w(self, rij, h):
+        q = rij / h
+        inner = 1.0 - 1.5 * q * q * (1.0 - 0.5 * q)
+        outer = 0.25 * _pow3(_pos(2.0 - q))
+        return self.sigma(h) * torch.where(q <= 1.0, inner, outer)
+
+    def dwdq(self, rij, h):
+        q = rij / h
+        inner = -3.0 * q + 2.25 * q * q
+        outer = -0.75 * _pow2(_pos(2.0 - q))
+        return self.sigma(h) * torch.where(q <= 1.0, inner, outer)
 
 
-def get_kernel(name: str, dim: int) -> QuinticSpline:
+@dataclass(frozen=True)
+class WendlandQuintic(Kernel):
+    """Wendland C2 quintic, support 2h (dim >= 2)."""
+
+    radius_scale: float = 2.0
+
+    def sigma(self, h):
+        if self.dim == 2:
+            return 7.0 / (4.0 * M_PI * h * h)
+        return 21.0 / (16.0 * M_PI * h * h * h)
+
+    def w(self, rij, h):
+        q = rij / h
+        t = _pos(1.0 - 0.5 * q)
+        return self.sigma(h) * _pow4(t) * (2.0 * q + 1.0)
+
+    def dwdq(self, rij, h):
+        q = rij / h
+        t = _pos(1.0 - 0.5 * q)
+        return self.sigma(h) * (-5.0 * q) * _pow3(t)
+
+
+@dataclass(frozen=True)
+class WendlandQuinticC4(Kernel):
+    """Wendland C4, support 2h (dim >= 2)."""
+
+    radius_scale: float = 2.0
+
+    def sigma(self, h):
+        if self.dim == 2:
+            return 9.0 / (4.0 * M_PI * h * h)
+        return 495.0 / (256.0 * M_PI * h * h * h)
+
+    def w(self, rij, h):
+        q = rij / h
+        t = _pos(1.0 - 0.5 * q)
+        return (self.sigma(h) * _pow6(t)
+                * (35.0 / 12.0 * q * q + 3.0 * q + 1.0))
+
+    def dwdq(self, rij, h):
+        q = rij / h
+        t = _pos(1.0 - 0.5 * q)
+        return (self.sigma(h) * (-14.0 / 3.0) * q * (1.0 + 2.5 * q)
+                * _pow5(t))
+
+
+@dataclass(frozen=True)
+class Gaussian(Kernel):
+    """Gaussian kernel, support 3h."""
+
+    radius_scale: float = 3.0
+
+    def sigma(self, h):
+        return 1.0 / (M_PI ** (self.dim / 2.0) * _hpow(h, self.dim))
+
+    def w(self, rij, h):
+        q = rij / h
+        return _within(q, self.sigma(h) * exp(-q * q))
+
+    def dwdq(self, rij, h):
+        q = rij / h
+        return _within(q, self.sigma(h) * (-2.0 * q) * exp(-q * q))
+
+
+@dataclass(frozen=True)
+class SuperGaussian(Kernel):
+    """Super-Gaussian kernel, support 3h."""
+
+    radius_scale: float = 3.0
+
+    def sigma(self, h):
+        return 1.0 / (M_PI ** (self.dim / 2.0) * _hpow(h, self.dim))
+
+    def w(self, rij, h):
+        q = rij / h
+        d = self.dim
+        return _within(q, self.sigma(h) * exp(-q * q)
+                       * (d / 2.0 + 1.0 - q * q))
+
+    def dwdq(self, rij, h):
+        q = rij / h
+        d = self.dim
+        val = exp(-q * q) * (-2.0 * q) * (d / 2.0 + 2.0 - q * q)
+        return _within(q, self.sigma(h) * val)
+
+
+KERNELS = {
+    "quintic": QuinticSpline,
+    "cubic": CubicSpline,
+    "wendland": WendlandQuintic,
+    "wendland_c4": WendlandQuinticC4,
+    "gaussian": Gaussian,
+    "super_gaussian": SuperGaussian,
+}
+
+
+def get_kernel(name: str, dim: int) -> Kernel:
     return KERNELS[name](dim=dim)

@@ -414,6 +414,13 @@ def local_grid_config(cfg: SlabConfig) -> cellmod.CellGridConfig:
                                cell_chunk=chunk, skin=0.0)
 
 
+def _check_engine(scheme, what: str):
+    """The slab steps run the cell engine only, as the reference's do."""
+    if scheme.engine != "cell":
+        raise ValueError(f"{what} runs the cell engine; the scheme's engine "
+                         f"is {scheme.engine!r} (set engine='cell')")
+
+
 def _check_parts(parts, mesh: Mesh, cfg: SlabConfig):
     if len(parts) != mesh.size or mesh.size != cfg.n_dev:
         raise ValueError(f"{len(parts)} local scenes, {mesh.size} devices, "
@@ -437,6 +444,7 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
     ``step.exchange(parts, dt)`` runs the stage before the evaluation
     (the kicked scenes, the extended scenes, the face overflows): the
     kernels' inputs at the slab path's shapes."""
+    _check_engine(scheme, "make_slab_step")
     _check_parts(parts, mesh, cfg)
     if scheme.integrator != "gtvf":
         raise NotImplementedError("the rigid slab step runs the GTVF "
@@ -630,6 +638,7 @@ def make_slab_dem_step(scheme, parts: List[Scene], mesh: Mesh,
     ``n_global``, :func:`attach_gids`): DEM sums are per query, so the
     two ring sends are the only exchange.  ``plain`` runs the kernels'
     plain versions; ``step.exchange`` as in :func:`make_slab_step`."""
+    _check_engine(scheme, "make_slab_dem_step")
     _check_parts(parts, mesh, cfg)
     if "gid" not in parts[0]:
         raise ValueError("make_slab_dem_step: attach_gids before "
@@ -756,6 +765,7 @@ def make_slab_coupling_step(scheme, parts: List[Scene], mesh: Mesh,
     ``step.exchange(parts, dt)`` runs the ordering's stage before its
     forces evaluation: (local scenes, extended scenes as the fluid passes
     see them, overflows)."""
+    _check_engine(scheme, "make_slab_coupling_step")
     _check_parts(parts, mesh, cfg)
     if scheme.fluid_stepper != "gtvf":
         raise NotImplementedError("the slab coupling step runs the GTVF "

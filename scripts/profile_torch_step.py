@@ -2,14 +2,17 @@
 """Where the PyTorch port's step time goes on one CUDA card.
 
     python3 scripts/profile_torch_step.py [--steps 20]
-        [--paths rigid,dem,rowwin,coupling,coupling-kdk,coupling-reference]
+        [--paths rigid,dem,rowwin,coupling,coupling-kdk,coupling-reference,
+                 list-rigid,list-rigid-3d,list-dem,list-coupling-kdk,
+                 list-coupling-reference]
 
 Run from the repository root on the machine with the card.  For each
 main path of ``chip_smoke.py`` (the 2D rigid contact step at ~105k
 particles, the 2D DEM step on the spill grid and on the row-window grid
 at ~104k particles, the coupling step of the sinking box at ~96.9k
 particles in the fused kdkf ordering, the kdk and the reference
-ordering), on the same scenes, it prints:
+ordering; the ``list-`` paths: the same steps, and the 3D cubes' GTVF
+step, on the ``[N, K]`` list engine), on the same scenes, it prints:
 
 * untraced ms/step (host clock around ``--steps`` steps ending in a
   synchronise), after a warm-up chunk;
@@ -42,6 +45,10 @@ from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as ck  # noqa: E
 from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_fluid_coupling as cpl  # noqa: E402
 from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as dk  # noqa: E402
 from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk  # noqa: E402
+from rigid_body_2d_3d_pysph_tpu_torch.ops import contact as cops  # noqa: E402
+from rigid_body_2d_3d_pysph_tpu_torch.ops import dem as dops  # noqa: E402
+from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid as fops  # noqa: E402
+from rigid_body_2d_3d_pysph_tpu_torch.ops import neighbors as nbmod  # noqa: E402
 
 # layer spans: (module, function name, span label) per path
 SPANS = {
@@ -74,6 +81,22 @@ SPANS["coupling-kdk"] = SPANS["coupling-reference"] = [
     (cpl, "unpack", "unpack (fluid)"),
     (ck, "unpack", "unpack (contact)"),
     (cpl, "_contact_force_tail", "L3 Eq.-24 tail")]
+# the list engine: the list build, the pair passes, the Eq.-24 tail
+_LIST_CONTACT = [
+    (cops, "contact_force_normals", "Eq.-22 normals (list)"),
+    (cops, "contact_force_distance", "Eq.-21 distance + pick (list)"),
+    (cops, "contact_force", "L3 Eq.-24 tail")]
+_LIST_BUILD = [(nbmod, "build_neighbors", "L1 list build")]
+SPANS["list-rigid"] = SPANS["list-rigid-3d"] = _LIST_BUILD + _LIST_CONTACT
+SPANS["list-dem"] = _LIST_BUILD + [
+    (dops, "prune_contact_table", "table prune"),
+    (dops, "lvc_displacement", "LVC pass (list)")]
+SPANS["list-coupling-kdk"] = SPANS["list-coupling-reference"] = (
+    _LIST_BUILD + [(fops, name, f"{name} (list)") for name in (
+        "continuity", "edac", "set_wall_velocity", "solid_wall_pressure_bc",
+        "momentum_pressure_gradient", "momentum_artificial_viscosity",
+        "force_on_fluid_due_to_rigid_body",
+        "force_on_rigid_body_due_to_fluid")] + _LIST_CONTACT)
 
 
 def _wrap(fn, label):
@@ -84,16 +107,21 @@ def _wrap(fn, label):
 
 
 def _scene(path, dev):
-    if path == "rigid":
-        scheme, scene, _ = cs.contact_scene_2d(dev)
+    engine = "nklist" if path.startswith("list-") else "cell"
+    base = path[5:] if engine == "nklist" else path
+    if base == "rigid":
+        scheme, scene, _ = cs.contact_scene_2d(dev, engine=engine)
         dt = cs.DT
-    elif path.startswith("coupling"):
-        scheme, scene, dt = cs.sinking_box_scene(dev)
-        if path != "coupling":
-            scheme.gtvf_ordering = path.split("-")[1]
+    elif base == "rigid-3d":
+        scheme, scene, _ = cs.contact_scene_3d(dev, engine=engine)
+        dt = cs.DT
+    elif base.startswith("coupling"):
+        scheme, scene, dt = cs.sinking_box_scene(dev, engine=engine)
+        if base != "coupling":
+            scheme.gtvf_ordering = base.split("-")[1]
     else:
-        scheme, scene = cs.dem_scene(dev, 2, "spill" if path == "dem"
-                                     else "rowwin")
+        scheme, scene = cs.dem_scene(dev, 2, "spill" if base == "dem"
+                                     else "rowwin", engine=engine)
         dt = cs.DEM_DT
     return scheme, scene, dt
 

@@ -8,7 +8,11 @@ chunk loop and overflow rule, SchemeChooser and the velocity setters.
   at the end; an event applied once at its step; post-chunk callbacks.
 * Resume from a checkpoint equals the uninterrupted run bit for bit in
   float64, also after an overflow rebuild widened the rigid compact store
-  (the reference raises a shape mismatch there).
+  (the reference raises a shape mismatch there), and on the list engine
+  after an overflow rebuild re-sized the neighbour list (the checkpoint
+  holds the list's config).
+* Case scripts take ``--engine nklist`` (the scheme's engine; ``cell``
+  by default).
 * The overflow rule on a block that leaves its grid's domain within a
   chunk: rebuilds from the chunk's start state, the slack grows 1.5x from
   the second rebuild of a chunk on, and the Solver raises after 8.
@@ -24,6 +28,7 @@ work is the reference's set-up of one small scene.
 """
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -64,7 +69,8 @@ BAR = (2.0, 0.1)
 V_FAST = -66.0
 
 
-def _block_scene(length=0.2, height=0.2, v=0.0, dtype=torch.float64):
+def _block_scene(length=0.2, height=0.2, v=0.0, dtype=torch.float64,
+                 engine="cell"):
     """One 2D block (spacing DX, no walls) under gravity, moving at ``v``
     in y.  Its grid's domain is its bounding box widened by 0.75 x its
     extent on each axis and two cutoffs: the 2 x 0.1 bar at -66 m/s
@@ -78,6 +84,7 @@ def _block_scene(length=0.2, height=0.2, v=0.0, dtype=torch.float64):
     scene = build_scene([g], dim=2, total_no_bodies=1, spacing0=DX,
                         device=CPU, dtype=dtype)
     scheme = trb.RigidBody2DScheme(["body"], [], dim=2, gy=-9.81)
+    scheme.engine = engine
     scene = scheme.setup(scene)
     return scheme, scheme.set_linear_velocity(scene, [0.0, v, 0.0])
 
@@ -245,6 +252,55 @@ def test_resume_equals_uninterrupted_f64(tmp_path, v):
         assert mid.cl_pid.shape[0] > L0 and end2.cl_pid.shape[0] > L0
     else:
         assert full.rebuilds_total == 0 and end.cl_pid.shape[0] == L0
+
+
+def _list_block_scene(m=2):
+    """``_block_scene`` on the list engine, its list's per-cell cap set to
+    ``m`` (a rebuild's first chunk overflows it)."""
+    scheme, scene = _block_scene(*BAR, v=-0.5, engine="nklist")
+    scheme._nbr_cfg = dataclasses.replace(scheme._nbr_cfg, max_per_cell=m)
+    return scheme, scene
+
+
+def test_resume_on_the_list_after_a_rebuild_f64(tmp_path):
+    scheme, scene = _list_block_scene()
+    full, end = _run(scheme, scene, 10, str(tmp_path / "full"), pfreq=5)
+    assert full.rebuilds_total == 1
+    scheme, scene = _list_block_scene()
+    half, _ = _run(scheme, scene, 5, str(tmp_path / "res"), pfreq=5)
+    assert half.rebuilds_total == 1
+    rebuilt = scheme._nbr_cfg
+    scheme, scene = _list_block_scene()
+    resumed, end2 = _run(scheme, scene, 10, str(tmp_path / "res"),
+                         resume=True, pfreq=5)
+    # the checkpoint held the rebuilt list: no overflow, no rebuild
+    assert scheme._nbr_cfg == rebuilt and rebuilt.max_per_cell > 2
+    assert resumed.rebuilds_total == 0 and resumed.steps_run == 5
+    _assert_scenes_equal(end, end2)
+    _assert_npz_equal(str(tmp_path / "full" / "snapshot_000010.npz"),
+                      str(tmp_path / "res" / "snapshot_000010.npz"))
+
+
+@pytest.mark.parametrize("case", ("rigid", "dem", "coupling"))
+def test_case_scripts_take_the_engine_flag(tmp_path, case):
+    from rigid_body_2d_3d_pysph_tpu_torch.cases import (
+        benchmark_5_steady_cubes_on_a_wall_2d as b5,
+        dem_granular_column_collapse as dem,
+        rigid_body_rotating_and_sinking_in_tank_2d as sink)
+
+    app, argv = dict(
+        rigid=(b5.Benchmark5_2D, ["--two-cubes"]),
+        dem=(dem.GranularColumnCollapse, ["--column-scale", "0.3"]),
+        coupling=(sink.SinkingBox, []))[case]
+    app = app()
+    if case == "coupling":
+        app.initialize(spacing=0.1)
+    app.run(["-d", str(tmp_path), "--max-steps", "2", "--pfreq", "1",
+             "--quiet", "--device", "cpu", "--engine", "nklist"] + argv)
+    assert app.scheme.engine == "nklist" and app.solver.count == 2
+    assert "cl_pid" not in app.scene
+    assert bool(torch.isfinite(app.scene.x).all())
+    assert not bool(app.scene.nbr_overflow)
 
 
 def test_overflow_rule_rebuilds_grows_and_gives_up(tmp_path):

@@ -1,6 +1,18 @@
 """The port against the independent C++ engine (``csrc/rbnative.cpp``).
 
-150 GTVF steps of the port's 2D rigid scheme in float64 on CPU tensors
+* DEM: the port's LVC-displacement step in float64 on CPU tensors, on
+  the list engine and on the cell route (the kernels' plain versions),
+  against ``rb_dem_lvc_step_n`` on ``tests/test_dem_cell.py``'s jittered
+  grain blocks (2D: 25 steps, 3D: 15 steps), as
+  ``tests/test_native_oracle.py`` holds the JAX list engine: states,
+  forces and torques to atol 1e-10, the contact tables as (partner, dem)
+  -> spring maps (slot order depends on the candidate order) to atol
+  1e-10: every row in 2D, the grains' rows in 3D (the JAX package's 3D
+  oracle test compares no table: the static floor's rows are read by
+  nothing, and its particles a spacing apart touch with an overlap of
+  rounding size, 1e-17, whose Coulomb slip test sits on its threshold).
+  The set-up state is the JAX package's, carried over.
+* 150 GTVF steps of the port's 2D rigid scheme in float64 on CPU tensors
 (its compact contact path; the kernels' plain versions) against
 ``rb_gtvf_step_n`` from the same set-up state: two cubes sliding towards
 each other just above a wall, the persistent contact state handed from
@@ -15,12 +27,68 @@ import numpy as np
 import torch
 torch.set_num_threads(1)  # the suite runs one worker process a core
 
-from rigid_body_2d_3d_pysph_tpu.native import gtvf_step_n
+import pytest
+
+from rigid_body_2d_3d_pysph_tpu.native import dem_lvc_step_n, gtvf_step_n
 
 from rigid_body_2d_3d_pysph_tpu_torch.geom import get_2d_block
-from rigid_body_2d_3d_pysph_tpu_torch.models import RigidBody2DScheme
+from rigid_body_2d_3d_pysph_tpu_torch.models import (DEMScheme,
+                                                     RigidBody2DScheme)
 from rigid_body_2d_3d_pysph_tpu_torch.state import (
     ROLE_BOUNDARY, ROLE_RIGID, build_scene, make_group)
+from rigid_body_2d_3d_pysph_tpu_torch.state.convert import scene_from_numpy
+
+from test_dem_cell import _grain_scene, _grain_scene_3d
+
+
+def _table_map(ti, td, ta, tb, tc):
+    return [{(int(i), int(d)): (ta[r, l], tb[r, l], tc[r, l])
+             for l, (i, d) in enumerate(zip(ti[r], td[r])) if i >= 0}
+            for r in range(ti.shape[0])]
+
+
+@pytest.mark.parametrize("engine", ("nklist", "cell"))
+@pytest.mark.parametrize("dim", (2, 3))
+def test_native_dem_trajectory_matches_port(dim, engine):
+    jsch, jscene = (_grain_scene(seed=11) if dim == 2
+                    else _grain_scene_3d(seed=13))
+    n_steps = 25 if dim == 2 else 15
+    fields = {k: np.asarray(v) for k, v in jscene.fields.items()}
+    scene = scene_from_numpy(fields, jscene.meta, torch.device("cpu"),
+                             torch.float64)
+    scheme = DEMScheme(["grains"], ["floor"], kn=jsch.kn, en=jsch.en,
+                       gy=jsch.gy, dim=dim)
+    scheme.engine = engine
+    dt = 1e-5
+    step = scheme.make_step(scene)
+    s = scene
+    for _ in range(n_steps):
+        s = step(s, dt)
+    assert not bool(s.nbr_overflow)
+    assert int(s.total_tng_contacts.sum()) > 0
+
+    g = scene.meta.group("grains")
+    mob = np.zeros(scene.n, bool)
+    mob[g.start:g.stop] = True
+    out = dem_lvc_step_n(scene, mob, scheme.gx, scheme.gy, scheme.gz, dt,
+                         n_steps)
+    keys = (("x", "y", "u", "v", "wz", "fx", "fy", "torz") if dim == 2 else
+            ("x", "y", "z", "u", "v", "w", "wx", "wy", "wz", "fx", "fy",
+             "fz", "torx", "tory", "torz"))
+    for k in keys:
+        np.testing.assert_allclose(out[k], s[k].numpy(), atol=1e-10,
+                                   err_msg=k)
+    rows = slice(None) if dim == 2 else slice(g.start, g.stop)
+    m_p = _table_map(*(s[k].numpy()[rows] for k in (
+        "tng_idx", "tng_idx_dem_id", "tng_x", "tng_y", "tng_z")))
+    m_n = _table_map(out["tng_idx"][rows], out["tng_dem"][rows],
+                     *(t[rows] for t in out["tng"]))
+    assert sum(len(a) for a in m_p) > 0
+    for r, (a, b) in enumerate(zip(m_p, m_n)):
+        assert a.keys() == b.keys(), f"row {r} contact sets differ"
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], atol=1e-10,
+                                       err_msg=f"row {r} pair {k}")
 
 
 def test_native_gtvf_trajectory_matches_port():
