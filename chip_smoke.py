@@ -129,7 +129,7 @@ no result line):
     and nothing else, phase 11's gates; then 20 kernel steps against 20
     twin steps on phase 13's placement as in phase 13;
 26. the DEM step with ``contact_model="LVCForce"`` (no kernel: the
-    reference runs it in XLA only) on phase 7's column for 100 steps at
+    reference runs it in XLA only) on phase 7's column for 50 steps at
     dt = 5e-6: live contacts every step, finiteness, no overflow, the
     floor holds, overlap < 0.1 r, no kernel launched; prints steps/s;
 27. benchmark 2 (two cubes colliding head-on, no boundary,
@@ -188,13 +188,40 @@ no result line):
     set up on lists: 100 GTVF steps under phase 4's gates, no kernel
     launched, K, the gated contact pairs and the peak device memory
     printed, steps/s;
-36. the same on phase 5a's 3D cubes: 50 GTVF steps, then 50 leapfrog
+36. the same on phase 5a's 3D cubes: 25 GTVF steps, then 25 leapfrog
     steps from a fresh set-up;
 37. the DEM column on lists: 100 LVCDisplacement steps under phase 7's
     gates and 20 LVCForce steps, no kernel launched, K printed;
 38. the sinking box on lists: 200 kdk and 200 reference steps under
     phase 11's gates, no kernel launched, K and the peak memory printed;
-39. a JSON line of per-kernel numbers (``launches`` from the kernel's
+39. the five non-quintic SPH kernels (cubic, Wendland C2 and C4,
+    Gaussian, super-Gaussian): their ``contact.cu`` and ``fluid.cu``
+    libraries (one per kernel, ``-DRB_SPH_KERNEL``) built together, with
+    seconds and ptxas's registers and spills; then for each, on scenes
+    set up with it (the grid of its cutoff), K2 on the 2D stack's culled
+    rows and on every slot of the 3D cubes, and B4, B5, B6a (EDAC), B6b
+    and B6c (bodies) on the 2D sinking box's pack, against their plain
+    versions as in phases 3, 10 and 14, each timed with its bound (W and
+    dW/dr / r counted per kernel, expf as OPS_EXPF operations), and B5
+    on the box on the floor (contact picks > 0);
+40. the main paths with each of them: the 2D resting stack under GTVF,
+    100 steps under phase 4's gates, one K1 and one K2 of the kernel's
+    library a step; the sinking box under kdkf (one K1, B4 and B5 a
+    step; 200 steps under phase 11's gates with the cubic, 50 with the
+    others) and kdk (two K1, B6a, B6b, B6c and K2 a step, 50 steps), the
+    short runs without the gate on the box's sinking, the
+    super-Gaussian's 10 steps (its negative tail makes the fluid
+    diverge: rho 1.47 rho0 at step 20 on the plain passes); every launch
+    of K2 and the fluid passes checked to be the kernel's own instance;
+    then 20 kernel steps against 20 plain steps
+    (STEP_RTOL) of the stack (Wendland C2) and of the dense box on the
+    floor under kdkf (cubic);
+41. the Verlet skin: the 2D stack with ``skin_factor = 0.3``, 100 GTVF
+    steps under phase 4's gates, one K2 on every slot (the pack gathered
+    through the carried grid) and no K1 a step, the grid's rebuilds
+    counted; then 20 skin steps against 20 steps of the compact no-skin
+    kernel step from the same state (STEP_RTOL);
+42. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
@@ -206,7 +233,10 @@ no result line):
     time; K1 on the 3D rigid pack and on the 2D and 3D coupling packs;
     every fluid pass's 3D time; ptxas's registers, static and dynamic
     shared memory and spills of every rates/wall and forces instance the
-    paths launch), the script's seconds, then the result line.
+    paths launch; an entry ``<kernel>[<SPH kernel>]`` for each
+    non-quintic instance, with its launches from phase 40's paths and
+    its times from phase 39), the script's seconds, then the result
+    line.
 
 It imports nothing from JAX or the JAX package.
 """
@@ -214,6 +244,7 @@ It imports nothing from JAX or the JAX package.
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -242,9 +273,9 @@ DEM_OVERLAP = 2 * DEM_R - DEM_SPACING
 DEM_DT = 5e-6
 DEM_STEPS = 200
 DEM_ROWWIN_STEPS = 100
-# the LVCForce path in torch ops (~4.6 steps/s at ~104k grains): half
-# the spill path's depth keeps the script inside its time
-LVCF_STEPS = 100
+# the LVCForce path in torch ops (~4.6 steps/s at ~104k grains): a
+# quarter of the spill path's depth keeps the script inside its time
+LVCF_STEPS = 50
 DEM_SUM_RTOL = 2e-5        # summation order (tests/test_pallas_dem.py)
 DEM_SPRING_RTOL = 1e-4     # operation order
 # the crowded column: grains at this fraction of DEM_SPACING (0.995 r),
@@ -280,7 +311,9 @@ STEPPER_STEPS = 100
 # column; the 3D cubes (K ~ 3,500 at 116.5k particles: each [N, K] f32
 # field ~1.6 GB)
 LIST_STEPS = 100
-LIST_3D_STEPS = 50
+# (the cubes at rest drop ~5e-7 m in 50 steps: half a 25-step free fall
+# is 1.5e-5 m)
+LIST_3D_STEPS = 25
 # the slab phases (28-31): slabs on the card (2D rigid, DEM); the 3D
 # phase takes the most slabs of at least 2 cell columns each
 SLAB_P = 4
@@ -305,8 +338,16 @@ CPL_PARITY_RHO = 8.0
 # the spline's gradient or W, then the body's own terms; per gated
 # contact pair, W and the Mofidi accumulation
 OPS_PAIR_HEAD = 18         # flags decode (16), h_ij (2)
-OPS_GRADW = 27             # dW/dr / r of the quintic spline
-OPS_W = 24                 # W of the quintic spline
+# W and dW/dr / r of each SPH kernel in 2D (csrc/sph_kernels.cuh, counted
+# the same way: q, the clamps, the power chains, the selects, sigma, the
+# guarded 1/r), expf counted as OPS_EXPF (the CUDA math library's expf:
+# range reduction by multiply-adds, the hardware 2^x, the scaling)
+OPS_EXPF = 8
+OPS_W_OF = {"quintic": 24, "cubic": 19, "wendland": 14, "wendland_c4": 18,
+            "gaussian": 10 + OPS_EXPF, "super_gaussian": 13 + OPS_EXPF}
+OPS_GRADW_OF = {"quintic": 27, "cubic": 21, "wendland": 18,
+                "wendland_c4": 22, "gaussian": 17 + OPS_EXPF,
+                "super_gaussian": 21 + OPS_EXPF}
 OPS_CONTINUITY = 15        # dW vector, v_ij . dW, rho_i m_j / rho_j term
 OPS_EDAC = 28              # the EDAC pressure rate's further terms
 OPS_WALL = 16              # g . x_ij and the five Shepard sums
@@ -314,7 +355,25 @@ OPS_PGRAD = 13             # dW vector, p_i/rho_i^2 + p_j/rho_j^2, 3 sums
 OPS_VISC_TEST = 9          # v_ij . x_ij and its sign (fluid sources)
 OPS_VISC = 16              # the viscous term where v_ij . x_ij < 0
 OPS_FSI = 14               # dW vector, the fluid -> rigid term, 3 sums
-OPS_PER_CONTACT_PAIR = 35
+OPS_CONTACT_SUMS = 11      # the Mofidi accumulation of a gated pair
+# the SPH kernel family (phases 39-40): the non-quintic kernels, each with
+# its own K2 and fluid libraries; the stack's GTVF path runs SPH_STEPS
+# steps with each (50 read a settling block's drop against half of a
+# 50-step free fall), the sinking box's kdkf CPL_STEPS with the cubic
+# (phase 11's gates: the box's f32 COM moves after ~100 steps) and
+# SPH_SHORT_STEPS with the others, and its kdk SPH_SHORT_STEPS with each
+# (the box's sinking not gated: those runs give each instance its
+# launches); the super-Gaussian is negative beyond q = sqrt(d / 2 + 1),
+# and the sinking box's fluid diverges under it (rho up to 1.47 rho0 at
+# step 20, 2.16 at 30, on the plain passes), so its coupling runs take
+# SPH_UNSTABLE_STEPS
+SPH_NAMES = ("cubic", "wendland", "wendland_c4", "gaussian",
+             "super_gaussian")
+SPH_STEPS = 100
+SPH_SHORT_STEPS = 50
+SPH_UNSTABLE_STEPS = 10
+# the Verlet skin of phase 41, as a fraction of the cutoff
+SKIN = 0.3
 
 
 class PhaseError(RuntimeError):
@@ -383,7 +442,8 @@ def slot_lanes(cnt, nbr):
 # ---------------------------------------------------------------------------
 
 def contact_scene_2d(dev, n_target=100_000, coupling=False,
-                     integrator="gtvf", engine="cell"):
+                     integrator="gtvf", engine="cell", kernel="quintic",
+                     skin=0.0):
     """8 blocks of side 0.2 in two rows of 4 on the floor of a 3-layer
     tank (the bench's body size and count), a resting stack: the bottom
     row sits GAP dx above the floor's surface layer, neighbours GAP dx
@@ -392,7 +452,8 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
     it up under a rigid-fluid coupling scheme with no fluid group (the
     reference's stack-of-cylinders setup) instead of the rigid scheme;
     ``integrator`` is the rigid scheme's stepper, ``engine`` its pair
-    engine (set before the set-up, which identifies the surfaces on it)."""
+    engine, ``kernel`` its SPH kernel and ``skin`` its Verlet skin factor
+    (set before the set-up, which identifies the surfaces on them)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, create_tank_2d_from_block_2d)
@@ -434,12 +495,14 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
     else:
         scheme = RigidBody2DScheme(names, ["tank"], dim=2, gy=-9.81)
         scheme.integrator = integrator
+        scheme.skin_factor = skin
     scheme.engine = engine
+    scheme.kernel_name = kernel
     return scheme, scheme.setup(scene), dx
 
 
 def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
-                     engine="cell"):
+                     engine="cell", kernel="quintic"):
     """8 cubes of side 0.2 in a 4 x 2 layout on a 3-layer floor slab, at
     rest on it (the 3D bench's body size).  Each cube's bottom face sits
     where the floor carries its weight: the face's overlap is m g / (kr
@@ -451,7 +514,7 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
     stack overflows ``max_spill`` in the reference too); the cubes are one
     group, so the faces between neighbours are interior to the surface
     identification and carry no contact.  ``integrator`` is the scheme's
-    stepper, ``engine`` its pair engine."""
+    stepper, ``engine`` its pair engine, ``kernel`` its SPH kernel."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import get_3d_block
     from rigid_body_2d_3d_pysph_tpu_torch.models import RigidBody3DScheme
@@ -465,6 +528,7 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
     scheme = RigidBody3DScheme(["body"], ["floor"], dim=3, gy=-G)
     scheme.integrator = integrator
     scheme.engine = engine
+    scheme.kernel_name = kernel
     m = 2000.0 * dx**3
     n_face = side * side
     rest = m * len(xb1) * G / (scheme.kr * n_face)
@@ -564,12 +628,7 @@ def phase_kernels(scheme, scene, label, timings):
 
     kernel = get_kernel(scheme.kernel_name, scheme.dim)
     cfg = scheme.cell_config(scene, kernel)
-    gen = torch.Generator(device=scene.device).manual_seed(7)
-    rnd = lambda: torch.rand(scene.n, generator=gen, device=scene.device) - 0.5
-    vel = dict(u=rnd(), v=rnd())
-    if scheme.dim == 3:
-        vel["w"] = rnd()
-    scene = scene.replace(**vel)
+    scene = seeded_velocities(scene, scheme.dim, 7)
     S = scene.meta.total_no_bodies
     two_d = scheme.dim == 2
     init = 4.0 * scene.meta.spacing0
@@ -657,23 +716,27 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
     on the cell engine runs the compact path (interesting slots counted);
     RK2 and leapfrog the full [N, S] schema (no compact store) with
     ``evals`` force evaluations a step, each launching one K1 and one K2
-    and nothing else.  On the list engine every stepper keeps the full
+    and nothing else.  With a Verlet skin every stepper keeps the full
+    schema and launches one K2 (every slot) and no K1 a force evaluation;
+    the grid's rebuilds are counted.  K2 runs the library of the
+    scheme's SPH kernel.  On the list engine every stepper keeps the full
     schema and launches no kernel; K, the gated contact pairs and the
-    peak device memory are printed.  Returns (end scene, launches,
-    stats)."""
+    peak device memory are printed.  Returns (end scene, launches with
+    the per-instance counts, stats)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
     kernel = get_kernel(scheme.kernel_name, scheme.dim)
     listed = scheme.engine == "nklist"
-    compact = scheme.integrator == "gtvf" and not listed
+    skin = scheme.uses_skin
+    compact = scheme.integrator == "gtvf" and not listed and not skin
     check(compact == ("cl_pid" in scene), f"{label}: the compact slot "
           f"store is {'missing' if compact else 'there'}")
     step = scheme.make_step(scene)
     xcm0 = scene.xcm.clone()
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    steps_run = done = rebuilds = 0
+    steps_run = done = rebuilds = grid_builds = 0
     chunk_s, chunk_n, n_int, lanes = [], [], [], []
     while done < n_steps:
         chunk_start = scene
@@ -681,11 +744,15 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
         cfg = None if listed else scheme.cell_config(scene, kernel)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = []
+        stats, builds = [], 0
         for _ in range(n):
+            prev = scene.g_xb if skin else None
             scene = step(scene, DT)
             if compact:
                 stats.append(scene.n_interesting)
+            if skin:
+                # a skin rebuild attaches the current positions as g_xb
+                builds += int(scene.g_xb is not prev)
         torch.cuda.synchronize()
         el = time.perf_counter() - t0
         steps_run += n
@@ -704,10 +771,13 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
             continue
         rebuilds = 0
         done += n
+        grid_builds += builds
         chunk_s.append(el)
         chunk_n.append(n)
         ov = float(scheme.export_scene(scene).overlap.max())
         msg = f"max overlap {ov:.3e}"
+        if skin:
+            msg += f", skin grid rebuilds {builds}"
         if compact:
             ni = torch.stack(stats).cpu().numpy()
             n_int.append(ni)
@@ -718,10 +788,11 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
 
     launches = dict(_build.LAUNCHES)
     for k, v in launches.items():
-        want = (evals * steps_run if k in ("pack_expand", "contact")
-                and not listed else 0)
+        want = (evals * steps_run if not listed and (
+            k == "contact" or (k == "pack_expand" and not skin)) else 0)
         check(v == want, f"{label}: {k} launched {v} times in {steps_run} "
               f"steps, expected {want}")
+    launches = check_instances(label, scheme.kernel_name, launches)
     check(compact == ("cl_pid" in scene), f"{label}: the step changed the "
           "slot schema")
     full = scheme.export_scene(scene)
@@ -758,10 +829,14 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
         cfg = scheme.cell_config(scene, kernel)
         work = (f"{evals} evaluation(s) a step, K2 on all {cfg.NC_max} "
                 f"slots (O {cfg.O})")
+        if skin:
+            work += (f", skin {cfg.skin:.4g} (bins {cfg.cell:.4g}), grid "
+                     f"rebuilds {grid_builds} in {done} steps")
     steady = chunk_s[1:] or chunk_s
     sps = (sum(chunk_n[1:]) or sum(chunk_n)) / sum(steady)
     print(f"[{label}] n={scene.n} dx={dx:.6g} {scheme.integrator} on "
-          f"{scheme.engine} steps={done} (run {steps_run}) launches pack="
+          f"{scheme.engine} ({scheme.kernel_name}) steps={done} (run "
+          f"{steps_run}) launches pack="
           f"{launches['pack_expand']} contact={launches['contact']} | "
           f"{work} | max overlap {max_overlap:.4e} ({max_overlap / dx:.3f} "
           f"dx) | max COM drift {drift:.4e} ({drift / dx:.3f} dx) | max "
@@ -772,7 +847,23 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
     print(f"[{label}] {sps:.2f} steps/s steady (chunks 2+), "
           f"{done / sum(chunk_s):.2f} steps/s all chunks, on {smi}",
           flush=True)
-    return scene, launches, dict(steps_per_s=sps, n=scene.n, peak_gib=peak)
+    return scene, launches, dict(steps_per_s=sps, n=scene.n, peak_gib=peak,
+                                 grid_builds=grid_builds, steps=done)
+
+
+def check_instances(label, sph, launches):
+    """Every launch of a kernel that evaluates an SPH kernel (K2 and the
+    fluid passes) ran the library of ``sph``, the scheme's; returns
+    ``launches`` with the per-instance counts ("contact[cubic]", ...)
+    beside the per-kernel ones."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    for key, v in _build.LAUNCHES_SPH.items():
+        kname, inst = key[:-1].split("[")
+        if _build.KERNELS[kname][0] in _build.SPH_SOURCES:
+            check(inst == sph, f"{label}: {v} launches of {key}; the "
+                  f"scheme's SPH kernel is {sph}")
+    return {**launches, **_build.LAUNCHES_SPH}
 
 
 def phase_step_parity(scheme, scene, label="parity"):
@@ -1240,7 +1331,7 @@ def phase_dem_parity(scheme, scene, other=None, label="dem-parity"):
 # ---------------------------------------------------------------------------
 
 def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
-                      rho_b=2.0, engine="cell"):
+                      rho_b=2.0, engine="cell", kernel="quintic"):
     """``cases/rigid_body_rotating_and_sinking_in_tank_2d.py`` built with
     the port's geometry at bench.py's coupling size: a 4 x 3 fluid block
     in a 3-layer tank, a 1 x 0.5 box (rho 2) at the surface with the
@@ -1248,8 +1339,8 @@ def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
     displaced-fluid shadow mass and density.  ``floor`` rests the box
     GAP dx above the tank floor's top layer instead; ``body=False``
     leaves it out (the hydrostatic tank); ``rho_b`` is the box's
-    density, ``engine`` the scheme's pair engine.  Returns (scheme,
-    scene, dt)."""
+    density, ``engine`` the scheme's pair engine, ``kernel`` its SPH
+    kernel.  Returns (scheme, scene, dt)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, hydrostatic_tank_2d)
@@ -1290,6 +1381,7 @@ def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
         ["fluid"], ["tank"], ["body"] if body else [], dim=2, rho0=rho_f,
         p0=rho_f * co**2, c0=co, h=h, nu=0.0, gy=gy)
     scheme.engine = engine
+    scheme.kernel_name = kernel
     scene = scheme.setup(scene)
     if body:
         rb = scene.is_rigid
@@ -1351,21 +1443,23 @@ def fluid_pass_work(dfT, nbr, cnt, cutoff, chunk=2048):
 
 
 def fluid_pass_cost(work, name, n_live, edac=True, has_rigid=True,
-                    visc=True, width=0):
+                    visc=True, width=0, sph="quintic"):
     """(bytes, f32 operations) the pass ``name`` needs on this data: the
     pack fields it reads and its ``width`` outputs per live lane once,
     and the operations on the candidate lanes of its destination classes
-    and on the pairs its bodies run on (``fluid_pass_work``)."""
+    and on the pairs its bodies run on (``fluid_pass_work``), with the
+    SPH kernel ``sph``'s W and gradient."""
     w = work
+    ops_w, ops_gradw = OPS_W_OF[sph], OPS_GRADW_OF[sph]
     rates = w["fl_flbd"] + (w["fl_rg"] if has_rigid else 0)
-    rates_ops = rates * (OPS_PAIR_HEAD + OPS_GRADW + OPS_CONTINUITY
+    rates_ops = rates * (OPS_PAIR_HEAD + ops_gradw + OPS_CONTINUITY
                          + (OPS_EDAC if edac else 0))
-    wall_ops = w["solid_fl"] * (OPS_PAIR_HEAD + OPS_W + OPS_WALL)
-    force_ops = rates * (OPS_PAIR_HEAD + OPS_GRADW + OPS_PGRAD)
+    wall_ops = w["solid_fl"] * (OPS_PAIR_HEAD + ops_w + OPS_WALL)
+    force_ops = rates * (OPS_PAIR_HEAD + ops_gradw + OPS_PGRAD)
     if visc:
         force_ops += w["fl_fl"] * OPS_VISC_TEST + w["visc"] * OPS_VISC
     if has_rigid:
-        force_ops += w["rg_fl"] * (OPS_PAIR_HEAD + OPS_GRADW + OPS_FSI)
+        force_ops += w["rg_fl"] * (OPS_PAIR_HEAD + ops_gradw + OPS_FSI)
     # fields read: x y z u v w m rho h p flags, and m_fsi rho_fsi p_fsi
     # with bodies; B6a reads p and p_fsi only for EDAC, B6b no m
     fsi = 3 if has_rigid else 0
@@ -1378,24 +1472,25 @@ def fluid_pass_cost(work, name, n_live, edac=True, has_rigid=True,
         "fluid_forces": ("lanes_fluid_rigid" if has_rigid else
                          "lanes_fluid", force_ops, 11 + fsi),
         "fluid_forces_contact": ("lanes_fluid_rigid", force_ops
-                                 + w["gated"] * OPS_PER_CONTACT_PAIR,
+                                 + w["gated"] * (ops_w + OPS_CONTACT_SUMS),
                                  11 + fsi),
     }[name]
     return 4 * n_live * (fields + width), w[lanes] * OPS_PER_LANE + ops
 
 
-def kernel_resources(template, args, helper, t):
+def kernel_resources(template, args, helper, t, sph="quintic"):
     """ptxas's registers, static shared memory and spills of the
-    ``csrc/fluid.cu`` instance ``template<args>`` (bools and ints), and
-    the dynamic shared memory a block takes (the C entry ``helper``) at
-    the lanes a slot and output columns of the timed pass ``t``."""
+    ``csrc/fluid.cu`` instance ``template<args>`` (bools and ints) in the
+    library of SPH kernel ``sph``, and the dynamic shared memory a block
+    takes (the C entry ``helper``) at the lanes a slot and output columns
+    of the timed pass ``t``."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
     key = template + "I" + "".join(
         f"Lb{int(a)}E" if isinstance(a, bool) else f"Li{a}E"
         for a in args) + "E"
-    usage = [u for e, u in _build.ptxas_usage(
-        _build.BUILD_LOG.get("fluid", "")).items() if key in e]
+    usage = [u for e, u in _build.ptxas_usage(_build.BUILD_LOG.get(
+        _build.instance("fluid", sph), "")).items() if key in e]
     u = usage[0] if usage else {}
     return dict(registers=u.get("registers"), smem_static=u.get("smem"),
                 smem_dynamic_per_block=_build.load(helper)(t["M"],
@@ -1404,19 +1499,19 @@ def kernel_resources(template, args, helper, t):
                              if u else None))
 
 
-def forces_resources(fsi, contact, t):
+def forces_resources(fsi, contact, t, sph="quintic"):
     """The 2D forces_kernel instance with viscosity (``fsi``,
     ``contact``): see ``kernel_resources``."""
     return kernel_resources("forces_kernel", (True, True, fsi, contact),
-                            "fluid_forces_smem", t)
+                            "fluid_forces_smem", t, sph)
 
 
-def rates_resources(edac, has_rigid, mode, t):
+def rates_resources(edac, has_rigid, mode, t, sph="quintic"):
     """The 2D rates_wall_kernel instance (``edac``, ``has_rigid``, the
     columns ``mode``: 0 B4, 1 B6a, 2 B6b): see ``kernel_resources``."""
     return kernel_resources("rates_wall_kernel", (True, edac, has_rigid,
                                                   mode),
-                            "fluid_rates_wall_smem", t)
+                            "fluid_rates_wall_smem", t, sph)
 
 
 def check_fluid_columns(got, ref, cols, label, floor=0.0):
@@ -1482,7 +1577,8 @@ def fluid_pass_checks(calls, dfT, nbr, pt, cutoff, S, init, visc, label,
             # least time: the fields read and W outputs per live lane
             # once; the f32 operations of this data's pairs
             t["bound_ms"], t["bound_by"] = bound(*fluid_pass_cost(
-                work, cost_name, n_live, edac, bodies, visc, W))
+                work, cost_name, n_live, edac, bodies, visc, W,
+                args[2].name))
         out[name] = t
     return out, work, n_found
 
@@ -1603,11 +1699,13 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed, k1=None):
     return work["gated"]
 
 
-def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
+def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step,
+                        sink=True):
     """The coupling step through its entry points, in chunks with the
     overflow-rebuild rule; ``per_step`` maps each kernel to its expected
-    launches per step (none on the list engine).  Returns (end scene,
-    launches, steps/s)."""
+    launches per step (none on the list engine); ``sink=False`` leaves
+    out the gate on the box's COM (its f32 value moves only after ~100
+    steps from rest).  Returns (end scene, launches, steps/s)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
     step = scheme.make_step(scene)
@@ -1618,7 +1716,7 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     steps_run = done = rebuilds = 0
-    chunk_s = []
+    chunk_s, chunk_n = [], []
     while done < n_steps:
         chunk_start = scene
         n = min(CHUNK, n_steps - done)
@@ -1643,6 +1741,7 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
         rebuilds = 0
         done += n
         chunk_s.append(el)
+        chunk_n.append(n)
         if has_fluid:
             rho = scene.rho[fl]
             state = (f"fluid rho {float(rho.min()):.6f}-"
@@ -1658,6 +1757,7 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
         want = per_step.get(k, 0) * steps_run
         check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
               f"times in {steps_run} steps, expected {want}")
+    launches = check_instances(label, scheme.kernel_name, launches)
     for k, v in scene.fields.items():
         if v.is_floating_point():
             check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
@@ -1673,15 +1773,15 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step):
         msg = f" | max overlap {ov:.4e}"
     if has_body and has_fluid:
         y1 = float(scene.xcm[0, 1])
-        check(y1 < y0, f"{label}: the box did not sink ({y0:.7f} -> "
-              f"{y1:.7f})")
+        check(y1 < y0 or not sink, f"{label}: the box did not sink "
+              f"({y0:.7f} -> {y1:.7f})")
         msg += f" | box COM y {y0:.7f} -> {y1:.7f} ({y1 - y0:.3e})"
     steady = chunk_s[1:] or chunk_s
-    sps = CHUNK * len(steady) / sum(steady)
-    print(f"[{label}] n={scene.n} dt={dt:.6g} steps={done} (run "
-          f"{steps_run}) launches " + " ".join(
-              f"{k}={v}" for k, v in launches.items() if v) + msg,
-          flush=True)
+    sps = (sum(chunk_n[1:]) or sum(chunk_n)) / sum(steady)
+    print(f"[{label}] n={scene.n} dt={dt:.6g} ({scheme.kernel_name}) "
+          f"steps={done} (run {steps_run}) launches " + " ".join(
+              f"{k}={v}" for k, v in launches.items() if v and "[" not in k)
+          + msg, flush=True)
     if scheme.engine == "nklist":
         lc = scheme._nbr_cfg
         print(f"[{label}] list K {len(lc.stencil) * lc.max_per_cell} (M "
@@ -2170,6 +2270,259 @@ def phase_sinking_box_resume(tmp, smi):
           f"background writer's step-500 snapshot equals the synchronous "
           f"write of the same state", flush=True)
     return launches, full.solver.steps_per_sec
+
+
+# ---------------------------------------------------------------------------
+# the SPH kernel family on the hand kernels (phases 39-40) and the Verlet
+# skin (phase 41)
+# ---------------------------------------------------------------------------
+
+def build_sph_instances():
+    """39 (build): the non-quintic libraries of ``contact.cu`` and
+    ``fluid.cu`` (one per SPH kernel, ``-DRB_SPH_KERNEL``), one nvcc
+    each, all started together; prints each one's seconds and ptxas's
+    registers and spills.  Returns ({library: numbers}, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    jobs = [(src, k) for src in _build.SPH_SOURCES for k in SPH_NAMES]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda j: _build.build(*j), jobs))
+    wall = time.perf_counter() - t0
+    out = {}
+    for (src, k), (path, sec) in zip(jobs, built):
+        key = _build.instance(src, k)
+        use = _build.ptxas_usage(_build.BUILD_LOG.get(key, ""))
+        check(len(use) > 0, f"{key}: no ptxas report")
+        regs = sorted({(u["registers"], u["spill_stores"] + u["spill_loads"])
+                       for u in use.values()})
+        # the instances that spill, as template<arguments>
+        spills = ["{}<{}>: {} B".format(
+            m.group(1), ",".join(re.findall(r"L[bi](\d+)E", m.group(2))),
+            u["spill_stores"] + u["spill_loads"])
+            for e, u in use.items() if u["spill_stores"] + u["spill_loads"]
+            for m in [re.search(r"(forces_kernel|rates_wall_kernel|"
+                                r"contact_kernel)I((?:L[bi]\d+E)+)E", e)]
+            if m]
+        out[key] = dict(seconds=sec, entries=len(use),
+                        max_registers=max(r for r, _ in regs),
+                        spill_bytes=sum(u["spill_stores"] + u["spill_loads"]
+                                        for u in use.values()))
+        print(f"[sph-build] {key}: {sec:.2f} s -> "
+              f"{os.path.relpath(path, ROOT)}; {len(use)} entry functions, "
+              f"(registers, spill bytes) {regs}; spilling: "
+              f"{', '.join(spills) or 'none'}", flush=True)
+    for kname, (src, _, _) in _build.KERNELS.items():
+        if src in _build.SPH_SOURCES:
+            for k in SPH_NAMES:
+                _build.load(kname, k)
+    print(f"[sph-build] {len(jobs)} libraries in {wall:.2f} s wall",
+          flush=True)
+    return out, wall
+
+
+def contact_resources(sph, two_d=True):
+    """ptxas's registers and spill bytes of K2's 2D (or 3D) instance in
+    the library of SPH kernel ``sph``."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    usage = [u for e, u in _build.ptxas_usage(_build.BUILD_LOG.get(
+        _build.instance("contact", sph), "")).items()
+        if f"contact_kernelILb{int(two_d)}E" in e]
+    u = usage[0] if usage else {}
+    return dict(registers=u.get("registers"), smem_static=u.get("smem"),
+                spill_bytes=(u["spill_stores"] + u["spill_loads"]
+                             if u else None))
+
+
+def seeded_velocities(scene, dim, seed):
+    """``scene`` with seeded random u, v (and w) in [-0.5, 0.5), so the
+    picked source velocities are not all zero."""
+    gen = torch.Generator(device=scene.device).manual_seed(seed)
+    rnd = lambda: torch.rand(scene.n, generator=gen,
+                             device=scene.device) - 0.5
+    vel = dict(u=rnd(), v=rnd())
+    if dim == 3:
+        vel["w"] = rnd()
+    return scene.replace(**vel)
+
+
+SPH_PASSES = ["fluid_rates_wall", "fluid_forces_contact", "fluid_rates",
+              "wall_bc", "fluid_forces_rigid"]
+
+
+def phase_sph_kernels(dev, timings):
+    """39. For each non-quintic SPH kernel, at the main paths' shapes
+    (each scene set up with the kernel, so its grid has the kernel's
+    cutoff): K2 on the 2D stack's culled rows and on every slot of the 3D
+    cubes, and the five fluid passes (B4, B5, B6a with EDAC, B6b, B6c
+    with bodies) on the 2D sinking box's pack, against their plain
+    versions (picks bit for bit, sums within the tolerances of phases 3,
+    10 and 14), each timed with its bound; B5 also on the box resting on
+    the floor (contact picks > 0), untimed."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    for k in SPH_NAMES:
+        t0 = time.perf_counter()
+        t = {}
+        scheme, scene, _ = contact_scene_2d(dev, kernel=k)
+        kern = get_kernel(k, 2)
+        cfg = scheme.cell_config(scene, kern)
+        scene = seeded_velocities(scene, 2, 7)
+        grid, pt, dfT = tck.pack_scene(scene, cfg)
+        S, init = scene.meta.total_no_bodies, 4.0 * scene.meta.spacing0
+        t["k2"] = contact_rows(dfT, grid, pt, cfg, kern, S, init,
+                               scheme.ni_max(cfg), f"{k} 2D")[0]
+        del scheme, scene, grid, pt, dfT
+
+        scheme, scene, _ = contact_scene_3d(dev, kernel=k)
+        kern = get_kernel(k, 3)
+        cfg = scheme.cell_config(scene, kern)
+        scene = seeded_velocities(scene, 3, 7)
+        grid, _, dfT = tck.pack_scene(scene, cfg)
+        t["k2_3d"], _ = contact_all_slots(
+            dfT, grid, cfg, kern, scene.meta.total_no_bodies,
+            4.0 * scene.meta.spacing0, f"{k} 3D every slot", timed=True)
+        del scheme, scene, grid, dfT
+
+        for floor in (False, True):
+            label = f"{k} {'box on floor' if floor else 'sinking box'}"
+            cscheme, cscene, _ = sinking_box_scene(dev, floor=floor,
+                                                   kernel=k)
+            kern, cfg, grid, pt, dfT, S, init = fluid_scene_pack(
+                cscheme, cscene, label, 13, p_fsi=True)
+            names = ["fluid_forces_contact"] if floor else SPH_PASSES
+            out, work, n_found = fluid_pass_checks(
+                fluid_calls(cscheme, dfT, grid.nbr_slots, kern, cfg.radius,
+                            S, init, names),
+                dfT, grid.nbr_slots, pt, cfg.radius, S, init,
+                abs(cscheme.fluid_alpha) > 1e-14, label, timed=not floor)
+            if floor:
+                check(work["gated"] > 0 and n_found > 0,
+                      f"{label}: no gated contact pair")
+                t["floor_err"] = out["fluid_forces_contact"]["err"]
+            else:
+                t["fluid"] = out
+            print(f"[sph-kernels] {label}: n={cscene.n} NC={cfg.NC_max} "
+                  f"O={cfg.O} cutoff {cfg.radius:.6g} | {work}, contact "
+                  f"slots with a pick {n_found} | max abs err " + ", ".join(
+                      f"{n} {v['err']:.3e}" for n, v in out.items()),
+                  flush=True)
+            print_fluid_passes("sph-kernels", label, out)
+            del cscheme, cscene, grid, pt, dfT
+        print(f"[sph-kernels] {k}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        timings[k] = t
+
+
+def phase_sph_main_paths(dev, smi):
+    """40. The main paths with each non-quintic SPH kernel, through the
+    entry points: the 2D resting stack under GTVF, SPH_STEPS steps under
+    phase 4's gates, one K1 and one K2 of the kernel a step; the sinking
+    box under kdkf (one K1, B4 and B5 a step; CPL_STEPS under phase 11's
+    gates with the cubic, SPH_SHORT_STEPS with the others) and kdk (two
+    K1, B6a, B6b, B6c and K2 a step; SPH_SHORT_STEPS), the box's sinking
+    gated on the CPL_STEPS run only; then 20 kernel steps against 20
+    plain steps (STEP_RTOL) of the stack with the Wendland kernel and of
+    the dense box on the floor under kdkf with the cubic.  Returns
+    {kernel: {path: launches, "sps": ...}}."""
+    out = {}
+    for k in SPH_NAMES:
+        scheme, scene, dx = contact_scene_2d(dev, kernel=k)
+        end, rigid, st = phase_main_path(scheme, scene, dx, smi,
+                                         f"rigid-{k}", SPH_STEPS)
+        if k == "wendland":
+            phase_step_parity(scheme, end, f"{k}-parity")
+        del scheme, scene, end
+        cscheme, cscene, cdt = sinking_box_scene(dev, kernel=k)
+        full = k == "cubic"
+        short = (SPH_UNSTABLE_STEPS if k == "super_gaussian"
+                 else SPH_SHORT_STEPS)
+        _, kdkf, kdkf_sps = phase_coupling_main(
+            cscheme, cscene, cdt, CPL_STEPS if full else short,
+            f"cpl-{k}", smi,
+            dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1),
+            sink=full)
+        cscheme.gtvf_ordering = "kdk"
+        _, kdk, kdk_sps = phase_coupling_main(
+            cscheme, cscene, cdt, short, f"cpl-kdk-{k}", smi,
+            dict(pack_expand=2, fluid_rates=1, wall_bc=1, fluid_forces=1,
+                 contact=1), sink=False)
+        del cscheme, cscene
+        if k == "cubic":
+            pscheme, pscene, pdt = sinking_box_scene(
+                dev, floor=True, rho_b=CPL_PARITY_RHO, kernel=k)
+            phase_coupling_parity(pscheme, pscene, pdt, f"{k}-cpl-parity")
+            del pscheme, pscene
+        out[k] = dict(rigid=rigid, kdkf=kdkf, kdk=kdk,
+                      sps=dict(rigid=st["steps_per_s"], kdkf=kdkf_sps,
+                               kdk=kdk_sps))
+    print("[sph-main] " + "; ".join(
+        f"{k}: stack GTVF {v['sps']['rigid']:.2f}, kdkf "
+        f"{v['sps']['kdkf']:.2f}, kdk {v['sps']['kdk']:.2f} steps/s"
+        for k, v in out.items()) + f"; on {smi}", flush=True)
+    return out
+
+
+def strip_grid_fields(scene):
+    """``scene`` without the carried skin grid's fields."""
+    from rigid_body_2d_3d_pysph_tpu_torch.state.scene import Scene
+
+    return Scene({k: v for k, v in scene.fields.items()
+                  if not k.startswith("g_")}, scene.meta)
+
+
+def phase_skin(dev, smi):
+    """41. The 2D resting stack with ``skin_factor = SKIN``: SPH_STEPS
+    GTVF steps under phase 4's gates, one K2 (every slot, on the pack
+    gathered through the carried grid) and no K1 a step, the grid's
+    rebuilds counted; then 20 skin steps against 20 steps of the compact
+    no-skin kernel step from the same state (STEP_RTOL).  Returns
+    (launches, stats)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    scheme, scene, dx = contact_scene_2d(dev, skin=SKIN)
+    cfg = scheme._cell_cfg
+    print(f"[rigid-skin] skin {cfg.skin:.6g} (factor {SKIN}), bins "
+          f"{cfg.cell:.6g} for the cutoff {cfg.radius:.6g}, NC {cfg.NC_max}, "
+          f"O {cfg.O}", flush=True)
+    end, launches, st = phase_main_path(scheme, scene, dx, smi,
+                                        "rigid-skin", SPH_STEPS)
+    # the same state on the compact no-skin step
+    nscheme = copy.copy(scheme)
+    nscheme.skin_factor, nscheme._cell_cfg, nscheme._grid_cfg = 0.0, None, None
+    base = strip_grid_fields(end)
+    kernel = get_kernel(scheme.kernel_name, 2)
+    skin_run = trb.make_multi_step(scheme.make_step(end), COMPARE_STEPS)
+    a = skin_run(end, DT)
+    for attempt in range(4):
+        ncfg = nscheme.cell_config(base, kernel)
+        nscene = trb.compact_slot_scene(base, nscheme.ni_max(ncfg) * ncfg.M)
+        b = trb.make_multi_step(nscheme.make_step(nscene), COMPARE_STEPS)(
+            nscene, DT)
+        if not bool(b.nbr_overflow):
+            break
+        nscheme.refresh_configs(base, grow=True)
+    torch.cuda.synchronize()
+    check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
+          "skin-parity: overflow during the comparison")
+    worst = []
+    for k in ("xcm", "vcm", "omega", "fx", "fy"):
+        x, y = a[k], b[k]
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
+        check(bool(((x - y).abs() <= STEP_RTOL * y.abs()
+                    + STEP_RTOL * scale).all()),
+              f"skin-parity: skin step vs no-skin step: {k} off by "
+              f"{err:.3e} (scale {scale:.3e}, rtol {STEP_RTOL})")
+    print(f"[skin-parity] {COMPARE_STEPS} skin steps vs {COMPARE_STEPS} "
+          "no-skin kernel steps (compact), max abs diff: "
+          + ", ".join(worst), flush=True)
+    return launches, st
 
 
 # ---------------------------------------------------------------------------
@@ -3259,6 +3612,18 @@ def main() -> int:
         del lscheme, lscene
         print(f"[list] phases 35-38 in {time.perf_counter() - t_list:.1f} "
               "s", flush=True)
+
+        # 39. the non-quintic SPH kernels' K2 and fluid instances against
+        # their twins (their libraries built first, all together); 40.
+        # the main paths with each of them; 41. the Verlet skin
+        t_sph = time.perf_counter()
+        sph_build, sph_build_s = build_sph_instances()
+        sph_t = {}
+        phase_sph_kernels(dev, sph_t)
+        sph_paths = phase_sph_main_paths(dev, smi)
+        skin_launches, skin_stats = phase_skin(dev, smi)
+        print(f"[sph] phases 39-41 in {time.perf_counter() - t_sph:.1f} s",
+              flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3289,7 +3654,7 @@ def main() -> int:
         ("slab-coupling-kdkf-3d", slabc3["launches"]))
         + ((("slab-rigid-2d-cards", slab_cards["launches"]["blob"]),)
            if slab_cards else ())
-        if c[k]}
+        if c.get(k)}
     fluid_err = lambda k: max(fl_t[lab][k]["err"] for lab in fl_t
                               if k in fl_t[lab])
     split_err = lambda k: max(sp_t[lab][k]["err"] for lab in sp_t)
@@ -3463,6 +3828,63 @@ def main() -> int:
                 kd["max_abs_err"] = max([kd["max_abs_err"]]
                                         + [r["err"] for r in got
                                            if "err" in r])
+    # the non-quintic SPH kernels' instances (phases 39-40): K2 timed on
+    # the 2D stack's culled rows, beside it on every slot of the 3D cubes;
+    # the fluid passes on the 2D sinking box; launches from the kernel's
+    # own main paths (the stack's GTVF, the box's kdkf and kdk)
+    for k in SPH_NAMES:
+        sk, mp = sph_t[k], sph_paths[k]
+        k2, k3 = sk["k2"], sk["k2_3d"]
+        kernels.append(dict(
+            name=f"contact_sums[{k}]", route="cuda",
+            source=src + "contact.cu",
+            replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_contact.py:96",
+            launches=mp["rigid"][f"contact[{k}]"],
+            launches_by_path={p: mp[p].get(f"contact[{k}]", 0)
+                              for p in ("rigid", "kdk")},
+            max_abs_err=max(k2["err"], k3["err"], sk["floor_err"]),
+            ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound"],
+            bound_by=k2["bound_by"], library_ms=None,
+            all_slots_ms_3d=k3["ms"], all_slots_plain_ms_3d=k3["plain_ms"],
+            all_slots_bound_ms_3d=k3["bound_ms"],
+            all_slots_bound_by_3d=k3["bound_by"],
+            **contact_resources(k),
+            library_seconds=sph_build[f"contact_{k}"]["seconds"]))
+        for name, key, line, path, res in (
+                ("fluid_rates_wall", "fluid_rates_wall", 364, "kdkf",
+                 lambda t: rates_resources(True, True, 0, t, k)),
+                ("fluid_forces_contact", "fluid_forces_contact", 590,
+                 "kdkf", lambda t: forces_resources(True, True, t, k)),
+                ("fluid_rates", "fluid_rates", 302, "kdk",
+                 lambda t: rates_resources(True, True, 1, t, k)),
+                ("wall_bc", "wall_bc", 460, "kdk",
+                 lambda t: rates_resources(False, False, 2, t, k)),
+                ("fluid_forces", "fluid_forces_rigid", 562, "kdk",
+                 lambda t: forces_resources(True, False, t, k))):
+            fm = sk["fluid"][key]
+            kernels.append(dict(
+                name=f"{name}[{k}]", route="cuda", source=src + "fluid.cu",
+                replaces="rigid_body_2d_3d_pysph_tpu/ops/pallas_fluid.py:"
+                         f"{line}",
+                launches=mp[path][f"{name}[{k}]"],
+                launches_by_path={path: mp[path][f"{name}[{k}]"]},
+                max_abs_err=max(fm["err"], sk["floor_err"])
+                if name == "fluid_forces_contact" else fm["err"],
+                ms=fm["ms"], plain_ms=fm["plain_ms"],
+                bound_ms=fm["bound_ms"], bound_by=fm["bound_by"],
+                library_ms=None, **res(fm),
+                library_seconds=sph_build[f"fluid_{k}"]["seconds"]))
+    print(f"[done] SPH kernels: {len(sph_build)} libraries built in "
+          f"{sph_build_s:.2f} s wall; " + "; ".join(
+              f"{k} K2 {sph_t[k]['k2']['ms']:.4f} ms, B4 "
+              f"{sph_t[k]['fluid']['fluid_rates_wall']['ms']:.4f} ms, B5 "
+              f"{sph_t[k]['fluid']['fluid_forces_contact']['ms']:.4f} ms"
+              for k in SPH_NAMES) + f"; skin: "
+          f"{skin_stats['steps_per_s']:.2f} steps/s, "
+          f"{skin_stats['grid_builds']} grid rebuilds in "
+          f"{skin_stats['steps']} steps, K2 {skin_launches['contact']} and "
+          f"K1 {skin_launches['pack_expand']} launches; on {smi}",
+          flush=True)
     print(f"[done] slab coupling: 2D kdk P={SLAB_P} "
           f"{slabc['kdk']['sps']:.2f} steps/s, kdkf P={SLAB_P} "
           f"{slabc['kdkf']['sps']:.2f} steps/s, P=1 "

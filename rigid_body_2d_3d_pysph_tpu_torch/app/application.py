@@ -215,6 +215,11 @@ class Application:
     def post_process(self, info_fname: Optional[str] = None):
         pass
 
+    def customize_output(self):
+        """Hook for the output's customisation (a no-op, as the
+        reference's)."""
+        pass
+
     # -- plumbing ---------------------------------------------------------
     @property
     def info_filename(self) -> str:

@@ -10,7 +10,9 @@ run resumed after an overflow rebuild widened the store (and re-sized the
 grid) carries on with the same store and the same grid, where the
 reference raises a shape mismatch.  The neighbour list's config is kept
 beside the grid configs, so a run on the list engine resumed after an
-overflow rebuild resumes with the list it had.
+overflow rebuild resumes with the list it had, and so is the config of
+the rigid scheme's carried Verlet-skin grid, whose tables take the saved
+shapes: a resumed skin run goes on with the grid it had.
 """
 
 from __future__ import annotations
@@ -31,10 +33,14 @@ from ..state.scene import Scene
 from .output import save_npz_atomic
 
 # the scheme attributes that hold a grid or list config, and their types
+# (``_grid_cfg``: the config of the rigid scheme's carried skin grid)
 _CONFIGS = {"_cell_cfg": CellGridConfig, "_rowwin_cfg": RowWinConfig,
-            "_nbr_cfg": NeighborConfig}
+            "_nbr_cfg": NeighborConfig, "_grid_cfg": CellGridConfig}
 # the compact store: its first dimension is the store width L
 _COMPACT = ("cl_pid", "cl_state")
+# the carried skin grid's tables: their shapes are those of the config
+# they were built for, which the checkpoint restores with them
+_GRID = ("g_slot2p", "g_nbr_slots")
 
 
 def _selected(scheme):
@@ -87,8 +93,9 @@ def load_checkpoint(path: str, scene: Scene,
                 fields[k] = v
                 continue
             arr = z[key]
-            same = (arr.shape[1:] == tuple(v.shape[1:]) if k in _COMPACT
-                    else arr.shape == tuple(v.shape))
+            same = (k in _GRID
+                    or (arr.shape[1:] == tuple(v.shape[1:]) if k in _COMPACT
+                        else arr.shape == tuple(v.shape)))
             if not same:
                 raise ValueError(f"checkpoint field {k}: shape {arr.shape} "
                                  f"!= scene {tuple(v.shape)}")

@@ -53,8 +53,9 @@
 //    candidates c U .. c U + U - 1 of the tile (a candidate is tested
 //    once per query lane, not once per entity slot, and only for the dems
 //    the lane wants): r^2 <= 1.001 cutoff^2 before the square root, then
-//    the exact r = sqrt(x*x + y*y + z*z), the gate r <= cutoff, W and t1 =
-//    V_q W / r into shared memory; then group 0 adds the tile's gated
+//    the exact r = sqrt(x*x + y*y + z*z), the gate r <= cutoff, W (the
+//    library's SPH kernel, csrc/sph_kernels.cuh) and t1 = V_q W / r into
+//    shared memory; then group 0 adds the tile's gated
 //    pairs in candidate order into one accumulator a lane (the Eq. 21/22
 //    terms from t1, r and the positions) and keeps the pick by a strict
 //    "<".  So the sums are a sequential walk's over the stencil, bit for
@@ -302,7 +303,7 @@ __global__ void __launch_bounds__(THREADS)
             if (r2 <= thr) {
               const float r = sqrtf(r2);
               if (r <= a.cutoff) {
-                const float wij = mofidi::quintic_w<TWO_D>(
+                const float wij = sph::w<TWO_D>(
                     r, 0.5f * (qh + sc.w), a.sig_num, a.sig_den);
                 rij = r;
                 t1 = qvol * (1.0f / fmaxf(r, 1e-30f)) * wij;
@@ -367,14 +368,16 @@ int launch(const Args& a, cudaStream_t st) {
 
 }  // namespace
 
+// sph_id: the SPH kernel's id (ops/kernels.py Kernel.device_id), which must
+// be the one this library was built for
 extern "C" int contact_sums(const void* dft, const void* qslot,
                             const void* nbr, void* out, int NI, int O,
-                            int nrows, int lanes, int S, int two_d,
+                            int nrows, int lanes, int S, int two_d, int sph_id,
                             float cutoff, float init_dist, float sig_num,
                             float sig_den, void* stream) {
   // a pack lane is an int
-  if (lanes != M || S < 1 || S > S_MAX || O < 0 || nrows < 1 ||
-      (long long)nrows * M >= (1LL << 31))
+  if (sph_id != sph::kId || lanes != M || S < 1 || S > S_MAX || O < 0 ||
+      nrows < 1 || (long long)nrows * M >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (NI == 0) return 0;
   Args a{(const float*)dft, (const long long*)qslot, (const long long*)nbr,

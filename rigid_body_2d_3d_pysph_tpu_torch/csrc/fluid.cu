@@ -46,9 +46,12 @@
 // kernel's dimension, the columns written) are template parameters, not
 // branches per pair.
 //
-// Built with --fmad=false, so every per-pair term rounds as the plain
-// PyTorch version's does: the contact picks are bit for bit the plain
-// version's, the sums differ only in summation order.
+// The pair bodies evaluate the library's SPH kernel (csrc/sph_kernels.cuh:
+// sph::w, sph::gradw, sph::w_gradw; one library per kernel, picked by
+// -DRB_SPH_KERNEL at compile time).  Built with --fmad=false, so every
+// per-pair term rounds as the plain PyTorch version's does: the contact
+// picks are bit for bit the plain version's, the sums differ only in
+// summation order.
 #include <cmath>
 
 #include "mofidi.cuh"
@@ -75,33 +78,6 @@ __device__ __forceinline__ Flags decode(float f) {
   d.fluid = floorf(r * 0.5f);
   d.rigid = r - 2.0f * d.fluid;
   return d;
-}
-
-// dW/dr / r of the quintic spline with the guarded 1/r (0 at r = 0), and
-// W from the same q and sigma (ops/kernels.py QuinticSpline.w_gradw)
-template <bool KDIM2>
-__device__ __forceinline__ void quintic_w_gradw(float rij, float h,
-                                                float sig_num, float sig_den,
-                                                float& w, float& dw) {
-  const float q = rij / h;
-  const float t3 = fmaxf(3.0f - q, 0.0f);
-  const float t2 = fmaxf(2.0f - q, 0.0f);
-  const float t1 = fmaxf(1.0f - q, 0.0f);
-  const float t3_4 = mofidi::pow4(t3), t2_4 = mofidi::pow4(t2),
-              t1_4 = mofidi::pow4(t1);
-  const float sig = mofidi::quintic_sigma<KDIM2>(h, sig_num, sig_den);
-  w = sig * (t3_4 * t3 - 6.0f * (t2_4 * t2) + 15.0f * (t1_4 * t1));
-  const float dval = -5.0f * t3_4 + 30.0f * t2_4 - 75.0f * t1_4;
-  const float inv = rij > 1e-12f ? 1.0f / fmaxf(rij, 1e-12f) : 0.0f;
-  dw = sig * dval / h * inv;
-}
-
-template <bool KDIM2>
-__device__ __forceinline__ float quintic_gradw(float rij, float h,
-                                               float sig_num, float sig_den) {
-  float w, dw;
-  quintic_w_gradw<KDIM2>(rij, h, sig_num, sig_den, w, dw);
-  return dw;
 }
 
 // ---------------------------------------------------------------------------
@@ -437,11 +413,11 @@ __global__ void __launch_bounds__(kWarps * 32, 6)
         const bool wall = dest_solid && (cls & kSrcFluid);
         float w = 0.f, dw = 0.f;
         if constexpr (MODE == kRatesWall)
-          quintic_w_gradw<KDIM2>(rij, hij, sig_num, sig_den, w, dw);
+          sph::w_gradw<KDIM2>(rij, hij, sig_num, sig_den, w, dw);
         else if constexpr (RATES)
-          dw = quintic_gradw<KDIM2>(rij, hij, sig_num, sig_den);
+          dw = sph::gradw<KDIM2>(rij, hij, sig_num, sig_den);
         else
-          w = mofidi::quintic_w<KDIM2>(rij, hij, sig_num, sig_den);
+          w = sph::w<KDIM2>(rij, hij, sig_num, sig_den);
         const float mj = st[SMJ * kCap + c];     // m_fsi for FSI-rigid
         const float rhoj = st[SRHO * kCap + c];  // rho_fsi for FSI-rigid
         const float pj = st[SPT * kCap + c];     // p_fsi for FSI-rigid
@@ -740,7 +716,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
         const bool src_fluid =
             __float_as_int(st[SCLS * kCap + c]) & kSrcFluid;
         const float hij = 0.5f * (qh + st[SH * kCap + c]);
-        const float dw = quintic_gradw<KDIM2>(rij, hij, sig_num, sig_den);
+        const float dw = sph::gradw<KDIM2>(rij, hij, sig_num, sig_den);
         const float dwx = dw * xij, dwy = dw * yij, dwz = dw * zij;
         const float mj = st[SMJ * kCap + c];   // m_fsi for FSI-rigid
         const float pt = st[SPT * kCap + c];   // p / rho^2 of the class
@@ -836,7 +812,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
           const float rij = sqrtf(r2);
           const float hij = 0.5f * (cqh + st[SH * kCap + k]);
           const float wij =
-              mofidi::quintic_w<KDIM2>(rij, hij, sig_num, sig_den);
+              sph::w<KDIM2>(rij, hij, sig_num, sig_den);
           acc.add<false>(xij, yij, zij, rij, wij, cqvol, sx, sy, sz,
                          st[SU * kCap + k], st[SV * kCap + k],
                          st[SW * kCap + k]);
@@ -960,11 +936,15 @@ int forces_entry(const void* dft, const void* nbr, void* out, int NC, int O,
 
 }  // namespace
 
+// Each entry point's sph_id is the SPH kernel's id (ops/kernels.py
+// Kernel.device_id); it must be the one this library was built for.
 extern "C" int fluid_rates_wall(const void* dft, const void* nbr, void* out,
                                 int NC, int O, int M, int kdim2, int edac,
-                                int has_rigid, float cutoff, float nu2,
-                                float cs2, float gx, float gy, float gz,
-                                float sig_num, float sig_den, void* stream) {
+                                int has_rigid, int sph_id, float cutoff,
+                                float nu2, float cs2, float gx, float gy,
+                                float gz, float sig_num, float sig_den,
+                                void* stream) {
+  if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
   return rates_wall_entry<kRatesWall>(dft, nbr, out, NC, O, M, kdim2, edac,
                                       has_rigid, cutoff, nu2, cs2, gx, gy, gz,
                                       sig_num, sig_den, stream);
@@ -972,17 +952,20 @@ extern "C" int fluid_rates_wall(const void* dft, const void* nbr, void* out,
 
 extern "C" int fluid_rates(const void* dft, const void* nbr, void* out,
                            int NC, int O, int M, int kdim2, int edac,
-                           int has_rigid, float cutoff, float nu2, float cs2,
-                           float sig_num, float sig_den, void* stream) {
+                           int has_rigid, int sph_id, float cutoff, float nu2,
+                           float cs2, float sig_num, float sig_den,
+                           void* stream) {
+  if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
   return rates_wall_entry<kRates>(dft, nbr, out, NC, O, M, kdim2, edac,
                                   has_rigid, cutoff, nu2, cs2, 0.0f, 0.0f,
                                   0.0f, sig_num, sig_den, stream);
 }
 
 extern "C" int wall_bc(const void* dft, const void* nbr, void* out, int NC,
-                       int O, int M, int kdim2, float cutoff, float gx,
-                       float gy, float gz, float sig_num, float sig_den,
-                       void* stream) {
+                       int O, int M, int kdim2, int sph_id, float cutoff,
+                       float gx, float gy, float gz, float sig_num,
+                       float sig_den, void* stream) {
+  if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
   return rates_wall_entry<kWall>(dft, nbr, out, NC, O, M, kdim2, 0, 0,
                                  cutoff, 0.0f, 0.0f, gx, gy, gz, sig_num,
                                  sig_den, stream);
@@ -990,8 +973,10 @@ extern "C" int wall_bc(const void* dft, const void* nbr, void* out, int NC,
 
 extern "C" int fluid_forces(const void* dft, const void* nbr, void* out,
                             int NC, int O, int M, int kdim2, int visc,
-                            int has_rigid, float cutoff, float alpha_c0,
-                            float sig_num, float sig_den, void* stream) {
+                            int has_rigid, int sph_id, float cutoff,
+                            float alpha_c0, float sig_num, float sig_den,
+                            void* stream) {
+  if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
   if (has_rigid)
     return forces_entry<true, false>(dft, nbr, out, NC, O, M, 0, kdim2, visc,
                                      cutoff, alpha_c0, 0.0f, sig_num, sig_den,
@@ -1003,10 +988,11 @@ extern "C" int fluid_forces(const void* dft, const void* nbr, void* out,
 
 extern "C" int fluid_forces_contact(const void* dft, const void* nbr,
                                     void* out, int NC, int O, int M, int S,
-                                    int kdim2, int visc, float cutoff,
-                                    float alpha_c0, float init_dist,
-                                    float sig_num, float sig_den,
-                                    void* stream) {
+                                    int kdim2, int visc, int sph_id,
+                                    float cutoff, float alpha_c0,
+                                    float init_dist, float sig_num,
+                                    float sig_den, void* stream) {
+  if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
   return forces_entry<true, true>(dft, nbr, out, NC, O, M, S, kdim2, visc,
                                   cutoff, alpha_c0, init_dist, sig_num,
                                   sig_den, stream);

@@ -1,9 +1,10 @@
 // Device code shared by the two kernels that run the Mofidi contact pass:
 // csrc/contact.cu (the rigid packs, F = 7 in 2D and 9 in 3D) and the fused
 // forces + contact pass of csrc/fluid.cu (the 14-field coupling pack).
-// Both take the quintic kernel, the per-pair Eq. 21/22 accumulation, the
-// closest-source pick and the epilogue from here, so the two cannot drift
-// apart; each kernel keeps its own pack layout, flags word and gate.
+// Both take the per-pair Eq. 21/22 accumulation, the closest-source pick
+// and the epilogue from here, and W from the library's SPH kernel
+// (csrc/sph_kernels.cuh, sph::w), so the two cannot drift apart; each
+// kernel keeps its own pack layout, flags word and gate.
 //
 // Both kernels are built with --fmad=false: r = sqrt(x*x + y*y) and every
 // per-pair term round as the plain PyTorch versions' do, so a distance tie
@@ -12,36 +13,11 @@
 
 #include <cuda_runtime.h>
 
+#include "sph_kernels.cuh"
+
 namespace mofidi {
 
 constexpr float kBig = 1.0e9f;
-
-__device__ __forceinline__ float pow4(float t) {
-  const float t2 = t * t;
-  return t2 * t2;
-}
-
-__device__ __forceinline__ float pow5(float t) { return t * pow4(t); }
-
-// sigma(h) of the quintic spline: num / (den h^2) in 2D, num / (den h^3)
-// in 3D (KDIM2 is the kernel's dimension, not the geometry's)
-template <bool KDIM2>
-__device__ __forceinline__ float quintic_sigma(float h, float sig_num,
-                                               float sig_den) {
-  return KDIM2 ? sig_num / (sig_den * h * h)
-               : sig_num / (sig_den * h * h * h);
-}
-
-template <bool KDIM2>
-__device__ __forceinline__ float quintic_w(float rij, float h, float sig_num,
-                                           float sig_den) {
-  const float q = rij / h;
-  const float t3 = fmaxf(3.0f - q, 0.0f);
-  const float t2 = fmaxf(2.0f - q, 0.0f);
-  const float t1 = fmaxf(1.0f - q, 0.0f);
-  const float val = pow5(t3) - 6.0f * pow5(t2) + 15.0f * pow5(t1);
-  return quintic_sigma<KDIM2>(h, sig_num, sig_den) * val;
-}
 
 // the epilogue of pallas_contact.py:313-328 for one (query lane, entity
 // slot): from the running sums a0..a6, the closest distance and the

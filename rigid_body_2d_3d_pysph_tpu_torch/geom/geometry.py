@@ -192,3 +192,14 @@ def create_circle(diameter=1.0, spacing=0.05, center=None):
         x = x + center[0]
         y = y + center[1]
     return x, y
+
+
+def rotate_2d(x, y, angle_deg: float, about=(0.0, 0.0)):
+    """Rotate a lattice about a point by ``angle_deg`` degrees."""
+    a = np.deg2rad(angle_deg)
+    cx, cy = about
+    dx, dy = x - cx, y - cy
+    return (
+        cx + dx * np.cos(a) - dy * np.sin(a),
+        cy + dx * np.sin(a) + dy * np.cos(a),
+    )

@@ -12,8 +12,11 @@ Every scheme has an ``engine``: ``"cell"`` (the default: the cell grid,
 whose pair passes are the hand-written kernels on CUDA tensors and their
 plain versions on CPU tensors) or ``"nklist"`` (the ``[N, K]``
 neighbour-list engine, ``ops/neighbors.py``, in PyTorch ops on every
-device).  The reference package defaults to its list engine off the TPU;
-the port keeps the cell engine as its default on every device.
+device).  Both run the scheme's ``kernel_name``, any of the six SPH
+kernels of ``ops/kernels.py`` (the cell engine's hand-written kernels
+are built once per SPH kernel).  The reference package defaults to its
+list engine off the TPU; the port keeps the cell engine as its default
+on every device.
 """
 
 from __future__ import annotations
@@ -54,16 +57,6 @@ class Scheme:
         if value not in ENGINES:
             raise ValueError(f"engine={value!r}: one of {ENGINES}")
         self._engine = value
-
-    def check_kernel_engine(self) -> None:
-        """The hand kernels compute the quintic spline only: a scheme on
-        the cell engine with another kernel raises (it never drops to
-        the plain versions)."""
-        if self.engine == "cell" and self.kernel_name != "quintic":
-            raise ValueError(
-                f"kernel {self.kernel_name!r} runs on the list engine only "
-                "(engine='nklist'); the cell engine's kernels compute the "
-                "quintic spline")
 
     def add_user_options(self, group: argparse._ArgumentGroup) -> None:
         pass

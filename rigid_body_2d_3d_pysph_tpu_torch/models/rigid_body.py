@@ -23,6 +23,16 @@ The RK2 and leapfrog evaluations run the contact on every slot of the
 grid (``contact_kernel.contact_pipeline_cell``) and the Eq.-24 tail on
 every particle, as the reference's ``_make_force_eval`` does.
 
+With ``skin_factor > 0`` (the Verlet skin, cell engine) the bins widen by
+the skin, the grid rides the scene (``attach_grid_fields``) and each
+force evaluation of every stepper rebuilds it only when a particle has
+moved more than skin / 2 (``grid_for_step``); the pack is gathered
+through the carried grid (no K1), K2 runs on every slot, and GTVF keeps
+the full ``[N, S]`` schema too (``build_rigid_gtvf_step_full``), as the
+reference turns its sorted and compact routes off with a skin.  The
+scheme's ``kernel_name`` may be any of the six SPH kernels on either
+engine.
+
 With ``engine = "nklist"`` every stepper runs on the ``[N, K]``
 neighbour list instead (``build_rigid_gtvf_step``, the list branch of
 ``_make_force_eval``): a list build a force evaluation, the Eq.-22/21
@@ -176,7 +186,13 @@ class _RigidBodySchemeBase(Scheme):
         self.kernel_name = "quintic"
         # "gtvf", "rk2" or "leapfrog" (3D only)
         self.integrator = "gtvf"
+        # the Verlet skin as a fraction of the cutoff (cell engine): > 0
+        # widens the bins by the skin, carries the grid in the scene and
+        # rebuilds it only when some particle has moved more than skin / 2
+        self.skin_factor = 0.0
         self._cell_cfg = None
+        # the config the scene's carried grid (g_*) was built for
+        self._grid_cfg = None
 
     def add_user_options(self, group):
         group.add_argument("--kr-stiffness", dest="kr", default=1e5,
@@ -198,7 +214,6 @@ class _RigidBodySchemeBase(Scheme):
         return rigid_setup.set_angular_velocity(scene, omega)
 
     def setup(self, scene: Scene, coeff_of_rest=None) -> Scene:
-        self.check_kernel_engine()
         scene = _attach_contact_fields(scene)
         scene = rigid_setup.setup_body_state(scene, coeff_of_rest)
         kernel = get_kernel(self.kernel_name, self.dim)
@@ -212,18 +227,38 @@ class _RigidBodySchemeBase(Scheme):
                 scene, kernel, self.cell_config(scene, kernel), names)
         scene = scene.replace(
             contact_force_is_boundary=scene.is_boundary.to(scene.dtype))
-        if self.integrator != "gtvf" or self.engine == "nklist":
-            # the RK2 and leapfrog steps and the list engine keep the
-            # full [N, S] schema
+        if self.uses_skin:
+            scene = self._attach_grid(scene, kernel)
+        if self.integrator != "gtvf" or self.engine == "nklist" \
+                or self.uses_skin:
+            # the RK2 and leapfrog steps, the list engine and the skin
+            # keep the full [N, S] schema
             return scene
         cfg = self.cell_config(scene, kernel)
         return compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
 
+    @property
+    def uses_skin(self) -> bool:
+        """The Verlet-skin route: the cell engine with ``skin_factor``
+        > 0."""
+        return self.engine == "cell" and self.skin_factor > 0
+
+    def _attach_grid(self, scene: Scene, kernel) -> Scene:
+        cfg = self.cell_config(scene, kernel)
+        self._grid_cfg = cfg
+        return attach_grid_fields(scene, cfg)
+
     def adapt_scene(self, scene: Scene) -> Scene:
         """Pad the compact store to the current capacity (after an
-        overflow rebuild raised ni_max)."""
+        overflow rebuild raised ni_max); rebuild the carried skin grid
+        when the grid config is not the one it was built for (after an
+        overflow rebuild re-sized it; a checkpoint's grid keeps its
+        config, ``_grid_cfg``, so a resumed run goes on with it)."""
+        kernel = get_kernel(self.kernel_name, self.dim)
+        if "g_xb" in scene and self.cell_config(scene, kernel) \
+                != self._grid_cfg:
+            scene = self._attach_grid(scene, kernel)
         if "cl_pid" in scene:
-            kernel = get_kernel(self.kernel_name, self.dim)
             cfg = self.cell_config(scene, kernel)
             return migrate_compact_scene(scene, self.ni_max(cfg) * cfg.M)
         return scene
@@ -238,7 +273,8 @@ class _RigidBodySchemeBase(Scheme):
             cutoff = float(kernel.radius_scale * host("h").max())
             self._cell_cfg = cellmod.config_from_positions(
                 host("x"), host("y"), host("z"), cutoff, self.dim,
-                capacity_boost=self.capacity_boost)
+                capacity_boost=self.capacity_boost,
+                skin=self.skin_factor * cutoff)
         return self._cell_cfg
 
     def ni_max(self, cfg: cellmod.CellGridConfig) -> int:
@@ -255,7 +291,6 @@ class _RigidBodySchemeBase(Scheme):
         kernels' plain versions even on CUDA tensors (the cell engine's
         kernel step's reference on the card; the list engine has no
         kernel)."""
-        self.check_kernel_engine()
         kernel = get_kernel(self.kernel_name, self.dim)
         params = dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
                       gx=self.gx, gy=self.gy, gz=self.gz)
@@ -276,6 +311,9 @@ class _RigidBodySchemeBase(Scheme):
         if self.engine == "nklist":
             return build_rigid_gtvf_step(kernel, cfg["nbr_cfg"], params,
                                          self.two_d)
+        if self.uses_skin:
+            return build_rigid_gtvf_step_full(
+                _make_force_eval(kernel, params, **cfg), self.two_d)
         return build_rigid_gtvf_step_cell(
             kernel, cfg["cell_cfg"], params, self.two_d,
             ni_max=self.ni_max(cfg["cell_cfg"]), plain=plain)
@@ -709,20 +747,16 @@ def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,
     return step
 
 
-def build_rigid_gtvf_step(kernel, cfg: nbmod.NeighborConfig, params: dict,
-                          two_d: bool):
-    """One GTVF timestep on the neighbour-list engine, as an eager
-    ``step(scene, dt) -> scene``: the list is rebuilt at the kicked
-    state's positions for the stage-2 evaluation."""
+def build_rigid_gtvf_step_full(force_eval, two_d: bool):
+    """One GTVF timestep on the full ``[N, S]`` schema around the
+    stage-2 evaluation ``force_eval(scene, dt)`` (a list evaluation, or
+    the cell engine's on the carried Verlet-skin grid), as an eager
+    ``step(scene, dt) -> scene``."""
 
     def step(scene: Scene, dt: float) -> Scene:
         scene = _body_half_kick(scene, dt, two_d)
         scene = _particles_from_body_velocity(scene)
-        nbrs = nbmod.build_neighbors(scene.x, scene.y, scene.z,
-                                     scene.active, cfg)
-        scene = rigid_contact_force_eval(scene, nbrs, kernel, params, dt)
-        scene = scene.replace(nbr_overflow=scene.nbr_overflow
-                              | nbrs.overflow)
+        scene = force_eval(scene, dt)
         scene = _body_drift(scene, dt, two_d)
         scene = _particles_from_body_position(scene)
         scene = _body_half_kick(scene, dt, two_d)
@@ -731,15 +765,62 @@ def build_rigid_gtvf_step(kernel, cfg: nbmod.NeighborConfig, params: dict,
     return step
 
 
+def build_rigid_gtvf_step(kernel, cfg: nbmod.NeighborConfig, params: dict,
+                          two_d: bool):
+    """One GTVF timestep on the neighbour-list engine, as an eager
+    ``step(scene, dt) -> scene``: the list is rebuilt at the kicked
+    state's positions for the stage-2 evaluation."""
+    return build_rigid_gtvf_step_full(
+        _make_force_eval(kernel, params, nbr_cfg=cfg), two_d)
+
+
+def attach_grid_fields(scene: Scene, cell_cfg) -> Scene:
+    """The Verlet-skin grid (the reference's ``attach_grid_fields``): the
+    grid of ``cell_cfg`` built at the scene's positions, and those
+    positions, as scene fields (``g_slot2p``, ``g_dense_pos``,
+    ``g_nbr_slots``, ``g_n_occ``, ``g_overflow``; ``g_xb``, ``g_yb``,
+    ``g_zb``), so they ride checkpoints like every other field."""
+    grid = cellmod.build_cell_grid(scene.x, scene.y, scene.z, scene.active,
+                                   cell_cfg)
+    return scene.with_fields(
+        g_slot2p=grid.slot2p, g_dense_pos=grid.dense_pos,
+        g_nbr_slots=grid.nbr_slots, g_n_occ=grid.n_occupied,
+        g_overflow=grid.overflow,
+        g_xb=scene.x, g_yb=scene.y, g_zb=scene.z)
+
+
+def grid_for_step(scene: Scene, cell_cfg):
+    """The carried Verlet-skin grid for a force evaluation, rebuilt at the
+    current positions exactly when some active particle has moved more
+    than skin / 2 since its build (max d^2 > (skin / 2)^2, the
+    reference's strict ``>``).  The reference decides on the device with
+    ``lax.cond``; this eager step reads that one bool on the host, a
+    device sync every force evaluation.  Returns ``(scene, grid)``."""
+    dx = scene.x - scene.g_xb
+    dy = scene.y - scene.g_yb
+    dz = scene.z - scene.g_zb
+    d2 = dx * dx + dy * dy + dz * dz
+    max_d2 = torch.where(scene.active, d2, torch.zeros_like(d2)).max()
+    if bool(max_d2 > (0.5 * cell_cfg.skin) ** 2):
+        scene = attach_grid_fields(scene, cell_cfg)
+    grid = cellmod.CellGrid(
+        slot2p=scene.g_slot2p, dense_pos=scene.g_dense_pos,
+        nbr_slots=scene.g_nbr_slots, n_occupied=scene.g_n_occ,
+        overflow=scene.g_overflow)
+    return scene, grid
+
+
 def _make_force_eval(kernel, params: dict, cell_cfg=None,
                      plain: bool = False, nbr_cfg=None):
-    """The RK2 and leapfrog steppers' stage-2 evaluation on the full
-    ``[N, S]`` schema, with the grid's or the list's overflow ORed into
-    ``nbr_overflow``.  With ``nbr_cfg``, a list build and
-    :func:`rigid_contact_force_eval`; else a grid build with the contact
-    pack (K1), the contact sums on every slot (K2) and the Eq.-24 tail on
-    every particle (``plain`` runs both kernels' plain versions even on
-    CUDA tensors)."""
+    """The stage-2 evaluation on the full ``[N, S]`` schema (the RK2 and
+    leapfrog steppers', the list engine's and the Verlet skin's), with
+    the grid's or the list's overflow ORed into ``nbr_overflow``.  With
+    ``nbr_cfg``, a list build and :func:`rigid_contact_force_eval`; else
+    the contact pack on a grid, the contact sums on every slot (K2) and
+    the Eq.-24 tail on every particle: a grid build with pack expansion
+    (K1), or with a skin (``cell_cfg.skin > 0``) the carried grid
+    (:func:`grid_for_step`) and its gathered pack (no K1).  ``plain``
+    runs the kernels' plain versions even on CUDA tensors."""
     if nbr_cfg is not None:
         def ev(scene, dt):
             nbrs = nbmod.build_neighbors(scene.x, scene.y, scene.z,
@@ -751,8 +832,12 @@ def _make_force_eval(kernel, params: dict, cell_cfg=None,
         return ev
 
     def ev(scene, dt):
-        grid, _, dfT = tck.pack_scene(scene, cell_cfg, plain,
-                                      want_dense_pos=True)
+        if cell_cfg.skin > 0:
+            scene, grid = grid_for_step(scene, cell_cfg)
+            dfT = tck.pack_grid(scene, grid, cell_cfg)
+        else:
+            grid, _, dfT = tck.pack_scene(scene, cell_cfg, plain,
+                                          want_dense_pos=True)
         cp = tck.contact_pipeline_cell(
             dfT, grid, cell_cfg, kernel, scene.meta.total_no_bodies,
             4.0 * scene.meta.spacing0, scene.n, plain).to(scene.dtype)

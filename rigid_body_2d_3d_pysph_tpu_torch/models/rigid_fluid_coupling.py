@@ -216,7 +216,6 @@ class RigidFluidCouplingScheme(Scheme):
         with no fluid group runs kdk (reference :279-289).  ``plain=True``
         runs the kernels' plain versions even on CUDA tensors (the kernel
         step's reference on the card)."""
-        self.check_kernel_engine()
         if self.fluid_stepper not in ("gtvf", "rk2"):
             raise ValueError(f"fluid_stepper={self.fluid_stepper!r}: one "
                              "of 'gtvf', 'rk2'")

@@ -4,6 +4,10 @@ Each ``csrc/<source>.cu`` has a plain C interface (one or more entry
 points, ``KERNELS``) and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``<repo>/build/torch_kernels/``, then loaded with ``ctypes``.  The
+sources whose kernels evaluate an SPH kernel (``SPH_SOURCES``) are built
+once per SPH kernel (``-DRB_SPH_KERNEL=<Kernel.device_id>``; the
+quintic's library takes the source's flags alone), each instance at its
+first launch.  The
 library's file name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is
 rebuilt and an unchanged one is reused.  The build
@@ -21,6 +25,8 @@ import shutil
 import subprocess
 import time
 
+from .kernels import KERNELS as SPH_KERNELS
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -34,6 +40,8 @@ BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS = {"pack_expand": [], "contact": ["--fmad=false"],
                "dem": ["--fmad=false"], "fluid": ["--fmad=false"]}
 SOURCES = tuple(EXTRA_FLAGS)
+# the sources built once per SPH kernel (csrc/sph_kernels.cuh)
+SPH_SOURCES = ("contact", "fluid")
 
 # kernel -> (source, C entry point, argument types): every pointer and
 # the stream are void*, sizes are int
@@ -42,20 +50,20 @@ KERNELS = {
     "pack_expand": ("pack_expand", "pack_expand",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "contact": ("contact", "contact_sums",
-                [_P] * 4 + [_I] * 6 + [_F] * 4 + [_P]),
+                [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P]),
     "dem_cell": ("dem", "dem_cell",
                  [_P] * 12 + [_I] * 6 + [_F, _F, _P]),
     "dem_rowwin": ("dem", "dem_rowwin",
                    [_P] * 13 + [_I] * 6 + [_F, _F, _P]),
     "fluid_rates_wall": ("fluid", "fluid_rates_wall",
-                         [_P] * 3 + [_I] * 6 + [_F] * 8 + [_P]),
+                         [_P] * 3 + [_I] * 7 + [_F] * 8 + [_P]),
     "fluid_forces_contact": ("fluid", "fluid_forces_contact",
-                             [_P] * 3 + [_I] * 6 + [_F] * 5 + [_P]),
+                             [_P] * 3 + [_I] * 7 + [_F] * 5 + [_P]),
     "fluid_forces": ("fluid", "fluid_forces",
-                     [_P] * 3 + [_I] * 6 + [_F] * 4 + [_P]),
+                     [_P] * 3 + [_I] * 7 + [_F] * 4 + [_P]),
     "fluid_rates": ("fluid", "fluid_rates",
-                    [_P] * 3 + [_I] * 6 + [_F] * 5 + [_P]),
-    "wall_bc": ("fluid", "wall_bc", [_P] * 3 + [_I] * 4 + [_F] * 6 + [_P]),
+                    [_P] * 3 + [_I] * 7 + [_F] * 5 + [_P]),
+    "wall_bc": ("fluid", "wall_bc", [_P] * 3 + [_I] * 5 + [_F] * 6 + [_P]),
 }
 # entry points that launch nothing: the dynamic shared memory (bytes) a
 # block of a fluid template takes at (M lanes a slot, W output columns)
@@ -76,42 +84,64 @@ def _nvcc() -> str:
 BUILD_LOG: dict = {}
 
 
-def library_path(name: str) -> str:
+def instance(name: str, sph: str = "quintic") -> str:
+    """The library of source ``name`` for SPH kernel ``sph``: the
+    source's name for the quintic, ``<source>_<kernel>`` for another
+    (the key of ``BUILD_LOG``)."""
+    if sph not in SPH_KERNELS:
+        raise ValueError(f"unknown SPH kernel {sph!r}")
+    if sph == "quintic":
+        return name
+    if name not in SPH_SOURCES:
+        raise ValueError(f"csrc/{name}.cu evaluates no SPH kernel")
+    return f"{name}_{sph}"
+
+
+def _flags(name: str, sph: str) -> list:
     flags = BASE_FLAGS + EXTRA_FLAGS[name]
+    if sph != "quintic":
+        flags = flags + [f"-DRB_SPH_KERNEL={SPH_KERNELS[sph].device_id}"]
+    return flags
+
+
+def library_path(name: str, sph: str = "quintic") -> str:
+    flags = _flags(name, sph)
     h = hashlib.sha1(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    return os.path.join(BUILD_DIR, f"{instance(name, sph)}-{digest}.so")
 
 
-def build(name: str) -> tuple[str, float]:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    returns (path, seconds spent compiling).  The compiler's report
-    (registers, shared memory, spills per kernel) goes to
-    ``BUILD_LOG[name]``, and beside the library (``<library>.ptxas``) so
-    that a build reused later still has it."""
-    out = library_path(name)
+def build(name: str, sph: str = "quintic") -> tuple[str, float]:
+    """Compile ``csrc/<name>.cu`` for SPH kernel ``sph`` unless an
+    up-to-date library exists; returns (path, seconds spent compiling).
+    The compiler's report (registers, shared memory, spills per kernel)
+    goes to ``BUILD_LOG[instance(name, sph)]``, and beside the library
+    (``<library>.ptxas``) so that a build reused later still has it."""
+    key = instance(name, sph)
+    out = library_path(name, sph)
     if os.path.exists(out):
-        if name not in BUILD_LOG and os.path.exists(out + ".ptxas"):
+        if key not in BUILD_LOG and os.path.exists(out + ".ptxas"):
             with open(out + ".ptxas") as f:
-                BUILD_LOG[name] = f.read()
+                BUILD_LOG[key] = f.read()
         return out, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *BASE_FLAGS, *EXTRA_FLAGS[name], "-o", tmp,
+    cmd = [_nvcc(), *_flags(name, sph), "-o", tmp,
            os.path.join(CSRC, f"{name}.cu")]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed for {key} ({name}.cu):\n"
+                           f"{res.stderr}")
     with open(f"{tmp}.ptxas", "w") as f:
         f.write(res.stderr)
     os.replace(f"{tmp}.ptxas", out + ".ptxas")
     os.replace(tmp, out)   # atomic: concurrent builders never see half
-    BUILD_LOG[name] = res.stderr
+    BUILD_LOG[key] = res.stderr
     return out, time.perf_counter() - t0
 
 
@@ -142,11 +172,11 @@ def ptxas_usage(report: str) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(kernel: str):
-    """The ctypes function of ``kernel`` (or of a ``HELPERS`` entry), its
-    source built if needed."""
+def load(kernel: str, sph: str = "quintic"):
+    """The ctypes function of ``kernel`` (or of a ``HELPERS`` entry) in
+    the library of SPH kernel ``sph``, built if needed."""
     source, fname, argtypes = KERNELS.get(kernel) or HELPERS[kernel]
-    path, _ = build(source)
+    path, _ = build(source, sph)
     fn = getattr(ctypes.CDLL(path), fname)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -154,13 +184,23 @@ def load(kernel: str):
 
 
 # launches per kernel, counted by the wrappers where they launch (and
-# nowhere else); a run resets them to read how often its path launched
+# nowhere else), and per (kernel, SPH kernel) as "<kernel>[<sph>]"; a run
+# resets them to read how often its path launched
 LAUNCHES = {k: 0 for k in KERNELS}
+LAUNCHES_SPH: dict = {}
+
+
+def count(kernel: str, sph: str = "quintic") -> None:
+    """One launch of ``kernel`` (of its SPH kernel ``sph`` instance)."""
+    LAUNCHES[kernel] += 1
+    key = f"{kernel}[{sph}]"
+    LAUNCHES_SPH[key] = LAUNCHES_SPH.get(key, 0) + 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_SPH.clear()
 
 
 def check(err: int, what: str) -> None:

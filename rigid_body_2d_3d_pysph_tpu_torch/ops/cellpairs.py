@@ -38,7 +38,8 @@ class CellGridConfig:
     cell_chunk: int = 512        # cells per chunk of the setup-time passes
     cutoff: float = 0.0          # interaction radius (defaults to cell)
     sub: int = 1                 # bins per cutoff (stencil radius)
-    skin: float = 0.0            # Verlet skin (not ported: must be 0)
+    skin: float = 0.0            # Verlet skin: the grid is rebuilt only
+    #                              when a particle has moved > skin / 2
     spill: bool = False          # slot spillover layout
     nbr_width: int = 0           # packed stencil-slot table width
     max_spill: int = 4           # max slots per cell
@@ -68,20 +69,22 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
                           cell_chunk: int = 512,
                           capacity_boost: float = 1.0,
                           cell_factor: float = 1.0,
-                          M: int = 16) -> CellGridConfig:
+                          M: int = 16, skin: float = 0.0) -> CellGridConfig:
     """Host-side (numpy): the spill grid for these positions, as the
     reference's ``config_from_positions`` builds it in spill mode
-    (stencil radius 1, no skin).  Bins are ``cell_factor`` x the cutoff
-    (the DEM grid's bins are coarser than its contact radius) and hold
-    ``M`` lanes per slot.  The domain is the initial bounding box
-    widened by 0.75 x its extent; the slot capacity is 1.6 x the
-    occupied slots and the packed stencil width 1.6 x the worst initial
-    stencil, every slack scaled by ``capacity_boost`` (the
-    overflow-rebuild rule raises it)."""
+    (stencil radius 1).  Bins are ``cell_factor`` x (the cutoff + the
+    Verlet ``skin``: a grid built at some positions holds every pair
+    within the cutoff until a particle has moved skin / 2; the DEM
+    grid's bins are coarser than its contact radius) and hold ``M``
+    lanes per slot.  The domain is the initial bounding box widened by
+    0.75 x its extent; the slot capacity is 1.6 x the occupied slots and
+    the packed stencil width 1.6 x the worst initial stencil of those
+    bins, every slack scaled by ``capacity_boost`` (the overflow-rebuild
+    rule raises it)."""
     slack = 0.75 * capacity_boost
     nc_factor = 1.6 * capacity_boost
     sub = 1
-    cell = float(cell_factor) * float(cutoff)
+    cell = float(cell_factor) * (float(cutoff) + float(skin))
     x = np.asarray(x); y = np.asarray(y); z = np.asarray(z)
     pts = [x, y] + ([z] if dim == 3 else [])
     lo = np.array([p.min() for p in pts])
@@ -119,7 +122,7 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
     O_p = -(-O_p // lane_q) * lane_q
     return CellGridConfig(cell=cell, M=int(M), NC_max=NC_max, origin=origin,
                           dims=dims, dim=dim, cell_chunk=cell_chunk,
-                          cutoff=float(cutoff), sub=sub, skin=0.0,
+                          cutoff=float(cutoff), sub=sub, skin=float(skin),
                           spill=True, nbr_width=int(O_p))
 
 
@@ -147,8 +150,6 @@ def _check_spill(cfg: CellGridConfig):
     if not cfg.spill:
         raise ValueError("the port builds the spillover grid only "
                          "(cfg.spill=True)")
-    if cfg.skin > 0.0:
-        raise ValueError("the Verlet-skin grid is not ported")
 
 
 def _cell_keys(x, y, z, active, cfg: CellGridConfig):

@@ -26,9 +26,10 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _build
-from .cellpairs import CellGridConfig, build_cell_grid_packed, unpack
+from .cellpairs import (CellGridConfig, build_cell_grid_packed, pack_fields,
+                        unpack)
 from .ieee import sqrt
-from .kernels import QuinticSpline
+from .kernels import Kernel
 from .pack_expand import expand_slots, expand_slots_reference
 
 _BIG = 1.0e9
@@ -157,12 +158,8 @@ def cull_interesting_slots(dfT, slot_cid, cfg: CellGridConfig):
     return interesting, islot
 
 
-def _sigma_constants(kernel: QuinticSpline):
-    return (7.0 if kernel.dim == 2 else 1.0), kernel.sigma_denominator
-
-
 def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
-                           init_dist: float, kernel: QuinticSpline,
+                           init_dist: float, kernel: Kernel,
                            layout: PackLayout | None = None):
     """Plain PyTorch version of the contact kernel (same inputs, same
     ``[NI, M, 12 S]`` output).  Rows are processed in chunks of at most
@@ -275,12 +272,13 @@ def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
 
 
 def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
-                 kernel: QuinticSpline):
+                 kernel: Kernel):
     """Contact sums for the query slots ``qslot [NI]`` over the stencil
     rows ``nbr [NI, O]`` of the dense pack ``dfT [R, F, M]``: the culled
     rows of the compact path, or every slot of a grid (the cell
     pipeline), where a row without a rigid lane costs the kernel only its
-    init row."""
+    init row.  On CUDA tensors the library of ``kernel`` (any of the six
+    SPH kernels) runs."""
     two_d = kernel.dim == 2
     F = len(_FIELDS_2D if two_d else _FIELDS_3D)
     if dfT.dim() != 3 or dfT.shape[1] != F or qslot.dim() != 1 \
@@ -306,19 +304,20 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
     dfT, qslot, nbr = dfT.contiguous(), qslot.contiguous(), nbr.contiguous()
     out = torch.empty((NI, M, 12 * S), dtype=torch.float32,
                       device=dfT.device)
-    sig_num, sig_den = _sigma_constants(kernel)
-    fn = _build.load("contact")
+    sig_num, sig_den = kernel.sigma_constants()
+    fn = _build.load("contact", kernel.name)
     stream = torch.cuda.current_stream(dfT.device).cuda_stream
     err = fn(dfT.data_ptr(), qslot.data_ptr(), nbr.data_ptr(),
-             out.data_ptr(), NI, O, R, M, S, int(two_d), float(cutoff),
-             float(init_dist), float(sig_num), float(sig_den), stream)
+             out.data_ptr(), NI, O, R, M, S, int(two_d), kernel.device_id,
+             float(cutoff), float(init_dist), float(sig_num),
+             float(sig_den), stream)
     _build.check(err, "contact_sums")
-    _build.LAUNCHES["contact"] += 1
+    _build.count("contact", kernel.name)
     return out
 
 
 def contact_pipeline_cell(dfT, grid, cfg: CellGridConfig,
-                          kernel: QuinticSpline, S: int, init_dist: float,
+                          kernel: Kernel, S: int, init_dist: float,
                           n: int, plain: bool = False):
     """The cell pipeline (``pallas_contact.py:433-475``): the contact sums
     on every slot of the contact pack ``dfT [NC + 1, F, M]`` of ``grid``
@@ -359,6 +358,19 @@ def pack_scene(scene, cfg: CellGridConfig, plain: bool = False,
     return grid, pt, expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
 
 
+def pack_grid(scene, grid, cfg: CellGridConfig):
+    """The contact pack ``dfT [NC + 1, F, M]`` of ``scene`` on a grid
+    built earlier (the Verlet-skin grid, carried across steps): the
+    fields gathered through its ``slot2p`` (``pack_fields``, no K1: the
+    lanes keep the order of the grid's build), row NC all sentinels."""
+    two_d = cfg.dim == 2
+    sent = sent_fields(two_d)
+    df = pack_fields(grid, cfg, contact_payload(scene, two_d), sent)
+    row = torch.tensor(sent, dtype=df.dtype, device=df.device)
+    row = row[None, :, None].expand(1, len(sent), cfg.M)
+    return torch.cat([df.transpose(1, 2), row], 0).contiguous()
+
+
 def contact_pack(dfT, layout: PackLayout, two_d: bool):
     """This module's pack (F = 7 in 2D, 9 in 3D) laid out from the rows
     of another pack ``dfT [R, F', M]`` that ``layout`` reads (the
@@ -390,7 +402,7 @@ def select_queries(dfT, grid, pt, cfg: CellGridConfig, ni_max: int):
 
 
 def contact_pipeline_compact(scene, cfg: CellGridConfig,
-                             kernel: QuinticSpline, ni_max: int,
+                             kernel: Kernel, ni_max: int,
                              plain: bool = False) -> CompactContact:
     """Pack, cull and contact sums on at most ``ni_max`` interesting
     slots.  ``overflow`` is raised when the grid overflows or the cull

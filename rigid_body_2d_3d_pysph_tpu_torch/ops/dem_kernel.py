@@ -96,7 +96,7 @@ def _launch(kernel, pack, index_tables, tables, mat, sizes, dt, cutoff):
              o_idx.data_ptr(), o_dem.data_ptr(), o_spr.data_ptr(), n,
              *sizes, L, mat.shape[0], float(dt), float(cutoff), stream)
     _build.check(err, kernel)
-    _build.LAUNCHES[kernel] += 1
+    _build.count(kernel)
     return o_sum, o_idx, o_dem, o_spr[0], o_spr[1], o_spr[2]
 
 

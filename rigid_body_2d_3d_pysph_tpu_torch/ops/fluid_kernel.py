@@ -23,7 +23,8 @@ and the kdk and reference orderings run the split passes
   too when there is no rigid body).
 
 Each wrapper runs its twin for CPU tensors and ``csrc/fluid.cu`` for
-CUDA tensors (float32); it raises on any other device.  The pack is
+CUDA tensors (float32), in the library of the pass's SPH kernel (any of
+the six of ``ops/kernels.py``); it raises on any other device.  The pack is
 ``dfT [NC + 1, 14, M]``: query slot s is row s, a stencil entry NC (no
 neighbour) reads the all-sentinel row NC.  Unlike the TPU kernels, every
 row's output is written (sentinel lanes hold zeros and the contact init
@@ -43,7 +44,7 @@ from . import _build
 from .cellpairs import CellGridConfig, build_cell_grid_packed
 from .contact_kernel import PackLayout, contact_sums_reference
 from .ieee import sqrt
-from .kernels import QuinticSpline
+from .kernels import Kernel
 from .pack_expand import expand_slots, expand_slots_reference
 
 _BIG = 1.0e9
@@ -151,7 +152,7 @@ def _over_slots(dfT, nbr, width, body):
     return torch.cat(outs, 0)
 
 
-def _pair_geom(q, src, kernel: QuinticSpline):
+def _pair_geom(q, src, kernel: Kernel):
     def qc(f):
         return q[:, f, :, None]                       # [B, M, 1]
 
@@ -167,7 +168,7 @@ def _pair_geom(q, src, kernel: QuinticSpline):
     return qc, sr, xij, yij, zij, rij, r2, hij
 
 
-def fluid_rates_wall_reference(dfT, nbr, kernel: QuinticSpline,
+def fluid_rates_wall_reference(dfT, nbr, kernel: Kernel,
                                cutoff: float, nu_edac: float, c0: float,
                                edac: bool, has_rigid: bool, g):
     """Plain version of B4 (``pallas_fluid.py:389-448``): ``[NC, M, 7]``
@@ -225,7 +226,7 @@ def fluid_rates_wall_reference(dfT, nbr, kernel: QuinticSpline,
     return _over_slots(dfT, nbr, 7, body)
 
 
-def fluid_rates_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+def fluid_rates_reference(dfT, nbr, kernel: Kernel, cutoff: float,
                           nu_edac: float, c0: float, edac: bool,
                           has_rigid: bool):
     """Plain version of B6a (``pallas_fluid.py:315-352``): ``[NC, M, 2]``
@@ -272,7 +273,7 @@ def fluid_rates_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
     return _over_slots(dfT, nbr, 2, body)
 
 
-def wall_bc_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float, g):
+def wall_bc_reference(dfT, nbr, kernel: Kernel, cutoff: float, g):
     """Plain version of B6b (``pallas_fluid.py:468-482``): ``[NC, M, 5]``
     = (uf, vf, wf, sw, p_num) on wall and body queries over fluid
     sources, the formulas of B4's columns 2-6."""
@@ -294,7 +295,7 @@ def wall_bc_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float, g):
     return _over_slots(dfT, nbr, 5, body)
 
 
-def _forces_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+def _forces_reference(dfT, nbr, kernel: Kernel, cutoff: float,
                       fluid_alpha: float, c0: float, has_rigid: bool):
     """The force columns (``pallas_fluid.py:494-559``): ``[NC, M, 6]`` =
     (au, av, aw, fx, fy, fz); reads p and p_fsi after the wall-pressure
@@ -354,7 +355,7 @@ def _forces_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
     return _over_slots(dfT, nbr, 6, body)
 
 
-def fluid_forces_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+def fluid_forces_reference(dfT, nbr, kernel: Kernel, cutoff: float,
                            fluid_alpha: float, c0: float,
                            has_rigid: bool = False):
     """Plain version of B6c: the force columns, with the FSI terms when
@@ -363,7 +364,7 @@ def fluid_forces_reference(dfT, nbr, kernel: QuinticSpline, cutoff: float,
                              has_rigid)
 
 
-def fluid_forces_contact_reference(dfT, nbr, kernel: QuinticSpline,
+def fluid_forces_contact_reference(dfT, nbr, kernel: Kernel,
                                    cutoff: float, fluid_alpha: float,
                                    c0: float, S: int, init_dist: float):
     """Plain version of B5: K2's 12 S contact columns on the union
@@ -380,10 +381,6 @@ def fluid_forces_contact_reference(dfT, nbr, kernel: QuinticSpline,
 # ---------------------------------------------------------------------------
 # kernel wrappers (csrc/fluid.cu for CUDA tensors)
 # ---------------------------------------------------------------------------
-
-def _sigma_constants(kernel: QuinticSpline):
-    return (7.0 if kernel.dim == 2 else 1.0), kernel.sigma_denominator
-
 
 def _check(name, dfT, nbr):
     """The common shape checks; True when the kernel runs (CUDA: float32,
@@ -408,21 +405,26 @@ def _check(name, dfT, nbr):
     return True
 
 
-def _launch(kname, dfT, nbr, width, *args):
+def _launch(kname, kernel: Kernel, dfT, nbr, width, ints, floats):
+    """``kname`` of ``kernel``'s library on the pack: ``ints`` (the
+    entry's int arguments before the SPH kernel's id), the kernel's id,
+    ``floats``, then the kernel's sigma constants."""
     NC, O = nbr.shape
     M = dfT.shape[2]
     dfT, nbr = dfT.contiguous(), nbr.contiguous()
     out = torch.empty((NC, M, width), dtype=torch.float32, device=dfT.device)
-    fn = _build.load(kname)
+    fn = _build.load(kname, kernel.name)
     stream = torch.cuda.current_stream(dfT.device).cuda_stream
+    sig_num, sig_den = kernel.sigma_constants()
     err = fn(dfT.data_ptr(), nbr.data_ptr(), out.data_ptr(), NC, O, M,
-             *args, stream)
+             *ints, kernel.device_id, *(float(f) for f in floats),
+             float(sig_num), float(sig_den), stream)
     _build.check(err, kname)
-    _build.LAUNCHES[kname] += 1
+    _build.count(kname, kernel.name)
     return out
 
 
-def fluid_rates_wall(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+def fluid_rates_wall(dfT, nbr, kernel: Kernel, cutoff: float,
                      nu_edac: float, c0: float, edac: bool, has_rigid: bool,
                      g):
     """B4 on the pack ``dfT [NC + 1, 14, M]`` over the stencil rows
@@ -430,51 +432,44 @@ def fluid_rates_wall(dfT, nbr, kernel: QuinticSpline, cutoff: float,
     if not _check("fluid_rates_wall", dfT, nbr):
         return fluid_rates_wall_reference(dfT, nbr, kernel, cutoff, nu_edac,
                                           c0, edac, has_rigid, g)
-    sig_num, sig_den = _sigma_constants(kernel)
-    return _launch("fluid_rates_wall", dfT, nbr, 7, int(kernel.dim == 2),
-                   int(edac), int(has_rigid), float(cutoff),
-                   float(2.0 * nu_edac), float(c0 * c0), float(g[0]),
-                   float(g[1]), float(g[2]), float(sig_num), float(sig_den))
+    return _launch("fluid_rates_wall", kernel, dfT, nbr, 7,
+                   (int(kernel.dim == 2), int(edac), int(has_rigid)),
+                   (cutoff, 2.0 * nu_edac, c0 * c0, g[0], g[1], g[2]))
 
 
-def fluid_rates(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+def fluid_rates(dfT, nbr, kernel: Kernel, cutoff: float,
                 nu_edac: float, c0: float, edac: bool, has_rigid: bool):
     """B6a: continuity and EDAC rates -> ``[NC, M, 2]``."""
     if not _check("fluid_rates", dfT, nbr):
         return fluid_rates_reference(dfT, nbr, kernel, cutoff, nu_edac, c0,
                                      edac, has_rigid)
-    sig_num, sig_den = _sigma_constants(kernel)
-    return _launch("fluid_rates", dfT, nbr, 2, int(kernel.dim == 2),
-                   int(edac), int(has_rigid), float(cutoff),
-                   float(2.0 * nu_edac), float(c0 * c0), float(sig_num),
-                   float(sig_den))
+    return _launch("fluid_rates", kernel, dfT, nbr, 2,
+                   (int(kernel.dim == 2), int(edac), int(has_rigid)),
+                   (cutoff, 2.0 * nu_edac, c0 * c0))
 
 
-def wall_bc(dfT, nbr, kernel: QuinticSpline, cutoff: float, g):
+def wall_bc(dfT, nbr, kernel: Kernel, cutoff: float, g):
     """B6b: the Adami wall sums -> ``[NC, M, 5]``."""
     if not _check("wall_bc", dfT, nbr):
         return wall_bc_reference(dfT, nbr, kernel, cutoff, g)
-    sig_num, sig_den = _sigma_constants(kernel)
-    return _launch("wall_bc", dfT, nbr, 5, int(kernel.dim == 2),
-                   float(cutoff), float(g[0]), float(g[1]), float(g[2]),
-                   float(sig_num), float(sig_den))
+    return _launch("wall_bc", kernel, dfT, nbr, 5, (int(kernel.dim == 2),),
+                   (cutoff, g[0], g[1], g[2]))
 
 
-def fluid_forces(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+def fluid_forces(dfT, nbr, kernel: Kernel, cutoff: float,
                  fluid_alpha: float, c0: float, has_rigid: bool = False):
     """B6c: the 6 force columns -> ``[NC, M, 6]``; ``has_rigid`` adds the
     FSI source class and the fluid -> rigid force."""
     if not _check("fluid_forces", dfT, nbr):
         return fluid_forces_reference(dfT, nbr, kernel, cutoff, fluid_alpha,
                                       c0, has_rigid)
-    sig_num, sig_den = _sigma_constants(kernel)
-    return _launch("fluid_forces", dfT, nbr, 6, int(kernel.dim == 2),
-                   int(abs(fluid_alpha) > 1e-14), int(has_rigid),
-                   float(cutoff), float(-fluid_alpha * c0), float(sig_num),
-                   float(sig_den))
+    return _launch("fluid_forces", kernel, dfT, nbr, 6,
+                   (int(kernel.dim == 2), int(abs(fluid_alpha) > 1e-14),
+                    int(has_rigid)),
+                   (cutoff, -fluid_alpha * c0))
 
 
-def fluid_forces_contact(dfT, nbr, kernel: QuinticSpline, cutoff: float,
+def fluid_forces_contact(dfT, nbr, kernel: Kernel, cutoff: float,
                          fluid_alpha: float, c0: float, S: int,
                          init_dist: float):
     """B5: the contact and force columns in one sweep ->
@@ -484,8 +479,6 @@ def fluid_forces_contact(dfT, nbr, kernel: QuinticSpline, cutoff: float,
                                               fluid_alpha, c0, S, init_dist)
     if S < 1:
         raise ValueError(f"fluid_forces_contact: S={S}")
-    sig_num, sig_den = _sigma_constants(kernel)
-    return _launch("fluid_forces_contact", dfT, nbr, 12 * S + 6, S,
-                   int(kernel.dim == 2), int(abs(fluid_alpha) > 1e-14),
-                   float(cutoff), float(-fluid_alpha * c0),
-                   float(init_dist), float(sig_num), float(sig_den))
+    return _launch("fluid_forces_contact", kernel, dfT, nbr, 12 * S + 6,
+                   (S, int(kernel.dim == 2), int(abs(fluid_alpha) > 1e-14)),
+                   (cutoff, -fluid_alpha * c0, init_dist))

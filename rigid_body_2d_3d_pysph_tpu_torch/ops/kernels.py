@@ -13,15 +13,18 @@ C4 quintics (2h), the Gaussian and the super-Gaussian (3h).
 Integer powers are written as the multiplication chains XLA lowers
 ``x**n`` to (binary exponentiation: x^3 = x * x^2, x^4 = (x^2)^2,
 x^5 = x * x^4, x^6 = x^2 * x^4), so the port's values follow the
-reference's rounding, and ``csrc/contact.cu`` evaluates the quintic's
-chain.  The hand-written kernels compute the quintic only; the other
-kernels run on the ``[N, K]`` neighbour-list engine.
+reference's rounding.  Every kernel runs on both engines: the cell
+engine's hand-written kernels (``csrc/contact.cu``, ``csrc/fluid.cu``)
+evaluate the same chains in ``csrc/sph_kernels.cuh``, one library per
+kernel (``device_id`` picks it at compile time), from the
+``sigma_constants`` pair that ``sigma`` divides by.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 
@@ -57,6 +60,15 @@ def _hpow(h, dim: int):
     return {1: lambda t: t, 2: _pow2, 3: _pow3}[dim](h)
 
 
+def _hchain(den, h, dim: int):
+    """den * h * ... * h (dim factors of h, left to right): the
+    denominator of ``num / (den * h * h)`` as Python evaluates it."""
+    t = den * h
+    for _ in range(dim - 1):
+        t = t * h
+    return t
+
+
 def _guarded_inv(r):
     eps = 1e-12
     return torch.where(r > eps, 1.0 / torch.clamp(r, min=eps),
@@ -79,8 +91,19 @@ class Kernel:
     dim: int = 2
     radius_scale: float = 2.0
 
-    def sigma(self, h):
+    #: the name in ``KERNELS`` and the id of its device code
+    #: (``csrc/sph_kernels.cuh``, built with ``-DRB_SPH_KERNEL=<id>``)
+    name: ClassVar[str] = ""
+    device_id: ClassVar[int] = -1
+
+    def sigma_constants(self) -> tuple:
+        """(num, den) with sigma(h) = num / (den h^dim); the kernel
+        wrappers hand both to the device code as float32."""
         raise NotImplementedError
+
+    def sigma(self, h):
+        num, den = self.sigma_constants()
+        return num / _hchain(den, h, self.dim)
 
     def w(self, rij, h):
         raise NotImplementedError
@@ -102,18 +125,13 @@ class QuinticSpline(Kernel):
     """Quintic B-spline, support 3h."""
 
     radius_scale: float = 3.0
+    name = "quintic"
+    device_id = 0
 
-    @property
-    def sigma_denominator(self) -> float:
-        """sigma(h) = num / (denominator * h^dim), num = 7 (2D) or 1."""
+    def sigma_constants(self):
         if self.dim == 2:
-            return 478.0 * M_PI
-        return 120.0 * M_PI
-
-    def sigma(self, h):
-        if self.dim == 2:
-            return 7.0 / (478.0 * M_PI * h * h)
-        return 1.0 / (120.0 * M_PI * h * h * h)
+            return 7.0, 478.0 * M_PI
+        return 1.0, 120.0 * M_PI
 
     @staticmethod
     def _pieces(q):
@@ -152,13 +170,15 @@ class CubicSpline(Kernel):
     """Cubic B-spline, support 2h (the DEM scheme's default)."""
 
     radius_scale: float = 2.0
+    name = "cubic"
+    device_id = 1
 
-    def sigma(self, h):
+    def sigma_constants(self):
         if self.dim == 1:
-            return 2.0 / (3.0 * h)
+            return 2.0, 3.0
         if self.dim == 2:
-            return 10.0 / (7.0 * M_PI * h * h)
-        return 1.0 / (M_PI * h * h * h)
+            return 10.0, 7.0 * M_PI
+        return 1.0, M_PI
 
     def w(self, rij, h):
         q = rij / h
@@ -178,11 +198,13 @@ class WendlandQuintic(Kernel):
     """Wendland C2 quintic, support 2h (dim >= 2)."""
 
     radius_scale: float = 2.0
+    name = "wendland"
+    device_id = 2
 
-    def sigma(self, h):
+    def sigma_constants(self):
         if self.dim == 2:
-            return 7.0 / (4.0 * M_PI * h * h)
-        return 21.0 / (16.0 * M_PI * h * h * h)
+            return 7.0, 4.0 * M_PI
+        return 21.0, 16.0 * M_PI
 
     def w(self, rij, h):
         q = rij / h
@@ -200,11 +222,13 @@ class WendlandQuinticC4(Kernel):
     """Wendland C4, support 2h (dim >= 2)."""
 
     radius_scale: float = 2.0
+    name = "wendland_c4"
+    device_id = 3
 
-    def sigma(self, h):
+    def sigma_constants(self):
         if self.dim == 2:
-            return 9.0 / (4.0 * M_PI * h * h)
-        return 495.0 / (256.0 * M_PI * h * h * h)
+            return 9.0, 4.0 * M_PI
+        return 495.0, 256.0 * M_PI
 
     def w(self, rij, h):
         q = rij / h
@@ -224,9 +248,16 @@ class Gaussian(Kernel):
     """Gaussian kernel, support 3h."""
 
     radius_scale: float = 3.0
+    name = "gaussian"
+    device_id = 4
+
+    def sigma_constants(self):
+        return 1.0, M_PI ** (self.dim / 2.0)
 
     def sigma(self, h):
-        return 1.0 / (M_PI ** (self.dim / 2.0) * _hpow(h, self.dim))
+        """1 / (pi^(d/2) h^d), h^d as the chain h * (h * h)."""
+        num, den = self.sigma_constants()
+        return num / (den * _hpow(h, self.dim))
 
     def w(self, rij, h):
         q = rij / h
@@ -242,9 +273,16 @@ class SuperGaussian(Kernel):
     """Super-Gaussian kernel, support 3h."""
 
     radius_scale: float = 3.0
+    name = "super_gaussian"
+    device_id = 5
+
+    def sigma_constants(self):
+        return 1.0, M_PI ** (self.dim / 2.0)
 
     def sigma(self, h):
-        return 1.0 / (M_PI ** (self.dim / 2.0) * _hpow(h, self.dim))
+        """1 / (pi^(d/2) h^d), h^d as the chain h * (h * h)."""
+        num, den = self.sigma_constants()
+        return num / (den * _hpow(h, self.dim))
 
     def w(self, rij, h):
         q = rij / h

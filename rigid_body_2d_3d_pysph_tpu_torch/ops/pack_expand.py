@@ -59,5 +59,5 @@ def expand_slots(sorted_fields, base, cnt, sent, M: int):
     err = fn(sorted_fields.data_ptr(), base.data_ptr(), cnt.data_ptr(),
              sent.data_ptr(), out.data_ptr(), n, NC, F, M, stream)
     _build.check(err, "pack_expand")
-    _build.LAUNCHES["pack_expand"] += 1
+    _build.count("pack_expand")
     return out

@@ -16,9 +16,11 @@ into ``build/contact_variants/``:
   epilogue);
 
 and, with ``--parent DIR``, the ``csrc/contact.cu`` of another checkout
-(its entry point as this one's, or with the ``skip_idle`` argument after
-``two_d`` of before this kernel's redesign, set on the every-slot cases
-as its wrapper did).  On ``chip_smoke.py``'s scenes it prints each build's
+(its entry point as this one's; without the SPH kernel's id after
+``two_d``, as before the kernel family was built into its own libraries;
+or with the ``skip_idle`` argument after ``two_d`` of before this
+kernel's redesign, set on the every-slot cases as its wrapper did).
+Every build is of the quintic spline (no ``-DRB_SPH_KERNEL``).  On ``chip_smoke.py``'s scenes it prints each build's
 time per launch for the four instances of the rigid and coupling paths:
 the 2D culled rows (the main path), the 3D culled rows at the set-up
 ``ni_max`` and at every interesting row, and every slot of the sinking
@@ -139,19 +141,20 @@ def cases(dev):
     return out
 
 
-def takes_skip_idle(path):
-    """Whether the contact.cu at ``path`` has the entry point of before
-    the redesign (a ``skip_idle`` argument after ``two_d``)."""
+def holds(path, word):
+    """Whether the contact.cu at ``path`` holds ``word``: ``skip_idle``
+    (the entry point of before the redesign) or ``sph_id`` (the SPH
+    kernel's id after ``two_d``)."""
     with open(path) as f:
-        return "skip_idle" in f.read()
+        return word in f.read()
 
 
-def time_case(label, args, every_slot, libs, skip_idle=()):
+def time_case(label, args, every_slot, libs, skip_idle=(), no_id=()):
     dfT, qslot, nbr, S, cutoff, init, kernel = args
     ref = tck.contact_sums(*args)
     NI, O = nbr.shape
     R, M = dfT.shape[0], dfT.shape[2]
-    sig_num, sig_den = tck._sigma_constants(kernel)
+    sig_num, sig_den = kernel.sigma_constants()
     out = torch.empty_like(ref)
     stream = torch.cuda.current_stream(dfT.device).cuda_stream
     ptrs = (dfT.data_ptr(), qslot.data_ptr(), nbr.data_ptr(), out.data_ptr())
@@ -166,9 +169,13 @@ def time_case(label, args, every_slot, libs, skip_idle=()):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
                 [ctypes.c_float] * 4 + [ctypes.c_void_p]
             ints = (NI, O, R, M, S, two_d, int(every_slot))
+        elif name in no_id:     # ... M, S, two_d, floats, stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+                [ctypes.c_float] * 4 + [ctypes.c_void_p]
+            ints = (NI, O, R, M, S, two_d)
         else:
             fn.argtypes = _build.KERNELS["contact"][2]
-            ints = (NI, O, R, M, S, two_d)
+            ints = (NI, O, R, M, S, two_d, kernel.device_id)
         call = lambda: fn(*ptrs, *ints, *tail)
         out.fill_(float("nan"))
         if call() != 0:
@@ -203,10 +210,12 @@ def main():
     print(f"[contact-variants] {cs.smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
     skip_idle = {name for name in ("parent",)
-                 if name in srcs and takes_skip_idle(srcs[name])}
+                 if name in srcs and holds(srcs[name], "skip_idle")}
+    no_id = {name for name in srcs if name not in skip_idle
+             and not holds(srcs[name], "sph_id")}
     try:
         for label, kargs, every_slot in cases(dev):
-            time_case(label, kargs, every_slot, libs, skip_idle)
+            time_case(label, kargs, every_slot, libs, skip_idle, no_id)
     except cs.PhaseError as e:
         print(f"contact_variants: FAILED: {e}", file=sys.stderr)
         return 1

@@ -31,10 +31,13 @@ bodies, all at ~96.9k particles with seeded random velocities and body
 launches into a preallocated output, behind a device sleep so the host's
 enqueue is not timed.  The full builds and the parent's are checked
 against the wrapper's output: B5's 12 S contact columns bit for bit,
-every other column within ``FLUID_SUM_RTOL`` of its largest magnitude;
-the cut-down copies compute less by design.  Also prints ptxas's
+every other column within ``FLUID_SUM_RTOL`` of its largest magnitude,
+and "(=)" marks an output equal to the wrapper's bit for bit; the
+cut-down copies compute less by design.  Also prints ptxas's
 registers, shared memory and spills for each instance of both templates,
-and the dynamic shared memory a block takes at the scenes' M.
+and the dynamic shared memory a block takes at the scenes' M.  Every
+build is of the quintic spline (no ``-DRB_SPH_KERNEL``); a source of
+before the kernel family had its own libraries takes no SPH kernel id.
 
 It imports nothing from JAX.
 """
@@ -188,7 +191,7 @@ def cases(dev, kernels):
         nbr = grid.nbr_slots
         S = scene.meta.total_no_bodies
         init = 4.0 * scene.meta.spacing0
-        tail = tuple(float(v) for v in fk._sigma_constants(kernel))
+        tail = tuple(float(v) for v in kernel.sigma_constants())
         visc = abs(scheme.fluid_alpha) > 1e-14
         kd2 = int(kernel.dim == 2)
         rc = float(cfg.radius)
@@ -229,7 +232,19 @@ def cases(dev, kernels):
     return out
 
 
-def time_case(case, libs):
+def with_id(entry, cargs, sph_id, takes_id):
+    """The C entry's argument types and its arguments after the sizes:
+    the SPH kernel's id after the leading ints where the source takes it
+    (``sph_id``), none before the kernel family had its own libraries."""
+    argtypes = list(_build.KERNELS[entry][2])
+    n_int = next(i for i, a in enumerate(cargs) if isinstance(a, float))
+    if takes_id:
+        return argtypes, cargs[:n_int] + (sph_id,) + cargs[n_int:]
+    del argtypes[6 + n_int]      # 3 pointers, NC, O, M, the ints
+    return argtypes, cargs
+
+
+def time_case(case, libs, no_id=()):
     label, inst, kernel, wrapper, wargs, entry, cargs, S = case
     dfT, nbr = wargs[0], wargs[1]
     ref = wrapper(*wargs)
@@ -244,20 +259,23 @@ def time_case(case, libs):
         if not (name.endswith("full") or f"{kernel} " in name):
             continue
         fn = getattr(lib, entry)
-        fn.argtypes = _build.KERNELS[entry][2]
+        fn.argtypes, args = with_id(entry, cargs, wargs[2].device_id,
+                                    name not in no_id)
         fn.restype = ctypes.c_int
-        call = lambda: fn(*ptrs, NC, O, M, *cargs, stream)
+        call = lambda: fn(*ptrs, NC, O, M, *args, stream)
         out.fill_(float("nan"))
         if call() != 0:
             raise RuntimeError(f"{name}: launch failed")
         torch.cuda.synchronize()
+        same = ""
         if name.endswith("full"):
             cs.check(torch.equal(out[..., :12 * S], ref[..., :12 * S]),
                      f"{label} {inst} {name}: contact columns differ from "
                      "the wrapper's")
             cs.check_fluid_columns(out, ref, range(12 * S, ref.shape[-1]),
                                    f"{label} {inst} {name}")
-        line.append(f"{name} {cs.cuda_ms(call, reps=REPS):.4f}")
+            same = " (=)" if torch.equal(out, ref) else " (sums differ)"
+        line.append(f"{name} {cs.cuda_ms(call, reps=REPS):.4f}{same}")
     print(" | ".join(line), flush=True)
 
 
@@ -282,6 +300,11 @@ def main():
     with ThreadPoolExecutor(len(srcs)) as pool:
         built = list(pool.map(lambda kv: build(kv[0], *kv[1]),
                               srcs.items()))
+    no_id = set()
+    for name, (path, _) in srcs.items():
+        with open(path) as f:
+            if "sph_id" not in f.read():
+                no_id.add(name)
     libs = {}
     for name, path, report in built:
         if path is None:
@@ -302,7 +325,7 @@ def main():
     dev = torch.device("cuda", 0)
     try:
         for case in cases(dev, kernels):
-            time_case(case, libs)
+            time_case(case, libs, no_id)
     except cs.PhaseError as e:
         print(f"fluid_variants: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1197,3 +1197,67 @@ def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfk.wall_bc(wide, nbr, kernel, 0.1, g)
     with pytest.raises(ValueError):
         tfk.fluid_forces_contact(wide, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
+
+
+SPH_NAMES = ("cubic", "wendland", "wendland_c4", "gaussian",
+             "super_gaussian")
+
+
+@pytest.mark.parametrize("name", SPH_NAMES)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sph_kernel_instances_match_twin(dev, dim, name):
+    """K2 and every fluid template instance of another SPH kernel than
+    the quintic (its own library, built with -DRB_SPH_KERNEL) against
+    their twins on random packs: K2's and B5's picks bit for bit, the
+    sums within the tolerances above, one launch each counted under the
+    kernel's instance; the fluid passes' cutoff is the kernel's support
+    (radius_scale h)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    kernel = get_kernel(name, dim)
+    cargs = _contact_pack(dim, 9, dev, seed=500 + 10 * dim)[:6] + (kernel,)
+    key = f"contact[{name}]"
+    before = _build.LAUNCHES_SPH.get(key, 0)
+    got = tck.contact_sums(*cargs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_SPH[key] == before + 1
+    ref = tck.contact_sums_reference(*cargs)
+    assert int((ref[..., 5 * 9:6 * 9] < cargs[5]).sum()) > 0
+    _check_contact(got, ref, 9)
+
+    args = _fluid_pack_args(dim, 3, dev, seed=600 + 10 * dim)
+    h = 2.0 ** -6
+    args = args[:2] + (kernel, kernel.radius_scale * h) + args[4:]
+    dfT, nbr, _, cutoff = args[:4]
+    _check_rates_wall(dfT, nbr, kernel, cutoff)
+    got = tfk.fluid_forces_contact(*args)
+    ref = tfk.fluid_forces_contact_reference(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_SPH[f"fluid_forces_contact[{name}]"] >= 1
+    assert int((ref[..., 5 * 3:6 * 3] < args[7]).sum()) > 0
+    _check_forces_contact(got, ref, 3)
+    for rigid in (True, False):
+        fargs = args[:6] + (rigid,)
+        got = tfk.fluid_forces(*fargs)
+        ref = tfk.fluid_forces_reference(*fargs)
+        torch.cuda.synchronize()
+        _check_fluid_columns(got, ref, f"{name} B6c rigid={rigid}")
+
+
+def test_sph_libraries_refuse_another_kernel_id(dev):
+    """An entry point of one SPH kernel's library called with another
+    kernel's id returns an error and launches nothing."""
+    for kname in ("contact", "fluid_forces", "wall_bc"):
+        fn = _build.load(kname, "cubic")
+        nargs = len(fn.argtypes)
+        args = [0] * nargs
+        # the id: after the pointers and the ints before it
+        idx = {"contact": 10, "fluid_forces": 9, "wall_bc": 7}[kname]
+        args[idx] = 0                      # the quintic's, not the cubic's
+        assert fn(*args) != 0
+        if kname != "contact":
+            # NC = 0, O = 1, M = 16 and the cubic's id: nothing to launch
+            args[3:6] = [0, 1, 16]
+            args[idx] = 1
+            assert fn(*args) == 0

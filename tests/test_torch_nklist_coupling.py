@@ -207,6 +207,9 @@ def test_kdkf_runs_kdk_and_the_guards():
         a_sch.make_step(scene)
     with pytest.raises(ValueError, match="cell engine"):
         tslab.make_slab_coupling_step(b_sch, [scene], None, None)
+    # another kernel on the cell engine runs (its hand kernels on the
+    # card, their plain versions here)
     b_sch.engine, b_sch.kernel_name = "cell", "gaussian"
-    with pytest.raises(ValueError, match="nklist"):
-        b_sch.make_step(scene)
+    out = b_sch.make_step(scene)(scene, DT_CONTACT)
+    assert torch.isfinite(out.x).all() and torch.isfinite(out.au).all()
+    assert not bool(out.nbr_overflow)
