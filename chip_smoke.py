@@ -221,13 +221,31 @@ no result line):
     through the carried grid) and no K1 a step, the grid's rebuilds
     counted; then 20 skin steps against 20 steps of the compact no-skin
     kernel step from the same state (STEP_RTOL);
-42. a JSON line of per-kernel numbers (``launches`` from the kernel's
+42. the kdkf step on the compact contact store (S >= 8): the sinking
+    box's tank at phase 11's size with 8 boxes of rho 8 (0.25 x 0.25, 4
+    on the floor, 4 on top of them, sliding; S = 9;
+    ``boxes_tank_scene``), set up onto the store, 200 steps through
+    ``make_step`` -> ``step`` in chunks with the overflow rule (which
+    widens the store through ``adapt_scene``) under phase 11's gates but
+    the sinking: one K1, one B4 and one B5 launch a step and no K2,
+    engaged contact slots and tangential springs in ``cl_state`` at the
+    end, n_interesting, ni_max and the rebuilds printed; then from the
+    set-up state, the boxes pushed down at 0.5 m/s (the top row at 1),
+    20 kernel steps against 20 plain steps (STEP_RTOL) and 20 compact
+    against 20 full-route kernel steps (COMPACT_RTOL, the largest
+    differences printed), with both routes' steps/s;
+43. the same in 3D on ``sinking_box_scene_3d``'s tank with 8 cubes of
+    0.15 (2 x 2 a layer): 50 steps under the same gates, 20 kernel
+    against 20 plain steps (STEP_RTOL) and 20 compact against 20
+    full-route steps;
+44. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
     ``coupling-rk2``, ``benchmark-2``, ``slab-rigid-2d``,
     ``slab-rigid-3d``, ``slab-dem-2d``, ``slab-coupling-kdk-2d``,
-    ``slab-coupling-kdkf-2d`` and ``slab-coupling-kdkf-3d`` among them,
+    ``slab-coupling-kdkf-2d``, ``slab-coupling-kdkf-3d``,
+    ``coupling-compact-2d`` and ``coupling-compact-3d`` among them,
     with each slab's K1, K2, K4 and fluid pass times; K2's 3D times at
     the set-up ``ni_max`` and on every interesting row beside its 2D
     time; K1 on the 3D rigid pack and on the 2D and 3D coupling packs;
@@ -374,6 +392,32 @@ SPH_SHORT_STEPS = 50
 SPH_UNSTABLE_STEPS = 10
 # the Verlet skin of phase 41, as a fraction of the cutoff
 SKIN = 0.3
+# the compact coupling route (phases 42-43): 8 boxes of rho 8 (S = 9) in
+# the sinking box's tank, 4 on its floor and 4 on top of them, sides of
+# CPL_BOX_SIDE L in 2D and CPL_CUBE_SIDE in 3D (2 x 2 cubes a layer in
+# the 3D tank's 1 x 0.5 floor); columns CPL_BOX_COL_GAP dx apart (no side
+# contact); each face placed CPL_BOX_GAP dx over what it rests on, then
+# moved so that its Eq.-21 contact distance leaves an overlap of half
+# what its load in the fluid presses (``settle_boxes``): a box of rho 8
+# weighs ~5e-5 of kr x dx on its face particles, so GAP's 0.05 dx throws
+# it off, and one that starts under its load stays engaged; the 3D cubes
+# take CPL_CUBE_KR (a cube of 0.15 on kr = 1e5 rings at ~6 rad a step of
+# the fluid's dt: the explicit step diverges); the bottom row slides at
+# +CPL_BOX_SLIDE m/s in x (and z in 3D), the top row at -CPL_BOX_SLIDE,
+# so every contact slides
+CPL_BOX_SIDE = 0.25
+CPL_CUBE_SIDE = 0.15
+CPL_BOX_RHO = 8.0
+CPL_BOX_COL_GAP = 2.0
+CPL_BOX_GAP = 0.99
+CPL_CUBE_KR = 1e3
+CPL_BOX_SLIDE = 0.05
+CPL_BOXES_STEPS = 200
+CPL_BOXES_3D_STEPS = 50
+# compact against full route on the same kernels: the same elementwise
+# ops on the same values; the body sums' atomic adds on the card may add
+# in another order
+COMPACT_RTOL = 1e-5
 
 
 class PhaseError(RuntimeError):
@@ -1700,12 +1744,14 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed, k1=None):
 
 
 def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step,
-                        sink=True):
+                        sink=True, stats=None):
     """The coupling step through its entry points, in chunks with the
-    overflow-rebuild rule; ``per_step`` maps each kernel to its expected
-    launches per step (none on the list engine); ``sink=False`` leaves
-    out the gate on the box's COM (its f32 value moves only after ~100
-    steps from rest).  Returns (end scene, launches, steps/s)."""
+    overflow-rebuild rule (``refresh_configs``, then ``adapt_scene``
+    widens a compact store); ``per_step`` maps each kernel to its
+    expected launches per step (none on the list engine); ``sink=False``
+    leaves out the gate on the box's COM (its f32 value moves only after
+    ~100 steps from rest); ``stats`` (a dict) receives the rebuilds and
+    the steps run.  Returns (end scene, launches, steps/s)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
     step = scheme.make_step(scene)
@@ -1715,7 +1761,7 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step,
     y0 = float(scene.xcm[0, 1]) if has_body else None
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    steps_run = done = rebuilds = 0
+    steps_run = done = rebuilds = rebuilds_total = 0
     chunk_s, chunk_n = [], []
     while done < n_steps:
         chunk_start = scene
@@ -1729,9 +1775,11 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step,
         steps_run += n
         if bool(scene.nbr_overflow):
             rebuilds += 1
+            rebuilds_total += 1
             check(rebuilds <= 8, f"{label}: overflow persists after 8 "
                   "rebuilds")
             scheme.refresh_configs(chunk_start, grow=rebuilds > 1)
+            chunk_start = scheme.adapt_scene(chunk_start)
             step = scheme.make_step(chunk_start)
             scene = chunk_start
             print(f"[{label}] step {done}: capacity overflow, rebuilt "
@@ -1782,6 +1830,8 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step,
           f"steps={done} (run {steps_run}) launches " + " ".join(
               f"{k}={v}" for k, v in launches.items() if v and "[" not in k)
           + msg, flush=True)
+    if stats is not None:
+        stats.update(rebuilds=rebuilds_total, steps_run=steps_run)
     if scheme.engine == "nklist":
         lc = scheme._nbr_cfg
         print(f"[{label}] list K {len(lc.stencil) * lc.max_per_cell} (M "
@@ -1794,26 +1844,58 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step,
 
 
 def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
-                          other=None):
+                          other=None, push=True, full=False,
+                          rtol=STEP_RTOL):
     """20 kernel steps against 20 twin steps from one state in the
     scheme's ordering, in contact throughout: the dense box starts GAP dx
     above the floor, engaged, and moving down and sideways.  Sliding,
     because at zero tangential velocity the Coulomb friction's direction
     is the rounding noise of the tangent (the reference model's own
     discontinuity), which no summation-order tolerance holds.  With
-    ``other`` (a scheme), its steps take the twin's place."""
-    scene = scene.replace(vcm=torch.tensor(
-        [[0.05, -0.5, 0.0]], dtype=scene.dtype, device=scene.device))
+    ``other`` (a scheme), its steps take the twin's place; ``push`` a
+    tensor sets the bodies' velocities to it in place of the box's; with
+    ``full`` the kernel steps of the compact store are held against
+    kernel steps of the full route from the same state (at ``rtol``),
+    each run timed, and the steps/s of both are returned.  A compact
+    store is compared through its [N, S] view."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models.rigid_body import (
+        expand_slot_scene, strip_compact_fields)
+
+    if isinstance(push, torch.Tensor):
+        scene = scene.replace(vcm=push)
+    elif push:
+        scene = scene.replace(vcm=torch.tensor(
+            [[0.05, -0.5, 0.0]], dtype=scene.dtype, device=scene.device))
     fast = scheme.make_step(scene)
-    plain = (other.make_step(scene) if other is not None
-             else scheme.make_step(scene, plain=True))
-    ref = "twin" if other is None else other.engine
-    a = b = scene
-    for _ in range(COMPARE_STEPS):
-        a, b = fast(a, dt), plain(b, dt)
+    start_b = scene
+    if full:
+        start_b = strip_compact_fields(expand_slot_scene(scene))
+        plain, ref = scheme.make_step(start_b), "full-route"
+    elif other is not None:
+        plain, ref = other.make_step(scene), other.engine
+    else:
+        plain, ref = scheme.make_step(scene, plain=True), "twin"
+    sps = {}
+    if full:
+        # one step each first, so neither timed run pays a first call
+        fast(scene, dt), plain(start_b, dt)
+        ends = []
+        for fn, c in ((fast, scene), (plain, start_b)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(COMPARE_STEPS):
+                c = fn(c, dt)
+            torch.cuda.synchronize()
+            ends.append((c, COMPARE_STEPS / (time.perf_counter() - t0)))
+        (a, sps["compact"]), (b, sps["full"]) = ends
+    else:
+        a = b = scene
+        for _ in range(COMPARE_STEPS):
+            a, b = fast(a, dt), plain(b, dt)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
           f"{label}: overflow during the coupling step comparison")
+    a, b = expand_slot_scene(a), expand_slot_scene(b)
     for c, who in ((a, "kernel"), (b, ref)):
         check(float(c.overlap.max()) > 0 and
               float(c.delta_lt_x.abs().max()) > 0,
@@ -1828,12 +1910,15 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
     # normal's error, so fn_x and fn_y are held to the largest |fn|
     fn_scale = float(torch.sqrt(b.fn_x ** 2 + b.fn_y ** 2).max())
     bad = []
-    for k in ("x", "y", "u", "v", "rho", "p", "p_fsi", "fx", "fy", "xcm",
-              "vcm", "omega", "force", "contact_force_dist",
-              "closest_point_dist_to_source", "overlap", "fn_x", "fn_y",
-              "delta_lt_x"):
+    keys = ("x", "y", "u", "v", "rho", "p", "p_fsi", "fx", "fy", "xcm",
+            "vcm", "omega", "force", "contact_force_dist",
+            "closest_point_dist_to_source", "overlap", "fn_x", "fn_y",
+            "delta_lt_x")
+    if scene.meta.dim == 3:
+        keys += ("z", "w", "fz", "torque", "delta_lt_z")
+    for k in keys:
         x, y, tol = a[k], b[k], 0.0
-        if k in ("x", "y", "xcm"):
+        if k in ("x", "y", "z", "xcm"):
             # positions as displacements over the run; each drift rounds
             # to the position's f32 grid, so two ulps of |x| on top (the
             # tank is 4 m wide: one ulp is 1e-7 to 5e-7 m)
@@ -1854,19 +1939,25 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
         err = float((x - y).abs().max())
         scale = fn_scale if k in ("fn_x", "fn_y") else float(y.abs().max())
         worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
-        if not bool(((x - y).abs() <= STEP_RTOL * y.abs()
-                     + STEP_RTOL * scale + tol).all()):
+        if not bool(((x - y).abs() <= rtol * y.abs()
+                     + rtol * scale + tol).all()):
             bad.append(f"{k} off by {err:.3e} (scale {scale:.3e})")
     check(not bad, f"{label}: coupling kernel step vs {ref} step (rtol "
-          f"{STEP_RTOL}): " + ", ".join(bad))
+          f"{rtol}): " + ", ".join(bad))
     stepper = (scheme.gtvf_ordering if scheme.fluid_stepper == "gtvf"
                else scheme.fluid_stepper)
+    what = ("8 boxes of rho 8" if scene.meta.nb > 1
+            else f"dense box on the floor, rho {CPL_PARITY_RHO}")
     print(f"[{label}] {stepper}: {COMPARE_STEPS} kernel steps "
-          f"vs {COMPARE_STEPS} {ref} steps (dense box on the floor, rho "
-          f"{CPL_PARITY_RHO}; end "
+          f"vs {COMPARE_STEPS} {ref} steps ({what}; end "
           f"overlap {float(b.overlap.max()):.3e}, |delta_lt_x| "
           f"{float(b.delta_lt_x.abs().max()):.3e}), max abs diff: "
           + ", ".join(worst), flush=True)
+    if full:
+        print(f"[{label}] steps/s over {COMPARE_STEPS} steps: compact "
+              f"{sps['compact']:.2f}, full route {sps['full']:.2f}",
+              flush=True)
+    return sps
 
 
 def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed):
@@ -2111,6 +2202,218 @@ def phase_coupling_3d(scheme, scene, tmp, smi):
           f"{COMPARE_STEPS} twin steps, max abs diff: " + ", ".join(worst),
           flush=True)
     return launches, solver.steps_per_sec
+
+
+def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4):
+    """The compact route's scene: the sinking box's tank at bench.py's
+    coupling size (2D: ``sinking_box_scene``'s 4 x 3 fluid block; 3D:
+    ``sinking_box_scene_3d``'s 1.0 x 0.6 x 0.5 one) with ``rows`` layers
+    of ``cols`` boxes of CPL_BOX_RHO in place of the box, one group each
+    (surface identification runs per group), S = rows x cols + 1 (9 by
+    default): the first layer on the tank floor (a row in 2D, cols / 2 x
+    2 in 3D), each next one on top of the last, each face CPL_BOX_GAP dx
+    over what it rests on, columns CPL_BOX_COL_GAP dx apart; the fluid
+    carved a dx around each box, hydrostatic pressure, the boxes' shadow
+    mass and density; the even layers sliding at +CPL_BOX_SLIDE (x, and z
+    in 3D), the odd ones at -CPL_BOX_SLIDE.  Set up through the scheme
+    on the compact store (its threshold set to the reference's 8
+    entities).  Returns (scheme, scene, dt)."""
+    from rigid_body_2d_3d_pysph_tpu_torch import config
+    from rigid_body_2d_3d_pysph_tpu_torch.geom import (
+        get_2d_block, get_3d_block, get_fluid_tank_3d, hydrostatic_tank_2d)
+    from rigid_body_2d_3d_pysph_tpu_torch.models import (
+        RigidFluidCouplingScheme)
+    from rigid_body_2d_3d_pysph_tpu_torch.state import (
+        make_group, build_scene, ROLE_RIGID, ROLE_BOUNDARY, ROLE_FLUID)
+
+    rho_f, gy, n_boxes = 1.0, -1.0, rows * cols
+    if dim == 2:
+        dx = 0.02 * np.sqrt(33_000.0 / max(n_target, 2000))
+        H = 3.0
+        xf, yf, xt, yt = hydrostatic_tank_2d(4.0, H, 5.0, 3, dx, dx)
+        zf, zt = np.zeros_like(xf), np.zeros_like(xt)
+        xb, yb = get_2d_block(dx, CPL_BOX_SIDE - dx, CPL_BOX_SIDE - dx)
+        zb = np.zeros_like(xb)
+        cells = [(i, 0) for i in range(cols)]
+    else:
+        dx = 0.0175 * (96_921.0 / n_target) ** (1.0 / 3.0)
+        H = 0.6
+        xf, yf, zf, xt, yt, zt = get_fluid_tank_3d(
+            1.0, H, 0.5, 1.0, 0.8, 3, dx, dx, hydrostatic=True)
+        side = CPL_CUBE_SIDE - dx
+        xb, yb, zb = get_3d_block(dx, side, side, side)
+        cells = [(i, k) for k in range(2) for i in range(cols // 2)]
+    co = 10 * np.sqrt(2 * 9.81 * H)
+    p0 = -rho_f * gy * (yf.max() - yf)
+    xb, yb, zb = xb - xb.min(), yb - yb.min(), zb - zb.min()
+    span = float(xb.max())
+    pitch = span + CPL_BOX_COL_GAP * dx
+    nx = max(i for i, _ in cells) + 1
+    nz = max(k for _, k in cells) + 1
+    x0 = 0.5 * (xf.min() + xf.max()) - 0.5 * (nx * pitch - pitch + span)
+    z0 = 0.5 * (zf.min() + zf.max()) - 0.5 * (nz * pitch - pitch + span)
+    floor_top = float(yt[yt < yf.min() - 0.5 * dx].max())
+    boxes = []
+    for row in range(rows):
+        y0 = floor_top + CPL_BOX_GAP * dx + row * (span + CPL_BOX_GAP * dx)
+        for i, k in cells:
+            boxes.append((xb + x0 + i * pitch, yb + y0,
+                          zb + z0 + k * pitch if dim == 3 else zb))
+    keep = np.ones(len(xf), bool)
+    for bx, by, bz in boxes:
+        cut = ((xf > bx.min() - dx) & (xf < bx.max() + dx)
+               & (yf > by.min() - dx) & (yf < by.max() + dx))
+        if dim == 3:
+            cut &= (zf > bz.min() - dx) & (zf < bz.max() + dx)
+        keep &= ~cut
+    m = dx ** dim
+    zk = dict(z=zf[keep]) if dim == 3 else {}
+    groups = [make_group("fluid", xf[keep], yf[keep], m=rho_f * m, h=dx,
+                         rho=rho_f, role=ROLE_FLUID, p=p0[keep], **zk),
+              make_group("tank", xt, yt, m=rho_f * m, h=dx, rho=rho_f,
+                         rad_s=dx / 2.0, role=ROLE_BOUNDARY, dem_id=n_boxes,
+                         **(dict(z=zt) if dim == 3 else {}))]
+    names = []
+    for b, (bx, by, bz) in enumerate(boxes):
+        names.append(f"box{b}")
+        groups.append(make_group(
+            names[-1], bx, by, m=CPL_BOX_RHO * m, h=dx, rho=CPL_BOX_RHO,
+            rad_s=dx / 2.0, role=ROLE_RIGID,
+            body_id=np.zeros(len(bx), np.int32),
+            dem_id=np.full(len(bx), b, np.int32),
+            **(dict(z=bz) if dim == 3 else {})))
+    scene = build_scene(groups, dim=dim, total_no_bodies=n_boxes + 1,
+                        spacing0=dx, device=dev, dtype=config.WORK_DTYPE)
+    scheme = RigidFluidCouplingScheme(
+        ["fluid"], ["tank"], names, dim=dim, rho0=rho_f, p0=rho_f * co**2,
+        c0=co, h=dx, nu=0.0, gy=gy)
+    if dim == 3:
+        scheme.kr = CPL_CUBE_KR
+    scheme.compact_min_bodies = 8
+    scene = scheme.setup(scene)
+    check("cl_pid" in scene, "the boxes' coupling scene was not set up "
+          "on the compact store")
+    rb = scene.is_rigid
+    sign = [1.0 - 2.0 * ((b // cols) % 2) for b in range(n_boxes)]
+    slide = [[CPL_BOX_SLIDE * sg, 0.0, CPL_BOX_SLIDE * sg * (dim == 3)]
+             for sg in sign]
+    scene = scene.replace(
+        m_fsi=torch.where(rb, scene.m_fsi + rho_f * m, scene.m_fsi),
+        rho_fsi=torch.where(rb, rho_f, scene.rho_fsi),
+        vcm=torch.tensor(slide, dtype=scene.dtype, device=scene.device))
+    scene = settle_boxes(scheme, scene, abs(gy) * (1.0 - rho_f
+                                                   / CPL_BOX_RHO), cols)
+    return scheme, scene, 0.25 * dx / (co * 1.1)
+
+
+def settle_boxes(scheme, scene, g_eff, cols):
+    """Move each box of ``boxes_tank_scene`` (layers of ``cols``) in y so
+    that it starts pressed by half its load: the contact pass on the
+    set-up state gives the Eq.-21 distance of its bottom face to what it
+    rests on (the median over the face's particles: those within half a
+    dx of the least distance); the overlap it is left with is half of
+    load / (kr n_face), the load (``g_eff`` = g less the buoyancy) its
+    own and that of the boxes stacked on it.  A box above moves with the
+    box under it first.  Returns the scene moved."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    dim, dx = scene.meta.dim, scene.meta.spacing0
+    S, nb = scene.meta.total_no_bodies, scene.meta.nb
+    cfg = scheme._cell_cfg
+    kernel = get_kernel(scheme.kernel_name, dim)
+    grid, _, dfT = fk.pack_fluid_sorted(scene, cfg)
+    cp = tck.contact_pipeline_cell(
+        tck.contact_pack(dfT, fk.UNION_LAYOUT, dim == 2), grid, cfg, kernel,
+        S, 4.0 * dx, scene.n)
+    bid = torch.where(scene.is_rigid, scene.body_id.to(torch.int64), -1)
+    mass = scene.total_mass.reshape(-1).double().cpu().numpy()
+    shift = np.zeros(nb)
+    for b in range(nb):
+        below = S - 1 if b < cols else b - cols
+        d = cp[bid == b, 4, below]
+        d = d[d > 0].double().cpu()
+        check(len(d) > 0, f"box {b} has no contact with what it rests on")
+        d = d[d < d.min() + 0.5 * dx]          # the bottom face's lanes
+        load = float(mass[b::cols].sum())      # itself and its stack
+        target = 0.5 * load * g_eff / (scheme.kr * len(d))
+        shift[b] = (dx - target) - float(d.median())
+        if b >= cols:
+            shift[b] += shift[below]
+    sh = torch.as_tensor(shift, dtype=scene.dtype, device=scene.device)
+    dy = torch.where(scene.is_rigid, sh[torch.clamp(bid, min=0)],
+                     torch.zeros_like(scene.y))
+    xcm = scene.xcm.clone()
+    xcm[:, 1] += sh
+    print(f"[settle] box y moves (dx): " + " ".join(
+        f"{v / dx:+.2e}" for v in shift), flush=True)
+    return scene.replace(y=scene.y + dy, xcm=xcm)
+
+
+def phase_coupling_compact(dev, dim, n_steps, smi, n_target=CPL_N):
+    """The kdkf step on the compact store (phases 42-43): the boxes' scene
+    set up (the compact store, S = 9), then ``make_step`` -> ``step`` for
+    ``n_steps`` in chunks with the overflow-rebuild rule under phase 11's
+    gates but the sinking (one K1, B4 and B5 launch a step, no K2); the
+    end state in contact (engaged slots) with tangential springs in
+    ``cl_state``; n_interesting, ni_max and the rebuilds printed; then
+    from the set-up state, the boxes pushed down (the top row at twice
+    the speed), 20 kernel steps against 20 plain steps
+    (STEP_RTOL) and 20 compact against 20 full-route
+    kernel steps (COMPACT_RTOL), with both routes' steps/s.  Returns
+    (launches, stats)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models.rigid_body import (
+        expand_slot_scene)
+
+    label = f"cpl-compact-{dim}d"
+    t0 = time.perf_counter()
+    scheme, scene, dt = boxes_tank_scene(dev, dim, n_target)
+    cfg = scheme._cell_cfg
+    S = scene.meta.total_no_bodies
+    ni0 = scheme.ni_max(cfg)
+    print(f"[{label}-setup] n={scene.n} rigid {int(scene.is_rigid.sum())} "
+          f"S={S} dt={dt:.6g} NC={cfg.NC_max} M={cfg.M} O={cfg.O} "
+          f"ni_max={ni0} store L={scene.cl_pid.shape[0]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    stats = {}
+    end, launches, sps = phase_coupling_main(
+        scheme, scene, dt, n_steps, label, smi,
+        dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1),
+        sink=False, stats=stats)
+    check("cl_pid" in end and "contact_force_normal_x" not in end,
+          f"{label}: the run left the compact store")
+    full = expand_slot_scene(end)
+    engaged = int((full.overlap > 0).sum())
+    spr = end.cl_state[:, 12 * S:15 * S]        # delta_lt x, y, z blocks
+    n_spr = int((spr != 0).any(1).sum())
+    n_int = int(end.n_interesting)
+    ni = scheme.ni_max(scheme._cell_cfg)
+    check(engaged > 0, f"{label}: no engaged contact at the end")
+    check(n_spr > 0, f"{label}: no tangential spring in cl_state at the "
+          "end")
+    check(n_int <= ni, f"{label}: {n_int} interesting slots > ni_max {ni}")
+    ov = float(full.overlap.max())
+    print(f"[{label}] n_interesting {n_int}, ni_max {ni} (set-up {ni0}), "
+          f"store L {end.cl_pid.shape[0]}, rebuilds {stats['rebuilds']} "
+          f"(boost {scheme.capacity_boost:.3f}); at the end {engaged} "
+          f"engaged contact slots, {n_spr} store lanes with a tangential "
+          f"spring, max overlap {ov:.3e}, max |delta_lt_x| "
+          f"{float(full.delta_lt_x.abs().max()):.3e}", flush=True)
+    stats.update(n=end.n, n_interesting=n_int, ni_max=ni, engaged=engaged,
+                 springs=n_spr, steps_per_s=sps)
+    # the comparisons push the boxes down as phase 13 does its box (the
+    # top row at twice the speed): at the settled overlap, a face's edge
+    # lanes sit at the engagement threshold, and kernel and twin part
+    # ways where their sums' rounding puts one lane on either side
+    push = scene.vcm.clone()
+    push[:, 1] -= 0.5 * (1 + (torch.arange(scene.meta.nb, device=push.device)
+                              >= scene.meta.nb // 2).to(push.dtype))
+    phase_coupling_parity(scheme, scene, dt, f"{label}-parity", push=push)
+    stats["route_sps"] = phase_coupling_parity(
+        scheme, scene, dt, f"{label}-vs-full", push=push, full=True,
+        rtol=COMPACT_RTOL)
+    return launches, stats
 
 
 def phase_benchmark_5(tmp, smi):
@@ -3624,6 +3927,15 @@ def main() -> int:
         skin_launches, skin_stats = phase_skin(dev, smi)
         print(f"[sph] phases 39-41 in {time.perf_counter() - t_sph:.1f} s",
               flush=True)
+
+        # 42. the compact store on the 2D boxes' scene, 43. in 3D
+        t_cc = time.perf_counter()
+        cc2_launches, cc2 = phase_coupling_compact(dev, 2, CPL_BOXES_STEPS,
+                                                   smi)
+        cc3_launches, cc3 = phase_coupling_compact(
+            dev, 3, CPL_BOXES_3D_STEPS, smi)
+        print(f"[compact] phases 42-43 in {time.perf_counter() - t_cc:.1f} "
+              "s", flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3651,7 +3963,9 @@ def main() -> int:
         ("slab-dem-2d", slabd["launches_long"]),
         ("slab-coupling-kdk-2d", slabc["kdk"]["launches_long"]),
         ("slab-coupling-kdkf-2d", slabc["kdkf"]["launches_long"]),
-        ("slab-coupling-kdkf-3d", slabc3["launches"]))
+        ("slab-coupling-kdkf-3d", slabc3["launches"]),
+        ("coupling-compact-2d", cc2_launches),
+        ("coupling-compact-3d", cc3_launches))
         + ((("slab-rigid-2d-cards", slab_cards["launches"]["blob"]),)
            if slab_cards else ())
         if c.get(k)}
@@ -3885,6 +4199,14 @@ def main() -> int:
           f"{skin_stats['steps']} steps, K2 {skin_launches['contact']} and "
           f"K1 {skin_launches['pack_expand']} launches; on {smi}",
           flush=True)
+    print("[done] compact coupling store (S = 9): " + "; ".join(
+        f"{d}D n={c['n']} {c['steps_per_s']:.2f} steps/s over "
+        f"{c['steps_run']} steps run, n_interesting {c['n_interesting']} "
+        f"of ni_max {c['ni_max']}, rebuilds {c['rebuilds']}, "
+        f"{c['engaged']} engaged slots and {c['springs']} spring lanes at "
+        f"the end, 20-step steps/s compact {c['route_sps']['compact']:.2f} "
+        f"vs full route {c['route_sps']['full']:.2f}"
+        for d, c in ((2, cc2), (3, cc3))) + f"; on {smi}", flush=True)
     print(f"[done] slab coupling: 2D kdk P={SLAB_P} "
           f"{slabc['kdk']['sps']:.2f} steps/s, kdkf P={SLAB_P} "
           f"{slabc['kdkf']['sps']:.2f} steps/s, P=1 "

@@ -258,10 +258,8 @@ class _RigidBodySchemeBase(Scheme):
         if "g_xb" in scene and self.cell_config(scene, kernel) \
                 != self._grid_cfg:
             scene = self._attach_grid(scene, kernel)
-        if "cl_pid" in scene:
-            cfg = self.cell_config(scene, kernel)
-            return migrate_compact_scene(scene, self.ni_max(cfg) * cfg.M)
-        return scene
+        return fit_compact_store(scene, self.cell_config(scene, kernel),
+                                 self.capacity_boost)
 
     def export_scene(self, scene: Scene) -> Scene:
         """IO view: the [N, S] slot fields materialised."""
@@ -281,9 +279,7 @@ class _RigidBodySchemeBase(Scheme):
         """Interesting-slot capacity: NC for small contact-dense scenes,
         a small fraction of NC at scale (interest is surface-bound); the
         overflow rebuild widens it through capacity_boost."""
-        nc = cfg.NC_max
-        ni = int(np.ceil(max(512, nc // 16) * self.capacity_boost))
-        return min(nc, ni)
+        return compact_capacity(cfg, self.capacity_boost)
 
     def make_step(self, scene: Scene, plain: bool = False):
         """The ``integrator``'s step on the scheme's ``engine`` as an
@@ -411,6 +407,27 @@ def _particles_from_body_position(scene):
 # ---------------------------------------------------------------------------
 # compact slot store
 # ---------------------------------------------------------------------------
+
+# the least interesting-slot capacity before ``capacity_boost``
+NI_MAX_FLOOR = 512
+
+
+def compact_capacity(cfg: cellmod.CellGridConfig, boost: float) -> int:
+    """Interesting-slot capacity of the compact route at ``boost``
+    (``capacity_boost``): NC for small contact-dense scenes, a small
+    fraction of NC at scale (interest is surface-bound)."""
+    nc = cfg.NC_max
+    return min(nc, int(np.ceil(max(NI_MAX_FLOOR, nc // 16) * boost)))
+
+
+def fit_compact_store(scene: Scene, cfg: cellmod.CellGridConfig,
+                      boost: float) -> Scene:
+    """Pad a compact store to its capacity on ``cfg`` at ``boost`` (after
+    an overflow rebuild raised it); a full scene passes through."""
+    if "cl_pid" not in scene:
+        return scene
+    return migrate_compact_scene(scene, compact_capacity(cfg, boost) * cfg.M)
+
 
 def compact_slot_scene(scene: Scene, L: int) -> Scene:
     """Replace the 25 [N, S] slot fields with the compact store of
@@ -594,10 +611,14 @@ def rigid_contact_force_eval_compact_blob(scene, cell_cfg, kernel, params,
     return scene.replace(fx=fx, fy=fy, fz=fz, slot_blob=blob[:n]), cc
 
 
-def _compact_contact_tail(scene, flat, pid, u_c, v_c, w_c, params, dt):
+def _compact_contact_tail(scene, flat, pid, u_c, v_c, w_c, params, dt,
+                          extra_fx=None):
     """Eq.-24 tail, force assembly and the new compact slot store on the
-    compacted lanes.  ``flat`` [L, 12 S]: the contact output blocks in
-    ``CL_FIELDS[:12]`` order; ``pid`` [NI, M] particle ids (n = empty)."""
+    compacted lanes.  ``flat`` [L, >= 12 S]: the contact output blocks in
+    ``CL_FIELDS[:12]`` order; ``pid`` [NI, M] particle ids (n = empty);
+    ``extra_fx`` the coupling step's fluid -> rigid force (fx, fy, fz)
+    [N] each, added before the body sums as the full route adds it, or
+    None."""
     n, S = scene.n, scene.meta.total_no_bodies
     L = flat.shape[0]
     fdt, dev = scene.dtype, scene.device
@@ -649,6 +670,9 @@ def _compact_contact_tail(scene, flat, pid, u_c, v_c, w_c, params, dt):
     fx = fxg + dxyz[:, 0]
     fy = fyg + dxyz[:, 1]
     fz = fzg + dxyz[:, 2]
+    if extra_fx is not None:
+        efx, efy, efz = extra_fx
+        fx, fy, fz = fx + efx, fy + efy, fz + efz
     force, torque = rops.sum_up_external_forces(scene, fx, fy, fz)
 
     new_state = torch.cat([flat[:, :12 * S]]

@@ -59,9 +59,34 @@ for kdk's forces (and one at x_n for its rates), one at x_n for the
 reference staging; kdkf runs kdk there, and the RK2 stepper raises, as
 in the reference.  It launches no hand-written kernel.
 
+With S >= ``compact_min_bodies`` entities, kdkf keeps the contact slot
+state in the compact store of the rigid scheme (``cl_pid``,
+``cl_state``; ``rigid_body.compact_slot_scene``), the route the
+reference takes on its TPU from S = 8 (``setup`` :196-205, the branch
+of ``_make_step_cell_kdkf`` :549-579 and :716-724).  B5 runs on every
+slot as before; the light cull (``contact_kernel.cull_rigid_query_slots``)
+picks the slots that hold a rigid lane; B5's contact columns are read
+at the first ``ni_max`` of them only; the one unpack takes the 13 fluid
+columns; and the Eq.-24 tail runs on the culled lanes
+(``rigid_body._compact_contact_tail``, with the fluid -> rigid force
+added before the body sums).  More interesting slots than ``ni_max``
+raise ``nbr_overflow``, and the overflow rebuild widens the store
+(``adapt_scene``).  The launches are those of the full route, one K1,
+one B4 and one B5 a step, and the results are the full route's bit for
+bit.  The gate (``_compact_enabled``) is the reference's, with the cell
+engine for its Pallas engine, and fluid present: the reference
+compacts a scene with no fluid group too, whose kdk step then reads the
+slot fields that the store replaced.  Like the rigid scheme's compact
+route, it runs on every device and SPH kernel (the kernels' plain
+versions on CPU tensors).  RK2, kdk, reference, the list engine and
+fewer entities keep the full ``[N, S]`` schema.  ``compact_min_bodies``
+is None (off) by default: on an H100 the compact route measured slower
+than the full one at every S tried (``scripts/compact_crossover.py``;
+its cull, gather and inverse table add ~95 launches to a host-bound
+step); 8 gives the reference's gate.
+
 Bodies are integrated in 3D (``two_d=False``) even in 2D scenes, as the
-reference does.  Not ported: the compact contact tail at S >= 8
-(ROADMAP A4).
+reference does.
 """
 
 from __future__ import annotations
@@ -84,7 +109,12 @@ from .rigid_body import (
     _attach_contact_fields,
     _body_drift,
     _body_half_kick,
+    _compact_contact_tail,
     _contact_tail,
+    compact_capacity,
+    compact_slot_scene,
+    expand_slot_scene,
+    fit_compact_store,
     _particles_from_body_position,
     _particles_from_body_velocity,
     _rk2_body_stage,
@@ -98,6 +128,9 @@ from .rigid_body import (
 FLUID_FIELDS = ("rho_fsi", "m_fsi", "p_fsi", "wij_adami", "uf", "vf", "wf",
                 "ug", "vg", "wg", "arho", "ap", "au", "av", "aw", "vol",
                 "cs", "x0", "y0", "z0", "u0", "v0", "w0", "rho0_rk")
+# entities (bodies and walls) from which kdkf keeps the compact store;
+# None: never (slower than the full route on an H100 up to S = 49)
+COMPACT_MIN_BODIES = None
 
 
 class RigidFluidCouplingScheme(Scheme):
@@ -127,6 +160,7 @@ class RigidFluidCouplingScheme(Scheme):
         self.gtvf_ordering = "kdkf"
         # "gtvf" (in ``gtvf_ordering``) or "rk2" (Tait only)
         self.fluid_stepper = "gtvf"
+        self.compact_min_bodies = COMPACT_MIN_BODIES
         self._cell_cfg = None
 
     @property
@@ -198,7 +232,37 @@ class RigidFluidCouplingScheme(Scheme):
                     scene, kernel, self.cell_config(scene, kernel), names)
             scene = scene.replace(
                 contact_force_is_boundary=scene.is_boundary.to(fdt))
+        if self._compact_enabled() and self.compact_min_bodies is not None \
+                and scene.meta.total_no_bodies >= self.compact_min_bodies:
+            kernel = get_kernel(self.kernel_name, self.dim)
+            cfg = self.cell_config(scene, kernel)
+            scene = compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
         return scene
+
+    def _compact_enabled(self) -> bool:
+        """The compact store's gate (reference :207-223): the fused kdkf
+        GTVF step on the cell engine, with rigid bodies and fluid."""
+        return (self.engine == "cell" and self.gtvf_ordering == "kdkf"
+                and self.fluid_stepper == "gtvf"
+                and bool(self.rigid_bodies) and bool(self.fluids))
+
+    def ni_max(self, cfg: cellmod.CellGridConfig) -> int:
+        """Interesting-slot capacity (reference :225-228), widened by the
+        overflow rebuild through ``capacity_boost``."""
+        return compact_capacity(cfg, self.capacity_boost)
+
+    def adapt_scene(self, scene: Scene) -> Scene:
+        """Pad the compact store to the current capacity (after an
+        overflow rebuild raised ``ni_max``)."""
+        scene = super().adapt_scene(scene)
+        if "cl_pid" not in scene:
+            return scene
+        return fit_compact_store(scene, self.cell_config(scene, get_kernel(
+            self.kernel_name, self.dim)), self.capacity_boost)
+
+    def export_scene(self, scene: Scene) -> Scene:
+        """IO view: the [N, S] slot fields materialised."""
+        return expand_slot_scene(scene)
 
     def cell_config(self, scene: Scene, kernel) -> cellmod.CellGridConfig:
         if self._cell_cfg is None:
@@ -240,6 +304,14 @@ class RigidFluidCouplingScheme(Scheme):
                                      or self.engine == "nklist"):
             # the fusion changes the fluid's grid schedule only
             ordering = "kdk"
+        compact = "cl_pid" in scene
+        if compact and not (self._compact_enabled() and ordering == "kdkf"):
+            raise ValueError(
+                "the scene holds the compact contact store, which only the "
+                "kdkf step on the cell engine with fluid and bodies reads: "
+                "set the scene up under the scheme's present settings, or "
+                "expand it (rigid_body.expand_slot_scene and "
+                "strip_compact_fields)")
         kernel = get_kernel(self.kernel_name, self.dim)
         params = dict(kr=self.kr, kf=self.kf, fric_coeff=self.fric_coeff,
                       gx=self.gx, gy=self.gy, gz=self.gz)
@@ -259,6 +331,8 @@ class RigidFluidCouplingScheme(Scheme):
             has_rigid=len(self.rigid_bodies) > 0, plain=plain)
         if ordering != "kdkf":
             args["has_fluid"] = len(self.fluids) > 0
+        elif compact:
+            args["ni_max"] = self.ni_max(args["cfg"])
         if ordering == "rk2":
             del args["edac"]
         return step_builds[ordering](**args)
@@ -346,11 +420,33 @@ def _apply_wall_forces(scene, wall, forces, gvec):
         aw=torch.where(fl, gvec[2] + forces[:, 2], zero))
 
 
+def culled_lanes(scene, dfT, pt, fc, cfg,
+                 ni_max: int) -> tck.CompactContact:
+    """The compact route's light cull on the coupling pack ``dfT`` and
+    B5's rows ``fc [NC, M, 12 S + 6]`` at its first ``ni_max`` slots
+    (``out``), with their lanes' particles and query velocities
+    (reference :556-574)."""
+    NC, M = cfg.NC_max, cfg.M
+    interesting, islot = tck.cull_rigid_query_slots(dfT, pt.slot_cid, cfg)
+    n_int = interesting.to(torch.int64).sum()
+    isl = islot[:ni_max]
+    valid = isl < NC
+    isl_c = torch.clamp(isl, 0, NC - 1)
+    qsel = torch.where(valid, isl, torch.full_like(isl, NC))
+    pid, u_c, v_c, w_c = tck.compact_lanes(
+        dfT, pt, qsel, valid, isl_c, scene.n, M, (fk.FU, fk.FV, fk.FW))
+    return tck.CompactContact(out=fc[isl_c], pid=pid, u=u_c, v=v_c, w=w_c,
+                              overflow=n_int > ni_max, n_interesting=n_int)
+
+
 def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
                              nu_edac: float, c0: float, rho0: float,
                              gamma: float, fluid_alpha: float,
-                             has_rigid: bool, plain: bool = False):
-    """One fused kdkf timestep (see the module docstring)."""
+                             has_rigid: bool, plain: bool = False,
+                             ni_max: int = 0):
+    """One fused kdkf timestep (see the module docstring); ``ni_max > 0``
+    takes the compact route on a scene that holds the compact store, and
+    records the light cull's count in ``scene.n_interesting``."""
     gvec = (params["gx"], params["gy"], params["gz"])
     NC = cfg.NC_max
     cutoff = cfg.radius
@@ -358,7 +454,8 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
     def eval_passes(scene, dt):
         """Build, pack and the pair passes with the dense column patches
         between them -> (grid, [N, 13] = arho, ap, uf, vf, wf, sw, p_num,
-        au, av, aw, fx, fy, fz, contact columns [N, 12, S] or None)."""
+        au, av, aw, fx, fy, fz, contact: the columns [N, 12, S], the
+        culled lanes (``ni_max > 0``) or None)."""
         if plain:
             rates_wall = fk.fluid_rates_wall_reference
             forces = fk.fluid_forces_reference
@@ -367,7 +464,7 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
             rates_wall, forces = fk.fluid_rates_wall, fk.fluid_forces
             forces_contact = fk.fluid_forces_contact
         S = scene.meta.total_no_bodies
-        grid, _, dfT = fk.pack_fluid_sorted(scene, cfg, plain)
+        grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg, plain)
         nbr = grid.nbr_slots
         _, _, sb, fl, rg = fk.decode_flags(dfT[:NC, fk.FFLAGS])
         fl_l, bd_l, rb_l = fl == 1.0, sb == 1.0, rg == 1.0
@@ -399,6 +496,10 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
             return grid, flat.to(scene.dtype), None
         fc = forces_contact(dfT, nbr, kernel, cutoff, fluid_alpha, c0, S,
                             4.0 * scene.meta.spacing0)    # [NC, M, 12S + 6]
+        if ni_max:
+            out = unpack(grid, cfg, torch.cat([rw, fc[..., 12 * S:]], -1),
+                         scene.n, 0.0).to(scene.dtype)
+            return grid, out, culled_lanes(scene, dfT, pt, fc, cfg, ni_max)
         flat = unpack(grid, cfg, torch.cat([rw, fc], -1), scene.n,
                       0.0).to(scene.dtype)
         out = torch.cat([flat[:, :7], flat[:, 7 + 12 * S:]], 1)
@@ -432,12 +533,20 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
                                            rho0, c0, gamma, fl)
         scene = _apply_wall_forces(scene.replace(**upd), out[:, 2:7],
                                    out[:, 7:], gvec)
+        ovf = scene.nbr_overflow | grid.overflow
         if has_rigid:
             extra = tuple(torch.where(rb, out[:, c], zero)
                           for c in (10, 11, 12))
-            scene = _contact_tail(scene, cp, params, dt, extra)
-        scene = scene.replace(nbr_overflow=scene.nbr_overflow
-                              | grid.overflow)
+            if ni_max:
+                flat = cp.out.reshape(-1, cp.out.shape[-1]).to(scene.dtype)
+                scene = _compact_contact_tail(
+                    scene, flat, cp.pid, cp.u, cp.v, cp.w, params=params,
+                    dt=dt, extra_fx=extra)
+                scene = scene.with_fields(n_interesting=cp.n_interesting)
+                ovf = ovf | cp.overflow
+            else:
+                scene = _contact_tail(scene, cp, params, dt, extra)
+        scene = scene.replace(nbr_overflow=ovf)
         return _kick(scene, dt, fl, True, has_rigid)
 
     return step

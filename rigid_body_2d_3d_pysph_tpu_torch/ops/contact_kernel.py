@@ -2,10 +2,12 @@
 
 Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/pallas_contact.py``:
 the packed contact fields and their sentinels, the interest cull
-(``_cull_interesting_slots``, plain PyTorch here as it is XLA there),
-the contact sums (``contact_sums``: ``csrc/contact.cu`` for CUDA
-tensors, :func:`contact_sums_reference` for CPU tensors) and the compact
-pipeline that drives pack expansion, cull and contact sums.
+(``_cull_interesting_slots``, plain PyTorch here as it is XLA there) and
+the light cull of the coupling step's compact route
+(``_cull_rigid_query_slots``), the contact sums (``contact_sums``:
+``csrc/contact.cu`` for CUDA tensors, :func:`contact_sums_reference`
+for CPU tensors) and the compact pipeline that drives pack expansion,
+cull and contact sums.
 
 The cell pipeline (:func:`contact_pipeline_cell`, the coupling steps'
 contact pass) runs the same sums on every slot of a grid that exists, on
@@ -153,6 +155,28 @@ def cull_interesting_slots(dfT, slot_cid, cfg: CellGridConfig):
     uniform = (qdmin == qdmax) & (sminu == smaxu) & (qdmin == sminu)
     interesting = has_q & has_s & ~uniform & live
     iota = torch.arange(NC, dtype=torch.int64, device=dev)
+    islot = torch.sort(torch.where(interesting, iota,
+                                   torch.full_like(iota, NC))).values
+    return interesting, islot
+
+
+def cull_rigid_query_slots(dfT, slot_cid, cfg: CellGridConfig):
+    """The light interest test on the coupling pack ``dfT`` (the union
+    layout of ``pallas_contact.py:578-603``, its flags word read by
+    ``fluid_kernel.decode_flags``): a slot is interesting if and only if
+    it holds a rigid query lane and is live (``slot_cid < G``).  A
+    superset of :func:`cull_interesting_slots` (a rigid query with no
+    gated source writes the init row), for scenes whose rigid particles
+    are few among many (the coupling scheme).  Returns ``(interesting
+    [NC] bool, islot [NC])`` with the interesting slot ids first,
+    ascending, then NC."""
+    from .fluid_kernel import FFLAGS, decode_flags as decode_union
+
+    NC = cfg.NC_max
+    G = cfg.n_cells_total
+    rigid = decode_union(dfT[:NC, FFLAGS, :])[4]
+    interesting = (rigid == 1.0).any(1) & (slot_cid < G)
+    iota = torch.arange(NC, dtype=torch.int64, device=dfT.device)
     islot = torch.sort(torch.where(interesting, iota,
                                    torch.full_like(iota, NC))).values
     return interesting, islot
@@ -401,6 +425,24 @@ def select_queries(dfT, grid, pt, cfg: CellGridConfig, ni_max: int):
     return qsel, nbr, valid, isl_c, interesting.to(torch.int64).sum()
 
 
+def compact_lanes(dfT, pt, qsel, valid, isl_c, n: int, M: int, rows):
+    """The culled rows' lanes: ``(pid [NI, M], u, v, w [NI, M])``, each
+    lane's particle id from the sorted-pack tables (n = empty lane) and
+    its query velocity from the pack's rows ``rows = (u, v, w)`` of the
+    query slots ``qsel`` (``w = None``: zeros, the 2D contact pack)."""
+    base_c = torch.where(valid, pt.base[isl_c], torch.full_like(qsel, n))
+    cnt_c = torch.where(valid, pt.cnt[isl_c], torch.zeros_like(qsel))
+    lane = torch.arange(M, device=dfT.device)[None, :]
+    sidx = torch.clamp(base_c[:, None] + lane, 0, max(n - 1, 0))
+    pid = torch.where(lane < cnt_c[:, None], pt.sorted_pid[sidx],
+                      torch.full_like(sidx, n))
+    qI = dfT[qsel]                                       # [NI, F, M]
+    iu, iv, iw = rows
+    u_c, v_c = qI[:, iu], qI[:, iv]
+    w_c = torch.zeros_like(u_c) if iw is None else qI[:, iw]
+    return pid, u_c, v_c, w_c
+
+
 def contact_pipeline_compact(scene, cfg: CellGridConfig,
                              kernel: Kernel, ni_max: int,
                              plain: bool = False) -> CompactContact:
@@ -421,17 +463,9 @@ def contact_pipeline_compact(scene, cfg: CellGridConfig,
     out = sums(dfT, qsel, nbr, S, cfg.radius, 4.0 * scene.meta.spacing0,
                kernel)
 
-    # original particle id per compacted lane (empty lanes -> n)
-    base_c = torch.where(valid, pt.base[isl_c], torch.full_like(qsel, n))
-    cnt_c = torch.where(valid, pt.cnt[isl_c], torch.zeros_like(qsel))
-    lane = torch.arange(M, device=scene.device)[None, :]
-    sidx = torch.clamp(base_c[:, None] + lane, 0, max(n - 1, 0))
-    pid = torch.where(lane < cnt_c[:, None], pt.sorted_pid[sidx],
-                      torch.full_like(sidx, n))
-
-    qI = dfT[qsel]                                       # [NI, F, M]
-    u_c, v_c = qI[:, fi["u"]], qI[:, fi["v"]]
-    w_c = torch.zeros_like(u_c) if two_d else qI[:, fi["w"]]
+    pid, u_c, v_c, w_c = compact_lanes(
+        dfT, pt, qsel, valid, isl_c, n, M,
+        (fi["u"], fi["v"], None if two_d else fi["w"]))
     return CompactContact(out=out, pid=pid, u=u_c, v=v_c, w=w_c,
                           overflow=grid.overflow | (n_int > ni_max),
                           n_interesting=n_int)

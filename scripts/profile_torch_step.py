@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_step.py [--steps 20]
         [--paths rigid,dem,rowwin,coupling,coupling-kdk,coupling-reference,
+                 coupling-compact,coupling-full,
                  list-rigid,list-rigid-3d,list-dem,list-coupling-kdk,
                  list-coupling-reference]
 
@@ -11,8 +12,12 @@ main path of ``chip_smoke.py`` (the 2D rigid contact step at ~105k
 particles, the 2D DEM step on the spill grid and on the row-window grid
 at ~104k particles, the coupling step of the sinking box at ~96.9k
 particles in the fused kdkf ordering, the kdk and the reference
-ordering; the ``list-`` paths: the same steps, and the 3D cubes' GTVF
-step, on the ``[N, K]`` list engine), on the same scenes, it prints:
+ordering; ``coupling-compact``: the kdkf step on the compact contact
+store on phase 42's scene, 8 boxes of rho 8 in the sinking box's tank,
+S = 9, and ``coupling-full``: the same scene and step on the full
+``[N, S]`` schema; the ``list-`` paths: the same steps, and the 3D
+cubes' GTVF step, on the ``[N, K]`` list engine), on the same scenes, it
+prints:
 
 * untraced ms/step (host clock around ``--steps`` steps ending in a
   synchronise), after a warm-up chunk;
@@ -68,8 +73,18 @@ SPANS = {
                  (fk, "fluid_rates_wall", "B4 rates + wall sums"),
                  (fk, "fluid_forces_contact", "B5 forces + contact"),
                  (cpl, "unpack", "unpack"),
-                 (cpl, "_contact_force_tail", "L3 Eq.-24 tail")],
+                 (cpl, "_contact_tail", "L3 Eq.-24 tail")],
 }
+# phase 42's scene: the compact store (the light cull and B5's rows at
+# the culled slots, the tail on their lanes) and the full [N, S] route
+_CPL_PASSES = SPANS["coupling"][:4]
+SPANS["coupling-compact"] = _CPL_PASSES + [
+    (cpl, "culled_lanes", "L2 light cull + lane gather"),
+    (cpl, "unpack", "unpack (13 fluid columns)"),
+    (cpl, "_compact_contact_tail", "L3 Eq.-24 tail (culled lanes)")]
+SPANS["coupling-full"] = _CPL_PASSES + [
+    (cpl, "unpack", "unpack (13 + 12 S columns)"),
+    (cpl, "_contact_tail", "L3 Eq.-24 tail ([N, S])")]
 # the kdk and reference orderings: the split passes and K2 on every slot
 SPANS["coupling-kdk"] = SPANS["coupling-reference"] = [
     (fk, "build_cell_grid_packed", "L1 grid build"),
@@ -115,6 +130,10 @@ def _scene(path, dev):
     elif base == "rigid-3d":
         scheme, scene, _ = cs.contact_scene_3d(dev, engine=engine)
         dt = cs.DT
+    elif base in ("coupling-compact", "coupling-full"):
+        scheme, scene, dt = cs.boxes_tank_scene(dev, 2)
+        if base == "coupling-full":
+            scene = trb.strip_compact_fields(trb.expand_slot_scene(scene))
     elif base.startswith("coupling"):
         scheme, scene, dt = cs.sinking_box_scene(dev, engine=engine)
         if base != "coupling":
