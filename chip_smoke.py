@@ -238,7 +238,36 @@ no result line):
     0.15 (2 x 2 a layer): 50 steps under the same gates, 20 kernel
     against 20 plain steps (STEP_RTOL) and 20 compact against 20
     full-route steps;
-44. a JSON line of per-kernel numbers (``launches`` from the kernel's
+44. the kernels' wide instances on many bodies: a 2D resting stack of
+    128 blocks of ~27 x 27 (32 columns x 4 rows, S = 129, ~93k
+    particles in the blocks): K2's wide instance (S > 64: no 64-bit
+    masks, dynamic count tables) on every interesting row and on every
+    slot against its plain version (picks bit for bit, sums at phase
+    3's tolerance, picks from entities past 64 present), timed; 800 GTVF
+    steps through ``make_multi_step`` in chunks of 50 under phase 4's
+    gates, every K2 launch the wide instance, steps/s; 20 kernel steps
+    against 20 plain steps from its end (STEP_RTOL, one K1 and one wide
+    K2 a kernel step); then K2 at S = 300 (299 blocks of ~18 x 18, RK2
+    set-up) on every interesting row and every slot the same way;
+45. K2's wide instance on every slot of 64 cubes of 12^3 stacked 4 x 4 x
+    4 on the floor slab (S = 65, the leapfrog step's launch), timed;
+    B5's global-block instance (a slot's [M, 12 S + 6] block past one
+    warp's shared memory) on the sinking box's tank with 6 layers of 50
+    boxes of rho 8 (S = 301, the full route) against its plain version as
+    in phase 10, timed; 20 kdkf kernel steps against 20 plain steps from
+    the boxes pushed down (STEP_RTOL; one K1, B4 and B5 a kernel step,
+    every B5 launch the global-block instance);
+46. the DEM kernels on the 3D column at table widths 12 and 16 (the
+    16-slot instance), 32 (the 32-slot instance) and 40 (the rows in
+    global memory), spill grid, and 12, 32 and 40 on the row-window
+    grid: against their plain versions under phase 6's gates (the
+    filled table at every width, the empty and moved ones at 12 and 40;
+    at 12 on the spill grid also the crowded column: more gated
+    partners than slots), timed; each
+    through a 50-step main path at dt 5e-7 under phase 7's gates (every
+    launch the width's instance); at 12 on the spill grid 20 kernel
+    steps against 20 plain steps (one K4 a kernel step);
+47. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
@@ -253,8 +282,11 @@ no result line):
     shared memory and spills of every rates/wall and forces instance the
     paths launch; an entry ``<kernel>[<SPH kernel>]`` for each
     non-quintic instance, with its launches from phase 40's paths and
-    its times from phase 39), the script's seconds, then the result
-    line.
+    its times from phase 39; an entry for each wide instance,
+    ``contact_sums/wide``, ``fluid_forces_contact/gmem``,
+    ``dem_cell/l16``, ``/l32``, ``/rows`` and the same of
+    ``dem_rowwin``, with its launches from its phase 44-46 main path),
+    the script's seconds, then the result line.
 
 It imports nothing from JAX or the JAX package.
 """
@@ -289,6 +321,9 @@ DEM_R = 1e-3
 DEM_SPACING = 2 * DEM_R * (1 - 0.005)
 DEM_OVERLAP = 2 * DEM_R - DEM_SPACING
 DEM_DT = 5e-6
+# the 3D column's steps (phase 46): its grains weigh ~1e-5 kg, so a
+# contact of kn = 1e5 lasts ~1e-5 s and DEM_DT would take half of it
+DEM_DT_3D = 5e-7
 DEM_STEPS = 200
 DEM_ROWWIN_STEPS = 100
 # the LVCForce path in torch ops (~4.6 steps/s at ~104k grains): a
@@ -414,6 +449,38 @@ CPL_CUBE_KR = 1e3
 CPL_BOX_SLIDE = 0.05
 CPL_BOXES_STEPS = 200
 CPL_BOXES_3D_STEPS = 50
+# the wide kernel instances (phases 44-46): K2 past 64 entities on the
+# 2D stack of WIDE_BLOCKS blocks in rows of WIDE_COLS (S = 129: more than
+# two 64-bit mask words) through WIDE_STEPS GTVF steps (4 rows: a stack's
+# top block settles by the sum of its rows' compressions, ~1.4 dx for 8
+# rows, more than half the free fall of any run short of ~1,000 steps,
+# so phase 4's "carried" gate needs a lower stack), and at S = 300
+# (WIDE_300 blocks of ~18 x 18 in rows of WIDE_300_COLS); on every slot
+# of 64 cubes of 12^3 stacked 4 x 4 x 4 (S = 65); B5 past one warp's
+# shared memory on the sinking box's tank with WIDE_BOX_ROWS layers of
+# WIDE_BOX_COLS boxes of side WIDE_BOX_SIDE and rho CPL_BOX_RHO (S =
+# 301); the DEM kernels on the 3D column at table widths WIDE_L (16 and
+# 32 in shared memory, 40 in global memory), each through a DEM_CHUNK-
+# step main path
+WIDE_BLOCKS, WIDE_COLS = 128, 32
+WIDE_STEPS = 800
+WIDE_300, WIDE_300_COLS = 299, 23
+WIDE_CUBES = (4, 4, 4)
+WIDE_BOX_ROWS, WIDE_BOX_COLS, WIDE_BOX_SIDE = 6, 50, 0.064
+# the small boxes' contact: kr 1e3 and pressed 0.02 dx from the start
+# (at kr 1e5 a box of 5 x 5 particles settles at ~1e-5 dx of overlap,
+# where one ulp of the Eq.-21 distance is ~1e-3 of the force: the 20-step
+# comparison then reads the model's conditioning, not the kernels)
+WIDE_BOX_KR, WIDE_BOX_OVERLAP = 1e3, 0.02
+# (grid, L, the tables compared): the 16-slot instance at 12 and 16, the
+# 32-slot one at 32, the global rows at 40 (the 3D twin takes 0.75-3.6 s
+# a call, so each width compares the tables that reach its new code)
+WIDE_DEM = (("spill", 12, ("empty", "filled", "moved")),
+            ("spill", 16, ("filled",)), ("spill", 32, ("filled",)),
+            ("spill", 40, ("empty", "filled", "moved")),
+            ("rowwin", 12, ("filled", "moved")),
+            ("rowwin", 32, ("filled",)),
+            ("rowwin", 40, ("filled", "moved")))
 # compact against full route on the same kernels: the same elementwise
 # ops on the same values; the body sums' atomic adds on the card may add
 # in another order
@@ -487,12 +554,14 @@ def slot_lanes(cnt, nbr):
 
 def contact_scene_2d(dev, n_target=100_000, coupling=False,
                      integrator="gtvf", engine="cell", kernel="quintic",
-                     skin=0.0):
+                     skin=0.0, n_bodies=8, cols=4):
     """8 blocks of side 0.2 in two rows of 4 on the floor of a 3-layer
     tank (the bench's body size and count), a resting stack: the bottom
     row sits GAP dx above the floor's surface layer, neighbours GAP dx
     apart, the top row GAP dx above the bottom row.  A contact engages
-    below 1 dx, so every block is in contact at once.  ``coupling`` sets
+    below 1 dx, so every block is in contact at once.  ``n_bodies``
+    blocks in rows of ``cols`` make a wider stack (S = n_bodies + 1) in a
+    tank widened and heightened to hold it, ~n_target particles in all.  ``coupling`` sets
     it up under a rigid-fluid coupling scheme with no fluid group (the
     reference's stack-of-cylinders setup) instead of the rigid scheme;
     ``integrator`` is the rigid scheme's stepper, ``engine`` its pair
@@ -506,7 +575,6 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
     from rigid_body_2d_3d_pysph_tpu_torch.state import (
         make_group, build_scene, ROLE_RIGID, ROLE_BOUNDARY)
 
-    n_bodies = 8
     side = max(int(np.sqrt(n_target / n_bodies)), 12)
     dx = 0.2 / (side - 1)
     xb1, yb1 = get_2d_block(dx, 0.2, 0.2)
@@ -518,14 +586,18 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
     # interior and carry no contact
     bodies = []
     for b in range(n_bodies):
-        col, row = b % 4, b // 4
+        col, row = b % cols, b // cols
         bodies.append(make_group(
             f"body{b}", xb1 + 0.1 + col * pitch,
             yb1 + 0.1 + floor_top + GAP * dx + row * pitch, m=m,
             h=1.3 * dx, rho=2000.0, rad_s=dx / 2, role=ROLE_RIGID,
             dem_id=np.full(len(xb1), b, np.int32)))
+    rows = -(-n_bodies // cols)
+    length = max(1.25, 0.35 + cols * pitch)
+    height = max(1.2, 0.4 + rows * pitch)
     xt, yt = create_tank_2d_from_block_2d(
-        np.array([-0.15, 1.1]), np.array([0.0, 1.2]), 1.25, 1.2, dx, 3)
+        np.array([-0.15, length - 0.15]), np.array([0.0, height]), length,
+        height, dx, 3)
     tank = make_group("tank", xt, yt, m=m, h=1.3 * dx, rho=2000.0,
                       rad_s=dx / 2, role=ROLE_BOUNDARY, dem_id=n_bodies)
     scene = build_scene(bodies + [tank], dim=2,
@@ -546,7 +618,7 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
 
 
 def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
-                     engine="cell", kernel="quintic"):
+                     engine="cell", kernel="quintic", layout=(4, 2, 1)):
     """8 cubes of side 0.2 in a 4 x 2 layout on a 3-layer floor slab, at
     rest on it (the 3D bench's body size).  Each cube's bottom face sits
     where the floor carries its weight: the face's overlap is m g / (kr
@@ -558,18 +630,26 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
     stack overflows ``max_spill`` in the reference too); the cubes are one
     group, so the faces between neighbours are interior to the surface
     identification and carry no contact.  ``integrator`` is the scheme's
-    stepper, ``engine`` its pair engine, ``kernel`` its SPH kernel."""
+    stepper, ``engine`` its pair engine, ``kernel`` its SPH kernel.
+    ``layout`` (cubes along x, z and y) other than the default stacks
+    ``layout`` cubes, the layers 0.95 dx apart too, on a floor widened to
+    hold them, each cube a group of its own (its faces to its neighbours
+    then carry contact), ~n_target particles in the cubes."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import get_3d_block
     from rigid_body_2d_3d_pysph_tpu_torch.models import RigidBody3DScheme
     from rigid_body_2d_3d_pysph_tpu_torch.state import (
         make_group, build_scene, ROLE_RIGID, ROLE_BOUNDARY)
 
-    n_bodies = 8
+    gx, gz, gy = layout
+    n_bodies = gx * gz * gy
+    own_groups = layout != (4, 2, 1)
     side = max(int(round((n_target / n_bodies) ** (1 / 3))), 5)
     dx = 0.2 / (side - 1)
     xb1, yb1, zb1 = get_3d_block(dx, 0.2, 0.2, 0.2)
-    scheme = RigidBody3DScheme(["body"], ["floor"], dim=3, gy=-G)
+    names = ([f"body{b}" for b in range(n_bodies)] if own_groups
+             else ["body"])
+    scheme = RigidBody3DScheme(names, ["floor"], dim=3, gy=-G)
     scheme.integrator = integrator
     scheme.engine = engine
     scheme.kernel_name = kernel
@@ -580,23 +660,32 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
     pitch = 0.2 + 0.95 * dx
     xs, ys, zs, bid = [], [], [], []
     for b in range(n_bodies):
-        col, row = b % 4, b // 4
+        col, row, layer = b % gx, (b // gx) % gz, b // (gx * gz)
         xs.append(xb1 + col * pitch)
-        ys.append(yb1 + 0.1 + floor_gap)
+        ys.append(yb1 + 0.1 + floor_gap + layer * pitch)
         zs.append(zb1 + row * pitch)
         bid.append(np.full(len(xb1), b, np.int32))
-    fx, fz = np.meshgrid(np.arange(-0.15, 0.8, dx), np.arange(-0.15, 0.4, dx))
+    fx, fz = np.meshgrid(np.arange(-0.15, max(0.8, gx * pitch - 0.05), dx),
+                         np.arange(-0.15, max(0.4, gz * pitch - 0.05), dx))
     xf = np.concatenate([fx.ravel()] * 3)
     zf = np.concatenate([fz.ravel()] * 3)
     yf = np.concatenate([np.full(fx.size, -k * dx) for k in range(3)])
-    body = make_group("body", np.concatenate(xs), np.concatenate(ys),
-                      z=np.concatenate(zs), m=m, h=1.3 * dx, rho=2000.0,
-                      rad_s=dx / 2, role=ROLE_RIGID,
-                      body_id=np.concatenate(bid), dem_id=np.concatenate(bid))
+    if own_groups:
+        bodies = [make_group(names[b], xs[b], ys[b], z=zs[b], m=m,
+                             h=1.3 * dx, rho=2000.0, rad_s=dx / 2,
+                             role=ROLE_RIGID, dem_id=bid[b])
+                  for b in range(n_bodies)]
+    else:
+        bodies = [make_group("body", np.concatenate(xs), np.concatenate(ys),
+                             z=np.concatenate(zs), m=m, h=1.3 * dx,
+                             rho=2000.0, rad_s=dx / 2, role=ROLE_RIGID,
+                             body_id=np.concatenate(bid),
+                             dem_id=np.concatenate(bid))]
     floor = make_group("floor", xf, yf, z=zf, m=m, h=1.3 * dx, rho=2000.0,
                        rad_s=dx / 2, role=ROLE_BOUNDARY, dem_id=n_bodies)
-    scene = build_scene([body, floor], dim=3, total_no_bodies=n_bodies + 1,
-                        spacing0=dx, device=dev, dtype=config.WORK_DTYPE)
+    scene = build_scene(bodies + [floor], dim=3,
+                        total_no_bodies=n_bodies + 1, spacing0=dx,
+                        device=dev, dtype=config.WORK_DTYPE)
     return scheme, scheme.setup(scene), dx
 
 
@@ -754,7 +843,7 @@ def list_contact_pairs(scheme, scene):
 
 
 def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
-                    evals=1):
+                    evals=1, multi=False):
     """The rigid step through its entry points for ``n_steps`` steps in
     chunks with the overflow-rebuild rule, under phase 4's gates.  GTVF
     on the cell engine runs the compact path (interesting slots counted);
@@ -765,8 +854,10 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
     the grid's rebuilds are counted.  K2 runs the library of the
     scheme's SPH kernel.  On the list engine every stepper keeps the full
     schema and launches no kernel; K, the gated contact pairs and the
-    peak device memory are printed.  Returns (end scene, launches with
-    the per-instance counts, stats)."""
+    peak device memory are printed.  ``multi`` runs each chunk through
+    ``make_multi_step`` (the interesting slots then read once a chunk).
+    Returns (end scene, launches with the per-instance counts, stats)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
@@ -789,7 +880,11 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats, builds = [], 0
-        for _ in range(n):
+        if multi:
+            scene = trb.make_multi_step(step, n)(scene, DT)
+            if compact:
+                stats.append(scene.n_interesting)
+        for _ in range(0 if multi else n):
             prev = scene.g_xb if skin else None
             scene = step(scene, DT)
             if compact:
@@ -898,8 +993,9 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
 def check_instances(label, sph, launches):
     """Every launch of a kernel that evaluates an SPH kernel (K2 and the
     fluid passes) ran the library of ``sph``, the scheme's; returns
-    ``launches`` with the per-instance counts ("contact[cubic]", ...)
-    beside the per-kernel ones."""
+    ``launches`` with the per-library counts ("contact[cubic]", ...) and
+    the per-size-instance ones ("contact/wide", ...) beside the
+    per-kernel ones."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
     for key, v in _build.LAUNCHES_SPH.items():
@@ -907,7 +1003,7 @@ def check_instances(label, sph, launches):
         if _build.KERNELS[kname][0] in _build.SPH_SOURCES:
             check(inst == sph, f"{label}: {v} launches of {key}; the "
                   f"scheme's SPH kernel is {sph}")
-    return {**launches, **_build.LAUNCHES_SPH}
+    return {**launches, **_build.LAUNCHES_SPH, **_build.LAUNCHES_INSTANCE}
 
 
 def phase_step_parity(scheme, scene, label="parity"):
@@ -985,11 +1081,12 @@ def phase_engine_parity_rigid(scheme, scene, label="engine-parity"):
 # ---------------------------------------------------------------------------
 
 def dem_scene(dev, dim, grid="spill", n_target=100_000,
-              contact_model="LVCDisplacement", engine="cell"):
+              contact_model="LVCDisplacement", engine="cell", L=8):
     """The bench's granular column over a floor (``bench.py``
     ``build_dem_scene`` / ``build_dem_scene_3d`` geometry at ~n_target
     grains) with grains spaced DEM_SPACING: every lattice neighbour and
-    the floor under the lowest row overlap by 0.01 r at step 0."""
+    the floor under the lowest row overlap by 0.01 r at step 0; contact
+    tables of L slots (``max_tng_contacts_limit``)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import get_2d_block
     from rigid_body_2d_3d_pysph_tpu_torch.models import DEMScheme
@@ -1024,7 +1121,7 @@ def dem_scene(dev, dim, grid="spill", n_target=100_000,
     scene = build_scene([grains, floor], dim=dim, total_no_bodies=2,
                         spacing0=s, device=dev, dtype=config.WORK_DTYPE)
     scheme = DEMScheme(["sand"], ["floor"], kn=1e5, en=0.5, mu=0.5,
-                       dim=dim, gy=-9.81, max_tng_contacts_limit=8,
+                       dim=dim, gy=-9.81, max_tng_contacts_limit=L,
                        dem_grid=grid, contact_model=contact_model)
     scheme.engine = engine
     return scheme, scheme.setup(scene)
@@ -1087,7 +1184,8 @@ def dem_compare(got, ref, label):
     return err, spring_err
 
 
-def phase_dem_kernels(scheme, scene, label, timings, crowded=False):
+def phase_dem_kernels(scheme, scene, label, timings, crowded=False,
+                      cases_run=("empty", "filled", "moved"), plain_reps=3):
     """A DEM kernel against its twin at the main path's shapes, with
     seeded random velocities and spins, on three contact tables: the
     setup's empty one (every contact is allocated), one filled by a twin
@@ -1097,7 +1195,9 @@ def phase_dem_kernels(scheme, scene, label, timings, crowded=False):
     and close: slots are freed and reallocated).  ``crowded`` adds the
     column at DEM_CROWD of its spacing (its own grid), met the same way
     as the moved table: full tables, new contacts beyond the free slots
-    dropped."""
+    dropped.  ``cases_run`` picks among the three tables (the filled one,
+    the timed case, always runs); the twin is timed over
+    ``plain_reps`` calls."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
 
     dev = scene.device
@@ -1125,8 +1225,11 @@ def phase_dem_kernels(scheme, scene, label, timings, crowded=False):
     empty = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x, scene.tng_y,
              scene.tng_z)
     filled = twin_pass(scene, empty)
-    cases = [("empty", scene, empty, cfg), ("filled", scene, filled, cfg),
-             ("moved", jitter(scene), twin_pass(jitter(scene), filled), cfg)]
+    cases = [("empty", scene, empty, cfg), ("filled", scene, filled, cfg)]
+    if "moved" in cases_run:
+        cases.append(("moved", jitter(scene),
+                      twin_pass(jitter(scene), filled), cfg))
+    cases = [c for c in cases if c[0] in cases_run or c[0] == "filled"]
     if crowded:
         # the grains squeezed towards the column's lowest corner (the
         # floor stays), on a grid sized for them with bins of the contact
@@ -1200,8 +1303,9 @@ def phase_dem_kernels(scheme, scene, label, timings, crowded=False):
     n_ops = lanes * OPS_PER_LANE + gated * OPS_PER_DEM_PAIR
     bms, bby = bound(n_bytes, n_ops)
     t = dict(ms=cuda_ms(lambda: kern(*args)),
-             plain_ms=cuda_ms(lambda: plain(*args), reps=3, warmup=1),
-             err=max(errs), bound_ms=bms, bound_by=bby)
+             plain_ms=cuda_ms(lambda: plain(*args), reps=plain_reps,
+                              warmup=1 if plain_reps > 1 else 0),
+             err=max(errs), bound_ms=bms, bound_by=bby, L=L)
     print(f"[dem-kernels] {label}: n={scene.n} {shape} L={L} | tables, "
           f"slots and counts exact on every table; max abs errors | "
           + " | ".join(lines), flush=True)
@@ -1222,9 +1326,10 @@ def table_overlap_max(scene):
     return float(torch.where(live, ov, torch.zeros_like(ov)).max())
 
 
-def phase_dem_main(scheme, scene, n_steps, label, smi):
+def phase_dem_main(scheme, scene, n_steps, label, smi, dt=DEM_DT):
     """The DEM step through its entry points, in chunks with the
-    overflow-rebuild rule; returns (end scene, launches, steps/s)."""
+    overflow-rebuild rule, at time step ``dt``; returns (end scene,
+    launches, steps/s)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
     # LVCForce launches no kernel (the reference runs it in XLA only),
@@ -1248,7 +1353,7 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
         t0 = time.perf_counter()
         live, gated = [], []
         for _ in range(n):
-            scene = step(scene, DEM_DT)
+            scene = step(scene, dt)
             live.append(scene.total_tng_contacts.sum())
             gated.append(scene.n_gated)
         torch.cuda.synchronize()
@@ -1283,6 +1388,7 @@ def phase_dem_main(scheme, scene, n_steps, label, smi):
             else 0
         check(v == want, f"{label}: {k} launched {v} times in {steps_run} "
               f"steps, expected {want}")
+    launches.update(_build.LAUNCHES_INSTANCE)
     check(bool((lv > 0).all()), f"{label}: a step had no live contact")
     for k, v in scene.fields.items():
         if v.is_floating_point():
@@ -1327,25 +1433,29 @@ def _sorted_tables(scene):
     return key, spr
 
 
-def phase_dem_parity(scheme, scene, other=None, label="dem-parity"):
+def phase_dem_parity(scheme, scene, other=None, label="dem-parity",
+                     dt=DEM_DT):
     """20 kernel steps against 20 twin steps from one state, or with
-    ``other`` (a scheme) against 20 of its steps."""
+    ``other`` (a scheme) against 20 of its steps, at time step ``dt``."""
     fast = scheme.make_step(scene)
     plain = (other.make_step(scene) if other is not None
              else scheme.make_step(scene, plain=True))
     ref = "twin" if other is None else f"{other.engine}"
     a = b = scene
     for _ in range(COMPARE_STEPS):
-        a, b = fast(a, DEM_DT), plain(b, DEM_DT)
+        a, b = fast(a, dt), plain(b, dt)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
           f"{label}: overflow during the DEM step comparison")
     worst = []
-    for k in ("x", "y", "u", "v", "wz", "fx", "fy", "torz"):
+    keys = ("x", "y", "u", "v", "wz", "fx", "fy", "torz")
+    if scheme.dim == 3:
+        keys += ("z", "w", "wx", "wy", "fz", "torx", "tory")
+    for k in keys:
         # positions as displacements over the run, so the tolerance is on
         # the motion and not on the domain's size
-        x = a[k] - scene[k] if k in ("x", "y") else a[k]
-        y = b[k] - scene[k] if k in ("x", "y") else b[k]
+        x = a[k] - scene[k] if k in ("x", "y", "z") else a[k]
+        y = b[k] - scene[k] if k in ("x", "y", "z") else b[k]
         err = float((x - y).abs().max())
         scale = float(y.abs().max())
         worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
@@ -1946,7 +2056,8 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
           f"{rtol}): " + ", ".join(bad))
     stepper = (scheme.gtvf_ordering if scheme.fluid_stepper == "gtvf"
                else scheme.fluid_stepper)
-    what = ("8 boxes of rho 8" if scene.meta.nb > 1
+    what = (f"{scene.meta.nb} boxes of rho {CPL_BOX_RHO:g}"
+            if scene.meta.nb > 1
             else f"dense box on the floor, rho {CPL_PARITY_RHO}")
     print(f"[{label}] {stepper}: {COMPARE_STEPS} kernel steps "
           f"vs {COMPARE_STEPS} {ref} steps ({what}; end "
@@ -1960,7 +2071,8 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
     return sps
 
 
-def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed):
+def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed,
+                      plain_reps=3):
     """K2 on every slot of the contact pack ``dfT`` (the kdk and reference
     orderings' cell pipeline) against its twin: picks bit for bit, the
     sums as in phase 3; ``timed`` also times both and computes the bound.
@@ -1991,7 +2103,7 @@ def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed):
     if timed:
         t["ms"] = cuda_ms(lambda: tck.contact_sums(*args))
         t["plain_ms"] = cuda_ms(lambda: tck.contact_sums_reference(*args),
-                                reps=3, warmup=1)
+                                reps=plain_reps, warmup=1)
         # least time: F fields in and 12S words out per live lane; 9 ops
         # per candidate lane of the rigid query lanes (a block with none
         # writes its init row and scans nothing)
@@ -2204,7 +2316,8 @@ def phase_coupling_3d(scheme, scene, tmp, smi):
     return launches, solver.steps_per_sec
 
 
-def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4):
+def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4,
+                     side=None, compact=True, kr=None, min_overlap=0.0):
     """The compact route's scene: the sinking box's tank at bench.py's
     coupling size (2D: ``sinking_box_scene``'s 4 x 3 fluid block; 3D:
     ``sinking_box_scene_3d``'s 1.0 x 0.6 x 0.5 one) with ``rows`` layers
@@ -2217,7 +2330,12 @@ def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4):
     mass and density; the even layers sliding at +CPL_BOX_SLIDE (x, and z
     in 3D), the odd ones at -CPL_BOX_SLIDE.  Set up through the scheme
     on the compact store (its threshold set to the reference's 8
-    entities).  Returns (scheme, scene, dt)."""
+    entities; ``compact=False`` sets no threshold, the full route;
+    ``compact=None`` leaves the scheme's default).  ``side`` sets the
+    boxes' side (2D; CPL_BOX_SIDE by default), ``kr`` the contact
+    stiffness (the scheme's, or CPL_CUBE_KR in 3D, by default) and
+    ``min_overlap`` (in dx) the least overlap ``settle_boxes`` leaves.
+    Returns (scheme, scene, dt)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, get_3d_block, get_fluid_tank_3d, hydrostatic_tank_2d)
@@ -2232,7 +2350,8 @@ def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4):
         H = 3.0
         xf, yf, xt, yt = hydrostatic_tank_2d(4.0, H, 5.0, 3, dx, dx)
         zf, zt = np.zeros_like(xf), np.zeros_like(xt)
-        xb, yb = get_2d_block(dx, CPL_BOX_SIDE - dx, CPL_BOX_SIDE - dx)
+        bs = CPL_BOX_SIDE if side is None else side
+        xb, yb = get_2d_block(dx, bs - dx, bs - dx)
         zb = np.zeros_like(xb)
         cells = [(i, 0) for i in range(cols)]
     else:
@@ -2289,10 +2408,14 @@ def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4):
         c0=co, h=dx, nu=0.0, gy=gy)
     if dim == 3:
         scheme.kr = CPL_CUBE_KR
-    scheme.compact_min_bodies = 8
+    if kr is not None:
+        scheme.kr = kr
+    if compact is not None:
+        scheme.compact_min_bodies = 8 if compact else None
     scene = scheme.setup(scene)
-    check("cl_pid" in scene, "the boxes' coupling scene was not set up "
-          "on the compact store")
+    check(compact is None or ("cl_pid" in scene) == compact, "the boxes' "
+          f"coupling scene was {'not ' if compact else ''}set up on the "
+          "compact store")
     rb = scene.is_rigid
     sign = [1.0 - 2.0 * ((b // cols) % 2) for b in range(n_boxes)]
     slide = [[CPL_BOX_SLIDE * sg, 0.0, CPL_BOX_SLIDE * sg * (dim == 3)]
@@ -2302,19 +2425,21 @@ def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4):
         rho_fsi=torch.where(rb, rho_f, scene.rho_fsi),
         vcm=torch.tensor(slide, dtype=scene.dtype, device=scene.device))
     scene = settle_boxes(scheme, scene, abs(gy) * (1.0 - rho_f
-                                                   / CPL_BOX_RHO), cols)
+                                                   / CPL_BOX_RHO), cols,
+                         min_overlap)
     return scheme, scene, 0.25 * dx / (co * 1.1)
 
 
-def settle_boxes(scheme, scene, g_eff, cols):
+def settle_boxes(scheme, scene, g_eff, cols, min_overlap=0.0):
     """Move each box of ``boxes_tank_scene`` (layers of ``cols``) in y so
     that it starts pressed by half its load: the contact pass on the
     set-up state gives the Eq.-21 distance of its bottom face to what it
     rests on (the median over the face's particles: those within half a
     dx of the least distance); the overlap it is left with is half of
     load / (kr n_face), the load (``g_eff`` = g less the buoyancy) its
-    own and that of the boxes stacked on it.  A box above moves with the
-    box under it first.  Returns the scene moved."""
+    own and that of the boxes stacked on it, or ``min_overlap`` dx if
+    that is more.  A box above moves with the box under it first.
+    Returns the scene moved."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
@@ -2337,7 +2462,8 @@ def settle_boxes(scheme, scene, g_eff, cols):
         check(len(d) > 0, f"box {b} has no contact with what it rests on")
         d = d[d < d.min() + 0.5 * dx]          # the bottom face's lanes
         load = float(mass[b::cols].sum())      # itself and its stack
-        target = 0.5 * load * g_eff / (scheme.kr * len(d))
+        target = max(0.5 * load * g_eff / (scheme.kr * len(d)),
+                     min_overlap * dx)
         shift[b] = (dx - target) - float(d.median())
         if b >= cols:
             shift[b] += shift[below]
@@ -3579,6 +3705,293 @@ def slab_coupling_long(scheme, scene, smi, label, cfg, mesh, dt, n_steps,
     return dict(launches_long=launches, sps=sps)
 
 
+# ---------------------------------------------------------------------------
+# the wide kernel instances (phases 44-46)
+# ---------------------------------------------------------------------------
+
+def _picks_past(out, S, init, first=64):
+    """Query lanes of the K2 output ``out`` with a pick from an entity
+    slot >= ``first`` (past the narrow instance's 64)."""
+    return int((out[..., 5 * S + first:6 * S] < init).any(-1).sum())
+
+
+def wide_k2_rows(scheme, scene, label):
+    """K2 on every interesting row and on every slot of ``scene``'s pack
+    (seeded random velocities) against its twin, both timed: (numbers of
+    the rows, of every slot)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    kernel = get_kernel(scheme.kernel_name, scheme.dim)
+    cfg = scheme.cell_config(scene, kernel)
+    S = scene.meta.total_no_bodies
+    init = 4.0 * scene.meta.spacing0
+    check(tck.contact_instance(S)[0] == "wide", f"{label}: S={S} takes "
+          "the narrow instance")
+    grid, pt, dfT = tck.pack_scene(seeded_velocities(scene, scheme.dim, 7),
+                                   cfg)
+    check(not bool(grid.overflow), f"{label}: grid overflow")
+    n_int = int(tck.select_queries(dfT, grid, pt, cfg, cfg.NC_max)[4])
+    rows, out, _, valid = contact_rows(dfT, grid, pt, cfg, kernel, S, init,
+                                       n_int, f"{label} rows", plain_reps=1)
+    past = _picks_past(out[valid], S, init)
+    check(past > 0, f"{label}: no pick from an entity past 64")
+    del out
+    slots, n_pick = contact_all_slots(dfT, grid, cfg, kernel, S, init,
+                                      f"{label} every slot", timed=True,
+                                      plain_reps=1)
+    check(n_pick > 0, f"{label}: no pick on every slot")
+    rows.update(S=S, n=scene.n, picks_past_64=past)
+    slots.update(S=S, n=scene.n)
+    return rows, slots
+
+
+def phase_wide_rigid(dev, smi):
+    """Phase 44: the 2D resting stack of WIDE_BLOCKS blocks (S = 129):
+    K2's wide instance on every interesting row and on every slot against
+    its twin, then the GTVF main path through ``make_multi_step`` in
+    chunks of CHUNK (phase 4's gates; every K2 launch the wide
+    instance), 20 kernel steps against 20 twin steps from its end with
+    one K1 and one K2 a kernel step; then K2 at S = 300 (WIDE_300 blocks,
+    set up for RK2: the full schema) on every interesting row and every
+    slot.  Returns the numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    out = {}
+    t0 = time.perf_counter()
+    scheme, scene, dx = contact_scene_2d(dev, n_bodies=WIDE_BLOCKS,
+                                         cols=WIDE_COLS)
+    print(f"[wide-setup] 2D stack: n={scene.n} S="
+          f"{scene.meta.total_no_bodies} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    out["rows"], out["slots"] = wide_k2_rows(scheme, scene, "wide 2D S=129")
+    end, launches, stats = phase_main_path(scheme, scene, dx, smi,
+                                           "wide-rigid-2d", WIDE_STEPS,
+                                           multi=True)
+    check(launches.get("contact/wide", 0) == launches["contact"] > 0,
+          f"wide-rigid-2d: {launches.get('contact/wide', 0)} wide K2 "
+          f"launches of {launches['contact']}")
+    _build.reset_launches()
+    phase_step_parity(scheme, end, "wide-parity-2d")
+    got = (_build.LAUNCHES["pack_expand"], _build.LAUNCHES["contact"],
+           _build.LAUNCHES_INSTANCE.get("contact/wide", 0))
+    check(got == (COMPARE_STEPS,) * 3, f"wide-parity-2d: K1, K2, wide K2 "
+          f"launched {got} times in {COMPARE_STEPS} kernel steps")
+    out.update(launches=launches, stats=stats)
+    del scheme, scene, end
+    t0 = time.perf_counter()
+    scheme, scene, _ = contact_scene_2d(dev, n_bodies=WIDE_300,
+                                        cols=WIDE_300_COLS, integrator="rk2")
+    print(f"[wide-setup] 2D stack: n={scene.n} S="
+          f"{scene.meta.total_no_bodies} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    out["rows_300"], out["slots_300"] = wide_k2_rows(scheme, scene,
+                                                     "wide 2D S=300")
+    return out
+
+
+def phase_wide_3d_b5(dev, smi):
+    """Phase 45: K2's wide instance on every slot of WIDE_CUBES cubes
+    (S = 65; the leapfrog step's launch) against its twin, timed; B5's
+    global-block instance on the sinking box's tank with WIDE_BOX_ROWS x
+    WIDE_BOX_COLS small boxes of rho CPL_BOX_RHO (S = 301; the scheme's
+    default route, the compact store from 97 entities) against its twin
+    as in phase 10, timed; the kdkf main path for CHUNK steps with the
+    overflow rule (phase 11's gates but the sinking: one K1, B4 and B5 a
+    step, every B5 launch the global-block instance), steps/s; then from
+    the set-up state, each layer pushed down 0.5 m/s faster than the one
+    under it, 20 kdkf kernel steps against 20 twin steps (STEP_RTOL).
+    Returns the numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    out = {}
+    t0 = time.perf_counter()
+    scheme, scene, dx = contact_scene_3d(dev, integrator="leapfrog",
+                                         layout=WIDE_CUBES)
+    S = scene.meta.total_no_bodies
+    print(f"[wide-setup] 3D cubes {WIDE_CUBES}: n={scene.n} S={S} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    kernel = get_kernel(scheme.kernel_name, 3)
+    cfg = scheme.cell_config(scene, kernel)
+    grid, _, dfT = tck.pack_scene(seeded_velocities(scene, 3, 7), cfg)
+    check(not bool(grid.overflow), "wide 3D: grid overflow")
+    out["slots_3d"], n_pick = contact_all_slots(
+        dfT, grid, cfg, kernel, S, 4.0 * dx, "wide 3D S=65 every slot",
+        timed=True, plain_reps=1)
+    check(n_pick > 0, "wide 3D: no pick on every slot")
+    out["slots_3d"].update(S=S, n=scene.n)
+    del scheme, scene, grid, dfT
+    t0 = time.perf_counter()
+    scheme, scene, dt = boxes_tank_scene(
+        dev, 2, rows=WIDE_BOX_ROWS, cols=WIDE_BOX_COLS, side=WIDE_BOX_SIDE,
+        compact=None, kr=WIDE_BOX_KR, min_overlap=WIDE_BOX_OVERLAP)
+    label = "wide boxes"
+    kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(scheme, scene,
+                                                           label, 13)
+    inst = fk.forces_instance(cfg.M, S)
+    route = "compact store" if "cl_pid" in scene else "full [N, S]"
+    print(f"[wide-setup] {label}: n={scene.n} S={S} dt={dt:.6g} NC="
+          f"{cfg.NC_max} M={cfg.M} O={cfg.O}, B5 instance {inst}, {route} "
+          f"route ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(S >= 300 and inst == "gmem", f"{label}: S={S}, B5 instance "
+          f"{inst}")
+    b5, work, n_found = fluid_pass_checks(
+        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
+                    init, ["fluid_forces_contact"]),
+        dfT, grid.nbr_slots, pt, cfg.radius, S, init,
+        abs(scheme.fluid_alpha) > 1e-14, label, timed=True)
+    check(n_found > 0, f"{label}: no contact pick")
+    print(f"[wide-kernels] {label}: query lanes {int(pt.n_valid)}, {work}, "
+          f"contact slots with a pick {n_found} | max abs err "
+          f"{b5['fluid_forces_contact']['err']:.3e}", flush=True)
+    print_fluid_passes("wide-kernels", label, b5)
+    out["b5"] = dict(b5["fluid_forces_contact"], S=S, n=scene.n)
+    del grid, pt, dfT
+    stats = {}
+    _, launches, sps = phase_coupling_main(
+        scheme, scene, dt, CHUNK, "wide-kdkf", smi,
+        dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1),
+        sink=False, stats=stats)
+    check(launches.get("fluid_forces_contact/gmem", 0)
+          == launches["fluid_forces_contact"] > 0, "wide-kdkf: "
+          f"{launches.get('fluid_forces_contact/gmem', 0)} global-block B5 "
+          f"launches of {launches['fluid_forces_contact']}")
+    # the set-up state with the store widened by the run's rebuilds
+    scene = scheme.adapt_scene(scene)
+    nb, cols = scene.meta.nb, WIDE_BOX_COLS
+    push = scene.vcm.clone()
+    push[:, 1] -= 0.5 * (1 + torch.arange(nb, device=push.device) // cols
+                         ).to(push.dtype)
+    phase_coupling_parity(scheme, scene, dt, "wide-kdkf-parity", push=push)
+    out.update(launches=launches, steps_per_s=sps, route=route, **stats)
+    return out
+
+
+def phase_wide_dem(dev, smi):
+    """Phase 46: the DEM kernels on the 3D column at the table widths of
+    WIDE_DEM: K4 and K3 against their twins (phase 6's gates on the
+    tables WIDE_DEM names; on the spill grid at L = 12 also the column
+    crowded to DEM_CROWD: more gated partners than slots), timed; each
+    through a
+    CHUNK-step main path at DEM_DT_3D (phase 7's gates, every launch the
+    width's instance); at L = 12 on the spill grid 20 kernel steps
+    against 20 twin steps with one K4 a kernel step.  Returns {(grid,
+    L): numbers}."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    out = {}
+    for grid, L, tables in WIDE_DEM:
+        label = f"3D {grid} L={L}"
+        kname = "dem_cell" if grid == "spill" else "dem_rowwin"
+        inst = f"{kname}/{tdk.table_instance(L)[0]}"
+        t0 = time.perf_counter()
+        scheme, scene = dem_scene(dev, 3, grid, L=L)
+        t = {}
+        first = L == 12 and grid == "spill"
+        t1 = time.perf_counter()
+        phase_dem_kernels(scheme, scene, label, t, crowded=first,
+                          cases_run=tables, plain_reps=1)
+        t2 = time.perf_counter()
+        _, launches, sps = phase_dem_main(scheme, scene, CHUNK,
+                                          f"wide-dem-{grid}-L{L}", smi,
+                                          DEM_DT_3D)
+        t3 = time.perf_counter()
+        check(launches.get(inst, 0) == launches[kname] == CHUNK,
+              f"{label}: {launches.get(inst, 0)} launches of {inst}, "
+              f"{launches[kname]} of {kname}")
+        out[(grid, L)] = dict(t[label], instance=inst,
+                              launches=launches.get(inst, 0), sps=sps,
+                              n=scene.n)
+        if first:
+            _build.reset_launches()
+            phase_dem_parity(scheme, scene, label="wide-dem-parity-L12",
+                             dt=DEM_DT_3D)
+            got = (_build.LAUNCHES[kname],
+                   _build.LAUNCHES_INSTANCE.get(inst, 0))
+            check(got == (COMPARE_STEPS,) * 2, f"wide-dem-parity-L12: "
+                  f"{kname}, {inst} launched {got} times in "
+                  f"{COMPARE_STEPS} kernel steps")
+        print(f"[wide-dem] {label}: set-up {t1 - t0:.1f} s, kernels "
+              f"{t2 - t1:.1f} s, main path {t3 - t2:.1f} s"
+              + (f", parity {time.perf_counter() - t3:.1f} s" if first
+                 else ""), flush=True)
+        del scheme, scene
+    return out
+
+
+def wide_kernel_entries(kernels, wide_k2, wide_b5, wide_dem, src):
+    """The JSON entries of the wide instances (phases 44-46), each with
+    its narrow entry's ``replaces`` and its launches from its own main
+    path."""
+    out = []
+    by_name = {kd["name"]: kd for kd in kernels}
+    wr, ws = wide_k2["rows"], wide_k2["slots"]
+    wl = wide_k2["launches"]
+    out.append(dict(
+        name="contact_sums/wide", route="cuda", source=src + "contact.cu",
+        replaces=by_name["contact_sums"]["replaces"],
+        launches=wl["contact/wide"],
+        launches_by_path={"wide-rigid-2d": wl["contact/wide"]},
+        max_abs_err=max(wr["err"], ws["err"], wide_k2["rows_300"]["err"],
+                        wide_k2["slots_300"]["err"],
+                        wide_b5["slots_3d"]["err"]),
+        ms=wr["ms"], plain_ms=wr["plain_ms"], bound_ms=wr["bound"],
+        bound_by=wr["bound_by"], library_ms=None, S=wr["S"],
+        rows=wr["rows"], all_slots_ms=ws["ms"],
+        all_slots_plain_ms=ws["plain_ms"], all_slots_bound_ms=ws["bound_ms"],
+        all_slots_bound_by=ws["bound_by"],
+        s300_ms=wide_k2["rows_300"]["ms"],
+        s300_plain_ms=wide_k2["rows_300"]["plain_ms"],
+        s300_bound_ms=wide_k2["rows_300"]["bound"],
+        s300_bound_by=wide_k2["rows_300"]["bound_by"],
+        s300_rows=wide_k2["rows_300"]["rows"],
+        s300_all_slots_ms=wide_k2["slots_300"]["ms"],
+        s300_all_slots_plain_ms=wide_k2["slots_300"]["plain_ms"],
+        s300_all_slots_bound_ms=wide_k2["slots_300"]["bound_ms"],
+        all_slots_ms_3d_s65=wide_b5["slots_3d"]["ms"],
+        all_slots_plain_ms_3d_s65=wide_b5["slots_3d"]["plain_ms"],
+        all_slots_bound_ms_3d_s65=wide_b5["slots_3d"]["bound_ms"],
+        all_slots_bound_by_3d_s65=wide_b5["slots_3d"]["bound_by"],
+        steps_per_s=wide_k2["stats"]["steps_per_s"]))
+    b5 = wide_b5["b5"]
+    out.append(dict(
+        name="fluid_forces_contact/gmem", route="cuda",
+        source=src + "fluid.cu",
+        replaces=by_name["fluid_forces_contact"]["replaces"],
+        launches=wide_b5["launches"]["fluid_forces_contact/gmem"],
+        launches_by_path={"wide-kdkf":
+                          wide_b5["launches"]["fluid_forces_contact/gmem"]},
+        max_abs_err=b5["err"], ms=b5["ms"], plain_ms=b5["plain_ms"],
+        bound_ms=b5["bound_ms"], bound_by=b5["bound_by"], library_ms=None,
+        S=b5["S"], M=b5["M"], width=b5["width"],
+        coupling_route=wide_b5["route"],
+        steps_per_s=wide_b5["steps_per_s"]))
+    for kname in ("dem_cell", "dem_rowwin"):
+        grid = "spill" if kname == "dem_cell" else "rowwin"
+        for inst in ("l16", "l32", "rows"):
+            rows = [v for (g, L), v in sorted(wide_dem.items())
+                    if g == grid and v["instance"] == f"{kname}/{inst}"]
+            d = rows[-1] if inst == "l16" else rows[0]   # L = 16, 32, 40
+            out.append(dict(
+                name=f"{kname}/{inst}", route="cuda",
+                source=src + "dem.cu", replaces=by_name[kname]["replaces"],
+                launches=rows[0]["launches"],
+                launches_by_path={f"wide-dem-{grid}-L{r['L']}":
+                                  r["launches"] for r in rows},
+                max_abs_err=max(r["err"] for r in rows), ms=d["ms"],
+                plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
+                bound_by=d["bound_by"], library_ms=None, L=d["L"],
+                by_L={str(r["L"]): dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                        bound_ms=r["bound_ms"],
+                                        steps_per_s=r["sps"])
+                      for r in rows}))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3623,6 +4036,8 @@ def main() -> int:
         print(f"[build] all sources in {time.perf_counter() - t0:.2f} s "
               "wall", flush=True)
 
+        print(f"[time] phase 3 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 3. kernels against twins
         t0 = time.perf_counter()
         scheme, scene, dx = contact_scene_2d(dev)
@@ -3638,9 +4053,13 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         phase_kernels(scheme3, scene3, "3D", timings)
 
+        print(f"[time] phase 4 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 4. the main path
         end, launches, main_stats = phase_main_path(scheme, scene, dx, smi)
 
+        print(f"[time] phase 5 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 5. kernel steps against twin steps; 34. against list steps
         phase_step_parity(scheme, end)
         phase_engine_parity_rigid(scheme, end, "engine-parity-2d")
@@ -3653,6 +4072,8 @@ def main() -> int:
         phase_step_parity(scheme3, end3)
         del scheme3, scene3, end3
 
+        print(f"[time] phase 6 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 6. DEM kernels against twins
         dem_t = {}
         for label, dim, grid in (("2D spill", 2, "spill"),
@@ -3667,6 +4088,8 @@ def main() -> int:
                               crowded=dim == 2)
             del dscheme, dscene
 
+        print(f"[time] phase 7 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 7. the DEM main path (spill grid), 8. the row-window path
         dscheme, dscene = dem_scene(dev, 2)
         dend, dem_launches, dem_sps = phase_dem_main(
@@ -3676,12 +4099,16 @@ def main() -> int:
             rscheme, rscene, DEM_ROWWIN_STEPS, "dem-rowwin", smi)
         del rscheme, rscene
 
+        print(f"[time] phase 9 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 9. DEM kernel steps against twin steps; 34. against list steps
         phase_dem_parity(dscheme, dend)
         phase_dem_parity(dscheme, dend, other=list_twin(dscheme),
                          label="dem-engine-parity")
         del dscheme, dend
 
+        print(f"[time] phase 10 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 10. coupling kernels against twins: the main path's scene (timed)
         # and the contact placement; 14. the split passes on the same two
         fl_t, sp_t, k1_t = {}, {}, {}
@@ -3704,11 +4131,15 @@ def main() -> int:
                 mscheme, mscene = cscheme, cscene
         del cscheme, cscene
 
+        print(f"[time] phase 11 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 11. the coupling main path (the sinking box, fused kdkf)
         _, cpl_launches, cpl_sps = phase_coupling_main(
             mscheme, mscene, cdt, CPL_STEPS, "cpl-main", smi,
             dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1))
 
+        print(f"[time] phase 12 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 12. the fluid-only tank (no rigid body: B6c in B5's place): its
         # passes against their twins on its pack (timed), then its path
         tscheme, tscene, tdt = sinking_box_scene(dev, body=False)
@@ -3718,11 +4149,15 @@ def main() -> int:
             dict(pack_expand=1, fluid_rates_wall=1, fluid_forces=1))
         del tscheme, tscene
 
+        print(f"[time] phase 13 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 13. coupling kernel steps against twin steps
         pscheme, pscene, pdt = sinking_box_scene(dev, floor=True,
                                                  rho_b=CPL_PARITY_RHO)
         phase_coupling_parity(pscheme, pscene, pdt)
 
+        print(f"[time] phase 15 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 15. the kdk ordering, 16. the reference ordering, from the
         # sinking box's set-up state
         split = dict(fluid_rates=1, wall_bc=1, fluid_forces=1, contact=1)
@@ -3734,6 +4169,8 @@ def main() -> int:
                 dict(split, pack_expand=n_pack))
         del mscheme, mscene
 
+        print(f"[time] phase 17 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 17. the no-fluid route on the resting stack
         t0 = time.perf_counter()
         nscheme, nscene, _ = contact_scene_2d(dev, coupling=True)
@@ -3755,6 +4192,8 @@ def main() -> int:
             dict(pack_expand=1, contact=1))
         del nscheme, nscene
 
+        print(f"[time] phase 18 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 18. kdk and reference kernel steps against twin steps; 34.
         # against list steps
         for ordering in ("kdk", "reference"):
@@ -3765,6 +4204,8 @@ def main() -> int:
                                   other=list_twin(pscheme))
         del pscheme, pscene
 
+        print(f"[time] phase 19 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 19. every fluid pass on the 3D sinking box
         t0 = time.perf_counter()
         scheme3f, scene3f = sinking_box_scene_3d(dev)
@@ -3774,8 +4215,12 @@ def main() -> int:
         fl3_t = {}
         phase_fluid_3d(scheme3f, scene3f, fl3_t, k1_t)
 
+        print(f"[time] phase 20 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 20. the 3D coupling step through the Solver, and its 20-step
         # parity; 21. benchmark 5 (2D, two cubes) to its tf with its gate;
+        print(f"[time] phase 22 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 22. the sinking box at the case's size: snapshots, checkpoint,
         # resume bit for bit
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3785,6 +4230,8 @@ def main() -> int:
             b5_launches, b5_sps = phase_benchmark_5(tmp, smi)
             sbr_launches, sbr_sps = phase_sinking_box_resume(tmp, smi)
 
+        print(f"[time] phase 23 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 23. the rigid RK2 step on the resting stack, and its parity
         t0 = time.perf_counter()
         kscheme, kscene, kdx = contact_scene_2d(dev, integrator="rk2")
@@ -3795,6 +4242,8 @@ def main() -> int:
         phase_step_parity(kscheme, kend, "rk2-parity")
         del kscheme, kscene, kend
 
+        print(f"[time] phase 24 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 24. the leapfrog step on the 3D cubes, and its parity
         t0 = time.perf_counter()
         lscheme, lscene, ldx = contact_scene_3d(dev, integrator="leapfrog")
@@ -3805,6 +4254,8 @@ def main() -> int:
         phase_step_parity(lscheme, lend, "leapfrog-parity")
         del lscheme, lscene, lend
 
+        print(f"[time] phase 25 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 25. the RK2 coupling step (Tait) on the sinking box, and its
         # parity on the contact placement
         rscheme, rscene, rdt = sinking_box_scene(dev)
@@ -3820,16 +4271,22 @@ def main() -> int:
         phase_coupling_parity(pscheme, pscene, pdt, "rk2-cpl-parity")
         del pscheme, pscene
 
+        print(f"[time] phase 26 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 26. the LVCForce DEM step on the column
         fscheme, fscene = dem_scene(dev, 2, contact_model="LVCForce")
         _, lvcf_launches, lvcf_sps = phase_dem_main(
             fscheme, fscene, LVCF_STEPS, "dem-lvcforce", smi)
         del fscheme, fscene
 
+        print(f"[time] phase 27 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 27. benchmark 2 to its tf through the Application
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             b2_launches, b2_sps = phase_benchmark_2(tmp, smi)
 
+        print(f"[time] phase 28 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 28. the rigid slab step on phase 4's stack, SLAB_P slabs on the
         # card (blob route), its 200-step run with redistributions, and
         # the steps/s of one slab
@@ -3840,6 +4297,8 @@ def main() -> int:
                                  single_steps=2 * CHUNK)
         del sscheme, sscene
 
+        print(f"[time] phase 29 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 29. the 3D cubes on the most slabs of at least 2 cell columns,
         # the blob and the full [N, S] routes
         s3scheme, s3scene, s3dx = contact_scene_3d(dev)
@@ -3850,10 +4309,14 @@ def main() -> int:
                                  one_slab_ref=True)
         del s3scheme, s3scene
 
+        print(f"[time] phase 30 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 30. the DEM slab step on phase 7's column
         slab_t = {}
         slabd = phase_slab_dem(smi, SLAB_P, dev, slab_t)
 
+        print(f"[time] phase 31 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 31. the 2D rigid slab step with one slab a card
         n_cards = torch.cuda.device_count()
         slab_cards = None
@@ -3869,6 +4332,8 @@ def main() -> int:
                   "(the phase puts one slab on each of 2-4 cards)",
                   flush=True)
 
+        print(f"[time] phase 32 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 32. the coupling slab step on the sinking box, kdk and kdkf on
         # SLAB_P slabs of the card, each with its 200-step run; 33. the
         # 3D box, kdkf
@@ -3879,6 +4344,8 @@ def main() -> int:
             for o in ("kdk", "kdkf")}
         slabc3 = phase_slab_coupling(smi, dev, "kdkf", 3, SLAB_P, cpl_slab_t)
 
+        print(f"[time] phase 35 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 35-38. the [N, K] list engine on the cell paths' scenes
         t_list = time.perf_counter()
         lists = {}
@@ -3916,6 +4383,8 @@ def main() -> int:
         print(f"[list] phases 35-38 in {time.perf_counter() - t_list:.1f} "
               "s", flush=True)
 
+        print(f"[time] phase 39 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 39. the non-quintic SPH kernels' K2 and fluid instances against
         # their twins (their libraries built first, all together); 40.
         # the main paths with each of them; 41. the Verlet skin
@@ -3928,6 +4397,8 @@ def main() -> int:
         print(f"[sph] phases 39-41 in {time.perf_counter() - t_sph:.1f} s",
               flush=True)
 
+        print(f"[time] phase 42 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 42. the compact store on the 2D boxes' scene, 43. in 3D
         t_cc = time.perf_counter()
         cc2_launches, cc2 = phase_coupling_compact(dev, 2, CPL_BOXES_STEPS,
@@ -3936,6 +4407,17 @@ def main() -> int:
             dev, 3, CPL_BOXES_3D_STEPS, smi)
         print(f"[compact] phases 42-43 in {time.perf_counter() - t_cc:.1f} "
               "s", flush=True)
+        print(f"[time] phase 44 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        # 44. K2's wide instance on the 2D stack of 128 blocks and at S =
+        # 300; 45. on every slot of 64 cubes, and B5's global-block
+        # instance at S = 301; 46. the DEM kernels' wide tables
+        t_w = time.perf_counter()
+        wide_k2 = phase_wide_rigid(dev, smi)
+        wide_b5 = phase_wide_3d_b5(dev, smi)
+        wide_dem = phase_wide_dem(dev, smi)
+        print(f"[wide] phases 44-46 in {time.perf_counter() - t_w:.1f} s",
+              flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4188,6 +4670,20 @@ def main() -> int:
                 bound_ms=fm["bound_ms"], bound_by=fm["bound_by"],
                 library_ms=None, **res(fm),
                 library_seconds=sph_build[f"fluid_{k}"]["seconds"]))
+    kernels += wide_kernel_entries(kernels, wide_k2, wide_b5, wide_dem,
+                                   src)
+    wr, ws, b5 = wide_k2["rows"], wide_k2["slots"], wide_b5["b5"]
+    print(f"[done] wide instances: K2 S={wr['S']} {wr['ms']:.4f} ms on "
+          f"{wr['rows']} rows, {ws['ms']:.4f} ms on every slot, S=300 "
+          f"{wide_k2['rows_300']['ms']:.4f} / "
+          f"{wide_k2['slots_300']['ms']:.4f} ms, 3D S=65 every slot "
+          f"{wide_b5['slots_3d']['ms']:.4f} ms; GTVF S={wr['S']} "
+          f"{wide_k2['stats']['steps_per_s']:.2f} steps/s; B5 S={b5['S']} "
+          f"{b5['ms']:.4f} ms, kdkf ({wide_b5['route']}) "
+          f"{wide_b5['steps_per_s']:.2f} steps/s; DEM " + ", ".join(
+              f"{g} L={L} {v['ms']:.4f} ms ({v['sps']:.2f} steps/s)"
+              for (g, L), v in sorted(wide_dem.items()))
+          + f"; on {smi}", flush=True)
     print(f"[done] SPH kernels: {len(sph_build)} libraries built in "
           f"{sph_build_s:.2f} s wall; " + "; ".join(
               f"{k} K2 {sph_t[k]['k2']['ms']:.4f} ms, B4 "

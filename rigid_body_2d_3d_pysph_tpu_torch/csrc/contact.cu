@@ -69,16 +69,32 @@
 // them).  Nothing goes through a matrix unit.  Built with
 // --fmad=false so r rounds as the plain version's does and the picks,
 // distance ties included, agree bit for bit.
+//
+// Any S: the instance above keeps a row's dems as 64-bit masks and its
+// count tables in static shared memory, so it takes S <= S_MAX.  The wide
+// instance (WIDE, S > S_MAX) carries the same facts without masks: a
+// lane wants every dem but its own if it is rigid, so a lane is (rigid,
+// own dem) and the row wants every dem but one (the dem all its rigid
+// lanes share) or every dem.  Its count tables (2 P SC + SC + 1 ints) are
+// in dynamic shared memory, sized from the SC dems of a chunk: the dems
+// are taken SC at a time (one chunk up to WIDE_CHUNK dems), each chunk
+// walks the stencil again and sums only its own dems, so a (lane, dem)
+// gets the same sums and pick as in one pass.  The match key is c SC + d
+// (a dem above 255 would collide in the 8-bit key).  Everything else,
+// the pick rules and the order of each dem's sums, is the code above.
 #include "mofidi.cuh"
 
 namespace {
 
 constexpr int M = 16;          // lanes a slot (the contact grids' width)
 constexpr int THREADS = 128;   // a block: one query row
+constexpr int P = THREADS / M; // lane groups: stencil parts
 constexpr int CAP_3D = 1536;   // sorted candidates a window: 3D,
 constexpr int CAP_2D = 512;    // 2D (a 2D stencil holds ~16 x 16 lanes)
 constexpr int UNROLL = 8;      // stencil entries whose loads are in flight
-constexpr int S_MAX = 64;      // a dem is a bit of a 64-bit mask
+constexpr int S_MAX = 64;      // narrow: a dem is a bit of a 64-bit mask
+constexpr int WIDE_CHUNK = 2048;   // wide: the most dems a chunk
+constexpr int NO_RIGID = -2;   // wide: the row has no rigid lane
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
@@ -87,6 +103,7 @@ struct Args {
   const long long* nbr;          // [NI, O]
   float* out;                    // [NI, M, 12 S]
   int NI, O, nrows, S;
+  int chunk;                     // wide: dems a chunk (the tables' width)
   float cutoff, init_dist, sig_num, sig_den;
 };
 
@@ -105,7 +122,12 @@ __device__ __forceinline__ Flags decode(float f) {
   return d;
 }
 
-template <bool TWO_D>
+// the wide instance's dynamic shared memory (bytes) at `chunk` dems
+__host__ __device__ constexpr int wide_bytes(int chunk) {
+  return 4 * (2 * P * chunk + chunk + 1);
+}
+
+template <bool TWO_D, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
     contact_kernel(const Args a) {
   constexpr int F = TWO_D ? 7 : 9;
@@ -113,21 +135,30 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int FU = TWO_D ? 2 : 3, FV = TWO_D ? 3 : 4, FW = 5;
   constexpr int FVOL = TWO_D ? 4 : 6, FH = TWO_D ? 5 : 7;
   constexpr int FFLAGS = TWO_D ? 6 : 8;
-  constexpr int P = THREADS / M;     // lane groups: stencil parts
   constexpr int CAP = TWO_D ? CAP_2D : CAP_3D;
   constexpr int U = 8;               // pair bodies a thread, a tile
   constexpr int TT = P * U;          // candidates a tile
+  constexpr int SN = WIDE ? 1 : S_MAX;   // the static tables' width
 
   __shared__ float4 s_pos[CAP];              // x y z h, dem-sorted
   __shared__ int s_key[CAP];                 // its pack lane
-  __shared__ int s_cnt[P][S_MAX];            // candidates a (part, dem)
-  __shared__ int s_base[P][S_MAX];           // their first sorted place
-  __shared__ int s_seg[S_MAX + 1];           // a dem's first sorted place
+  __shared__ int s_cnt_n[P * SN];            // candidates a (part, dem)
+  __shared__ int s_base_n[P * SN];           // their first sorted place
+  __shared__ int s_seg_n[SN + 1];            // a dem's first sorted place
   __shared__ float s_q[5][M];                // qx qy qz qh qvol
   __shared__ unsigned long long s_want[M];   // a lane's dems (0: none)
   __shared__ unsigned long long s_rowwant;
   __shared__ float s_r[TT][M];               // a tile's gated r (-1: none)
   __shared__ float s_t1[TT][M];              // and its t1 = V_q W / r
+  // wide: a lane's (rigid, own dem) and the one dem the row skips (-1:
+  // none; NO_RIGID: no rigid lane), the tables in dynamic shared memory
+  __shared__ int s_rig[WIDE ? M : 1], s_own[WIDE ? M : 1];
+  __shared__ int s_rowskip;
+  extern __shared__ int s_dyn[];
+  const int SC = WIDE ? a.chunk : S_MAX;     // the tables' row stride
+  int* const s_cnt = WIDE ? s_dyn : s_cnt_n;                 // [P][SC]
+  int* const s_base = WIDE ? s_dyn + P * SC : s_base_n;      // [P][SC]
+  int* const s_seg = WIDE ? s_dyn + 2 * P * SC : s_seg_n;    // [SC + 1]
 
   const int t = threadIdx.x, lane = t & 31;
   const int c = t / M, l = t % M;            // lane group, query lane
@@ -136,8 +167,10 @@ __global__ void __launch_bounds__(THREADS)
   const int b = blockIdx.x;                  // the query row
 
   // the query lanes (group 0)
-  if (t == 0) s_rowwant = 0ull;
-  for (int i = t; i < P * S_MAX; i += THREADS) (&s_cnt[0][0])[i] = 0;
+  if (!WIDE) {
+    if (t == 0) s_rowwant = 0ull;
+    for (int i = t; i < P * S_MAX; i += THREADS) s_cnt[i] = 0;
+  }
   __syncthreads();
   if (t < M) {
     const long long qs = min(max(a.qslot[b], 0LL), (long long)(a.nrows - 1));
@@ -148,13 +181,29 @@ __global__ void __launch_bounds__(THREADS)
     s_q[3][l] = __ldg(q + FH * M);
     s_q[4][l] = __ldg(q + FVOL * M);
     const Flags f = decode(__ldg(q + FFLAGS * M));
-    unsigned long long want = 0ull;
-    if (f.rigid == 1.0f) {
-      want = S == 64 ? ~0ull : (1ull << S) - 1ull;
-      if (f.dem >= 0.0f && f.dem < (float)S) want &= ~(1ull << (int)f.dem);
+    if (!WIDE) {
+      unsigned long long want = 0ull;
+      if (f.rigid == 1.0f) {
+        want = S == 64 ? ~0ull : (1ull << S) - 1ull;
+        if (f.dem >= 0.0f && f.dem < (float)S) want &= ~(1ull << (int)f.dem);
+      }
+      s_want[l] = want;
+      if (want) atomicOr(&s_rowwant, want);
+    } else {
+      s_rig[l] = f.rigid == 1.0f;
+      s_own[l] = (f.dem >= 0.0f && f.dem < (float)S) ? (int)f.dem : -1;
     }
-    s_want[l] = want;
-    if (want) atomicOr(&s_rowwant, want);
+  }
+  if (WIDE) {
+    __syncthreads();
+    if (t < 32) {
+      const bool rig = t < M && s_rig[t];
+      const int own = t < M ? s_own[t] : -1;
+      const unsigned rm = __ballot_sync(FULL, rig);
+      const int lo = __reduce_min_sync(FULL, rig ? own : 0x7fffffff);
+      const int hi = __reduce_max_sync(FULL, rig ? own : -0x7fffffff);
+      if (t == 0) s_rowskip = rm == 0u ? NO_RIGID : (lo == hi ? lo : -1);
+    }
   }
 
   // 1. the init row over the row's output
@@ -172,8 +221,10 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncthreads();
-  const unsigned long long row_want = s_rowwant;
-  if (row_want == 0ull) return;   // no rigid lane: the init row
+  const unsigned long long row_want = WIDE ? 0ull : s_rowwant;
+  const int row_skip = WIDE ? s_rowskip : 0;
+  if (WIDE ? row_skip == NO_RIGID : row_want == 0ull)
+    return;   // no rigid lane: the init row
 
   // stencil part c: entries [e_lo, e_hi) in order; every part walks
   // `per` steps, so the warps stay converged
@@ -187,49 +238,6 @@ __global__ void __launch_bounds__(THREADS)
     return (r >= 0 && r < a.nrows) ? __ldg(a.dft + (r * F + FFLAGS) * M + l)
                                    : -8.0f;
   };
-  // a source lane the gate's flag and dem tests may pass: its dem, else -1
-  auto eligible = [&](float fl) -> int {
-    const Flags f = decode(fl);
-    return (f.bdry == 1.0f && f.fluid == 0.0f && f.dem >= 0.0f &&
-            f.dem < (float)S && ((row_want >> (int)f.dem) & 1ull))
-               ? (int)f.dem
-               : -1;
-  };
-
-  // 2a. count the candidates of each (part, dem)
-  for (int e0 = e_lo; e0 < e_lo + per; e0 += UNROLL) {
-    float fl[UNROLL];
-    long long rr[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) fl[u] = entry(e0 + u, rr[u]);
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int d = eligible(fl[u]);
-      if (d >= 0) atomicAdd(&s_cnt[c][d], 1);
-    }
-  }
-  __syncthreads();
-  // 2b. sorted places: dem-major, then stencil part, then stencil order
-  if (t < S) {
-    int sum = 0;
-    for (int p = 0; p < P; ++p) sum += s_cnt[p][t];
-    s_seg[t + 1] = sum;
-  }
-  __syncthreads();
-  if (t == 0) {
-    s_seg[0] = 0;
-    for (int s = 0; s < S; ++s) s_seg[s + 1] += s_seg[s];
-  }
-  __syncthreads();
-  if (t < S) {
-    int at = s_seg[t];
-    for (int p = 0; p < P; ++p) {
-      s_base[p][t] = at;
-      at += s_cnt[p][t];
-    }
-  }
-  const int total = s_seg[S];
-
   // the running sums of query lane l (group 0's, carried across tiles
   // and windows)
   float run[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -237,15 +245,30 @@ __global__ void __launch_bounds__(THREADS)
   int run_pick = 0;
   const float thr = (a.cutoff * a.cutoff) * 1.001f;
 
-  // the sorted candidates in windows of CAP (one window but for a very
-  // crowded stencil)
-  for (int w0 = 0; __syncthreads_or(w0 < total); w0 += CAP) {
-    // 2c. place the window's candidates: each part walks its entries in
-    // order with a cursor a dem, so a dem's candidates stay in stencil
-    // order
-    for (int s = t; s < P * S_MAX; s += THREADS)
-      (&s_cnt[0][0])[s] = (&s_base[0][0])[s];
-    __syncthreads();
+  // the dems [d0, d0 + ns) a chunk (narrow: one chunk, d0 = 0, of all S)
+  for (int d0 = 0; WIDE ? d0 < S : d0 == 0; d0 += SC) {
+    const int ns = WIDE ? min(SC, S - d0) : S;
+    // a source lane the gate's flag and dem tests may pass: its dem's
+    // place in the chunk, else -1
+    auto eligible = [&](float fl) -> int {
+      const Flags f = decode(fl);
+      if (!WIDE)
+        return (f.bdry == 1.0f && f.fluid == 0.0f && f.dem >= 0.0f &&
+                f.dem < (float)S && ((row_want >> (int)f.dem) & 1ull))
+                   ? (int)f.dem
+                   : -1;
+      const int d = (int)f.dem - d0;
+      return (f.bdry == 1.0f && f.fluid == 0.0f && f.dem >= 0.0f &&
+              d >= 0 && d < ns && d + d0 != row_skip)
+                 ? d
+                 : -1;
+    };
+    if (WIDE) {
+      for (int i = t; i < P * SC; i += THREADS) s_cnt[i] = 0;
+      __syncthreads();
+    }
+
+    // 2a. count the candidates of each (part, dem)
     for (int e0 = e_lo; e0 < e_lo + per; e0 += UNROLL) {
       float fl[UNROLL];
       long long rr[UNROLL];
@@ -254,107 +277,186 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int d = eligible(fl[u]);
-        // lanes of this part's entry with the same dem (unique keys for
-        // the others and for the warp's other part)
-        const int key = d >= 0 ? (c << 8) | d : -1 - lane;
-        const unsigned peers = __match_any_sync(FULL, key);
-        int at = 0;
-        if (d >= 0) at = s_cnt[c][d] + __popc(peers & lt);
-        __syncwarp();
-        if (d >= 0 && (peers & lt) == 0u) s_cnt[c][d] += __popc(peers);
-        __syncwarp();
-        if (d >= 0 && at >= w0 && at < w0 + CAP) {
-          const float* sb = a.dft + rr[u] * F * M + l;
-          s_pos[at - w0] =
-              make_float4(__ldg(sb + FX * M), __ldg(sb + FY * M),
-                          TWO_D ? 0.0f : __ldg(sb + FZ * M),
-                          __ldg(sb + FH * M));
-          s_key[at - w0] = (int)(rr[u] * M + l);
-        }
+        if (d >= 0) atomicAdd(&s_cnt[c * SC + d], 1);
       }
     }
     __syncthreads();
+    // 2b. sorted places: dem-major, then stencil part, then stencil order
+    if (!WIDE) {
+      if (t < S) {
+        int sum = 0;
+        for (int p = 0; p < P; ++p) sum += s_cnt[p * SC + t];
+        s_seg[t + 1] = sum;
+      }
+      __syncthreads();
+      if (t == 0) {
+        s_seg[0] = 0;
+        for (int s = 0; s < S; ++s) s_seg[s + 1] += s_seg[s];
+      }
+      __syncthreads();
+      if (t < S) {
+        int at = s_seg[t];
+        for (int p = 0; p < P; ++p) {
+          s_base[p * SC + t] = at;
+          at += s_cnt[p * SC + t];
+        }
+      }
+    } else {
+      for (int d = t; d < ns; d += THREADS) {
+        int sum = 0;
+        for (int p = 0; p < P; ++p) sum += s_cnt[p * SC + d];
+        s_seg[d + 1] = sum;
+      }
+      __syncthreads();
+      if (t < 32) {   // the prefix sums: a run of dems a lane, then a scan
+        const int run_n = (ns + 31) / 32;
+        const int lo = min(ns, t * run_n), hi = min(ns, lo + run_n);
+        int sum = 0;
+        for (int d = lo; d < hi; ++d) sum += s_seg[d + 1];
+        int incl = sum;
+        for (int off = 1; off < 32; off <<= 1) {
+          const int v = __shfl_up_sync(FULL, incl, off);
+          if (t >= off) incl += v;
+        }
+        int at = incl - sum;
+        for (int d = lo; d < hi; ++d) {
+          at += s_seg[d + 1];
+          s_seg[d + 1] = at;
+        }
+        if (t == 0) s_seg[0] = 0;
+      }
+      __syncthreads();
+      for (int d = t; d < ns; d += THREADS) {
+        int at = s_seg[d];
+        for (int p = 0; p < P; ++p) {
+          s_base[p * SC + d] = at;
+          at += s_cnt[p * SC + d];
+        }
+      }
+    }
+    const int total = s_seg[ns];
 
-    // 3. each dem's candidates in the window, TT at a time: the pair
-    // bodies in parallel (candidate c * U + u of the tile for query lane
-    // l), then group 0 adds them in candidate order
-    const unsigned long long want = s_want[l];
-    const float qx = s_q[0][l], qy = s_q[1][l], qz = s_q[2][l];
-    for (int s = 0; s < S; ++s) {
-      const int lo = max(s_seg[s], w0) - w0;
-      const int hi = min(s_seg[s + 1], w0 + CAP) - w0;
-      if (lo >= hi) continue;                  // block-uniform
-      const bool mine = (want >> s) & 1ull;
-      for (int k0 = lo; k0 < hi; k0 += TT) {
-        const float qh = s_q[3][l], qvol = s_q[4][l];
+    // the sorted candidates in windows of CAP (one window but for a very
+    // crowded stencil)
+    for (int w0 = 0; __syncthreads_or(w0 < total); w0 += CAP) {
+      // 2c. place the window's candidates: each part walks its entries in
+      // order with a cursor a dem, so a dem's candidates stay in stencil
+      // order
+      for (int s = t; s < P * SC; s += THREADS) s_cnt[s] = s_base[s];
+      __syncthreads();
+      for (int e0 = e_lo; e0 < e_lo + per; e0 += UNROLL) {
+        float fl[UNROLL];
+        long long rr[UNROLL];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int j = c * U + u, k = k0 + j;
-          float rij = -1.0f, t1 = 0.0f;         // -1: no gated pair
-          if (mine && k < hi) {
-            const float4 sc = s_pos[k];
-            const float xij = qx - sc.x;
-            const float yij = qy - sc.y;
-            float r2 = xij * xij + yij * yij;
-            if (!TWO_D) {
-              const float zij = qz - sc.z;
-              r2 = r2 + zij * zij;
+        for (int u = 0; u < UNROLL; ++u) fl[u] = entry(e0 + u, rr[u]);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int d = eligible(fl[u]);
+          // lanes of this part's entry with the same dem (unique keys for
+          // the others and for the warp's other part)
+          const int key = d >= 0 ? (WIDE ? c * SC + d : (c << 8) | d)
+                                 : -1 - lane;
+          const unsigned peers = __match_any_sync(FULL, key);
+          int at = 0;
+          if (d >= 0) at = s_cnt[c * SC + d] + __popc(peers & lt);
+          __syncwarp();
+          if (d >= 0 && (peers & lt) == 0u) s_cnt[c * SC + d] += __popc(peers);
+          __syncwarp();
+          if (d >= 0 && at >= w0 && at < w0 + CAP) {
+            const float* sb = a.dft + rr[u] * F * M + l;
+            s_pos[at - w0] =
+                make_float4(__ldg(sb + FX * M), __ldg(sb + FY * M),
+                            TWO_D ? 0.0f : __ldg(sb + FZ * M),
+                            __ldg(sb + FH * M));
+            s_key[at - w0] = (int)(rr[u] * M + l);
+          }
+        }
+      }
+      __syncthreads();
+
+      // 3. each dem's candidates in the window, TT at a time: the pair
+      // bodies in parallel (candidate c * U + u of the tile for query lane
+      // l), then group 0 adds them in candidate order
+      const unsigned long long want = WIDE ? 0ull : s_want[l];
+      const bool rig = WIDE && s_rig[l];
+      const int own = WIDE ? s_own[l] : -1;
+      const float qx = s_q[0][l], qy = s_q[1][l], qz = s_q[2][l];
+      for (int s = 0; s < ns; ++s) {
+        const int lo = max(s_seg[s], w0) - w0;
+        const int hi = min(s_seg[s + 1], w0 + CAP) - w0;
+        if (lo >= hi) continue;                  // block-uniform
+        const bool mine = WIDE ? rig && own != d0 + s : (want >> s) & 1ull;
+        for (int k0 = lo; k0 < hi; k0 += TT) {
+          const float qh = s_q[3][l], qvol = s_q[4][l];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int j = c * U + u, k = k0 + j;
+            float rij = -1.0f, t1 = 0.0f;         // -1: no gated pair
+            if (mine && k < hi) {
+              const float4 sc = s_pos[k];
+              const float xij = qx - sc.x;
+              const float yij = qy - sc.y;
+              float r2 = xij * xij + yij * yij;
+              if (!TWO_D) {
+                const float zij = qz - sc.z;
+                r2 = r2 + zij * zij;
+              }
+              if (r2 <= thr) {
+                const float r = sqrtf(r2);
+                if (r <= a.cutoff) {
+                  const float wij = sph::w<TWO_D>(
+                      r, 0.5f * (qh + sc.w), a.sig_num, a.sig_den);
+                  rij = r;
+                  t1 = qvol * (1.0f / fmaxf(r, 1e-30f)) * wij;
+                }
+              }
             }
-            if (r2 <= thr) {
-              const float r = sqrtf(r2);
-              if (r <= a.cutoff) {
-                const float wij = sph::w<TWO_D>(
-                    r, 0.5f * (qh + sc.w), a.sig_num, a.sig_den);
-                rij = r;
-                t1 = qvol * (1.0f / fmaxf(r, 1e-30f)) * wij;
+            s_r[j][l] = rij;
+            s_t1[j][l] = t1;
+          }
+          __syncthreads();
+          if (c == 0 && mine) {
+            const int n = min(TT, hi - k0);
+            for (int j = 0; j < n; ++j) {
+              const float rij = s_r[j][l];
+              if (rij < 0.0f) continue;
+              const float4 sc = s_pos[k0 + j];
+              const float xij = qx - sc.x, yij = qy - sc.y, zij = qz - sc.z;
+              const float t1 = s_t1[j][l];
+              const float t2 = t1 * rij;
+              run[0] += t1 * xij;
+              run[1] += t1 * yij;
+              run[3] += t2;
+              run[4] += t2 * xij;
+              run[5] += t2 * yij;
+              if (!TWO_D) {
+                run[2] += t1 * zij;
+                run[6] += t2 * zij;
+              }
+              if (rij < run_r) {   // the lowest stencil lane on a tie
+                run_r = rij;
+                run_pick = s_key[k0 + j];
               }
             }
           }
-          s_r[j][l] = rij;
-          s_t1[j][l] = t1;
+          __syncthreads();   // s_r and s_t1 are written again
         }
-        __syncthreads();
-        if (c == 0 && mine) {
-          const int n = min(TT, hi - k0);
-          for (int j = 0; j < n; ++j) {
-            const float rij = s_r[j][l];
-            if (rij < 0.0f) continue;
-            const float4 sc = s_pos[k0 + j];
-            const float xij = qx - sc.x, yij = qy - sc.y, zij = qz - sc.z;
-            const float t1 = s_t1[j][l];
-            const float t2 = t1 * rij;
-            run[0] += t1 * xij;
-            run[1] += t1 * yij;
-            run[3] += t2;
-            run[4] += t2 * xij;
-            run[5] += t2 * yij;
-            if (!TWO_D) {
-              run[2] += t1 * zij;
-              run[6] += t2 * zij;
-            }
-            if (rij < run_r) {   // the lowest stencil lane on a tie
-              run_r = rij;
-              run_pick = s_key[k0 + j];
-            }
+        if (c == 0 && mine && s_seg[s + 1] <= w0 + CAP) {   // the dem's end
+          if (run_r < mofidi::kBig) {
+            // 4. the epilogue, the picked source read by its pack lane
+            const float* sb = a.dft + (long long)(run_pick / M) * F * M +
+                              run_pick % M;
+            mofidi::store_row(
+                orow + l * 12 * S + d0 + s, S, a.init_dist, run[0], run[1],
+                run[2], run[3], run[4], run[5], run[6], run_r,
+                __ldg(sb + FX * M), __ldg(sb + FY * M),
+                TWO_D ? 0.0f : __ldg(sb + FZ * M), __ldg(sb + FU * M),
+                __ldg(sb + FV * M), TWO_D ? 0.0f : __ldg(sb + FW * M));
           }
-        }
-        __syncthreads();   // s_r and s_t1 are written again
-      }
-      if (c == 0 && mine && s_seg[s + 1] <= w0 + CAP) {   // the dem's end
-        if (run_r < mofidi::kBig) {
-          // 4. the epilogue, the picked source read by its pack lane
-          const float* sb = a.dft + (long long)(run_pick / M) * F * M +
-                            run_pick % M;
-          mofidi::store_row(
-              orow + l * 12 * S + s, S, a.init_dist, run[0], run[1], run[2],
-              run[3], run[4], run[5], run[6], run_r, __ldg(sb + FX * M),
-              __ldg(sb + FY * M), TWO_D ? 0.0f : __ldg(sb + FZ * M),
-              __ldg(sb + FU * M), __ldg(sb + FV * M),
-              TWO_D ? 0.0f : __ldg(sb + FW * M));
-        }
 #pragma unroll
-        for (int m = 0; m < 7; ++m) run[m] = 0.0f;
-        run_r = mofidi::kBig;
+          for (int m = 0; m < 7; ++m) run[m] = 0.0f;
+          run_r = mofidi::kBig;
+        }
       }
     }
   }
@@ -362,26 +464,50 @@ __global__ void __launch_bounds__(THREADS)
 
 template <bool TWO_D>
 int launch(const Args& a, cudaStream_t st) {
-  contact_kernel<TWO_D><<<a.NI, THREADS, 0, st>>>(a);
+  contact_kernel<TWO_D, false><<<a.NI, THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the wide instance: its dynamic shared memory allowed once an instance
+template <bool TWO_D>
+int launch_wide(const Args& a, cudaStream_t st) {
+  static int opted = 0;   // the dynamic shared memory allowed so far
+  const int bytes = wide_bytes(a.chunk);
+  if (bytes > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        contact_kernel<TWO_D, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = bytes;
+  }
+  contact_kernel<TWO_D, true><<<a.NI, THREADS, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// sph_id: the SPH kernel's id (ops/kernels.py Kernel.device_id), which must
-// be the one this library was built for
+// chunk: 0 runs the narrow instance (S <= 64); else the wide one with
+// `chunk` dems a chunk (1 .. min(S, 2048)), the wrapper's choice
+// (ops/contact_kernel.py contact_instance).  sph_id: the SPH kernel's id
+// (ops/kernels.py Kernel.device_id), which must be the one this library
+// was built for.
 extern "C" int contact_sums(const void* dft, const void* qslot,
                             const void* nbr, void* out, int NI, int O,
-                            int nrows, int lanes, int S, int two_d, int sph_id,
-                            float cutoff, float init_dist, float sig_num,
-                            float sig_den, void* stream) {
+                            int nrows, int lanes, int S, int chunk,
+                            int two_d, int sph_id, float cutoff,
+                            float init_dist, float sig_num, float sig_den,
+                            void* stream) {
   // a pack lane is an int
-  if (sph_id != sph::kId || lanes != M || S < 1 || S > S_MAX || O < 0 ||
-      nrows < 1 || (long long)nrows * M >= (1LL << 31))
+  if (sph_id != sph::kId || lanes != M || S < 1 || O < 0 || nrows < 1 ||
+      (long long)nrows * M >= (1LL << 31) || chunk < 0 ||
+      chunk > WIDE_CHUNK || chunk > S || (chunk == 0 && S > S_MAX))
     return (int)cudaErrorInvalidValue;
   if (NI == 0) return 0;
   Args a{(const float*)dft, (const long long*)qslot, (const long long*)nbr,
-         (float*)out, NI, O, nrows, S, cutoff, init_dist, sig_num, sig_den};
+         (float*)out, NI, O, nrows, S, chunk, cutoff, init_dist, sig_num,
+         sig_den};
   const cudaStream_t st = (cudaStream_t)stream;
+  if (chunk > 0)
+    return two_d ? launch_wide<true>(a, st) : launch_wide<false>(a, st);
   return two_d ? launch<true>(a, st) : launch<false>(a, st);
 }

@@ -66,6 +66,18 @@
 // Measured on an H100 (PERF.md): the scan and its lists take about half
 // the time, the pair bodies a third; a candidate-major scan (lanes over
 // candidates, a loop over the slot's live queries) was slower.
+// Table widths: an instance holds the query lanes' input tables in shared
+// memory and their rows in registers at a compile-time width LM = 8 (the
+// 16-byte row path for L = 8), 16 or 32 (the wrapper picks the least LM
+// >= L: ops/dem_kernel.py table_instance); LM = 32 takes its tables from
+// dynamic shared memory (32 KB: past the 48 KB of static).  Wider tables
+// (LM = 0, any L) stay in global memory: the pair body matches against
+// the query's row there, the matched slots go to a bitmap a particle in
+// global memory (o_match, ceil(L / 32) words), and the table row is
+// written from the last slot down, so a slot is written only after the
+// parked contact it may take (at a lower or the same slot) was read.  The
+// slot each contact takes, and so the table, is the same in every
+// instance.
 // No matrix unit, no prefix product, no reduced precision: idx and dem
 // are exact copies.  Built with --fmad=false so r = sqrt(x*x + y*y +
 // z*z) rounds as the plain version's does and the gate decisions (which
@@ -75,7 +87,8 @@
 namespace {
 
 constexpr int NF = 13;
-constexpr int L_MAX = 8;
+constexpr int L_VEC = 8;     // the table width of the 16-byte row path
+constexpr int ROWS = 0;      // LM of the instance that keeps rows in global
 constexpr int E_MAX = 8;
 constexpr int R_MAX = 9;
 constexpr int THREADS = 128;
@@ -105,14 +118,16 @@ struct Args {
   int* o_idx;                    // [N, L]
   int* o_dem;
   float* o_spr;                  // [3, N, L]
+  unsigned* o_match;             // LM = 0: [N, ceil(L / 32)] zeros in
   int N, L, E;
   float dt, cutoff;
 };
 
-// a particle's table row of L ints: two 16-byte accesses when L = L_MAX
-// (rows 32-byte aligned), else one word at a time
+// a particle's table row of L ints into LM registers: two 16-byte
+// accesses when L = LM = 8 (rows 32-byte aligned), else one word at a time
+template <int LM>
 __device__ __forceinline__ void load_row(const int* src, bool vec, int L,
-                                         int (&v)[L_MAX]) {
+                                         int (&v)[LM]) {
   if (vec) {
     const int4 lo = __ldg(reinterpret_cast<const int4*>(src));
     const int4 hi = __ldg(reinterpret_cast<const int4*>(src) + 1);
@@ -120,23 +135,36 @@ __device__ __forceinline__ void load_row(const int* src, bool vec, int L,
     v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
   } else {
 #pragma unroll
-    for (int k = 0; k < L_MAX; ++k) v[k] = k < L ? src[k] : -1;
+    for (int k = 0; k < LM; ++k) v[k] = k < L ? src[k] : -1;
   }
 }
 
+template <int LM>
 __device__ __forceinline__ void store_row(int* dst, bool vec, int L,
-                                          const int (&v)[L_MAX]) {
+                                          const int (&v)[LM]) {
   if (vec) {
     reinterpret_cast<int4*>(dst)[0] = make_int4(v[0], v[1], v[2], v[3]);
     reinterpret_cast<int4*>(dst)[1] = make_int4(v[4], v[5], v[6], v[7]);
   } else {
 #pragma unroll
-    for (int k = 0; k < L_MAX; ++k)
+    for (int k = 0; k < LM; ++k)
       if (k < L) dst[k] = v[k];
   }
 }
 
-template <int M, bool ROWWIN>
+// the slots below L as a mask (LM <= 32)
+template <int LM>
+__device__ __forceinline__ unsigned low_slots(int L) {
+  return (LM < 32 || L < 32) ? (1u << L) - 1u : FULL;
+}
+
+// the dynamic shared memory (bytes) of table width LM: the query lanes'
+// idx and dem tables where they exceed the static budget
+__host__ __device__ constexpr int table_bytes(int LM) {
+  return LM == 32 ? 2 * LM * THREADS * 4 : 0;
+}
+
+template <int M, bool ROWWIN, int LM>
 __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   constexpr int G = THREADS / M;      // query rows a block
   constexpr int TM = TILE * M;        // candidate lanes a row stages a round
@@ -144,8 +172,14 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   // the int bits of w
   __shared__ float4 s_pos[G * TM];
   __shared__ int s_cnt[G];
-  __shared__ int s_tidx[L_MAX * THREADS];   // the query lanes' input tables
-  __shared__ int s_tdem[L_MAX * THREADS];
+  // the query lanes' input tables [LM][THREADS] (static up to LM = 16,
+  // dynamic at 32, none for the global rows)
+  constexpr int LS = (LM == ROWS || LM == 32) ? 1 : LM;
+  __shared__ int s_tidx_s[LS * THREADS];
+  __shared__ int s_tdem_s[LS * THREADS];
+  extern __shared__ int s_dyn[];
+  int* const s_tidx = LM == 32 ? s_dyn : s_tidx_s;
+  int* const s_tdem = LM == 32 ? s_dyn + LM * THREADS : s_tdem_s;
   __shared__ int l_src[WARPS * LIST];       // per warp: the pair list
   __shared__ int l_own[WARPS * LIST];
   __shared__ int l_code[WARPS * LIST];
@@ -173,18 +207,20 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
     p = (int)__ldg(qb + FIDX * M);
   }
   const bool live = p >= 0 && p < a.N;
-  const bool vec = L == L_MAX &&
+  const bool vec = LM == L_VEC && L == L_VEC &&
       ((reinterpret_cast<size_t>(a.t_idx) | reinterpret_cast<size_t>(a.t_dem) |
         reinterpret_cast<size_t>(a.o_idx) | reinterpret_cast<size_t>(a.o_dem)) &
        15) == 0;
-  if (live) {
-    int ti[L_MAX], td[L_MAX];
-    load_row(a.t_idx + (long long)p * L, vec, L, ti);
-    load_row(a.t_dem + (long long)p * L, vec, L, td);
+  if constexpr (LM != ROWS) {
+    if (live) {
+      int ti[LM], td[LM];
+      load_row<LM>(a.t_idx + (long long)p * L, vec, L, ti);
+      load_row<LM>(a.t_dem + (long long)p * L, vec, L, td);
 #pragma unroll
-    for (int k = 0; k < L_MAX; ++k) {
-      s_tidx[k * THREADS + t] = ti[k];
-      s_tdem[k * THREADS + t] = td[k];
+      for (int k = 0; k < LM; ++k) {
+        s_tidx[k * THREADS + t] = ti[k];
+        s_tdem[k * THREADS + t] = td[k];
+      }
     }
   }
   if constexpr (ROWWIN) {
@@ -283,11 +319,18 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
 
       // the table entry of this partner, if any
       int slot = -1;
+      if constexpr (LM != ROWS) {
 #pragma unroll
-      for (int k = 0; k < L_MAX; ++k)
-        if (k < L && slot < 0 && s_tidx[k * THREADS + own] == j &&
-            s_tdem[k * THREADS + own] == dem)
-          slot = k;
+        for (int k = 0; k < LM; ++k)
+          if (k < L && slot < 0 && s_tidx[k * THREADS + own] == j &&
+              s_tdem[k * THREADS + own] == dem)
+            slot = k;
+      } else {
+        const int* ti = a.t_idx + (long long)qi * L;
+        const int* td = a.t_dem + (long long)qi * L;
+        for (int k = 0; k < L && slot < 0; ++k)
+          if (ti[k] == j && td[k] == dem) slot = k;
+      }
       const long long at = (long long)qi * L + slot;
       float sx = 0.0f, sy = 0.0f, sz = 0.0f;
       if (slot >= 0) {
@@ -365,7 +408,11 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
 #pragma unroll
       for (int m = 0; m < 6; ++m) f[m] += lf[m * LIST + i];
       if (c >= 0) {
-        matched |= 1u << c;
+        if constexpr (LM != ROWS)
+          matched |= 1u << c;
+        else
+          a.o_match[(long long)p * ((L + 31) / 32) + (c >> 5)] |=
+              1u << (c & 31);
       } else {
         if (n_new < L) {
           // parked at slot n_new of the particle's output row
@@ -451,55 +498,101 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   // unmatched slots are free; the r-th new contact takes the r-th free
   // slot (parked contact r sits at slot r of the output row)
   const long long base = (long long)p * L;
-  const unsigned free_mask = ~matched & ((1u << L) - 1u);
-  int nj[L_MAX], nd[L_MAX];
   int n_live = 0;
+  if constexpr (LM != ROWS) {
+    const unsigned free_mask = ~matched & low_slots<LM>(L);
+    int nj[LM], nd[LM];
 #pragma unroll
-  for (int k = 0; k < L_MAX; ++k) {
-    nj[k] = nd[k] = -1;
-    if (k >= L) continue;
-    if ((matched >> k) & 1u) {
-      nj[k] = s_tidx[k * THREADS + t];
-      nd[k] = s_tdem[k * THREADS + t];
-    } else {
-      const int r = __popc(free_mask & ((1u << k) - 1u));
-      if (r < n_new) {
-        nj[k] = a.o_idx[base + r];
-        nd[k] = a.o_dem[base + r];
+    for (int k = 0; k < LM; ++k) {
+      nj[k] = nd[k] = -1;
+      if (k >= L) continue;
+      if ((matched >> k) & 1u) {
+        nj[k] = s_tidx[k * THREADS + t];
+        nd[k] = s_tdem[k * THREADS + t];
+      } else {
+        const int r = __popc(free_mask & ((1u << k) - 1u));
+        if (r < n_new) {
+          nj[k] = a.o_idx[base + r];
+          nd[k] = a.o_dem[base + r];
+        }
       }
+      n_live += nj[k] >= 0 ? 1 : 0;
     }
-    n_live += nj[k] >= 0 ? 1 : 0;
+    store_row<LM>(a.o_idx + base, vec, L, nj);
+    store_row<LM>(a.o_dem + base, vec, L, nd);
+  } else {
+    // from the last slot down: r counts the free slots below k
+    const unsigned* mrow = a.o_match + (long long)p * ((L + 31) / 32);
+    int r = L;
+    for (int w = 0; w < (L + 31) / 32; ++w) r -= __popc(mrow[w]);
+    for (int k = L - 1; k >= 0; --k) {
+      int j = -1, d = -1;
+      if ((mrow[k >> 5] >> (k & 31)) & 1u) {
+        j = a.t_idx[base + k];
+        d = a.t_dem[base + k];
+      } else if (--r < n_new) {
+        j = a.o_idx[base + r];
+        d = a.o_dem[base + r];
+      }
+      a.o_idx[base + k] = j;
+      a.o_dem[base + k] = d;
+      n_live += j >= 0 ? 1 : 0;
+    }
   }
-  store_row(a.o_idx + base, vec, L, nj);
-  store_row(a.o_dem + base, vec, L, nd);
   float4* os = reinterpret_cast<float4*>(a.o_sum + (long long)p * 8);
   os[0] = make_float4(f[0], f[1], f[2], f[3]);
   os[1] = make_float4(f[4], f[5], (float)n_live, (float)n_gated);
 }
 
-template <int M, bool ROWWIN>
+template <int M, bool ROWWIN, int LM>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int G = THREADS / M;
-  dem_pairs_kernel<M, ROWWIN><<<(a.rows + G - 1) / G, THREADS, 0, stream>>>(a);
+  constexpr int bytes = table_bytes(LM);
+  if constexpr (bytes > 0) {
+    static bool opted = false;   // the dynamic shared memory allowed
+    if (!opted) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          dem_pairs_kernel<M, ROWWIN, LM>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return (int)err;
+      opted = true;
+    }
+  }
+  dem_pairs_kernel<M, ROWWIN, LM>
+      <<<(a.rows + G - 1) / G, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <int M, bool ROWWIN>
+int dispatch_lm(int LM, const Args& a, cudaStream_t stream) {
+  switch (LM) {
+    case 8: return launch<M, ROWWIN, 8>(a, stream);
+    case 16: return launch<M, ROWWIN, 16>(a, stream);
+    case 32: return launch<M, ROWWIN, 32>(a, stream);
+    default: return launch<M, ROWWIN, ROWS>(a, stream);
+  }
+}
+
 template <bool ROWWIN>
-int dispatch(int M, const Args& a, void* stream) {
+int dispatch(int M, int LM, const Args& a, void* stream) {
   if (a.rows == 0 || a.N == 0) return 0;
-  if (M == 8) return launch<8, ROWWIN>(a, (cudaStream_t)stream);
-  if (M == 16) return launch<16, ROWWIN>(a, (cudaStream_t)stream);
+  if (M == 8) return dispatch_lm<8, ROWWIN>(LM, a, (cudaStream_t)stream);
+  if (M == 16) return dispatch_lm<16, ROWWIN>(LM, a, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 
-bool bad_shape(int L, int E) {
-  return L < 1 || L > L_MAX || E < 0 || E > E_MAX;
+// LM: the instance's table width, 8, 16 or 32 (at least L) or 0 (any L:
+// the rows in global memory, o_match given)
+bool bad_shape(int L, int LM, int E, const void* o_match) {
+  if (L < 1 || E < 0 || E > E_MAX) return true;
+  if (LM == ROWS) return o_match == nullptr;
+  return (LM != 8 && LM != 16 && LM != 32) || L > LM;
 }
 
 Args tables(const void* t_idx, const void* t_dem, const void* t_x,
             const void* t_y, const void* t_z, const void* mat, void* o_sum,
-            void* o_idx, void* o_dem, void* o_spr, int N, int L, int E,
-            float dt, float cutoff) {
+            void* o_idx, void* o_dem, void* o_spr, void* o_match, int N,
+            int L, int E, float dt, float cutoff) {
   Args a{};
   a.t_idx = (const int*)t_idx;
   a.t_dem = (const int*)t_dem;
@@ -511,6 +604,7 @@ Args tables(const void* t_idx, const void* t_dem, const void* t_x,
   a.o_idx = (int*)o_idx;
   a.o_dem = (int*)o_dem;
   a.o_spr = (float*)o_spr;
+  a.o_match = (unsigned*)o_match;
   a.N = N;
   a.L = L;
   a.E = E;
@@ -524,34 +618,36 @@ Args tables(const void* t_idx, const void* t_dem, const void* t_x,
 extern "C" int dem_cell(const void* dft, const void* nbr, const void* t_idx,
                         const void* t_dem, const void* t_x, const void* t_y,
                         const void* t_z, const void* mat, void* o_sum,
-                        void* o_idx, void* o_dem, void* o_spr, int N, int NC,
-                        int O, int M, int L, int E, float dt, float cutoff,
-                        void* stream) {
-  if (bad_shape(L, E) || O < 0) return (int)cudaErrorInvalidValue;
+                        void* o_idx, void* o_dem, void* o_spr, void* o_match,
+                        int N, int NC, int O, int M, int L, int LM, int E,
+                        float dt, float cutoff, void* stream) {
+  if (bad_shape(L, LM, E, o_match) || O < 0)
+    return (int)cudaErrorInvalidValue;
   Args a = tables(t_idx, t_dem, t_x, t_y, t_z, mat, o_sum, o_idx, o_dem,
-                  o_spr, N, L, E, dt, cutoff);
+                  o_spr, o_match, N, L, E, dt, cutoff);
   a.pack = (const float*)dft;
   a.rows = NC;
   a.nbr = (const long long*)nbr;
   a.O = O;
-  return dispatch<false>(M, a, stream);
+  return dispatch<false>(M, LM, a, stream);
 }
 
 extern "C" int dem_rowwin(const void* dfs, const void* runs,
                           const void* run_cnt, const void* t_idx,
                           const void* t_dem, const void* t_x, const void* t_y,
                           const void* t_z, const void* mat, void* o_sum,
-                          void* o_idx, void* o_dem, void* o_spr, int N,
-                          int NCW, int R, int M, int L, int E, float dt,
-                          float cutoff, void* stream) {
-  if (bad_shape(L, E) || R < 1 || R > R_MAX)
+                          void* o_idx, void* o_dem, void* o_spr,
+                          void* o_match, int N, int NCW, int R, int M, int L,
+                          int LM, int E, float dt, float cutoff,
+                          void* stream) {
+  if (bad_shape(L, LM, E, o_match) || R < 1 || R > R_MAX)
     return (int)cudaErrorInvalidValue;
   Args a = tables(t_idx, t_dem, t_x, t_y, t_z, mat, o_sum, o_idx, o_dem,
-                  o_spr, N, L, E, dt, cutoff);
+                  o_spr, o_match, N, L, E, dt, cutoff);
   a.pack = (const float*)dfs;
   a.rows = NCW;
   a.runs = (const long long*)runs;
   a.run_cnt = (const long long*)run_cnt;
   a.R = R;
-  return dispatch<true>(M, a, stream);
+  return dispatch<true>(M, LM, a, stream);
 }

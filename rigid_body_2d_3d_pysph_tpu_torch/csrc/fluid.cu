@@ -524,9 +524,14 @@ __global__ void __launch_bounds__(kWarps * 32, 6)
 // 5. The slot's [M, W] block is assembled in shared memory (the zero and
 //    init rows, then the force and contact columns) and written
 //    contiguously with 16-byte stores.
+// GMEM: a block too wide for one warp's shared memory (W = 12 S + 6 words
+// a lane; at M = 16 past S ~ 290) is assembled in place in the output
+// instead: the default rows written there first, then the force and
+// contact columns over them (the warp's own writes, ordered by its
+// __syncwarp), and no copy.  The sums and the picks are the same.
 // ---------------------------------------------------------------------------
 
-template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT, bool GMEM>
 __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     forces_kernel(const float* __restrict__ dft,
                   const long long* __restrict__ nbr, float* __restrict__ out,
@@ -541,12 +546,12 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
   const int W = CONTACT ? 12 * S + 6 : 6;
   const int F0 = CONTACT ? 12 * S : 0;       // the first force column
   float* st = reinterpret_cast<float*>(smem4) +
-              (threadIdx.x >> 5) * warp_words(M, W, true);
+              (threadIdx.x >> 5) * warp_words(M, GMEM ? 0 : W, true);
   int* clist = reinterpret_cast<int*>(st + NS * kCap);
   int* qlist = clist + kCap;
   int* rlist = qlist + 32;
-  float* obuf = st + NS * kCap + kCap + 64;
   float* orow = out + slot * M * W;
+  float* obuf = GMEM ? orow : st + NS * kCap + kCap + 64;
   const float* q = dft + slot * NF * M;
   const bool vec = (M * W) % 4 == 0 &&
                    (reinterpret_cast<unsigned long long>(out) & 15ull) == 0;
@@ -587,7 +592,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
   const unsigned lt = walk.lt;
   if (act) qlist[__popc(amask & lt)] = lane;
   if (rig) rlist[__popc(rmask & lt)] = lane;
-  fill_default(obuf, (M * W) % 4 == 0);
+  fill_default(obuf, GMEM ? vec : (M * W) % 4 == 0);
   // the dems the slot's rigid lanes want: every s but their own, so all
   // of them unless the rigid lanes share one dem
   int skip_dem = -1;
@@ -822,9 +827,11 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     if (cs >= 0) acc.store(obuf + cl * W + cs, S, init_dist);
   }
 
-  __syncwarp();
   // 5. the slot's block, contiguous
-  copy_block(orow, obuf, M * W, vec, lane);
+  if (!GMEM) {
+    __syncwarp();
+    copy_block(orow, obuf, M * W, vec, lane);
+  }
 }
 
 // the dynamic shared memory a kernel may take, raised once per instance
@@ -889,16 +896,16 @@ int rates_wall_entry(const void* dft, const void* nbr, void* out, int NC,
 #undef RW
 }
 
-template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT, bool GMEM>
 int launch_forces(const float* dft, const long long* nbr, float* out, int NC,
                   int O, int M, int S, float cutoff, float alpha_c0,
                   float init_dist, float sig_num, float sig_den,
                   cudaStream_t st) {
   int warps;
   const int bytes =
-      block_bytes(M, CONTACT ? 12 * S + 6 : 6, true, warps);
+      block_bytes(M, GMEM ? 0 : CONTACT ? 12 * S + 6 : 6, true, warps);
   if (bytes == 0) return (int)cudaErrorInvalidValue;
-  auto kern = forces_kernel<KDIM2, VISC, FSI, CONTACT>;
+  auto kern = forces_kernel<KDIM2, VISC, FSI, CONTACT, GMEM>;
   static int opted = 48 * 1024;   // the dynamic shared memory allowed so far
   if (const int err = allow_smem(kern, bytes, opted)) return err;
   kern<<<(unsigned)((NC + warps - 1) / warps), warps * 32, bytes, st>>>(
@@ -907,8 +914,8 @@ int launch_forces(const float* dft, const long long* nbr, float* out, int NC,
   return (int)cudaGetLastError();
 }
 
-// runtime flags -> the template instance
-template <bool FSI, bool CONTACT>
+// runtime flags -> the template instance (GMEM: the block in the output)
+template <bool FSI, bool CONTACT, bool GMEM>
 int forces_entry(const void* dft, const void* nbr, void* out, int NC, int O,
                  int M, int S, int kdim2, int visc, float cutoff,
                  float alpha_c0, float init_dist, float sig_num,
@@ -922,7 +929,7 @@ int forces_entry(const void* dft, const void* nbr, void* out, int NC, int O,
   auto* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
 #define FC(K, V)                                                         \
-  launch_forces<K, V, FSI, CONTACT>(d, nb, o, NC, O, M, S, cutoff,      \
+  launch_forces<K, V, FSI, CONTACT, GMEM>(d, nb, o, NC, O, M, S, cutoff,\
                                     alpha_c0, init_dist, sig_num,       \
                                     sig_den, st)
   switch ((kdim2 ? 2 : 0) + (visc ? 1 : 0)) {
@@ -978,24 +985,31 @@ extern "C" int fluid_forces(const void* dft, const void* nbr, void* out,
                             void* stream) {
   if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
   if (has_rigid)
-    return forces_entry<true, false>(dft, nbr, out, NC, O, M, 0, kdim2, visc,
-                                     cutoff, alpha_c0, 0.0f, sig_num, sig_den,
-                                     stream);
-  return forces_entry<false, false>(dft, nbr, out, NC, O, M, 0, kdim2, visc,
-                                    cutoff, alpha_c0, 0.0f, sig_num, sig_den,
-                                    stream);
+    return forces_entry<true, false, false>(dft, nbr, out, NC, O, M, 0,
+                                            kdim2, visc, cutoff, alpha_c0,
+                                            0.0f, sig_num, sig_den, stream);
+  return forces_entry<false, false, false>(dft, nbr, out, NC, O, M, 0, kdim2,
+                                           visc, cutoff, alpha_c0, 0.0f,
+                                           sig_num, sig_den, stream);
 }
 
+// gmem: 0 assembles a slot's [M, 12 S + 6] block in shared memory (which
+// must fit one warp's), 1 in the output; the wrapper's choice
+// (ops/fluid_kernel.py forces_instance)
 extern "C" int fluid_forces_contact(const void* dft, const void* nbr,
                                     void* out, int NC, int O, int M, int S,
-                                    int kdim2, int visc, int sph_id,
+                                    int gmem, int kdim2, int visc, int sph_id,
                                     float cutoff, float alpha_c0,
                                     float init_dist, float sig_num,
                                     float sig_den, void* stream) {
   if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
-  return forces_entry<true, true>(dft, nbr, out, NC, O, M, S, kdim2, visc,
-                                  cutoff, alpha_c0, init_dist, sig_num,
-                                  sig_den, stream);
+  if (gmem)
+    return forces_entry<true, true, true>(dft, nbr, out, NC, O, M, S, kdim2,
+                                          visc, cutoff, alpha_c0, init_dist,
+                                          sig_num, sig_den, stream);
+  return forces_entry<true, true, false>(dft, nbr, out, NC, O, M, S, kdim2,
+                                         visc, cutoff, alpha_c0, init_dist,
+                                         sig_num, sig_den, stream);
 }
 
 // the dynamic shared memory (bytes) a block of fluid_forces (W = 6) or

@@ -80,10 +80,11 @@ slot fields that the store replaced.  Like the rigid scheme's compact
 route, it runs on every device and SPH kernel (the kernels' plain
 versions on CPU tensors).  RK2, kdk, reference, the list engine and
 fewer entities keep the full ``[N, S]`` schema.  ``compact_min_bodies``
-is None (off) by default: on an H100 the compact route measured slower
-than the full one at every S tried (``scripts/compact_crossover.py``;
-its cull, gather and inverse table add ~95 launches to a host-bound
-step); 8 gives the reference's gate.
+is 97 by default: on an H100 the compact route measured slower than the
+full one up to S = 64 (its cull, gather and inverse table add ~95
+launches to a host-bound step) and faster from S = 97, where the full
+route's ``[N, S]`` tail outgrows them (``scripts/compact_crossover.py``);
+8 gives the reference's gate, None turns the store off.
 
 Bodies are integrated in 3D (``two_d=False``) even in 2D scenes, as the
 reference does.
@@ -128,9 +129,11 @@ from .rigid_body import (
 FLUID_FIELDS = ("rho_fsi", "m_fsi", "p_fsi", "wij_adami", "uf", "vf", "wf",
                 "ug", "vg", "wg", "arho", "ap", "au", "av", "aw", "vol",
                 "cs", "x0", "y0", "z0", "u0", "v0", "w0", "rho0_rk")
-# entities (bodies and walls) from which kdkf keeps the compact store;
-# None: never (slower than the full route on an H100 up to S = 49)
-COMPACT_MIN_BODIES = None
+# entities (bodies and walls) from which kdkf keeps the compact store
+# (None: never): on an H100, compact / full ms a step was 1.03-1.38 at S =
+# 9-64, 0.97 and 1.11 at 65, 0.76-0.81 at 97 and 129 in two timed calls
+# of scripts/compact_crossover.py
+COMPACT_MIN_BODIES = 97
 
 
 class RigidFluidCouplingScheme(Scheme):

@@ -50,15 +50,15 @@ KERNELS = {
     "pack_expand": ("pack_expand", "pack_expand",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "contact": ("contact", "contact_sums",
-                [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P]),
+                [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P]),
     "dem_cell": ("dem", "dem_cell",
-                 [_P] * 12 + [_I] * 6 + [_F, _F, _P]),
+                 [_P] * 13 + [_I] * 7 + [_F, _F, _P]),
     "dem_rowwin": ("dem", "dem_rowwin",
-                   [_P] * 13 + [_I] * 6 + [_F, _F, _P]),
+                   [_P] * 14 + [_I] * 7 + [_F, _F, _P]),
     "fluid_rates_wall": ("fluid", "fluid_rates_wall",
                          [_P] * 3 + [_I] * 7 + [_F] * 8 + [_P]),
     "fluid_forces_contact": ("fluid", "fluid_forces_contact",
-                             [_P] * 3 + [_I] * 7 + [_F] * 5 + [_P]),
+                             [_P] * 3 + [_I] * 8 + [_F] * 5 + [_P]),
     "fluid_forces": ("fluid", "fluid_forces",
                      [_P] * 3 + [_I] * 7 + [_F] * 4 + [_P]),
     "fluid_rates": ("fluid", "fluid_rates",
@@ -184,23 +184,32 @@ def load(kernel: str, sph: str = "quintic"):
 
 
 # launches per kernel, counted by the wrappers where they launch (and
-# nowhere else), and per (kernel, SPH kernel) as "<kernel>[<sph>]"; a run
-# resets them to read how often its path launched
+# nowhere else), per (kernel, SPH kernel) as "<kernel>[<sph>]" and, for
+# the kernels with size instances (K2, B5, the DEM kernels), per instance
+# as "<kernel>/<instance>"; a run resets them to read how often its path
+# launched
 LAUNCHES = {k: 0 for k in KERNELS}
 LAUNCHES_SPH: dict = {}
+LAUNCHES_INSTANCE: dict = {}
 
 
-def count(kernel: str, sph: str = "quintic") -> None:
-    """One launch of ``kernel`` (of its SPH kernel ``sph`` instance)."""
+def count(kernel: str, sph: str = "quintic",
+          instance: str | None = None) -> None:
+    """One launch of ``kernel`` (of its SPH kernel ``sph`` library, of
+    its size ``instance``)."""
     LAUNCHES[kernel] += 1
     key = f"{kernel}[{sph}]"
     LAUNCHES_SPH[key] = LAUNCHES_SPH.get(key, 0) + 1
+    if instance is not None:
+        key = f"{kernel}/{instance}"
+        LAUNCHES_INSTANCE[key] = LAUNCHES_INSTANCE.get(key, 0) + 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCHES_SPH.clear()
+    LAUNCHES_INSTANCE.clear()
 
 
 def check(err: int, what: str) -> None:

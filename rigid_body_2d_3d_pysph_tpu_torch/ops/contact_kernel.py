@@ -35,7 +35,8 @@ from .kernels import Kernel
 from .pack_expand import expand_slots, expand_slots_reference
 
 _BIG = 1.0e9
-S_MAX = 64   # compile-time bound of csrc/contact.cu
+S_NARROW = 64       # csrc/contact.cu's narrow instance: dems as 64-bit masks
+WIDE_CHUNK = 2048   # its wide instance: the most dems a chunk
 _MAX_PACK_LANES = 1 << 31   # csrc/contact.cu keeps a pack lane in an int
 _MAX_PAIR_ELEMS = 1 << 22   # pair lanes per chunk of the plain version
 
@@ -295,6 +296,19 @@ def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
     return torch.cat(outs, 0)
 
 
+def contact_instance(S: int) -> tuple[str, int]:
+    """The ``csrc/contact.cu`` instance for S source-entity slots:
+    ``("narrow", 0)`` up to S_NARROW (a row's dems as 64-bit masks, static
+    count tables), else ``("wide", chunk)``: the count tables in dynamic
+    shared memory, the dems taken ``chunk = min(S, WIDE_CHUNK)`` at a
+    time.  Both give the same output; every S >= 1 has one."""
+    if S < 1:
+        raise ValueError(f"contact kernel: S={S} (at least 1)")
+    if S <= S_NARROW:
+        return "narrow", 0
+    return "wide", min(S, WIDE_CHUNK)
+
+
 def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
                  kernel: Kernel):
     """Contact sums for the query slots ``qslot [NI]`` over the stencil
@@ -320,10 +334,10 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
     if qslot.dtype != torch.int64 or nbr.dtype != torch.int64:
         raise ValueError("the contact kernel takes int64 qslot/nbr")
     R, M = dfT.shape[0], dfT.shape[2]
-    if not 1 <= S <= S_MAX or M != 16 or R * M >= _MAX_PACK_LANES:
-        raise ValueError(f"contact kernel limits: S={S} (1..{S_MAX}), "
-                         f"M={M} (16), {R * M} pack lanes (below "
-                         f"{_MAX_PACK_LANES})")
+    inst, chunk = contact_instance(S)
+    if M != 16 or R * M >= _MAX_PACK_LANES:
+        raise ValueError(f"contact kernel limits: M={M} (16), {R * M} pack "
+                         f"lanes (below {_MAX_PACK_LANES})")
     NI, O = nbr.shape
     dfT, qslot, nbr = dfT.contiguous(), qslot.contiguous(), nbr.contiguous()
     out = torch.empty((NI, M, 12 * S), dtype=torch.float32,
@@ -332,11 +346,11 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
     fn = _build.load("contact", kernel.name)
     stream = torch.cuda.current_stream(dfT.device).cuda_stream
     err = fn(dfT.data_ptr(), qslot.data_ptr(), nbr.data_ptr(),
-             out.data_ptr(), NI, O, R, M, S, int(two_d), kernel.device_id,
-             float(cutoff), float(init_dist), float(sig_num),
-             float(sig_den), stream)
+             out.data_ptr(), NI, O, R, M, S, chunk, int(two_d),
+             kernel.device_id, float(cutoff), float(init_dist),
+             float(sig_num), float(sig_den), stream)
     _build.check(err, "contact_sums")
-    _build.count("contact", kernel.name)
+    _build.count("contact", kernel.name, inst)
     return out
 
 

@@ -23,8 +23,9 @@ The LVCForce pass (:func:`lvc_force_pass`) has no kernel: the reference
 package runs it in XLA only (its Pallas DEM kernels cover LVC
 displacement).  It is the reference's cell-engine sequence in PyTorch
 ops: the prune, a grid build and the dense-block pass.  Integers ride the f32 source
-pack as exact floats, so the wrappers take fewer than 2^24 particles,
-at most 8 entities and at most 8 table slots.
+pack as exact floats, so the wrappers take fewer than 2^24 particles and
+at most 8 entities (as the reference's kernels); a table of any width L
+has a kernel instance (:func:`table_instance`).
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ from .pack_expand import expand_slots, expand_slots_reference
 from .rowwin import RowWinConfig, build_row_window_grid
 
 MAX_PARTICLES = 1 << 24   # exact float integers in the f32 source pack
-L_MAX = 8                 # compile-time bounds of csrc/dem.cu
-E_MAX = 8
+E_MAX = 8                 # entities (the reference kernels' bound too)
+# csrc/dem.cu's table widths: the instances that hold a query's table in
+# shared memory and registers; a wider table runs the instance that
+# keeps the rows in global memory (width 0, any L)
+TABLE_WIDTHS = (8, 16, 32)
 KERNEL_M = (8, 16)        # the lane widths csrc/dem.cu is instantiated for
 
 
@@ -58,10 +62,23 @@ def check_sizes(n: int, L: int, E: int) -> None:
     if n >= MAX_PARTICLES:
         raise ValueError(f"DEM kernels: {n} particles (indices ride f32, "
                          f"max {MAX_PARTICLES - 1})")
-    if not 1 <= L <= L_MAX:
-        raise ValueError(f"DEM kernels: table width {L} (max {L_MAX})")
+    if L < 1:
+        raise ValueError(f"DEM kernels: table width {L} (at least 1)")
     if E > E_MAX:
         raise NotImplementedError(f"DEM kernels: {E} entities (max {E_MAX})")
+
+
+def table_instance(L: int) -> tuple[str, int]:
+    """The ``csrc/dem.cu`` instance for a table of L slots: ``("l8",
+    8)``, ``("l16", 16)`` or ``("l32", 32)``, the least width that holds
+    L (L = 8 on 16-byte rows), else ``("rows", 0)``: the table rows in
+    global memory, any L.  Every instance gives the same tables."""
+    if L < 1:
+        raise ValueError(f"DEM kernels: table width {L} (at least 1)")
+    for lm in TABLE_WIDTHS:
+        if L <= lm:
+            return f"l{lm}", lm
+    return "rows", 0
 
 
 def _check_cuda(name, M, floats, ints64=(), ints32=()):
@@ -84,19 +101,24 @@ def _launch(kernel, pack, index_tables, tables, mat, sizes, dt, cutoff):
     ``kernel`` and return ``(sums [N, 8], idx, dem, sx, sy, sz [N, L])``."""
     n, L = tables[0].shape
     dev = pack.device
+    inst, lm = table_instance(L)
     args = [t.contiguous() for t in (pack, *index_tables, *tables, mat)]
     # two fills: the sums and springs in one float buffer, idx and dem in
     # one int buffer
     flt = torch.zeros(n * (8 + 3 * L), dtype=torch.float32, device=dev)
     o_sum, o_spr = flt[:n * 8].view(n, 8), flt[n * 8:].view(3, n, L)
     o_idx, o_dem = torch.full((2, n, L), -1, dtype=torch.int32, device=dev)
+    # the global-rows instance's matched-slot bitmaps (zeros)
+    o_match = (torch.zeros((n, (L + 31) // 32), dtype=torch.int32,
+                           device=dev) if lm == 0 else None)
     fn = _build.load(kernel)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*[t.data_ptr() for t in args], o_sum.data_ptr(),
-             o_idx.data_ptr(), o_dem.data_ptr(), o_spr.data_ptr(), n,
-             *sizes, L, mat.shape[0], float(dt), float(cutoff), stream)
+             o_idx.data_ptr(), o_dem.data_ptr(), o_spr.data_ptr(),
+             None if o_match is None else o_match.data_ptr(), n,
+             *sizes, L, lm, mat.shape[0], float(dt), float(cutoff), stream)
     _build.check(err, kernel)
-    _build.count(kernel)
+    _build.count(kernel, instance=inst)
     return o_sum, o_idx, o_dem, o_spr[0], o_spr[1], o_spr[2]
 
 

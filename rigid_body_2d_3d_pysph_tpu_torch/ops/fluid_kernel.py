@@ -405,10 +405,31 @@ def _check(name, dfT, nbr):
     return True
 
 
-def _launch(kname, kernel: Kernel, dfT, nbr, width, ints, floats):
+# csrc/fluid.cu's per-warp shared memory (words): staging (11 fields of
+# 160 candidates), the contact list (160), the query and rigid lane lists
+# (64), then the [M, W] output block; a block may opt into 227 KB
+_STAGE_WORDS = 11 * 160 + 160 + 64
+_MAX_SMEM = 227 * 1024
+
+
+def forces_instance(M: int, S: int) -> str:
+    """The ``fluid_forces_contact`` (B5) instance for M lanes a slot and
+    S entity slots: ``"smem"`` assembles a slot's ``[M, 12 S + 6]`` block
+    in shared memory while one warp's fits (``csrc/fluid.cu``
+    ``block_bytes``; at M = 16 up to S = 291), else ``"gmem"``
+    assembles it in place in the output.  Both give the same output."""
+    if S < 1:
+        raise ValueError(f"fluid_forces_contact: S={S} (at least 1)")
+    words = _STAGE_WORDS + ((M * (12 * S + 6) + 3) & ~3)
+    return "smem" if 4 * words <= _MAX_SMEM else "gmem"
+
+
+def _launch(kname, kernel: Kernel, dfT, nbr, width, ints, floats,
+            instance=None):
     """``kname`` of ``kernel``'s library on the pack: ``ints`` (the
     entry's int arguments before the SPH kernel's id), the kernel's id,
-    ``floats``, then the kernel's sigma constants."""
+    ``floats``, then the kernel's sigma constants; ``instance`` names its
+    size instance in the launch counts."""
     NC, O = nbr.shape
     M = dfT.shape[2]
     dfT, nbr = dfT.contiguous(), nbr.contiguous()
@@ -420,7 +441,7 @@ def _launch(kname, kernel: Kernel, dfT, nbr, width, ints, floats):
              *ints, kernel.device_id, *(float(f) for f in floats),
              float(sig_num), float(sig_den), stream)
     _build.check(err, kname)
-    _build.count(kname, kernel.name)
+    _build.count(kname, kernel.name, instance)
     return out
 
 
@@ -477,8 +498,8 @@ def fluid_forces_contact(dfT, nbr, kernel: Kernel, cutoff: float,
     if not _check("fluid_forces_contact", dfT, nbr):
         return fluid_forces_contact_reference(dfT, nbr, kernel, cutoff,
                                               fluid_alpha, c0, S, init_dist)
-    if S < 1:
-        raise ValueError(f"fluid_forces_contact: S={S}")
+    inst = forces_instance(dfT.shape[2], S)
     return _launch("fluid_forces_contact", kernel, dfT, nbr, 12 * S + 6,
-                   (S, int(kernel.dim == 2), int(abs(fluid_alpha) > 1e-14)),
-                   (cutoff, -fluid_alpha * c0, init_dist))
+                   (S, int(inst == "gmem"), int(kernel.dim == 2),
+                    int(abs(fluid_alpha) > 1e-14)),
+                   (cutoff, -fluid_alpha * c0, init_dist), inst)

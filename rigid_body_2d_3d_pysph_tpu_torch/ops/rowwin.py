@@ -97,7 +97,8 @@ def rowwin_config_from_positions(x, y, z, cutoff: float, dim: int,
 
 
 def _np_windows(x, y, z, cfg: RowWinConfig):
-    """Numpy version of the window / run layout (config sizing, tests).
+    """Numpy version of the window / run layout, a walk over the windows
+    (the reference :func:`_worst_run_np` is tested against).
     Returns (order, wbase, wcnt, wrow, wcxa, wcxb, runs[(w, r, sa, sb)])."""
     gx, gy, gz = cfg.dims
     ox, oy, oz = cfg.origin
@@ -142,8 +143,40 @@ def _np_windows(x, y, z, cfg: RowWinConfig):
 
 
 def _worst_run_np(x, y, z, cfg: RowWinConfig) -> int:
-    runs = _np_windows(x, y, z, cfg)[6]
-    return max((sb - sa for (_w, _r, sa, sb) in runs), default=1)
+    """The longest run of window slots of :func:`_np_windows`'s layout,
+    computed on whole arrays (one ``searchsorted`` a table, not one a
+    window and offset: the walk takes minutes for a 3D column of 10^5
+    grains)."""
+    gx, gy, gz = cfg.dims
+    ox, oy, oz = cfg.origin
+    cx = np.floor((np.asarray(x) - ox) / cfg.cell).astype(np.int64)
+    cy = np.floor((np.asarray(y) - oy) / cfg.cell).astype(np.int64)
+    cz = (np.floor((np.asarray(z) - oz) / cfg.cell).astype(np.int64)
+          if cfg.dim == 3 else np.zeros_like(cx))
+    ks = np.sort(cx + gx * (cy + gy * cz), kind="stable")
+    n, M = len(ks), cfg.M
+    if n == 0:
+        return 1
+    rowid, kx = ks // gx, ks % gx
+    idx = np.arange(n)
+    head = np.ones(n, bool)
+    head[1:] = rowid[1:] != rowid[:-1]
+    rstart = np.maximum.accumulate(np.where(head, idx, 0))
+    # windows tile the sorted keys: M lanes at a time within each row
+    wbase = idx[(idx - rstart) % M == 0]
+    wend = np.append(wbase[1:], n)
+    wrow, wcxa, wcxb = rowid[wbase], kx[wbase], kx[wend - 1]
+    offsets = ([(dy, 0) for dy in (-1, 0, 1)] if cfg.dim == 2 else
+               [(dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)])
+    r = wrow[:, None] + np.array([dy + gy * dz for dy, dz in offsets])
+    lo = np.searchsorted(ks, r * gx + wcxa[:, None] - 1, side="left")
+    hi = np.searchsorted(ks, r * gx + wcxb[:, None] + 2, side="left")
+    fp = np.searchsorted(ks, r * gx, side="left")
+    wf = np.searchsorted(wbase, fp, side="left")
+    sa = wf + (lo - fp) // M
+    sb = wf + (hi - 1 - fp) // M + 1
+    runs = (sb - sa)[hi > lo]
+    return int(runs.max()) if runs.size else 1
 
 
 def build_row_window_grid(x, y, z, active, cfg: RowWinConfig, payload):

@@ -2,13 +2,15 @@
 the full ``[N, S]`` schema, at several body counts S, on one CUDA device.
 
     python3 scripts/compact_crossover.py [--steps 50] [--repeats 2]
-        [--scenes 2:2x4,2:2x8,2:4x8,2:6x8,2:7x9,3:2x4,3:2x8,3:3x8]
+        [--scenes 2:2x4,2:2x8,2:4x8,2:6x8,2:7x9,2:8x8@0.2,2:8x12@0.2,
+                  2:8x16@0.2,3:2x4,3:2x8,3:3x8]
         [--out FILE]
 
-Each scene ``dim:rows x cols`` is ``chip_smoke.py``'s
-``boxes_tank_scene``: rows x cols boxes of rho 8 in the sinking box's
-tank at ~10^5 particles (S = rows x cols + 1, at most 64, the contact
-kernels' limit), set up on the compact store.  The full route runs the
+Each scene ``dim:rows x cols[@side]`` is ``chip_smoke.py``'s
+``boxes_tank_scene``: rows x cols boxes of rho 8 (2D: of side ``side``,
+0.25 by default) in the sinking box's tank at ~10^5 particles (S = rows x
+cols + 1: up to 64 the contact kernels' narrow instances, past it their
+wide ones), set up on the compact store.  The full route runs the
 same state expanded to the ``[N, S]`` schema, with the same scheme and
 grid.  After a warm-up chunk on each route (the overflow rebuild rule
 of ``Solver`` on the compact one), ``--repeats`` blocks of four timed
@@ -66,9 +68,10 @@ def _timed(step, start, dt, n):
     return s, ms, torch.cuda.max_memory_allocated() / 2**30
 
 
-def sweep_scene(dev, dim, rows, cols, n, repeats):
+def sweep_scene(dev, dim, rows, cols, n, repeats, side=None):
     t0 = time.perf_counter()
-    scheme, scene, dt = cs.boxes_tank_scene(dev, dim, rows=rows, cols=cols)
+    scheme, scene, dt = cs.boxes_tank_scene(dev, dim, rows=rows, cols=cols,
+                                            side=side)
     scene, rebuilds = _warm_start(scheme, scene, dt, n)
     starts = dict(compact=scene,
                   full=trb.strip_compact_fields(trb.expand_slot_scene(scene)))
@@ -85,7 +88,7 @@ def sweep_scene(dev, dim, rows, cols, n, repeats):
                if b[f].is_floating_point())
     cfg = scheme._cell_cfg
     mean = {k: sum(v) / len(v) for k, v in runs.items()}
-    row = dict(dim=dim, rows=rows, cols=cols,
+    row = dict(dim=dim, rows=rows, cols=cols, side=side,
                S=scene.meta.total_no_bodies, n=scene.n,
                rigid=int(scene.is_rigid.sum()), NC=cfg.NC_max, M=cfg.M,
                n_interesting=int(ends["compact"].n_interesting),
@@ -113,7 +116,7 @@ def main():
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--scenes", default="2:2x4,2:2x8,2:4x8,2:6x8,2:7x9,"
-                    "3:2x4,3:2x8,3:3x8")
+                    "2:8x8@0.2,2:8x12@0.2,2:8x16@0.2,3:2x4,3:2x8,3:3x8")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -125,9 +128,10 @@ def main():
     rows = []
     for spec in args.scenes.split(","):
         dim, shape = spec.split(":")
+        shape, _, side = shape.partition("@")
         r, c = (int(v) for v in shape.split("x"))
         rows.append(sweep_scene(dev, int(dim), r, c, args.steps,
-                                args.repeats))
+                                args.repeats, float(side) if side else None))
     out = dict(device=smi, steps=args.steps, repeats=args.repeats,
                scenes=rows)
     if args.out:

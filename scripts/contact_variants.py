@@ -16,10 +16,12 @@ into ``build/contact_variants/``:
   epilogue);
 
 and, with ``--parent DIR``, the ``csrc/contact.cu`` of another checkout
-(its entry point as this one's; without the SPH kernel's id after
-``two_d``, as before the kernel family was built into its own libraries;
-or with the ``skip_idle`` argument after ``two_d`` of before this
-kernel's redesign, set on the every-slot cases as its wrapper did).
+(its entry point as this one's; without the ``chunk`` argument after
+``S``, as before the wide instance (it then runs its narrow instance,
+S <= 64); without the SPH kernel's id after ``two_d`` too, as before the
+kernel family was built into its own libraries; or with the
+``skip_idle`` argument after ``two_d`` of before this kernel's
+redesign, set on the every-slot cases as its wrapper did).
 Every build is of the quintic spline (no ``-DRB_SPH_KERNEL``).  On ``chip_smoke.py``'s scenes it prints each build's
 time per launch for the four instances of the rigid and coupling paths:
 the 2D culled rows (the main path), the 3D culled rows at the set-up
@@ -55,7 +57,8 @@ OUT = os.path.join(ROOT, "build", "contact_variants")
 REPS = 50
 # variant -> the (anchor, replacement) edits of contact.cu that make it
 CUTS = {
-    "init": [("if (row_want == 0ull) return;", "return;")],
+    "init": [("if (WIDE ? row_skip == NO_RIGID : row_want == 0ull)",
+              "if (true)")],
     "staging": [("if (lo >= hi) continue;", "if (lo >= hi || lo >= 0) continue;")],
     "test": [("if (r2 <= thr) {", "if (r2 <= thr && k < 0) {")],
     "bodies": [("if (c == 0 && mine) {", "if (c < 0 && mine) {")],
@@ -143,13 +146,15 @@ def cases(dev):
 
 def holds(path, word):
     """Whether the contact.cu at ``path`` holds ``word``: ``skip_idle``
-    (the entry point of before the redesign) or ``sph_id`` (the SPH
-    kernel's id after ``two_d``)."""
+    (the entry point of before the redesign), ``sph_id`` (the SPH
+    kernel's id after ``two_d``) or ``int chunk`` (the wide instance's
+    argument after ``S``)."""
     with open(path) as f:
         return word in f.read()
 
 
-def time_case(label, args, every_slot, libs, skip_idle=(), no_id=()):
+def time_case(label, args, every_slot, libs, skip_idle=(), no_id=(),
+              no_chunk=()):
     dfT, qslot, nbr, S, cutoff, init, kernel = args
     ref = tck.contact_sums(*args)
     NI, O = nbr.shape
@@ -173,9 +178,14 @@ def time_case(label, args, every_slot, libs, skip_idle=(), no_id=()):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
                 [ctypes.c_float] * 4 + [ctypes.c_void_p]
             ints = (NI, O, R, M, S, two_d)
+        elif name in no_chunk:  # ... M, S, two_d, sph_id, floats, stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+                [ctypes.c_float] * 4 + [ctypes.c_void_p]
+            ints = (NI, O, R, M, S, two_d, kernel.device_id)
         else:
             fn.argtypes = _build.KERNELS["contact"][2]
-            ints = (NI, O, R, M, S, two_d, kernel.device_id)
+            ints = (NI, O, R, M, S, tck.contact_instance(S)[1], two_d,
+                    kernel.device_id)
         call = lambda: fn(*ptrs, *ints, *tail)
         out.fill_(float("nan"))
         if call() != 0:
@@ -213,9 +223,11 @@ def main():
                  if name in srcs and holds(srcs[name], "skip_idle")}
     no_id = {name for name in srcs if name not in skip_idle
              and not holds(srcs[name], "sph_id")}
+    no_chunk = {name for name in srcs if not holds(srcs[name], "int chunk")}
     try:
         for label, kargs, every_slot in cases(dev):
-            time_case(label, kargs, every_slot, libs, skip_idle, no_id)
+            time_case(label, kargs, every_slot, libs, skip_idle, no_id,
+                      no_chunk)
     except cs.PhaseError as e:
         print(f"contact_variants: FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,13 +13,15 @@ into ``build/dem_variants/``:
   "not gated" code;
 
 and, with ``--parent DIR``, the ``csrc/dem.cu`` of another checkout (its
-``dem_cell`` entry point must take the same arguments).  On
+entry points as this one's, or without the ``o_match`` pointer and the
+table width ``LM`` of before the wide instances: L = 8 tables only).  On
 ``chip_smoke.py``'s DEM scenes (~104k grains in 2D, ~123k in 3D, the
 contact table filled by a plain pass) it prints, per grid, the wrapper's
 time and each build's time per launch: CUDA events over 50 launches into
 preallocated outputs, behind a device sleep so that the host's enqueue
-is not timed.  The full build is checked against the wrapper (tables and
-counts equal); the cut-down copies compute less by design.  Also prints
+is not timed.  The full build and the parent are checked against the
+wrapper bit for bit (sums, counts, tables and springs); the cut-down
+copies compute less by design.  Also prints
 ptxas's registers, shared memory and spills per kernel instance.
 
 It imports nothing from JAX.
@@ -84,7 +86,7 @@ def sources(parent):
     return srcs
 
 
-def time_grid(label, dim, grid, libs, dev):
+def time_grid(label, dim, grid, libs, dev, old=()):
     scheme, scene = cs.dem_scene(dev, dim, grid)
     spill = grid == "spill"
     cfg = scheme.cell_config(scene) if spill else scheme.rowwin_config(scene)
@@ -110,16 +112,23 @@ def time_grid(label, dim, grid, libs, dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     line = [f"[dem-variants] {label}: wrapper "
             f"{cs.cuda_ms(lambda: kern(*args), reps=50):.4f} ms"]
+    inst, lm = tdk.table_instance(L)
     for name, lib in libs.items():
-        if name == "parent" and not spill:
-            continue
         fn = getattr(lib, kname)
-        fn.argtypes = _build.KERNELS[kname][2]
         ptrs = [t.data_ptr() for t in ins] + [
             o_sum.data_ptr(), o_tab[0].data_ptr(), o_tab[1].data_ptr(),
             o_spr.data_ptr()]
-        call = lambda: fn(*ptrs, n, *sizes, L, mat.shape[0],
-                          float(cs.DEM_DT), float(cfg.radius), stream)
+        if name in old:      # no o_match, no LM
+            argtypes = list(_build.KERNELS[kname][2])
+            del argtypes[len(ptrs)]
+            del argtypes[len(ptrs) + len(sizes) + 2]
+            fn.argtypes = argtypes
+            call = lambda: fn(*ptrs, n, *sizes, L, mat.shape[0],
+                              float(cs.DEM_DT), float(cfg.radius), stream)
+        else:
+            fn.argtypes = _build.KERNELS[kname][2]
+            call = lambda: fn(*ptrs, None, n, *sizes, L, lm, mat.shape[0],
+                              float(cs.DEM_DT), float(cfg.radius), stream)
         o_sum.zero_()
         o_tab.fill_(-1)
         o_spr.zero_()
@@ -128,8 +137,10 @@ def time_grid(label, dim, grid, libs, dev):
         torch.cuda.synchronize()
         if name in ("full", "parent"):
             same = (torch.equal(o_tab[0], ref[1]) and torch.equal(
-                o_tab[1], ref[2]) and torch.equal(o_sum[:, 6:], ref[0][:, 6:]))
-            cs.check(same, f"{label} {name}: tables differ from the wrapper's")
+                o_tab[1], ref[2]) and torch.equal(o_sum, ref[0]) and all(
+                torch.equal(o_spr[k], ref[3 + k]) for k in range(3)))
+            cs.check(same, f"{label} {name}: outputs differ from the "
+                     "wrapper's")
         line.append(f"{name} {cs.cuda_ms(call, reps=50):.4f}")
     print(" | ".join(line), flush=True)
 
@@ -154,8 +165,13 @@ def main():
         libs[name] = ctypes.CDLL(path)
     print(f"[dem-variants] {cs.smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
+    old = set()
+    for name, path in srcs.items():
+        with open(path) as f:
+            if "o_match" not in f.read():
+                old.add(name)
     for label, dim, grid in GRIDS:
-        time_grid(label, dim, grid, libs, dev)
+        time_grid(label, dim, grid, libs, dev, old)
     return 0
 
 

@@ -206,7 +206,8 @@ def cases(dev, kernels):
             if body:
                 out.append((label, "B5", "forces", fk.fluid_forces_contact,
                             fbase + (S, init), "fluid_forces_contact",
-                            (S, kd2, int(visc), rc, ac0, float(init))
+                            (S, int(fk.forces_instance(cfg.M, S) == "gmem"),
+                             kd2, int(visc), rc, ac0, float(init))
                             + tail, S))
             if label != "box on floor":
                 out.append((label, "B6c" + (" with bodies" if body else ""),
@@ -232,11 +233,16 @@ def cases(dev, kernels):
     return out
 
 
-def with_id(entry, cargs, sph_id, takes_id):
+def with_id(entry, cargs, sph_id, takes_id, takes_gmem=True):
     """The C entry's argument types and its arguments after the sizes:
     the SPH kernel's id after the leading ints where the source takes it
-    (``sph_id``), none before the kernel family had its own libraries."""
+    (``sph_id``), none before the kernel family had its own libraries;
+    B5's ``gmem`` after S dropped for a source of before its global-block
+    instance."""
     argtypes = list(_build.KERNELS[entry][2])
+    if entry == "fluid_forces_contact" and not takes_gmem:
+        del argtypes[7]          # 3 pointers, NC, O, M, S, gmem
+        cargs = cargs[:1] + cargs[2:]
     n_int = next(i for i, a in enumerate(cargs) if isinstance(a, float))
     if takes_id:
         return argtypes, cargs[:n_int] + (sph_id,) + cargs[n_int:]
@@ -244,7 +250,7 @@ def with_id(entry, cargs, sph_id, takes_id):
     return argtypes, cargs
 
 
-def time_case(case, libs, no_id=()):
+def time_case(case, libs, no_id=(), no_gmem=()):
     label, inst, kernel, wrapper, wargs, entry, cargs, S = case
     dfT, nbr = wargs[0], wargs[1]
     ref = wrapper(*wargs)
@@ -260,7 +266,7 @@ def time_case(case, libs, no_id=()):
             continue
         fn = getattr(lib, entry)
         fn.argtypes, args = with_id(entry, cargs, wargs[2].device_id,
-                                    name not in no_id)
+                                    name not in no_id, name not in no_gmem)
         fn.restype = ctypes.c_int
         call = lambda: fn(*ptrs, NC, O, M, *args, stream)
         out.fill_(float("nan"))
@@ -300,11 +306,14 @@ def main():
     with ThreadPoolExecutor(len(srcs)) as pool:
         built = list(pool.map(lambda kv: build(kv[0], *kv[1]),
                               srcs.items()))
-    no_id = set()
+    no_id, no_gmem = set(), set()
     for name, (path, _) in srcs.items():
         with open(path) as f:
-            if "sph_id" not in f.read():
-                no_id.add(name)
+            text = f.read()
+        if "sph_id" not in text:
+            no_id.add(name)
+        if "int gmem" not in text:
+            no_gmem.add(name)
     libs = {}
     for name, path, report in built:
         if path is None:
@@ -325,7 +334,7 @@ def main():
     dev = torch.device("cuda", 0)
     try:
         for case in cases(dev, kernels):
-            time_case(case, libs, no_id)
+            time_case(case, libs, no_id, no_gmem)
     except cs.PhaseError as e:
         print(f"fluid_variants: FAILED: {e}", file=sys.stderr)
         return 1

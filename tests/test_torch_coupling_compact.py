@@ -1,7 +1,7 @@
 """Port vs reference: the kdkf coupling step's compact contact store, the
 route the reference takes on its TPU when a scene has S >= 8 entities
 (``models/rigid_fluid_coupling.py`` :196-205, :549-579, :716-724).  The
-port takes it from ``compact_min_bodies`` entities, off by default; the
+port takes it from ``compact_min_bodies`` entities, 97 by default; the
 tests set the reference's 8.
 
 The scene: a hydrostatic tank with 8 boxes of rho 8 (4 resting GAP dx
@@ -306,7 +306,8 @@ def test_d_port_compact_equals_port_full_route(port_runs, steps):
                                   "nklist", "no_fluid", "default"])
 def test_e_full_schema_elsewhere(case):
     """With the threshold at 8, the compact store only where the
-    reference's TPU takes it; at the default threshold, nowhere."""
+    reference's TPU takes it; at the default threshold (97 entities),
+    not at S = 9."""
     attrs = dict(kdk=dict(gtvf_ordering="kdk"),
                  reference=dict(gtvf_ordering="reference"),
                  rk2=dict(fluid_stepper="rk2", edac=False),
@@ -329,7 +330,8 @@ def test_e_full_schema_elsewhere(case):
         scheme, scene = port_scene(6 if case == "S7" else 8, **attrs)
     assert "cl_pid" not in scene and "contact_force_normal_x" in scene
     if case == "default":
-        assert scheme.compact_min_bodies is None and scheme._compact_enabled()
+        assert scheme.compact_min_bodies == tcpl.COMPACT_MIN_BODIES \
+            > scene.meta.total_no_bodies and scheme._compact_enabled()
     else:
         assert not scheme._compact_enabled() \
             or scene.meta.total_no_bodies < 8

@@ -351,8 +351,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     dfT = torch.zeros((4, 7, 16), device=dev)
     q = torch.zeros(2, dtype=torch.int64, device=dev)
     nbr = torch.zeros((2, 9), dtype=torch.int64, device=dev)
-    with pytest.raises(ValueError):
-        tck.contact_sums(dfT, q, nbr, 65, 0.1, 0.2, QuinticSpline(dim=2))
+    with pytest.raises(ValueError):   # every S >= 1 has an instance
+        tck.contact_sums(dfT, q, nbr, 0, 0.1, 0.2, QuinticSpline(dim=2))
     with pytest.raises(ValueError):
         tck.contact_sums(dfT, q.int(), nbr.int(), 3, 0.1, 0.2,
                          QuinticSpline(dim=2))
@@ -364,7 +364,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 # (summation order); springs within rtol 1e-4 (operation order)
 # ---------------------------------------------------------------------------
 
-def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24, L=8):
+def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24, L=8,
+               crowd=None):
     """A block of grains spaced 0.995 of a diameter (every lattice pair
     overlaps) over a floor, seeded random velocities and spins, and a
     contact table: ``"empty"`` as the setup leaves it (the kernel
@@ -375,7 +376,9 @@ def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24, L=8):
     squeezes the block (2D: both axes to 0.5; 3D: x to 0.7, y to 0.5) so
     every inner grain has 12 gated partners for its 8 slots, on a grid
     with bins of the contact radius, and meets it as ``"moved"`` from the
-    empty table: full tables, new contacts dropped."""
+    empty table: full tables, new contacts dropped.  ``crowd`` squeezes
+    the crowded block to that fraction on every axis instead (0.4 in 2D:
+    20 gated partners a grain)."""
     from rigid_body_2d_3d_pysph_tpu_torch.models import DEMScheme
     from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
 
@@ -390,7 +393,9 @@ def _dem_scene(dim, dev, grid="spill", table="filled", n_side=24, L=8):
         xg, yg, zg = (a.ravel() for a in np.meshgrid(ax, ax[:8], ax))
         xf, zf = (a.ravel() for a in np.meshgrid(
             np.arange(-3, n_side + 3) * 2 * r, np.arange(-3, n_side + 3) * 2 * r))
-    if table == "crowded":
+    if table == "crowded" and crowd is not None:
+        xg, yg, zg = xg * crowd, yg * crowd, zg * crowd
+    elif table == "crowded":
         xg, yg = xg * (0.5 if dim == 2 else 0.7), yg * 0.5
     m = 2600.0 * r**dim
     grains = make_group("sand", xg, yg + 0.99 * r, z=zg, m=m, h=2 * r,
@@ -1261,3 +1266,221 @@ def test_sph_libraries_refuse_another_kernel_id(dev):
             args[3:6] = [0, 1, 16]
             args[idx] = 1
             assert fn(*args) == 0
+
+
+# ---------------------------------------------------------------------------
+# The instances past the narrow ones: K2 past 64 entities (the wide
+# instance: dynamic count tables, the dems in chunks of up to 2,048), B5
+# past one warp's shared memory (the block assembled in the output), the
+# DEM kernels past 8 table slots (16 and 32 in shared memory, wider rows
+# in global memory); each against its plain version as above
+# ---------------------------------------------------------------------------
+
+def _blocks_scene(dim, n_blocks, dev, side=3, dx=0.02):
+    """``n_blocks`` small blocks (side x side lattice points, 3D: cubes)
+    in columns 0.95 dx apart, the lowest row 0.7 dx over a wall, seeded
+    random velocities: S = n_blocks + 1 entities, every block touching
+    its neighbours."""
+    rng = np.random.default_rng(n_blocks + dim)
+    a = np.arange(side) * dx
+    cols = int(np.ceil(n_blocks ** (1.0 / (dim - 1))))
+    pitch = (side - 1) * dx + 0.95 * dx
+    xs, ys, zs, bid = [], [], [], []
+    for b in range(n_blocks):
+        i, j = b % cols, b // cols
+        if dim == 2:
+            x, y = (c.ravel() for c in np.meshgrid(a + i * pitch,
+                                                   a + j * pitch))
+            z = np.zeros_like(x)
+        else:
+            x, y, z = (c.ravel() for c in np.meshgrid(
+                a + i * pitch, a, a + j * pitch))
+        xs.append(x)
+        ys.append(y)
+        zs.append(z)
+        bid.append(np.full(x.size, b, np.int32))
+    x, y, z = (np.concatenate(v) for v in (xs, ys, zs))
+    span = np.arange(-3, int((x.max() + 3 * dx) / dx) + 1) * dx
+    if dim == 2:
+        xw, zw = span, np.zeros_like(span)
+    else:
+        xw, zw = (c.ravel() for c in np.meshgrid(span, span[span <= z.max()
+                                                            + 3 * dx]))
+    yw = np.full(xw.size, -0.7 * dx)
+    m = 2000 * dx**dim
+    body = make_group("body", x, y, z=z, m=m, h=1.3 * dx, rho=2000.0,
+                      role=ROLE_RIGID, body_id=np.concatenate(bid),
+                      dem_id=np.concatenate(bid))
+    wall = make_group("wall", xw, yw, z=zw, m=m, h=1.3 * dx, rho=2000.0,
+                      role=ROLE_BOUNDARY, dem_id=n_blocks)
+    scene = build_scene([body, wall], dim=dim, total_no_bodies=n_blocks + 1,
+                        spacing0=dx, device=dev, dtype=torch.float32)
+    n = scene.n
+    vel = lambda: torch.as_tensor(rng.uniform(-1, 1, n), dtype=torch.float32,
+                                  device=dev)
+    scene = scene.with_fields(contact_force_is_boundary=torch.ones(
+        n, dtype=torch.float32, device=dev)).replace(
+        u=vel(), v=vel(), w=vel() if dim == 3 else scene.w)
+    host = lambda k: scene[k].cpu().numpy()
+    cfg = tcell.config_from_positions(host("x"), host("y"), host("z"),
+                                      3 * 1.3 * dx, dim)
+    return scene, cfg
+
+
+@pytest.mark.parametrize("S", [65, 300])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_wide_on_many_bodies(dev, dim, S):
+    """K2's wide instance on a scene of S - 1 touching blocks, on the
+    culled rows (the rigid path) and on every slot (the cell pipeline):
+    each against its plain version, the culled rows equal to every slot's
+    rows at those slots bit for bit, one launch of the wide instance a
+    call."""
+    assert tck.contact_instance(S)[0] == "wide"
+    scene, cfg = _blocks_scene(dim, S - 1, dev)
+    kernel = QuinticSpline(dim=dim)
+    grid, pt, dfT = tck.pack_scene(scene, cfg)
+    assert not bool(grid.overflow)
+    qsel, nbr, valid, _, _ = tck.select_queries(dfT, grid, pt, cfg,
+                                                cfg.NC_max)
+    init = 4.0 * scene.meta.spacing0
+    every_q = torch.arange(cfg.NC_max, device=dev)
+    outs = {}
+    for label, q, nb in (("culled", qsel, nbr),
+                         ("every", every_q, grid.nbr_slots)):
+        args = (dfT, q, nb, S, cfg.radius, init, kernel)
+        before = _build.LAUNCHES_INSTANCE.get("contact/wide", 0)
+        got = tck.contact_sums(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES_INSTANCE["contact/wide"] == before + 1
+        ref = tck.contact_sums_reference(*args)
+        picked = ref[..., 5 * S:6 * S] < init
+        assert int(picked.sum()) > 0
+        # some lane picks from a dem past the narrow instance's 64
+        assert bool(picked[..., 64:].any())
+        _check_contact(got, ref, S)
+        outs[label] = got
+    assert torch.equal(outs["culled"][valid], outs["every"][qsel[valid]])
+
+
+@pytest.mark.parametrize("S", [65, 300, 2100])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_wide_random_packs(dev, dim, S):
+    """The wide instance on random packs with exact distance ties (S =
+    2,100: two chunks of dems, the stencil walked once a chunk)."""
+    args = _contact_pack(dim, S, dev, seed=S + 10 * dim)
+    got = tck.contact_sums(*args)
+    ref = tck.contact_sums_reference(*args)
+    torch.cuda.synchronize()
+    assert int((ref[..., 5 * S:6 * S] < args[5]).sum()) > 0
+    _check_contact(got, ref, S)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_wide_crowded_stencil(dev, dim):
+    """The wide instance over windows: stencils of 640 entries of 70
+    dems, more candidates than one window sorts."""
+    S = 70
+    args = _contact_pack(dim, S, dev, seed=17 + dim, nrows=40, NI=10, O=640,
+                         box=4)
+    got = tck.contact_sums(*args)
+    ref = tck.contact_sums_reference(*args)
+    torch.cuda.synchronize()
+    _check_contact(got, ref, S)
+
+
+@pytest.mark.parametrize("S,M", [(300, 16), (1000, 5)])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fluid_forces_contact_wide_random_packs(dev, dim, S, M):
+    """B5 past the width one warp's shared memory takes (M = 16, S =
+    300: 231 KB; M = 5, S = 1,000, a block not a multiple of 16 bytes):
+    the block assembled in the output, against its twin, the gmem
+    instance counted."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    assert tfk.forces_instance(M, S) == "gmem"
+    args = _fluid_pack_args(dim, S, dev, seed=300 + dim + M, M=M)
+    before = _build.LAUNCHES_INSTANCE.get("fluid_forces_contact/gmem", 0)
+    got = tfk.fluid_forces_contact(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_INSTANCE["fluid_forces_contact/gmem"] == before + 1
+    ref = tfk.fluid_forces_contact_reference(*args)
+    assert int((ref[..., 5 * S:6 * S] < args[7]).sum()) > 0
+    _check_forces_contact(got, ref, S)
+
+
+WIDE_TABLES = ["empty", "moved", "crowded"]
+
+
+@pytest.mark.parametrize("table", WIDE_TABLES)
+@pytest.mark.parametrize("L", [12, 40])
+@pytest.mark.parametrize("grid", ["spill", "rowwin"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_dem_kernels_wide_tables(dev, dim, grid, L, table):
+    """K4 and K3 with tables of 12 slots (the 16-slot instance) and 40
+    (the rows in global memory) against their twins; crowded: the block
+    squeezed to 0.4 (2D: ~20 gated partners a grain, more than 12
+    slots; 3D: the narrow instance's crowding)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    scene, cfg = _dem_scene(dim, dev, grid, table, L=L,
+                            crowd=0.4 if dim == 2 else None)
+    assert scene.tng_idx.shape[1] == L
+    run = (tdk.lvc_displacement_cell_kernel if grid == "spill"
+           else tdk.lvc_displacement_rowwin_kernel)
+    tabs = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x, scene.tng_y,
+            scene.tng_z)
+    kname = "dem_cell" if grid == "spill" else "dem_rowwin"
+    key = f"{kname}/{tdk.table_instance(L)[0]}"
+    before = _build.LAUNCHES_INSTANCE.get(key, 0)
+    got = run(scene, cfg, 1e-5, *tabs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_INSTANCE[key] == before + 1
+    ref = run(scene, cfg, 1e-5, *tabs, plain=True)
+    assert int(ref.count.sum()) > 0 and not bool(ref.overflow)
+    if table == "crowded" and L == 12 and dim == 2:
+        assert bool((ref.n_gated > L).any()) and bool((ref.count == L).any())
+    for k in ("tng_idx", "tng_dem", "count", "n_gated"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    for k in ("tng_x", "tng_y", "tng_z"):
+        assert torch.allclose(getattr(got, k), getattr(ref, k), rtol=1e-4,
+                              atol=0), k
+    _check_sums(torch.stack([got.fx, got.fy, got.fz, got.torx, got.tory,
+                             got.torz]),
+                torch.stack([ref.fx, ref.fy, ref.fz, ref.torx, ref.tory,
+                             ref.torz]), "sums")
+
+
+@pytest.mark.parametrize("L", [1, 16, 17, 32])
+def test_dem_kernels_table_widths_at_the_instance_bounds(dev, L):
+    """Tables of 1 slot, of exactly 16 and 32 (full masks) and of 17 (the
+    32-slot instance), spill grid, a 3D block squeezed to 0.4 (~80 gated
+    partners a grain: full tables), against the twin."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    scene, cfg = _dem_scene(3, dev, "spill", "crowded", L=L, crowd=0.4)
+    tabs = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x, scene.tng_y,
+            scene.tng_z)
+    got = tdk.lvc_displacement_cell_kernel(scene, cfg, 1e-5, *tabs)
+    ref = tdk.lvc_displacement_cell_kernel(scene, cfg, 1e-5, *tabs,
+                                           plain=True)
+    torch.cuda.synchronize()
+    assert bool((ref.count == L).any()) and not bool(ref.overflow)
+    for k in ("tng_idx", "tng_dem", "count", "n_gated"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    for k in ("tng_x", "tng_y", "tng_z"):
+        assert torch.allclose(getattr(got, k), getattr(ref, k), rtol=1e-4,
+                              atol=0), k
+
+
+def test_forces_instance_agrees_with_the_kernels_block_bytes(dev):
+    """The wrapper's B5 instance choice (``forces_instance``) against the
+    library's own ``block_bytes`` (``fluid_forces_smem``: 0 when no warp's
+    block fits): "smem" exactly where a block fits, over slot widths and
+    entity counts around the bound."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    smem = _build.load("fluid_forces_smem")
+    for M in (5, 8, 16, 32):
+        for S in list(range(1, 400, 7)) + [145, 146, 290, 291, 292, 1000]:
+            fits = smem(M, 12 * S + 6) > 0
+            assert (tfk.forces_instance(M, S) == "smem") == fits, (M, S)

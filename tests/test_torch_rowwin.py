@@ -244,3 +244,21 @@ def test_rowwin_reference_writes_the_table_per_particle():
     assert int(out[0][:, 6].sum()) > 0
     for a, b in zip(tdk.dem_rowwin_sums(*args), out):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("clumpy", [False, True])
+def test_config_sizing_equals_the_window_walk(dim, clumpy):
+    """``_worst_run_np`` (whole arrays) against ``_np_windows``' walk over
+    the windows, the longest run of window slots, on random scenes with
+    and without a clump of half the particles."""
+    rng = np.random.default_rng(dim * 10 + clumpy)
+    n = 4000
+    x, y = rng.uniform(0, 1, n), rng.uniform(0, 0.5, n)
+    z = rng.uniform(0, 0.3, n) if dim == 3 else np.zeros(n)
+    if clumpy:
+        x[:n // 2] = 0.3 + 0.01 * rng.standard_normal(n // 2)
+    cfg = trw.rowwin_config_from_positions(x, y, z, 0.05, dim, max_run=8)
+    runs = trw._np_windows(x, y, z, cfg)[6]
+    walk = max((sb - sa for (_w, _r, sa, sb) in runs), default=1)
+    assert trw._worst_run_np(x, y, z, cfg) == walk > 1
