@@ -242,8 +242,11 @@ no result line):
     128 blocks of ~27 x 27 (32 columns x 4 rows, S = 129, ~93k
     particles in the blocks): K2's wide instance (S > 64: no 64-bit
     masks, dynamic count tables) on every interesting row and on every
-    slot against its plain version (picks bit for bit, sums at phase
-    3's tolerance, picks from entities past 64 present), timed; 800 GTVF
+    slot (by particle, the cell pipeline's layout) against its plain
+    version (picks bit for bit, sums at phase 3's tolerance, picks from
+    entities past 64 present), timed with the bytes and operations of
+    the output the step reads, the query-row layout and its unpack
+    beside; 800 GTVF
     steps through ``make_multi_step`` in chunks of 50 under phase 4's
     gates, every K2 launch the wide instance, steps/s; 20 kernel steps
     against 20 plain steps from its end (STEP_RTOL, one K1 and one wide
@@ -251,12 +254,13 @@ no result line):
     set-up) on every interesting row and every slot the same way;
 45. K2's wide instance on every slot of 64 cubes of 12^3 stacked 4 x 4 x
     4 on the floor slab (S = 65, the leapfrog step's launch), timed;
-    B5's global-block instance (a slot's [M, 12 S + 6] block past one
-    warp's shared memory) on the sinking box's tank with 6 layers of 50
-    boxes of rho 8 (S = 301, the full route) against its plain version as
-    in phase 10, timed; 20 kdkf kernel steps against 20 plain steps from
-    the boxes pushed down (STEP_RTOL; one K1, B4 and B5 a kernel step,
-    every B5 launch the global-block instance);
+    B5 on the sinking box's tank with 6 layers of 50 boxes of rho 8 (S =
+    301, the compact store: its contact columns by query row at the
+    light cull's slots) against its plain version as in phase 10, timed,
+    and the same with 8 layers of 16 boxes of 0.2 (S = 129); 50 kdkf
+    steps at S = 301, then 20 kdkf kernel steps against 20 plain steps
+    from the boxes pushed down (STEP_RTOL; one K1, B4 and B5 a kernel
+    step, every B5 launch by query row);
 46. the DEM kernels on the 3D column at table widths 12 and 16 (the
     16-slot instance), 32 (the 32-slot instance) and 40 (the rows in
     global memory), spill grid, and 12, 32 and 40 on the row-window
@@ -283,7 +287,8 @@ no result line):
     paths launch; an entry ``<kernel>[<SPH kernel>]`` for each
     non-quintic instance, with its launches from phase 40's paths and
     its times from phase 39; an entry for each wide instance,
-    ``contact_sums/wide``, ``fluid_forces_contact/gmem``,
+    ``contact_sums/wide``, ``fluid_forces_contact/rows`` (the main
+    ``fluid_forces_contact`` entry is the full route's, by particle),
     ``dem_cell/l16``, ``/l32``, ``/rows`` and the same of
     ``dem_rowwin``, with its launches from its phase 44-46 main path),
     the script's seconds, then the result line.
@@ -472,6 +477,9 @@ WIDE_BOX_ROWS, WIDE_BOX_COLS, WIDE_BOX_SIDE = 6, 50, 0.064
 # where one ulp of the Eq.-21 distance is ~1e-3 of the force: the 20-step
 # comparison then reads the model's conditioning, not the kernels)
 WIDE_BOX_KR, WIDE_BOX_OVERLAP = 1e3, 0.02
+# B5 at S = 129 (phase 45): 8 layers of 16 boxes of side 0.2, the
+# compact store's sweep scene (scripts/compact_crossover.py 2:8x16@0.2)
+WIDE_BOX_129 = (8, 16, 0.2)
 # (grid, L, the tables compared): the 16-slot instance at 12 and 16, the
 # 32-slot one at 32, the global rows at 40 (the 3D twin takes 0.75-3.6 s
 # a call, so each width compares the tables that reach its new code)
@@ -726,9 +734,12 @@ def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label,
              plain_ms=cuda_ms(lambda: tck.contact_sums_reference(*args),
                               reps=plain_reps, warmup=min(3, plain_reps)))
     # least time: K2 needs the F fields of the particles in the slots that
-    # the rows' stencils reach and writes 12S values per live query lane
-    # (the sentinel lanes of the pack and the stencil are layout, not
-    # work), and tests every live candidate lane of a live query lane
+    # the rows' stencils reach, the rows' slots and stencil rows, and
+    # writes 12S values for every lane of every row (the Eq.-24 tail
+    # reads them all: contact_force_core runs on every lane, and cl_state
+    # keeps them), and tests every live candidate lane of a live query
+    # lane; the count before the redesign wrote 12S values per live
+    # query lane only (old_bound)
     NC = cfg.NC_max
     cnt_ext = torch.cat([pt.cnt, torch.zeros(1, dtype=pt.cnt.dtype,
                                              device=pt.cnt.device)])
@@ -738,13 +749,17 @@ def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label,
     reached[nbr[valid].reshape(-1)] = True
     n_src = int(pt.cnt[reached[:NC]].sum())
     n_query = int(pt.cnt[qsel[valid]].sum())
+    NI = qsel.shape[0]
     t["bound"], t["bound_by"] = bound(
-        4 * (n_src * dfT.shape[1] + n_query * 12 * S),
-        t["lanes"] * OPS_PER_LANE)
+        4 * (n_src * dfT.shape[1] + NI * cfg.M * 12 * S)
+        + 8 * NI * (1 + nbr.shape[1]), t["lanes"] * OPS_PER_LANE)
+    t["old_bound"] = bound(4 * (n_src * dfT.shape[1] + n_query * 12 * S),
+                           t["lanes"] * OPS_PER_LANE)[0]
     print(f"[kernels] {label}: K2 on {rows} rows (ni {t['ni']}, interesting "
           f"{n_int}, O {nbr.shape[1]}): {t['ms']:.4f} ms (plain "
           f"{t['plain_ms']:.4f} ms, bound {t['bound']:.4f} ms by "
-          f"{t['bound_by']}; {t['lanes']} live candidate lanes, {n_src} "
+          f"{t['bound_by']}, before the redesign's count "
+          f"{t['old_bound']:.4f} ms; {t['lanes']} live candidate lanes, {n_src} "
           f"source and {n_query} query particles); picks exact, max_abs_err "
           f"{t['err']:.3e}", flush=True)
     return t, out, qsel, valid
@@ -766,7 +781,7 @@ def phase_kernels(scheme, scene, label, timings):
     two_d = scheme.dim == 2
     init = 4.0 * scene.meta.spacing0
 
-    grid, pt, dfT = tck.pack_scene(scene, cfg)
+    grid, pt, dfT = tck.pack_scene(scene, cfg, want_dense_pos=True)
     sent = torch.tensor(tck.sent_fields(two_d), device=scene.device)
     k1_args = (pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
     ref = tpe.expand_slots_reference(*k1_args)
@@ -791,7 +806,8 @@ def phase_kernels(scheme, scene, label, timings):
         pack_plain_ms=cuda_ms(lambda: tpe.expand_slots_reference(*k1_args)),
         contact_ms=k2["ms"], contact_plain_ms=k2["plain_ms"],
         contact_bound=k2["bound"], contact_bound_by=k2["bound_by"],
-        pack_err=k1_err, contact_err=k2["err"])
+        contact_old_bound=k2["old_bound"], pack_err=k1_err,
+        contact_err=k2["err"])
     t["pack_bound"], t["pack_bound_by"] = bound(
         nbytes(pt.sorted_fields, pt.base, pt.cnt, sent, dfT), 0)
     if not two_d:
@@ -1597,12 +1613,13 @@ def fluid_pass_work(dfT, nbr, cnt, cutoff, chunk=2048):
 
 
 def fluid_pass_cost(work, name, n_live, edac=True, has_rigid=True,
-                    visc=True, width=0, sph="quintic"):
+                    visc=True, width=0, sph="quintic", extra_bytes=0):
     """(bytes, f32 operations) the pass ``name`` needs on this data: the
     pack fields it reads and its ``width`` outputs per live lane once,
-    and the operations on the candidate lanes of its destination classes
-    and on the pairs its bodies run on (``fluid_pass_work``), with the
-    SPH kernel ``sph``'s W and gradient."""
+    ``extra_bytes`` more (B5's contact rows and their index maps), and
+    the operations on the candidate lanes of its destination classes and
+    on the pairs its bodies run on (``fluid_pass_work``), with the SPH
+    kernel ``sph``'s W and gradient."""
     w = work
     ops_w, ops_gradw = OPS_W_OF[sph], OPS_GRADW_OF[sph]
     rates = w["fl_flbd"] + (w["fl_rg"] if has_rigid else 0)
@@ -1629,7 +1646,8 @@ def fluid_pass_cost(work, name, n_live, edac=True, has_rigid=True,
                                  + w["gated"] * (ops_w + OPS_CONTACT_SUMS),
                                  11 + fsi),
     }[name]
-    return 4 * n_live * (fields + width), w[lanes] * OPS_PER_LANE + ops
+    return (4 * n_live * (fields + width) + extra_bytes,
+            w[lanes] * OPS_PER_LANE + ops)
 
 
 def kernel_resources(template, args, helper, t, sph="quintic"):
@@ -1637,7 +1655,8 @@ def kernel_resources(template, args, helper, t, sph="quintic"):
     ``csrc/fluid.cu`` instance ``template<args>`` (bools and ints) in the
     library of SPH kernel ``sph``, and the dynamic shared memory a block
     takes (the C entry ``helper``) at the lanes a slot and output columns
-    of the timed pass ``t``."""
+    of the timed pass ``t`` (the forces template: at its entity slots,
+    0 for B6c)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
     key = template + "I" + "".join(
@@ -1647,8 +1666,8 @@ def kernel_resources(template, args, helper, t, sph="quintic"):
         _build.instance("fluid", sph), "")).items() if key in e]
     u = usage[0] if usage else {}
     return dict(registers=u.get("registers"), smem_static=u.get("smem"),
-                smem_dynamic_per_block=_build.load(helper)(t["M"],
-                                                          t["width"]),
+                smem_dynamic_per_block=_build.load(helper)(
+                    t["M"], t["S"] if "forces" in helper else t["width"]),
                 spill_bytes=(u["spill_stores"] + u["spill_loads"]
                              if u else None))
 
@@ -1687,11 +1706,14 @@ def fluid_pass_checks(calls, dfT, nbr, pt, cutoff, S, init, visc, label,
     """Each pass of ``calls`` ({name: (kernel wrapper, twin, arguments,
     its name for the cost, EDAC, bodies)}) against its twin on the pack
     ``dfT``: finite, two launches bit for bit, not all zero, sums within
-    FLUID_SUM_RTOL of each column's largest magnitude; for B5 the contact
-    picks bit for bit, the unit contact normals within FLUID_SUM_RTOL
-    absolute, the contact sums as K2's.  ``timed`` also times each and
-    computes its bound.  Returns ({name: numbers}, the work counts, B5's
-    contact slots with a pick or None)."""
+    FLUID_SUM_RTOL of each column's largest magnitude; for B5, whose
+    output is (forces [NC, M, 6], contact rows) in the layout the calls
+    give it (``fluid_calls``' ``b5``), the contact picks bit for bit, the
+    unit contact normals within FLUID_SUM_RTOL absolute, the contact sums
+    as K2's.  ``timed`` also times each and computes its bound (B5 also
+    by the count before the redesign, ``old_bound_ms``: 12 S + 6 words
+    out per live lane).  Returns ({name: numbers}, the work counts, B5's
+    contact rows with a pick or None)."""
     work = fluid_pass_work(dfT, nbr, pt.cnt, cutoff)
     n_live = int(pt.n_valid)
     out, n_found = {}, None
@@ -1700,39 +1722,65 @@ def fluid_pass_checks(calls, dfT, nbr, pt, cutoff, S, init, visc, label,
         again = fast(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
+        b5 = cost_name == "fluid_forces_contact"
+        extra = 0
+        if b5:
+            (got, gc), (again, ac), (ref, rc) = got, again, ref
+            check(bool(torch.isfinite(gc).all()), f"{label} {name}: "
+                  "contact rows non-finite")
+            check(torch.equal(gc, ac), f"{label} {name}: two launches on the "
+                  "same inputs differ (contact rows)")
+            del ac
+            # the contact rows and their index maps (8 bytes an entry)
+            NC, M = dfT.shape[0] - 1, dfT.shape[2]
+            extra = 4 * gc.numel() + 8 * (gc.shape[0] if gc.dim() == 3
+                                          else NC * M + gc.shape[0])
+            layout = "rows" if gc.dim() == 3 else "lanes"
+            gc, rc = gc.reshape(-1, 12 * S), rc.reshape(-1, 12 * S)
         check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite")
         check(torch.equal(got, again), f"{label} {name}: two launches on "
               "the same inputs differ")
         check(float(ref.abs().max()) > 0, f"{label} {name}: all zero")
         W = got.shape[-1]
-        if cost_name == "fluid_forces_contact":
-            picks = got[..., 5 * S:12 * S], ref[..., 5 * S:12 * S]
+        if b5:
+            picks = gc[:, 5 * S:], rc[:, 5 * S:]
             check(torch.equal(*picks), f"{label} {name}: contact picks != "
                   f"twin (max {float((picks[0] - picks[1]).abs().max())})")
-            n_found = int((ref[..., 5 * S:6 * S] < init).sum())
+            n_found = int((rc[:, 5 * S:6 * S] < init).any(1).sum())
             # the contact normals are unit vectors; the sums K2's way
-            err = check_fluid_columns(got, ref, range(3 * S), label + " " +
+            err = check_fluid_columns(gc, rc, range(3 * S), label + " " +
                                       name, floor=1.0)
             for c in (3, 4):
-                a, b = got[..., c * S:(c + 1) * S], ref[..., c * S:(c + 1) * S]
+                a, b = gc[:, c * S:(c + 1) * S], rc[:, c * S:(c + 1) * S]
                 tol = SUM_RTOL * b.abs() + SUM_RTOL * float(b.abs().max())
                 check(bool(((a - b).abs() <= tol).all()), f"{label} {name}: "
                       f"contact block {c} off by {float((a - b).abs().max())}")
-            err = max(err, check_fluid_columns(got, ref, range(12 * S, W),
+            err = max(err, check_fluid_columns(got, ref, range(W),
                                                label + " " + name))
-            err = max(err, float((got[..., :5 * S] - ref[..., :5 * S])
+            err = max(err, float((gc[:, :5 * S] - rc[:, :5 * S])
                                  .abs().max()))
+            del gc, rc
         else:
             err = check_fluid_columns(got, ref, range(W), label + " " + name)
         t = dict(err=err, M=got.shape[1], width=W)
+        if b5:
+            t.update(S=S, layout=layout)
+        elif name.startswith("fluid_forces"):
+            t.update(S=0)
+        del got, again, ref
         if timed:
             t["ms"] = cuda_ms(lambda: fast(*args))
             t["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
             # least time: the fields read and W outputs per live lane
-            # once; the f32 operations of this data's pairs
+            # once (and B5's contact rows, each read by the step); the
+            # f32 operations of this data's pairs
             t["bound_ms"], t["bound_by"] = bound(*fluid_pass_cost(
                 work, cost_name, n_live, edac, bodies, visc, W,
-                args[2].name))
+                args[2].name, extra))
+            if b5:
+                t["old_bound_ms"] = bound(*fluid_pass_cost(
+                    work, cost_name, n_live, edac, bodies, visc,
+                    12 * S + 6, args[2].name))[0]
         out[name] = t
     return out, work, n_found
 
@@ -1769,12 +1817,36 @@ def fluid_scene_pack(scheme, scene, label, seed, p_fsi=False):
             4.0 * scene.meta.spacing0)
 
 
-def fluid_calls(scheme, dfT, nbr, kernel, cutoff, S, init, names):
+def b5_layout(scheme, scene, grid, pt, dfT, cfg):
+    """B5's contact layout on this scene's kdkf step: by query row at the
+    light cull's slots on the compact store (``rows``), else by particle
+    (``lanes``)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models import (
+        rigid_fluid_coupling as rfc)
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
+
+    if "cl_pid" in scene:
+        # the step's capacity, or every culled slot where the step's
+        # overflow rebuilds would raise it
+        rows, cc = rfc.culled_lanes(scene, dfT, pt, cfg, scheme.ni_max(cfg))
+        n_int = int(cc.n_interesting)
+        if n_int > rows.shape[0]:
+            rows, _ = rfc.culled_lanes(scene, dfT, pt, cfg, n_int)
+        print(f"[b5-layout] by query row: {rows.shape[0]} rows, {n_int} "
+              "slots with a rigid lane", flush=True)
+        return dict(rows=rows)
+    return dict(lanes=tcell.lane_map(grid, cfg, scene.n))
+
+
+def fluid_calls(scheme, dfT, nbr, kernel, cutoff, S, init, names, b5=None):
     """{name: (wrapper, twin, arguments, cost name, EDAC, bodies)} of the
     fluid passes ``names`` on this pack: B4 and B5 as the kdkf step runs
     them (B4 without bodies and B6c for the fluid-only tank), the split
     passes of the kdk and reference orderings (B6a with EDAC and with
-    Tait, B6b, B6c with bodies)."""
+    Tait, B6b, B6c with bodies).  ``b5``: B5's contact layout
+    (``b5_layout``; None: by query row at every slot)."""
+    from functools import partial
+
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
 
     has_rigid = len(scheme.rigid_bodies) > 0
@@ -1785,8 +1857,9 @@ def fluid_calls(scheme, dfT, nbr, kernel, cutoff, S, init, names):
         fluid_rates_wall=(fk.fluid_rates_wall, fk.fluid_rates_wall_reference,
                           base + (nu, c0, scheme.edac, has_rigid, g),
                           "fluid_rates_wall", scheme.edac, has_rigid),
-        fluid_forces_contact=(fk.fluid_forces_contact,
-                              fk.fluid_forces_contact_reference,
+        fluid_forces_contact=(partial(fk.fluid_forces_contact, **(b5 or {})),
+                              partial(fk.fluid_forces_contact_reference,
+                                      **(b5 or {})),
                               base + (alpha, c0, S, init),
                               "fluid_forces_contact", True, True),
         fluid_forces=(fk.fluid_forces, fk.fluid_forces_reference,
@@ -1840,10 +1913,11 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed, k1=None):
              "fluid_forces_contact" if has_rigid else "fluid_forces"]
     out, work, n_found = fluid_pass_checks(
         fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
-                    init, names),
+                    init, names,
+                    b5_layout(scheme, scene, grid, pt, dfT, cfg)),
         dfT, grid.nbr_slots, pt, cfg.radius, S, init,
         abs(scheme.fluid_alpha) > 1e-14, label, timed)
-    picks = (f", contact slots with a pick {n_found}" if has_rigid else "")
+    picks = (f", contact rows with a pick {n_found}" if has_rigid else "")
     print(f"[fluid-kernels] {label}: n={scene.n} NC={cfg.NC_max} M={cfg.M} "
           f"O={cfg.O} S={S} | query lanes {int(pt.n_valid)}, {work}{picks} "
           "| max abs err " + ", ".join(
@@ -2073,18 +2147,25 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
 
 def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed,
                       plain_reps=3):
-    """K2 on every slot of the contact pack ``dfT`` (the kdk and reference
-    orderings' cell pipeline) against its twin: picks bit for bit, the
-    sums as in phase 3; ``timed`` also times both and computes the bound.
-    Returns (numbers, query lanes with a pick)."""
+    """K2 on every slot of the contact pack ``dfT`` (the cell pipeline of
+    the kdk, reference and RK2 coupling orderings, the rigid RK2,
+    leapfrog and skin steps) as the pipeline runs it, by particle (the
+    grid keeps ``dense_pos``), against its twin: picks bit for bit, the
+    sums as in phase 3; ``timed`` also times both, the query-row layout
+    and that layout unpacked (the pipeline before the redesign), and
+    computes the bound.  Returns (numbers, particles with a pick)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
 
     NC = cfg.NC_max
     nbr = grid.nbr_slots
+    n = grid.dense_pos.shape[0]
+    check(n > 0, f"{label}: the grid keeps no dense_pos")
+    lanes = tcell.lane_map(grid, cfg, n)
     args = (dfT, torch.arange(NC, device=dfT.device), nbr, S, cfg.radius,
             init, kernel)
-    out = tck.contact_sums(*args)
-    ref = tck.contact_sums_reference(*args)
+    out = tck.contact_sums(*args, lanes=lanes)
+    ref = tck.contact_sums_reference(*args, lanes=lanes)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"{label}: K2 non-finite output")
     check(torch.equal(out[..., 5 * S:], ref[..., 5 * S:]),
@@ -2099,29 +2180,44 @@ def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed,
         check(bool(((a - b).abs() <= tol).all()), f"{label}: K2 block {c} "
               f"off by {float((a - b).abs().max())}")
     t = dict(err=float((out - ref).abs().max()))
-    n_pick = int((ref[..., 5 * S:6 * S] < init).sum())
+    n_pick = int((ref[:, 5 * S:6 * S] < init).any(1).sum())
+    del out, ref
     if timed:
-        t["ms"] = cuda_ms(lambda: tck.contact_sums(*args))
-        t["plain_ms"] = cuda_ms(lambda: tck.contact_sums_reference(*args),
-                                reps=plain_reps, warmup=1)
-        # least time: F fields in and 12S words out per live lane; 9 ops
-        # per candidate lane of the rigid query lanes (a block with none
-        # writes its init row and scans nothing)
+        t["ms"] = cuda_ms(lambda: tck.contact_sums(*args, lanes=lanes))
+        t["plain_ms"] = cuda_ms(
+            lambda: tck.contact_sums_reference(*args, lanes=lanes),
+            reps=plain_reps, warmup=1)
+        # the layout before the redesign: by query row, then unpacked
+        t["rows_ms"] = cuda_ms(lambda: tck.contact_sums(*args))
+        t["rows_unpack_ms"] = cuda_ms(lambda: tcell.unpack(
+            grid, cfg, tck.contact_sums(*args), n, 0.0))
+        # least time: F fields in per live lane, the lane map, 12S words
+        # out per particle; 9 ops per candidate lane of the rigid query
+        # lanes (a block with none writes its init rows and scans
+        # nothing); before the redesign's count (old_bound_ms): F + 12S
+        # words per live lane
         F = dfT.shape[1]
         flags = dfT[:NC, F - 1]
         n_rigid = (tck.decode_flags(flags)[3] == 1.0).sum(1)
         cnt = (flags != -8.0).sum(1)
         ext = torch.cat([cnt, torch.zeros(1, dtype=cnt.dtype,
                                           device=cnt.device)])
-        lanes = int((n_rigid * ext[torch.clamp(nbr, max=NC)].sum(1)).sum())
+        nlanes = int((n_rigid * ext[torch.clamp(nbr, max=NC)].sum(1)).sum())
         t["bound_ms"], t["bound_by"] = bound(
-            4 * int(cnt.sum()) * (F + 12 * S), lanes * OPS_PER_LANE)
-        t["lanes"] = lanes
+            4 * (int(cnt.sum()) * F + n * 12 * S) + 8 * (NC * cfg.M + n),
+            nlanes * OPS_PER_LANE)
+        t["old_bound_ms"] = bound(4 * int(cnt.sum()) * (F + 12 * S),
+                                  nlanes * OPS_PER_LANE)[0]
+        t["lanes"] = nlanes
         t["rigid_slots"] = int((n_rigid > 0).sum())
-        print(f"[{label}] K2 on all {NC} slots ({t['rigid_slots']} with a "
-              f"rigid lane, {lanes} rigid candidate lanes): "
-              f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms by {t['bound_by']})", flush=True)
+        print(f"[{label}] K2 on all {NC} slots by particle "
+              f"({t['rigid_slots']} with a rigid lane, {nlanes} rigid "
+              f"candidate lanes): {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}, before the redesign's count "
+              f"{t['old_bound_ms']:.4f} ms); by query row "
+              f"{t['rows_ms']:.4f} ms, unpacked {t['rows_unpack_ms']:.4f} ms",
+              flush=True)
     return t, n_pick
 
 
@@ -2220,7 +2316,8 @@ def phase_fluid_3d(scheme, scene, timings, k1):
         fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
                     init, ["fluid_rates_wall", "fluid_forces_contact",
                            "fluid_rates", "fluid_rates_tait", "wall_bc",
-                           "fluid_forces", "fluid_forces_rigid"]),
+                           "fluid_forces", "fluid_forces_rigid"],
+                    b5_layout(scheme, scene, grid, pt, dfT, cfg)),
         dfT, grid.nbr_slots, pt, cfg.radius, S, init,
         abs(scheme.fluid_alpha) > 1e-14, label, True)
     print(f"[fluid-3d] n={scene.n} NC={cfg.NC_max} M={cfg.M} O={cfg.O} "
@@ -2800,7 +2897,7 @@ def phase_sph_kernels(dev, timings):
         kern = get_kernel(k, 2)
         cfg = scheme.cell_config(scene, kern)
         scene = seeded_velocities(scene, 2, 7)
-        grid, pt, dfT = tck.pack_scene(scene, cfg)
+        grid, pt, dfT = tck.pack_scene(scene, cfg, want_dense_pos=True)
         S, init = scene.meta.total_no_bodies, 4.0 * scene.meta.spacing0
         t["k2"] = contact_rows(dfT, grid, pt, cfg, kern, S, init,
                                scheme.ni_max(cfg), f"{k} 2D")[0]
@@ -2810,7 +2907,7 @@ def phase_sph_kernels(dev, timings):
         kern = get_kernel(k, 3)
         cfg = scheme.cell_config(scene, kern)
         scene = seeded_velocities(scene, 3, 7)
-        grid, _, dfT = tck.pack_scene(scene, cfg)
+        grid, _, dfT = tck.pack_scene(scene, cfg, want_dense_pos=True)
         t["k2_3d"], _ = contact_all_slots(
             dfT, grid, cfg, kern, scene.meta.total_no_bodies,
             4.0 * scene.meta.spacing0, f"{k} 3D every slot", timed=True)
@@ -2825,7 +2922,8 @@ def phase_sph_kernels(dev, timings):
             names = ["fluid_forces_contact"] if floor else SPH_PASSES
             out, work, n_found = fluid_pass_checks(
                 fluid_calls(cscheme, dfT, grid.nbr_slots, kern, cfg.radius,
-                            S, init, names),
+                            S, init, names,
+                            b5_layout(cscheme, cscene, grid, pt, dfT, cfg)),
                 dfT, grid.nbr_slots, pt, cfg.radius, S, init,
                 abs(cscheme.fluid_alpha) > 1e-14, label, timed=not floor)
             if floor:
@@ -3123,7 +3221,7 @@ def _slab_k2(e, d, lcfg, kernel, scheme, label, every_slot):
 
     S = e.meta.total_no_bodies
     init = 4.0 * e.meta.spacing0
-    grid, pt, dfT = tck.pack_scene(e, lcfg)
+    grid, pt, dfT = tck.pack_scene(e, lcfg, want_dense_pos=True)
     sent = torch.tensor(tck.sent_fields(scheme.dim == 2),
                         device=e.device)
     k1 = (pt.sorted_fields, pt.base, pt.cnt, sent, lcfg.M)
@@ -3729,7 +3827,7 @@ def wide_k2_rows(scheme, scene, label):
     check(tck.contact_instance(S)[0] == "wide", f"{label}: S={S} takes "
           "the narrow instance")
     grid, pt, dfT = tck.pack_scene(seeded_velocities(scene, scheme.dim, 7),
-                                   cfg)
+                                   cfg, want_dense_pos=True)
     check(not bool(grid.overflow), f"{label}: grid overflow")
     n_int = int(tck.select_queries(dfT, grid, pt, cfg, cfg.NC_max)[4])
     rows, out, _, valid = contact_rows(dfT, grid, pt, cfg, kernel, S, init,
@@ -3792,16 +3890,17 @@ def phase_wide_rigid(dev, smi):
 
 def phase_wide_3d_b5(dev, smi):
     """Phase 45: K2's wide instance on every slot of WIDE_CUBES cubes
-    (S = 65; the leapfrog step's launch) against its twin, timed; B5's
-    global-block instance on the sinking box's tank with WIDE_BOX_ROWS x
-    WIDE_BOX_COLS small boxes of rho CPL_BOX_RHO (S = 301; the scheme's
-    default route, the compact store from 97 entities) against its twin
-    as in phase 10, timed; the kdkf main path for CHUNK steps with the
-    overflow rule (phase 11's gates but the sinking: one K1, B4 and B5 a
-    step, every B5 launch the global-block instance), steps/s; then from
-    the set-up state, each layer pushed down 0.5 m/s faster than the one
-    under it, 20 kdkf kernel steps against 20 twin steps (STEP_RTOL).
-    Returns the numbers."""
+    (S = 65; the leapfrog step's launch) against its twin, timed; B5 on
+    the sinking box's tank with WIDE_BOX_ROWS x WIDE_BOX_COLS small boxes
+    of rho CPL_BOX_RHO (S = 301; the scheme's default route, the compact
+    store from 97 entities, so B5 writes its contact columns by query row
+    at the light cull's slots) against its twin as in phase 10, timed,
+    and the same at S = 129 (WIDE_BOX_129: 8 layers of 16 boxes); the
+    kdkf main path at S = 301 for CHUNK steps with the overflow rule
+    (phase 11's gates but the sinking: one K1, B4 and B5 a step, every B5
+    launch by query row), steps/s; then from the set-up state, each layer
+    pushed down 0.5 m/s faster than the one under it, 20 kdkf kernel
+    steps against 20 twin steps (STEP_RTOL).  Returns the numbers."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
@@ -3816,7 +3915,8 @@ def phase_wide_3d_b5(dev, smi):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     kernel = get_kernel(scheme.kernel_name, 3)
     cfg = scheme.cell_config(scene, kernel)
-    grid, _, dfT = tck.pack_scene(seeded_velocities(scene, 3, 7), cfg)
+    grid, _, dfT = tck.pack_scene(seeded_velocities(scene, 3, 7), cfg,
+                                   want_dense_pos=True)
     check(not bool(grid.overflow), "wide 3D: grid overflow")
     out["slots_3d"], n_pick = contact_all_slots(
         dfT, grid, cfg, kernel, S, 4.0 * dx, "wide 3D S=65 every slot",
@@ -3828,37 +3928,28 @@ def phase_wide_3d_b5(dev, smi):
     scheme, scene, dt = boxes_tank_scene(
         dev, 2, rows=WIDE_BOX_ROWS, cols=WIDE_BOX_COLS, side=WIDE_BOX_SIDE,
         compact=None, kr=WIDE_BOX_KR, min_overlap=WIDE_BOX_OVERLAP)
-    label = "wide boxes"
-    kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(scheme, scene,
-                                                           label, 13)
-    inst = fk.forces_instance(cfg.M, S)
     route = "compact store" if "cl_pid" in scene else "full [N, S]"
-    print(f"[wide-setup] {label}: n={scene.n} S={S} dt={dt:.6g} NC="
-          f"{cfg.NC_max} M={cfg.M} O={cfg.O}, B5 instance {inst}, {route} "
-          f"route ({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(S >= 300 and inst == "gmem", f"{label}: S={S}, B5 instance "
-          f"{inst}")
-    b5, work, n_found = fluid_pass_checks(
-        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
-                    init, ["fluid_forces_contact"]),
-        dfT, grid.nbr_slots, pt, cfg.radius, S, init,
-        abs(scheme.fluid_alpha) > 1e-14, label, timed=True)
-    check(n_found > 0, f"{label}: no contact pick")
-    print(f"[wide-kernels] {label}: query lanes {int(pt.n_valid)}, {work}, "
-          f"contact slots with a pick {n_found} | max abs err "
-          f"{b5['fluid_forces_contact']['err']:.3e}", flush=True)
-    print_fluid_passes("wide-kernels", label, b5)
-    out["b5"] = dict(b5["fluid_forces_contact"], S=S, n=scene.n)
-    del grid, pt, dfT
+    check(scene.meta.total_no_bodies >= 300 and "cl_pid" in scene,
+          f"wide boxes: S={scene.meta.total_no_bodies}, {route} route")
+    out["b5"] = wide_b5_kernel(scheme, scene, dt, "wide boxes", t0)
+    t1 = time.perf_counter()
+    s129, sc129, dt129 = boxes_tank_scene(dev, 2, rows=WIDE_BOX_129[0],
+                                          cols=WIDE_BOX_129[1],
+                                          side=WIDE_BOX_129[2], compact=None)
+    check(sc129.meta.total_no_bodies == 129 and "cl_pid" in sc129,
+          f"wide boxes S=129: S={sc129.meta.total_no_bodies}")
+    out["b5_129"] = wide_b5_kernel(s129, sc129, dt129, "wide boxes S=129",
+                                   t1)
+    del s129, sc129
     stats = {}
     _, launches, sps = phase_coupling_main(
         scheme, scene, dt, CHUNK, "wide-kdkf", smi,
         dict(pack_expand=1, fluid_rates_wall=1, fluid_forces_contact=1),
         sink=False, stats=stats)
-    check(launches.get("fluid_forces_contact/gmem", 0)
+    check(launches.get("fluid_forces_contact/rows", 0)
           == launches["fluid_forces_contact"] > 0, "wide-kdkf: "
-          f"{launches.get('fluid_forces_contact/gmem', 0)} global-block B5 "
-          f"launches of {launches['fluid_forces_contact']}")
+          f"{launches.get('fluid_forces_contact/rows', 0)} B5 launches by "
+          f"query row of {launches['fluid_forces_contact']}")
     # the set-up state with the store widened by the run's rebuilds
     scene = scheme.adapt_scene(scene)
     nb, cols = scene.meta.nb, WIDE_BOX_COLS
@@ -3868,6 +3959,31 @@ def phase_wide_3d_b5(dev, smi):
     phase_coupling_parity(scheme, scene, dt, "wide-kdkf-parity", push=push)
     out.update(launches=launches, steps_per_s=sps, route=route, **stats)
     return out
+
+
+def wide_b5_kernel(scheme, scene, dt, label, t0):
+    """B5 on ``scene``'s coupling pack in its kdkf step's layout against
+    its twin (phase 10's checks), timed with its bound: the numbers."""
+    kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(scheme, scene,
+                                                           label, 13)
+    print(f"[wide-setup] {label}: n={scene.n} S={S} dt={dt:.6g} NC="
+          f"{cfg.NC_max} M={cfg.M} O={cfg.O}, "
+          f"{'compact store' if 'cl_pid' in scene else 'full [N, S]'} route "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    b5, work, n_found = fluid_pass_checks(
+        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
+                    init, ["fluid_forces_contact"],
+                    b5_layout(scheme, scene, grid, pt, dfT, cfg)),
+        dfT, grid.nbr_slots, pt, cfg.radius, S, init,
+        abs(scheme.fluid_alpha) > 1e-14, label, timed=True)
+    check(n_found > 0, f"{label}: no contact pick")
+    t = b5["fluid_forces_contact"]
+    print(f"[wide-kernels] {label}: query lanes {int(pt.n_valid)}, {work}, "
+          f"contact rows with a pick {n_found} | max abs err "
+          f"{t['err']:.3e}; bound before the redesign's count "
+          f"{t['old_bound_ms']:.4f} ms", flush=True)
+    print_fluid_passes("wide-kernels", label, b5)
+    return dict(t, S=S, n=scene.n)
 
 
 def phase_wide_dem(dev, smi):
@@ -3941,33 +4057,44 @@ def wide_kernel_entries(kernels, wide_k2, wide_b5, wide_dem, src):
                         wide_b5["slots_3d"]["err"]),
         ms=wr["ms"], plain_ms=wr["plain_ms"], bound_ms=wr["bound"],
         bound_by=wr["bound_by"], library_ms=None, S=wr["S"],
-        rows=wr["rows"], all_slots_ms=ws["ms"],
+        rows=wr["rows"], old_bound_ms=wr["old_bound"],
+        all_slots_ms=ws["ms"],
         all_slots_plain_ms=ws["plain_ms"], all_slots_bound_ms=ws["bound_ms"],
         all_slots_bound_by=ws["bound_by"],
+        all_slots_old_bound_ms=ws["old_bound_ms"],
+        all_slots_rows_unpack_ms=ws["rows_unpack_ms"],
         s300_ms=wide_k2["rows_300"]["ms"],
         s300_plain_ms=wide_k2["rows_300"]["plain_ms"],
         s300_bound_ms=wide_k2["rows_300"]["bound"],
         s300_bound_by=wide_k2["rows_300"]["bound_by"],
+        s300_old_bound_ms=wide_k2["rows_300"]["old_bound"],
         s300_rows=wide_k2["rows_300"]["rows"],
         s300_all_slots_ms=wide_k2["slots_300"]["ms"],
         s300_all_slots_plain_ms=wide_k2["slots_300"]["plain_ms"],
         s300_all_slots_bound_ms=wide_k2["slots_300"]["bound_ms"],
+        s300_all_slots_old_bound_ms=wide_k2["slots_300"]["old_bound_ms"],
+        s300_all_slots_rows_unpack_ms=wide_k2["slots_300"]["rows_unpack_ms"],
         all_slots_ms_3d_s65=wide_b5["slots_3d"]["ms"],
         all_slots_plain_ms_3d_s65=wide_b5["slots_3d"]["plain_ms"],
         all_slots_bound_ms_3d_s65=wide_b5["slots_3d"]["bound_ms"],
         all_slots_bound_by_3d_s65=wide_b5["slots_3d"]["bound_by"],
+        all_slots_old_bound_ms_3d_s65=wide_b5["slots_3d"]["old_bound_ms"],
         steps_per_s=wide_k2["stats"]["steps_per_s"]))
-    b5 = wide_b5["b5"]
+    b5, b129 = wide_b5["b5"], wide_b5["b5_129"]
     out.append(dict(
-        name="fluid_forces_contact/gmem", route="cuda",
+        name="fluid_forces_contact/rows", route="cuda",
         source=src + "fluid.cu",
         replaces=by_name["fluid_forces_contact"]["replaces"],
-        launches=wide_b5["launches"]["fluid_forces_contact/gmem"],
+        launches=wide_b5["launches"]["fluid_forces_contact/rows"],
         launches_by_path={"wide-kdkf":
-                          wide_b5["launches"]["fluid_forces_contact/gmem"]},
-        max_abs_err=b5["err"], ms=b5["ms"], plain_ms=b5["plain_ms"],
-        bound_ms=b5["bound_ms"], bound_by=b5["bound_by"], library_ms=None,
-        S=b5["S"], M=b5["M"], width=b5["width"],
+                          wide_b5["launches"]["fluid_forces_contact/rows"]},
+        max_abs_err=max(b5["err"], b129["err"]), ms=b5["ms"],
+        plain_ms=b5["plain_ms"], bound_ms=b5["bound_ms"],
+        bound_by=b5["bound_by"], library_ms=None, S=b5["S"], M=b5["M"],
+        old_bound_ms=b5["old_bound_ms"], s129_ms=b129["ms"],
+        s129_plain_ms=b129["plain_ms"], s129_bound_ms=b129["bound_ms"],
+        s129_bound_by=b129["bound_by"],
+        s129_old_bound_ms=b129["old_bound_ms"],
         coupling_route=wide_b5["route"],
         steps_per_s=wide_b5["steps_per_s"]))
     for kname in ("dem_cell", "dem_rowwin"):
@@ -4180,7 +4307,8 @@ def main() -> int:
         from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
         nkernel = get_kernel(nscheme.kernel_name, 2)
         ncfg = nscheme.cell_config(nscene, nkernel)
-        ngrid, _, ndfT = contact_kernel.pack_scene(nscene, ncfg)
+        ngrid, _, ndfT = contact_kernel.pack_scene(nscene, ncfg,
+                                                     want_dense_pos=True)
         nf_k2, n_pick = contact_all_slots(
             ndfT, ngrid, ncfg, nkernel,
             nscene.meta.total_no_bodies, 4.0 * nscene.meta.spacing0,
@@ -4410,8 +4538,8 @@ def main() -> int:
         print(f"[time] phase 44 from "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # 44. K2's wide instance on the 2D stack of 128 blocks and at S =
-        # 300; 45. on every slot of 64 cubes, and B5's global-block
-        # instance at S = 301; 46. the DEM kernels' wide tables
+        # 300; 45. on every slot of 64 cubes, and B5 by query row at S =
+        # 301 and 129; 46. the DEM kernels' wide tables
         t_w = time.perf_counter()
         wide_k2 = phase_wide_rigid(dev, smi)
         wide_b5 = phase_wide_3d_b5(dev, smi)
@@ -4483,6 +4611,7 @@ def main() -> int:
              ms=t2["contact_ms"], plain_ms=t2["contact_plain_ms"],
              bound_ms=t2["contact_bound"],
              bound_by=t2["contact_bound_by"], library_ms=None,
+             old_bound_ms=t2["contact_old_bound"],
              # 3D: at the 3D scene's set-up ni_max, and on every
              # interesting row (the rows the 3D path runs after its
              # overflow rebuilds)
@@ -4496,6 +4625,8 @@ def main() -> int:
              all_slots_ms=k2all["ms"], all_slots_plain_ms=k2all["plain_ms"],
              all_slots_bound_ms=k2all["bound_ms"],
              all_slots_bound_by=k2all["bound_by"],
+             all_slots_old_bound_ms=k2all["old_bound_ms"],
+             all_slots_rows_unpack_ms=k2all["rows_unpack_ms"],
              nofluid_all_slots_ms=nf_k2["ms"],
              nofluid_all_slots_bound_ms=nf_k2["bound_ms"],
              # on every slot of the 3D pack: the leapfrog path's
@@ -4534,7 +4665,9 @@ def main() -> int:
             launches=path_launches[name], launches_by_path=by_path(name),
             max_abs_err=max(fluid_err(name), f3[name]["err"]), ms=fm["ms"],
             plain_ms=fm["plain_ms"], bound_ms=fm["bound_ms"],
-            bound_by=fm["bound_by"], library_ms=None, **at_3d(name)))
+            bound_by=fm["bound_by"], library_ms=None, **at_3d(name),
+            **({k: fm[k] for k in ("layout", "old_bound_ms")}
+               if name == "fluid_forces_contact" else {})))
     # B4's no-body instance (the fluid-only tank)
     ft = fl_t["tank"]["fluid_rates_wall"]
     kernels[-3].update(
@@ -4679,7 +4812,8 @@ def main() -> int:
           f"{wide_k2['slots_300']['ms']:.4f} ms, 3D S=65 every slot "
           f"{wide_b5['slots_3d']['ms']:.4f} ms; GTVF S={wr['S']} "
           f"{wide_k2['stats']['steps_per_s']:.2f} steps/s; B5 S={b5['S']} "
-          f"{b5['ms']:.4f} ms, kdkf ({wide_b5['route']}) "
+          f"{b5['ms']:.4f} ms, S=129 {wide_b5['b5_129']['ms']:.4f} ms, "
+          f"kdkf ({wide_b5['route']}) "
           f"{wide_b5['steps_per_s']:.2f} steps/s; DEM " + ", ".join(
               f"{g} L={L} {v['ms']:.4f} ms ({v['sps']:.2f} steps/s)"
               for (g, L), v in sorted(wide_dem.items()))

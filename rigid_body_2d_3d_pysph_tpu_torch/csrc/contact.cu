@@ -11,11 +11,11 @@
 //   Eq. 21 sums  q3 = sum t2,  q4..q6 = sum t2 * (xij, yij, zij),  t2 = t1 r
 //   the closest gated source (lowest stencil lane on a distance tie)
 //
-// and the epilogue of pallas_contact.py:313-328, writing
-// out[b][l][c * S + s] for the 12 column blocks c: cfn x/y/z, wij sum,
+// and the epilogue of pallas_contact.py:313-328, writing column c * S + s
+// of a lane's output row for the 12 column blocks c: cfn x/y/z, wij sum,
 // contact distance, closest distance, picked source x/y/z/u/v/w; every
 // (lane, s) without a gated pair, and every padding row, holds the init
-// row.  The gate is: source on the contact boundary, not fluid, of
+// row (the output rows: below, "What the step reads").  The gate is: source on the contact boundary, not fluid, of
 // another dem entity than the query; rigid query; r <= cutoff.  Pack
 // fields: 2D x y u v vol h flags (F = 7), 3D x y z u v w vol h flags
 // (F = 9); the flags word is dem*8 + boundary*4 + fluid*2 + rigid (the
@@ -29,13 +29,14 @@
 // quarter of a cube's particles are surface, 4 % of a 2D block's); of
 // those, a query lane near a face finds a quarter within the cutoff, so
 // the gated pairs are dense in the candidates that remain.  The output,
-// 12 S words per lane of every row, is the only large byte stream (80 MB
-// when every slot of the 2D stack is a query).
+// 12 S words a lane, is the only large byte stream (80 MB when every slot
+// of the 2D stack is a query at S = 9, 1.4 GB at S = 300).
 // Design: one block of 128 threads a query row: M query lanes times P =
 // 128 / M lane groups, so even the few hundred culled rows of the main
 // path fill the card.
-// 1. The block writes the init row over the row's output (16-byte
-//    stores); a row with no rigid lane stops here.
+// 1. The query lanes and their output rows; the init row over each lane
+//    with an output row (16-byte stores); a row with no rigid lane stops
+//    here.
 // 2. Staging, sorted by dem.  Lane group c walks part c of the stencil
 //    (contiguous entries, in order), reading the flags word of every
 //    lane, with UNROLL entries' loads in flight: a candidate is a live
@@ -61,9 +62,9 @@
 //    "<".  So the sums are a sequential walk's over the stencil, bit for
 //    bit the parent kernel's, and the pick is the lowest stencil lane on
 //    a tie, exactly as the plain version's.
-// 4. The epilogue (csrc/mofidi.cuh store_row) for each (lane, dem) with
-//    a gated pair, the picked source's fields read from the pack by its
-//    lane.
+// 4. At a dem's end, the epilogue (csrc/mofidi.cuh store_row) over the
+//    init row for each lane with a gated pair of it, the picked source's
+//    fields read from the pack by its lane.
 // A stencil with more than CAP candidates is sorted and summed in windows
 // of CAP (a second walk per window; group 0 carries a dem's sums across
 // them).  Nothing goes through a matrix unit.  Built with
@@ -82,6 +83,40 @@
 // gets the same sums and pick as in one pass.  The match key is c SC + d
 // (a dem above 255 would collide in the 8-bit key).  Everything else,
 // the pick rules and the order of each dem's sums, is the code above.
+//
+// What the step reads, and so what is written.  Every lane with an
+// output row gets its init row (zeros, the closest distance init_dist) at
+// the row's start, each warp a lane row at a time with 16-byte stores
+// along the row, and the stores drain while the walks and the sums run;
+// the epilogue's value goes over it at the dem's end where the lane has a
+// gated pair (group 0, a lane a thread, 12 stores of stride S).  Every
+// other entry is written once, the gated ones (a few in a hundred) twice.
+// Two orders that write each entry once took longer on the card
+// (scripts/contact_variants.py `writeonce`; PERF.md): the init
+// values after the windows (no overlap with the walks), and the dems
+// without a candidate between the walks with the others at each dem's
+// end (their 32-byte sectors part-written until the epilogue's stores
+// came).  Two output layouts:
+//
+// * query rows, out [NI, M, 12 S] (lane_pid null): the culled rows of the
+//   rigid GTVF step (contact_pipeline_compact -> _compact_contact_tail,
+//   and the slab step's rigid_contact_force_eval_compact_blob).  The tail
+//   reads every lane of every row: contact_force_core runs on all NI M
+//   lanes, an empty lane's (pid = n) result goes to a dropped row, and
+//   the 12 S columns of every lane are kept in cl_state (read back by
+//   pid, written out by expand_slot_scene).  So every lane of every row
+//   is written; a padding row queries the all-sentinel row (no rigid
+//   lane) and holds the init row.
+// * particle rows, out [n, 12 S] (lane_pid, dense_pos): every slot of the
+//   cell pipeline (contact_pipeline_cell -> _contact_tail: the coupling
+//   kdk, reference, no-fluid and RK2 orderings, the rigid RK2, leapfrog
+//   and skin steps, the slab steps' full route).  The tail reads every
+//   particle's row into the scene's [N, S] slot fields, fluid and wall
+//   particles' too (init rows); a lane without a particle is read by
+//   nobody and is not written.  Lane l of row b writes particle
+//   lane_pid[qslot[b] M + l]'s row, straight into the tail's layout (no
+//   unpack); the blocks past NI zero the rows of the particles without a
+//   lane (dense_pos >= n_lanes), which the unpack filled with zeros.
 #include "mofidi.cuh"
 
 namespace {
@@ -97,13 +132,19 @@ constexpr int WIDE_CHUNK = 2048;   // wide: the most dems a chunk
 constexpr int NO_RIGID = -2;   // wide: the row has no rigid lane
 constexpr unsigned FULL = 0xffffffffu;
 
+constexpr int ORPHANS = CAP_2D;   // particles a zeroing block looks at
+
 struct Args {
   const float* dft;              // [nrows, F, M]
   const long long* qslot;        // [NI]
   const long long* nbr;          // [NI, O]
-  float* out;                    // [NI, M, 12 S]
+  float* out;                    // [NI, M, 12 S] or [n, 12 S]
+  const long long* lane_pid;     // [n_lanes] a pack lane's particle (null:
+                                 // query rows)
+  const long long* dense_pos;    // [n] a particle's pack lane
   int NI, O, nrows, S;
   int chunk;                     // wide: dems a chunk (the tables' width)
+  int n, n_lanes;                // particle rows: particles, mapped lanes
   float cutoff, init_dist, sig_num, sig_den;
 };
 
@@ -125,6 +166,29 @@ __device__ __forceinline__ Flags decode(float f) {
 // the wide instance's dynamic shared memory (bytes) at `chunk` dems
 __host__ __device__ constexpr int wide_bytes(int chunk) {
   return 4 * (2 * P * chunk + chunk + 1);
+}
+
+// Particle rows: block z of the zeroing blocks writes zeros over the rows
+// of the particles [z ORPHANS, (z + 1) ORPHANS) that have no pack lane,
+// listed in `list` (ORPHANS ints of shared memory).
+__device__ __forceinline__ void zero_orphans(const Args& a, int z,
+                                             int* list) {
+  __shared__ int s_n;
+  const int t = threadIdx.x;
+  if (t == 0) s_n = 0;
+  __syncthreads();
+  for (int i = t; i < ORPHANS; i += THREADS) {
+    const long long p = (long long)z * ORPHANS + i;
+    if (p < a.n && a.dense_pos[p] >= a.n_lanes) list[atomicAdd(&s_n, 1)] = i;
+  }
+  __syncthreads();
+  const int per = 3 * a.S;      // float4 a row (12 S words, 16-byte aligned)
+  for (int j = 0; j < s_n; ++j) {
+    float4* o = reinterpret_cast<float4*>(
+        a.out + ((long long)z * ORPHANS + list[j]) * 12 * a.S);
+    for (int i = t; i < per; i += THREADS)
+      o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
 template <bool TWO_D, bool WIDE>
@@ -154,6 +218,7 @@ __global__ void __launch_bounds__(THREADS)
   // none; NO_RIGID: no rigid lane), the tables in dynamic shared memory
   __shared__ int s_rig[WIDE ? M : 1], s_own[WIDE ? M : 1];
   __shared__ int s_rowskip;
+  __shared__ long long s_orow[M];            // a lane's output row (-1: none)
   extern __shared__ int s_dyn[];
   const int SC = WIDE ? a.chunk : S_MAX;     // the tables' row stride
   int* const s_cnt = WIDE ? s_dyn : s_cnt_n;                 // [P][SC]
@@ -165,6 +230,10 @@ __global__ void __launch_bounds__(THREADS)
   const unsigned lt = (1u << lane) - 1u;
   const int S = a.S;
   const int b = blockIdx.x;                  // the query row
+  if (b >= a.NI) {                           // particle rows: the orphans
+    zero_orphans(a, b - a.NI, s_key);
+    return;
+  }
 
   // the query lanes (group 0)
   if (!WIDE) {
@@ -173,8 +242,17 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
   if (t < M) {
-    const long long qs = min(max(a.qslot[b], 0LL), (long long)(a.nrows - 1));
+    const long long qraw = a.qslot[b];
+    const long long qs = min(max(qraw, 0LL), (long long)(a.nrows - 1));
     const float* q = a.dft + qs * F * M + l;
+    long long orow = ((long long)b * M + l) * 12 * S;
+    if (a.lane_pid) {
+      const long long lane_id = qraw * M + l;
+      const long long p = lane_id >= 0 && lane_id < a.n_lanes
+                              ? a.lane_pid[lane_id] : -1LL;
+      orow = p >= 0 && p < a.n ? p * 12 * S : -1LL;
+    }
+    s_orow[l] = orow;
     s_q[0][l] = __ldg(q + FX * M);
     s_q[1][l] = __ldg(q + FY * M);
     s_q[2][l] = TWO_D ? 0.0f : __ldg(q + FZ * M);
@@ -206,21 +284,11 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  // 1. the init row over the row's output
-  float* orow = a.out + (long long)b * M * 12 * S;
-  {
-    float4* o4 = reinterpret_cast<float4*>(orow);
-    const int per_lane = 3 * S;    // float4 a lane (12 S words)
-    for (int i = t; i < M * per_lane; i += THREADS) {
-      const int c0 = (i % per_lane) * 4;   // block 5 is columns [5S, 6S)
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = (c0 + j >= 5 * S && c0 + j < 6 * S) ? a.init_dist : 0.0f;
-      o4[i] = make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
   __syncthreads();
+  // 1. the init row over every lane with an output row: a warp a lane
+  // row, 16 bytes a thread a store (they drain while the walks run)
+  mofidi::fill_init_rows(a.out, M, S, a.init_dist, t, THREADS, THREADS / 32,
+                         [&](int l) { return s_orow[l]; });
   const unsigned long long row_want = WIDE ? 0ull : s_rowwant;
   const int row_skip = WIDE ? s_rowskip : 0;
   if (WIDE ? row_skip == NO_RIGID : row_want == 0ull)
@@ -441,13 +509,14 @@ __global__ void __launch_bounds__(THREADS)
           }
           __syncthreads();   // s_r and s_t1 are written again
         }
-        if (c == 0 && mine && s_seg[s + 1] <= w0 + CAP) {   // the dem's end
-          if (run_r < mofidi::kBig) {
+        if (c == 0 && s_seg[s + 1] <= w0 + CAP) {   // the dem's end
+          const long long orow = s_orow[l];
+          if (orow >= 0 && mine && run_r < mofidi::kBig) {
             // 4. the epilogue, the picked source read by its pack lane
             const float* sb = a.dft + (long long)(run_pick / M) * F * M +
                               run_pick % M;
             mofidi::store_row(
-                orow + l * 12 * S + d0 + s, S, a.init_dist, run[0], run[1],
+                a.out + orow + d0 + s, S, a.init_dist, run[0], run[1],
                 run[2], run[3], run[4], run[5], run[6], run_r,
                 __ldg(sb + FX * M), __ldg(sb + FY * M),
                 TWO_D ? 0.0f : __ldg(sb + FZ * M), __ldg(sb + FU * M),
@@ -462,9 +531,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// the query rows and, for particle rows, the zeroing blocks
+inline unsigned blocks(const Args& a) {
+  return (unsigned)a.NI +
+         (a.lane_pid ? (unsigned)((a.n + ORPHANS - 1) / ORPHANS) : 0u);
+}
+
 template <bool TWO_D>
 int launch(const Args& a, cudaStream_t st) {
-  contact_kernel<TWO_D, false><<<a.NI, THREADS, 0, st>>>(a);
+  contact_kernel<TWO_D, false><<<blocks(a), THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -480,7 +555,7 @@ int launch_wide(const Args& a, cudaStream_t st) {
     if (err != cudaSuccess) return (int)err;
     opted = bytes;
   }
-  contact_kernel<TWO_D, true><<<a.NI, THREADS, bytes, st>>>(a);
+  contact_kernel<TWO_D, true><<<blocks(a), THREADS, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -490,22 +565,28 @@ int launch_wide(const Args& a, cudaStream_t st) {
 // `chunk` dems a chunk (1 .. min(S, 2048)), the wrapper's choice
 // (ops/contact_kernel.py contact_instance).  sph_id: the SPH kernel's id
 // (ops/kernels.py Kernel.device_id), which must be the one this library
-// was built for.
+// was built for.  lane_pid null: out [NI, M, 12 S] by query row; else out
+// [n, 12 S] by particle, lane_pid [n_lanes] the particle of each pack
+// lane (outside [0, n): none) and dense_pos [n] each particle's pack lane
+// (>= n_lanes: none; its row is zeros).
 extern "C" int contact_sums(const void* dft, const void* qslot,
-                            const void* nbr, void* out, int NI, int O,
-                            int nrows, int lanes, int S, int chunk,
-                            int two_d, int sph_id, float cutoff,
-                            float init_dist, float sig_num, float sig_den,
-                            void* stream) {
+                            const void* nbr, void* out,
+                            const void* lane_pid, const void* dense_pos,
+                            int NI, int O, int nrows, int lanes, int S,
+                            int chunk, int n, int n_lanes, int two_d,
+                            int sph_id, float cutoff, float init_dist,
+                            float sig_num, float sig_den, void* stream) {
   // a pack lane is an int
   if (sph_id != sph::kId || lanes != M || S < 1 || O < 0 || nrows < 1 ||
       (long long)nrows * M >= (1LL << 31) || chunk < 0 ||
-      chunk > WIDE_CHUNK || chunk > S || (chunk == 0 && S > S_MAX))
+      chunk > WIDE_CHUNK || chunk > S || (chunk == 0 && S > S_MAX) ||
+      NI < 0 || (lane_pid && (!dense_pos || n < 0 || n_lanes < 0)))
     return (int)cudaErrorInvalidValue;
-  if (NI == 0) return 0;
   Args a{(const float*)dft, (const long long*)qslot, (const long long*)nbr,
-         (float*)out, NI, O, nrows, S, chunk, cutoff, init_dist, sig_num,
-         sig_den};
+         (float*)out, (const long long*)lane_pid,
+         (const long long*)dense_pos, NI, O, nrows, S, chunk,
+         lane_pid ? n : 0, n_lanes, cutoff, init_dist, sig_num, sig_den};
+  if (blocks(a) == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (chunk > 0)
     return two_d ? launch_wide<true>(a, st) : launch_wide<false>(a, st);

@@ -10,8 +10,9 @@
 //                         (wall and body queries, the Adami sums)
 //   fluid_forces_contact  fluid_forces_contact_pallas :590 (B5, _forces_cols
 //                         :494 + pallas_contact._pair_body(union=True))
-//                         -> [NC, M, 12 S + 6]: the Mofidi contact columns
-//                         in K2's order, then au, av, aw, fx, fy, fz
+//                         -> [NC, M, 6] au, av, aw, fx, fy, fz, and the
+//                         Mofidi contact columns in K2's order by query
+//                         row or by particle (see forces_kernel)
 //   fluid_rates           fluid_rates_pallas :302 (B6a) -> [NC, M, 2],
 //                         B4's rates alone, the fluid/boundary and the
 //                         FSI-rigid source classes summed apart
@@ -98,17 +99,25 @@ enum { kSrcFluid = 1, kSrcFlbd = 2, kSrcRigid = 4 };
 // the pack fields staging loads for every lane of an entry
 constexpr int kLoads = 11;        // x y z u v w m rho h p flags
 
+constexpr int kDems = 64;         // B5: dems a round of the contact sums
+
 // a warp's shared memory in words: staging, a candidate list of kCap
 // words (the forces template's contact list), the query and rigid lane
-// lists (32 each), the output block [M, W]
-__host__ __device__ constexpr int warp_words(int M, int W, bool clist) {
-  return NS * kCap + (clist ? kCap : 0) + 64 + ((M * W + 3) & ~3);
+// lists (32 each), the output block [M, W]; with S > 0 entity slots (B5)
+// the block at its widest (32 lanes of 6 words), each lane's contact row
+// (32 long longs), a list of kDems dems and a bitmap of the dems with
+// contact candidates, all at offsets the compiler knows
+__host__ __device__ constexpr int warp_words(int M, int W, bool clist,
+                                             int S = 0) {
+  return NS * kCap + (clist ? kCap : 0) + 64 +
+         (S > 0 ? ((32 * 6 + 64 + kDems + (S + 31) / 32 + 3) & ~3)
+                : ((M * W + 3) & ~3));
 }
 
 // the dynamic shared memory of a block (bytes) and its warps: kWarps
-// unless the output block is so wide that fewer fit; 0 if none fits
-inline int block_bytes(int M, int W, bool clist, int& warps) {
-  const long long warp_bytes = 4LL * warp_words(M, W, clist);
+// unless a warp's share is so large that fewer fit; 0 if none fits
+inline int block_bytes(int M, int W, bool clist, int& warps, int S = 0) {
+  const long long warp_bytes = 4LL * warp_words(M, W, clist, S);
   for (warps = kWarps; warps > 0; --warps)
     if (warps * warp_bytes <= kMaxSmem) return (int)(warps * warp_bytes);
   return 0;
@@ -488,14 +497,14 @@ __global__ void __launch_bounds__(kWarps * 32, 6)
 // ---------------------------------------------------------------------------
 // B5 / B6c: pressure gradient + artificial viscosity; with FSI (rigid
 // bodies present) the FSI source class and the fluid -> rigid force; with
-// CONTACT the Mofidi contact columns on the union layout first.  B5 is
-// FSI and CONTACT, B6c FSI (kdk and reference orderings) or neither.
+// CONTACT the Mofidi contact columns on the union layout.  B5 is FSI and
+// CONTACT, B6c FSI (kdk and reference orderings) or neither.
 //
 // One warp a query slot (kWarps slots a block), every sum in a fixed
 // order:
 // 1. The slot's query lanes: the lanes a force sum runs for (fluid, and
 //    rigid with FSI) are listed by a ballot; a slot with none writes its
-//    rows (zeros and the contact init row) and stops.
+//    rows (zeros, and B5's contact init rows) and stops.
 // 2. Staging (StencilWalk): the candidates a sum can use (fluid,
 //    boundary, FSI-rigid, contact-eligible) go to shared memory in
 //    stencil order, as structure of arrays of what the bodies read: x y z
@@ -503,96 +512,164 @@ __global__ void __launch_bounds__(kWarps * 32, 6)
 //    rho_fsi^2 for an FSI-rigid source, the same rounding as the per-pair
 //    division), rho, and the class bits with the dem.  A stencil with
 //    more than kCap candidates is staged and summed in windows of whole
-//    entries, carried in order.
+//    entries, carried in order.  B5 also lists the candidates that pass
+//    the flag part of the contact gate (contact boundary, not fluid, a dem
+//    some rigid lane of the slot wants).
 // 3. Forces: with q listed queries, thread (i, p) takes query i and the
 //    staged candidates p, p + P, p + 2P, ... (P = 32 / q), 32 at a time:
 //    first the range tests (r2 <= r2max, the exact image of r <= cutoff,
 //    and the classes the query sums), then the bodies of the pairs that
 //    passed, each the one-lane kernel's arithmetic, so the warp runs as
 //    many bodies as its busiest thread has pairs.  The P partial sums of
-//    a query are added by a shuffle tree of fixed shape.
-// 4. Contact (B5, slots with a rigid lane): the staged candidates that
-//    pass the flag part of the gate (contact boundary, not fluid, a dem
-//    some rigid lane of the slot wants) are listed in stencil order, and
-//    one thread a (rigid lane, entity slot s != its dem) walks that list,
-//    adding its gated pairs (dem s, r <= cutoff) into a mofidi::Acc in
-//    stencil order: the sums and the pick are a sequential walk's, bit
-//    for bit the one-lane kernel's.  This runs after the force sums (so
-//    the two sets of running sums never share the registers), on the
-//    staged window when one window held the stencil, else over the
-//    windows staged again; more than 32 such threads run in groups.
-// 5. The slot's [M, W] block is assembled in shared memory (the zero and
-//    init rows, then the force and contact columns) and written
-//    contiguously with 16-byte stores.
-// GMEM: a block too wide for one warp's shared memory (W = 12 S + 6 words
-// a lane; at M = 16 past S ~ 290) is assembled in place in the output
-// instead: the default rows written there first, then the force and
-// contact columns over them (the warp's own writes, ordered by its
-// __syncwarp), and no copy.  The sums and the picks are the same.
+//    a query are added by a shuffle tree of fixed shape, and the slot's
+//    [M, 6] block is written contiguously from shared memory.
+// 4. Contact (B5, a slot with a row the step reads): the init rows; with
+//    a rigid lane, a bitmap of S bits marks the dems of the listed
+//    candidates (of every window), and one thread a (rigid lane cl, dem
+//    cs of the bitmap), kDems dems a round, walks the list, adding its
+//    gated pairs (dem cs, r <= cutoff) into a mofidi::Acc in stencil
+//    order: the sums and the pick are a sequential walk's, bit for bit the
+//    one-lane kernel's.  It runs on the staged window when one window held
+//    the stencil, else over the windows staged again.  A dem outside the
+//    bitmap has no gated pair with any lane.
+//
+// What the step reads, and so what B5 writes.  The force columns go to
+// out [NC, M, 6] for every slot (the kdkf step unpacks them beside B4's,
+// every particle's).  The 12 S contact columns go to cout, in one of two
+// layouts:
+// * query rows (rows non-null), cout [NI, M, 12 S]: the compact route of
+//   the kdkf step (rigid_fluid_coupling culled_lanes ->
+//   _compact_contact_tail) reads the rows of the light cull's slots
+//   (contact_kernel.cull_rigid_query_slots, run before B5: rows[r] is the
+//   r-th slot with a rigid lane, ascending, then NC) and every lane of
+//   them: the tail runs contact_force_core on all NI M lanes (an empty
+//   lane's result goes to a dropped row) and keeps the 12 S columns of
+//   every lane in cl_state.  A slot with a rigid lane finds its row by a
+//   binary search of rows; a row of a slot without one (a padding row,
+//   rows[r] = NC) holds the init row, written by the warps past NC.
+// * particle rows (lane_pid non-null), cout [n, 12 S]: the full route of
+//   the kdkf step (_contact_tail) reads every particle's row into the
+//   scene's [N, S] slot fields, fluid and wall particles' too (init
+//   rows).  Lane l of slot s writes particle lane_pid[s M + l]'s row (a
+//   lane without a particle is read by nobody); the warps past NC write
+//   zeros over the rows of the particles without a lane (dense_pos >= NC
+//   M), which the unpack filled with zeros.
+// Every lane with a row gets its init row (zeros, the closest distance
+// init_dist) first, the warp's threads taking consecutive 16-byte words
+// of the row, and the stores drain while the contact threads run; a
+// contact thread writes the epilogue's value over it where its lane has a
+// gated pair of its dem.  Every other entry is written once, the gated
+// ones twice: the order that writes each once leaves 32-byte sectors
+// part-written until the contact stores come, and took longer in K2
+// (its header in csrc/contact.cu; PERF.md).  No contact column passes
+// through shared memory, so one instance serves every S.
 // ---------------------------------------------------------------------------
 
-template <bool KDIM2, bool VISC, bool FSI, bool CONTACT, bool GMEM>
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
 __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     forces_kernel(const float* __restrict__ dft,
                   const long long* __restrict__ nbr, float* __restrict__ out,
-                  int NC, int O, int M, int S, float r2max,
-                  float alpha_c0, float init_dist, float sig_num,
-                  float sig_den) {
+                  float* __restrict__ cout,
+                  const long long* __restrict__ rows,
+                  const long long* __restrict__ lane_pid,
+                  const long long* __restrict__ dense_pos, int NC, int O,
+                  int M, int S, int NI, int n, float r2max, float alpha_c0,
+                  float init_dist, float sig_num, float sig_den) {
   extern __shared__ float4 smem4[];
+  constexpr int W = 6;
   const int lane = threadIdx.x & 31;
   const long long slot =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (slot >= NC) return;                    // the whole warp
-  const int W = CONTACT ? 12 * S + 6 : 6;
-  const int F0 = CONTACT ? 12 * S : 0;       // the first force column
+  if (slot >= NC) {
+    // B5's warps past the slots: the init row of a row whose slot has no
+    // rigid lane (a padding row, rows[x] = NC), or zeros over the rows of
+    // 32 particles without a lane
+    if (CONTACT) {
+      const long long x = slot - NC;
+      if (rows) {
+        if (x >= NI) return;
+        const long long rs = __ldg(rows + x);
+        bool rigid = false;
+        if (rs >= 0 && rs < NC && lane < M)
+          rigid = decode(__ldg(dft + (rs * NF + FFLAGS) * M + lane)).rigid ==
+                  1.0f;
+        if (!__any_sync(kFull, rigid))
+          mofidi::fill_init_rows(cout, M, S, init_dist, lane, 32, 1, [&](int l) {
+            return (x * M + l) * 12LL * S;
+          });
+      } else {
+        const long long p = x * 32 + lane;
+        const bool orphan =
+            p < n && __ldg(dense_pos + p) >= (long long)NC * M;
+        for (unsigned o = __ballot_sync(kFull, orphan); o; o &= o - 1u)
+          fill_zero(cout + (x * 32 + __ffs(o) - 1) * 12LL * S, 12 * S, true,
+                    lane);
+      }
+    }
+    return;                                  // the whole warp
+  }
   float* st = reinterpret_cast<float*>(smem4) +
-              (threadIdx.x >> 5) * warp_words(M, GMEM ? 0 : W, true);
+              (threadIdx.x >> 5) * warp_words(M, W, true, CONTACT ? S : 0);
   int* clist = reinterpret_cast<int*>(st + NS * kCap);
   int* qlist = clist + kCap;
   int* rlist = qlist + 32;
+  float* obuf = st + NS * kCap + kCap + 64;
+  // B5: each lane's contact row (words into cout; -1: none), a round's
+  // list of kDems dems, the bitmap of the dems with contact candidates
+  long long* crow = reinterpret_cast<long long*>(obuf + 32 * W);
+  int* dlist = reinterpret_cast<int*>(obuf + 32 * W + 64);
+  unsigned* bm = reinterpret_cast<unsigned*>(obuf + 32 * W + 64 + kDems);
+  const int bmw = CONTACT ? (S + 31) / 32 : 0;
   float* orow = out + slot * M * W;
-  float* obuf = GMEM ? orow : st + NS * kCap + kCap + 64;
   const float* q = dft + slot * NF * M;
   const bool vec = (M * W) % 4 == 0 &&
                    (reinterpret_cast<unsigned long long>(out) & 15ull) == 0;
-  // the default rows (zeros, and the contact init row in block 5) over
-  // the slot's block at o: each thread steps its column on, no division
-  // an element
-  auto fill_default = [&](float* o, bool by4) {
-    const int w = by4 ? 4 : 1, step = (32 * w) % W;
-    int c = (w * lane) % W;
-    auto at = [&](int j) -> float {
-      const int cj = c + j < W ? c + j : c + j - W;
-      return (CONTACT && cj >= 5 * S && cj < 6 * S) ? init_dist : 0.0f;
-    };
-    for (int i = lane; i < M * W / w; i += 32) {
-      if (by4)
-        reinterpret_cast<float4*>(o)[i] = make_float4(at(0), at(1), at(2),
-                                                      at(3));
-      else
-        o[i] = at(0);
-      c += step;
-      if (c >= W) c -= W;
-    }
-  };
   StencilWalk walk(dft, nbr + slot * O, NC, O, M, lane);
 
-  // 1. the query lanes
+  // 1. the query lanes (B5 by particle: and their particles, loaded beside)
   Flags qf{-1.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (lane < M) qf = decode(__ldg(q + FFLAGS * M + lane));
+  long long pid = -1;
+  if (lane < M) {
+    qf = decode(__ldg(q + FFLAGS * M + lane));
+    if (CONTACT && lane_pid) pid = __ldg(lane_pid + slot * M + lane);
+  }
   const bool act = qf.fluid == 1.0f || (FSI && qf.rigid == 1.0f);
   const bool rig = CONTACT && qf.rigid == 1.0f;
   const unsigned amask = __ballot_sync(kFull, act);
   const unsigned rmask = __ballot_sync(kFull, rig);
   const int nq = __popc(amask), nr = __popc(rmask);
+  // B5: this lane's contact row (words into cout; -1: none), into crow
+  auto contact_row = [&]() -> long long {
+    if (!rows) return pid >= 0 && pid < n ? pid * 12LL * S : -1LL;
+    if (nr == 0) return -1LL;                // not a culled slot
+    int lo = 0, hi = NI;                     // rows ascend: a binary search
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(rows + mid) < slot) lo = mid + 1;
+      else hi = mid;
+    }
+    return lo < NI && __ldg(rows + lo) == slot && lane < M
+               ? ((long long)lo * M + lane) * 12LL * S : -1LL;
+  };
+  // B5: the init rows over the lanes' contact rows (crow), 16 bytes a
+  // thread a store
+  auto fill_rows = [&]() {
+    mofidi::fill_init_rows(cout, M, S, init_dist, lane, 32, 1,
+                           [&](int l) { return crow[l]; });
+  };
+  if (CONTACT) {            // the rows now: the slot is not live past here
+    crow[lane] = contact_row();
+    __syncwarp();
+  }
   if (nq == 0) {
-    fill_default(orow, vec);
+    fill_zero(orow, M * W, vec, lane);
+    if (CONTACT) fill_rows();
     return;
   }
   const unsigned lt = walk.lt;
   if (act) qlist[__popc(amask & lt)] = lane;
   if (rig) rlist[__popc(rmask & lt)] = lane;
-  fill_default(obuf, GMEM ? vec : (M * W) % 4 == 0);
+  fill_zero(obuf, M * W, (M * W) % 4 == 0, lane);
   // the dems the slot's rigid lanes want: every s but their own, so all
   // of them unless the rigid lanes share one dem
   int skip_dem = -1;
@@ -665,12 +742,12 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
   // 3. the force sums, window by window (the partial sums carried)
   float au = 0.f, av = 0.f, aw = 0.f, vu = 0.f, vv = 0.f, vw = 0.f;
   float fx = 0.f, fy = 0.f, fz = 0.f;
-  int n = 0, e = 0;
+  int ns = 0, e = 0;
   bool whole = false;                        // one window held the stencil
   do {
     __syncwarp();                            // the last window is read
     whole = e == 0;
-    e = stage(e, n);
+    e = stage(e, ns);
     whole = whole && e == O;
     __syncwarp();
     // this thread's query, loaded after the staging (not live across it)
@@ -684,11 +761,11 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     // 32 of this thread's candidates at a time: the range tests, then the
     // bodies of the pairs that pass, in candidate order (the warp runs as
     // many bodies as its busiest lane, not one for each candidate)
-    for (int c0 = fp; fact && c0 < n; c0 += 32 * P) {
+    for (int c0 = fp; fact && c0 < ns; c0 += 32 * P) {
       unsigned hits = 0u;
       for (int k = 0; k < 32; ++k) {
         const int c = c0 + k * P;
-        if (c >= n) break;
+        if (c >= ns) break;
         const float xij = qx - st[SX * kCap + c];
         const float yij = qy - st[SY * kCap + c];
         const float zij = qz - st[SZ * kCap + c];
@@ -766,7 +843,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     }
   }
   if (fact && fp == 0) {
-    float* of = obuf + qlist[fi] * W + F0;
+    float* of = obuf + qlist[fi] * W;
     of[0] = r[0] + r[3];
     of[1] = r[1] + r[4];
     of[2] = r[2] + r[5];
@@ -774,63 +851,113 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     of[4] = r[7];
     of[5] = r[8];
   }
+  __syncwarp();
+  copy_block(orow, obuf, M * W, vec, lane);
+  if (!CONTACT) return;
 
-  // 4. the contact sums, a thread a (rigid lane cl, entity slot cs) in
-  // groups of 32, over the last window's contact list when one window
-  // held the stencil, else over the windows staged again
-  const int npair = CONTACT ? nr * S : 0;
-  for (int g = 0; g * 32 < npair; ++g) {
-    int cs = -1, cl = 0;
-    if (g * 32 + lane < npair) {
-      const int k = g * 32 + lane, i = k / S;
-      cl = rlist[i];
-      cs = k - i * S;
-      if ((float)cs == decode(__ldg(q + FFLAGS * M + cl)).dem) cs = -1;
+  // 4. the contact rows: the init rows first (their stores drain while the
+  // contact threads run)
+  if (!__any_sync(kFull, crow[lane] >= 0)) return;  // no row is read
+  fill_rows();
+  if (nr == 0) return;                       // no rigid lane: no sum
+  // the bitmap of the dems in the contact list, of every window
+  for (int i = lane; i < bmw; i += 32) bm[i] = 0u;
+  __syncwarp();
+  auto mark = [&]() {
+    for (int c = lane; c < cn; c += 32) {
+      const int dem = __float_as_int(st[SCLS * kCap + clist[c]]) >> 3;
+      atomicOr(&bm[dem >> 5], 1u << (dem & 31));
     }
-    mofidi::Acc acc;
-    acc.init();
+  };
+  if (whole) {
+    mark();
+  } else {
     e = 0;
     do {
-      if (!whole) {
-        __syncwarp();
-        e = stage(e, n);
-        __syncwarp();
-      } else {
-        e = O;
-      }
-      if (cs >= 0) {
-        const float* cq = q + cl;
-        const float cqx = __ldg(cq + FX * M), cqy = __ldg(cq + FY * M),
-                    cqz = __ldg(cq + FZ * M), cqh = __ldg(cq + FH * M);
-        const float cqvol = __ldg(cq + FM * M) / __ldg(cq + FRHO * M);
-        for (int c = 0; c < cn; ++c) {
-          const int k = clist[c];
-          if ((__float_as_int(st[SCLS * kCap + k]) >> 3) != cs) continue;
-          const float sx = st[SX * kCap + k], sy = st[SY * kCap + k],
-                      sz = st[SZ * kCap + k];
-          const float xij = cqx - sx;
-          const float yij = cqy - sy;
-          const float zij = cqz - sz;
-          float r2 = xij * xij + yij * yij;
-          r2 = r2 + zij * zij;
-          if (!(r2 <= r2max)) continue;      // r <= cutoff
-          const float rij = sqrtf(r2);
-          const float hij = 0.5f * (cqh + st[SH * kCap + k]);
-          const float wij =
-              sph::w<KDIM2>(rij, hij, sig_num, sig_den);
-          acc.add<false>(xij, yij, zij, rij, wij, cqvol, sx, sy, sz,
-                         st[SU * kCap + k], st[SV * kCap + k],
-                         st[SW * kCap + k]);
-        }
-      }
+      __syncwarp();
+      e = stage(e, ns);
+      __syncwarp();
+      mark();
     } while (e < O);
-    if (cs >= 0) acc.store(obuf + cl * W + cs, S, init_dist);
   }
-
-  // 5. the slot's block, contiguous
-  if (!GMEM) {
+  __syncwarp();
+  // the contact sums, a thread a (rigid lane cl, dem cs of the bitmap) in
+  // groups of 32, kDems dems a round, over the last window's contact list
+  // when one window held the stencil, else over the windows staged again
+  int nd = 0;                                // the bitmap's dems
+  for (int i = lane; i < bmw; i += 32) nd += __popc(bm[i]);
+  nd = __reduce_add_sync(kFull, nd);
+  for (int kb = 0; kb < nd; kb += kDems) {
+    const int nb = min(kDems, nd - kb);
+    // dlist: the bitmap's dems kb .. kb + nb - 1, ascending
+    int base = 0;
+    for (int w0 = 0; w0 < bmw; w0 += 32) {
+      const unsigned word = w0 + lane < bmw ? bm[w0 + lane] : 0u;
+      const int cnt = __popc(word);
+      int incl = cnt;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += v;
+      }
+      int rk = base + incl - cnt;
+      for (unsigned x = word; x; x &= x - 1u, ++rk)
+        if (rk >= kb && rk < kb + nb)
+          dlist[rk - kb] = ((w0 + lane) << 5) + __ffs(x) - 1;
+      base += __shfl_sync(kFull, incl, 31);
+    }
     __syncwarp();
-    copy_block(orow, obuf, M * W, vec, lane);
+    const int npair = nr * nb;
+    for (int g = 0; g * 32 < npair; ++g) {
+      int cs = -1, cl = 0;
+      bool own = false;   // the lane's own dem: no gated pair, the init
+      if (g * 32 + lane < npair) {
+        const int k = g * 32 + lane, i = k / nb;
+        cl = rlist[i];
+        cs = dlist[k - i * nb];
+        own = (float)cs == decode(__ldg(q + FFLAGS * M + cl)).dem;
+      }
+      mofidi::Acc acc;
+      acc.init();
+      e = 0;
+      do {
+        if (!whole) {
+          __syncwarp();
+          e = stage(e, ns);
+          __syncwarp();
+        } else {
+          e = O;
+        }
+        if (cs >= 0 && !own) {
+          const float* cq = q + cl;
+          const float cqx = __ldg(cq + FX * M), cqy = __ldg(cq + FY * M),
+                      cqz = __ldg(cq + FZ * M), cqh = __ldg(cq + FH * M);
+          const float cqvol = __ldg(cq + FM * M) / __ldg(cq + FRHO * M);
+          for (int c = 0; c < cn; ++c) {
+            const int k = clist[c];
+            if ((__float_as_int(st[SCLS * kCap + k]) >> 3) != cs) continue;
+            const float sx = st[SX * kCap + k], sy = st[SY * kCap + k],
+                        sz = st[SZ * kCap + k];
+            const float xij = cqx - sx;
+            const float yij = cqy - sy;
+            const float zij = cqz - sz;
+            float r2 = xij * xij + yij * yij;
+            r2 = r2 + zij * zij;
+            if (!(r2 <= r2max)) continue;      // r <= cutoff
+            const float rij = sqrtf(r2);
+            const float hij = 0.5f * (cqh + st[SH * kCap + k]);
+            const float wij =
+                sph::w<KDIM2>(rij, hij, sig_num, sig_den);
+            acc.add<false>(xij, yij, zij, rij, wij, cqvol, sx, sy, sz,
+                           st[SU * kCap + k], st[SV * kCap + k],
+                           st[SW * kCap + k]);
+          }
+        }
+      } while (e < O);
+      // the epilogue over the init row where the lane has a gated pair
+      if (cs >= 0 && acc.minr < mofidi::kBig && crow[cl] >= 0)
+        acc.store(cout + crow[cl] + cs, S, init_dist);
+    }
+    __syncwarp();                            // dlist is written again
   }
 }
 
@@ -896,42 +1023,56 @@ int rates_wall_entry(const void* dft, const void* nbr, void* out, int NC,
 #undef RW
 }
 
-template <bool KDIM2, bool VISC, bool FSI, bool CONTACT, bool GMEM>
-int launch_forces(const float* dft, const long long* nbr, float* out, int NC,
-                  int O, int M, int S, float cutoff, float alpha_c0,
-                  float init_dist, float sig_num, float sig_den,
-                  cudaStream_t st) {
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
+int launch_forces(const float* dft, const long long* nbr, float* out,
+                  float* cout, const long long* rows,
+                  const long long* lane_pid, const long long* dense_pos,
+                  int NC, int O, int M, int S, int NI, int n, float cutoff,
+                  float alpha_c0, float init_dist, float sig_num,
+                  float sig_den, cudaStream_t st) {
   int warps;
-  const int bytes =
-      block_bytes(M, GMEM ? 0 : CONTACT ? 12 * S + 6 : 6, true, warps);
+  const int bytes = block_bytes(M, 6, true, warps, CONTACT ? S : 0);
   if (bytes == 0) return (int)cudaErrorInvalidValue;
-  auto kern = forces_kernel<KDIM2, VISC, FSI, CONTACT, GMEM>;
+  auto kern = forces_kernel<KDIM2, VISC, FSI, CONTACT>;
   static int opted = 48 * 1024;   // the dynamic shared memory allowed so far
   if (const int err = allow_smem(kern, bytes, opted)) return err;
-  kern<<<(unsigned)((NC + warps - 1) / warps), warps * 32, bytes, st>>>(
-      dft, nbr, out, NC, O, M, S, r2_limit(cutoff), alpha_c0, init_dist,
-      sig_num, sig_den);
+  // B5's warps past the slots: the padding rows, or 32 particles each
+  const long long total =
+      NC + (!CONTACT ? 0LL : rows ? (long long)NI : (n + 31LL) / 32);
+  kern<<<(unsigned)((total + warps - 1) / warps), warps * 32, bytes, st>>>(
+      dft, nbr, out, cout, rows, lane_pid, dense_pos, NC, O, M, S, NI, n,
+      r2_limit(cutoff), alpha_c0, init_dist, sig_num, sig_den);
   return (int)cudaGetLastError();
 }
 
-// runtime flags -> the template instance (GMEM: the block in the output)
-template <bool FSI, bool CONTACT, bool GMEM>
-int forces_entry(const void* dft, const void* nbr, void* out, int NC, int O,
-                 int M, int S, int kdim2, int visc, float cutoff,
-                 float alpha_c0, float init_dist, float sig_num,
-                 float sig_den, void* stream) {
-  // a slot's lanes are one warp's
-  if (NC < 0 || O < 1 || M < 1 || M > 32 || (CONTACT && S < 1))
+// runtime flags -> the template instance
+template <bool FSI, bool CONTACT>
+int forces_entry(const void* dft, const void* nbr, void* out, void* cout,
+                 const void* rows, const void* lane_pid,
+                 const void* dense_pos, int NC, int O, int M, int S, int NI,
+                 int n, int kdim2, int visc, float cutoff, float alpha_c0,
+                 float init_dist, float sig_num, float sig_den,
+                 void* stream) {
+  // a slot's lanes are one warp's; B5 writes its contact columns by query
+  // row or by particle
+  if (NC < 0 || O < 1 || M < 1 || M > 32 ||
+      (CONTACT && (S < 1 || !cout || (rows != nullptr) == (lane_pid != nullptr)
+                   || (rows && NI < 0) ||
+                   (lane_pid && (!dense_pos || n < 0)))))
     return (int)cudaErrorInvalidValue;
-  if (NC == 0) return 0;
   const auto* d = (const float*)dft;
   const auto* nb = (const long long*)nbr;
   auto* o = (float*)out;
+  auto* co = (float*)cout;
+  const auto* rw = (const long long*)rows;
+  const auto* lp = (const long long*)lane_pid;
+  const auto* dp = (const long long*)dense_pos;
+  if (NC == 0 && (!CONTACT || (rw ? NI : n) == 0)) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-#define FC(K, V)                                                         \
-  launch_forces<K, V, FSI, CONTACT, GMEM>(d, nb, o, NC, O, M, S, cutoff,\
-                                    alpha_c0, init_dist, sig_num,       \
-                                    sig_den, st)
+#define FC(K, V)                                                          \
+  launch_forces<K, V, FSI, CONTACT>(d, nb, o, co, rw, lp, dp, NC, O, M, S, \
+                                    NI, n, cutoff, alpha_c0, init_dist,   \
+                                    sig_num, sig_den, st)
   switch ((kdim2 ? 2 : 0) + (visc ? 1 : 0)) {
     case 0: return FC(false, false);
     case 1: return FC(false, true);
@@ -985,38 +1126,42 @@ extern "C" int fluid_forces(const void* dft, const void* nbr, void* out,
                             void* stream) {
   if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
   if (has_rigid)
-    return forces_entry<true, false, false>(dft, nbr, out, NC, O, M, 0,
-                                            kdim2, visc, cutoff, alpha_c0,
-                                            0.0f, sig_num, sig_den, stream);
-  return forces_entry<false, false, false>(dft, nbr, out, NC, O, M, 0, kdim2,
-                                           visc, cutoff, alpha_c0, 0.0f,
-                                           sig_num, sig_den, stream);
+    return forces_entry<true, false>(dft, nbr, out, nullptr, nullptr,
+                                     nullptr, nullptr, NC, O, M, 0, 0, 0,
+                                     kdim2, visc, cutoff, alpha_c0, 0.0f,
+                                     sig_num, sig_den, stream);
+  return forces_entry<false, false>(dft, nbr, out, nullptr, nullptr, nullptr,
+                                    nullptr, NC, O, M, 0, 0, 0, kdim2, visc,
+                                    cutoff, alpha_c0, 0.0f, sig_num, sig_den,
+                                    stream);
 }
 
-// gmem: 0 assembles a slot's [M, 12 S + 6] block in shared memory (which
-// must fit one warp's), 1 in the output; the wrapper's choice
-// (ops/fluid_kernel.py forces_instance)
+// out [NC, M, 6]: the force columns.  cout: the 12 S contact columns by
+// query row (rows [NI]: the slots, ascending, then NC; cout [NI, M, 12 S])
+// or by particle (lane_pid [NC M]: a lane's particle, outside [0, n) none;
+// dense_pos [n]: a particle's lane, >= NC M none; cout [n, 12 S]); the
+// other pointer is null (ops/fluid_kernel.py fluid_forces_contact)
 extern "C" int fluid_forces_contact(const void* dft, const void* nbr,
-                                    void* out, int NC, int O, int M, int S,
-                                    int gmem, int kdim2, int visc, int sph_id,
-                                    float cutoff, float alpha_c0,
-                                    float init_dist, float sig_num,
-                                    float sig_den, void* stream) {
+                                    void* out, void* cout, const void* rows,
+                                    const void* lane_pid,
+                                    const void* dense_pos, int NC, int O,
+                                    int M, int S, int NI, int n, int kdim2,
+                                    int visc, int sph_id, float cutoff,
+                                    float alpha_c0, float init_dist,
+                                    float sig_num, float sig_den,
+                                    void* stream) {
   if (sph_id != sph::kId) return (int)cudaErrorInvalidValue;
-  if (gmem)
-    return forces_entry<true, true, true>(dft, nbr, out, NC, O, M, S, kdim2,
-                                          visc, cutoff, alpha_c0, init_dist,
-                                          sig_num, sig_den, stream);
-  return forces_entry<true, true, false>(dft, nbr, out, NC, O, M, S, kdim2,
-                                         visc, cutoff, alpha_c0, init_dist,
-                                         sig_num, sig_den, stream);
+  return forces_entry<true, true>(dft, nbr, out, cout, rows, lane_pid,
+                                  dense_pos, NC, O, M, S, NI, n, kdim2, visc,
+                                  cutoff, alpha_c0, init_dist, sig_num,
+                                  sig_den, stream);
 }
 
-// the dynamic shared memory (bytes) a block of fluid_forces (W = 6) or
-// fluid_forces_contact (W = 12 S + 6) takes at M lanes a slot
-extern "C" int fluid_forces_smem(int M, int W) {
+// the dynamic shared memory (bytes) a block of fluid_forces (S = 0) or of
+// fluid_forces_contact (S entity slots) takes at M lanes a slot
+extern "C" int fluid_forces_smem(int M, int S) {
   int warps;
-  return block_bytes(M, W, true, warps);
+  return block_bytes(M, 6, true, warps, S);
 }
 
 // the dynamic shared memory (bytes) a block of fluid_rates_wall (W = 7),

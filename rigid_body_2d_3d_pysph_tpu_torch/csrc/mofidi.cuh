@@ -53,6 +53,51 @@ __device__ __forceinline__ void store_row(float* o, int S, float init_dist,
   o[11 * S] = found ? pw : 0.0f;
 }
 
+// The init values (zeros; init_dist in block 5) over a lane's output row
+// o (12 blocks of S words, 16-byte aligned): thread k of nth takes the
+// 16-byte words k, k + nth, ..., so a warp's store covers 512 consecutive
+// bytes.
+__device__ __forceinline__ void fill_init_row(float* o, int S,
+                                              float init_dist, int k,
+                                              int nth) {
+  for (int i = k; i < 3 * S; i += nth) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = 4 * i + j >= 5 * S && 4 * i + j < 6 * S ? init_dist : 0.0f;
+    reinterpret_cast<float4*>(o)[i] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The init rows of M lanes, lane l's at out + row(l) (none where row(l) <
+// 0), by threads k of nth (`warps` warps): a row at a time a warp, its
+// 16-byte words across the warp's threads; rows of fewer than 32 such
+// words (S <= 10) across all the threads, lanes and words together.
+template <class Row>
+__device__ __forceinline__ void fill_init_rows(float* out, int M, int S,
+                                               float init_dist, int k,
+                                               int nth, int warps, Row row) {
+  const int n4 = 3 * S;
+  if (n4 < 32) {
+    for (int i = k; i < M * n4; i += nth) {
+      const int l = i / n4, j = i - l * n4;
+      const long long o = row(l);
+      if (o < 0) continue;
+      float v[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        v[jj] = 4 * j + jj >= 5 * S && 4 * j + jj < 6 * S ? init_dist : 0.0f;
+      reinterpret_cast<float4*>(out + o)[j] =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+    return;
+  }
+  for (int l = k / 32; l < M; l += warps) {
+    const long long o = row(l);
+    if (o >= 0) fill_init_row(out + o, S, init_dist, k & 31, 32);
+  }
+}
+
 // The running state of one (query lane, source-entity slot): the Eq. 22
 // sums a0..a2 = sum t1 (xij, yij, zij), t1 = V_q W / r; the Eq. 21 sums
 // a3 = sum t2, a4..a6 = sum t2 (xij, yij, zij), t2 = t1 r; and the closest

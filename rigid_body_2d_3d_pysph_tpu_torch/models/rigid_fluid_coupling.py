@@ -16,8 +16,9 @@ branches the JAX package runs off the TPU, as eager functions
     kick -> drift -> build + pack (K1) -> rates + wall sums (B4) ->
     patch rho (and p: EDAC or Tait) -> patch the wall and body
     pressures p, p_fsi -> forces + contact (B5; B6c without bodies) ->
-    one unpack -> thermo, wall and force updates -> contact tail with
-    the fluid -> rigid force -> kick
+    one unpack of the 13 fluid columns (B5 writes its contact columns by
+    particle, the layout the tail reads) -> thermo, wall and force
+    updates -> contact tail with the fluid -> rigid force -> kick
 
 * kdk (``_make_step_cell`` :809-917), two grids a step::
 
@@ -63,17 +64,18 @@ With S >= ``compact_min_bodies`` entities, kdkf keeps the contact slot
 state in the compact store of the rigid scheme (``cl_pid``,
 ``cl_state``; ``rigid_body.compact_slot_scene``), the route the
 reference takes on its TPU from S = 8 (``setup`` :196-205, the branch
-of ``_make_step_cell_kdkf`` :549-579 and :716-724).  B5 runs on every
-slot as before; the light cull (``contact_kernel.cull_rigid_query_slots``)
-picks the slots that hold a rigid lane; B5's contact columns are read
-at the first ``ni_max`` of them only; the one unpack takes the 13 fluid
-columns; and the Eq.-24 tail runs on the culled lanes
+of ``_make_step_cell_kdkf`` :549-579 and :716-724).  The light cull
+(``contact_kernel.cull_rigid_query_slots``) picks the slots that hold a
+rigid lane before B5 runs; B5 runs on every slot as before and writes
+its contact columns at the first ``ni_max`` of them only, by query row
+(``CompactContact.out``); the one unpack takes the 13 fluid columns; and
+the Eq.-24 tail runs on the culled lanes
 (``rigid_body._compact_contact_tail``, with the fluid -> rigid force
 added before the body sums).  More interesting slots than ``ni_max``
 raise ``nbr_overflow``, and the overflow rebuild widens the store
 (``adapt_scene``).  The launches are those of the full route, one K1,
 one B4 and one B5 a step, and the results are the full route's bit for
-bit.  The gate (``_compact_enabled``) is the reference's, with the cell
+bit (a padding row past the culled slots holds the init row).  The gate (``_compact_enabled``) is the reference's, with the cell
 engine for its Pallas engine, and fluid present: the reference
 compacts a scene with no fluid group too, whose kdk step then reads the
 slot fields that the store replaced.  Like the rigid scheme's compact
@@ -99,7 +101,7 @@ from ..ops import cellpairs as cellmod
 from ..ops import fluid as fops
 from ..ops import fluid_kernel as fk
 from ..ops import neighbors as nbmod
-from ..ops.cellpairs import unpack
+from ..ops.cellpairs import lane_map, unpack
 from ..ops import contact_kernel as tck
 from ..ops.fluid import tait_eos
 from ..ops.kernels import get_kernel
@@ -423,12 +425,13 @@ def _apply_wall_forces(scene, wall, forces, gvec):
         aw=torch.where(fl, gvec[2] + forces[:, 2], zero))
 
 
-def culled_lanes(scene, dfT, pt, fc, cfg,
-                 ni_max: int) -> tck.CompactContact:
-    """The compact route's light cull on the coupling pack ``dfT`` and
-    B5's rows ``fc [NC, M, 12 S + 6]`` at its first ``ni_max`` slots
-    (``out``), with their lanes' particles and query velocities
-    (reference :556-574)."""
+def culled_lanes(scene, dfT, pt, cfg, ni_max: int):
+    """The compact route's light cull on the coupling pack ``dfT``, run
+    before B5: ``(rows, cc)``, the first ``ni_max`` slots with a rigid
+    lane (``rows [ni_max]``, ascending, NC past their count: where B5
+    writes its contact rows) and their lanes' particles and query
+    velocities (reference :556-574) as a ``CompactContact`` whose ``out``
+    is B5's to fill."""
     NC, M = cfg.NC_max, cfg.M
     interesting, islot = tck.cull_rigid_query_slots(dfT, pt.slot_cid, cfg)
     n_int = interesting.to(torch.int64).sum()
@@ -438,8 +441,9 @@ def culled_lanes(scene, dfT, pt, fc, cfg,
     qsel = torch.where(valid, isl, torch.full_like(isl, NC))
     pid, u_c, v_c, w_c = tck.compact_lanes(
         dfT, pt, qsel, valid, isl_c, scene.n, M, (fk.FU, fk.FV, fk.FW))
-    return tck.CompactContact(out=fc[isl_c], pid=pid, u=u_c, v=v_c, w=w_c,
-                              overflow=n_int > ni_max, n_interesting=n_int)
+    return qsel, tck.CompactContact(out=None, pid=pid, u=u_c, v=v_c, w=w_c,
+                                    overflow=n_int > ni_max,
+                                    n_interesting=n_int)
 
 
 def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
@@ -497,16 +501,21 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
             fo = forces(dfT, nbr, kernel, cutoff, fluid_alpha, c0)
             flat = unpack(grid, cfg, torch.cat([rw, fo], -1), scene.n, 0.0)
             return grid, flat.to(scene.dtype), None
-        fc = forces_contact(dfT, nbr, kernel, cutoff, fluid_alpha, c0, S,
-                            4.0 * scene.meta.spacing0)    # [NC, M, 12S + 6]
+        init = 4.0 * scene.meta.spacing0
         if ni_max:
-            out = unpack(grid, cfg, torch.cat([rw, fc[..., 12 * S:]], -1),
-                         scene.n, 0.0).to(scene.dtype)
-            return grid, out, culled_lanes(scene, dfT, pt, fc, cfg, ni_max)
-        flat = unpack(grid, cfg, torch.cat([rw, fc], -1), scene.n,
-                      0.0).to(scene.dtype)
-        out = torch.cat([flat[:, :7], flat[:, 7 + 12 * S:]], 1)
-        return grid, out, flat[:, 7:7 + 12 * S].reshape(scene.n, 12, S)
+            # B5 writes its contact rows at the light cull's slots
+            rows, cc = culled_lanes(scene, dfT, pt, cfg, ni_max)
+            fo, cout = forces_contact(dfT, nbr, kernel, cutoff, fluid_alpha,
+                                      c0, S, init, rows=rows)
+            out = unpack(grid, cfg, torch.cat([rw, fo], -1), scene.n,
+                         0.0).to(scene.dtype)
+            return grid, out, cc._replace(out=cout)
+        # B5 writes its contact columns by particle, as the tail reads them
+        fo, cp = forces_contact(dfT, nbr, kernel, cutoff, fluid_alpha, c0, S,
+                                init, lanes=lane_map(grid, cfg, scene.n))
+        out = unpack(grid, cfg, torch.cat([rw, fo], -1), scene.n,
+                     0.0).to(scene.dtype)
+        return grid, out, cp.reshape(scene.n, 12, S).to(scene.dtype)
 
     def step(scene: Scene, dt: float) -> Scene:
         fl, _, rb, _ = _masks(scene)

@@ -50,7 +50,7 @@ KERNELS = {
     "pack_expand": ("pack_expand", "pack_expand",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "contact": ("contact", "contact_sums",
-                [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P]),
+                [_P] * 6 + [_I] * 10 + [_F] * 4 + [_P]),
     "dem_cell": ("dem", "dem_cell",
                  [_P] * 13 + [_I] * 7 + [_F, _F, _P]),
     "dem_rowwin": ("dem", "dem_rowwin",
@@ -58,7 +58,7 @@ KERNELS = {
     "fluid_rates_wall": ("fluid", "fluid_rates_wall",
                          [_P] * 3 + [_I] * 7 + [_F] * 8 + [_P]),
     "fluid_forces_contact": ("fluid", "fluid_forces_contact",
-                             [_P] * 3 + [_I] * 8 + [_F] * 5 + [_P]),
+                             [_P] * 7 + [_I] * 9 + [_F] * 5 + [_P]),
     "fluid_forces": ("fluid", "fluid_forces",
                      [_P] * 3 + [_I] * 7 + [_F] * 4 + [_P]),
     "fluid_rates": ("fluid", "fluid_rates",
@@ -66,7 +66,8 @@ KERNELS = {
     "wall_bc": ("fluid", "wall_bc", [_P] * 3 + [_I] * 5 + [_F] * 6 + [_P]),
 }
 # entry points that launch nothing: the dynamic shared memory (bytes) a
-# block of a fluid template takes at (M lanes a slot, W output columns)
+# block of a fluid template takes at (M lanes a slot, W output columns;
+# for the forces template S entity slots, 0 for B6c)
 HELPERS = {
     "fluid_forces_smem": ("fluid", "fluid_forces_smem", [_I, _I]),
     "fluid_rates_wall_smem": ("fluid", "fluid_rates_wall_smem", [_I, _I]),
@@ -185,8 +186,8 @@ def load(kernel: str, sph: str = "quintic"):
 
 # launches per kernel, counted by the wrappers where they launch (and
 # nowhere else), per (kernel, SPH kernel) as "<kernel>[<sph>]" and, for
-# the kernels with size instances (K2, B5, the DEM kernels), per instance
-# as "<kernel>/<instance>"; a run resets them to read how often its path
+# the kernels with instances (K2 and the DEM kernels by size, B5 by its
+# contact layout), per instance as "<kernel>/<instance>"; a run resets them to read how often its path
 # launched
 LAUNCHES = {k: 0 for k in KERNELS}
 LAUNCHES_SPH: dict = {}

@@ -389,6 +389,26 @@ def unpack(grid: CellGrid, cfg: CellGridConfig, dense, n: int, fill=0.0):
     return torch.cat([flat, pad], 0)[grid.dense_pos]
 
 
+class LaneMap(NamedTuple):
+    """Both directions between a grid's lanes and its particles, for the
+    kernels that write per-particle rows straight from their slots."""
+    lane_pid: torch.Tensor   # [NC_max * M] particle per lane (n = empty)
+    dense_pos: torch.Tensor  # [n] lane of each particle (NC_max * M = none)
+    n: int
+
+
+def lane_map(grid: CellGrid, cfg: CellGridConfig, n: int) -> LaneMap:
+    """The :class:`LaneMap` of ``grid`` (which keeps ``dense_pos``): its
+    ``slot2p`` where the build kept it, else ``dense_pos`` inverted."""
+    NCM = cfg.NC_max * cfg.M
+    if grid.slot2p.numel() == NCM:
+        return LaneMap(grid.slot2p, grid.dense_pos, n)
+    dp = grid.dense_pos
+    pid = _scatter_drop(NCM, n, dp, torch.arange(n, device=dp.device),
+                        torch.int64)
+    return LaneMap(pid, dp, n)
+
+
 def gather_source_block(dense, nbr_slots_block, cfg: CellGridConfig,
                         sentinel_row):
     """[NC_max, M, F] sources for a block of slots: [C, O, M, F];

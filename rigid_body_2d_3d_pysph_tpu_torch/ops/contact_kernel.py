@@ -14,11 +14,15 @@ contact pass) runs the same sums on every slot of a grid that exists, on
 this pack built directly (:func:`pack_scene`) or laid out from the rows
 of another pack (:func:`contact_pack`, the coupling pack).
 
-Output of the contact sums: ``[NI, M, 12 S]`` with column ``c * S + s``
+Output of the contact sums: 12 S columns a lane, column ``c * S + s``
 for block c of (cfn x/y/z, wij sum, contact distance, closest distance,
-picked source x/y/z/u/v/w) and source-entity slot s.  Every row is
-written: a query lane with no gated pair (sentinel lanes, padding rows)
-holds the init row (zeros, closest distance = init_dist).
+picked source x/y/z/u/v/w) and source-entity slot s, in one of two
+layouts: by query row, ``[NI, M, 12 S]`` (the culled rows; every lane is
+written, and a query lane with no gated pair, a sentinel lane or a
+padding row, holds the init row: zeros, closest distance = init_dist), or
+by particle, ``[n, 12 S]`` (every slot of the cell pipeline: each lane's
+row goes to its particle's row, the layout the Eq.-24 tail reads, and a
+particle without a lane gets zeros, as an unpack fills it).
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _build
-from .cellpairs import (CellGridConfig, build_cell_grid_packed, pack_fields,
-                        unpack)
+from .cellpairs import (CellGridConfig, LaneMap, build_cell_grid_packed,
+                        lane_map, pack_fields)
 from .ieee import sqrt
 from .kernels import Kernel
 from .pack_expand import expand_slots, expand_slots_reference
@@ -183,11 +187,31 @@ def cull_rigid_query_slots(dfT, slot_cid, cfg: CellGridConfig):
     return interesting, islot
 
 
+def rows_by_particle(rows, qslot, lanes: LaneMap):
+    """Query rows ``rows [NI, M, W]`` laid out by particle, ``[n, W]``:
+    lane l of row b is pack lane ``qslot[b] M + l`` and goes to its
+    particle's row (``lanes.lane_pid``); a particle without a lane gets
+    zeros."""
+    NI, M, W = rows.shape
+    n, lp = lanes.n, lanes.lane_pid
+    L = lp.shape[0]
+    lane = qslot.to(torch.int64)[:, None] * M + torch.arange(
+        M, device=rows.device)
+    pid = torch.cat([lp, lp.new_full((1,), n)])[
+        torch.where((lane >= 0) & (lane < L), lane, L)]   # lane L: none
+    pid = torch.where((pid >= 0) & (pid < n), pid, n)
+    out = torch.zeros((n + 1, W), dtype=rows.dtype, device=rows.device)
+    out[pid.reshape(-1)] = rows.reshape(NI * M, W)
+    return out[:n]
+
+
 def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
                            init_dist: float, kernel: Kernel,
-                           layout: PackLayout | None = None):
+                           layout: PackLayout | None = None,
+                           lanes: LaneMap | None = None):
     """Plain PyTorch version of the contact kernel (same inputs, same
-    ``[NI, M, 12 S]`` output).  Rows are processed in chunks of at most
+    output: ``[NI, M, 12 S]`` by query row, or with ``lanes`` ``[n, 12
+    S]`` by particle).  Rows are processed in chunks of at most
     ``_MAX_PAIR_ELEMS`` pair lanes to bound memory.  ``layout`` reads
     another pack (the coupling pack, ``ops/fluid_kernel.py``); the
     kernel's sigma stays that of ``kernel.dim``."""
@@ -291,9 +315,9 @@ def contact_sums_reference(dfT, qslot, nbr, S: int, cutoff: float,
         cols = torch.stack([cfn_x, cfn_y, cfn_z, q3, dist, mind]
                            + list(srcs.unbind(1)), 2)          # [B,M,12,S]
         outs.append(cols.reshape(B, M, 12 * S))
-    if not outs:
-        return torch.zeros((0, M, 12 * S), dtype=dt, device=dev)
-    return torch.cat(outs, 0)
+    rows = (torch.cat(outs, 0) if outs
+            else torch.zeros((0, M, 12 * S), dtype=dt, device=dev))
+    return rows if lanes is None else rows_by_particle(rows, qslot, lanes)
 
 
 def contact_instance(S: int) -> tuple[str, int]:
@@ -310,12 +334,14 @@ def contact_instance(S: int) -> tuple[str, int]:
 
 
 def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
-                 kernel: Kernel):
+                 kernel: Kernel, lanes: LaneMap | None = None):
     """Contact sums for the query slots ``qslot [NI]`` over the stencil
     rows ``nbr [NI, O]`` of the dense pack ``dfT [R, F, M]``: the culled
-    rows of the compact path, or every slot of a grid (the cell
-    pipeline), where a row without a rigid lane costs the kernel only its
-    init row.  On CUDA tensors the library of ``kernel`` (any of the six
+    rows of the compact path (``[NI, M, 12 S]`` by query row), or with
+    ``lanes`` every slot of a grid (the cell pipeline: ``[n, 12 S]`` by
+    particle; ``qslot`` must then cover every slot that holds a
+    particle), where a row without a rigid lane costs the kernel only its
+    init rows.  On CUDA tensors the library of ``kernel`` (any of the six
     SPH kernels) runs."""
     two_d = kernel.dim == 2
     F = len(_FIELDS_2D if two_d else _FIELDS_3D)
@@ -326,7 +352,7 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
                          f"{tuple(nbr.shape)} for dim {kernel.dim}")
     if dfT.device.type == "cpu":
         return contact_sums_reference(dfT, qslot, nbr, S, cutoff,
-                                      init_dist, kernel)
+                                      init_dist, kernel, lanes=lanes)
     if dfT.device.type != "cuda":
         raise ValueError(f"unsupported device {dfT.device}")
     if dfT.dtype != torch.float32:
@@ -340,14 +366,25 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
                          f"lanes (below {_MAX_PACK_LANES})")
     NI, O = nbr.shape
     dfT, qslot, nbr = dfT.contiguous(), qslot.contiguous(), nbr.contiguous()
-    out = torch.empty((NI, M, 12 * S), dtype=torch.float32,
-                      device=dfT.device)
+    if lanes is None:
+        out = torch.empty((NI, M, 12 * S), dtype=torch.float32,
+                          device=dfT.device)
+        lp = dp = None
+        n = n_lanes = 0
+    else:
+        lp, dp = lanes.lane_pid.contiguous(), lanes.dense_pos.contiguous()
+        if lp.dtype != torch.int64 or dp.dtype != torch.int64:
+            raise ValueError("the contact kernel takes an int64 lane map")
+        n, n_lanes = lanes.n, lp.shape[0]
+        out = torch.empty((n, 12 * S), dtype=torch.float32,
+                          device=dfT.device)
+        lp, dp = lp.data_ptr(), dp.data_ptr()
     sig_num, sig_den = kernel.sigma_constants()
     fn = _build.load("contact", kernel.name)
     stream = torch.cuda.current_stream(dfT.device).cuda_stream
     err = fn(dfT.data_ptr(), qslot.data_ptr(), nbr.data_ptr(),
-             out.data_ptr(), NI, O, R, M, S, chunk, int(two_d),
-             kernel.device_id, float(cutoff), float(init_dist),
+             out.data_ptr(), lp, dp, NI, O, R, M, S, chunk, n, n_lanes,
+             int(two_d), kernel.device_id, float(cutoff), float(init_dist),
              float(sig_num), float(sig_den), stream)
     _build.check(err, "contact_sums")
     _build.count("contact", kernel.name, inst)
@@ -359,14 +396,18 @@ def contact_pipeline_cell(dfT, grid, cfg: CellGridConfig,
                           n: int, plain: bool = False):
     """The cell pipeline (``pallas_contact.py:433-475``): the contact sums
     on every slot of the contact pack ``dfT [NC + 1, F, M]`` of ``grid``
-    (no interest cull), unpacked to particle order as ``[N, 12, S]``
-    (block c of the 12, source-entity slot s; a particle without a lane
-    gets zeros).  ``plain`` runs the sums' plain version even on CUDA
-    tensors."""
+    (no interest cull; ``grid`` keeps ``dense_pos``), written by particle
+    as ``[N, 12, S]`` (block c of the 12, source-entity slot s; a
+    particle without a lane gets zeros).  ``plain`` runs the sums' plain
+    version even on CUDA tensors."""
     qslot = torch.arange(cfg.NC_max, dtype=torch.int64, device=dfT.device)
     args = (dfT, qslot, grid.nbr_slots, S, cfg.radius, init_dist, kernel)
-    out = (contact_sums_reference if plain else contact_sums)(*args)
-    return unpack(grid, cfg, out, n, 0.0).reshape(n, 12, S)
+    lanes = lane_map(grid, cfg, n)
+    if plain:
+        out = contact_sums_reference(*args, lanes=lanes)
+    else:
+        out = contact_sums(*args, lanes=lanes)
+    return out.reshape(n, 12, S)
 
 
 class CompactContact(NamedTuple):
@@ -385,7 +426,7 @@ def pack_scene(scene, cfg: CellGridConfig, plain: bool = False,
     expansion: ``(grid, pack tables, dfT [NC + 1, F, M])``.  ``plain``
     runs the expansion's plain version even on CUDA tensors (for
     comparisons on the card); ``want_dense_pos`` keeps the grid's
-    ``dense_pos`` for an unpack (the cell pipeline)."""
+    ``dense_pos`` for the lane map of the cell pipeline."""
     two_d = cfg.dim == 2
     grid, pt = build_cell_grid_packed(
         scene.x, scene.y, scene.z, scene.active, cfg,

@@ -9,10 +9,12 @@ step runs
 * :func:`fluid_rates_wall` (B4): per query lane, continuity ``arho`` and
   EDAC ``ap`` for fluid queries and the Adami Shepard sums
   (uf, vf, wf, sw, p_num) for wall and body queries -> ``[NC, M, 7]``;
-* :func:`fluid_forces_contact` (B5): the Mofidi contact columns of K2 in
-  K2's order (the union layout: 3D geometry, V = m / rho, the contact
-  gate's boundary bit is ``contact_force_is_boundary``), then (au, av,
-  aw, fx, fy, fz) -> ``[NC, M, 12 S + 6]``;
+* :func:`fluid_forces_contact` (B5): (au, av, aw, fx, fy, fz) ->
+  ``[NC, M, 6]``, and the Mofidi contact columns of K2 in K2's order (the
+  union layout: 3D geometry, V = m / rho, the contact gate's boundary bit
+  is ``contact_force_is_boundary``) in the layout the step reads: by
+  query row at the light cull's slots, ``[NI, M, 12 S]`` (the compact
+  route), or by particle, ``[n, 12 S]`` (the full route);
 
 and the kdk and reference orderings run the split passes
 
@@ -42,6 +44,7 @@ import torch
 
 from . import _build
 from .cellpairs import CellGridConfig, build_cell_grid_packed
+from .cellpairs import LaneMap
 from .contact_kernel import PackLayout, contact_sums_reference
 from .ieee import sqrt
 from .kernels import Kernel
@@ -366,16 +369,23 @@ def fluid_forces_reference(dfT, nbr, kernel: Kernel, cutoff: float,
 
 def fluid_forces_contact_reference(dfT, nbr, kernel: Kernel,
                                    cutoff: float, fluid_alpha: float,
-                                   c0: float, S: int, init_dist: float):
-    """Plain version of B5: K2's 12 S contact columns on the union
-    layout, then the 6 force columns with rigid bodies present."""
+                                   c0: float, S: int, init_dist: float,
+                                   rows=None, lanes: LaneMap | None = None):
+    """Plain version of B5: ``(forces [NC, M, 6], contact)``, the 6 force
+    columns with rigid bodies present and K2's 12 S contact columns on
+    the union layout, as :func:`fluid_forces_contact` lays them out."""
     NC = nbr.shape[0]
-    qslot = torch.arange(NC, dtype=torch.int64, device=dfT.device)
-    contact = contact_sums_reference(dfT, qslot, nbr, S, cutoff, init_dist,
-                                     kernel, UNION_LAYOUT)
     forces = _forces_reference(dfT, nbr, kernel, cutoff, fluid_alpha, c0,
                                True)
-    return torch.cat([contact, forces], -1)
+    if rows is None:
+        qslot, nb = torch.arange(NC, dtype=torch.int64, device=dfT.device), nbr
+    else:
+        # a padding row (NC) queries the all-sentinel row: the init row
+        qslot = torch.clamp(rows.to(torch.int64), 0, NC)
+        nb = nbr[torch.clamp(qslot, max=NC - 1)]
+    contact = contact_sums_reference(dfT, qslot, nb, S, cutoff, init_dist,
+                                     kernel, UNION_LAYOUT, lanes)
+    return forces, contact
 
 
 # ---------------------------------------------------------------------------
@@ -405,31 +415,10 @@ def _check(name, dfT, nbr):
     return True
 
 
-# csrc/fluid.cu's per-warp shared memory (words): staging (11 fields of
-# 160 candidates), the contact list (160), the query and rigid lane lists
-# (64), then the [M, W] output block; a block may opt into 227 KB
-_STAGE_WORDS = 11 * 160 + 160 + 64
-_MAX_SMEM = 227 * 1024
-
-
-def forces_instance(M: int, S: int) -> str:
-    """The ``fluid_forces_contact`` (B5) instance for M lanes a slot and
-    S entity slots: ``"smem"`` assembles a slot's ``[M, 12 S + 6]`` block
-    in shared memory while one warp's fits (``csrc/fluid.cu``
-    ``block_bytes``; at M = 16 up to S = 291), else ``"gmem"``
-    assembles it in place in the output.  Both give the same output."""
-    if S < 1:
-        raise ValueError(f"fluid_forces_contact: S={S} (at least 1)")
-    words = _STAGE_WORDS + ((M * (12 * S + 6) + 3) & ~3)
-    return "smem" if 4 * words <= _MAX_SMEM else "gmem"
-
-
-def _launch(kname, kernel: Kernel, dfT, nbr, width, ints, floats,
-            instance=None):
+def _launch(kname, kernel: Kernel, dfT, nbr, width, ints, floats):
     """``kname`` of ``kernel``'s library on the pack: ``ints`` (the
     entry's int arguments before the SPH kernel's id), the kernel's id,
-    ``floats``, then the kernel's sigma constants; ``instance`` names its
-    size instance in the launch counts."""
+    ``floats``, then the kernel's sigma constants."""
     NC, O = nbr.shape
     M = dfT.shape[2]
     dfT, nbr = dfT.contiguous(), nbr.contiguous()
@@ -441,7 +430,7 @@ def _launch(kname, kernel: Kernel, dfT, nbr, width, ints, floats,
              *ints, kernel.device_id, *(float(f) for f in floats),
              float(sig_num), float(sig_den), stream)
     _build.check(err, kname)
-    _build.count(kname, kernel.name, instance)
+    _build.count(kname, kernel.name)
     return out
 
 
@@ -492,14 +481,56 @@ def fluid_forces(dfT, nbr, kernel: Kernel, cutoff: float,
 
 def fluid_forces_contact(dfT, nbr, kernel: Kernel, cutoff: float,
                          fluid_alpha: float, c0: float, S: int,
-                         init_dist: float):
-    """B5: the contact and force columns in one sweep ->
-    ``[NC, M, 12 S + 6]``."""
+                         init_dist: float, rows=None,
+                         lanes: LaneMap | None = None):
+    """B5: the force and contact columns in one sweep -> ``(forces [NC,
+    M, 6], contact)``.  The contact columns are written where the step
+    reads them: by query row at the slots ``rows [NI]`` (int64,
+    ascending, NC past their count: ``[NI, M, 12 S]``, a padding row the
+    init row), by particle with ``lanes`` (``[n, 12 S]``, a particle
+    without a lane zeros), or with neither by query row at every slot
+    (``[NC, M, 12 S]``).  Counted as the instance ``"rows"`` or
+    ``"lanes"``."""
+    if rows is not None and lanes is not None:
+        raise ValueError("fluid_forces_contact: rows or lanes, not both")
+    if S < 1:
+        raise ValueError(f"fluid_forces_contact: S={S} (at least 1)")
     if not _check("fluid_forces_contact", dfT, nbr):
         return fluid_forces_contact_reference(dfT, nbr, kernel, cutoff,
-                                              fluid_alpha, c0, S, init_dist)
-    inst = forces_instance(dfT.shape[2], S)
-    return _launch("fluid_forces_contact", kernel, dfT, nbr, 12 * S + 6,
-                   (S, int(inst == "gmem"), int(kernel.dim == 2),
-                    int(abs(fluid_alpha) > 1e-14)),
-                   (cutoff, -fluid_alpha * c0, init_dist), inst)
+                                              fluid_alpha, c0, S, init_dist,
+                                              rows, lanes)
+    NC, O = nbr.shape
+    M = dfT.shape[2]
+    dev = dfT.device
+    dfT, nbr = dfT.contiguous(), nbr.contiguous()
+    if lanes is None:
+        if rows is None:
+            rows = torch.arange(NC, dtype=torch.int64, device=dev)
+        if rows.dtype != torch.int64:
+            raise ValueError("fluid_forces_contact: int64 rows")
+        rows = rows.contiguous()
+        NI, n = rows.shape[0], 0
+        cout = torch.empty((NI, M, 12 * S), dtype=torch.float32, device=dev)
+        ptrs = (rows.data_ptr(), None, None)
+    else:
+        lp, dp = lanes.lane_pid.contiguous(), lanes.dense_pos.contiguous()
+        if lp.dtype != torch.int64 or dp.dtype != torch.int64 \
+                or lp.shape[0] != NC * M:
+            raise ValueError("fluid_forces_contact: an int64 lane map of "
+                             f"{NC * M} lanes")
+        NI, n = 0, lanes.n
+        cout = torch.empty((n, 12 * S), dtype=torch.float32, device=dev)
+        ptrs = (None, lp.data_ptr(), dp.data_ptr())
+    fout = torch.empty((NC, M, 6), dtype=torch.float32, device=dev)
+    fn = _build.load("fluid_forces_contact", kernel.name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sig_num, sig_den = kernel.sigma_constants()
+    err = fn(dfT.data_ptr(), nbr.data_ptr(), fout.data_ptr(),
+             cout.data_ptr(), *ptrs, NC, O, M, S, NI, n,
+             int(kernel.dim == 2), int(abs(fluid_alpha) > 1e-14),
+             kernel.device_id, float(cutoff), float(-fluid_alpha * c0),
+             float(init_dist), float(sig_num), float(sig_den), stream)
+    _build.check(err, "fluid_forces_contact")
+    _build.count("fluid_forces_contact", kernel.name,
+                 "rows" if lanes is None else "lanes")
+    return fout, cout

@@ -653,10 +653,12 @@ def test_dem_cell_kernel_with_gid_identity_matches_twin(dev, dim, table):
 FLUID_GAP = 0.95   # the box's face gap to the tank floor's top layer, in dx
 
 
-def _coupling_scene(dev, with_body=True, dx=0.04):
+def _coupling_scene(dev, with_body=True, dx=0.04, compact_min_bodies=None):
     """A small sinking-box tank: fluid, a 3-layer tank and a box (rho 2)
     resting FLUID_GAP dx above the floor with the fluid void carved, so
-    gated contact pairs exist; seeded random velocities and body p_fsi."""
+    gated contact pairs exist; seeded random velocities and body p_fsi.
+    ``compact_min_bodies`` (set before the set-up) puts the kdkf step's
+    slot state in the compact store."""
     from rigid_body_2d_3d_pysph_tpu_torch.geom import hydrostatic_tank_2d
     from rigid_body_2d_3d_pysph_tpu_torch.models import (
         RigidFluidCouplingScheme)
@@ -686,6 +688,8 @@ def _coupling_scene(dev, with_body=True, dx=0.04):
     scheme = RigidFluidCouplingScheme(
         ["fluid"], ["tank"], ["body"] if with_body else [], dim=2,
         rho0=rho0, p0=rho0 * c0**2, c0=c0, h=dx, nu=0.0, gy=gy)
+    if compact_min_bodies is not None:
+        scheme.compact_min_bodies = compact_min_bodies
     scene = scheme.setup(scene)
     rng = np.random.default_rng(5)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
@@ -751,10 +755,10 @@ def test_fluid_kernels_match_twin(dev, which):
         extra = (scheme.fluid_alpha, scheme.c0, which == "forces_rigid")
         fast, plain = tfk.fluid_forces, tfk.fluid_forces_reference
     before = _build.LAUNCHES[kname]
-    got = fast(*args, *extra)
+    got = _dense(fast(*args, *extra))
     torch.cuda.synchronize()
     assert _build.LAUNCHES[kname] == before + 1
-    ref = plain(*args, *extra)
+    ref = _dense(plain(*args, *extra))
     assert bool(torch.isfinite(got).all())
     assert float(ref.abs().max()) > 0
     if which != "forces_contact":
@@ -819,10 +823,18 @@ def _fluid_pack_args(dim, S, dev, seed, alpha=0.1, **kw):
             QuinticSpline(dim=dim), 3.0 * h, alpha, 10.0, S, 4.0 * h)
 
 
+def _dense(b5):
+    """B5's ``(forces [NC, M, 6], contact [NC, M, 12 S])`` (by query row
+    at every slot) as one ``[NC, M, 12 S + 6]`` block; another output as
+    it is."""
+    return torch.cat([b5[1], b5[0]], -1) if isinstance(b5, tuple) else b5
+
+
 def _check_forces_contact(got, ref, S):
     """B5 against its twin: the contact columns as K2's (picks bit for
     bit), the force columns within 2e-5 of each column's largest
     magnitude."""
+    got, ref = _dense(got), _dense(ref)
     _check_contact(got[..., :12 * S], ref[..., :12 * S], S)
     _check_fluid_columns(got[..., 12 * S:], ref[..., 12 * S:], "forces")
 
@@ -845,8 +857,8 @@ def test_fluid_forces_kernels_random_packs(dev, dim, S, visc):
     rigid_dems = torch.where(flags[4] == 1.0, flags[0], -1.0)
     n_dems = [len(set(r.tolist()) - {-1.0}) for r in rigid_dems]
     assert max(n_dems) >= min(S, 3)
-    got = tfk.fluid_forces_contact(*args)
-    ref = tfk.fluid_forces_contact_reference(*args)
+    got = _dense(tfk.fluid_forces_contact(*args))
+    ref = _dense(tfk.fluid_forces_contact_reference(*args))
     torch.cuda.synchronize()
     if S > 1:
         assert int((ref[..., 5 * S:6 * S] < init).sum()) > 0
@@ -872,8 +884,8 @@ def test_fluid_forces_kernels_staging_windows(dev, dim):
     dfT, nbr = args[0], args[1]
     live = (dfT[:, tfk.FFLAGS] != -16.0).sum(1)
     assert int(live[nbr].sum(1).max()) > 2 * 224
-    got = tfk.fluid_forces_contact(*args)
-    ref = tfk.fluid_forces_contact_reference(*args)
+    got = _dense(tfk.fluid_forces_contact(*args))
+    ref = _dense(tfk.fluid_forces_contact_reference(*args))
     torch.cuda.synchronize()
     assert int((ref[..., 5 * 9:6 * 9] < args[7]).sum()) > 0
     _check_forces_contact(got, ref, 9)
@@ -891,8 +903,8 @@ def test_fluid_forces_kernels_other_slot_widths(dev, M):
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
 
     args = _fluid_pack_args(2, 3, dev, seed=40 + M, M=M)
-    got = tfk.fluid_forces_contact(*args)
-    ref = tfk.fluid_forces_contact_reference(*args)
+    got = _dense(tfk.fluid_forces_contact(*args))
+    ref = _dense(tfk.fluid_forces_contact_reference(*args))
     torch.cuda.synchronize()
     assert int((ref[..., 5 * 3:6 * 3] < args[7]).sum()) > 0
     _check_forces_contact(got, ref, 3)
@@ -919,7 +931,7 @@ def test_fluid_forces_kernels_are_deterministic(dev):
         for fn, a in ((tfk.fluid_forces_contact, args),
                       (tfk.fluid_forces, args[:6] + (True,)),
                       (tfk.fluid_forces, args[:6] + (False,))):
-            one, two = fn(*a), fn(*a)
+            one, two = _dense(fn(*a)), _dense(fn(*a))
             torch.cuda.synchronize()
             assert torch.equal(one, two)
 
@@ -1069,7 +1081,7 @@ def test_fluid_forces_contact_equals_contact_kernel(dev, pack):
         args = _fluid_pack_args(int(pack[0]), 3, dev, seed=31)
     dfT, nbr, kernel, cutoff, S, init = (args[0], args[1], args[2], args[3],
                                          args[6], args[7])
-    got = tfk.fluid_forces_contact(*args)
+    got = _dense(tfk.fluid_forces_contact(*args))
     cdfT = tck.contact_pack(dfT, tfk.UNION_LAYOUT, kernel.dim == 2)
     k2 = tck.contact_sums(cdfT, torch.arange(nbr.shape[0], device=dev), nbr,
                           S, cutoff, init, kernel)
@@ -1202,6 +1214,16 @@ def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfk.wall_bc(wide, nbr, kernel, 0.1, g)
     with pytest.raises(ValueError):
         tfk.fluid_forces_contact(wide, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
+    lanes = tcell.LaneMap(torch.zeros(64, dtype=torch.int64, device=dev),
+                          torch.zeros(3, dtype=torch.int64, device=dev), 3)
+    with pytest.raises(ValueError):       # rows and lanes
+        tfk.fluid_forces_contact(dfT, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1,
+                                 rows=torch.arange(4, device=dev),
+                                 lanes=lanes)
+    with pytest.raises(ValueError):       # a lane map of the wrong size
+        tfk.fluid_forces_contact(dfT, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1,
+                                 lanes=tcell.LaneMap(lanes.lane_pid[:60],
+                                                     lanes.dense_pos, 3))
 
 
 SPH_NAMES = ("cubic", "wendland", "wendland_c4", "gaussian",
@@ -1236,8 +1258,8 @@ def test_sph_kernel_instances_match_twin(dev, dim, name):
     args = args[:2] + (kernel, kernel.radius_scale * h) + args[4:]
     dfT, nbr, _, cutoff = args[:4]
     _check_rates_wall(dfT, nbr, kernel, cutoff)
-    got = tfk.fluid_forces_contact(*args)
-    ref = tfk.fluid_forces_contact_reference(*args)
+    got = _dense(tfk.fluid_forces_contact(*args))
+    ref = _dense(tfk.fluid_forces_contact_reference(*args))
     torch.cuda.synchronize()
     assert _build.LAUNCHES_SPH[f"fluid_forces_contact[{name}]"] >= 1
     assert int((ref[..., 5 * 3:6 * 3] < args[7]).sum()) > 0
@@ -1391,19 +1413,17 @@ def test_contact_kernel_wide_crowded_stencil(dev, dim):
 @pytest.mark.parametrize("S,M", [(300, 16), (1000, 5)])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_fluid_forces_contact_wide_random_packs(dev, dim, S, M):
-    """B5 past the width one warp's shared memory takes (M = 16, S =
-    300: 231 KB; M = 5, S = 1,000, a block not a multiple of 16 bytes):
-    the block assembled in the output, against its twin, the gmem
-    instance counted."""
+    """B5 at many entities (M = 16, S = 300: a slot's 231 KB of contact
+    rows; M = 5, S = 1,000), by query row at every slot, against its
+    twin, the rows instance counted."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
 
-    assert tfk.forces_instance(M, S) == "gmem"
     args = _fluid_pack_args(dim, S, dev, seed=300 + dim + M, M=M)
-    before = _build.LAUNCHES_INSTANCE.get("fluid_forces_contact/gmem", 0)
-    got = tfk.fluid_forces_contact(*args)
+    before = _build.LAUNCHES_INSTANCE.get("fluid_forces_contact/rows", 0)
+    got = _dense(tfk.fluid_forces_contact(*args))
     torch.cuda.synchronize()
-    assert _build.LAUNCHES_INSTANCE["fluid_forces_contact/gmem"] == before + 1
-    ref = tfk.fluid_forces_contact_reference(*args)
+    assert _build.LAUNCHES_INSTANCE["fluid_forces_contact/rows"] == before + 1
+    ref = _dense(tfk.fluid_forces_contact_reference(*args))
     assert int((ref[..., 5 * S:6 * S] < args[7]).sum()) > 0
     _check_forces_contact(got, ref, S)
 
@@ -1472,15 +1492,146 @@ def test_dem_kernels_table_widths_at_the_instance_bounds(dev, L):
                               atol=0), k
 
 
-def test_forces_instance_agrees_with_the_kernels_block_bytes(dev):
-    """The wrapper's B5 instance choice (``forces_instance``) against the
-    library's own ``block_bytes`` (``fluid_forces_smem``: 0 when no warp's
-    block fits): "smem" exactly where a block fits, over slot widths and
-    entity counts around the bound."""
+def test_fluid_forces_smem_takes_every_entity_count(dev):
+    """B5's contact columns go to the output, not shared memory: a block
+    of ``fluid_forces_contact`` takes four warps at every slot width and
+    entity count up to 10,000, each with B6c's staging and lists, the
+    force block at its widest (192 words), the lanes' contact rows (64),
+    a list of 64 dems and a bitmap of a word every 32 entities (rounded
+    to 16 bytes)."""
+    smem = _build.load("fluid_forces_smem")
+    ext = lambda S: (192 + 64 + 64 + (S + 31) // 32 + 3) & ~3
+    for M in (5, 8, 16, 32):
+        b6c = smem(M, 0)
+        assert 0 < b6c < 48 * 1024
+        assert smem(M, 1) == b6c + 4 * 4 * (ext(1) - ((M * 6 + 3) & ~3))
+        for S in (1, 64, 65, 291, 292, 301, 1000, 10_000):
+            assert smem(M, S) == smem(M, 1) + 4 * 4 * (ext(S) - ext(1)), \
+                (M, S)
+
+
+def _lane_map_of(dfT, sentinel, n_orphans, seed):
+    """A lane map for a random pack: the live lanes' (flags word not
+    ``sentinel``) particles in a random order, then ``n_orphans``
+    particles without a lane."""
+    flags = dfT[:-1, -1] if dfT.shape[1] != 14 else dfT[:-1, 13]
+    NCM = flags.numel()
+    live = torch.nonzero((flags != sentinel).reshape(-1)).reshape(-1)
+    n_live = live.numel()
+    n = n_live + n_orphans
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n_live, generator=gen).to(dfT.device)
+    lane_pid = torch.full((NCM,), n, dtype=torch.int64, device=dfT.device)
+    lane_pid[live] = perm
+    dense_pos = torch.full((n,), NCM, dtype=torch.int64, device=dfT.device)
+    dense_pos[perm] = live
+    return tcell.LaneMap(lane_pid, dense_pos, n)
+
+
+@pytest.mark.parametrize("S", [9, 65, 300])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_wide_by_particle_matches_twin(dev, dim, S):
+    """K2 writing every slot's lanes by particle (the cell pipeline's
+    layout; S = 9 the narrow instance, 65 and 300 the wide one): against
+    its plain version, equal bit for bit to the query-row output laid
+    out by particle (``rows_by_particle``, the unpack it replaces), a
+    particle without a lane (inactive) all zeros, through
+    ``contact_pipeline_cell`` equal to the wrapper's output."""
+    scene, cfg = _blocks_scene(dim, S - 1, dev)
+    active = scene.active.clone()
+    active[5] = False
+    scene = scene.replace(active=active)
+    kernel = QuinticSpline(dim=dim)
+    grid, pt, dfT = tck.pack_scene(scene, cfg, want_dense_pos=True)
+    assert not bool(grid.overflow)
+    init = 4.0 * scene.meta.spacing0
+    q = torch.arange(cfg.NC_max, device=dev)
+    lanes = tcell.lane_map(grid, cfg, scene.n)
+    args = (dfT, q, grid.nbr_slots, S, cfg.radius, init, kernel)
+    inst = f"contact/{tck.contact_instance(S)[0]}"
+    before = _build.LAUNCHES_INSTANCE.get(inst, 0)
+    got = tck.contact_sums(*args, lanes=lanes)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_INSTANCE[inst] == before + 1
+    assert got.shape == (scene.n, 12 * S)
+    ref = tck.contact_sums_reference(*args, lanes=lanes)
+    assert int((ref[:, 5 * S:6 * S] < init).sum()) > 0
+    _check_contact(got, ref, S)
+    rows = tck.contact_sums(*args)
+    assert torch.equal(got, tck.rows_by_particle(rows, q, lanes))
+    assert float(got[5].abs().max()) == 0.0
+    cp = tck.contact_pipeline_cell(dfT, grid, cfg, kernel, S, init, scene.n)
+    assert torch.equal(cp.reshape(scene.n, 12 * S), got)
+
+
+@pytest.mark.parametrize("S", [2, 9, 300])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fluid_forces_contact_wide_rows_and_lanes_match_twin(dev, dim, S):
+    """B5 writing its contact columns where the kdkf step reads them: by
+    query row at an ascending subset of slots (some without a rigid lane,
+    padding rows NC past them: the init row), and by particle through a
+    lane map (particles without a lane: zeros); each against its plain
+    version, both equal bit for bit to the every-slot rows gathered and
+    laid out by particle; the force columns the same in all three calls;
+    each instance counted."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
 
-    smem = _build.load("fluid_forces_smem")
-    for M in (5, 8, 16, 32):
-        for S in list(range(1, 400, 7)) + [145, 146, 290, 291, 292, 1000]:
-            fits = smem(M, 12 * S + 6) > 0
-            assert (tfk.forces_instance(M, S) == "smem") == fits, (M, S)
+    args = _fluid_pack_args(dim, S, dev, seed=900 + 10 * dim + S)
+    dfT, nbr, init = args[0], args[1], args[7]
+    NC = nbr.shape[0]
+    rigid = (tfk.decode_flags(dfT[:NC, tfk.FFLAGS])[4] == 1.0).any(1)
+    gen = torch.Generator().manual_seed(S)
+    pick = torch.rand(NC, generator=gen).to(dev) < 0.6
+    rows = torch.nonzero(pick | rigid).reshape(-1)
+    rows = torch.cat([rows, torch.full((5,), NC, device=dev)])
+    lanes = _lane_map_of(dfT, -16.0, 4, S)
+    every_f, every = tfk.fluid_forces_contact(*args)
+    outs = {}
+    for name, kw in (("rows", dict(rows=rows)), ("lanes", dict(lanes=lanes))):
+        before = _build.LAUNCHES_INSTANCE.get(f"fluid_forces_contact/{name}",
+                                              0)
+        fo, co = tfk.fluid_forces_contact(*args, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES_INSTANCE[f"fluid_forces_contact/{name}"] \
+            == before + 1
+        rf, rc = tfk.fluid_forces_contact_reference(*args, **kw)
+        _check_fluid_columns(fo, rf, f"forces {name}")
+        assert torch.equal(fo, every_f)
+        _check_contact(co, rc, S)
+        outs[name] = co
+    if S > 1:
+        assert int((every[..., 5 * S:6 * S] < init).sum()) > 0
+    init_row = torch.zeros(12 * S, device=dev)
+    init_row[5 * S:6 * S] = init
+    real = rows < NC
+    assert torch.equal(outs["rows"][real], every[rows[real]])
+    assert bool((outs["rows"][~real] == init_row).all())
+    q = torch.arange(NC, device=dev)
+    assert torch.equal(outs["lanes"], tck.rows_by_particle(every, q, lanes))
+    assert float(outs["lanes"][-4:].abs().max()) == 0.0
+
+
+def test_kdkf_compact_and_full_routes_use_their_b5_layouts(dev):
+    """The kdkf step's B5 launch: by query row on the compact route (the
+    store from 2 entities), by particle on the full route, one a step
+    each; 3 kernel steps of each route equal 3 plain ones within rtol
+    1e-4."""
+    for compact, inst in ((2, "rows"), (None, "lanes")):
+        scheme, scene = _coupling_scene(dev, compact_min_bodies=compact)
+        assert ("cl_pid" in scene) == (compact is not None)
+        scene = scene.replace(vcm=torch.tensor([[0.05, -0.02, 0.0]],
+                                               device=dev))
+        fast = scheme.make_step(scene)
+        plain = scheme.make_step(scene, plain=True)
+        a = b = scene
+        _build.reset_launches()
+        for _ in range(3):
+            a, b = fast(a, 1e-5), plain(b, 1e-5)
+        assert _build.LAUNCHES_INSTANCE.get(
+            f"fluid_forces_contact/{inst}", 0) == 3, inst
+        assert not bool(a.nbr_overflow)
+        for k in ("x", "y", "u", "v", "rho", "p", "fx", "fy", "xcm", "vcm"):
+            x, y = a[k].cpu().numpy(), b[k].cpu().numpy()
+            np.testing.assert_allclose(x, y, rtol=1e-4,
+                                       atol=1e-4 * max(np.abs(y).max(), 1.0),
+                                       err_msg=f"{inst} {k}")

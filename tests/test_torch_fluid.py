@@ -102,9 +102,11 @@ def _port(jsch, jscene, which):
     if which == "rates_wall":
         out = tfk.fluid_rates_wall(*args, NU_EDAC, tsch.c0, True, True, G)
     elif which == "forces_contact":
-        out = tfk.fluid_forces_contact(*args, ALPHA, tsch.c0,
-                                       tscene.meta.total_no_bodies,
-                                       4.0 * tscene.meta.spacing0)
+        # the contact columns by query row at every slot, then the forces
+        fo, co = tfk.fluid_forces_contact(*args, ALPHA, tsch.c0,
+                                          tscene.meta.total_no_bodies,
+                                          4.0 * tscene.meta.spacing0)
+        out = torch.cat([co, fo], -1)
     else:
         out = tfk.fluid_forces(*args, ALPHA, tsch.c0)
     return tcell.unpack(grid, cfg, out, tscene.n, 0.0).numpy()

@@ -97,8 +97,8 @@ def test_plain_versions_take_no_torch_sqrt(monkeypatch):
         lambda: fk.wall_bc_reference(dfT, nbr, kernel, cutoff, g),
         lambda: fk.fluid_forces_reference(dfT, nbr, kernel, cutoff, alpha,
                                           c0, True),
-        lambda: fk.fluid_forces_contact_reference(dfT, nbr, kernel, cutoff,
-                                                  alpha, c0, S, init)]
+        lambda: torch.cat(fk.fluid_forces_contact_reference(
+            dfT, nbr, kernel, cutoff, alpha, c0, S, init), -1)]
     want = [fn() for fn in calls]
 
     def cpu_sqrt(t, *a, **k):

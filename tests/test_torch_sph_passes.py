@@ -182,7 +182,8 @@ def test_plain_fluid_passes_match_xla_f64(floor_scene, name):
         b6a=tfk.fluid_rates(*args, NU_EDAC, c0, True, True),
         b6b=tfk.wall_bc(*args, G),
         b6c=tfk.fluid_forces(*args, ALPHA, c0, True),
-        b5=tfk.fluid_forces_contact(*args, ALPHA, c0, S, init))
+        b5=torch.cat(tfk.fluid_forces_contact(*args, ALPHA, c0, S,
+                                              init)[::-1], -1))
     got = {k: tcell.unpack(grid, tcfg, v, n, 0.0).numpy()
            for k, v in outs.items()}
 

@@ -8,9 +8,10 @@ viewer.
   columns (closest distance, picked x/y/u/v) equal, the sum columns
   within rtol 1e-5 (absolute floor 1e-5 of the column's largest
   magnitude: summation order), as ``tests/test_torch_contact.py``.
-* ``contact_instance``, ``dem_kernel.table_instance`` and
-  ``fluid_kernel.forces_instance``: every size the JAX kernels take maps
-  to a documented instance; more than 8 DEM entities still raise.
+* ``contact_instance`` and ``dem_kernel.table_instance``: every size
+  the JAX kernels take maps to a documented instance; more than 8 DEM
+  entities still raise.  (B5 has one instance at every S: its contact
+  columns go straight to the output, ``tests/test_torch_wide_store.py``.)
 * ``tools/view_snapshots.py`` renders PNG frames from the snapshots of a
   short case run on the CPU, in a subprocess that loads no JAX.
 
@@ -44,7 +45,6 @@ from rigid_body_2d_3d_pysph_tpu.state import rigid_setup as rs
 from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
 from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
 from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
-from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
 from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import (
     QuinticSpline as TQuintic)
 from rigid_body_2d_3d_pysph_tpu_torch.state.convert import scene_from_numpy
@@ -177,19 +177,6 @@ def test_dem_sizes_still_refuse_more_than_8_entities_and_no_slot():
         tdk.check_sizes(1000, 0, 2)
     with pytest.raises(ValueError):
         tdk.table_instance(0)
-
-
-@pytest.mark.parametrize("M,S,want", [(16, 1, "smem"), (16, 64, "smem"),
-                                      (16, 291, "smem"), (16, 292, "gmem"),
-                                      (16, 300, "gmem"), (5, 1000, "gmem"),
-                                      (32, 100, "smem"), (32, 146, "gmem")])
-def test_forces_instance_past_one_warps_shared_memory(M, S, want):
-    """B5: the slot's [M, 12 S + 6] block in shared memory while one
-    warp's staging (1,984 words) and block fit 227 KB, else in the
-    output."""
-    assert tfk.forces_instance(M, S) == want
-    words = 1984 + ((M * (12 * S + 6) + 3) & ~3)
-    assert (want == "smem") == (4 * words <= 227 * 1024)
 
 
 def test_viewer_renders_a_port_run_without_jax(tmp_path):
