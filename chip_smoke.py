@@ -261,13 +261,14 @@ no result line):
     steps at S = 301, then 20 kdkf kernel steps against 20 plain steps
     from the boxes pushed down (STEP_RTOL; one K1, B4 and B5 a kernel
     step, every B5 launch by query row);
-46. the DEM kernels on the 3D column at table widths 12 and 16 (the
-    16-slot instance), 32 (the 32-slot instance) and 40 (the rows in
-    global memory), spill grid, and 12, 32 and 40 on the row-window
-    grid: against their plain versions under phase 6's gates (the
-    filled table at every width, the empty and moved ones at 12 and 40;
-    at 12 on the spill grid also the crowded column: more gated
-    partners than slots), timed; each
+46. the DEM kernels on the 3D column at table widths 8 (the narrow
+    instance, timed so that each wide width's increment over it is
+    measured in the same call) and 12, 16, 32 and 40 (the wide
+    instance), on both grids: against their plain versions under phase
+    6's gates (the filled table at every width, the empty and moved ones
+    at 12 and 40, the moved one on the row-window grid; at 12 on the
+    spill grid also the crowded column: more gated partners than
+    slots), timed; each
     through a 50-step main path at dt 5e-7 under phase 7's gates (every
     launch the width's instance); at 12 on the spill grid 20 kernel
     steps against 20 plain steps (one K4 a kernel step);
@@ -289,8 +290,9 @@ no result line):
     its times from phase 39; an entry for each wide instance,
     ``contact_sums/wide``, ``fluid_forces_contact/rows`` (the main
     ``fluid_forces_contact`` entry is the full route's, by particle),
-    ``dem_cell/l16``, ``/l32``, ``/rows`` and the same of
-    ``dem_rowwin``, with its launches from its phase 44-46 main path),
+    ``dem_cell/wide`` and ``dem_rowwin/wide`` (every width of phase 46,
+    each beside the narrow instance at L = 8 on the same column), with
+    its launches from its phase 44-46 main path),
     the script's seconds, then the result line.
 
 It imports nothing from JAX or the JAX package.
@@ -483,11 +485,13 @@ WIDE_BOX_129 = (8, 16, 0.2)
 # (grid, L, the tables compared): the 16-slot instance at 12 and 16, the
 # 32-slot one at 32, the global rows at 40 (the 3D twin takes 0.75-3.6 s
 # a call, so each width compares the tables that reach its new code)
-WIDE_DEM = (("spill", 12, ("empty", "filled", "moved")),
+WIDE_DEM = (("spill", 8, ("filled",)),
+            ("spill", 12, ("empty", "filled", "moved")),
             ("spill", 16, ("filled",)), ("spill", 32, ("filled",)),
             ("spill", 40, ("empty", "filled", "moved")),
+            ("rowwin", 8, ("filled",)),
             ("rowwin", 12, ("filled", "moved")),
-            ("rowwin", 32, ("filled",)),
+            ("rowwin", 16, ("filled",)), ("rowwin", 32, ("filled",)),
             ("rowwin", 40, ("filled", "moved")))
 # compact against full route on the same kernels: the same elementwise
 # ops on the same values; the body sums' atomic adds on the card may add
@@ -3990,8 +3994,9 @@ def phase_wide_dem(dev, smi):
     """Phase 46: the DEM kernels on the 3D column at the table widths of
     WIDE_DEM: K4 and K3 against their twins (phase 6's gates on the
     tables WIDE_DEM names; on the spill grid at L = 12 also the column
-    crowded to DEM_CROWD: more gated partners than slots), timed; each
-    through a
+    crowded to DEM_CROWD: more gated partners than slots), timed, the
+    narrow instance at L = 8 among them so that each wide width's
+    increment over it is measured in the same call; each through a
     CHUNK-step main path at DEM_DT_3D (phase 7's gates, every launch the
     width's instance); at L = 12 on the spill grid 20 kernel steps
     against 20 twin steps with one K4 a kernel step.  Returns {(grid,
@@ -4099,23 +4104,26 @@ def wide_kernel_entries(kernels, wide_k2, wide_b5, wide_dem, src):
         steps_per_s=wide_b5["steps_per_s"]))
     for kname in ("dem_cell", "dem_rowwin"):
         grid = "spill" if kname == "dem_cell" else "rowwin"
-        for inst in ("l16", "l32", "rows"):
-            rows = [v for (g, L), v in sorted(wide_dem.items())
-                    if g == grid and v["instance"] == f"{kname}/{inst}"]
-            d = rows[-1] if inst == "l16" else rows[0]   # L = 16, 32, 40
-            out.append(dict(
-                name=f"{kname}/{inst}", route="cuda",
-                source=src + "dem.cu", replaces=by_name[kname]["replaces"],
-                launches=rows[0]["launches"],
-                launches_by_path={f"wide-dem-{grid}-L{r['L']}":
-                                  r["launches"] for r in rows},
-                max_abs_err=max(r["err"] for r in rows), ms=d["ms"],
-                plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
-                bound_by=d["bound_by"], library_ms=None, L=d["L"],
-                by_L={str(r["L"]): dict(ms=r["ms"], plain_ms=r["plain_ms"],
-                                        bound_ms=r["bound_ms"],
-                                        steps_per_s=r["sps"])
-                      for r in rows}))
+        narrow = wide_dem[(grid, 8)]
+        rows = [v for (g, L), v in sorted(wide_dem.items())
+                if g == grid and v["instance"] == f"{kname}/wide"]
+        d = next(r for r in rows if r["L"] == 16)
+        out.append(dict(
+            name=f"{kname}/wide", route="cuda",
+            source=src + "dem.cu", replaces=by_name[kname]["replaces"],
+            launches=rows[0]["launches"],
+            launches_by_path={f"wide-dem-{grid}-L{r['L']}":
+                              r["launches"] for r in rows},
+            max_abs_err=max(r["err"] for r in rows), ms=d["ms"],
+            plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
+            bound_by=d["bound_by"], library_ms=None, L=d["L"],
+            narrow_L8_ms=narrow["ms"], narrow_L8_bound_ms=narrow["bound_ms"],
+            narrow_L8_steps_per_s=narrow["sps"],
+            by_L={str(r["L"]): dict(
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                increment_ms=r["ms"] - narrow["ms"],
+                increment_bound_ms=r["bound_ms"] - narrow["bound_ms"],
+                steps_per_s=r["sps"]) for r in rows}))
     return out
 
 

@@ -49,35 +49,62 @@
 //    order; the query's lane keeps a bit mask of its entries.
 // 2. pair body.  When the list could not take another 32, and at the
 //    end, the warp's 32 threads take its pairs one each: the exact gate,
-//    the LVC force, the match against the query's input table (its
-//    idx/dem in shared memory), the spring update (a continuing
-//    contact's slot is final, so its new spring is written out at once).
-//    Results go to shared memory.  A pair's result depends only on the
-//    query's input table, never on another pair of the same query.
+//    the LVC force, the match against the query's input table, the
+//    spring update (a continuing contact's slot is final, so its new
+//    spring is written out at once).  Results go to shared memory.  A
+//    pair's result depends only on the query's input table, never on
+//    another pair of the same query.
 // 3. per query, in candidate order (its mask's bits): the six sums (the
 //    summation order of a thread walking its candidates, so the sums
-//    equal the plain walk's bit for bit), the matched mask, the new
+//    equal the plain walk's bit for bit), the matched slots, the new
 //    contacts parked in rank order in the particle's output row.  After
 //    the scan the unmatched slots are freed and the r-th new contact
-//    takes the r-th free slot; the table row is read and written with
-//    16-byte accesses.  A list never drops a pair: it is emptied whenever
-//    it could not take another 32, so a query or a block may have any
-//    number of pairs.
+//    takes the r-th free slot.  A list never drops a pair: it is emptied
+//    whenever it could not take another 32, so a query or a block may
+//    have any number of pairs.
 // Measured on an H100 (PERF.md): the scan and its lists take about half
 // the time, the pair bodies a third; a candidate-major scan (lanes over
 // candidates, a loop over the slot's live queries) was slower.
-// Table widths: an instance holds the query lanes' input tables in shared
-// memory and their rows in registers at a compile-time width LM = 8 (the
-// 16-byte row path for L = 8), 16 or 32 (the wrapper picks the least LM
-// >= L: ops/dem_kernel.py table_instance); LM = 32 takes its tables from
-// dynamic shared memory (32 KB: past the 48 KB of static).  Wider tables
-// (LM = 0, any L) stay in global memory: the pair body matches against
-// the query's row there, the matched slots go to a bitmap a particle in
-// global memory (o_match, ceil(L / 32) words), and the table row is
-// written from the last slot down, so a slot is written only after the
-// parked contact it may take (at a lower or the same slot) was read.  The
-// slot each contact takes, and so the table, is the same in every
-// instance.
+//
+// Table widths: two instances, the same slot for every contact in both.
+// * Narrow (LM = 8, L <= 8): each query lane loads its row into
+//   registers (two 16-byte accesses when L = 8) and shared memory, the
+//   pair body tests its 8 slots, the matched slots are a register mask
+//   and the row is written back from registers.
+// * Wide (any L > 8 up to MAX_WIDE_L, the width a runtime argument; the
+//   wrapper picks the instance: ops/dem_kernel.py table_instance).  What
+//   a wide table must cost is its bytes (5L words a particle each way),
+//   but a row holds few live entries (<= 7 on the 3D column's lattice),
+//   so no step walks every slot for a pair:
+//   - staging: a warp reads its query lanes' rows RB at a time, its lanes
+//     across a row's words (coalesced, all RB rows' loads in flight), and
+//     compacts each row's live entries (idx >= 0) with a ballot into a
+//     list a query in shared memory, in slot order: key (idx | dem << 24)
+//     and slot, at most CL of them;
+//   - the pair body matches against the list; a row with more than CL
+//     live entries, or one whose key does not fit, matches against its
+//     row in global memory slot by slot instead (exact, slower: crowded
+//     tables);
+//   - the matched slots are a bitmap a query in shared memory (ceil(L /
+//     32) words, sized on the host with the lists: dynamic shared
+//     memory), set by the query's own thread in phase 3;
+//   - write-back, every slot of each row: a matched slot its entry from
+//     the list, a free slot of rank r the r-th parked new contact if r <
+//     new contacts, else -1; parked contact r sits at slot r <= every
+//     slot that takes it, so slots are written from the last down, each
+//     after the parked entries below it are read.  Rows of up to
+//     ROW_WARP slots: each thread writes its own in 16-byte pieces;
+//     wider rows: the warp writes each row in turn, lanes across its
+//     words, so that a store fills whole sectors (pieces of 32 scattered
+//     rows an instruction cost ~0.1 ms more at L = 40 on the 3D column,
+//     whose table is then past the L2 cache).
+//   Measured on the 3D column (122,915 grains; NVIDIA H100 80GB HBM3,
+//   700 W; scripts/dem_variants.py, PERF.md), K4 alone at L = 8 / 12 /
+//   16 / 32 / 40: 0.1554 / 0.1839 / 0.1900 / 0.2290 / 0.2447 ms, bounds
+//   by bytes 0.0148 / 0.0207 / 0.0266 / 0.0500 / 0.0618.  Past L = 8 the
+//   staging and write-back add ~0.02 ms at L = 12 and grow with the
+//   bytes, the scan ~0.005 (shared memory for the lists), the pair
+//   bodies ~0.003.
 // No matrix unit, no prefix product, no reduced precision: idx and dem
 // are exact copies.  Built with --fmad=false so r = sqrt(x*x + y*y +
 // z*z) rounds as the plain version's does and the gate decisions (which
@@ -88,7 +115,14 @@ namespace {
 
 constexpr int NF = 13;
 constexpr int L_VEC = 8;     // the table width of the 16-byte row path
-constexpr int ROWS = 0;      // LM of the instance that keeps rows in global
+constexpr int WIDE = 0;      // LM of the instance of any table width
+constexpr int CL = 16;       // live entries a query's list holds (wide;
+                             // ops/dem_kernel.py WIDE_LIST)
+constexpr int CS = CL + 1;   // the list's stride a query (no bank clash)
+constexpr int RB = 8;        // rows a warp stages at once (wide)
+constexpr int ROW_WARP = 16; // wider rows: the warp writes each (wide)
+constexpr int NO_LIST = 1 << 30;   // a row's count when it takes no list
+constexpr int MAX_WIDE_L = 8192;   // the wide instance's widest table
 constexpr int E_MAX = 8;
 constexpr int R_MAX = 9;
 constexpr int THREADS = 128;
@@ -118,7 +152,6 @@ struct Args {
   int* o_idx;                    // [N, L]
   int* o_dem;
   float* o_spr;                  // [3, N, L]
-  unsigned* o_match;             // LM = 0: [N, ceil(L / 32)] zeros in
   int N, L, E;
   float dt, cutoff;
 };
@@ -152,34 +185,41 @@ __device__ __forceinline__ void store_row(int* dst, bool vec, int L,
   }
 }
 
-// the slots below L as a mask (LM <= 32)
-template <int LM>
-__device__ __forceinline__ unsigned low_slots(int L) {
-  return (LM < 32 || L < 32) ? (1u << L) - 1u : FULL;
+// the wide instance's dynamic shared memory (bytes) at table width L: the
+// match bitmaps [ceil(L / 32)][THREADS], the lists' keys [THREADS][CS]
+// and their slots [THREADS][CS] (16-bit)
+__host__ __device__ constexpr int wide_bytes(int L) {
+  return ((L + 31) / 32) * THREADS * 4 + THREADS * CS * (4 + 2);
 }
 
-// the dynamic shared memory (bytes) of table width LM: the query lanes'
-// idx and dem tables where they exceed the static budget
-__host__ __device__ constexpr int table_bytes(int LM) {
-  return LM == 32 ? 2 * LM * THREADS * 4 : 0;
+// a list entry's key: partner index (< 2^24) and dem id (< 256) in one
+// word; false where they do not fit (the row then takes no list)
+__device__ __forceinline__ bool list_key(int idx, int dem, unsigned& key) {
+  key = (unsigned)idx | ((unsigned)dem << 24);
+  return (unsigned)idx < (1u << 24) && (unsigned)dem < 256u;
 }
 
 template <int M, bool ROWWIN, int LM>
 __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   constexpr int G = THREADS / M;      // query rows a block
   constexpr int TM = TILE * M;        // candidate lanes a row stages a round
+  constexpr bool wide = LM == WIDE;
   // staged live candidates: x y z and the pack lane (row * M + lane) as
   // the int bits of w
   __shared__ float4 s_pos[G * TM];
   __shared__ int s_cnt[G];
-  // the query lanes' input tables [LM][THREADS] (static up to LM = 16,
-  // dynamic at 32, none for the global rows)
-  constexpr int LS = (LM == ROWS || LM == 32) ? 1 : LM;
-  __shared__ int s_tidx_s[LS * THREADS];
-  __shared__ int s_tdem_s[LS * THREADS];
+  // narrow: the query lanes' input tables [LM][THREADS]
+  constexpr int LS = wide ? 1 : LM;
+  __shared__ int s_tidx[LS * THREADS];
+  __shared__ int s_tdem[LS * THREADS];
+  // wide: each query's list length (NO_LIST: the row in global memory)
+  __shared__ int s_nin[wide ? THREADS : 1];
   extern __shared__ int s_dyn[];
-  int* const s_tidx = LM == 32 ? s_dyn : s_tidx_s;
-  int* const s_tdem = LM == 32 ? s_dyn + LM * THREADS : s_tdem_s;
+  const int W = (a.L + 31) >> 5;             // match bitmap words a query
+  unsigned* const s_match = reinterpret_cast<unsigned*>(s_dyn);
+  unsigned* const c_key = s_match + W * THREADS;
+  unsigned short* const c_slot =
+      reinterpret_cast<unsigned short*>(c_key + THREADS * CS);
   __shared__ int l_src[WARPS * LIST];       // per warp: the pair list
   __shared__ int l_own[WARPS * LIST];
   __shared__ int l_code[WARPS * LIST];
@@ -211,7 +251,7 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
       ((reinterpret_cast<size_t>(a.t_idx) | reinterpret_cast<size_t>(a.t_dem) |
         reinterpret_cast<size_t>(a.o_idx) | reinterpret_cast<size_t>(a.o_dem)) &
        15) == 0;
-  if constexpr (LM != ROWS) {
+  if constexpr (!wide) {
     if (live) {
       int ti[LM], td[LM];
       load_row<LM>(a.t_idx + (long long)p * L, vec, L, ti);
@@ -222,6 +262,54 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
         s_tdem[k * THREADS + t] = td[k];
       }
     }
+  } else {
+    for (int w = 0; w < W; ++w) s_match[w * THREADS + t] = 0u;
+    // the warp's live rows, RB at a time, lanes across a row's words: the
+    // live entries into the query's list in slot order; a row with more
+    // than CL of them, or one whose key does not fit, takes no list
+    int nin = 0;
+    unsigned rows = __ballot_sync(FULL, live);
+    while (rows != 0u) {
+      int q[RB], pq[RB], n[RB];
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        q[b] = rows != 0u ? __ffs(rows) - 1 : -1;
+        rows &= rows - 1u;
+        pq[b] = __shfl_sync(FULL, p, q[b] < 0 ? 0 : q[b]);
+        n[b] = 0;
+      }
+      for (int c0 = 0; c0 < L; c0 += 32) {
+        const int k = c0 + lane;
+        int vi[RB], vd[RB];
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          vi[b] = vd[b] = -1;
+          if (q[b] >= 0 && k < L) {
+            vi[b] = __ldg(a.t_idx + (long long)pq[b] * L + k);
+            vd[b] = __ldg(a.t_dem + (long long)pq[b] * L + k);
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          const bool e = vi[b] >= 0;
+          unsigned key;
+          const bool fits = list_key(vi[b], vd[b], key);
+          const unsigned m = __ballot_sync(FULL, e);
+          const int at = n[b] + __popc(m & lt);
+          if (e && at < CL) {
+            const int o = (wp * 32 + q[b]) * CS + at;
+            c_key[o] = key;
+            c_slot[o] = (unsigned short)k;
+          }
+          n[b] += __popc(m);
+          if (__any_sync(FULL, e && !fits)) n[b] = NO_LIST;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+        if (lane == q[b]) nin = n[b] > CL ? NO_LIST : n[b];
+    }
+    s_nin[t] = nin;
   }
   if constexpr (ROWWIN) {
     // the window's runs as flat run-slot offsets
@@ -317,19 +405,33 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
       const float fn = kn * overlap - eta_n * vdotn;
       const float fn_x = fn * nx, fn_y = fn * ny, fn_z = fn * nz;
 
-      // the table entry of this partner, if any
+      // the table entry of this partner, if any (the first slot)
       int slot = -1;
-      if constexpr (LM != ROWS) {
+      if constexpr (!wide) {
 #pragma unroll
         for (int k = 0; k < LM; ++k)
           if (k < L && slot < 0 && s_tidx[k * THREADS + own] == j &&
               s_tdem[k * THREADS + own] == dem)
             slot = k;
       } else {
-        const int* ti = a.t_idx + (long long)qi * L;
-        const int* td = a.t_dem + (long long)qi * L;
-        for (int k = 0; k < L && slot < 0; ++k)
-          if (ti[k] == j && td[k] == dem) slot = k;
+        const int nin = s_nin[own];
+        if (nin != NO_LIST) {
+          // a partner whose key does not fit is in no listed row
+          unsigned key;
+          if (list_key(j, dem, key)) {
+            const int o = own * CS;
+            for (int e = 0; e < nin; ++e)
+              if (c_key[o + e] == key) {
+                slot = c_slot[o + e];
+                break;
+              }
+          }
+        } else {
+          const int* ti = a.t_idx + (long long)qi * L;
+          const int* td = a.t_dem + (long long)qi * L;
+          for (int k = 0; k < L && slot < 0; ++k)
+            if (ti[k] == j && td[k] == dem) slot = k;
+        }
       }
       const long long at = (long long)qi * L + slot;
       float sx = 0.0f, sy = 0.0f, sz = 0.0f;
@@ -408,11 +510,10 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
 #pragma unroll
       for (int m = 0; m < 6; ++m) f[m] += lf[m * LIST + i];
       if (c >= 0) {
-        if constexpr (LM != ROWS)
+        if constexpr (!wide)
           matched |= 1u << c;
         else
-          a.o_match[(long long)p * ((L + 31) / 32) + (c >> 5)] |=
-              1u << (c & 31);
+          s_match[(c >> 5) * THREADS + t] |= 1u << (c & 31);
       } else {
         if (n_new < L) {
           // parked at slot n_new of the particle's output row
@@ -493,14 +594,14 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
     }
   }
   if (warp_live && cnt > 0) flush();
-  if (!live) return;
 
-  // unmatched slots are free; the r-th new contact takes the r-th free
-  // slot (parked contact r sits at slot r of the output row)
-  const long long base = (long long)p * L;
   int n_live = 0;
-  if constexpr (LM != ROWS) {
-    const unsigned free_mask = ~matched & low_slots<LM>(L);
+  if constexpr (!wide) {
+    if (!live) return;
+    // unmatched slots are free; the r-th new contact takes the r-th free
+    // slot (parked contact r sits at slot r of the output row)
+    const long long base = (long long)p * L;
+    const unsigned free_mask = ~matched & ((1u << L) - 1u);
     int nj[LM], nd[LM];
 #pragma unroll
     for (int k = 0; k < LM; ++k) {
@@ -521,22 +622,121 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
     store_row<LM>(a.o_idx + base, vec, L, nj);
     store_row<LM>(a.o_dem + base, vec, L, nd);
   } else {
-    // from the last slot down: r counts the free slots below k
-    const unsigned* mrow = a.o_match + (long long)p * ((L + 31) / 32);
-    int r = L;
-    for (int w = 0; w < (L + 31) / 32; ++w) r -= __popc(mrow[w]);
-    for (int k = L - 1; k >= 0; --k) {
-      int j = -1, d = -1;
-      if ((mrow[k >> 5] >> (k & 31)) & 1u) {
-        j = a.t_idx[base + k];
-        d = a.t_dem[base + k];
-      } else if (--r < n_new) {
-        j = a.o_idx[base + r];
-        d = a.o_dem[base + r];
+    if (L <= ROW_WARP) {
+      if (!live) return;
+      // the thread writes its row whole, from the last slot down: a matched
+      // slot copies its entry (from the list, walked down with it, or, a
+      // row with no list, the input row), a free slot k takes the parked
+      // contact r = free slots below k if r < new contacts (parked at slot
+      // r <= k: read before slot r is written), else -1
+      const long long base = (long long)p * L;
+      const unsigned* mq = s_match + t;                // word w: mq[w * THREADS]
+      const int nin = s_nin[t];
+      int n_m = 0;                                     // matched slots
+      for (int w = 0; w < W; ++w) n_m += __popc(mq[w * THREADS]);
+      int m_above = 0;                    // matched slots past the current one
+      int e = nin - 1;                    // the list entry at or below it
+      auto entry = [&](int k, int& j, int& d) {
+        j = d = -1;
+        if ((mq[(k >> 5) * THREADS] >> (k & 31)) & 1u) {
+          if (nin != NO_LIST) {
+            while (c_slot[t * CS + e] > k) --e;
+            const unsigned key = c_key[t * CS + e];
+            j = (int)(key & 0xffffffu);
+            d = (int)(key >> 24);
+          } else {
+            j = __ldg(a.t_idx + base + k);
+            d = __ldg(a.t_dem + base + k);
+          }
+          ++m_above;
+        } else if (k - (n_m - m_above) < n_new) {
+          j = a.o_idx[base + k - (n_m - m_above)];
+          d = a.o_dem[base + k - (n_m - m_above)];
+        }
+      };
+      const bool vec4 = (L & 3) == 0 &&
+          ((reinterpret_cast<size_t>(a.o_idx) |
+            reinterpret_cast<size_t>(a.o_dem)) & 15) == 0;
+      if (vec4) {
+        for (int k = L - 4; k >= 0; k -= 4) {
+          int4 vi, vd;
+          entry(k + 3, vi.w, vd.w);
+          entry(k + 2, vi.z, vd.z);
+          entry(k + 1, vi.y, vd.y);
+          entry(k, vi.x, vd.x);
+          *reinterpret_cast<int4*>(a.o_idx + base + k) = vi;
+          *reinterpret_cast<int4*>(a.o_dem + base + k) = vd;
+        }
+      } else {
+        for (int k = L - 1; k >= 0; --k) {
+          int j, d;
+          entry(k, j, d);
+          a.o_idx[base + k] = j;
+          a.o_dem[base + k] = d;
+        }
       }
-      a.o_idx[base + k] = j;
-      a.o_dem[base + k] = d;
-      n_live += j >= 0 ? 1 : 0;
+      n_live = n_m + min(n_new, L - n_m);
+    } else {
+      // the warp writes its live rows, lanes across the words: first the
+      // free slots, 32-slot chunks from the last down (free slot k takes
+      // parked contact r = free slots below k if r < the row's new
+      // contacts; parked r <= k is read before slot r is written), then the
+      // matched slots, from the list (or, a row with no list, its input row)
+      __syncwarp();
+      unsigned rows = __ballot_sync(FULL, live);
+      while (rows != 0u) {
+        const int q = __ffs(rows) - 1;
+        rows &= rows - 1u;
+        const int own = wp * 32 + q;
+        const int pq = __shfl_sync(FULL, p, q);
+        const int nq = __shfl_sync(FULL, n_new, q);
+        const int nin = s_nin[own];
+        const unsigned* mq = s_match + own;           // word w: mq[w * THREADS]
+        int n_m = 0;                                  // matched slots
+        for (int w = 0; w < W; ++w) n_m += __popc(mq[w * THREADS]);
+        const long long base = (long long)pq * L;
+        int above = 0;                       // matched slots past the chunk
+        for (int w = W - 1; w >= 0; --w) {
+          const unsigned mw = mq[w * THREADS];
+          const int k = w * 32 + lane;
+          const bool is_free = k < L && !((mw >> lane) & 1u);
+          int j = -1, d = -1;
+          if (nq > 0) {                      // warp-uniform
+            const int r = k - (n_m - above - __popc(mw)) - __popc(mw & lt);
+            if (is_free && r < nq) {
+              j = a.o_idx[base + r];
+              d = a.o_dem[base + r];
+            }
+            __syncwarp();
+          }
+          if (is_free) {
+            a.o_idx[base + k] = j;
+            a.o_dem[base + k] = d;
+          }
+          above += __popc(mw);
+        }
+        __syncwarp();
+        if (nin != NO_LIST) {
+          for (int e = lane; e < nin; e += 32) {
+            const int k = c_slot[own * CS + e];
+            if ((mq[(k >> 5) * THREADS] >> (k & 31)) & 1u) {
+              const unsigned key = c_key[own * CS + e];
+              a.o_idx[base + k] = (int)(key & 0xffffffu);
+              a.o_dem[base + k] = (int)(key >> 24);
+            }
+          }
+        } else {
+          for (int w = 0; w < W; ++w) {
+            const int k = w * 32 + lane;
+            if (k < L && ((mq[w * THREADS] >> lane) & 1u)) {
+              a.o_idx[base + k] = __ldg(a.t_idx + base + k);
+              a.o_dem[base + k] = __ldg(a.t_dem + base + k);
+            }
+          }
+        }
+        if (lane == q) n_live = n_m + min(nq, L - n_m);
+      }
+      if (!live) return;
     }
   }
   float4* os = reinterpret_cast<float4*>(a.o_sum + (long long)p * 8);
@@ -547,15 +747,15 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
 template <int M, bool ROWWIN, int LM>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int G = THREADS / M;
-  constexpr int bytes = table_bytes(LM);
-  if constexpr (bytes > 0) {
-    static bool opted = false;   // the dynamic shared memory allowed
-    if (!opted) {
+  const int bytes = LM == WIDE ? wide_bytes(a.L) : 0;
+  if (bytes > 0) {
+    static int allowed = 0;   // the dynamic shared memory allowed so far
+    if (bytes > allowed) {
       const cudaError_t err = cudaFuncSetAttribute(
           dem_pairs_kernel<M, ROWWIN, LM>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (err != cudaSuccess) return (int)err;
-      opted = true;
+      allowed = bytes;
     }
   }
   dem_pairs_kernel<M, ROWWIN, LM>
@@ -565,12 +765,8 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <int M, bool ROWWIN>
 int dispatch_lm(int LM, const Args& a, cudaStream_t stream) {
-  switch (LM) {
-    case 8: return launch<M, ROWWIN, 8>(a, stream);
-    case 16: return launch<M, ROWWIN, 16>(a, stream);
-    case 32: return launch<M, ROWWIN, 32>(a, stream);
-    default: return launch<M, ROWWIN, ROWS>(a, stream);
-  }
+  if (LM == L_VEC) return launch<M, ROWWIN, L_VEC>(a, stream);
+  return launch<M, ROWWIN, WIDE>(a, stream);
 }
 
 template <bool ROWWIN>
@@ -581,18 +777,17 @@ int dispatch(int M, int LM, const Args& a, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// LM: the instance's table width, 8, 16 or 32 (at least L) or 0 (any L:
-// the rows in global memory, o_match given)
-bool bad_shape(int L, int LM, int E, const void* o_match) {
+// LM: the instance, 8 (L <= 8) or 0 (the wide one, L <= MAX_WIDE_L)
+bool bad_shape(int L, int LM, int E) {
   if (L < 1 || E < 0 || E > E_MAX) return true;
-  if (LM == ROWS) return o_match == nullptr;
-  return (LM != 8 && LM != 16 && LM != 32) || L > LM;
+  if (LM == WIDE) return L > MAX_WIDE_L;
+  return LM != L_VEC || L > LM;
 }
 
 Args tables(const void* t_idx, const void* t_dem, const void* t_x,
             const void* t_y, const void* t_z, const void* mat, void* o_sum,
-            void* o_idx, void* o_dem, void* o_spr, void* o_match, int N,
-            int L, int E, float dt, float cutoff) {
+            void* o_idx, void* o_dem, void* o_spr, int N, int L, int E,
+            float dt, float cutoff) {
   Args a{};
   a.t_idx = (const int*)t_idx;
   a.t_dem = (const int*)t_dem;
@@ -604,7 +799,6 @@ Args tables(const void* t_idx, const void* t_dem, const void* t_x,
   a.o_idx = (int*)o_idx;
   a.o_dem = (int*)o_dem;
   a.o_spr = (float*)o_spr;
-  a.o_match = (unsigned*)o_match;
   a.N = N;
   a.L = L;
   a.E = E;
@@ -618,13 +812,12 @@ Args tables(const void* t_idx, const void* t_dem, const void* t_x,
 extern "C" int dem_cell(const void* dft, const void* nbr, const void* t_idx,
                         const void* t_dem, const void* t_x, const void* t_y,
                         const void* t_z, const void* mat, void* o_sum,
-                        void* o_idx, void* o_dem, void* o_spr, void* o_match,
-                        int N, int NC, int O, int M, int L, int LM, int E,
-                        float dt, float cutoff, void* stream) {
-  if (bad_shape(L, LM, E, o_match) || O < 0)
-    return (int)cudaErrorInvalidValue;
+                        void* o_idx, void* o_dem, void* o_spr, int N, int NC,
+                        int O, int M, int L, int LM, int E, float dt,
+                        float cutoff, void* stream) {
+  if (bad_shape(L, LM, E) || O < 0) return (int)cudaErrorInvalidValue;
   Args a = tables(t_idx, t_dem, t_x, t_y, t_z, mat, o_sum, o_idx, o_dem,
-                  o_spr, o_match, N, L, E, dt, cutoff);
+                  o_spr, N, L, E, dt, cutoff);
   a.pack = (const float*)dft;
   a.rows = NC;
   a.nbr = (const long long*)nbr;
@@ -636,14 +829,13 @@ extern "C" int dem_rowwin(const void* dfs, const void* runs,
                           const void* run_cnt, const void* t_idx,
                           const void* t_dem, const void* t_x, const void* t_y,
                           const void* t_z, const void* mat, void* o_sum,
-                          void* o_idx, void* o_dem, void* o_spr,
-                          void* o_match, int N, int NCW, int R, int M, int L,
-                          int LM, int E, float dt, float cutoff,
-                          void* stream) {
-  if (bad_shape(L, LM, E, o_match) || R < 1 || R > R_MAX)
+                          void* o_idx, void* o_dem, void* o_spr, int N,
+                          int NCW, int R, int M, int L, int LM, int E,
+                          float dt, float cutoff, void* stream) {
+  if (bad_shape(L, LM, E) || R < 1 || R > R_MAX)
     return (int)cudaErrorInvalidValue;
   Args a = tables(t_idx, t_dem, t_x, t_y, t_z, mat, o_sum, o_idx, o_dem,
-                  o_spr, o_match, N, L, E, dt, cutoff);
+                  o_spr, N, L, E, dt, cutoff);
   a.pack = (const float*)dfs;
   a.rows = NCW;
   a.runs = (const long long*)runs;

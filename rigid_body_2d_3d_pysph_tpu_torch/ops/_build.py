@@ -52,9 +52,9 @@ KERNELS = {
     "contact": ("contact", "contact_sums",
                 [_P] * 6 + [_I] * 10 + [_F] * 4 + [_P]),
     "dem_cell": ("dem", "dem_cell",
-                 [_P] * 13 + [_I] * 7 + [_F, _F, _P]),
+                 [_P] * 12 + [_I] * 7 + [_F, _F, _P]),
     "dem_rowwin": ("dem", "dem_rowwin",
-                   [_P] * 14 + [_I] * 7 + [_F, _F, _P]),
+                   [_P] * 13 + [_I] * 7 + [_F, _F, _P]),
     "fluid_rates_wall": ("fluid", "fluid_rates_wall",
                          [_P] * 3 + [_I] * 7 + [_F] * 8 + [_P]),
     "fluid_forces_contact": ("fluid", "fluid_forces_contact",

@@ -24,8 +24,8 @@ package runs it in XLA only (its Pallas DEM kernels cover LVC
 displacement).  It is the reference's cell-engine sequence in PyTorch
 ops: the prune, a grid build and the dense-block pass.  Integers ride the f32 source
 pack as exact floats, so the wrappers take fewer than 2^24 particles and
-at most 8 entities (as the reference's kernels); a table of any width L
-has a kernel instance (:func:`table_instance`).
+at most 8 entities (as the reference's kernels); a table of up to
+``MAX_TABLE_WIDTH`` slots has a kernel instance (:func:`table_instance`).
 """
 
 from __future__ import annotations
@@ -45,10 +45,13 @@ from .rowwin import RowWinConfig, build_row_window_grid
 
 MAX_PARTICLES = 1 << 24   # exact float integers in the f32 source pack
 E_MAX = 8                 # entities (the reference kernels' bound too)
-# csrc/dem.cu's table widths: the instances that hold a query's table in
-# shared memory and registers; a wider table runs the instance that
-# keeps the rows in global memory (width 0, any L)
-TABLE_WIDTHS = (8, 16, 32)
+# csrc/dem.cu's narrow instance holds a query's table of up to 8 slots in
+# registers; the wide one (width 0) lists each row's live entries and
+# keeps a match bitmap of ceil(L / 32) words a query in shared memory,
+# which bounds its width (MAX_WIDE_L there)
+NARROW_WIDTH = 8
+MAX_TABLE_WIDTH = 8192
+WIDE_LIST = 16            # live entries a query's list holds (dem.cu CL)
 KERNEL_M = (8, 16)        # the lane widths csrc/dem.cu is instantiated for
 
 
@@ -70,15 +73,12 @@ def check_sizes(n: int, L: int, E: int) -> None:
 
 def table_instance(L: int) -> tuple[str, int]:
     """The ``csrc/dem.cu`` instance for a table of L slots: ``("l8",
-    8)``, ``("l16", 16)`` or ``("l32", 32)``, the least width that holds
-    L (L = 8 on 16-byte rows), else ``("rows", 0)``: the table rows in
-    global memory, any L.  Every instance gives the same tables."""
+    8)`` up to 8 slots (L = 8 on 16-byte rows), else ``("wide", 0)``,
+    the width a runtime argument.  Both instances give the same
+    tables."""
     if L < 1:
         raise ValueError(f"DEM kernels: table width {L} (at least 1)")
-    for lm in TABLE_WIDTHS:
-        if L <= lm:
-            return f"l{lm}", lm
-    return "rows", 0
+    return ("l8", NARROW_WIDTH) if L <= NARROW_WIDTH else ("wide", 0)
 
 
 def _check_cuda(name, M, floats, ints64=(), ints32=()):
@@ -93,6 +93,10 @@ def _check_cuda(name, M, floats, ints64=(), ints32=()):
     if M not in KERNEL_M:
         raise ValueError(f"{name}: {M} lanes a slot (the kernel takes "
                          f"{KERNEL_M})")
+    L = ints32[0].shape[1]
+    if L > MAX_TABLE_WIDTH:
+        raise NotImplementedError(f"{name}: table width {L} (the kernel "
+                                  f"takes at most {MAX_TABLE_WIDTH})")
 
 
 def _launch(kernel, pack, index_tables, tables, mat, sizes, dt, cutoff):
@@ -108,14 +112,10 @@ def _launch(kernel, pack, index_tables, tables, mat, sizes, dt, cutoff):
     flt = torch.zeros(n * (8 + 3 * L), dtype=torch.float32, device=dev)
     o_sum, o_spr = flt[:n * 8].view(n, 8), flt[n * 8:].view(3, n, L)
     o_idx, o_dem = torch.full((2, n, L), -1, dtype=torch.int32, device=dev)
-    # the global-rows instance's matched-slot bitmaps (zeros)
-    o_match = (torch.zeros((n, (L + 31) // 32), dtype=torch.int32,
-                           device=dev) if lm == 0 else None)
     fn = _build.load(kernel)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*[t.data_ptr() for t in args], o_sum.data_ptr(),
-             o_idx.data_ptr(), o_dem.data_ptr(), o_spr.data_ptr(),
-             None if o_match is None else o_match.data_ptr(), n,
+             o_idx.data_ptr(), o_dem.data_ptr(), o_spr.data_ptr(), n,
              *sizes, L, lm, mat.shape[0], float(dt), float(cutoff), stream)
     _build.check(err, kernel)
     _build.count(kernel, instance=inst)

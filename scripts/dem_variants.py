@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the DEM pair kernels' time goes, on one CUDA card.
 
-    python3 scripts/dem_variants.py [--parent DIR]
+    python3 scripts/dem_variants.py [--parent DIR] [--widths 8,12,...]
 
 Run from the repository root on the machine with the card.  It builds
 ``csrc/dem.cu`` as it is and in two cut-down copies, each with ``nvcc``
@@ -12,17 +12,23 @@ into ``build/dem_variants/``:
 * ``nopair``: the scan and the pair lists, the pair bodies replaced by a
   "not gated" code;
 
-and, with ``--parent DIR``, the ``csrc/dem.cu`` of another checkout (its
-entry points as this one's, or without the ``o_match`` pointer and the
-table width ``LM`` of before the wide instances: L = 8 tables only).  On
-``chip_smoke.py``'s DEM scenes (~104k grains in 2D, ~123k in 3D, the
-contact table filled by a plain pass) it prints, per grid, the wrapper's
-time and each build's time per launch: CUDA events over 50 launches into
-preallocated outputs, behind a device sleep so that the host's enqueue
-is not timed.  The full build and the parent are checked against the
-wrapper bit for bit (sums, counts, tables and springs); the cut-down
-copies compute less by design.  Also prints
-ptxas's registers, shared memory and spills per kernel instance.
+and, with ``--parent DIR``, the ``csrc/dem.cu`` of another checkout:
+one of this one's entry points, or one that still takes the global
+match bitmap ``o_match`` (zeros, passed here) and picks among its table
+widths 8, 16, 32 and 0 (the rows in global memory).  On
+``chip_smoke.py``'s DEM scenes (~104k grains in 2D at L = 8; the ~123k
+3D column at each table width of ``--widths``, default 8, 12, 16, 32,
+40; the contact table filled by a plain pass) it prints, per grid and
+width: the bound (bytes: each particle's 13 pack fields, 8 sums and
+table row of 5L words read and written once; operations: 9 a candidate
+lane, 140 a gated pair), the wrapper's time (allocation and the fills of
+the outputs included), the fills alone (``torch.zeros`` and
+``torch.full`` of the outputs), and each build's time per launch into
+preallocated outputs: CUDA events over 50 launches, behind a device
+sleep so that the host's enqueue is not timed.  The full build and the
+parent are checked against the wrapper bit for bit (sums, counts,
+tables and springs); the cut-down copies compute less by design.  Also
+prints ptxas's registers, shared memory and spills per kernel instance.
 
 It imports nothing from JAX.
 """
@@ -51,8 +57,9 @@ CUTS = {
     "nopair": ("for (int i = lane; i < cnt; i += 32) pair(i);",
                "for (int i = lane; i < cnt; i += 32) lc[i] = NOT_GATED;"),
 }
-GRIDS = (("2D spill", 2, "spill"), ("3D spill", 3, "spill"),
-         ("2D rowwin", 2, "rowwin"), ("3D rowwin", 3, "rowwin"))
+GRIDS = (("2D spill", 2, "spill"), ("2D rowwin", 2, "rowwin"),
+         ("3D spill", 3, "spill"), ("3D rowwin", 3, "rowwin"))
+PARENT_WIDTHS = (8, 16, 32)   # a parent with o_match: its table widths
 
 
 def build(name, src):
@@ -86,8 +93,14 @@ def sources(parent):
     return srcs
 
 
-def time_grid(label, dim, grid, libs, dev, old=()):
-    scheme, scene = cs.dem_scene(dev, dim, grid)
+def parent_width(L):
+    """A parent with ``o_match``: the least of its widths that holds L,
+    else 0 (its rows in global memory)."""
+    return next((lm for lm in PARENT_WIDTHS if L <= lm), 0)
+
+
+def time_grid(label, dim, grid, L, libs, dev, old=()):
+    scheme, scene = cs.dem_scene(dev, dim, grid, L=L)
     spill = grid == "spill"
     cfg = scheme.cell_config(scene) if spill else scheme.rowwin_config(scene)
     run = (tdk.lvc_displacement_cell_kernel if spill
@@ -95,9 +108,9 @@ def time_grid(label, dim, grid, libs, dev, old=()):
     p = run(scene, cfg, cs.DEM_DT, scene.tng_idx, scene.tng_idx_dem_id,
             scene.tng_x, scene.tng_y, scene.tng_z, plain=True)
     tables = (p.tng_idx, p.tng_dem, p.tng_x, p.tng_y, p.tng_z)
-    kern, _, args, _, _ = cs.dem_kernel_call(scheme, scene, cfg, tables)
+    kern, _, args, _, lanes = cs.dem_kernel_call(scheme, scene, cfg, tables)
     ref = kern(*args)
-    n, L = tables[0].shape
+    n = tables[0].shape[0]
     if spill:
         kname, ins = "dem_cell", [args[0], args[1], *tables, args[7]]
         sizes = (cfg.NC_max, args[1].shape[1], cfg.M)
@@ -109,29 +122,43 @@ def time_grid(label, dim, grid, libs, dev, old=()):
     o_sum = torch.zeros((n, 8), device=dev)
     o_tab = torch.full((2, n, L), -1, dtype=torch.int32, device=dev)
     o_spr = torch.zeros((3, n, L), device=dev)
+    o_match = torch.zeros((n, (L + 31) // 32), dtype=torch.int32,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    line = [f"[dem-variants] {label}: wrapper "
-            f"{cs.cuda_ms(lambda: kern(*args), reps=50):.4f} ms"]
+    gated = int(ref[0][:, 7].sum())
+    bms, bby = cs.bound(4 * n * (tdk.NF + 8 + 2 * 5 * L),
+                        lanes * cs.OPS_PER_LANE + gated * cs.OPS_PER_DEM_PAIR)
+
+    def fills():
+        torch.zeros(n * (8 + 3 * L), dtype=torch.float32, device=dev)
+        torch.full((2, n, L), -1, dtype=torch.int32, device=dev)
+
     inst, lm = tdk.table_instance(L)
+    line = [f"[dem-variants] {label} L={L} ({inst}): n={n}, {gated} gated, "
+            f"bound {bms:.4f} ms by {bby} | wrapper "
+            f"{cs.cuda_ms(lambda: kern(*args), reps=50):.4f} ms, fills "
+            f"{cs.cuda_ms(fills, reps=50):.4f}"]
     for name, lib in libs.items():
         fn = getattr(lib, kname)
         ptrs = [t.data_ptr() for t in ins] + [
             o_sum.data_ptr(), o_tab[0].data_ptr(), o_tab[1].data_ptr(),
             o_spr.data_ptr()]
-        if name in old:      # no o_match, no LM
+        if name in old:      # the global match bitmap, the parent's widths
             argtypes = list(_build.KERNELS[kname][2])
-            del argtypes[len(ptrs)]
-            del argtypes[len(ptrs) + len(sizes) + 2]
+            argtypes.insert(len(ptrs), ctypes.c_void_p)
             fn.argtypes = argtypes
-            call = lambda: fn(*ptrs, n, *sizes, L, mat.shape[0],
-                              float(cs.DEM_DT), float(cfg.radius), stream)
+            plm = parent_width(L)
+            call = lambda: fn(*ptrs, o_match.data_ptr(), n, *sizes, L, plm,
+                              mat.shape[0], float(cs.DEM_DT),
+                              float(cfg.radius), stream)
         else:
             fn.argtypes = _build.KERNELS[kname][2]
-            call = lambda: fn(*ptrs, None, n, *sizes, L, lm, mat.shape[0],
+            call = lambda: fn(*ptrs, n, *sizes, L, lm, mat.shape[0],
                               float(cs.DEM_DT), float(cfg.radius), stream)
         o_sum.zero_()
         o_tab.fill_(-1)
         o_spr.zero_()
+        o_match.zero_()
         if call() != 0:
             raise RuntimeError(f"{name}: launch failed")
         torch.cuda.synchronize()
@@ -139,16 +166,24 @@ def time_grid(label, dim, grid, libs, dev, old=()):
             same = (torch.equal(o_tab[0], ref[1]) and torch.equal(
                 o_tab[1], ref[2]) and torch.equal(o_sum, ref[0]) and all(
                 torch.equal(o_spr[k], ref[3 + k]) for k in range(3)))
-            cs.check(same, f"{label} {name}: outputs differ from the "
+            cs.check(same, f"{label} L={L} {name}: outputs differ from the "
                      "wrapper's")
-        line.append(f"{name} {cs.cuda_ms(call, reps=50):.4f}")
+        timed = call
+        if name in old and parent_width(L) == 0:
+            # its rows in global memory: the bitmap's zero fill is part of
+            # every launch (its wrapper's)
+            timed = lambda: (o_match.zero_(), call())
+        line.append(f"{name} {cs.cuda_ms(timed, reps=50):.4f}")
     print(" | ".join(line), flush=True)
+    del scheme, scene
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout whose csrc/dem.cu to time "
-                    "beside this one (spill grid)")
+                    "beside this one")
+    ap.add_argument("--widths", default="8,12,16,32,40",
+                    help="table widths of the 3D column (2D: L = 8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("dem_variants: no CUDA device", file=sys.stderr)
@@ -168,10 +203,12 @@ def main():
     old = set()
     for name, path in srcs.items():
         with open(path) as f:
-            if "o_match" not in f.read():
+            if "o_match" in f.read():
                 old.add(name)
+    widths = [int(w) for w in args.widths.split(",")]
     for label, dim, grid in GRIDS:
-        time_grid(label, dim, grid, libs, dev, old)
+        for L in (widths if dim == 3 else (8,)):
+            time_grid(label, dim, grid, L, libs, dev, old)
     return 0
 
 

@@ -1492,6 +1492,143 @@ def test_dem_kernels_table_widths_at_the_instance_bounds(dev, L):
                               atol=0), k
 
 
+def _scatter_slots(scene, seed):
+    """The contact table with each row's slots in a seeded random order:
+    free slots between live ones, live ones past slot 32."""
+    L = scene.tng_idx.shape[1]
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.argsort(torch.rand(scene.n, L, generator=gen), 1).to(
+        scene.device)
+    return scene.replace(**{k: torch.gather(scene[k], 1, perm) for k in (
+        "tng_idx", "tng_idx_dem_id", "tng_x", "tng_y", "tng_z")})
+
+
+def _dem_pass_pair(scene, cfg, grid):
+    """The pass's kernel and twin outputs, the kernel's instance
+    launched once."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    run = (tdk.lvc_displacement_cell_kernel if grid == "spill"
+           else tdk.lvc_displacement_rowwin_kernel)
+    tabs = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x, scene.tng_y,
+            scene.tng_z)
+    kname = "dem_cell" if grid == "spill" else "dem_rowwin"
+    key = f"{kname}/{tdk.table_instance(scene.tng_idx.shape[1])[0]}"
+    before = _build.LAUNCHES_INSTANCE.get(key, 0)
+    got = run(scene, cfg, 1e-5, *tabs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_INSTANCE[key] == before + 1
+    return got, run(scene, cfg, 1e-5, *tabs, plain=True)
+
+
+def _check_dem_pass(got, ref):
+    for k in ("tng_idx", "tng_dem", "count", "n_gated"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    for k in ("tng_x", "tng_y", "tng_z"):
+        assert torch.allclose(getattr(got, k), getattr(ref, k), rtol=1e-4,
+                              atol=0), k
+    _check_sums(torch.stack([got.fx, got.fy, got.fz, got.torx, got.tory,
+                             got.torz]),
+                torch.stack([ref.fx, ref.fy, ref.fz, ref.torx, ref.tory,
+                             ref.torz]), "sums")
+
+
+@pytest.mark.parametrize("L", [9, 17, 33, 39, 40])
+@pytest.mark.parametrize("grid", ["spill", "rowwin"])
+def test_dem_kernels_wide_scattered_tables(dev, grid, L):
+    """The wide instance at widths just past the narrow one, past 16 and
+    32 (its bitmap's second word) and not a multiple of 4, on the 3D
+    block's moved table with each row's slots scattered (free slots
+    between live ones, live ones past slot 32), against the twin."""
+    scene, cfg = _dem_scene(3, dev, grid, "moved", L=L)
+    scene = _scatter_slots(scene, L)
+    live = scene.tng_idx >= 0
+    assert bool((~live[:, :-1] & live[:, 1:]).any())
+    if L > 32:
+        assert bool(live[:, 32:].any())
+    got, ref = _dem_pass_pair(scene, cfg, grid)
+    assert not bool(ref.overflow) and int(ref.count.sum()) > 0
+    alloc, freed = _table_changes(scene, ref.tng_idx, ref.tng_dem)
+    assert alloc > 0 and freed > 0
+    _check_dem_pass(got, ref)
+
+
+@pytest.mark.parametrize("grid", ["spill", "rowwin"])
+def test_dem_kernels_wide_rows_past_the_list(dev, grid):
+    """Rows with more live entries than the wide instance's per-query
+    list holds (WIDE_LIST) match against their row in global memory:
+    the 3D block squeezed to 0.4 (~80 gated partners a grain) met from
+    a full table of 40 slots, beside rows of fewer entries, against the
+    twin."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    scene, cfg = _dem_scene(3, dev, grid, "crowded", L=40, crowd=0.4)
+    n_in = (scene.tng_idx >= 0).sum(1)
+    assert bool((n_in > tdk.WIDE_LIST).any())
+    assert bool(((n_in > 0) & (n_in <= tdk.WIDE_LIST)).any())
+    got, ref = _dem_pass_pair(scene, cfg, grid)
+    assert not bool(ref.overflow) and bool((ref.count == 40).any())
+    _check_dem_pass(got, ref)
+
+
+@pytest.mark.parametrize("L", [8, 40])
+def test_dem_kernels_leave_the_fill_of_a_particle_without_a_lane(dev, L):
+    """Grains made inactive have no lane: whatever their input rows
+    hold, the kernel leaves them the wrapper's fill (zero sums, -1
+    entries, zero springs), as the twin gives them."""
+    scene, cfg = _dem_scene(3, dev, "spill", "filled", L=L)
+    off = torch.zeros(scene.n, dtype=torch.bool, device=dev)
+    off[:scene.n // 2:7] = True
+    assert bool((scene.tng_idx[off] >= 0).any())
+    scene = scene.replace(active=scene.active & ~off)
+    got, ref = _dem_pass_pair(scene, cfg, "spill")
+    _check_dem_pass(got, ref)
+    for k in ("fx", "fy", "fz", "torx", "tory", "torz", "tng_x", "tng_y",
+              "tng_z", "count", "n_gated"):
+        assert bool((getattr(got, k)[off] == 0).all()), k
+    assert bool((got.tng_idx[off] == -1).all())
+    assert bool((got.tng_dem[off] == -1).all())
+
+
+@pytest.mark.parametrize("table", ["filled", "moved", "crowded"])
+@pytest.mark.parametrize("grid", ["spill", "rowwin"])
+def test_dem_narrow_instance_equals_wide_instance_bit_for_bit(
+        dev, grid, table, monkeypatch):
+    """At L = 8 the narrow instance (registers, 16-byte rows) and the
+    wide one (lists, bitmaps, the warp's write-back) give the same
+    sums, counts, tables and springs bit for bit: the same pair bodies
+    in the same candidate order."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    scene, cfg = _dem_scene(3 if table == "crowded" else 2, dev, grid, table,
+                            L=8)
+    run = (tdk.lvc_displacement_cell_kernel if grid == "spill"
+           else tdk.lvc_displacement_rowwin_kernel)
+    tabs = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x, scene.tng_y,
+            scene.tng_z)
+    kname = "dem_cell" if grid == "spill" else "dem_rowwin"
+    narrow = run(scene, cfg, 1e-5, *tabs)
+    before = _build.LAUNCHES_INSTANCE.get(f"{kname}/wide", 0)
+    monkeypatch.setattr(tdk, "table_instance", lambda L: ("wide", 0))
+    wide = run(scene, cfg, 1e-5, *tabs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_INSTANCE[f"{kname}/wide"] == before + 1
+    assert int(narrow.count.sum()) > 0
+    for k in narrow._fields:
+        assert torch.equal(getattr(narrow, k), getattr(wide, k)), k
+
+
+def test_dem_wrappers_refuse_a_table_past_the_widest(dev):
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+
+    scene, cfg = _dem_scene(2, dev, "spill", "empty", n_side=4,
+                            L=tdk.MAX_TABLE_WIDTH + 1)
+    with pytest.raises(NotImplementedError):
+        tdk.lvc_displacement_cell_kernel(
+            scene, cfg, 1e-5, scene.tng_idx, scene.tng_idx_dem_id,
+            scene.tng_x, scene.tng_y, scene.tng_z)
+
+
 def test_fluid_forces_smem_takes_every_entity_count(dev):
     """B5's contact columns go to the output, not shared memory: a block
     of ``fluid_forces_contact`` takes four warps at every slot width and

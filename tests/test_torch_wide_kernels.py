@@ -160,13 +160,15 @@ def test_contact_instance_refuses_no_entity():
 
 
 @pytest.mark.parametrize("L,want", [(1, ("l8", 8)), (8, ("l8", 8)),
-                                    (12, ("l16", 16)), (32, ("l32", 32)),
-                                    (40, ("rows", 0))])
+                                    (12, ("wide", 0)), (32, ("wide", 0)),
+                                    (40, ("wide", 0)), (9, ("wide", 0)),
+                                    (8192, ("wide", 0))])
 def test_dem_table_instance_takes_every_width(L, want):
-    """The DEM kernels: the least of the 8-, 16- and 32-slot instances
-    that holds the table, past 32 the rows in global memory; the sizes
-    check accepts every width."""
+    """The DEM kernels: the narrow instance up to 8 slots, past it the
+    wide one (the width a runtime argument, up to MAX_TABLE_WIDTH); the
+    sizes check accepts every width."""
     assert tdk.table_instance(L) == want
+    assert L <= tdk.MAX_TABLE_WIDTH
     tdk.check_sizes(1000, L, 2)
 
 

@@ -4,7 +4,7 @@ and the DEM spill grid (see ``tests/test_torch_wide_kernels.py``):
 * 3D, f64: K2's plain version (the wide instance's, S > 64) against the
   XLA cell engine on 65 small cubes over a floor slab (S = 66), rtol
   1e-10, as ``tests/test_torch_contact.py``'s 3D case.
-* The DEM spill-grid pass at L = 12 table slots (the 16-slot instance on
+* The DEM spill-grid pass at L = 12 table slots (the wide instance on
   the card): the port (on CPU tensors its kernel wrapper runs the plain
   version) against the Pallas spill kernel in interpret mode on a
   crowded grain block (up to 15 gated partners a grain: full tables,
@@ -151,7 +151,7 @@ def advance(scene, out_j, dt):
 def test_dem_spill_pass_12_slots_matches_pallas_interpret():
     scene = crowded_grains()
     assert scene.tng_idx.shape[1] == L_WIDE
-    assert tdk.table_instance(L_WIDE)[0] == "l16"
+    assert tdk.table_instance(L_WIDE)[0] == "wide"
     fields = {k: np.asarray(v) for k, v in scene.fields.items()}
     cutoff = 2.0 * float(fields["rad_s"].max())
     args = (fields["x"], fields["y"], fields["z"], cutoff, 2)
