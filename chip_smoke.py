@@ -21,7 +21,7 @@ no result line):
    K2 also on every interesting row (the rows the 3D path runs once its
    overflow rebuilds have raised ``ni_max``), timed with its bound;
 4. the rigid main path: ``RigidBody2DScheme.setup`` -> ``make_step`` ->
-   ``step`` for 200 steps at dt = 1e-4 on a ~105k-particle scene that is
+   ``step`` for 150 steps at dt = 1e-4 on a ~105k-particle scene that is
    in contact from the first step (a resting stack of 8 blocks in two
    rows of 4 on a tank floor), in chunks with the overflow-rebuild rule;
    checks launch counts, interesting slots, overlap, finiteness,
@@ -30,7 +30,7 @@ no result line):
    steps/s;
 5. 20 rigid kernel steps against 20 twin steps from one state;
 5a. the 3D main path: ``RigidBody3DScheme.setup`` -> ``make_step`` ->
-   ``step`` for 200 steps at dt = 1e-4 on 8 cubes at rest on a floor slab
+   ``step`` for 150 steps at dt = 1e-4 on 8 cubes at rest on a floor slab
    (~116.5k particles, S = 9), in chunks with the overflow-rebuild rule
    (each rebuild and the final ``ni_max``, NC and O printed), under
    phase 4's gates (COM drift over x, y and z); prints steps/s;
@@ -64,7 +64,7 @@ no result line):
     inputs bit for bit; times, lanes and pairs; K1 on the sinking box's
     coupling pack (F = 14) bit for bit, timed with its bound;
 11. the coupling main path: ``RigidFluidCouplingScheme.setup`` ->
-    ``make_step`` -> ``step``, 200 fused kdkf steps of the sinking box at
+    ``make_step`` -> ``step``, 150 fused kdkf steps of the sinking box at
     the case's dt = 0.25 dx / (1.1 c0), in chunks with the
     overflow-rebuild rule; checks one K1, one B4 and one B5 launch per
     step and no K2, finiteness, overflow, fluid rho within 5 % of rho0
@@ -84,7 +84,7 @@ no result line):
     (timed) and with the box on the floor (contact picks > 0): sums as
     in phase 10 (two launches bit for bit), K2's picks bit for bit;
     times, lanes and pairs;
-15. the kdk ordering: ``gtvf_ordering="kdk"``, 200 steps of the sinking
+15. the kdk ordering: ``gtvf_ordering="kdk"``, 150 steps of the sinking
     box as in phase 11; checks two K1, one B6a, one B6b, one B6c and one
     K2 launch per step and nothing else, and the gates of phase 11;
 16. the reference ordering, the same with one K1 launch per step;
@@ -100,10 +100,10 @@ no result line):
     their twins as in phase 10, each timed with its bound;
 20. the 3D coupling main path: phase 19's box through ``make_step``,
     driven by the port's ``Solver`` (chunks of 50, the overflow rule,
-    snapshots): 200 fused kdkf steps under phase 11's gates (one K1, B4
+    snapshots): 150 fused kdkf steps under phase 11's gates (one K1, B4
     and B5 launch a step and nothing else); then 20 kernel steps against
     20 twin steps (rtol 1e-4); prints steps/s;
-21. benchmark 5 in 2D with two cubes, run to its own tf (5,000 steps)
+21. benchmark 5 in 2D with two cubes, run to half its tf (2,500 steps)
     through the port's ``Application``, gated by the port's
     ``check_benchmark_5`` (COM displacement < 2 spacings); one K1 and
     one K2 launch a step; prints steps/s and the displacement;
@@ -123,7 +123,7 @@ no result line):
 24. the leapfrog step (``integrator="leapfrog"``) on phase 5a's 3D
     cubes, the same way with one K1 and one K2 launch a step;
 25. the RK2 coupling step (``fluid_stepper="rk2"``, Tait) on the sinking
-    box of phase 11: 200 steps (as phase 11: at y = 3 the box's f32 COM
+    box of phase 11: 150 steps (as phase 11: at y = 3 the box's f32 COM
     moves only once a step's displacement passes half an ulp, after
     ~100 steps from rest), two K1, B6a, B6b, B6c and K2 launches a step
     and nothing else, phase 11's gates; then 20 kernel steps against 20
@@ -144,7 +144,7 @@ no result line):
     and the bodies' state within STEP_RTOL, positions as their change
     over the steps, by gid); 4 K1 and 4 K2 launches a step and nothing
     else; some slab with interesting slots; K1 and K2 on each slab's
-    extended scene against their twins, timed; then 200 steps with an
+    extended scene against their twins, timed; then 150 steps with an
     on-device redistribution every 50 under phase 4's gates, and the
     steps/s of 4 slabs and of one;
 29. the 3D cubes of phase 5a on the most slabs of at least 2 cell
@@ -171,7 +171,7 @@ no result line):
     B6b, B6c, K2; kdkf: K1, B4, B6c, K2); on each slab's extended scene
     K1, the ordering's fluid passes and K2 on every slot against their
     plain versions, timed with their bounds, and some slab with rigid
-    ghost rows; then 200 steps of the sinking box (phase 11's) with an
+    ghost rows; then 150 steps of the sinking box (phase 11's) with an
     on-device redistribution every 50 under phase 11's gates, and the
     steps/s of SLAB_P slabs and (kdkf) of one;
 33. the 3D box of phase 19 on SLAB_P slabs, kdkf, as phase 32 without
@@ -192,7 +192,7 @@ no result line):
     steps from a fresh set-up;
 37. the DEM column on lists: 100 LVCDisplacement steps under phase 7's
     gates and 20 LVCForce steps, no kernel launched, K printed;
-38. the sinking box on lists: 200 kdk and 200 reference steps under
+38. the sinking box on lists: 150 kdk and 150 reference steps under
     phase 11's gates, no kernel launched, K and the peak memory printed;
 39. the five non-quintic SPH kernels (cubic, Wendland C2 and C4,
     Gaussian, super-Gaussian): their ``contact.cu`` and ``fluid.cu``
@@ -207,7 +207,7 @@ no result line):
 40. the main paths with each of them: the 2D resting stack under GTVF,
     100 steps under phase 4's gates, one K1 and one K2 of the kernel's
     library a step; the sinking box under kdkf (one K1, B4 and B5 a
-    step; 200 steps under phase 11's gates with the cubic, 50 with the
+    step; 150 steps under phase 11's gates with the cubic, 50 with the
     others) and kdk (two K1, B6a, B6b, B6c and K2 a step, 50 steps), the
     short runs without the gate on the box's sinking, the
     super-Gaussian's 10 steps (its negative tail makes the fluid
@@ -272,7 +272,27 @@ no result line):
     through a 50-step main path at dt 5e-7 under phase 7's gates (every
     launch the width's instance); at 12 on the spill grid 20 kernel
     steps against 20 plain steps (one K4 a kernel step);
-47. a JSON line of per-kernel numbers (``launches`` from the kernel's
+47. the classic cell grid (one slot a cell, lanes from occupancy, set as
+    the scheme's config before the set-up): the 2D stack's (M 32, O 9),
+    its sub = 2 stencil's (M 8, O 25) and the 3D cubes' (M 104, O 27):
+    K2 on every slot of the gathered pack against its plain version
+    (picks bit for bit, sums at phase 3's tolerance), timed with its
+    bound; 100 GTVF steps under phase 4's gates (one K2 a step at the
+    grid's width, no K1, the full [N, S] schema, no overflow); 20 kernel
+    steps against 20 plain steps;
+48. the kdk coupling ordering on the sinking box's classic grid of 48
+    lanes (the kdkf step refuses it): B6a (EDAC and Tait), B6b, B6c and
+    K2 on every slot against their plain versions, timed; 150 steps under
+    phase 11's gates (B6a, B6b, B6c and K2 a step at 48 lanes, no K1);
+    20 kernel steps against 20 plain steps with the dense box on the
+    floor; 49. the kdk ordering on the 3D sinking box's own classic grid
+    (the coupling's lane rule: M 80, O 27): B6a, B6b, B6c and K2 on
+    every slot against their plain versions, timed; 100 steps under
+    phase 11's gates (each a step at 80 lanes, no K1); 20 kernel steps
+    against 20 plain steps; then the split passes on the same box's pack
+    at 176 lanes a slot against their plain versions, timed (K2 refuses
+    that width);
+50. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
@@ -292,7 +312,11 @@ no result line):
     ``fluid_forces_contact`` entry is the full route's, by particle),
     ``dem_cell/wide`` and ``dem_rowwin/wide`` (every width of phase 46,
     each beside the narrow instance at L = 8 on the same column), with
-    its launches from its phase 44-46 main path),
+    its launches from its phase 44-46 main path), and for each classic
+    instance, ``contact_sums/narrow/lanes<M>`` (K2 at each grid's width)
+    and ``fluid_rates``, ``wall_bc``, ``fluid_forces`` ``/lanes48`` and
+    ``/lanes80`` (the 80-lane ones with their times at 176 lanes
+    beside), with its launches from its phase 47-49 main path,
     the script's seconds, then the result line.
 
 It imports nothing from JAX or the JAX package.
@@ -305,6 +329,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import types
 import time
 
 import numpy as np
@@ -312,7 +337,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DT = 1e-4
-N_STEPS = 200
+N_STEPS = 150
 CHUNK = 50
 COMPARE_STEPS = 20
 REPS = 20
@@ -362,7 +387,9 @@ FLOOR_EPS = 0.00478
 # coupling: bench.py's coupling workload at BENCH_N = 100000 (the sinking
 # box with its spacing scaled from 0.02 at ~33k particles)
 CPL_N = 100_000
-CPL_STEPS = 200
+CPL_STEPS = 150
+# benchmark 5 2D (phase 21): half the case's tf, at its dt of 1e-4
+B5_TF, B5_STEPS = 0.25, 2500
 CPL_TANK_STEPS = 50
 CPL_NOFLUID_STEPS = 50
 # the rigid steppers' main paths (phases 23-24)
@@ -540,6 +567,19 @@ def cuda_ms(fn, reps=REPS, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def timed_call(fn):
+    """``fn()`` and the ms of that one call between two CUDA events (for
+    the plain versions, whose calls take 10^2-10^3 ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -564,9 +604,25 @@ def slot_lanes(cnt, nbr):
 # scenes
 # ---------------------------------------------------------------------------
 
+def classic_config(scheme, scene, **grid):
+    """A classic cell grid config (``cellpairs.config_from_positions``
+    with ``grid``: ``spill=False``, ``sub=2`` or an explicit ``M``) of the
+    scene's positions at the scheme's cutoff (radius scale x max h)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    host = lambda k: scene[k].detach().cpu().numpy()
+    cutoff = float(get_kernel(scheme.kernel_name, scheme.dim).radius_scale
+                   * host("h").max())
+    cfg = tcell.config_from_positions(host("x"), host("y"), host("z"),
+                                      cutoff, scheme.dim, **grid)
+    check(not cfg.spill, f"{grid}: not a classic grid")
+    return cfg
+
+
 def contact_scene_2d(dev, n_target=100_000, coupling=False,
                      integrator="gtvf", engine="cell", kernel="quintic",
-                     skin=0.0, n_bodies=8, cols=4):
+                     skin=0.0, n_bodies=8, cols=4, grid=None):
     """8 blocks of side 0.2 in two rows of 4 on the floor of a 3-layer
     tank (the bench's body size and count), a resting stack: the bottom
     row sits GAP dx above the floor's surface layer, neighbours GAP dx
@@ -578,7 +634,9 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
     reference's stack-of-cylinders setup) instead of the rigid scheme;
     ``integrator`` is the rigid scheme's stepper, ``engine`` its pair
     engine, ``kernel`` its SPH kernel and ``skin`` its Verlet skin factor
-    (set before the set-up, which identifies the surfaces on them)."""
+    (set before the set-up, which identifies the surfaces on them);
+    ``grid`` (``classic_config``'s arguments) sets a classic cell grid as
+    the scheme's config before the set-up."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, create_tank_2d_from_block_2d)
@@ -626,11 +684,14 @@ def contact_scene_2d(dev, n_target=100_000, coupling=False,
         scheme.skin_factor = skin
     scheme.engine = engine
     scheme.kernel_name = kernel
+    if grid is not None:
+        scheme._cell_cfg = classic_config(scheme, scene, **grid)
     return scheme, scheme.setup(scene), dx
 
 
 def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
-                     engine="cell", kernel="quintic", layout=(4, 2, 1)):
+                     engine="cell", kernel="quintic", layout=(4, 2, 1),
+                     grid=None):
     """8 cubes of side 0.2 in a 4 x 2 layout on a 3-layer floor slab, at
     rest on it (the 3D bench's body size).  Each cube's bottom face sits
     where the floor carries its weight: the face's overlap is m g / (kr
@@ -646,7 +707,8 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
     ``layout`` (cubes along x, z and y) other than the default stacks
     ``layout`` cubes, the layers 0.95 dx apart too, on a floor widened to
     hold them, each cube a group of its own (its faces to its neighbours
-    then carry contact), ~n_target particles in the cubes."""
+    then carry contact), ~n_target particles in the cubes.  ``grid`` as
+    in ``contact_scene_2d``."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import get_3d_block
     from rigid_body_2d_3d_pysph_tpu_torch.models import RigidBody3DScheme
@@ -698,6 +760,8 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
     scene = build_scene(bodies + [floor], dim=3,
                         total_no_bodies=n_bodies + 1, spacing0=dx,
                         device=dev, dtype=config.WORK_DTYPE)
+    if grid is not None:
+        scheme._cell_cfg = classic_config(scheme, scene, **grid)
     return scheme, scheme.setup(scene), dx
 
 
@@ -706,12 +770,12 @@ def contact_scene_3d(dev, n_target=100_000, integrator="gtvf",
 # ---------------------------------------------------------------------------
 
 def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label,
-                 plain_reps=REPS):
+                 plain_reps=0):
     """K2 on the first ``ni`` interesting rows against its twin (picks
     bit for bit, sums within SUM_RTOL), timed (the twin over
-    ``plain_reps`` calls), with its bound.  Returns the numbers (with
-    the rows' interesting-slot count), the output and the rows' slots
-    and validity."""
+    ``plain_reps`` calls; 0: on its one checking call), with its bound.
+    Returns the numbers (with the rows' interesting-slot count), the
+    output and the rows' slots and validity."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
 
     qsel, nbr, valid, _, n_int = tck.select_queries(dfT, grid, pt, cfg, ni)
@@ -719,8 +783,8 @@ def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label,
     check(n_int > 0, f"{label}: no interesting slots")
     args = (dfT, qsel, nbr, S, cfg.radius, init, kernel)
     out = tck.contact_sums(*args)
-    out_ref = tck.contact_sums_reference(*args)
-    torch.cuda.synchronize()
+    out_ref, plain_once = timed_call(
+        lambda: tck.contact_sums_reference(*args))
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
     check(torch.equal(out[..., 5 * S:], out_ref[..., 5 * S:]),
           f"{label}: contact picks != twin (max "
@@ -736,7 +800,8 @@ def contact_rows(dfT, grid, pt, cfg, kernel, S, init, ni, label,
              ni=qsel.shape[0], n_int=n_int,
              ms=cuda_ms(lambda: tck.contact_sums(*args)),
              plain_ms=cuda_ms(lambda: tck.contact_sums_reference(*args),
-                              reps=plain_reps, warmup=min(3, plain_reps)))
+                              reps=plain_reps, warmup=min(3, plain_reps))
+             if plain_reps else plain_once)
     # least time: K2 needs the F fields of the particles in the slots that
     # the rows' stencils reach, the rows' slots and stencil rows, and
     # writes 12S values for every lane of every row (the Eq.-24 tail
@@ -884,7 +949,9 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
     kernel = get_kernel(scheme.kernel_name, scheme.dim)
     listed = scheme.engine == "nklist"
     skin = scheme.uses_skin
-    compact = scheme.integrator == "gtvf" and not listed and not skin
+    # the classic grid: K2 on every slot of a gathered pack, no K1
+    classic = not listed and not scheme.cell_config(scene, kernel).spill
+    compact = not listed and scheme.uses_compact(scene, kernel)
     check(compact == ("cl_pid" in scene), f"{label}: the compact slot "
           f"store is {'missing' if compact else 'there'}")
     step = scheme.make_step(scene)
@@ -917,7 +984,10 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
         steps_run += n
         if bool(scene.nbr_overflow):
             # the reference Solver's rule: re-size from the chunk's start
-            # state (1.5x slack from the second try on) and re-run it
+            # state (1.5x slack from the second try on) and re-run it; a
+            # rebuild re-sizes a spill grid, on whose route the run goes
+            # on, so a classic phase that overflows measures another route
+            check(not classic, f"{label}: the classic grid overflowed")
             rebuilds += 1
             check(rebuilds <= 8, "overflow persists after 8 rebuilds")
             scheme.refresh_configs(chunk_start, grow=rebuilds > 1)
@@ -948,7 +1018,8 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
     launches = dict(_build.LAUNCHES)
     for k, v in launches.items():
         want = (evals * steps_run if not listed and (
-            k == "contact" or (k == "pack_expand" and not skin)) else 0)
+            k == "contact" or (k == "pack_expand" and not skin
+                               and not classic)) else 0)
         check(v == want, f"{label}: {k} launched {v} times in {steps_run} "
               f"steps, expected {want}")
     launches = check_instances(label, scheme.kernel_name, launches)
@@ -987,7 +1058,8 @@ def phase_main_path(scheme, scene, dx, smi, label="main", n_steps=N_STEPS,
     else:
         cfg = scheme.cell_config(scene, kernel)
         work = (f"{evals} evaluation(s) a step, K2 on all {cfg.NC_max} "
-                f"slots (O {cfg.O})")
+                f"slots (M {cfg.M}, O {cfg.O}"
+                + (", classic grid, no K1)" if classic else ")"))
         if skin:
             work += (f", skin {cfg.skin:.4g} (bins {cfg.cell:.4g}), grid "
                      f"rebuilds {grid_builds} in {done} steps")
@@ -1505,7 +1577,7 @@ def phase_dem_parity(scheme, scene, other=None, label="dem-parity",
 # ---------------------------------------------------------------------------
 
 def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
-                      rho_b=2.0, engine="cell", kernel="quintic"):
+                      rho_b=2.0, engine="cell", kernel="quintic", grid=None):
     """``cases/rigid_body_rotating_and_sinking_in_tank_2d.py`` built with
     the port's geometry at bench.py's coupling size: a 4 x 3 fluid block
     in a 3-layer tank, a 1 x 0.5 box (rho 2) at the surface with the
@@ -1514,7 +1586,8 @@ def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
     GAP dx above the tank floor's top layer instead; ``body=False``
     leaves it out (the hydrostatic tank); ``rho_b`` is the box's
     density, ``engine`` the scheme's pair engine, ``kernel`` its SPH
-    kernel.  Returns (scheme, scene, dt)."""
+    kernel, ``grid`` as in ``contact_scene_2d``.  Returns (scheme, scene,
+    dt)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, hydrostatic_tank_2d)
@@ -1556,6 +1629,8 @@ def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
         p0=rho_f * co**2, c0=co, h=h, nu=0.0, gy=gy)
     scheme.engine = engine
     scheme.kernel_name = kernel
+    if grid is not None:
+        scheme._cell_cfg = classic_config(scheme, scene, **grid)
     scene = scheme.setup(scene)
     if body:
         rb = scene.is_rigid
@@ -1565,7 +1640,7 @@ def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
     return scheme, scene, 0.25 * dx / (co * 1.1)
 
 
-def fluid_pass_work(dfT, nbr, cnt, cutoff, chunk=2048):
+def fluid_pass_work(dfT, nbr, cnt, cutoff, pair_lanes=1 << 26):
     """The work of the coupling passes' bodies on the pack ``dfT`` over
     the stencil rows ``nbr`` (``cnt`` live lanes per slot), by the classes
     each body runs on: the candidate lanes scanned by the query lanes of
@@ -1588,6 +1663,8 @@ def fluid_pass_work(dfT, nbr, cnt, cutoff, chunk=2048):
                 lanes_fluid_rigid=lanes(fl | rg))
     work.update(dict.fromkeys(("in_range", "gated", "fl_flbd", "fl_rg",
                                "fl_fl", "visc", "solid_fl", "rg_fl"), 0))
+    # slots a chunk: at most pair_lanes (query, candidate) lanes
+    chunk = max(1, min(2048, pair_lanes // (M * O * M)))
     for c0 in range(0, NC, chunk):
         nb = nbr[c0:c0 + chunk]
         B = nb.shape[0]
@@ -1660,9 +1737,11 @@ def kernel_resources(template, args, helper, t, sph="quintic"):
     library of SPH kernel ``sph``, and the dynamic shared memory a block
     takes (the C entry ``helper``) at the lanes a slot and output columns
     of the timed pass ``t`` (the forces template: at its entity slots,
-    0 for B6c)."""
+    0 for B6c); the instance of a slot wider than a warp where ``t``'s
+    slots are."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
+    args = tuple(args) + (t["M"] > 32,)
     key = template + "I" + "".join(
         f"Lb{int(a)}E" if isinstance(a, bool) else f"Li{a}E"
         for a in args) + "E"
@@ -1706,7 +1785,7 @@ def check_fluid_columns(got, ref, cols, label, floor=0.0):
 
 
 def fluid_pass_checks(calls, dfT, nbr, pt, cutoff, S, init, visc, label,
-                      timed):
+                      timed, plain_reps=0):
     """Each pass of ``calls`` ({name: (kernel wrapper, twin, arguments,
     its name for the cost, EDAC, bodies)}) against its twin on the pack
     ``dfT``: finite, two launches bit for bit, not all zero, sums within
@@ -1716,7 +1795,8 @@ def fluid_pass_checks(calls, dfT, nbr, pt, cutoff, S, init, visc, label,
     unit contact normals within FLUID_SUM_RTOL absolute, the contact sums
     as K2's.  ``timed`` also times each and computes its bound (B5 also
     by the count before the redesign, ``old_bound_ms``: 12 S + 6 words
-    out per live lane).  Returns ({name: numbers}, the work counts, B5's
+    out per live lane; ``plain_reps`` 0: the plain version timed on its
+    one checking call).  Returns ({name: numbers}, the work counts, B5's
     contact rows with a pick or None)."""
     work = fluid_pass_work(dfT, nbr, pt.cnt, cutoff)
     n_live = int(pt.n_valid)
@@ -1724,8 +1804,7 @@ def fluid_pass_checks(calls, dfT, nbr, pt, cutoff, S, init, visc, label,
     for name, (fast, plain, args, cost_name, edac, bodies) in calls.items():
         got = fast(*args)
         again = fast(*args)
-        ref = plain(*args)
-        torch.cuda.synchronize()
+        ref, plain_once = timed_call(lambda: plain(*args))
         b5 = cost_name == "fluid_forces_contact"
         extra = 0
         if b5:
@@ -1774,7 +1853,8 @@ def fluid_pass_checks(calls, dfT, nbr, pt, cutoff, S, init, visc, label,
         del got, again, ref
         if timed:
             t["ms"] = cuda_ms(lambda: fast(*args))
-            t["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+            t["plain_ms"] = (cuda_ms(lambda: plain(*args), reps=plain_reps,
+                                     warmup=1) if plain_reps else plain_once)
             # least time: the fields read and W outputs per live lane
             # once (and B5's contact rows, each read by the step); the
             # f32 operations of this data's pairs
@@ -1797,15 +1877,23 @@ def print_fluid_passes(tag, label, out):
                   f"{v['bound_by']})", flush=True)
 
 
-def fluid_scene_pack(scheme, scene, label, seed, p_fsi=False):
+def classic_tables(grid, cfg, n):
+    """The pack tables ``fluid_pass_checks`` reads (live lanes a slot,
+    live lanes in all) of a classic grid, whose pack is gathered."""
+    cnt = (grid.slot2p < n).reshape(cfg.NC_max, cfg.M).sum(1)
+    return types.SimpleNamespace(cnt=cnt, n_valid=cnt.sum())
+
+
+def fluid_scene_pack(scheme, scene, label, seed, p_fsi=False, cfg=None):
     """This scene's coupling pack with seeded random velocities (and body
     ``p_fsi``): (kernel, cfg, grid, pack tables, dfT, S, contact init
-    distance)."""
+    distance); ``cfg`` a classic grid in place of the scheme's (its pack
+    gathered, its tables ``classic_tables``)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
     kernel = get_kernel(scheme.kernel_name, scheme.dim)
-    cfg = scheme.cell_config(scene, kernel)
+    cfg = cfg or scheme.cell_config(scene, kernel)
     dev = scene.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda a: (torch.rand(scene.n, generator=gen, device=dev) - 0.5) * a
@@ -1815,7 +1903,11 @@ def fluid_scene_pack(scheme, scene, label, seed, p_fsi=False):
     if p_fsi:
         vel["p_fsi"] = torch.where(scene.is_rigid, rnd(2.0), scene.p_fsi)
     scene = scene.replace(**vel)
-    grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg)
+    if cfg.spill:
+        grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg)
+    else:
+        grid, dfT = fk.pack_fluid_classic(scene, cfg)
+        pt = classic_tables(grid, cfg, scene.n)
     check(not bool(grid.overflow), f"{label}: grid overflow")
     return (kernel, cfg, grid, pt, dfT, scene.meta.total_no_bodies,
             4.0 * scene.meta.spacing0)
@@ -2150,14 +2242,15 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
 
 
 def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed,
-                      plain_reps=3):
+                      plain_reps=0):
     """K2 on every slot of the contact pack ``dfT`` (the cell pipeline of
     the kdk, reference and RK2 coupling orderings, the rigid RK2,
     leapfrog and skin steps) as the pipeline runs it, by particle (the
     grid keeps ``dense_pos``), against its twin: picks bit for bit, the
     sums as in phase 3; ``timed`` also times both, the query-row layout
     and that layout unpacked (the pipeline before the redesign), and
-    computes the bound.  Returns (numbers, particles with a pick)."""
+    computes the bound (``plain_reps`` 0: the twin timed on its one
+    checking call).  Returns (numbers, particles with a pick)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
 
@@ -2169,8 +2262,8 @@ def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed,
     args = (dfT, torch.arange(NC, device=dfT.device), nbr, S, cfg.radius,
             init, kernel)
     out = tck.contact_sums(*args, lanes=lanes)
-    ref = tck.contact_sums_reference(*args, lanes=lanes)
-    torch.cuda.synchronize()
+    ref, plain_once = timed_call(
+        lambda: tck.contact_sums_reference(*args, lanes=lanes))
     check(bool(torch.isfinite(out).all()), f"{label}: K2 non-finite output")
     check(torch.equal(out[..., 5 * S:], ref[..., 5 * S:]),
           f"{label}: K2 picks on every slot != twin (max "
@@ -2190,7 +2283,7 @@ def contact_all_slots(dfT, grid, cfg, kernel, S, init, label, timed,
         t["ms"] = cuda_ms(lambda: tck.contact_sums(*args, lanes=lanes))
         t["plain_ms"] = cuda_ms(
             lambda: tck.contact_sums_reference(*args, lanes=lanes),
-            reps=plain_reps, warmup=1)
+            reps=plain_reps, warmup=1) if plain_reps else plain_once
         # the layout before the redesign: by query row, then unpacked
         t["rows_ms"] = cuda_ms(lambda: tck.contact_sums(*args))
         t["rows_unpack_ms"] = cuda_ms(lambda: tcell.unpack(
@@ -2255,14 +2348,15 @@ def phase_split_kernels(scheme, scene, label, timings, timed):
     return work["gated"], n_pick
 
 
-def sinking_box_scene_3d(dev, n_target=CPL_N):
+def sinking_box_scene_3d(dev, n_target=CPL_N, grid=None):
     """The sinking box in 3D, set up through the port's
     ``RigidFluidCouplingScheme(dim=3)``: a 1.0 x 0.6 x 0.5 fluid block
     (x, y, z) in a 3-layer hydrostatic tank (``get_fluid_tank_3d``), a
     0.3 x 0.15 x 0.3 box of rho 2 centred in x and z, dipped into the
     surface, the fluid void carved under it, hydrostatic pressure, the box's displaced-fluid shadow mass and
     density; the 2D case's h = dx, c0 = 10 sqrt(2 g H) and fluid rho 1.
-    dx = 0.0175 at ~97k particles.  Returns (scheme, scene)."""
+    dx = 0.0175 at ~97k particles.  ``grid`` as in ``contact_scene_2d``.
+    Returns (scheme, scene)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_3d_block, get_fluid_tank_3d)
@@ -2299,6 +2393,8 @@ def sinking_box_scene_3d(dev, n_target=CPL_N):
     scheme = RigidFluidCouplingScheme(
         ["fluid"], ["tank"], ["body"], dim=3, rho0=rho_f, p0=rho_f * co**2,
         c0=co, h=dx, nu=0.0, gy=gy)
+    if grid is not None:
+        scheme._cell_cfg = classic_config(scheme, scene, **grid)
     scene = scheme.setup(scene)
     rb = scene.is_rigid
     scene = scene.replace(
@@ -2378,7 +2474,13 @@ def phase_coupling_3d(scheme, scene, tmp, smi):
           f"(snapshots every {CHUNK} steps; {el:.2f} s in all), on {smi}",
           flush=True)
 
-    # 20 kernel steps against 20 twin steps from the end state
+    phase_coupling_3d_parity(scheme, end, dt, label)
+    return launches, solver.steps_per_sec
+
+
+def phase_coupling_3d_parity(scheme, end, dt, label):
+    """20 kernel steps against 20 twin steps of the 3D sinking box from
+    ``end``, in the scheme's ordering (STEP_RTOL)."""
     fast, plain = scheme.make_step(end), scheme.make_step(end, plain=True)
     a = b = end
     for _ in range(COMPARE_STEPS):
@@ -2414,7 +2516,6 @@ def phase_coupling_3d(scheme, scene, tmp, smi):
     print(f"[{label}-parity] {COMPARE_STEPS} kernel steps vs "
           f"{COMPARE_STEPS} twin steps, max abs diff: " + ", ".join(worst),
           flush=True)
-    return launches, solver.steps_per_sec
 
 
 def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4,
@@ -2644,8 +2745,9 @@ def phase_coupling_compact(dev, dim, n_steps, smi, n_target=CPL_N):
 
 
 def phase_benchmark_5(tmp, smi):
-    """Benchmark 5 in 2D with two cubes, run to its own tf (0.5 s at dt
-    1e-4: 5,000 steps) through the port's ``Application``, then the port's
+    """Benchmark 5 in 2D with two cubes, run to half its tf (0.25 s at dt
+    1e-4: 2,500 steps; the whole case, 5,000 steps, runs through
+    ``run_suite.py``) through the port's ``Application``, then the port's
     ``check_benchmark_5`` on its snapshots: COM displacement < 2 spacings.
     Returns (launches, steps/s)."""
     from rigid_body_2d_3d_pysph_tpu_torch import validate as tval
@@ -2657,12 +2759,13 @@ def phase_benchmark_5(tmp, smi):
     app = b5.Benchmark5_2D(fname="benchmark_5_2d")
     _build.reset_launches()
     t0 = time.perf_counter()
-    app.run(["--two-cubes", "-d",
+    app.run(["--two-cubes", "--tf", str(B5_TF), "-d",
              os.path.join(tmp, "benchmark_5_2d_two_output"), "--quiet"])
     el = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     steps = app.solver.steps_run
-    check(app.solver.count == 5000, f"{label}: {app.solver.count} steps")
+    check(app.solver.count == B5_STEPS,
+          f"{label}: {app.solver.count} steps")
     for k in launches:
         want = steps if k in ("pack_expand", "contact") else 0
         check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
@@ -2853,13 +2956,14 @@ def build_sph_instances():
 
 
 def contact_resources(sph, two_d=True):
-    """ptxas's registers and spill bytes of K2's 2D (or 3D) instance in
-    the library of SPH kernel ``sph``."""
+    """ptxas's registers and spill bytes of K2's 2D (or 3D) narrow
+    instance at the spill grids' 16 lanes in the library of SPH kernel
+    ``sph``."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
     usage = [u for e, u in _build.ptxas_usage(_build.BUILD_LOG.get(
         _build.instance("contact", sph), "")).items()
-        if f"contact_kernelILb{int(two_d)}E" in e]
+        if f"contact_kernelILb{int(two_d)}ELb0ELb0EE" in e]
     u = usage[0] if usage else {}
     return dict(registers=u.get("registers"), smem_static=u.get("smem"),
                 spill_bytes=(u["spill_stores"] + u["spill_loads"]
@@ -3243,8 +3347,7 @@ def _slab_k2(e, d, lcfg, kernel, scheme, label, every_slot):
         t["bound"] = t["bound_ms"]
     else:
         t = contact_rows(dfT, grid, pt, lcfg, kernel, S, init,
-                         scheme.ni_max(lcfg), f"{label} slab {d}",
-                         plain_reps=3)[0]
+                         scheme.ni_max(lcfg), f"{label} slab {d}")[0]
     t.update(slab=d, n=int(e.active.sum()), n_int=n_int,
              pack_ms=cuda_ms(lambda: tpe.expand_slots(*k1)))
     return t
@@ -4127,6 +4230,263 @@ def wide_kernel_entries(kernels, wide_k2, wide_b5, wide_dem, src):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the classic cell grid (phases 47-49)
+# ---------------------------------------------------------------------------
+
+# the rigid scenes' classic grids: the 2D stack's with lanes from
+# occupancy (M 32, O 9) and on the sub = 2 stencil (M 8, O 25), the 3D
+# cubes' (M 104, O 27)
+CLASSIC_RIGID = (("stack", 2, dict(spill=False)),
+                 ("stack-sub2", 2, dict(sub=2)),
+                 ("cubes", 3, dict(spill=False)))
+# the sinking box's: at its cutoff (3 dx, h = dx) the coupling's lane
+# rule (occupancy_safety 2.6) gives 32 lanes in 2D and 80 in 3D.  The 3D
+# box runs on its own grid (M 80); the 2D box at 48 lanes, and the 3D
+# box's split passes also at 176 (the widths the rule gives at the rigid
+# scenes' 3.9 dx), set explicitly, so the passes run past one warp a slot
+CLASSIC_BOX = dict(spill=False, M=48)
+CLASSIC_BOX_3D = dict(spill=False, occupancy_safety=2.6)
+CLASSIC_BOX_3D_WIDE = dict(spill=False, M=176)
+CLASSIC_STEPS = 100
+CLASSIC_CPL_STEPS = 150
+CLASSIC_CPL_3D_STEPS = 100
+CLASSIC_SPLIT = ["fluid_rates", "fluid_rates_tait", "wall_bc",
+                 "fluid_forces_rigid"]
+CLASSIC_SPLIT_3D = ["fluid_rates", "wall_bc", "fluid_forces_rigid"]
+
+
+def phase_classic_rigid(dev, smi):
+    """47. The rigid GTVF step on classic grids set before the set-up
+    (the 2D stack with lanes from occupancy and on the sub = 2 stencil,
+    the 3D cubes): K2 on every slot of the gathered pack against its
+    twin (picks bit for bit, sums at phase 3's tolerance), timed with its
+    bound; CLASSIC_STEPS steps under phase 4's gates (one K2 a step, no
+    K1, the full [N, S] schema); 20 kernel steps against 20 twin steps.
+    Returns {label: numbers}."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+
+    out = {}
+    for label, dim, grid in CLASSIC_RIGID:
+        t0 = time.perf_counter()
+        build = contact_scene_2d if dim == 2 else contact_scene_3d
+        scheme, scene, dx = build(dev, grid=grid)
+        kernel = get_kernel(scheme.kernel_name, dim)
+        cfg = scheme.cell_config(scene, kernel)
+        check(not cfg.spill and "cl_pid" not in scene,
+              f"classic {label}: set up compact or on the spill grid")
+        print(f"[classic-setup] {label}: n={scene.n} M={cfg.M} O={cfg.O} "
+              f"NC={cfg.NC_max} sub={cfg.sub} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        S, init = scene.meta.total_no_bodies, 4.0 * scene.meta.spacing0
+        cgrid, dfT = tck.pack_classic(seeded_velocities(scene, dim, 7), cfg)
+        check(not bool(cgrid.overflow), f"classic {label}: grid overflow")
+        k2, n_pick = contact_all_slots(dfT, cgrid, cfg, kernel, S, init,
+                                       f"classic-{label}", timed=True)
+        check(n_pick > 0, f"classic {label}: no contact pick")
+        del cgrid, dfT
+        end, launches, stats = phase_main_path(
+            scheme, scene, dx, smi, f"classic-{label}", CLASSIC_STEPS)
+        inst = f"contact/{tck.lanes_instance('narrow', cfg.M)}"
+        check(launches.get(inst, 0) == launches["contact"],
+              f"classic {label}: K2 ran another instance than {inst}")
+        phase_step_parity(scheme, end, f"classic-{label}-parity")
+        out[label] = dict(k2=k2, launches=launches, stats=stats, M=cfg.M,
+                          O=cfg.O, NC=cfg.NC_max, inst=inst,
+                          seconds=time.perf_counter() - t0)
+        del scheme, scene, end
+    return out
+
+
+def phase_classic_coupling(dev, smi):
+    """48. The kdk coupling ordering on a classic grid of CLASSIC_BOX set
+    before the set-up, on the sinking box: the kdkf step refuses the
+    grid; B6a (EDAC and Tait), B6b and B6c with bodies on the gathered
+    pack and K2 on every slot of its contact pack against their twins,
+    timed with their bounds; CLASSIC_CPL_STEPS steps under phase 11's
+    gates (B6a, B6b, B6c and K2 a step at the grid's width, no K1); 20
+    kernel steps against 20 twin steps with the dense box on the floor.
+    49. The kdk ordering on the 3D sinking box's classic grid of the
+    lane rule (CLASSIC_BOX_3D, set before the set-up; M 80, O 27): B6a,
+    B6b, B6c and K2 on its pack against their twins, timed;
+    CLASSIC_CPL_3D_STEPS steps under phase 11's gates (each a step at the
+    grid's width, no K1); 20 kernel steps against 20 twin steps from the
+    end state.  Then B6a, B6b and B6c at CLASSIC_BOX_3D_WIDE (176 lanes)
+    on the same scene against their twins, timed, and K2 refusing that
+    width, as the reference's does.  Returns the numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
+
+    t0 = time.perf_counter()
+    scheme, scene, dt = sinking_box_scene(dev, grid=CLASSIC_BOX)
+    try:
+        scheme.make_step(scene)
+        check(False, "the kdkf step took a classic grid")
+    except ValueError as e:
+        check("spill" in str(e), f"kdkf on a classic grid: {e}")
+    scheme.gtvf_ordering = "kdk"
+    kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(
+        scheme, scene, "classic box", 17, p_fsi=True)
+    print(f"[classic-setup] sinking box: n={scene.n} M={cfg.M} O={cfg.O} "
+          f"NC={cfg.NC_max} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    split, work, _ = fluid_pass_checks(
+        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
+                    init, CLASSIC_SPLIT),
+        dfT, grid.nbr_slots, pt, cfg.radius, S, init,
+        abs(scheme.fluid_alpha) > 1e-14, "classic box", True)
+    print_fluid_passes("classic-kernels", "sinking box", split)
+    split["contact_all_slots"], _ = contact_all_slots(
+        tck.contact_pack(dfT, fk.UNION_LAYOUT, True), grid, cfg, kernel, S,
+        init, "classic-box", timed=True)
+    del grid, pt, dfT
+    per_step = dict(fluid_rates=1, wall_bc=1, fluid_forces=1, contact=1)
+    _, launches, sps = phase_coupling_main(
+        scheme, scene, dt, CLASSIC_CPL_STEPS, "classic-cpl-kdk", smi,
+        per_step)
+    check_lanes_instances("classic kdk", launches, cfg.M)
+    del scheme, scene
+    pscheme, pscene, pdt = sinking_box_scene(
+        dev, floor=True, rho_b=CPL_PARITY_RHO, grid=CLASSIC_BOX)
+    pscheme.gtvf_ordering = "kdk"
+    phase_coupling_parity(pscheme, pscene, pdt, "classic-kdk-parity")
+    del pscheme, pscene
+
+    # 49. the 3D box on the classic grid of the lane rule
+    t1 = time.perf_counter()
+    scheme3, scene3 = sinking_box_scene_3d(dev, grid=CLASSIC_BOX_3D)
+    scheme3.gtvf_ordering = "kdk"
+    kernel3, cfg3, grid3, pt3, dfT3, S3, init3 = fluid_scene_pack(
+        scheme3, scene3, "classic 3D box", 19, p_fsi=True)
+    print(f"[classic-setup] 3D box: n={scene3.n} M={cfg3.M} O={cfg3.O} "
+          f"NC={cfg3.NC_max}", flush=True)
+    split3, _, _ = fluid_pass_checks(
+        fluid_calls(scheme3, dfT3, grid3.nbr_slots, kernel3, cfg3.radius,
+                    S3, init3, CLASSIC_SPLIT_3D),
+        dfT3, grid3.nbr_slots, pt3, cfg3.radius, S3, init3,
+        abs(scheme3.fluid_alpha) > 1e-14, "classic 3D box", True)
+    print_fluid_passes("classic-kernels", "3D box", split3)
+    split3["contact_all_slots"], _ = contact_all_slots(
+        tck.contact_pack(dfT3, fk.UNION_LAYOUT, False), grid3, cfg3,
+        kernel3, S3, init3, "classic-box-3d", timed=True)
+    del grid3, pt3, dfT3
+    dt3 = 0.25 * scheme3.h / (1.1 * scheme3.c0)
+    end3, launches3, sps3 = phase_coupling_main(
+        scheme3, scene3, dt3, CLASSIC_CPL_3D_STEPS, "classic-cpl-kdk-3d",
+        smi, per_step)
+    check_lanes_instances("classic kdk 3D", launches3, cfg3.M)
+    phase_coupling_3d_parity(scheme3, end3, dt3, "classic-cpl-kdk-3d")
+    del end3
+
+    # the split passes at 176 lanes on the same scene; K2 refuses them
+    wide = classic_config(scheme3, scene3, occupancy_safety=2.6,
+                          **CLASSIC_BOX_3D_WIDE)
+    kernel3, wide, gridw, ptw, dfTw, S3, init3 = fluid_scene_pack(
+        scheme3, scene3, "classic 3D box, 176 lanes", 19, p_fsi=True,
+        cfg=wide)
+    try:
+        tck.contact_sums(tck.contact_pack(dfTw, fk.UNION_LAYOUT, False),
+                         torch.arange(wide.NC_max, device=dev),
+                         gridw.nbr_slots, S3, wide.radius, init3, kernel3)
+        check(False, f"K2 took {wide.M} lanes a slot")
+    except ValueError as e:
+        check(str(tck.MAX_LANES) in str(e), f"K2 at {wide.M} lanes: {e}")
+    splitw, workw, _ = fluid_pass_checks(
+        fluid_calls(scheme3, dfTw, gridw.nbr_slots, kernel3, wide.radius,
+                    S3, init3, CLASSIC_SPLIT_3D),
+        dfTw, gridw.nbr_slots, ptw, wide.radius, S3, init3,
+        abs(scheme3.fluid_alpha) > 1e-14, "classic 3D box, 176 lanes", True)
+    print(f"[classic-kernels] 3D box: n={scene3.n} M={wide.M} O={wide.O} "
+          f"NC={wide.NC_max} | {workw} ({time.perf_counter() - t1:.1f} s "
+          "for phase 49)", flush=True)
+    print_fluid_passes("classic-kernels", "3D box, 176 lanes", splitw)
+    return dict(split=split, launches=launches, sps=sps, M=cfg.M, O=cfg.O,
+                split3=split3, launches3=launches3, sps3=sps3, M3=cfg3.M,
+                O3=cfg3.O, splitw=splitw, Mw=wide.M, Ow=wide.O,
+                seconds=time.perf_counter() - t0)
+
+
+def check_lanes_instances(label, launches, M):
+    """Every split pass and K2 launch of a classic kdk run went to the
+    instance of the grid's M lanes."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+
+    for k, inst in (("fluid_rates", f"fluid_rates/lanes{M}"),
+                    ("wall_bc", f"wall_bc/lanes{M}"),
+                    ("fluid_forces", f"fluid_forces/lanes{M}"),
+                    ("contact",
+                     f"contact/{tck.lanes_instance('narrow', M)}")):
+        check(launches.get(inst, 0) == launches[k],
+              f"{label}: {k} ran another instance than {inst}")
+
+
+def classic_kernel_entries(kernels, rigid, cpl, src):
+    """The JSON entries of the classic grid's instances (phases 47-49):
+    K2 at each rigid grid's width and at the coupling grids' (2D box 48,
+    3D box 80), the split passes at the coupling grids' (the 3D box's
+    176-lane times beside its 80-lane ones), each with its launches from
+    its own main path."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
+
+    by_name = {kd["name"]: kd for kd in kernels}
+    out = []
+    k2 = {}
+    for label, r in rigid.items():
+        k2.setdefault(r["inst"], []).append((f"classic-{label}", r["k2"],
+                                             r["launches"][r["inst"]], r))
+    boxes = (("classic-cpl-kdk", cpl["split"], cpl["launches"], cpl["M"],
+              cpl["O"]),
+             ("classic-cpl-kdk-3d", cpl["split3"], cpl["launches3"],
+              cpl["M3"], cpl["O3"]))
+    for path, split, launches, M, O in boxes:
+        inst = f"contact/{tck.lanes_instance('narrow', M)}"
+        k2.setdefault(inst, []).append((path, split["contact_all_slots"],
+                                        launches.get(inst, 0),
+                                        dict(M=M, O=O)))
+    for inst, rows in k2.items():
+        path, t, n, r = rows[0]
+        out.append(dict(
+            name=inst.replace("contact/", "contact_sums/"), route="cuda",
+            source=src + "contact.cu",
+            replaces=by_name["contact_sums"]["replaces"], launches=n,
+            launches_by_path={p: c for p, _, c, _ in rows},
+            max_abs_err=max(x["err"] for _, x, _, _ in rows), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None, M=r["M"], O=r["O"],
+            grid=path, by_path={p: dict(ms=x["ms"], plain_ms=x["plain_ms"],
+                                        bound_ms=x["bound_ms"],
+                                        bound_by=x["bound_by"])
+                                for p, x, _, _ in rows}))
+    for name, key in (("fluid_rates", "fluid_rates"), ("wall_bc", "wall_bc"),
+                      ("fluid_forces", "fluid_forces_rigid")):
+        for path, split, launches, M, O in boxes:
+            t, inst = split[key], f"{name}/lanes{M}"
+            entry = dict(
+                name=inst, route="cuda", source=src + "fluid.cu",
+                replaces=by_name[name]["replaces"],
+                launches=launches.get(inst, 0),
+                launches_by_path={path: launches.get(inst, 0)},
+                max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=None, M=M, O=O, grid=path)
+            if name == "fluid_rates" and "fluid_rates_tait" in split:
+                tt = split["fluid_rates_tait"]
+                entry.update(
+                    max_abs_err=max(entry["max_abs_err"], tt["err"]),
+                    tait_ms=tt["ms"], tait_plain_ms=tt["plain_ms"],
+                    tait_bound_ms=tt["bound_ms"])
+            if path.endswith("3d"):
+                tw = cpl["splitw"][key]
+                entry.update(
+                    max_abs_err=max(entry["max_abs_err"], tw["err"]),
+                    M_wide=cpl["Mw"], O_wide=cpl["Ow"], ms_wide=tw["ms"],
+                    plain_ms_wide=tw["plain_ms"],
+                    bound_ms_wide=tw["bound_ms"],
+                    bound_by_wide=tw["bound_by"])
+            out.append(entry)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4554,6 +4914,19 @@ def main() -> int:
         wide_dem = phase_wide_dem(dev, smi)
         print(f"[wide] phases 44-46 in {time.perf_counter() - t_w:.1f} s",
               flush=True)
+        print(f"[time] phase 47 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        # 47. the rigid GTVF step on classic grids (2D stack, its sub = 2
+        # stencil, 3D cubes); 48. the kdk coupling ordering on one; 49.
+        # kdk on the 3D box's classic grid, its split passes also at 176
+        # lanes
+        t_c = time.perf_counter()
+        classic_rigid = phase_classic_rigid(dev, smi)
+        print(f"[time] phase 48 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        classic_cpl = phase_classic_coupling(dev, smi)
+        print(f"[classic] phases 47-49 in {time.perf_counter() - t_c:.1f} "
+              "s", flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4813,6 +5186,22 @@ def main() -> int:
                 library_seconds=sph_build[f"fluid_{k}"]["seconds"]))
     kernels += wide_kernel_entries(kernels, wide_k2, wide_b5, wide_dem,
                                    src)
+    kernels += classic_kernel_entries(kernels, classic_rigid, classic_cpl,
+                                      src)
+    print("[done] classic grid: " + "; ".join(
+        f"{k} M={r['M']} O={r['O']} K2 {r['k2']['ms']:.4f} ms (bound "
+        f"{r['k2']['bound_ms']:.4f}), GTVF "
+        f"{r['stats']['steps_per_s']:.2f} steps/s"
+        for k, r in classic_rigid.items()) + f"; sinking box kdk M="
+        f"{classic_cpl['M']} {classic_cpl['sps']:.2f} steps/s, " + ", ".join(
+            f"{k} {v['ms']:.4f} ms" for k, v in classic_cpl["split"].items())
+        + f"; 3D box kdk M={classic_cpl['M3']} {classic_cpl['sps3']:.2f} "
+        "steps/s, " + ", ".join(
+            f"{k} {v['ms']:.4f} ms" for k, v in
+            classic_cpl["split3"].items())
+        + f"; 3D box M={classic_cpl['Mw']} " + ", ".join(
+            f"{k} {v['ms']:.4f} ms" for k, v in
+            classic_cpl["splitw"].items()) + f"; on {smi}", flush=True)
     wr, ws, b5 = wide_k2["rows"], wide_k2["slots"], wide_b5["b5"]
     print(f"[done] wide instances: K2 S={wr['S']} {wr['ms']:.4f} ms on "
           f"{wr['rows']} rows, {ws['ms']:.4f} ms on every slot, S=300 "

@@ -71,6 +71,24 @@
 // --fmad=false so r rounds as the plain version's does and the picks,
 // distance ties included, agree bit for bit.
 //
+// Any slot width: the code above is written for the spill grids' 16
+// lanes a slot, and that instance is compiled with the width fixed.  (A
+// build whose 16 lanes ran the any-width instance below gave the same
+// output 3-35 % slower on an H100, timed against this one by
+// scripts/contact_variants.py --parent; PERF.md.)  The
+// classic grid (one slot a cell, ops/cellpairs.py) sizes its slots from
+// occupancy: PM lanes, a multiple of 8 up to MAX_LANES = 128, the widest
+// the reference's kernel takes (it pads a slot to its 128-lane tile).
+// Its instance (GM) keeps the block of 16 query lanes: a query row of PM
+// lanes is ceil(PM / 16) pieces, a block each, over the same stencil (a
+// lane past PM is a sentinel); the source walk reads each entry's PM
+// lanes as ceil(PM / 16) sub-rows, in order, so each part's candidates
+// stay in stencil lane order, and a query lane's sums and pick follow
+// exactly the rules above.  A piece walks the whole stencil: a row's
+// staging is repeated once a piece, which a simple design accepts.  A
+// classic 3D stencil (27 cells of ~104 lanes, or 125 of 16 at sub = 2)
+// holds more candidates than CAP_3D, so its windows run on the main path.
+//
 // Any S: the instance above keeps a row's dems as 64-bit masks and its
 // count tables in static shared memory, so it takes S <= S_MAX.  The wide
 // instance (WIDE, S > S_MAX) carries the same facts without masks: a
@@ -121,7 +139,8 @@
 
 namespace {
 
-constexpr int M = 16;          // lanes a slot (the contact grids' width)
+constexpr int M = 16;          // query lanes a block (the spill grids' width)
+constexpr int MAX_LANES = 128; // the widest slot (the reference's lane tile)
 constexpr int THREADS = 128;   // a block: one query row
 constexpr int P = THREADS / M; // lane groups: stencil parts
 constexpr int CAP_3D = 1536;   // sorted candidates a window: 3D,
@@ -135,14 +154,14 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int ORPHANS = CAP_2D;   // particles a zeroing block looks at
 
 struct Args {
-  const float* dft;              // [nrows, F, M]
+  const float* dft;              // [nrows, F, lanes]
   const long long* qslot;        // [NI]
   const long long* nbr;          // [NI, O]
-  float* out;                    // [NI, M, 12 S] or [n, 12 S]
+  float* out;                    // [NI, lanes, 12 S] or [n, 12 S]
   const long long* lane_pid;     // [n_lanes] a pack lane's particle (null:
                                  // query rows)
   const long long* dense_pos;    // [n] a particle's pack lane
-  int NI, O, nrows, S;
+  int NI, O, nrows, lanes, S;
   int chunk;                     // wide: dems a chunk (the tables' width)
   int n, n_lanes;                // particle rows: particles, mapped lanes
   float cutoff, init_dist, sig_num, sig_den;
@@ -191,7 +210,7 @@ __device__ __forceinline__ void zero_orphans(const Args& a, int z,
   }
 }
 
-template <bool TWO_D, bool WIDE>
+template <bool TWO_D, bool WIDE, bool GM>
 __global__ void __launch_bounds__(THREADS)
     contact_kernel(const Args a) {
   constexpr int F = TWO_D ? 7 : 9;
@@ -229,11 +248,18 @@ __global__ void __launch_bounds__(THREADS)
   const int c = t / M, l = t % M;            // lane group, query lane
   const unsigned lt = (1u << lane) - 1u;
   const int S = a.S;
-  const int b = blockIdx.x;                  // the query row
-  if (b >= a.NI) {                           // particle rows: the orphans
-    zero_orphans(a, b - a.NI, s_key);
+  // GM: a slot of PM lanes (any width up to MAX_LANES) is NPIECE pieces
+  // of M query lanes, a block each, over the same stencil; the source
+  // walk reads a slot's PM lanes as NPIECE sub-rows of M
+  const int PM = GM ? a.lanes : M;
+  const int NPIECE = GM ? (PM + M - 1) / M : 1;
+  const int bq = blockIdx.x;
+  if (bq >= a.NI * NPIECE) {                 // particle rows: the orphans
+    zero_orphans(a, bq - a.NI * NPIECE, s_key);
     return;
   }
+  const int b = GM ? bq / NPIECE : bq;       // the query row
+  const int q0 = GM ? (bq - b * NPIECE) * M : 0;   // its first query lane
 
   // the query lanes (group 0)
   if (!WIDE) {
@@ -244,21 +270,23 @@ __global__ void __launch_bounds__(THREADS)
   if (t < M) {
     const long long qraw = a.qslot[b];
     const long long qs = min(max(qraw, 0LL), (long long)(a.nrows - 1));
-    const float* q = a.dft + qs * F * M + l;
-    long long orow = ((long long)b * M + l) * 12 * S;
+    // GM: a query lane past the slot's width is a sentinel lane
+    const bool ql = !GM || q0 + l < PM;
+    const float* q = a.dft + qs * F * PM + (ql ? q0 + l : 0);
+    long long orow = ((long long)b * PM + q0 + l) * 12 * S;
     if (a.lane_pid) {
-      const long long lane_id = qraw * M + l;
+      const long long lane_id = qraw * PM + q0 + l;
       const long long p = lane_id >= 0 && lane_id < a.n_lanes
                               ? a.lane_pid[lane_id] : -1LL;
       orow = p >= 0 && p < a.n ? p * 12 * S : -1LL;
     }
-    s_orow[l] = orow;
-    s_q[0][l] = __ldg(q + FX * M);
-    s_q[1][l] = __ldg(q + FY * M);
-    s_q[2][l] = TWO_D ? 0.0f : __ldg(q + FZ * M);
-    s_q[3][l] = __ldg(q + FH * M);
-    s_q[4][l] = __ldg(q + FVOL * M);
-    const Flags f = decode(__ldg(q + FFLAGS * M));
+    s_orow[l] = ql ? orow : -1LL;
+    s_q[0][l] = ql ? __ldg(q + FX * PM) : mofidi::kBig;
+    s_q[1][l] = ql ? __ldg(q + FY * PM) : mofidi::kBig;
+    s_q[2][l] = TWO_D || !ql ? 0.0f : __ldg(q + FZ * PM);
+    s_q[3][l] = ql ? __ldg(q + FH * PM) : 1.0f;
+    s_q[4][l] = ql ? __ldg(q + FVOL * PM) : 0.0f;
+    const Flags f = decode(ql ? __ldg(q + FFLAGS * PM) : -8.0f);
     if (!WIDE) {
       unsigned long long want = 0ull;
       if (f.rigid == 1.0f) {
@@ -295,16 +323,22 @@ __global__ void __launch_bounds__(THREADS)
     return;   // no rigid lane: the init row
 
   // stencil part c: entries [e_lo, e_hi) in order; every part walks
-  // `per` steps, so the warps stay converged
+  // `per` steps (of NPIECE sub-rows each), so the warps stay converged
   const int per = (a.O + P - 1) / P;
   const int e_lo = c * per, e_hi = min(a.O, e_lo + per);
+  const int k_lo = e_lo * NPIECE, k_end = (e_lo + per) * NPIECE;
   const long long* nb = a.nbr + (long long)b * a.O;
-  // the flags word of lane l of entry e and its row (a sentinel's flags
-  // past the part's end)
-  auto entry = [&](int e, long long& r) -> float {
-    r = e < e_hi ? nb[e] : -1LL;
-    return (r >= 0 && r < a.nrows) ? __ldg(a.dft + (r * F + FFLAGS) * M + l)
-                                   : -8.0f;
+  // step k of part c: lane j M + l (the pack lane sl) of entry k / NPIECE,
+  // j = k % NPIECE, so a part's steps run in stencil lane order; the flags
+  // word and the entry's row (a sentinel's flags past the part's end or
+  // the slot's width)
+  auto entry = [&](int k, long long& r, int& sl) -> float {
+    const int e = GM ? k / NPIECE : k;
+    sl = GM ? (k - e * NPIECE) * M + l : l;
+    r = e < e_hi && (!GM || sl < PM) ? nb[e] : -1LL;
+    return (r >= 0 && r < a.nrows)
+               ? __ldg(a.dft + (r * F + FFLAGS) * PM + sl)
+               : -8.0f;
   };
   // the running sums of query lane l (group 0's, carried across tiles
   // and windows)
@@ -337,11 +371,12 @@ __global__ void __launch_bounds__(THREADS)
     }
 
     // 2a. count the candidates of each (part, dem)
-    for (int e0 = e_lo; e0 < e_lo + per; e0 += UNROLL) {
+    for (int e0 = k_lo; e0 < k_end; e0 += UNROLL) {
       float fl[UNROLL];
       long long rr[UNROLL];
+      int sl[UNROLL];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) fl[u] = entry(e0 + u, rr[u]);
+      for (int u = 0; u < UNROLL; ++u) fl[u] = entry(e0 + u, rr[u], sl[u]);
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int d = eligible(fl[u]);
@@ -412,11 +447,12 @@ __global__ void __launch_bounds__(THREADS)
       // order
       for (int s = t; s < P * SC; s += THREADS) s_cnt[s] = s_base[s];
       __syncthreads();
-      for (int e0 = e_lo; e0 < e_lo + per; e0 += UNROLL) {
+      for (int e0 = k_lo; e0 < k_end; e0 += UNROLL) {
         float fl[UNROLL];
         long long rr[UNROLL];
+        int sl[UNROLL];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) fl[u] = entry(e0 + u, rr[u]);
+        for (int u = 0; u < UNROLL; ++u) fl[u] = entry(e0 + u, rr[u], sl[u]);
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
           const int d = eligible(fl[u]);
@@ -431,12 +467,12 @@ __global__ void __launch_bounds__(THREADS)
           if (d >= 0 && (peers & lt) == 0u) s_cnt[c * SC + d] += __popc(peers);
           __syncwarp();
           if (d >= 0 && at >= w0 && at < w0 + CAP) {
-            const float* sb = a.dft + rr[u] * F * M + l;
+            const float* sb = a.dft + rr[u] * F * PM + sl[u];
             s_pos[at - w0] =
-                make_float4(__ldg(sb + FX * M), __ldg(sb + FY * M),
-                            TWO_D ? 0.0f : __ldg(sb + FZ * M),
-                            __ldg(sb + FH * M));
-            s_key[at - w0] = (int)(rr[u] * M + l);
+                make_float4(__ldg(sb + FX * PM), __ldg(sb + FY * PM),
+                            TWO_D ? 0.0f : __ldg(sb + FZ * PM),
+                            __ldg(sb + FH * PM));
+            s_key[at - w0] = (int)(rr[u] * PM + sl[u]);
           }
         }
       }
@@ -513,14 +549,14 @@ __global__ void __launch_bounds__(THREADS)
           const long long orow = s_orow[l];
           if (orow >= 0 && mine && run_r < mofidi::kBig) {
             // 4. the epilogue, the picked source read by its pack lane
-            const float* sb = a.dft + (long long)(run_pick / M) * F * M +
-                              run_pick % M;
+            const float* sb = a.dft + (long long)(run_pick / PM) * F * PM +
+                              run_pick % PM;
             mofidi::store_row(
                 a.out + orow + d0 + s, S, a.init_dist, run[0], run[1],
                 run[2], run[3], run[4], run[5], run[6], run_r,
-                __ldg(sb + FX * M), __ldg(sb + FY * M),
-                TWO_D ? 0.0f : __ldg(sb + FZ * M), __ldg(sb + FU * M),
-                __ldg(sb + FV * M), TWO_D ? 0.0f : __ldg(sb + FW * M));
+                __ldg(sb + FX * PM), __ldg(sb + FY * PM),
+                TWO_D ? 0.0f : __ldg(sb + FZ * PM), __ldg(sb + FU * PM),
+                __ldg(sb + FV * PM), TWO_D ? 0.0f : __ldg(sb + FW * PM));
           }
 #pragma unroll
           for (int m = 0; m < 7; ++m) run[m] = 0.0f;
@@ -531,32 +567,40 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// the query rows and, for particle rows, the zeroing blocks
+// the query rows' pieces and, for particle rows, the zeroing blocks
 inline unsigned blocks(const Args& a) {
-  return (unsigned)a.NI +
+  return (unsigned)a.NI * (unsigned)((a.lanes + M - 1) / M) +
          (a.lane_pid ? (unsigned)((a.n + ORPHANS - 1) / ORPHANS) : 0u);
 }
 
-template <bool TWO_D>
+template <bool TWO_D, bool GM>
 int launch(const Args& a, cudaStream_t st) {
-  contact_kernel<TWO_D, false><<<blocks(a), THREADS, 0, st>>>(a);
+  contact_kernel<TWO_D, false, GM><<<blocks(a), THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // the wide instance: its dynamic shared memory allowed once an instance
-template <bool TWO_D>
+template <bool TWO_D, bool GM>
 int launch_wide(const Args& a, cudaStream_t st) {
   static int opted = 0;   // the dynamic shared memory allowed so far
   const int bytes = wide_bytes(a.chunk);
   if (bytes > opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        contact_kernel<TWO_D, true>,
+        contact_kernel<TWO_D, true, GM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     opted = bytes;
   }
-  contact_kernel<TWO_D, true><<<blocks(a), THREADS, bytes, st>>>(a);
+  contact_kernel<TWO_D, true, GM><<<blocks(a), THREADS, bytes, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool GM>
+int launch_any(const Args& a, bool two_d, cudaStream_t st) {
+  if (a.chunk > 0)
+    return two_d ? launch_wide<true, GM>(a, st)
+                 : launch_wide<false, GM>(a, st);
+  return two_d ? launch<true, GM>(a, st) : launch<false, GM>(a, st);
 }
 
 }  // namespace
@@ -565,7 +609,9 @@ int launch_wide(const Args& a, cudaStream_t st) {
 // `chunk` dems a chunk (1 .. min(S, 2048)), the wrapper's choice
 // (ops/contact_kernel.py contact_instance).  sph_id: the SPH kernel's id
 // (ops/kernels.py Kernel.device_id), which must be the one this library
-// was built for.  lane_pid null: out [NI, M, 12 S] by query row; else out
+// was built for.  lanes: the pack's lanes a slot, 1 .. 128 (16, the spill
+// grids', has its own instance).  lane_pid null: out [NI, lanes, 12 S] by
+// query row; else out
 // [n, 12 S] by particle, lane_pid [n_lanes] the particle of each pack
 // lane (outside [0, n): none) and dense_pos [n] each particle's pack lane
 // (>= n_lanes: none; its row is zeros).
@@ -577,18 +623,19 @@ extern "C" int contact_sums(const void* dft, const void* qslot,
                             int sph_id, float cutoff, float init_dist,
                             float sig_num, float sig_den, void* stream) {
   // a pack lane is an int
-  if (sph_id != sph::kId || lanes != M || S < 1 || O < 0 || nrows < 1 ||
-      (long long)nrows * M >= (1LL << 31) || chunk < 0 ||
+  if (sph_id != sph::kId || lanes < 1 || lanes > MAX_LANES || S < 1 ||
+      O < 0 || nrows < 1 || (long long)nrows * lanes >= (1LL << 31) ||
+      chunk < 0 ||
       chunk > WIDE_CHUNK || chunk > S || (chunk == 0 && S > S_MAX) ||
       NI < 0 || (lane_pid && (!dense_pos || n < 0 || n_lanes < 0)))
     return (int)cudaErrorInvalidValue;
   Args a{(const float*)dft, (const long long*)qslot, (const long long*)nbr,
          (float*)out, (const long long*)lane_pid,
-         (const long long*)dense_pos, NI, O, nrows, S, chunk,
+         (const long long*)dense_pos, NI, O, nrows, lanes, S, chunk,
          lane_pid ? n : 0, n_lanes, cutoff, init_dist, sig_num, sig_den};
   if (blocks(a) == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (chunk > 0)
-    return two_d ? launch_wide<true>(a, st) : launch_wide<false>(a, st);
-  return two_d ? launch<true>(a, st) : launch<false>(a, st);
+  // the spill grids' 16 lanes keep their own instance
+  return lanes == M ? launch_any<false>(a, two_d, st)
+                    : launch_any<true>(a, two_d, st);
 }

@@ -33,19 +33,32 @@
 // is 56 bytes a lane and every query lane tests O x M candidate lanes,
 // about a third of them in range.  Both templates (rates_wall_kernel for
 // B4, B6a, B6b; forces_kernel for B5, B6c) run one warp a query slot (M <=
-// 32): the slot's query lanes are listed by a ballot (a slot with none
-// writes its rows and stops), the candidates the listed queries can sum
-// are staged in shared memory in stencil order by one shared stencil walk
-// (StencilWalk), each query's candidates are split among the warp's
-// threads (range tests into a hit mask, then the pair bodies of the hits
-// only), the partial sums are added by a shuffle tree of fixed shape, and
-// the slot's block is written whole from shared memory.  A one-lane scan
+// 32; wider slots below): the slot's query lanes are listed by a ballot
+// (a slot with none writes its rows and stops), the candidates the
+// listed queries can sum are staged in shared memory in stencil order by
+// one shared stencil walk (StencilWalk), each query's candidates are
+// split among the warp's threads (range tests into a hit mask, then the
+// pair bodies of the hits only), the partial sums are added by a shuffle
+// tree of fixed shape, and the slot's block is written whole from shared
+// memory.  A one-lane scan
 // (a thread a query lane over every candidate lane) ran each pair body for
 // the whole warp whenever one of its lanes had a pair in range, and left
 // the sentinel lanes' threads idle.  The compile-time choices of the TPU
 // kernels (EDAC, rigid bodies present, artificial viscosity on, the
 // kernel's dimension, the columns written) are template parameters, not
 // branches per pair.
+//
+// Slots wider than a warp.  The classic grid (one slot a cell,
+// ops/cellpairs.py) sizes its slots from occupancy: the kdk and reference
+// orderings run B6a, B6b and B6c on slots of up to kMaxLanes = 256 lanes
+// (the 2D coupling grid's 48, the 3D one's 176).  Their instances (WM)
+// give a slot of M > 32 lanes ceil(M / 32) warps, each owning 32 query
+// lanes over the same stencil walk (WideWalk: a step is one 32-lane piece
+// of an entry, so candidates are staged in stencil lane order, in windows
+// of kCap that may end inside an entry), so a query lane's sums keep the
+// order and shape they have at M <= 32; each warp stages the stencil
+// itself.  B4 and B5 keep M <= 32 (the kdkf step refuses the classic
+// grid).
 //
 // The pair bodies evaluate the library's SPH kernel (csrc/sph_kernels.cuh:
 // sph::w, sph::gradw, sph::w_gradw; one library per kernel, picked by
@@ -54,6 +67,7 @@
 // picks are bit for bit the plain version's, the sums differ only in
 // summation order.
 #include <cmath>
+#include <type_traits>
 
 #include "mofidi.cuh"
 
@@ -91,6 +105,7 @@ constexpr int kWarps = 4;         // query slots a block, one warp each
 constexpr int kCap = 160;         // staged candidates a window
 constexpr int kUnroll = 2;        // stencil steps whose loads are in flight
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kMaxLanes = 256;    // the widest slot of the split passes
 constexpr unsigned kFull = 0xffffffffu;
 // staged fields (rows of kCap words) and the class bits of a candidate
 // (its dem above them)
@@ -111,7 +126,7 @@ __host__ __device__ constexpr int warp_words(int M, int W, bool clist,
                                              int S = 0) {
   return NS * kCap + (clist ? kCap : 0) + 64 +
          (S > 0 ? ((32 * 6 + 64 + kDems + (S + 31) / 32 + 3) & ~3)
-                : ((M * W + 3) & ~3));
+                : (((M < 32 ? M : 32) * W + 3) & ~3));
 }
 
 // the dynamic shared memory of a block (bytes) and its warps: kWarps
@@ -239,6 +254,71 @@ struct StencilWalk {
   }
 };
 
+// The walk of a slot wider than a warp (M > 32 lanes: the classic grid's
+// slots, sized from occupancy, ops/cellpairs.py).  A step is one piece of
+// 32 lanes of one entry (lane j loads lane 32 p + j of entry e; an entry
+// is NP = ceil(M / 32) pieces, the walk's position is e NP + p), kUnroll
+// steps' loads in flight, so candidates are staged in stencil lane order
+// as StencilWalk stages them.  A window takes whole pieces while it has
+// room (a piece of 32 always fits an empty window of kCap), so a window
+// may end inside an entry.  stage() has StencilWalk's contract with
+// positions for entries: it returns the first piece not staged (end: the
+// stencil's end), and sk is the slot lane of the calling thread's piece
+// while put() runs.
+struct WideWalk {
+  const float* dft;
+  const long long* nb;
+  int NC, M, NP, end, sk;
+  unsigned lt;
+
+  __device__ __forceinline__ WideWalk(const float* dft_,
+                                      const long long* nb_, int NC_, int O_,
+                                      int M_, int lane)
+      : dft(dft_), nb(nb_), NC(NC_), M(M_), sk(lane) {
+    NP = (M + 31) / 32;
+    end = O_ * NP;
+    lt = (1u << lane) - 1u;
+  }
+
+  template <class Keep, class Put>
+  __device__ __forceinline__ int stage(int k, int& n, Keep keep, Put put) {
+    const int lane = threadIdx.x & 31;
+    n = 0;
+    for (; k < end; k += kUnroll) {
+      long long rows[kUnroll];
+      int sks[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int kk = k + u, e = kk / NP;
+        sks[u] = (kk - e * NP) * 32 + lane;
+        rows[u] = kk < end && sks[u] < M ? __ldg(nb + e) : -1LL;
+      }
+      float v[kUnroll][kLoads];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool ok = rows[u] >= 0 && rows[u] < NC;
+        const float* s = dft + (ok ? rows[u] : 0LL) * NF * M + sks[u];
+#pragma unroll
+        for (int f = 0; f < kLoads; ++f)
+          v[u][f] = ok ? __ldg(s + (f < kLoads - 1 ? f : FFLAGS) * M) : 0.f;
+        if (!ok) v[u][kLoads - 1] = -16.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (k + u >= end) return end;
+        const int fl = (int)v[u][kLoads - 1];
+        const unsigned code = keep(fl);
+        const unsigned bal = __ballot_sync(kFull, code != 0u);
+        if (n + __popc(bal) > kCap) return k + u;   // warp-uniform
+        sk = sks[u];
+        put(v[u], rows[u], fl, code, n + __popc(bal & lt), true);
+        n += __popc(bal);
+      }
+    }
+    return end;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // B4: rates (fluid queries) and the Adami wall sums (wall and body queries)
 // in one sweep; B6a the rates alone, B6b the wall sums alone.
@@ -277,7 +357,7 @@ __host__ __device__ constexpr int rates_wall_width() {
   return MODE == kRatesWall ? 7 : (MODE == kRates ? 2 : 5);
 }
 
-template <bool KDIM2, bool EDAC, bool HAS_RIGID, int MODE>
+template <bool KDIM2, bool EDAC, bool HAS_RIGID, int MODE, bool WM>
 __global__ void __launch_bounds__(kWarps * 32, 6)
     rates_wall_kernel(const float* __restrict__ dft,
                       const long long* __restrict__ nbr,
@@ -293,34 +373,41 @@ __global__ void __launch_bounds__(kWarps * 32, 6)
   constexpr int NA = NR + (WALL ? 5 : 0);
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31;
-  const long long slot =
+  const long long wid =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  // WM: query lanes [qb, qb + MQ) of the slot, 32 a warp
+  const int NPQ = WM ? (M + 31) / 32 : 1;
+  const long long slot = WM ? wid / NPQ : wid;
   if (slot >= NC) return;                    // the whole warp
+  const int qb = WM ? (int)(wid - slot * NPQ) * 32 : 0;
+  const int MQ = WM ? min(32, M - qb) : M;
   float* st = reinterpret_cast<float*>(smem4) +
               (threadIdx.x >> 5) * warp_words(M, W, false);
   int* qlist = reinterpret_cast<int*>(st + NS * kCap);
   float* obuf = st + NS * kCap + 64;
-  float* orow = out + slot * M * W;
-  const float* q = dft + slot * NF * M;
-  const bool vec = (M * W) % 4 == 0 &&
+  float* orow = out + (slot * M + qb) * W;
+  const float* q = dft + slot * NF * M + qb;
+  const bool vec = (MQ * W) % 4 == 0 && (WM ? (M * W) % 4 == 0 : true) &&
                    (reinterpret_cast<unsigned long long>(out) & 15ull) == 0;
-  StencilWalk walk(dft, nbr + slot * O, NC, O, M, lane);
+  using Walk = typename std::conditional<WM, WideWalk, StencilWalk>::type;
+  Walk walk(dft, nbr + slot * O, NC, O, M, lane);
+  const int wend = WM ? O * NPQ : O;         // the walk's end
 
   // 1. the query ballot
   Flags qf{-1.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (lane < M) qf = decode(__ldg(q + FFLAGS * M + lane));
+  if (lane < MQ) qf = decode(__ldg(q + FFLAGS * M + lane));
   const bool q_rates = RATES && qf.fluid == 1.0f;
   const bool q_wall = WALL && (qf.sbdry == 1.0f || qf.rigid == 1.0f);
   const unsigned amask = __ballot_sync(kFull, q_rates || q_wall);
   if (amask == 0u) {
-    fill_zero(orow, M * W, vec, lane);
+    fill_zero(orow, MQ * W, vec, lane);
     return;
   }
   const bool any_rates = __any_sync(kFull, q_rates);
   const bool any_wall = __any_sync(kFull, q_wall);
   const int nq = __popc(amask);
   if (q_rates || q_wall) qlist[__popc(amask & walk.lt)] = lane;
-  fill_zero(obuf, M * W, (M * W) % 4 == 0, lane);
+  fill_zero(obuf, MQ * W, (MQ * W) % 4 == 0, lane);
   __syncwarp();
 
   // thread (qi, qp): query qi, candidates qp, qp + P, ...
@@ -465,7 +552,7 @@ __global__ void __launch_bounds__(kWarps * 32, 6)
         }
       }
     }
-  } while (e < O);
+  } while (e < wend);
 
   // 4. the P partial sums of each query, by a tree of fixed shape
   for (int off = 1; off < P; off <<= 1) {
@@ -491,7 +578,7 @@ __global__ void __launch_bounds__(kWarps * 32, 6)
   }
   __syncwarp();
   // 5. the slot's block, contiguous
-  copy_block(orow, obuf, M * W, vec, lane);
+  copy_block(orow, obuf, MQ * W, vec, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -565,7 +652,7 @@ __global__ void __launch_bounds__(kWarps * 32, 6)
 // through shared memory, so one instance serves every S.
 // ---------------------------------------------------------------------------
 
-template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT, bool WM>
 __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     forces_kernel(const float* __restrict__ dft,
                   const long long* __restrict__ nbr, float* __restrict__ out,
@@ -577,9 +664,13 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
                   float init_dist, float sig_num, float sig_den) {
   extern __shared__ float4 smem4[];
   constexpr int W = 6;
+  static_assert(!(WM && CONTACT), "B5 takes slots of at most 32 lanes");
   const int lane = threadIdx.x & 31;
-  const long long slot =
+  const long long wid =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  // WM: query lanes [qb, qb + MQ) of the slot, 32 a warp
+  const int NPQ = WM ? (M + 31) / 32 : 1;
+  const long long slot = WM ? wid / NPQ : wid;
   if (slot >= NC) {
     // B5's warps past the slots: the init row of a row whose slot has no
     // rigid lane (a padding row, rows[x] = NC), or zeros over the rows of
@@ -620,16 +711,20 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
   int* dlist = reinterpret_cast<int*>(obuf + 32 * W + 64);
   unsigned* bm = reinterpret_cast<unsigned*>(obuf + 32 * W + 64 + kDems);
   const int bmw = CONTACT ? (S + 31) / 32 : 0;
-  float* orow = out + slot * M * W;
-  const float* q = dft + slot * NF * M;
-  const bool vec = (M * W) % 4 == 0 &&
+  const int qb = WM ? (int)(wid - slot * NPQ) * 32 : 0;
+  const int MQ = WM ? min(32, M - qb) : M;
+  float* orow = out + (slot * M + qb) * W;
+  const float* q = dft + slot * NF * M + qb;
+  const bool vec = (MQ * W) % 4 == 0 && (WM ? (M * W) % 4 == 0 : true) &&
                    (reinterpret_cast<unsigned long long>(out) & 15ull) == 0;
-  StencilWalk walk(dft, nbr + slot * O, NC, O, M, lane);
+  using Walk = typename std::conditional<WM, WideWalk, StencilWalk>::type;
+  Walk walk(dft, nbr + slot * O, NC, O, M, lane);
+  const int wend = WM ? O * NPQ : O;         // the walk's end
 
   // 1. the query lanes (B5 by particle: and their particles, loaded beside)
   Flags qf{-1.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   long long pid = -1;
-  if (lane < M) {
+  if (lane < MQ) {
     qf = decode(__ldg(q + FFLAGS * M + lane));
     if (CONTACT && lane_pid) pid = __ldg(lane_pid + slot * M + lane);
   }
@@ -662,14 +757,14 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     __syncwarp();
   }
   if (nq == 0) {
-    fill_zero(orow, M * W, vec, lane);
+    fill_zero(orow, MQ * W, vec, lane);
     if (CONTACT) fill_rows();
     return;
   }
   const unsigned lt = walk.lt;
   if (act) qlist[__popc(amask & lt)] = lane;
   if (rig) rlist[__popc(rmask & lt)] = lane;
-  fill_zero(obuf, M * W, (M * W) % 4 == 0, lane);
+  fill_zero(obuf, MQ * W, (MQ * W) % 4 == 0, lane);
   // the dems the slot's rigid lanes want: every s but their own, so all
   // of them unless the rigid lanes share one dem
   int skip_dem = -1;
@@ -748,7 +843,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     __syncwarp();                            // the last window is read
     whole = e == 0;
     e = stage(e, ns);
-    whole = whole && e == O;
+    whole = whole && e == wend;
     __syncwarp();
     // this thread's query, loaded after the staging (not live across it)
     const int ql = fact ? qlist[fi] : 0;
@@ -831,7 +926,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
         }
       }
     }
-  } while (e < O);
+  } while (e < wend);
 
   // the P partial sums of each query, by a tree of fixed shape
   float r[9] = {au, av, aw, vu, vv, vw, fx, fy, fz};
@@ -852,7 +947,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
     of[5] = r[8];
   }
   __syncwarp();
-  copy_block(orow, obuf, M * W, vec, lane);
+  copy_block(orow, obuf, MQ * W, vec, lane);
   if (!CONTACT) return;
 
   // 4. the contact rows: the init rows first (their stores drain while the
@@ -878,7 +973,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
       e = stage(e, ns);
       __syncwarp();
       mark();
-    } while (e < O);
+    } while (e < wend);
   }
   __syncwarp();
   // the contact sums, a thread a (rigid lane cl, dem cs of the bitmap) in
@@ -925,7 +1020,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
           e = stage(e, ns);
           __syncwarp();
         } else {
-          e = O;
+          e = wend;
         }
         if (cs >= 0 && !own) {
           const float* cq = q + cl;
@@ -952,7 +1047,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
                            st[SW * kCap + k]);
           }
         }
-      } while (e < O);
+      } while (e < wend);
       // the epilogue over the init row where the lane has a gated pair
       if (cs >= 0 && acc.minr < mofidi::kBig && crow[cl] >= 0)
         acc.store(cout + crow[cl] + cs, S, init_dist);
@@ -972,7 +1067,7 @@ int allow_smem(K kern, int bytes, int& opted) {
   return 0;
 }
 
-template <bool KDIM2, bool EDAC, bool HAS_RIGID, int MODE>
+template <bool KDIM2, bool EDAC, bool HAS_RIGID, int MODE, bool WM>
 int launch_rates_wall(const float* dft, const long long* nbr, float* out,
                       int NC, int O, int M, float cutoff, float nu2,
                       float cs2, float gx, float gy, float gz, float sig_num,
@@ -980,10 +1075,12 @@ int launch_rates_wall(const float* dft, const long long* nbr, float* out,
   int warps;
   const int bytes = block_bytes(M, rates_wall_width<MODE>(), false, warps);
   if (bytes == 0) return (int)cudaErrorInvalidValue;
-  auto kern = rates_wall_kernel<KDIM2, EDAC, HAS_RIGID, MODE>;
+  auto kern = rates_wall_kernel<KDIM2, EDAC, HAS_RIGID, MODE, WM>;
   static int opted = 48 * 1024;   // the dynamic shared memory allowed so far
   if (const int err = allow_smem(kern, bytes, opted)) return err;
-  kern<<<(unsigned)((NC + warps - 1) / warps), warps * 32, bytes, st>>>(
+  // a warp a query slot, or (WM) a warp a 32 lanes of one
+  const long long total = (long long)NC * (WM ? (M + 31) / 32 : 1);
+  kern<<<(unsigned)((total + warps - 1) / warps), warps * 32, bytes, st>>>(
       dft, nbr, out, NC, O, M, r2_limit(cutoff), nu2, cs2, gx, gy, gz,
       sig_num, sig_den);
   return (int)cudaGetLastError();
@@ -991,21 +1088,16 @@ int launch_rates_wall(const float* dft, const long long* nbr, float* out,
 
 // runtime flags -> the template instance; the wall sums depend on neither
 // EDAC nor the rigid source class (one instance per kernel dimension)
-template <int MODE>
-int rates_wall_entry(const void* dft, const void* nbr, void* out, int NC,
-                     int O, int M, int kdim2, int edac, int has_rigid,
-                     float cutoff, float nu2, float cs2, float gx, float gy,
-                     float gz, float sig_num, float sig_den, void* stream) {
-  // a slot's lanes are one warp's
-  if (NC < 0 || O < 1 || M < 1 || M > 32) return (int)cudaErrorInvalidValue;
-  if (NC == 0) return 0;
-  const auto* d = (const float*)dft;
-  const auto* nb = (const long long*)nbr;
-  auto* o = (float*)out;
-  const cudaStream_t st = (cudaStream_t)stream;
+template <int MODE, bool WM>
+int rates_wall_dispatch(const float* d, const long long* nb, float* o,
+                        int NC, int O, int M, int kdim2, int edac,
+                        int has_rigid, float cutoff, float nu2, float cs2,
+                        float gx, float gy, float gz, float sig_num,
+                        float sig_den, cudaStream_t st) {
 #define RW(K, E, H)                                                        \
-  launch_rates_wall<K, E, H, MODE>(d, nb, o, NC, O, M, cutoff, nu2, cs2,  \
-                                   gx, gy, gz, sig_num, sig_den, st)
+  launch_rates_wall<K, E, H, MODE, WM>(d, nb, o, NC, O, M, cutoff, nu2,   \
+                                       cs2, gx, gy, gz, sig_num, sig_den, \
+                                       st)
   if constexpr (MODE == kWall) {
     return kdim2 ? RW(true, false, false) : RW(false, false, false);
   } else {
@@ -1023,7 +1115,34 @@ int rates_wall_entry(const void* dft, const void* nbr, void* out, int NC,
 #undef RW
 }
 
-template <bool KDIM2, bool VISC, bool FSI, bool CONTACT>
+// a slot of M <= 32 lanes is a warp's; the split passes (B6a, B6b) also
+// take the classic grid's wider slots, up to kMaxLanes (B4 does not: the
+// kdkf step refuses that grid)
+template <int MODE>
+int rates_wall_entry(const void* dft, const void* nbr, void* out, int NC,
+                     int O, int M, int kdim2, int edac, int has_rigid,
+                     float cutoff, float nu2, float cs2, float gx, float gy,
+                     float gz, float sig_num, float sig_den, void* stream) {
+  const int max_m = MODE == kRatesWall ? 32 : kMaxLanes;
+  if (NC < 0 || O < 1 || M < 1 || M > max_m)
+    return (int)cudaErrorInvalidValue;
+  if (NC == 0) return 0;
+  const auto* d = (const float*)dft;
+  const auto* nb = (const long long*)nbr;
+  auto* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (MODE != kRatesWall) {
+    if (M > 32)
+      return rates_wall_dispatch<MODE, true>(d, nb, o, NC, O, M, kdim2, edac,
+                                             has_rigid, cutoff, nu2, cs2, gx,
+                                             gy, gz, sig_num, sig_den, st);
+  }
+  return rates_wall_dispatch<MODE, false>(d, nb, o, NC, O, M, kdim2, edac,
+                                          has_rigid, cutoff, nu2, cs2, gx, gy,
+                                          gz, sig_num, sig_den, st);
+}
+
+template <bool KDIM2, bool VISC, bool FSI, bool CONTACT, bool WM>
 int launch_forces(const float* dft, const long long* nbr, float* out,
                   float* cout, const long long* rows,
                   const long long* lane_pid, const long long* dense_pos,
@@ -1033,12 +1152,14 @@ int launch_forces(const float* dft, const long long* nbr, float* out,
   int warps;
   const int bytes = block_bytes(M, 6, true, warps, CONTACT ? S : 0);
   if (bytes == 0) return (int)cudaErrorInvalidValue;
-  auto kern = forces_kernel<KDIM2, VISC, FSI, CONTACT>;
+  auto kern = forces_kernel<KDIM2, VISC, FSI, CONTACT, WM>;
   static int opted = 48 * 1024;   // the dynamic shared memory allowed so far
   if (const int err = allow_smem(kern, bytes, opted)) return err;
-  // B5's warps past the slots: the padding rows, or 32 particles each
+  // a warp a query slot (WM: a warp a 32 lanes of one); B5's warps past
+  // the slots: the padding rows, or 32 particles each
   const long long total =
-      NC + (!CONTACT ? 0LL : rows ? (long long)NI : (n + 31LL) / 32);
+      (long long)NC * (WM ? (M + 31) / 32 : 1) +
+      (!CONTACT ? 0LL : rows ? (long long)NI : (n + 31LL) / 32);
   kern<<<(unsigned)((total + warps - 1) / warps), warps * 32, bytes, st>>>(
       dft, nbr, out, cout, rows, lane_pid, dense_pos, NC, O, M, S, NI, n,
       r2_limit(cutoff), alpha_c0, init_dist, sig_num, sig_den);
@@ -1053,9 +1174,11 @@ int forces_entry(const void* dft, const void* nbr, void* out, void* cout,
                  int n, int kdim2, int visc, float cutoff, float alpha_c0,
                  float init_dist, float sig_num, float sig_den,
                  void* stream) {
-  // a slot's lanes are one warp's; B5 writes its contact columns by query
-  // row or by particle
-  if (NC < 0 || O < 1 || M < 1 || M > 32 ||
+  // a slot of M <= 32 lanes is a warp's; B6c also takes the classic
+  // grid's wider slots, up to kMaxLanes (B5 does not: the kdkf step
+  // refuses that grid); B5 writes its contact columns by query row or by
+  // particle
+  if (NC < 0 || O < 1 || M < 1 || M > (CONTACT ? 32 : kMaxLanes) ||
       (CONTACT && (S < 1 || !cout || (rows != nullptr) == (lane_pid != nullptr)
                    || (rows && NI < 0) ||
                    (lane_pid && (!dense_pos || n < 0)))))
@@ -1069,15 +1192,25 @@ int forces_entry(const void* dft, const void* nbr, void* out, void* cout,
   const auto* dp = (const long long*)dense_pos;
   if (NC == 0 && (!CONTACT || (rw ? NI : n) == 0)) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-#define FC(K, V)                                                          \
-  launch_forces<K, V, FSI, CONTACT>(d, nb, o, co, rw, lp, dp, NC, O, M, S, \
-                                    NI, n, cutoff, alpha_c0, init_dist,   \
-                                    sig_num, sig_den, st)
+#define FC(K, V, WM)                                                      \
+  launch_forces<K, V, FSI, CONTACT, WM>(d, nb, o, co, rw, lp, dp, NC, O, M, \
+                                        S, NI, n, cutoff, alpha_c0,         \
+                                        init_dist, sig_num, sig_den, st)
+  if constexpr (!CONTACT) {
+    if (M > 32) {
+      switch ((kdim2 ? 2 : 0) + (visc ? 1 : 0)) {
+        case 0: return FC(false, false, true);
+        case 1: return FC(false, true, true);
+        case 2: return FC(true, false, true);
+        default: return FC(true, true, true);
+      }
+    }
+  }
   switch ((kdim2 ? 2 : 0) + (visc ? 1 : 0)) {
-    case 0: return FC(false, false);
-    case 1: return FC(false, true);
-    case 2: return FC(true, false);
-    default: return FC(true, true);
+    case 0: return FC(false, false, false);
+    case 1: return FC(false, true, false);
+    case 2: return FC(true, false, false);
+    default: return FC(true, true, false);
   }
 #undef FC
 }

@@ -201,11 +201,13 @@ class DEMScheme(Scheme):
         float32 at 16 lanes and 16 stencil slots)."""
         if self._cell_cfg is None:
             host = lambda k: scene[k].detach().cpu().numpy()
-            kw = dict(cell_factor=self.cell_factor, M=self.cell_M)
+            # an explicit M means the classic grid unless spill is set
+            kw = dict(cell_factor=self.cell_factor, M=self.cell_M,
+                      spill=True)
             cutoff = self._contact_radius(scene)
             if self.contact_model == "LVCForce":
                 cutoff = self._kernel_radius() * float(host("h").max())
-                kw = dict(cell_factor=1.0, M=16, cell_chunk=(
+                kw = dict(cell_factor=1.0, M=16, spill=True, cell_chunk=(
                     4096 if scene.device.type == "cuda" else 512))
             self._cell_cfg = cellmod.config_from_positions(
                 host("x"), host("y"), host("z"), cutoff, self.dim,

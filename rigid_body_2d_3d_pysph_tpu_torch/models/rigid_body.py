@@ -33,6 +33,14 @@ reference turns its sorted and compact routes off with a skin.  The
 scheme's ``kernel_name`` may be any of the six SPH kernels on either
 engine.
 
+A classic grid config (``cellpairs.config_from_positions`` with
+``spill=False``, ``sub >= 2`` or an explicit ``M``; set as the scheme's
+``_cell_cfg`` before ``setup``) takes the same full route: each force
+evaluation builds the classic grid, gathers the pack through its
+``slot2p`` (``contact_kernel.pack_classic``, no K1) and runs K2 on every
+slot, as the reference's step does off its sorted and compact routes;
+``setup`` keeps the full schema, and the compact route refuses the grid.
+
 With ``engine = "nklist"`` every stepper runs on the ``[N, K]``
 neighbour list instead (``build_rigid_gtvf_step``, the list branch of
 ``_make_force_eval``): a list build a force evaluation, the Eq.-22/21
@@ -229,13 +237,18 @@ class _RigidBodySchemeBase(Scheme):
             contact_force_is_boundary=scene.is_boundary.to(scene.dtype))
         if self.uses_skin:
             scene = self._attach_grid(scene, kernel)
-        if self.integrator != "gtvf" or self.engine == "nklist" \
-                or self.uses_skin:
-            # the RK2 and leapfrog steps, the list engine and the skin
-            # keep the full [N, S] schema
+        if not self.uses_compact(scene, kernel):
             return scene
         cfg = self.cell_config(scene, kernel)
         return compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
+
+    def uses_compact(self, scene: Scene, kernel) -> bool:
+        """The compact route: GTVF on the cell engine's spill grid with no
+        skin.  The RK2 and leapfrog steps, the list engine, the skin and
+        the classic grid keep the full [N, S] schema."""
+        return (self.integrator == "gtvf" and self.engine == "cell"
+                and not self.uses_skin
+                and self.cell_config(scene, kernel).spill)
 
     @property
     def uses_skin(self) -> bool:
@@ -250,16 +263,20 @@ class _RigidBodySchemeBase(Scheme):
 
     def adapt_scene(self, scene: Scene) -> Scene:
         """Pad the compact store to the current capacity (after an
-        overflow rebuild raised ni_max); rebuild the carried skin grid
-        when the grid config is not the one it was built for (after an
-        overflow rebuild re-sized it; a checkpoint's grid keeps its
-        config, ``_grid_cfg``, so a resumed run goes on with it)."""
+        overflow rebuild raised ni_max); compact a full scene that now
+        takes the compact route (a classic grid set before the set-up
+        comes back from an overflow rebuild as the spill grid); rebuild
+        the carried skin grid when the grid config is not the one it was
+        built for (after an overflow rebuild re-sized it; a checkpoint's
+        grid keeps its config, ``_grid_cfg``, so a resumed run goes on
+        with it)."""
         kernel = get_kernel(self.kernel_name, self.dim)
-        if "g_xb" in scene and self.cell_config(scene, kernel) \
-                != self._grid_cfg:
+        cfg = self.cell_config(scene, kernel)
+        if "g_xb" in scene and cfg != self._grid_cfg:
             scene = self._attach_grid(scene, kernel)
-        return fit_compact_store(scene, self.cell_config(scene, kernel),
-                                 self.capacity_boost)
+        if "cl_pid" not in scene and self.uses_compact(scene, kernel):
+            return compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
+        return fit_compact_store(scene, cfg, self.capacity_boost)
 
     def export_scene(self, scene: Scene) -> Scene:
         """IO view: the [N, S] slot fields materialised."""
@@ -307,7 +324,13 @@ class _RigidBodySchemeBase(Scheme):
         if self.engine == "nklist":
             return build_rigid_gtvf_step(kernel, cfg["nbr_cfg"], params,
                                          self.two_d)
-        if self.uses_skin:
+        if not self.uses_compact(scene, kernel):
+            if "cl_pid" in scene:
+                raise ValueError(
+                    "the scene holds the compact contact store, which "
+                    "only the GTVF step on the spill grid "
+                    "(cfg.spill=True) with no skin reads: set the scene "
+                    "up under the scheme's present grid config")
             return build_rigid_gtvf_step_full(
                 _make_force_eval(kernel, params, **cfg), self.two_d)
         return build_rigid_gtvf_step_cell(
@@ -752,7 +775,10 @@ def build_rigid_gtvf_step_cell(kernel, cell_cfg, params: dict, two_d: bool,
     device tensor, read by diagnostics without a sync per step).
     ``plain=True`` runs the pack and contact kernels' plain PyTorch
     versions even on CUDA tensors: the kernel step's reference on the
-    card."""
+    card.  The route needs the spill grid (``cell_cfg.spill``)."""
+    if not cell_cfg.spill:
+        raise ValueError("the compact contact route requires a spillover "
+                         "grid (cfg.spill=True)")
 
     def step(scene: Scene, dt: float) -> Scene:
         scene = _body_half_kick(scene, dt, two_d)
@@ -837,14 +863,16 @@ def grid_for_step(scene: Scene, cell_cfg):
 def _make_force_eval(kernel, params: dict, cell_cfg=None,
                      plain: bool = False, nbr_cfg=None):
     """The stage-2 evaluation on the full ``[N, S]`` schema (the RK2 and
-    leapfrog steppers', the list engine's and the Verlet skin's), with
-    the grid's or the list's overflow ORed into ``nbr_overflow``.  With
-    ``nbr_cfg``, a list build and :func:`rigid_contact_force_eval`; else
-    the contact pack on a grid, the contact sums on every slot (K2) and
-    the Eq.-24 tail on every particle: a grid build with pack expansion
-    (K1), or with a skin (``cell_cfg.skin > 0``) the carried grid
-    (:func:`grid_for_step`) and its gathered pack (no K1).  ``plain``
-    runs the kernels' plain versions even on CUDA tensors."""
+    leapfrog steppers', the list engine's, the Verlet skin's and the
+    classic grid's), with the grid's or the list's overflow ORed into
+    ``nbr_overflow``.  With ``nbr_cfg``, a list build and
+    :func:`rigid_contact_force_eval`; else the contact pack on a grid,
+    the contact sums on every slot (K2) and the Eq.-24 tail on every
+    particle: a spill grid build with pack expansion (K1), with a skin
+    (``cell_cfg.skin > 0``) the carried grid (:func:`grid_for_step`) and
+    its gathered pack (no K1), or a classic grid build and its gathered
+    pack (no K1).  ``plain`` runs the kernels' plain versions even on
+    CUDA tensors."""
     if nbr_cfg is not None:
         def ev(scene, dt):
             nbrs = nbmod.build_neighbors(scene.x, scene.y, scene.z,
@@ -859,6 +887,8 @@ def _make_force_eval(kernel, params: dict, cell_cfg=None,
         if cell_cfg.skin > 0:
             scene, grid = grid_for_step(scene, cell_cfg)
             dfT = tck.pack_grid(scene, grid, cell_cfg)
+        elif not cell_cfg.spill:
+            grid, dfT = tck.pack_classic(scene, cell_cfg)
         else:
             grid, _, dfT = tck.pack_scene(scene, cell_cfg, plain,
                                           want_dense_pos=True)

@@ -88,6 +88,16 @@ launches to a host-bound step) and faster from S = 97, where the full
 route's ``[N, S]`` tail outgrows them (``scripts/compact_crossover.py``);
 8 gives the reference's gate, None turns the store off.
 
+A classic grid config (``cellpairs.config_from_positions`` with
+``spill=False``, ``sub >= 2`` or an explicit ``M``; set as the scheme's
+``_cell_cfg`` before ``setup``) runs the kdk, reference and RK2 steps on
+that grid: each pack is gathered through the grid's ``slot2p``
+(``fluid_kernel.pack_fluid_classic``, the reference's
+``pack_fluid_pallas``; no K1), then B6a, B6b, B6c and K2 run on every
+slot at the grid's lane width (K2 up to 128 lanes, the split passes up to
+256).  The kdkf step and the compact store need the spill grid and raise
+on a classic one, as the reference's sorted build does.
+
 Bodies are integrated in 3D (``two_d=False``) even in 2D scenes, as the
 reference does.
 """
@@ -241,6 +251,7 @@ class RigidFluidCouplingScheme(Scheme):
                 and scene.meta.total_no_bodies >= self.compact_min_bodies:
             kernel = get_kernel(self.kernel_name, self.dim)
             cfg = self.cell_config(scene, kernel)
+            _require_spill(cfg, "the compact contact store")
             scene = compact_slot_scene(scene, self.ni_max(cfg) * cfg.M)
         return scene
 
@@ -273,9 +284,11 @@ class RigidFluidCouplingScheme(Scheme):
         if self._cell_cfg is None:
             host = lambda k: scene[k].detach().cpu().numpy()
             cutoff = float(kernel.radius_scale * host("h").max())
+            # the reference's lanes for fluid and bodies sharing cells
+            # (used by a classic grid; the spill grid takes 16)
             self._cell_cfg = cellmod.config_from_positions(
                 host("x"), host("y"), host("z"), cutoff, self.dim,
-                capacity_boost=self.capacity_boost)
+                occupancy_safety=2.6, capacity_boost=self.capacity_boost)
         return self._cell_cfg
 
     # -- the step -----------------------------------------------------------
@@ -341,6 +354,15 @@ class RigidFluidCouplingScheme(Scheme):
         if ordering == "rk2":
             del args["edac"]
         return step_builds[ordering](**args)
+
+
+def _require_spill(cfg, what: str):
+    """Raise for a classic grid config: ``what`` runs on the sorted pack
+    build, which needs the spill grid (as the reference's does)."""
+    if not cfg.spill:
+        raise ValueError(f"{what} requires a spillover grid "
+                         "(cfg.spill=True); the classic grid runs the kdk, "
+                         "reference and rk2 steps")
 
 
 def _masks(scene):
@@ -454,6 +476,7 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
     """One fused kdkf timestep (see the module docstring); ``ni_max > 0``
     takes the compact route on a scene that holds the compact store, and
     records the light cull's count in ``scene.n_interesting``."""
+    _require_spill(cfg, "the kdkf step")
     gvec = (params["gx"], params["gy"], params["gz"])
     NC = cfg.NC_max
     cutoff = cfg.radius
@@ -614,11 +637,13 @@ def _split_passes(kernel, cfg, params: dict, fluid_alpha: float, c0: float,
 
 def _pack(scene, cfg, has_fluid: bool, plain: bool):
     """(grid, pack) of the forces evaluation: the coupling pack, or with
-    no fluid the contact pack itself; one K1 launch either way."""
+    no fluid the contact pack itself; one K1 launch either way on the
+    spill grid, gathered through ``slot2p`` on the classic grid."""
     if has_fluid:
-        grid, _, dfT = fk.pack_fluid_sorted(scene, cfg, plain)
-    else:
-        grid, _, dfT = tck.pack_scene(scene, cfg, plain, want_dense_pos=True)
+        return fk.pack_fluid(scene, cfg, plain)
+    if not cfg.spill:
+        return tck.pack_classic(scene, cfg)
+    grid, _, dfT = tck.pack_scene(scene, cfg, plain, want_dense_pos=True)
     return grid, dfT
 
 
@@ -650,7 +675,7 @@ def build_coupling_kdk_step(kernel, cfg, params: dict, edac: bool,
         scene = _kick(scene, dt, fl, has_fluid, has_rigid)
         ovf = scene.nbr_overflow
         if has_fluid:
-            grid, _, dfT = fk.pack_fluid_sorted(scene, cfg, plain)
+            grid, dfT = fk.pack_fluid(scene, cfg, plain)
             ovf = ovf | grid.overflow
             scene = _rates(scene, grid, dfT, kernel, cfg, nu_edac, c0, edac,
                            has_rigid, plain)

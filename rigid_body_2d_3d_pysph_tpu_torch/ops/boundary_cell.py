@@ -1,4 +1,4 @@
-"""Setup-time surface identification on the spill cell grid.
+"""Setup-time surface identification on the cell grid (either layout).
 
 Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/boundary_cell.py``: the
 same three passes (raw SPH normals with the 0.25/h acceptance,

@@ -1,18 +1,27 @@
-"""The spill cell grid: particles binned into a bounded grid, sorted by
-cell, and laid out as dense slots of M lanes.
+"""The cell grid: particles binned into a bounded grid, sorted by cell,
+and laid out as dense slots of M lanes.
 
-Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/cellpairs.py`` (spill
-layout only, which is what ``config_from_positions`` picks for the
-rigid-contact scheme in 2D and 3D).  A cell holding more than M
-particles takes ceil(count/M) consecutive slots; each slot's stencil
-row lists the slot runs of its cell's 9 (2D) or 27 (3D) neighbour cells,
-packed into ``cfg.O`` entries (``NC_max`` = no neighbour).
+Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/cellpairs.py``, both of
+its layouts, picked by ``config_from_positions`` as the reference picks
+them:
 
-The build is sorts and scans (``torch.sort(stable=True)``, ``cumsum``,
-``cummax``): the lane order inside a cell is the stable order of the
-particle index, exactly as the reference's stable ``lax.sort``, and the
-stencil order is the reference's, so lane order (which decides
-closest-source ties) is identical on both sides.
+* the spill grid (``spill=True``; the default when no ``M`` is given
+  and ``sub == 1``): a cell holding more than M particles takes
+  ceil(count/M) consecutive slots, and each slot's stencil row lists the
+  slot runs of its cell's 9 (2D) or 27 (3D) neighbour cells, packed into
+  ``cfg.O`` entries;
+* the classic grid (``spill=False``): one slot a cell, M sized from the
+  worst cell's occupancy (a multiple of 8), and the stencil row is the
+  slots of all (2 sub + 1)^dim neighbour cells, unpacked (``O =
+  len(stencil)``); a cell with more than M particles raises the
+  overflow flag.
+
+``NC_max`` means no neighbour in a stencil row.  The build is sorts and
+scans (``torch.sort(stable=True)``, ``cumsum``, ``cummax``): the lane
+order inside a cell is the stable order of the particle index, exactly
+as the reference's stable ``lax.sort``, and the stencil order is the
+reference's, so lane order (which decides closest-source ties) is
+identical on both sides.
 
 Index tensors are int64 (PyTorch's indexing type), and the kernels read
 them as int64.
@@ -66,25 +75,33 @@ class CellGridConfig:
 
 
 def config_from_positions(x, y, z, cutoff: float, dim: int,
+                          M: int | None = None,
+                          occupancy_safety: float = 1.5,
+                          sub: int = 1,
                           cell_chunk: int = 512,
-                          capacity_boost: float = 1.0,
+                          skin: float = 0.0,
                           cell_factor: float = 1.0,
-                          M: int = 16, skin: float = 0.0) -> CellGridConfig:
-    """Host-side (numpy): the spill grid for these positions, as the
-    reference's ``config_from_positions`` builds it in spill mode
-    (stencil radius 1).  Bins are ``cell_factor`` x (the cutoff + the
-    Verlet ``skin``: a grid built at some positions holds every pair
-    within the cutoff until a particle has moved skin / 2; the DEM
-    grid's bins are coarser than its contact radius) and hold ``M``
-    lanes per slot.  The domain is the initial bounding box widened by
-    0.75 x its extent; the slot capacity is 1.6 x the occupied slots and
-    the packed stencil width 1.6 x the worst initial stencil of those
-    bins, every slack scaled by ``capacity_boost`` (the overflow-rebuild
+                          spill: bool | None = None,
+                          capacity_boost: float = 1.0) -> CellGridConfig:
+    """Host-side (numpy): the grid for these positions, as the
+    reference's ``config_from_positions`` sizes it.  The domain is the
+    initial bounding box widened by 0.75 x its extent; bins are
+    ``cell_factor`` x (the cutoff + the Verlet ``skin``) / ``sub`` (a
+    grid built at some positions holds every pair within the cutoff
+    until a particle has moved skin / 2; the DEM grid's bins are coarser
+    than its contact radius), and the stencil reaches ``sub`` bins each
+    way.  ``spill=None`` picks the spill grid exactly when no ``M`` is
+    given and ``sub == 1``.  Spill: ``M`` lanes a slot (16 by default),
+    1.6 x the occupied slots, the packed stencil width 1.6 x
+    the worst initial stencil.  Classic: M = the worst cell's occupancy
+    x ``occupancy_safety`` + 2, rounded up to a multiple of 8 (at least
+    8), unless ``M`` is given; 1.6 x the occupied cells.
+    ``capacity_boost`` scales every slack factor (the overflow-rebuild
     rule raises it)."""
-    slack = 0.75 * capacity_boost
     nc_factor = 1.6 * capacity_boost
-    sub = 1
-    cell = float(cell_factor) * (float(cutoff) + float(skin))
+    occupancy_safety = occupancy_safety * capacity_boost
+    slack = 0.75 * capacity_boost
+    cell = float(cell_factor) * (float(cutoff) + float(skin)) / sub
     x = np.asarray(x); y = np.asarray(y); z = np.asarray(z)
     pts = [x, y] + ([z] if dim == 3 else [])
     lo = np.array([p.min() for p in pts])
@@ -106,24 +123,38 @@ def config_from_positions(x, y, z, cutoff: float, dim: int,
     if dim == 2:
         cells[:, 2] = 0
     uniq, counts = np.unique(cells, axis=0, return_counts=True)
-    nsl = -(-counts // M)
-    NC_max = max(64, int(np.ceil(nsl.sum() * nc_factor)))
-    occmap = {tuple(c): int(s) for c, s in zip(uniq, nsl)}
-    r = range(-sub, sub + 1)
-    worst = 0
-    for c in map(tuple, uniq):
-        s = sum(occmap.get((c[0] + i, c[1] + j, c[2] + k), 0)
-                for i in r for j in r for k in (r if dim == 3 else (0,)))
-        worst = max(worst, s)
-    O_p = max(len(r) ** dim, int(np.ceil(worst * 1.6 * capacity_boost)))
-    # the reference rounds O*M up to its 128-lane tile; kept so both
-    # sides build the same table width
-    lane_q = max(1, 128 // M)
-    O_p = -(-O_p // lane_q) * lane_q
+    if spill is None:
+        spill = M is None and sub == 1
+    if spill:
+        if M is None:
+            M = 16
+        nsl = -(-counts // M)
+        NC_max = max(64, int(np.ceil(nsl.sum() * nc_factor)))
+        occmap = {tuple(c): int(s) for c, s in zip(uniq, nsl)}
+        r = range(-sub, sub + 1)
+        worst = 0
+        for c in map(tuple, uniq):
+            s = sum(occmap.get((c[0] + i, c[1] + j, c[2] + k), 0)
+                    for i in r for j in r
+                    for k in (r if dim == 3 else (0,)))
+            worst = max(worst, s)
+        O_p = max(len(r) ** dim, int(np.ceil(worst * 1.6 * capacity_boost)))
+        # the reference rounds O*M up to its 128-lane tile; kept so both
+        # sides build the same table width
+        lane_q = max(1, 128 // M)
+        O_p = -(-O_p // lane_q) * lane_q
+        return CellGridConfig(cell=cell, M=int(M), NC_max=NC_max,
+                              origin=origin, dims=dims, dim=dim,
+                              cell_chunk=cell_chunk, cutoff=float(cutoff),
+                              sub=sub, skin=float(skin), spill=True,
+                              nbr_width=int(O_p))
+    if M is None:
+        M = int(np.ceil(counts.max() * occupancy_safety)) + 2
+        M = max(8, -(-M // 8) * 8)
+    NC_max = max(64, int(np.ceil(len(counts) * nc_factor)))
     return CellGridConfig(cell=cell, M=int(M), NC_max=NC_max, origin=origin,
                           dims=dims, dim=dim, cell_chunk=cell_chunk,
-                          cutoff=float(cutoff), sub=sub, skin=float(skin),
-                          spill=True, nbr_width=int(O_p))
+                          cutoff=float(cutoff), sub=sub, skin=float(skin))
 
 
 class CellGrid(NamedTuple):
@@ -144,12 +175,6 @@ class PackTables(NamedTuple):
     n_valid: torch.Tensor        # 0-d: active in-domain particles
     slot_cid: torch.Tensor       # [NC_max] linear cell id (G = empty)
     sorted_pid: torch.Tensor     # [N] particle index per sorted row
-
-
-def _check_spill(cfg: CellGridConfig):
-    if not cfg.spill:
-        raise ValueError("the port builds the spillover grid only "
-                         "(cfg.spill=True)")
 
 
 def _cell_keys(x, y, z, active, cfg: CellGridConfig):
@@ -208,11 +233,60 @@ def _sort_grid(x, y, z, active, cfg: CellGridConfig):
 
 
 def build_cell_grid(x, y, z, active, cfg: CellGridConfig) -> CellGrid:
-    """The spill grid with its slot2p / dense_pos maps (setup-time
-    boundary identification packs and unpacks through them)."""
-    _check_spill(cfg)
-    grid, _ = _finish_spill_grid(cfg, *_sort_grid(x, y, z, active, cfg))
-    return grid
+    """The grid of ``cfg`` (spill or classic) with its slot2p / dense_pos
+    maps."""
+    sorted_grid = _sort_grid(x, y, z, active, cfg)
+    if cfg.spill:
+        return _finish_spill_grid(cfg, *sorted_grid)[0]
+    return _finish_classic_grid(cfg, *sorted_grid)
+
+
+def _finish_classic_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
+                         head, idx, dom_overflow) -> CellGrid:
+    """One slot a cell (reference ``build_cell_grid``'s non-spill
+    branch): a cell's slot is its rank among the occupied cells, a
+    particle's lane its rank in its cell, and a lane past M or a cell
+    past NC_max raises the overflow flag and is dropped."""
+    M, NC = cfg.M, cfg.NC_max
+    dev = ks.device
+    i64 = torch.int64
+    cslot = torch.cumsum(head.to(i64), 0) - 1
+    n_occ = torch.where(valid_s.any(), cslot[-1] + 1,
+                        torch.zeros((), dtype=i64, device=dev))
+    cell_overflow = n_occ > NC
+    start = torch.cummax(torch.where(head, idx, torch.full_like(idx, -1)),
+                         0).values
+    rank = idx - start
+    lane_overflow = torch.any(valid_s & (rank >= M))
+    slot_ok = valid_s & (rank < M) & (cslot < NC)
+    dense_pos_sorted = torch.where(
+        slot_ok, torch.clamp(cslot, 0, NC - 1) * M + rank,
+        torch.full_like(cslot, NC * M))
+    slot2p = _scatter_drop(NC * M, n, dense_pos_sorted, order, i64)
+    dense_pos = _scatter_drop(
+        n, NC * M, torch.where(slot_ok, order, torch.full_like(order, n)),
+        dense_pos_sorted, i64)
+
+    # the occupied cells' ids, compacted to the front in slot order
+    key2 = torch.where(head, cslot, torch.full_like(cslot, 2 ** 30))
+    _, perm = torch.sort(key2, stable=True)
+    cid_sorted = ks[perm]
+    if n < NC:
+        cid_sorted = torch.cat([cid_sorted, torch.full(
+            (NC - n,), G, dtype=i64, device=dev)])
+    slot_iota = torch.arange(NC, dtype=i64, device=dev)
+    cell_cid = torch.where(slot_iota < torch.clamp(n_occ, max=NC),
+                           cid_sorted[:NC], torch.full_like(slot_iota, -1))
+    cell2slot = _scatter_drop(
+        G, NC, torch.where(cell_cid >= 0, cell_cid,
+                           torch.full_like(cell_cid, G)), slot_iota, i64)
+    qcells = torch.where(cell_cid >= 0, cell_cid,
+                         torch.full_like(cell_cid, G))
+    nbr_slots = _stencil_rows(cell2slot, qcells, cfg.stencil, cfg.dims, G,
+                              NC)
+    return CellGrid(slot2p=slot2p, dense_pos=dense_pos, nbr_slots=nbr_slots,
+                    n_occupied=n_occ,
+                    overflow=dom_overflow | cell_overflow | lane_overflow)
 
 
 def _finish_spill_grid(cfg: CellGridConfig, n, G, ks, order, valid_s,
@@ -344,7 +418,9 @@ def build_cell_grid_packed(x, y, z, active, cfg: CellGridConfig, payload,
     permutation: returns ``(CellGrid, PackTables)``; ``slot2p`` is
     empty, and ``dense_pos`` too unless ``want_dense_pos`` (the
     coupling step unpacks its dense outputs through it)."""
-    _check_spill(cfg)
+    if not cfg.spill:
+        raise ValueError("build_cell_grid_packed requires a spillover "
+                         "grid (cfg.spill=True)")
     n, G, ks, order, valid_s, head, idx, dom_overflow = _sort_grid(
         x, y, z, active, cfg)
     sorted_fields = torch.stack(list(payload), 0).index_select(1, order)

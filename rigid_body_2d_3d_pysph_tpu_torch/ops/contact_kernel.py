@@ -11,8 +11,10 @@ cull and contact sums.
 
 The cell pipeline (:func:`contact_pipeline_cell`, the coupling steps'
 contact pass) runs the same sums on every slot of a grid that exists, on
-this pack built directly (:func:`pack_scene`) or laid out from the rows
-of another pack (:func:`contact_pack`, the coupling pack).
+this pack built directly (:func:`pack_scene` on the spill grid,
+:func:`pack_classic` on the classic grid, whose slots hold 8 to 128 lanes)
+or laid out from the rows of another pack (:func:`contact_pack`, the
+coupling pack).
 
 Output of the contact sums: 12 S columns a lane, column ``c * S + s``
 for block c of (cfn x/y/z, wij sum, contact distance, closest distance,
@@ -32,14 +34,17 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _build
-from .cellpairs import (CellGridConfig, LaneMap, build_cell_grid_packed,
-                        lane_map, pack_fields)
+from .cellpairs import (CellGridConfig, LaneMap, build_cell_grid,
+                        build_cell_grid_packed, lane_map, pack_fields)
 from .ieee import sqrt
 from .kernels import Kernel
 from .pack_expand import expand_slots, expand_slots_reference
 
 _BIG = 1.0e9
 S_NARROW = 64       # csrc/contact.cu's narrow instance: dems as 64-bit masks
+SPILL_LANES = 16    # its instance for the spill grids' slots
+MAX_LANES = 128     # its widest slot: the reference pads a slot to its
+#                     128-lane tile and takes no wider
 WIDE_CHUNK = 2048   # its wide instance: the most dems a chunk
 _MAX_PACK_LANES = 1 << 31   # csrc/contact.cu keeps a pack lane in an int
 _MAX_PAIR_ELEMS = 1 << 22   # pair lanes per chunk of the plain version
@@ -333,6 +338,13 @@ def contact_instance(S: int) -> tuple[str, int]:
     return "wide", min(S, WIDE_CHUNK)
 
 
+def lanes_instance(inst: str, M: int) -> str:
+    """The launch-count key of ``contact_instance``'s ``inst`` at M lanes
+    a slot: the spill grids' width keeps its name, another width is its
+    own instance (``"<inst>/lanes<M>"``)."""
+    return inst if M == SPILL_LANES else f"{inst}/lanes{M}"
+
+
 def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
                  kernel: Kernel, lanes: LaneMap | None = None):
     """Contact sums for the query slots ``qslot [NI]`` over the stencil
@@ -342,7 +354,8 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
     particle; ``qslot`` must then cover every slot that holds a
     particle), where a row without a rigid lane costs the kernel only its
     init rows.  On CUDA tensors the library of ``kernel`` (any of the six
-    SPH kernels) runs."""
+    SPH kernels) runs, at any slot width M up to ``MAX_LANES`` (wider
+    raises)."""
     two_d = kernel.dim == 2
     F = len(_FIELDS_2D if two_d else _FIELDS_3D)
     if dfT.dim() != 3 or dfT.shape[1] != F or qslot.dim() != 1 \
@@ -361,9 +374,13 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
         raise ValueError("the contact kernel takes int64 qslot/nbr")
     R, M = dfT.shape[0], dfT.shape[2]
     inst, chunk = contact_instance(S)
-    if M != 16 or R * M >= _MAX_PACK_LANES:
-        raise ValueError(f"contact kernel limits: M={M} (16), {R * M} pack "
-                         f"lanes (below {_MAX_PACK_LANES})")
+    # the classic grid's 3D coupling slots (M = 176) do not fit, as they
+    # do not fit the reference's kernel
+    if not 1 <= M <= MAX_LANES or R * M >= _MAX_PACK_LANES:
+        raise ValueError(f"contact kernel limits: M={M} lanes a slot (1 to "
+                         f"{MAX_LANES}: the reference's K2 pads a slot to "
+                         f"its {MAX_LANES}-lane tile), {R * M} pack lanes "
+                         f"(below {_MAX_PACK_LANES})")
     NI, O = nbr.shape
     dfT, qslot, nbr = dfT.contiguous(), qslot.contiguous(), nbr.contiguous()
     if lanes is None:
@@ -387,7 +404,7 @@ def contact_sums(dfT, qslot, nbr, S: int, cutoff: float, init_dist: float,
              int(two_d), kernel.device_id, float(cutoff), float(init_dist),
              float(sig_num), float(sig_den), stream)
     _build.check(err, "contact_sums")
-    _build.count("contact", kernel.name, inst)
+    _build.count("contact", kernel.name, lanes_instance(inst, M))
     return out
 
 
@@ -435,6 +452,15 @@ def pack_scene(scene, cfg: CellGridConfig, plain: bool = False,
                         device=scene.device)
     expand = expand_slots_reference if plain else expand_slots
     return grid, pt, expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+
+
+def pack_classic(scene, cfg: CellGridConfig):
+    """The classic grid of ``cfg`` (one slot a cell) at the scene's
+    positions and its contact pack, gathered through ``slot2p`` (no K1,
+    as the reference's ``pack_for_contact``): ``(grid, dfT [NC + 1, F,
+    M])``."""
+    grid = build_cell_grid(scene.x, scene.y, scene.z, scene.active, cfg)
+    return grid, pack_grid(scene, grid, cfg)
 
 
 def pack_grid(scene, grid, cfg: CellGridConfig):

@@ -1,4 +1,4 @@
-"""The coupling scheme's fluid pair passes on the spill cell grid.
+"""The coupling scheme's fluid pair passes on the cell grid.
 
 Counterpart of ``rigid_body_2d_3d_pysph_tpu/ops/pallas_fluid.py``: the
 14-field coupling pack, its sentinels and flags word, the sorted pack
@@ -26,7 +26,11 @@ and the kdk and reference orderings run the split passes
 
 Each wrapper runs its twin for CPU tensors and ``csrc/fluid.cu`` for
 CUDA tensors (float32), in the library of the pass's SPH kernel (any of
-the six of ``ops/kernels.py``); it raises on any other device.  The pack is
+the six of ``ops/kernels.py``); it raises on any other device.  B4 and B5
+take slots of up to 32 lanes on the card (the spill grid's; the kdkf
+step refuses the classic grid), the split passes up to ``MAX_LANES``
+(the classic grid's slots, sized from occupancy: the kdk and reference
+orderings pack it by :func:`pack_fluid_classic`).  The pack is
 ``dfT [NC + 1, 14, M]``: query slot s is row s, a stencil entry NC (no
 neighbour) reads the all-sentinel row NC.  Unlike the TPU kernels, every
 row's output is written (sentinel lanes hold zeros and the contact init
@@ -43,8 +47,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .cellpairs import CellGridConfig, build_cell_grid_packed
-from .cellpairs import LaneMap
+from .cellpairs import (CellGridConfig, LaneMap, build_cell_grid,
+                        build_cell_grid_packed, pack_fields)
 from .contact_kernel import PackLayout, contact_sums_reference
 from .ieee import sqrt
 from .kernels import Kernel
@@ -52,6 +56,8 @@ from .pack_expand import expand_slots, expand_slots_reference
 
 _BIG = 1.0e9
 _MAX_PAIR_ELEMS = 1 << 22   # pair lanes per chunk of the plain versions
+WARP_LANES = 32             # csrc/fluid.cu: B4's and B5's widest slot
+MAX_LANES = 256             # and the split passes' (kMaxLanes)
 
 # Field rows of the coupling pack.  The flags word is dem*16 + cfib*8 +
 # static_boundary*4 + fluid*2 + rigid (cfib = contact_force_is_boundary),
@@ -116,6 +122,28 @@ def pack_fluid_sorted(scene, cfg: CellGridConfig, plain: bool = False):
     sent = torch.tensor(SENT, dtype=scene.dtype, device=scene.device)
     expand = expand_slots_reference if plain else expand_slots
     return grid, pt, expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+
+
+def pack_fluid_classic(scene, cfg: CellGridConfig):
+    """The classic grid of ``cfg`` (one slot a cell) at the scene's
+    positions and its coupling pack gathered through ``slot2p`` (the
+    reference's ``pack_fluid_pallas``; no K1): ``(grid, dfT [NC + 1, 14,
+    M])``, row NC all sentinels."""
+    grid = build_cell_grid(scene.x, scene.y, scene.z, scene.active, cfg)
+    df = pack_fields(grid, cfg, fluid_payload(scene), SENT)
+    row = torch.tensor(SENT, dtype=df.dtype, device=df.device)
+    row = row[None, :, None].expand(1, NF, cfg.M)
+    return grid, torch.cat([df.transpose(1, 2), row], 0).contiguous()
+
+
+def pack_fluid(scene, cfg: CellGridConfig, plain: bool = False):
+    """``(grid, dfT)`` of the split orderings' passes on either grid:
+    :func:`pack_fluid_sorted` (K1) on the spill grid,
+    :func:`pack_fluid_classic` on the classic one."""
+    if cfg.spill:
+        grid, _, dfT = pack_fluid_sorted(scene, cfg, plain)
+        return grid, dfT
+    return pack_fluid_classic(scene, cfg)
 
 
 def patch_columns(dfT, dense_pos, values: dict):
@@ -392,10 +420,9 @@ def fluid_forces_contact_reference(dfT, nbr, kernel: Kernel,
 # kernel wrappers (csrc/fluid.cu for CUDA tensors)
 # ---------------------------------------------------------------------------
 
-def _check(name, dfT, nbr):
+def _check(name, dfT, nbr, max_lanes=WARP_LANES):
     """The common shape checks; True when the kernel runs (CUDA: float32,
-    int64 stencil rows, M <= 32 lanes a slot, since a slot is one warp's
-    work in both templates)."""
+    int64 stencil rows, at most ``max_lanes`` lanes a slot)."""
     if dfT.dim() != 3 or dfT.shape[1] != NF or nbr.dim() != 2 \
             or dfT.shape[0] != nbr.shape[0] + 1:
         raise ValueError(f"{name}: bad shapes {tuple(dfT.shape)}, "
@@ -409,9 +436,9 @@ def _check(name, dfT, nbr):
         raise ValueError(f"{name}: the kernel takes float32")
     if nbr.dtype != torch.int64:
         raise ValueError(f"{name}: the kernel takes an int64 stencil table")
-    if dfT.shape[2] > 32:
-        raise ValueError(f"{name}: the kernel takes M <= 32 lanes a slot, "
-                         f"got {dfT.shape[2]}")
+    if dfT.shape[2] > max_lanes:
+        raise ValueError(f"{name}: the kernel takes M <= {max_lanes} lanes "
+                         f"a slot, got {dfT.shape[2]}")
     return True
 
 
@@ -430,7 +457,9 @@ def _launch(kname, kernel: Kernel, dfT, nbr, width, ints, floats):
              *ints, kernel.device_id, *(float(f) for f in floats),
              float(sig_num), float(sig_den), stream)
     _build.check(err, kname)
-    _build.count(kname, kernel.name)
+    # a slot wider than a warp runs its own instance
+    _build.count(kname, kernel.name,
+                 f"lanes{M}" if M > WARP_LANES else None)
     return out
 
 
@@ -450,7 +479,7 @@ def fluid_rates_wall(dfT, nbr, kernel: Kernel, cutoff: float,
 def fluid_rates(dfT, nbr, kernel: Kernel, cutoff: float,
                 nu_edac: float, c0: float, edac: bool, has_rigid: bool):
     """B6a: continuity and EDAC rates -> ``[NC, M, 2]``."""
-    if not _check("fluid_rates", dfT, nbr):
+    if not _check("fluid_rates", dfT, nbr, MAX_LANES):
         return fluid_rates_reference(dfT, nbr, kernel, cutoff, nu_edac, c0,
                                      edac, has_rigid)
     return _launch("fluid_rates", kernel, dfT, nbr, 2,
@@ -460,7 +489,7 @@ def fluid_rates(dfT, nbr, kernel: Kernel, cutoff: float,
 
 def wall_bc(dfT, nbr, kernel: Kernel, cutoff: float, g):
     """B6b: the Adami wall sums -> ``[NC, M, 5]``."""
-    if not _check("wall_bc", dfT, nbr):
+    if not _check("wall_bc", dfT, nbr, MAX_LANES):
         return wall_bc_reference(dfT, nbr, kernel, cutoff, g)
     return _launch("wall_bc", kernel, dfT, nbr, 5, (int(kernel.dim == 2),),
                    (cutoff, g[0], g[1], g[2]))
@@ -470,7 +499,7 @@ def fluid_forces(dfT, nbr, kernel: Kernel, cutoff: float,
                  fluid_alpha: float, c0: float, has_rigid: bool = False):
     """B6c: the 6 force columns -> ``[NC, M, 6]``; ``has_rigid`` adds the
     FSI source class and the fluid -> rigid force."""
-    if not _check("fluid_forces", dfT, nbr):
+    if not _check("fluid_forces", dfT, nbr, MAX_LANES):
         return fluid_forces_reference(dfT, nbr, kernel, cutoff, fluid_alpha,
                                       c0, has_rigid)
     return _launch("fluid_forces", kernel, dfT, nbr, 6,

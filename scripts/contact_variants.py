@@ -125,9 +125,9 @@ CUTS = {
          "    mofidi::fill_init_rows(a.out,"),
         ("    const int total = s_seg[ns];\n",
          "    const int total = s_seg[ns];\n" + _FILL_NO_CANDIDATE),
-        ("__ldg(sb + FV * M), TWO_D ? 0.0f : __ldg(sb + FW * M));\n"
+        ("__ldg(sb + FV * PM), TWO_D ? 0.0f : __ldg(sb + FW * PM));\n"
          "          }\n",
-         "__ldg(sb + FV * M), TWO_D ? 0.0f : __ldg(sb + FW * M));\n"
+         "__ldg(sb + FV * PM), TWO_D ? 0.0f : __ldg(sb + FW * PM));\n"
          "          } else if (orow >= 0) {\n"
          "            for (int cc = 0; cc < 12; ++cc)\n"
          "              a.out[orow + d0 + s + cc * S] =\n"

@@ -163,13 +163,16 @@ def _check_contact(got, ref, S):
         assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * scale).all()), c
 
 
-def _contact_pack(dim, S, dev, seed, nrows=48, NI=40, O=12, M=16, box=5):
+def _contact_pack(dim, S, dev, seed, nrows=48, NI=40, O=12, M=16, box=5,
+                  jitter=0.0):
     """A random contact pack on a lattice of spacing 2^-6 (coordinates and
     their differences exact in f32, so equal distances tie exactly):
     lanes live with p 0.6, dems uniform in [0, S), contact surface with p
     0.7, fluid with p 0.1, rigid with p 0.7; the last row all-sentinel;
     stencil rows drawn at random (the sentinel row among them) and a few
-    padding query rows.  Returns the kernel's arguments."""
+    padding query rows.  ``jitter`` moves each live lane off the lattice
+    by up to that many spacings (drawn last).  Returns the kernel's
+    arguments."""
     rng = np.random.default_rng(seed)
     two_d = dim == 2
     fi = tck.field_index(two_d)
@@ -196,6 +199,11 @@ def _contact_pack(dim, S, dev, seed, nrows=48, NI=40, O=12, M=16, box=5):
     qslot = rng.integers(0, nrows - 1, NI)
     qslot[-3:] = nrows - 1                     # padding rows
     nbr[-3:] = nrows - 1
+    if jitter:
+        for k in ("x", "y") + (() if two_d else ("z",)):
+            off = rng.uniform(-jitter, jitter, shape) * sp
+            dfT[:-1, fi[k]] = np.where(live, dfT[:-1, fi[k]] + off,
+                                       dfT[:-1, fi[k]])
     t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
     return (t(dfT, torch.float32), t(qslot, torch.int64),
             t(nbr, torch.int64), S, 2.5 * sp, 4.0 * sp, QuinticSpline(dim=dim))
@@ -1203,15 +1211,16 @@ def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfk.fluid_rates(dfT.double(), nbr, kernel, 0.1, 0.1, 1.0, True, True)
     with pytest.raises(ValueError):
         tfk.wall_bc(dfT[:, :7], nbr, kernel, 0.1, g)
-    wide = torch.zeros((5, tfk.NF, 64), device=dev)   # a slot is a warp
+    wide = torch.zeros((5, tfk.NF, 64), device=dev)   # B4, B5: a warp
+    widest = torch.zeros((5, tfk.NF, tfk.MAX_LANES + 8), device=dev)
     with pytest.raises(ValueError):
-        tfk.fluid_forces(wide, nbr, kernel, 0.1, 0.1, 1.0)
+        tfk.fluid_forces(widest, nbr, kernel, 0.1, 0.1, 1.0)
     with pytest.raises(ValueError):
         tfk.fluid_rates_wall(wide, nbr, kernel, 0.1, 0.1, 1.0, True, True, g)
     with pytest.raises(ValueError):
-        tfk.fluid_rates(wide, nbr, kernel, 0.1, 0.1, 1.0, True, True)
+        tfk.fluid_rates(widest, nbr, kernel, 0.1, 0.1, 1.0, True, True)
     with pytest.raises(ValueError):
-        tfk.wall_bc(wide, nbr, kernel, 0.1, g)
+        tfk.wall_bc(widest, nbr, kernel, 0.1, g)
     with pytest.raises(ValueError):
         tfk.fluid_forces_contact(wide, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
     lanes = tcell.LaneMap(torch.zeros(64, dtype=torch.int64, device=dev),
@@ -1772,3 +1781,284 @@ def test_kdkf_compact_and_full_routes_use_their_b5_layouts(dev):
             np.testing.assert_allclose(x, y, rtol=1e-4,
                                        atol=1e-4 * max(np.abs(y).max(), 1.0),
                                        err_msg=f"{inst} {k}")
+
+
+# ---------------------------------------------------------------------------
+# the classic cell grid (one slot a cell, lanes sized from occupancy): K2
+# at other slot widths than the spill grid's 16 and stencils past 27
+# entries, the split fluid passes (B6a, B6b, B6c) past one warp a slot,
+# and the steps that run them
+# ---------------------------------------------------------------------------
+
+# (M, O): the classic grids' widths and stencils (2D sub = 2: 8 x 25; the
+# coupling's 48 x 9; 3D: 104 x 27, 16 x 125), the kernel's widest (128),
+# and widths that are not a multiple of 16
+CLASSIC_K2 = [(8, 25), (24, 9), (32, 9), (40, 9), (48, 9), (104, 27),
+              (128, 27), (16, 125)]
+
+
+@pytest.mark.parametrize("M,O", CLASSIC_K2)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_classic_widths_match_twin(dev, dim, M, O):
+    """K2 at the classic grid's slot widths and stencils against its
+    plain version, counted as the width's instance: on the lattice pack
+    (exact distance ties) the picks bit for bit; on the pack moved off
+    the lattice every column, by query row (padding rows among them) and
+    by particle (every slot, particles without a lane).  On the lattice a
+    stencil symmetric about a query lane cancels its Eq. 22 sum exactly
+    in one summation order and to a rounding residue in another, and the
+    unit normal of that sum is then undefined (the plain version
+    normalises the residue), so the sums are held off the lattice."""
+    S = 9
+    args = _contact_pack(dim, S, dev, seed=M + O + dim, nrows=40, NI=39,
+                         O=O, M=M)
+    inst = f"contact/{tck.lanes_instance('narrow', M)}"
+    before = _build.LAUNCHES_INSTANCE.get(inst, 0)
+    got = tck.contact_sums(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_INSTANCE[inst] == before + 1
+    assert got.shape == (39, M, 12 * S)
+    ref = tck.contact_sums_reference(*args)
+    assert int((ref[..., 5 * S:6 * S] < args[5]).sum()) > 0
+    assert torch.equal(got[..., 5 * S:], ref[..., 5 * S:])
+    args = _contact_pack(dim, S, dev, seed=M + O + dim, nrows=40, NI=39,
+                         O=O, M=M, jitter=0.25)
+    got = tck.contact_sums(*args)
+    torch.cuda.synchronize()
+    ref = tck.contact_sums_reference(*args)
+    assert int((ref[..., 5 * S:6 * S] < args[5]).sum()) > 0
+    _check_contact(got, ref, S)
+    dfT, _, nbr = args[:3]
+    q = torch.arange(39, device=dev)
+    lanes = _lane_map_of(dfT, -8.0, 7, seed=M + O)
+    by_p = (dfT, q, nbr) + args[3:]
+    got = tck.contact_sums(*by_p, lanes=lanes)
+    torch.cuda.synchronize()
+    ref = tck.contact_sums_reference(*by_p, lanes=lanes)
+    _check_contact(got, ref, S)
+    assert float(got[-7:].abs().max()) == 0.0       # no lane: zeros
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_contact_kernel_classic_wide_and_windows_match_twin(dev, dim):
+    """The classic instance with the wide dem tables (S = 70) on 104
+    lanes, and a 125-entry stencil of 128 lanes with more candidates
+    than three windows hold (the 3D classic stencils' case)."""
+    args = _contact_pack(dim, 70, dev, seed=40 + dim, nrows=40, NI=20,
+                         O=27, M=104, jitter=0.25)
+    got = tck.contact_sums(*args)
+    torch.cuda.synchronize()
+    _check_contact(got, tck.contact_sums_reference(*args), 70)
+    S = 3
+    args = _contact_pack(dim, S, dev, seed=50 + dim, nrows=40, NI=6, O=125,
+                         M=128, box=4, jitter=0.25)
+    got = tck.contact_sums(*args)
+    torch.cuda.synchronize()
+    ref = tck.contact_sums_reference(*args)
+    dfT, _, nbr = args[:3]
+    flags = tck.decode_flags(dfT[:, -1])
+    cand = ((flags[1] == 1.0) & (flags[2] == 0.0) & (flags[0] >= 0)).sum(1)
+    assert int(cand[nbr[0]].sum()) > 3 * 1536
+    assert int((ref[..., 5 * S:6 * S] < args[5]).sum()) > 0
+    _check_contact(got, ref, S)
+
+
+@pytest.mark.parametrize("M", [33, 48, 104, 176, 256])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_split_passes_classic_widths_match_twin(dev, dim, M):
+    """B6a (EDAC and Tait, with and without bodies), B6b and B6c (with
+    and without bodies, with and without viscosity) on slots wider than
+    a warp, against their twins, each counted as the width's instance;
+    the 48-lane slots' 9-entry stencils hold more candidates than a
+    staging window (160), so windows end inside an entry."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    dfT, nbr, kernel, cutoff = _fluid_pack_args(dim, 3, dev, seed=400 + M,
+                                                NC=24, O=9, M=M,
+                                                box=5)[:4]
+    calls = [c for c in _rates_wall_calls(dfT, nbr, kernel, cutoff)
+             if not c[0].startswith("B4")]
+    for rigid in (True, False):
+        for alpha in (0.1, 0.0):
+            calls.append((f"B6c rigid={rigid} alpha={alpha}",
+                          "fluid_forces", tfk.fluid_forces,
+                          tfk.fluid_forces_reference,
+                          (dfT, nbr, kernel, cutoff, alpha, 10.0, rigid)))
+    for label, kname, fast, plain, args in calls:
+        inst = f"{kname}/lanes{M}"
+        before = _build.LAUNCHES_INSTANCE.get(inst, 0)
+        got = fast(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES_INSTANCE[inst] == before + 1, label
+        assert got.shape[1] == M and bool(torch.isfinite(got).all()), label
+        _check_fluid_columns(got, plain(*args), f"M={M} {label}")
+
+
+def test_classic_wrappers_refuse_widths_past_the_kernels(dev):
+    """K2 takes slots of at most 128 lanes (the 3D coupling's classic
+    176 raises), the split passes 256, B4 and B5 32."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    kernel = QuinticSpline(dim=2)
+    q = torch.zeros(2, dtype=torch.int64, device=dev)
+    nbr = torch.zeros((2, 9), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="128"):
+        tck.contact_sums(torch.zeros((4, 7, 176), device=dev), q, nbr, 3,
+                         0.1, 0.2, kernel)
+    fnbr = torch.zeros((4, 9), dtype=torch.int64, device=dev)
+    d48 = torch.zeros((5, tfk.NF, 48), device=dev)
+    with pytest.raises(ValueError, match="32"):
+        tfk.fluid_rates_wall(d48, fnbr, kernel, 0.1, 0.1, 1.0, True, True,
+                             (0.0, -1.0, 0.0))
+    with pytest.raises(ValueError, match="32"):
+        tfk.fluid_forces_contact(d48, fnbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
+    d264 = torch.zeros((5, tfk.NF, 264), device=dev)
+    with pytest.raises(ValueError, match="256"):
+        tfk.fluid_rates(d264, fnbr, kernel, 0.1, 0.1, 1.0, True, True)
+
+
+def _classic_cfg(scene, cutoff, dim, **kw):
+    host = lambda k: scene[k].cpu().numpy()
+    cfg = tcell.config_from_positions(host("x"), host("y"), host("z"),
+                                      cutoff, dim, **kw)
+    assert not cfg.spill
+    return cfg
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_classic_rigid_kernel_steps_match_plain_steps(dev, dim):
+    """3 GTVF steps on the classic grid (2D sub = 2, 3D lanes from
+    occupancy): one K2 on every slot a step, no K1, kernel against plain
+    within rtol 1e-4."""
+    scene, _ = _scene(dim, dev)
+    kernel = QuinticSpline(dim=dim)
+    cfg = _classic_cfg(scene, 3 * 1.3 * 0.02, dim,
+                       **(dict(sub=2) if dim == 2 else dict(spill=False)))
+    fast = trb.build_rigid_gtvf_step_full(
+        trb._make_force_eval(kernel, PARAMS, cfg), dim == 2)
+    plain = trb.build_rigid_gtvf_step_full(
+        trb._make_force_eval(kernel, PARAMS, cfg, plain=True), dim == 2)
+    a = b = scene
+    _build.reset_launches()
+    for _ in range(3):
+        a, b = fast(a, 1e-4), plain(b, 1e-4)
+    assert _build.LAUNCHES["contact"] == 3
+    assert sum(_build.LAUNCHES.values()) == 3
+    assert _build.LAUNCHES_INSTANCE[
+        f"contact/{tck.lanes_instance('narrow', cfg.M)}"] == 3
+    assert not bool(a.nbr_overflow) and float(b.overlap.max()) > 0
+    for k in ("x", "y", "z", "u", "v", "fx", "fy", "xcm", "vcm", "omega",
+              "overlap"):
+        x, y = a[k].cpu().numpy(), b[k].cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(y).max(), 1.0),
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("ordering", ["kdk", "reference"])
+def test_classic_coupling_kernel_steps_match_plain_steps(dev, ordering):
+    """3 steps of the kdk and reference orderings on the coupling's
+    classic grid (the box tank, lanes past a warp): B6a, B6b, B6c and K2
+    a step on every slot at the grid's width, no K1; the kdkf step
+    refuses the grid."""
+    scheme, scene = _coupling_scene(dev)
+    scene = scene.replace(vcm=torch.tensor([[0.05, -0.02, 0.0]], device=dev))
+    h = float(scene.h.max())
+    scheme._cell_cfg = _classic_cfg(scene, 3.0 * h, 2, occupancy_safety=2.6,
+                                    spill=False, cell_factor=1.5)
+    M = scheme._cell_cfg.M
+    assert 32 < M <= 128
+    with pytest.raises(ValueError, match="spill"):
+        scheme.make_step(scene)                 # kdkf
+    scheme.gtvf_ordering = ordering
+    fast, plain = scheme.make_step(scene), scheme.make_step(scene, plain=True)
+    a = b = scene
+    _build.reset_launches()
+    for _ in range(3):
+        a, b = fast(a, 1e-5), plain(b, 1e-5)
+    n_rates = 1
+    want = dict(fluid_rates=n_rates, wall_bc=1, fluid_forces=1, contact=1)
+    for k, n in want.items():
+        assert _build.LAUNCHES[k] == 3 * n, k
+    assert sum(_build.LAUNCHES.values()) == 3 * sum(want.values())
+    for k in ("fluid_rates", "wall_bc", "fluid_forces"):
+        assert _build.LAUNCHES_INSTANCE[f"{k}/lanes{M}"] == 3, k
+    assert not bool(a.nbr_overflow)
+    assert float(b.overlap.max()) > 0
+    for k in ("x", "y", "u", "v", "rho", "p", "p_fsi", "fx", "fy", "xcm",
+              "vcm", "omega", "overlap"):
+        x, y = a[k].cpu().numpy(), b[k].cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(y).max(), 1.0),
+                                   err_msg=f"{ordering} {k}")
+
+
+def test_classic_coupling_3d_kdk_kernel_steps_match_plain_steps(dev):
+    """3 kdk steps of a small 3D sinking box (a box of rho 2 dipped into
+    a hydrostatic tank's surface) on its classic grid of the coupling's
+    lane rule (past two warps a slot): B6a, B6b, B6c and K2 a step on
+    every slot at the grid's width, no K1, against 3 plain steps."""
+    from rigid_body_2d_3d_pysph_tpu_torch.geom import get_fluid_tank_3d
+    from rigid_body_2d_3d_pysph_tpu_torch.models import (
+        RigidFluidCouplingScheme)
+    from rigid_body_2d_3d_pysph_tpu_torch.state import ROLE_FLUID
+
+    dx, gy, rho0 = 0.05, -1.0, 1.0
+    xf, yf, zf, xt, yt, zt = get_fluid_tank_3d(
+        0.5, 0.3, 0.3, 0.5, 0.45, 3, dx, dx, hydrostatic=True)
+    p0 = -rho0 * gy * (yf.max() - yf)
+    xb, yb, zb = get_3d_block(dx, 0.15, 0.1, 0.15)
+    xb += (xf.min() + xf.max()) / 2 - (xb.min() + xb.max()) / 2
+    zb += (zf.min() + zf.max()) / 2 - (zb.min() + zb.max()) / 2
+    yb += yf.max() - yb.min() - 0.05
+    keep = ~((xf > xb.min() - dx) & (xf < xb.max() + dx)
+             & (yf > yb.min() - dx) & (yf < yb.max() + dx)
+             & (zf > zb.min() - dx) & (zf < zb.max() + dx))
+    m, c0 = rho0 * dx**3, 10 * np.sqrt(2 * abs(gy) * 0.3)
+    groups = [
+        make_group("fluid", xf[keep], yf[keep], z=zf[keep], m=m, h=dx,
+                   rho=rho0, role=ROLE_FLUID, p=p0[keep]),
+        make_group("tank", xt, yt, z=zt, m=m, h=dx, rho=rho0, rad_s=dx / 2,
+                   role=ROLE_BOUNDARY, dem_id=1),
+        make_group("body", xb, yb, z=zb, m=2.0 * m, h=dx, rho=2.0 * rho0,
+                   rad_s=dx / 2, role=ROLE_RIGID,
+                   body_id=np.zeros(len(xb), np.int32),
+                   dem_id=np.zeros(len(xb), np.int32))]
+    scene = build_scene(groups, dim=3, total_no_bodies=2, spacing0=dx,
+                        device=dev, dtype=torch.float32)
+    scheme = RigidFluidCouplingScheme(
+        ["fluid"], ["tank"], ["body"], dim=3, rho0=rho0, p0=rho0 * c0**2,
+        c0=c0, h=dx, nu=0.0, gy=gy)
+    scheme._cell_cfg = _classic_cfg(scene, 3.0 * dx, 3, occupancy_safety=2.6,
+                                    spill=False)
+    M = scheme._cell_cfg.M
+    assert 64 < M <= 128 and scheme._cell_cfg.O == 27
+    scene = scheme.setup(scene)
+    # the box's displaced-fluid shadow mass and density
+    rigid = scene.is_rigid
+    scene = scene.replace(
+        m_fsi=torch.where(rigid, scene.m_fsi + m, scene.m_fsi),
+        rho_fsi=torch.where(rigid, rho0, scene.rho_fsi))
+    scheme.gtvf_ordering = "kdk"
+    fast, plain = scheme.make_step(scene), scheme.make_step(scene, plain=True)
+    dt = 0.25 * dx / (1.1 * c0)
+    a = b = scene
+    _build.reset_launches()
+    for _ in range(3):
+        a, b = fast(a, dt), plain(b, dt)
+    want = dict(fluid_rates=1, wall_bc=1, fluid_forces=1, contact=1)
+    for k, n in want.items():
+        assert _build.LAUNCHES[k] == 3 * n, k
+    assert sum(_build.LAUNCHES.values()) == 3 * sum(want.values())
+    for k in ("fluid_rates", "wall_bc", "fluid_forces"):
+        assert _build.LAUNCHES_INSTANCE[f"{k}/lanes{M}"] == 3, k
+    assert _build.LAUNCHES_INSTANCE[
+        f"contact/{tck.lanes_instance('narrow', M)}"] == 3
+    assert not bool(a.nbr_overflow) and not bool(b.nbr_overflow)
+    assert bool(torch.isfinite(b.u).all())
+    for k in ("x", "y", "z", "u", "v", "w", "rho", "p", "p_fsi", "fx", "fy",
+              "fz", "xcm", "vcm", "omega"):
+        x, y = a[k].cpu().numpy(), b[k].cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(y).max(), 1.0),
+                                   err_msg=k)
