@@ -138,9 +138,9 @@ no result line):
     ``check_benchmark_2`` (momentum < 1e-2, both cubes rebound); one K1
     and one K2 launch a step; prints steps/s;
 28. the rigid slab step (``parallel/slab.py``) on phase 4's stack,
-    SLAB_P = 4 slabs on the card, blob route: 20 slab steps against 20
-    single-device steps and against 20 slab steps on the kernels'
-    plain versions, from one state with the blocks sliding (velocities
+    SLAB_P = 4 slabs on the card, blob route: 10 slab steps against 10
+    single-device steps and against 10 slab steps on the kernels'
+    plain versions (10 in phases 28-33, 20 elsewhere), from one state with the blocks sliding (velocities
     and the bodies' state within STEP_RTOL, positions as their change
     over the steps, by gid); 4 K1 and 4 K2 launches a step and nothing
     else; some slab with interesting slots; K1 and K2 on each slab's
@@ -149,11 +149,11 @@ no result line):
     steps/s of 4 slabs and of one;
 29. the 3D cubes of phase 5a on the most slabs of at least 2 cell
     columns each, on the blob and the full ``[N, S]`` routes (K2 on
-    every slot of each slab), each route's 20-step comparisons (against
+    every slot of each slab), each route's 10-step comparisons (against
     the slab step on one slab in place of the single-device step) and
     per-slab K2 as in phase 28;
-30. the DEM slab step on phase 7's column, 4 slabs on the card: 20
-    steps against 20 single-device and 20 plain slab steps (the tables
+30. the DEM slab step on phase 7's column, 4 slabs on the card: 10
+    steps against 10 single-device and 10 plain slab steps (the tables
     as gid-keyed maps), 4 K1 and 4 K4 launches a step, live contacts
     every step, the tables unchanged by an on-device redistribution,
     K4 on each slab's extended scene against its twin, timed, and 100
@@ -163,8 +163,8 @@ no result line):
 32. the coupling slab step (``make_slab_coupling_step``) on phase 13's
     placement (the box of rho 8 on the floor, pushed down and sideways),
     the grid cut to the tank in x so that each of SLAB_P slabs on the
-    card holds fluid, in the kdk and then the kdkf ordering: 20 slab
-    steps against 20 single-device steps of the ordering and 20 plain
+    card holds fluid, in the kdk and then the kdkf ordering: 10 slab
+    steps against 10 single-device steps of the ordering and 10 plain
     slab steps (positions as their change, velocities, rho, p and the
     body state within STEP_RTOL, by gid; overlap > 0 at the end); SLAB_P
     x the ordering's kernels a step and nothing else (kdk: 2 K1, B6a,
@@ -188,7 +188,7 @@ no result line):
     set up on lists: 100 GTVF steps under phase 4's gates, no kernel
     launched, K, the gated contact pairs and the peak device memory
     printed, steps/s;
-36. the same on phase 5a's 3D cubes: 25 GTVF steps, then 25 leapfrog
+36. the same on phase 5a's 3D cubes: 10 GTVF steps, then 10 leapfrog
     steps from a fresh set-up;
 37. the DEM column on lists: 100 LVCDisplacement steps under phase 7's
     gates and 20 LVCForce steps, no kernel launched, K printed;
@@ -279,7 +279,7 @@ no result line):
     (picks bit for bit, sums at phase 3's tolerance), timed with its
     bound; 100 GTVF steps under phase 4's gates (one K2 a step at the
     grid's width, no K1, the full [N, S] schema, no overflow); 20 kernel
-    steps against 20 plain steps;
+    steps against 20 plain steps (10 for the 3D cubes);
 48. the kdk coupling ordering on the sinking box's classic grid of 48
     lanes (the kdkf step refuses it): B6a (EDAC and Tait), B6b, B6c and
     K2 on every slot against their plain versions, timed; 150 steps under
@@ -288,11 +288,29 @@ no result line):
     floor; 49. the kdk ordering on the 3D sinking box's own classic grid
     (the coupling's lane rule: M 80, O 27): B6a, B6b, B6c and K2 on
     every slot against their plain versions, timed; 100 steps under
-    phase 11's gates (each a step at 80 lanes, no K1); 20 kernel steps
-    against 20 plain steps; then the split passes on the same box's pack
+    phase 11's gates (each a step at 80 lanes, no K1); 10 kernel steps
+    against 10 plain steps; then the split passes on the same box's pack
     at 176 lanes a slot against their plain versions, timed (K2 refuses
     that width);
-50. a JSON line of per-kernel numbers (``launches`` from the kernel's
+50. every lane width of the DEM kernels: the 2D column on the spill grid
+    at (cell_factor, cell_M) = (8, 32), K4 and K1 against their plain
+    versions, timed, 100 steps under phase 7's gates, 20 kernel steps
+    against 20 plain steps; K4 and K3 at 4, 24, 64 and 128 lanes against
+    their plain versions, timed, and 50 steps on row windows of 24;
+51. B4 and B5 past one warp: the kdkf step on a spill grid of 48 lanes
+    set before the set-up (B4 and B5 against their plain versions on the
+    dense box resting on the tank floor, gated contact pairs and picks
+    required, timed, and 20 kernel steps against 20 plain steps from
+    there; 150 steps of the sinking box under phase 11's gates), its
+    compact store at 48 lanes (20 kernel steps of the boxes against 20
+    plain steps), B4 and B5 at 64 lanes on the 3D boxes resting on the
+    tank floor against their plain versions, timed, with contact picks;
+52. the slab steps on classic bases, 4 slabs of the card, 20 steps each:
+    the stack's GTVF and the DEM column against single-device steps on
+    the same grid, the sinking box's kdk against single-device kdk steps
+    and its kdkf against plain slab steps, with the launches a slab a
+    step;
+53. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
@@ -316,7 +334,12 @@ no result line):
     instance, ``contact_sums/narrow/lanes<M>`` (K2 at each grid's width)
     and ``fluid_rates``, ``wall_bc``, ``fluid_forces`` ``/lanes48`` and
     ``/lanes80`` (the 80-lane ones with their times at 176 lanes
-    beside), with its launches from its phase 47-49 main path,
+    beside), with its launches from its phase 47-49 main path, and for
+    the lane-width instances ``dem_cell/lanes`` and ``dem_rowwin/lanes``
+    (the runtime-width instance, every width of phase 50 beside), K1 at
+    32 lanes, ``fluid_rates_wall/lanes48`` and
+    ``fluid_forces_contact/lanes/lanes48`` (the 3D boxes' 64-lane times
+    beside), with their launches from their phase 50-51 main paths,
     the script's seconds, then the result line.
 
 It imports nothing from JAX or the JAX package.
@@ -340,6 +363,11 @@ DT = 1e-4
 N_STEPS = 150
 CHUNK = 50
 COMPARE_STEPS = 20
+# the earlier paths whose plain versions take the most time hold their
+# kernel steps against plain steps over fewer steps (the 3D classic
+# parities of phases 47 and 49, the slab phases 28-33), so that the script
+# stays near 900 s as phases are added
+SHORT_CMP = 10
 REPS = 20
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's ~2 GHz: REPS launches queue
 # step-vs-step tolerance: the contact sums' f32 summation order differs
@@ -398,9 +426,9 @@ STEPPER_STEPS = 100
 # column; the 3D cubes (K ~ 3,500 at 116.5k particles: each [N, K] f32
 # field ~1.6 GB)
 LIST_STEPS = 100
-# (the cubes at rest drop ~5e-7 m in 50 steps: half a 25-step free fall
-# is 1.5e-5 m)
-LIST_3D_STEPS = 25
+# (the cubes at rest drop ~5e-7 m in 50 steps: half a 10-step free fall
+# is 2.5e-6 m)
+LIST_3D_STEPS = 10
 # the slab phases (28-31): slabs on the card (2D rigid, DEM); the 3D
 # phase takes the most slabs of at least 2 cell columns each
 SLAB_P = 4
@@ -607,7 +635,8 @@ def slot_lanes(cnt, nbr):
 def classic_config(scheme, scene, **grid):
     """A classic cell grid config (``cellpairs.config_from_positions``
     with ``grid``: ``spill=False``, ``sub=2`` or an explicit ``M``) of the
-    scene's positions at the scheme's cutoff (radius scale x max h)."""
+    scene's positions at the scheme's cutoff (radius scale x max h); with
+    ``spill=True`` in ``grid``, the spill grid of that M (phase 51)."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
@@ -616,7 +645,8 @@ def classic_config(scheme, scene, **grid):
                    * host("h").max())
     cfg = tcell.config_from_positions(host("x"), host("y"), host("z"),
                                       cutoff, scheme.dim, **grid)
-    check(not cfg.spill, f"{grid}: not a classic grid")
+    check(cfg.spill == bool(grid.get("spill")), f"{grid}: not the grid "
+          "asked for")
     return cfg
 
 
@@ -1098,14 +1128,13 @@ def check_instances(label, sph, launches):
     return {**launches, **_build.LAUNCHES_SPH, **_build.LAUNCHES_INSTANCE}
 
 
-def phase_step_parity(scheme, scene, label="parity"):
-    """20 kernel steps of the scheme's stepper against 20 steps of its
-    twin (the kernels' plain versions) from one state."""
+def phase_step_parity(scheme, scene, label="parity", n=COMPARE_STEPS):
+    """``n`` kernel steps of the scheme's stepper against ``n`` steps of
+    its twin (the kernels' plain versions) from one state."""
     from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
 
-    fast = trb.make_multi_step(scheme.make_step(scene), COMPARE_STEPS)
-    plain = trb.make_multi_step(scheme.make_step(scene, plain=True),
-                                COMPARE_STEPS)
+    fast = trb.make_multi_step(scheme.make_step(scene), n)
+    plain = trb.make_multi_step(scheme.make_step(scene, plain=True), n)
     a, b = fast(scene, DT), plain(scene, DT)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
@@ -1121,9 +1150,9 @@ def phase_step_parity(scheme, scene, label="parity"):
         worst.append(f"{k} {err:.3e} (scale {scale:.3e})")
         check(ok, f"kernel step vs twin step: {k} off by {err:.3e} "
                   f"(scale {scale:.3e}, rtol {STEP_RTOL})")
-    print(f"[{label}] {scheme.dim}D {scheme.integrator}: {COMPARE_STEPS} "
-          f"kernel steps vs {COMPARE_STEPS} twin "
-          f"steps, max abs diff: " + ", ".join(worst), flush=True)
+    print(f"[{label}] {scheme.dim}D {scheme.integrator}: {n} kernel steps "
+          f"vs {n} twin steps, max abs diff: " + ", ".join(worst),
+          flush=True)
 
 
 def list_twin(scheme):
@@ -1999,7 +2028,8 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed, k1=None):
     """The passes this scene's step runs against their twins on its pack,
     with seeded random velocities: B4 and B5 with a rigid body, B4 and
     B6c without; ``timed`` also times each and computes its bound, and K1
-    on the pack into ``k1``.  Returns the gated contact pairs."""
+    on the pack into ``k1``.  Returns the gated contact pairs and B5's
+    contact rows with a pick (None without a body)."""
     kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(scheme, scene,
                                                            label, 13)
     if k1 is not None:
@@ -2020,7 +2050,7 @@ def phase_fluid_kernels(scheme, scene, label, timings, timed, k1=None):
               f"{k} {v['err']:.3e}" for k, v in out.items()), flush=True)
     print_fluid_passes("fluid-kernels", label, out)
     timings[label] = out
-    return work["gated"]
+    return work["gated"], n_found
 
 
 def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step,
@@ -2478,12 +2508,12 @@ def phase_coupling_3d(scheme, scene, tmp, smi):
     return launches, solver.steps_per_sec
 
 
-def phase_coupling_3d_parity(scheme, end, dt, label):
-    """20 kernel steps against 20 twin steps of the 3D sinking box from
-    ``end``, in the scheme's ordering (STEP_RTOL)."""
+def phase_coupling_3d_parity(scheme, end, dt, label, n=COMPARE_STEPS):
+    """``n`` kernel steps against ``n`` twin steps of the 3D sinking box
+    from ``end``, in the scheme's ordering (STEP_RTOL)."""
     fast, plain = scheme.make_step(end), scheme.make_step(end, plain=True)
     a = b = end
-    for _ in range(COMPARE_STEPS):
+    for _ in range(n):
         a, b = fast(a, dt), plain(b, dt)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
@@ -2513,13 +2543,13 @@ def phase_coupling_3d_parity(scheme, end, dt, label):
             bad.append(f"{k} off by {err:.3e} (scale {scale:.3e})")
     check(not bad, f"{label}: kernel step vs twin step (rtol {STEP_RTOL}): "
           + ", ".join(bad))
-    print(f"[{label}-parity] {COMPARE_STEPS} kernel steps vs "
-          f"{COMPARE_STEPS} twin steps, max abs diff: " + ", ".join(worst),
-          flush=True)
+    print(f"[{label}-parity] {n} kernel steps vs {n} twin steps, max abs "
+          "diff: " + ", ".join(worst), flush=True)
 
 
 def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4,
-                     side=None, compact=True, kr=None, min_overlap=0.0):
+                     side=None, compact=True, kr=None, min_overlap=0.0,
+                     grid=None):
     """The compact route's scene: the sinking box's tank at bench.py's
     coupling size (2D: ``sinking_box_scene``'s 4 x 3 fluid block; 3D:
     ``sinking_box_scene_3d``'s 1.0 x 0.6 x 0.5 one) with ``rows`` layers
@@ -2536,8 +2566,9 @@ def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4,
     ``compact=None`` leaves the scheme's default).  ``side`` sets the
     boxes' side (2D; CPL_BOX_SIDE by default), ``kr`` the contact
     stiffness (the scheme's, or CPL_CUBE_KR in 3D, by default) and
-    ``min_overlap`` (in dx) the least overlap ``settle_boxes`` leaves.
-    Returns (scheme, scene, dt)."""
+    ``min_overlap`` (in dx) the least overlap ``settle_boxes`` leaves;
+    ``grid`` as in ``classic_config`` (phase 51: a spill grid of more
+    lanes).  Returns (scheme, scene, dt)."""
     from rigid_body_2d_3d_pysph_tpu_torch import config
     from rigid_body_2d_3d_pysph_tpu_torch.geom import (
         get_2d_block, get_3d_block, get_fluid_tank_3d, hydrostatic_tank_2d)
@@ -2614,6 +2645,8 @@ def boxes_tank_scene(dev, dim=2, n_target=CPL_N, rows=2, cols=4,
         scheme.kr = kr
     if compact is not None:
         scheme.compact_min_bodies = 8 if compact else None
+    if grid is not None:
+        scheme._cell_cfg = classic_config(scheme, scene, **grid)
     scene = scheme.setup(scene)
     check(compact is None or ("cl_pid" in scene) == compact, "the boxes' "
           f"coupling scene was {'not ' if compact else ''}set up on the "
@@ -2910,19 +2943,31 @@ def phase_sinking_box_resume(tmp, smi):
 # skin (phase 41)
 # ---------------------------------------------------------------------------
 
-def build_sph_instances():
-    """39 (build): the non-quintic libraries of ``contact.cu`` and
-    ``fluid.cu`` (one per SPH kernel, ``-DRB_SPH_KERNEL``), one nvcc
-    each, all started together; prints each one's seconds and ptxas's
-    registers and spills.  Returns ({library: numbers}, wall seconds)."""
+def sph_jobs():
+    """The non-quintic libraries: (source, SPH kernel) for ``contact.cu``
+    and ``fluid.cu`` with each of SPH_NAMES (``-DRB_SPH_KERNEL``)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    return [(src, k) for src in _build.SPH_SOURCES for k in SPH_NAMES]
+
+
+def build_sph_instances(built=None, wall=None):
+    """39 (build): the non-quintic libraries (``sph_jobs``), one nvcc
+    each, all started together, unless ``built`` holds each one's (path,
+    seconds) from phase 2's build (which starts them beside the quintic
+    sources) and ``wall`` that build's seconds; prints each one's seconds
+    and ptxas's registers and spills.  Returns ({library: numbers}, wall
+    seconds)."""
     from concurrent.futures import ThreadPoolExecutor
     from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
 
-    jobs = [(src, k) for src in _build.SPH_SOURCES for k in SPH_NAMES]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        built = list(pool.map(lambda j: _build.build(*j), jobs))
-    wall = time.perf_counter() - t0
+    jobs = sph_jobs()
+    where = " with the quintic sources" if built is not None else ""
+    if built is None:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            built = list(pool.map(lambda j: _build.build(*j), jobs))
+        wall = time.perf_counter() - t0
     out = {}
     for (src, k), (path, sec) in zip(jobs, built):
         key = _build.instance(src, k)
@@ -2950,7 +2995,7 @@ def build_sph_instances():
         if src in _build.SPH_SOURCES:
             for k in SPH_NAMES:
                 _build.load(kname, k)
-    print(f"[sph-build] {len(jobs)} libraries in {wall:.2f} s wall",
+    print(f"[sph-build] {len(jobs)} libraries in {wall:.2f} s wall{where}",
           flush=True)
     return out, wall
 
@@ -3258,15 +3303,14 @@ def _slab_steps(make, parts, n, dt, label, scheme=None):
               f"{scheme.capacity_boost:.3g}, steps repeated", flush=True)
 
 
-def _single_steps(scheme, scene, label):
-    """COMPARE_STEPS single-device steps from ``scene`` under the
-    overflow-rebuild rule of phase 4 (from the same start)."""
+def _single_steps(scheme, scene, label, n=SHORT_CMP):
+    """``n`` single-device steps from ``scene`` under the overflow-rebuild
+    rule of phase 4 (from the same start)."""
     from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
 
     start = scene
     for rebuilds in range(5):
-        out = trb.make_multi_step(scheme.make_step(start),
-                                  COMPARE_STEPS)(start, DT)
+        out = trb.make_multi_step(scheme.make_step(start), n)(start, DT)
         if not bool(out.nbr_overflow):
             return out
         check(rebuilds < 4, f"{label}: single-device overflow persists")
@@ -3358,8 +3402,8 @@ def phase_slab_rigid(scheme, scene, dx, smi, label, P, devices=None,
                      one_slab_ref=False):
     """The rigid slab step (``parallel/slab.py``) on ``P`` slabs of
     ``devices`` (default: P slabs on the first card): for each route,
-    20 kernel steps against 20 single-device steps and against 20 steps
-    of the slab step on the kernels' plain versions, from one state with
+    SHORT_CMP kernel steps against as many single-device steps and
+    steps of the slab step on the kernels' plain versions, from one state with
     the bodies sliding (SLAB_SLIDE; particle and body velocities within
     STEP_RTOL, positions and xcm as the change from the start state
     within STEP_RTOL of it plus SLAB_ULPS ulp, by gid); P x (K1, K2)
@@ -3401,16 +3445,16 @@ def phase_slab_rigid(scheme, scene, dx, smi, label, P, devices=None,
             sl.slab_decompose(scene, cfg, use_blob=route == "blob"), mesh)
         a, launches, stats, _ = _slab_steps(
             lambda: sl.make_slab_step(scheme, parts0, mesh, cfg), parts0,
-            COMPARE_STEPS, DT, rl, scheme)
+            SHORT_CMP, DT, rl, scheme)
         _slab_launch_gate(rl, launches, dict(
-            pack_expand=P * COMPARE_STEPS, contact=P * COMPARE_STEPS))
+            pack_expand=P * SHORT_CMP, contact=P * SHORT_CMP))
         res["launches"][route] = launches
         if route == "blob":
             check(bool((stats.max(1) > 0).all()), f"{rl}: a step with no "
                   "interesting slot on any slab")
         b, _, _, _ = _slab_steps(
             lambda: sl.make_slab_step(scheme, parts0, mesh, cfg,
-                                      plain=True), parts0, COMPARE_STEPS,
+                                      plain=True), parts0, SHORT_CMP,
             DT, rl + " plain")
         if single is None:
             single = _single_steps(scheme, scene, label)
@@ -3434,7 +3478,7 @@ def phase_slab_rigid(scheme, scene, dx, smi, label, P, devices=None,
             boost = scheme.capacity_boost
             one, _, _, _ = _slab_steps(
                 lambda: sl.make_slab_step(scheme, parts1, mesh1, cfg1),
-                parts1, COMPARE_STEPS, DT, rl + " P=1", scheme)
+                parts1, SHORT_CMP, DT, rl + " P=1", scheme)
             scheme.capacity_boost = boost
             ref, ref_rows = _slab_gathered(one)
             ref_name = "steps of one slab"
@@ -3442,12 +3486,12 @@ def phase_slab_rigid(scheme, scene, dx, smi, label, P, devices=None,
                            keys, body, x0, SLAB_ULPS)
         w2 = _slab_compare(f"{rl} vs plain", ga, ra, gb, rb, keys, body, x0,
                            SLAB_ULPS)
-        print(f"[{label}] {route} route: {COMPARE_STEPS} slab steps "
+        print(f"[{label}] {route} route: {SHORT_CMP} slab steps "
               f"(interesting slots a slab a step max "
               f"{int(stats.max()) if route == 'blob' else '-'}) vs "
-              f"{COMPARE_STEPS} {ref_name}: " + ", ".join(w1), flush=True)
-        print(f"[{label}] {route} route: {COMPARE_STEPS} kernel slab steps "
-              f"vs {COMPARE_STEPS} plain slab steps: " + ", ".join(w2),
+              f"{SHORT_CMP} {ref_name}: " + ", ".join(w1), flush=True)
+        print(f"[{label}] {route} route: {SHORT_CMP} kernel slab steps "
+              f"vs {SHORT_CMP} plain slab steps: " + ", ".join(w2),
               flush=True)
         step = sl.make_slab_step(scheme, a, mesh, cfg)
         res["k2"][route] = slab_k2_per_slab(step, a, cfg, scheme, rl,
@@ -3525,8 +3569,9 @@ def slab_rigid_long(scheme, scene, dx, smi, label, cfg, mesh, n_steps):
 
 
 def phase_slab_dem(smi, P, dev, timings):
-    """The DEM slab step on phase 7's column, P slabs on ``dev``: 20
-    kernel steps against 20 single-device steps and 20 plain slab steps
+    """The DEM slab step on phase 7's column, P slabs on ``dev``:
+    SHORT_CMP kernel steps against as many single-device steps and plain
+    slab steps
     (positions as displacements, velocities, spin, force and torque
     within STEP_RTOL; the tables equal as gid-keyed (partner, dem) ->
     spring maps); P x (K1, K4) launches a step; live contacts every step;
@@ -3547,17 +3592,17 @@ def phase_slab_dem(smi, P, dev, timings):
     make = lambda plain=False: (
         lambda: sl.make_slab_dem_step(scheme, parts0, mesh, cfg, n,
                                       plain=plain))
-    a, launches, live, el = _slab_steps(make(), parts0, COMPARE_STEPS,
+    a, launches, live, el = _slab_steps(make(), parts0, SHORT_CMP,
                                         DEM_DT, label)
-    _slab_launch_gate(label, launches, dict(pack_expand=P * COMPARE_STEPS,
-                                            dem_cell=P * COMPARE_STEPS))
+    _slab_launch_gate(label, launches, dict(pack_expand=P * SHORT_CMP,
+                                            dem_cell=P * SHORT_CMP))
     check(bool((live.sum(1) > 0).all()), f"{label}: a step with no live "
           "contact")
-    b, _, _, _ = _slab_steps(make(True), parts0, COMPARE_STEPS, DEM_DT,
+    b, _, _, _ = _slab_steps(make(True), parts0, SHORT_CMP, DEM_DT,
                              label + " plain")
     single = scene
     sstep = scheme.make_step(scene)
-    for _ in range(COMPARE_STEPS):
+    for _ in range(SHORT_CMP):
         single = sstep(single, DEM_DT)
     torch.cuda.synchronize()
     check(not bool(single.nbr_overflow), f"{label}: single-device overflow")
@@ -3596,10 +3641,10 @@ def phase_slab_dem(smi, P, dev, timings):
           f"{label}: overflow in the redistribution")
     g2, r2 = _slab_gathered(a2)
     same_tables("after the redistribution", tables(g2, r2), ta)
-    print(f"[{label}] {COMPARE_STEPS} slab steps vs {COMPARE_STEPS} "
+    print(f"[{label}] {SHORT_CMP} slab steps vs {SHORT_CMP} "
           f"single-device steps: " + ", ".join(w1) + f"; tables equal as "
           f"gid-keyed maps (springs {e1:.3e})", flush=True)
-    print(f"[{label}] {COMPARE_STEPS} kernel slab steps vs {COMPARE_STEPS} "
+    print(f"[{label}] {SHORT_CMP} kernel slab steps vs {SHORT_CMP} "
           f"plain slab steps: " + ", ".join(w2) + f"; tables equal (springs "
           f"{e2:.3e}); after an on-device redistribution the tables are "
           "the same gid-keyed maps", flush=True)
@@ -3666,7 +3711,7 @@ def phase_slab_dem(smi, P, dev, timings):
         if v.is_floating_point():
             check(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
     sps = CHUNK * len(chunk_s[1:]) / sum(chunk_s[1:])
-    print(f"[{label}] P={P} n={n} {COMPARE_STEPS} + {done} steps, launches "
+    print(f"[{label}] P={P} n={n} {SHORT_CMP} + {done} steps, launches "
           f"{tot} ({P} K1 and {P} K4 a step) | live contacts every step | "
           f"{sps:.2f} steps/s (chunk 2, with its redistribution), on {smi}",
           flush=True)
@@ -3744,8 +3789,9 @@ def phase_slab_coupling(smi, dev, ordering, dim, P, timings, long_steps=0,
     ``ordering`` on P slabs of the card, the grid cut to the tank in x
     (``slab_grid_x``).  2D: phase 13's placement (the box of rho
     CPL_PARITY_RHO on the floor, pushed down and sideways); 3D: phase
-    19's box (``n_target`` particles).  20 kernel slab steps against 20
-    single-device steps of the ordering and 20 plain slab steps, by gid
+    19's box (``n_target`` particles).  SHORT_CMP kernel slab steps
+    against as many single-device steps of the ordering and plain slab
+    steps, by gid
     (positions as their change, SLAB_ULPS; the 3D box's omega, which is
     rounding, printed only); P x the ordering's kernels a step and nothing
     else; each slab's K1, fluid passes and K2 against their plain
@@ -3779,14 +3825,14 @@ def phase_slab_coupling(smi, dev, ordering, dim, P, timings, long_steps=0,
     parts0 = sl.shard_slab_scene(sl.slab_decompose(scene, cfg, False), mesh)
     make = lambda plain=False: (lambda: sl.make_slab_coupling_step(
         scheme, parts0, mesh, cfg, plain=plain))
-    a, launches, _, _ = _slab_steps(make(), parts0, COMPARE_STEPS, dt, label)
-    _slab_launch_gate(label, launches, {k: v * COMPARE_STEPS
+    a, launches, _, _ = _slab_steps(make(), parts0, SHORT_CMP, dt, label)
+    _slab_launch_gate(label, launches, {k: v * SHORT_CMP
                                         for k, v in per_step.items()})
-    b, _, _, _ = _slab_steps(make(True), parts0, COMPARE_STEPS, dt,
+    b, _, _, _ = _slab_steps(make(True), parts0, SHORT_CMP, dt,
                              label + " plain")
     single = scene
     sstep = scheme.make_step(scene)
-    for _ in range(COMPARE_STEPS):
+    for _ in range(SHORT_CMP):
         single = sstep(single, dt)
     torch.cuda.synchronize()
     check(not bool(single.nbr_overflow), f"{label}: single-device overflow")
@@ -3813,9 +3859,9 @@ def phase_slab_coupling(smi, dev, ordering, dim, P, timings, long_steps=0,
                             gate=False)
         w2 += _slab_compare(label, ga, ra, gb, rb, (), ("omega",),
                             gate=False)
-    print(f"[{label}] {COMPARE_STEPS} slab steps vs {COMPARE_STEPS} "
+    print(f"[{label}] {SHORT_CMP} slab steps vs {SHORT_CMP} "
           f"single-device steps: " + ", ".join(w1), flush=True)
-    print(f"[{label}] {COMPARE_STEPS} kernel slab steps vs {COMPARE_STEPS} "
+    print(f"[{label}] {SHORT_CMP} kernel slab steps vs {SHORT_CMP} "
           f"plain slab steps: " + ", ".join(w2), flush=True)
 
     # the passes on the slabs' extended scenes of the comparisons' first
@@ -4262,8 +4308,8 @@ def phase_classic_rigid(dev, smi):
     the 3D cubes): K2 on every slot of the gathered pack against its
     twin (picks bit for bit, sums at phase 3's tolerance), timed with its
     bound; CLASSIC_STEPS steps under phase 4's gates (one K2 a step, no
-    K1, the full [N, S] schema); 20 kernel steps against 20 twin steps.
-    Returns {label: numbers}."""
+    K1, the full [N, S] schema); 20 kernel steps against 20 twin steps
+    (SHORT_CMP for the 3D cubes).  Returns {label: numbers}."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
@@ -4291,7 +4337,8 @@ def phase_classic_rigid(dev, smi):
         inst = f"contact/{tck.lanes_instance('narrow', cfg.M)}"
         check(launches.get(inst, 0) == launches["contact"],
               f"classic {label}: K2 ran another instance than {inst}")
-        phase_step_parity(scheme, end, f"classic-{label}-parity")
+        phase_step_parity(scheme, end, f"classic-{label}-parity",
+                          SHORT_CMP if dim == 3 else COMPARE_STEPS)
         out[label] = dict(k2=k2, launches=launches, stats=stats, M=cfg.M,
                           O=cfg.O, NC=cfg.NC_max, inst=inst,
                           seconds=time.perf_counter() - t0)
@@ -4311,8 +4358,8 @@ def phase_classic_coupling(dev, smi):
     lane rule (CLASSIC_BOX_3D, set before the set-up; M 80, O 27): B6a,
     B6b, B6c and K2 on its pack against their twins, timed;
     CLASSIC_CPL_3D_STEPS steps under phase 11's gates (each a step at the
-    grid's width, no K1); 20 kernel steps against 20 twin steps from the
-    end state.  Then B6a, B6b and B6c at CLASSIC_BOX_3D_WIDE (176 lanes)
+    grid's width, no K1); SHORT_CMP kernel steps against as many twin
+    steps from the end state.  Then B6a, B6b and B6c at CLASSIC_BOX_3D_WIDE (176 lanes)
     on the same scene against their twins, timed, and K2 refusing that
     width, as the reference's does.  Returns the numbers."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
@@ -4375,7 +4422,8 @@ def phase_classic_coupling(dev, smi):
         scheme3, scene3, dt3, CLASSIC_CPL_3D_STEPS, "classic-cpl-kdk-3d",
         smi, per_step)
     check_lanes_instances("classic kdk 3D", launches3, cfg3.M)
-    phase_coupling_3d_parity(scheme3, end3, dt3, "classic-cpl-kdk-3d")
+    phase_coupling_3d_parity(scheme3, end3, dt3, "classic-cpl-kdk-3d",
+                             SHORT_CMP)
     del end3
 
     # the split passes at 176 lanes on the same scene; K2 refuses them
@@ -4487,6 +4535,449 @@ def classic_kernel_entries(kernels, rigid, cpl, src):
     return out
 
 
+# ---------------------------------------------------------------------------
+# every lane width and the slab steps on a classic base (phases 50-52)
+# ---------------------------------------------------------------------------
+
+# the JAX sweep's wide DEM grid (models/dem.py: (cell_factor, M) = (8, 32))
+DEM_LANES = (8.0, 32)
+DEM_LANES_STEPS = 100
+# K4 and K3 at these widths on one call each ((lanes, spill bin factor):
+# a bin of 2 contact radii holds ~4 grains, so 4 lanes need no spill
+# beyond max_spill slots a cell)
+DEM_WIDTHS = ((4, 2.0), (24, 4.0), (64, 8.0), (128, 8.0))
+# the row-window grid preset at this width runs a main path of CHUNK steps
+DEM_ROWWIN_LANES = 24
+CPL_LANES = 48             # the kdkf step on a spill grid of 48 lanes
+CPL_LANES_3D = 64          # B4 and B5 on the 3D boxes at 64 lanes
+SLAB_CLASSIC_STEPS = COMPARE_STEPS
+
+
+def dem_pack_check(scheme, scene, cfg, label):
+    """K1 on the DEM source pack of ``cfg`` (F = 13) against its twin, bit
+    for bit, timed with its bound."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_cell as tdc
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import pack_expand as tpe
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.cellpairs import (
+        build_cell_grid_packed)
+
+    _, pt = build_cell_grid_packed(scene.x, scene.y, scene.z, scene.active,
+                                   cfg, tdk.dem_payload(scene))
+    sent = torch.tensor(tdc.SENT, dtype=scene.dtype, device=scene.device)
+    args = (pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+    got, ref = tpe.expand_slots(*args), tpe.expand_slots_reference(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"{label}: DEM pack expansion != twin")
+    t = dict(ms=cuda_ms(lambda: tpe.expand_slots(*args)),
+             plain_ms=cuda_ms(lambda: tpe.expand_slots_reference(*args)),
+             err=0.0)
+    t["bound_ms"], t["bound_by"] = bound(
+        nbytes(pt.sorted_fields, pt.base, pt.cnt, sent, got), 0)
+    print(f"[dem-lanes] {label}: K1 (F = {got.shape[1]}, M = {cfg.M}) "
+          f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms by {t['bound_by']}), bit for bit",
+          flush=True)
+    return t
+
+
+def phase_dem_lanes(dev, smi):
+    """50. The 2D DEM column on the spill grid of DEM_LANES (cell_factor,
+    cell_M) set on the scheme, the JAX sweep's (8, 32): K4 (the filled
+    table) and K1 at 32 lanes against their twins, timed; DEM_LANES_STEPS
+    steps under phase 7's gates (one K1 and one K4 of the runtime-width
+    instance a step); 20 kernel steps against 20 twin steps.  Then K4
+    and K3 at each of DEM_WIDTHS against their twins on one call each
+    (the filled table), timed.  Returns the numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import rowwin as trw
+
+    t0 = time.perf_counter()
+    scheme, scene = dem_scene(dev, 2)
+    scheme.cell_factor, scheme.cell_M = DEM_LANES
+    cfg = scheme.cell_config(scene)
+    check(cfg.spill and cfg.M == DEM_LANES[1], f"phase 50: grid {cfg}")
+    label = f"2D spill M={cfg.M}"
+    t = {}
+    phase_dem_kernels(scheme, scene, label, t, cases_run=("filled",),
+                      plain_reps=1)
+    k1 = dem_pack_check(scheme, scene, cfg, label)
+    inst = f"dem_cell/{tdk.lanes_instance('l8', cfg.M)}"
+    end, launches, sps = phase_dem_main(scheme, scene, DEM_LANES_STEPS,
+                                        f"dem-lanes{cfg.M}", smi)
+    check(launches.get(inst, 0) == launches["dem_cell"],
+          f"phase 50: {launches['dem_cell']} K4 launches, "
+          f"{launches.get(inst, 0)} of {inst}")
+    phase_dem_parity(scheme, end, label=f"dem-lanes{cfg.M}-parity")
+    out = dict(main=dict(t[label], M=cfg.M, O=cfg.O, NC=cfg.NC_max,
+                         instance=inst, launches=launches.get(inst, 0),
+                         sps=sps, k1=k1),
+               widths={})
+    print(f"[dem-lanes] phase 50 main path in {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    host = lambda k: scene[k].detach().cpu().numpy()
+    cutoff = scheme._contact_radius(scene)
+    for M, factor in DEM_WIDTHS:
+        for grid in ("spill", "rowwin"):
+            wscheme = copy.copy(scheme)
+            wscheme.dem_grid = grid
+            if grid == "spill":
+                # the plain version's chunks: ~4,096 query lanes a chunk
+                wcfg = tcell.config_from_positions(
+                    host("x"), host("y"), host("z"), cutoff, 2,
+                    cell_factor=factor, M=M, spill=True,
+                    cell_chunk=max(32, 4096 // M))
+                wscheme._cell_cfg = wcfg
+            else:
+                wcfg = trw.rowwin_config_from_positions(
+                    host("x"), host("y"), host("z"), cutoff, 2, M=M)
+                wscheme._rowwin_cfg = wcfg
+            wl = f"2D {grid} M={M}"
+            tw = {}
+            phase_dem_kernels(wscheme, scene, wl, tw, cases_run=("filled",),
+                              plain_reps=1)
+            kname = "dem_cell" if grid == "spill" else "dem_rowwin"
+            out["widths"][(kname, M)] = dict(tw[wl], M=M, grid=grid)
+            if grid == "rowwin" and M == DEM_ROWWIN_LANES:
+                # the row-window grid preset at this width: a main path
+                inst = f"dem_rowwin/{tdk.lanes_instance('l8', M)}"
+                _, rl, rsps = phase_dem_main(wscheme, scene, CHUNK,
+                                             f"dem-rowwin-lanes{M}", smi)
+                check(rl.get(inst, 0) == rl["dem_rowwin"] > 0,
+                      f"phase 50: {rl['dem_rowwin']} K3 launches, "
+                      f"{rl.get(inst, 0)} of {inst}")
+                out["rowwin_main"] = dict(M=M, launches=rl.get(inst, 0),
+                                          sps=rsps, instance=inst)
+    print(f"[dem-lanes] phase 50 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def phase_coupling_lanes(dev, smi):
+    """51. The kdkf step on a spill grid of CPL_LANES set before the
+    set-up: B4 and B5 (by particle) against their twins on the dense box
+    resting GAP dx above the tank floor (gated contact pairs and picks
+    required), timed, and 20 kernel steps against 20 twin steps from
+    there; CPL_STEPS steps of the sinking box under phase 11's gates (K1,
+    B4 and B5 a step, each of the width's instance; the box sinks); the
+    compact store at that width: 20 kernel steps of the boxes in the tank
+    (the compact route, B5 by query row) against 20 twin steps.  Then B4
+    and B5 at CPL_LANES_3D against their twins on one call, timed, on the
+    3D boxes resting on the tank floor (``boxes_tank_scene``, the full
+    route: B5 by particle), gated pairs and picks required.  Returns the
+    numbers."""
+    t0 = time.perf_counter()
+    grid = dict(spill=True, M=CPL_LANES)
+    pscheme, pscene, pdt = sinking_box_scene(
+        dev, floor=True, rho_b=CPL_PARITY_RHO, grid=grid)
+    cfg = pscheme._cell_cfg
+    check(cfg.spill and cfg.M == CPL_LANES, f"phase 51: grid {cfg}")
+    label = f"box on floor M={cfg.M}"
+    fl = {}
+    gated, n_found = phase_fluid_kernels(pscheme, pscene, label, fl,
+                                         timed=True)
+    check(gated > 0 and n_found > 0, f"phase 51: {gated} gated pairs, "
+          f"{n_found} contact rows with a pick on the floor")
+    phase_coupling_parity(pscheme, pscene, pdt, f"kdkf-lanes{cfg.M}-parity")
+    del pscheme, pscene
+    scheme, scene, dt = sinking_box_scene(dev, grid=grid)
+    per_step = dict(pack_expand=1, fluid_rates_wall=1,
+                    fluid_forces_contact=1)
+    _, launches, sps = phase_coupling_main(
+        scheme, scene, dt, CPL_STEPS, f"kdkf-lanes{cfg.M}", smi, per_step)
+    for k, inst in (("fluid_rates_wall", f"fluid_rates_wall/lanes{cfg.M}"),
+                    ("fluid_forces_contact",
+                     f"fluid_forces_contact/lanes/lanes{cfg.M}")):
+        check(launches.get(inst, 0) == launches[k], f"phase 51: {k} ran "
+              f"another instance than {inst}")
+    del scheme, scene
+    # the compact store at this width: the boxes in the tank
+    cscheme, cscene, cdt = boxes_tank_scene(dev, 2, grid=grid)
+    check("cl_pid" in cscene and cscheme._cell_cfg.M == CPL_LANES,
+          "phase 51: the boxes' scene is not compact at the width")
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+    # pushed down as phase 42 pushes them (the top row at twice the speed)
+    push = cscene.vcm.clone()
+    nb = cscene.meta.nb
+    push[:, 1] -= 0.5 * (1 + (torch.arange(nb, device=push.device)
+                              >= nb // 2).to(push.dtype))
+    _build.reset_launches()
+    phase_coupling_parity(cscheme, cscene, cdt,
+                          f"compact-lanes{cfg.M}-parity", push=push)
+    rows_inst = f"fluid_forces_contact/rows/lanes{cfg.M}"
+    check(_build.LAUNCHES_INSTANCE.get(rows_inst, 0) == COMPARE_STEPS,
+          f"phase 51: {_build.LAUNCHES_INSTANCE.get(rows_inst, 0)} launches "
+          f"of {rows_inst} in {COMPARE_STEPS} compact kernel steps")
+    del cscheme, cscene
+    # B4 and B5 at CPL_LANES_3D on the 3D boxes on the floor, one call each
+    scheme3, scene3, _ = boxes_tank_scene(
+        dev, 3, compact=False, grid=dict(spill=True, M=CPL_LANES_3D))
+    l3 = f"3D boxes on floor M={CPL_LANES_3D}"
+    kernel3, wide, grid3, pt3, dfT3, S3, init3 = fluid_scene_pack(
+        scheme3, scene3, l3, 19, p_fsi=True)
+    check(wide.spill and wide.M == CPL_LANES_3D, f"phase 51: 3D grid {wide}")
+    out3, work3, n3 = fluid_pass_checks(
+        fluid_calls(scheme3, dfT3, grid3.nbr_slots, kernel3, wide.radius,
+                    S3, init3, ["fluid_rates_wall", "fluid_forces_contact"],
+                    b5_layout(scheme3, scene3, grid3, pt3, dfT3, wide)),
+        dfT3, grid3.nbr_slots, pt3, wide.radius, S3, init3,
+        abs(scheme3.fluid_alpha) > 1e-14, l3, True)
+    check(work3["gated"] > 0 and n3 > 0, f"phase 51: {work3['gated']} "
+          f"gated pairs, {n3} contact rows with a pick on the 3D floor")
+    print(f"[cpl-lanes] {l3}: n={scene3.n} S={S3} NC={wide.NC_max} "
+          f"O={wide.O} | gated pairs {work3['gated']}, contact rows with a "
+          f"pick {n3}", flush=True)
+    print_fluid_passes("cpl-lanes", l3, out3)
+    print(f"[cpl-lanes] phase 51 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dict(fluid=fl[label], launches=launches, sps=sps, M=cfg.M,
+                O=cfg.O, fluid3=out3, M3=wide.M, O3=wide.O,
+                compact_launches=_build.LAUNCHES_INSTANCE.get(rows_inst, 0))
+
+
+def _slab_classic_run(label, scheme, scene, dt, make, per_step, keys, body,
+                      single=None, tables=False):
+    """SLAB_CLASSIC_STEPS kernel slab steps of ``make(plain)`` from
+    ``scene``'s slabs against ``single`` (single-device steps of the same
+    grid; None: against as many plain slab steps), by gid (positions and
+    xcm as their change, SLAB_ULPS); the launches a step are ``per_step``
+    and nothing else; with ``tables`` the DEM tables as gid-keyed maps.
+    Returns (launches, seconds a kernel step)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+
+    parts0, mesh, cfg = make.parts, make.mesh, make.cfg
+    P = len(parts0)
+    n = SLAB_CLASSIC_STEPS
+    a, launches, _, el = _slab_steps(lambda: make(False), parts0, n, dt,
+                                     label)
+    _slab_launch_gate(label, launches, {k: P * v * n
+                                        for k, v in per_step.items()})
+    launches.update(_build.LAUNCHES_INSTANCE)
+    ga, ra = _slab_gathered(a)
+    check(ra.shape[0] == scene.n, f"{label}: {ra.shape[0]} active rows for "
+          f"{scene.n} particles")
+    if single is None:
+        b, _, _, _ = _slab_steps(lambda: make(True), parts0, n, dt,
+                                 label + " plain")
+        ref, rr = _slab_gathered(b)
+        what = f"{n} plain slab steps"
+    else:
+        ref, rr = single, torch.arange(scene.n, device=scene.device)
+        what = f"{n} single-device steps"
+    x0 = {k: scene[k] for k in ("x", "y", "z")[:scheme.dim] + ("xcm",)
+          if k in scene}
+    w = _slab_compare(f"{label} vs {what}", ga, ra, ref, rr, keys, body, x0,
+                      SLAB_ULPS)
+    if tables:
+        pick = lambda sc, rows: _sorted_tables(sc.with_fields(**{
+            k: sc[k][rows] for k in ("tng_idx", "tng_idx_dem_id", "tng_x",
+                                     "tng_y", "tng_z")}))
+        (ka, sa), (kb, sb) = pick(ga, ra), pick(ref, rr)
+        bad = int((ka != kb).any(1).sum())
+        check(bad == 0, f"{label}: {bad} rows hold other contacts")
+        d = (sa - sb).abs()
+        check(bool((d <= STEP_RTOL * sb.abs()
+                    + STEP_RTOL * float(sb.abs().max())).all()),
+              f"{label}: springs off by {float(d.max()):.3e}")
+        w.append(f"tables equal as gid-keyed maps (springs "
+                 f"{float(d.max()):.3e})")
+    a_step = {k: v / (P * n) for k, v in launches.items()
+              if v and "/" not in k}
+    print(f"[slab-classic] {label}: P={P} slab_cells {cfg.slab_cells}, M "
+          f"{cfg.base.M}, O {cfg.base.O}: {n} kernel slab steps vs {what}: "
+          + ", ".join(w) + f" | launches a slab a step {a_step} "
+          f"({n / el:.2f} steps/s)", flush=True)
+    return launches, el / n
+
+
+def _slab_maker(scheme, scene, P, label, base, kind, n_global=None):
+    """``make(plain)`` -> the slab step of ``kind`` on ``scene``'s slabs
+    of ``base`` (P on the first card), with ``.parts``, ``.mesh`` and
+    ``.cfg``."""
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = slab_config_for(scene, base, P, label)
+    mesh = make_mesh(P, [scene.device] * P)
+    parts = sl.shard_slab_scene(sl.slab_decompose(
+        scene, cfg, use_blob=False), mesh)
+
+    def make(plain):
+        if kind == "rigid":
+            return sl.make_slab_step(scheme, parts, mesh, cfg, plain=plain)
+        if kind == "dem":
+            return sl.make_slab_dem_step(scheme, parts, mesh, cfg, n_global,
+                                         plain=plain)
+        return sl.make_slab_coupling_step(scheme, parts, mesh, cfg,
+                                          plain=plain)
+
+    make.parts, make.mesh, make.cfg = parts, mesh, cfg
+    return make
+
+
+def phase_slab_classic(dev, smi):
+    """52. The slab steps on classic bases, SLAB_P slabs of the card, each
+    SLAB_CLASSIC_STEPS steps: the 2D stack's rigid GTVF (full [N, S]
+    route, K2 at the classic grid's width, no K1) against as many
+    single-device steps on the same grid; the DEM column on a classic
+    base (K4, no K1) against single-device steps of the same grid; the
+    sinking box (the dense box pushed on the floor, CLASSIC_BOX) in kdk
+    (B6a, B6b, B6c, K2) against single-device kdk steps, and in kdkf (B4,
+    B6c, K2: the single-device kdkf refuses the classic grid) against
+    plain slab steps.  Returns {path: numbers}."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
+    from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
+
+    t0 = time.perf_counter()
+    P, out = SLAB_P, {}
+    # the rigid stack, its bodies sliding
+    scheme, scene, _ = contact_scene_2d(dev, grid=dict(spill=False))
+    kernel = get_kernel(scheme.kernel_name, 2)
+    base = scheme.cell_config(scene, kernel)
+    check(not base.spill, "phase 52: the stack's grid is not classic")
+    scene = sl.attach_gids(scene)
+    slide = np.random.default_rng(17).uniform(-SLAB_SLIDE, SLAB_SLIDE,
+                                              (scene.meta.nb, 3))
+    slide[:, 2] = 0.0
+    scene = scheme.set_linear_velocity(scene, slide)
+    single = _single_steps(scheme, scene, "slab-classic-rigid",
+                           SLAB_CLASSIC_STEPS)
+    make = _slab_maker(scheme, scene, P, "slab-classic-rigid", base, "rigid")
+    launches, s = _slab_classic_run(
+        "slab-classic-rigid", scheme, scene, DT, make, dict(contact=1),
+        ("x", "y", "u", "v"), ("xcm", "vcm", "omega"), single)
+    out["rigid"] = dict(launches=launches, s=s, M=base.M, O=base.O)
+    del scheme, scene, single, make
+    # the DEM column on a classic base of the contact radius
+    scheme, scene = dem_scene(dev, 2)
+    host = lambda k: scene[k].detach().cpu().numpy()
+    scheme._cell_cfg = tcell.config_from_positions(
+        host("x"), host("y"), host("z"), scheme._contact_radius(scene), 2,
+        cell_factor=scheme.cell_factor, spill=False)
+    base = scheme.cell_config(scene)
+    check(not base.spill, "phase 52: the DEM grid is not classic")
+    scene = sl.attach_gids(scene)
+    single = scene
+    sstep = scheme.make_step(scene)
+    for _ in range(SLAB_CLASSIC_STEPS):
+        single = sstep(single, DEM_DT)
+    check(not bool(single.nbr_overflow), "phase 52: DEM single-device "
+          "overflow")
+    make = _slab_maker(scheme, scene, P, "slab-classic-dem", base, "dem",
+                       scene.n)
+    launches, s = _slab_classic_run(
+        "slab-classic-dem", scheme, scene, DEM_DT, make, dict(dem_cell=1),
+        ("x", "y", "u", "v", "wz", "fx", "fy", "torz"), (), single,
+        tables=True)
+    out["dem"] = dict(launches=launches, s=s, M=base.M, O=base.O)
+    del scheme, scene, single, make
+    # the sinking box, kdk and kdkf
+    for ordering in ("kdk", "kdkf"):
+        scheme, scene, dt = sinking_box_scene(
+            dev, floor=True, rho_b=CPL_PARITY_RHO, grid=CLASSIC_BOX)
+        scene = scene.replace(vcm=torch.tensor(
+            [[0.05, -0.5, 0.0]], dtype=scene.dtype, device=dev))
+        scheme.gtvf_ordering = ordering
+        scene = sl.attach_gids(scene)
+        kernel = get_kernel(scheme.kernel_name, 2)
+        base = slab_grid_x(scheme.cell_config(scene, kernel), scene)
+        check(not base.spill, "phase 52: the box's grid is not classic")
+        single = None
+        if ordering == "kdk":
+            single = scene
+            sstep = scheme.make_step(scene)
+            for _ in range(SLAB_CLASSIC_STEPS):
+                single = sstep(single, dt)
+            check(not bool(single.nbr_overflow), "phase 52: kdk "
+                  "single-device overflow")
+        label = f"slab-classic-{ordering}"
+        make = _slab_maker(scheme, scene, P, label, base, "coupling")
+        per_step = {k: v for k, v in CPL_SLAB_KERNELS[ordering].items()
+                    if k != "pack_expand"}
+        launches, s = _slab_classic_run(
+            label, scheme, scene, dt, make, per_step,
+            ("x", "y", "u", "v", "rho", "p"), ("xcm", "vcm", "omega"),
+            single)
+        check_lanes = {k: f"{k}/lanes{base.M}" for k in per_step
+                       if k != "contact"}
+        for k, inst in check_lanes.items():
+            check(launches.get(inst, 0) == launches[k],
+                  f"{label}: {k} ran another instance than {inst}")
+        out[ordering] = dict(launches=launches, s=s, M=base.M, O=base.O)
+        del scheme, scene, single, make
+    print(f"[slab-classic] phase 52 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def lanes_kernel_entries(kernels, dem_lanes, cpl_lanes, src):
+    """The JSON entries of the instances of phases 50-51: K4's and K3's
+    runtime-width instance (K4 at 32 lanes on its main path, every width
+    of DEM_WIDTHS beside it) and B4's and B5's instances of two warps a
+    slot (48 lanes on the kdkf main path, 64 on the 3D boxes beside it),
+    each with its launches from its own main path."""
+    by_name = {kd["name"]: kd for kd in kernels}
+    out = []
+    m = dem_lanes["main"]
+    for kname in ("dem_cell", "dem_rowwin"):
+        rows = {M: v for (k, M), v in dem_lanes["widths"].items()
+                if k == kname}
+        first = m if kname == "dem_cell" else rows[max(rows)]
+        rm = dem_lanes["rowwin_main"]
+        launches = (m["launches"] if kname == "dem_cell"
+                    else rm["launches"])
+        path = (f"dem-lanes{m['M']}" if kname == "dem_cell"
+                else f"dem-rowwin-lanes{rm['M']}")
+        out.append(dict(
+            name=f"{kname}/lanes", route="cuda", source=src + "dem.cu",
+            replaces=by_name[kname]["replaces"],
+            launches=launches, launches_by_path={path: launches},
+            max_abs_err=max([first["err"]] + [v["err"] for v in
+                                                rows.values()]),
+            ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            library_ms=None, M=first["M"],
+            steps_per_s=m["sps"] if kname == "dem_cell" else rm["sps"],
+            by_M={str(M): dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                               bound_ms=v["bound_ms"],
+                               bound_by=v["bound_by"])
+                  for M, v in sorted(rows.items())}))
+    k1 = m["k1"]
+    out.append(dict(
+        name=f"pack_expand/dem_lanes{m['M']}", route="cuda",
+        source=src + "pack_expand.cu",
+        replaces=by_name["pack_expand"]["replaces"],
+        launches=m["launches"], launches_by_path={
+            f"dem-lanes{m['M']}": m["launches"]},
+        max_abs_err=0.0, ms=k1["ms"], plain_ms=k1["plain_ms"],
+        bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None,
+        M=m["M"]))
+    c = cpl_lanes
+    for name, inst in (("fluid_rates_wall",
+                        f"fluid_rates_wall/lanes{c['M']}"),
+                       ("fluid_forces_contact",
+                        f"fluid_forces_contact/lanes/lanes{c['M']}")):
+        t, t3 = c["fluid"][name], c["fluid3"][name]
+        out.append(dict(
+            name=inst, route="cuda", source=src + "fluid.cu",
+            replaces=by_name[name]["replaces"],
+            launches=c["launches"].get(inst, 0),
+            launches_by_path={f"kdkf-lanes{c['M']}":
+                              c["launches"].get(inst, 0)},
+            max_abs_err=max(t["err"], t3["err"]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None, M=c["M"], O=c["O"],
+            M_3d=c["M3"], O_3d=c["O3"], ms_3d=t3["ms"],
+            plain_ms_3d=t3["plain_ms"], bound_ms_3d=t3["bound_ms"],
+            bound_by_3d=t3["bound_by"],
+            compact_rows_launches=c["compact_launches"]
+            if name == "fluid_forces_contact" else None,
+            steps_per_s=c["sps"]))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4513,12 +5004,16 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         dev = config.device()
 
-        # 2. build: one nvcc per source, all started together
+        # 2. build: one nvcc per source, all started together, the
+        # non-quintic libraries of phase 39 with them
         from concurrent.futures import ThreadPoolExecutor
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
-            built = dict(zip(_build.SOURCES,
-                             pool.map(_build.build, _build.SOURCES)))
+        jobs = [(name, "quintic") for name in _build.SOURCES] + sph_jobs()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            all_built = list(pool.map(lambda j: _build.build(*j), jobs))
+        build_wall = time.perf_counter() - t0
+        built = dict(zip(_build.SOURCES, all_built))
+        sph_built = all_built[len(_build.SOURCES):]
         for name, (path, sec) in built.items():
             print(f"[build] {name}: {sec:.2f} s -> "
                   f"{os.path.relpath(path, ROOT)}", flush=True)
@@ -4528,8 +5023,8 @@ def main() -> int:
                     print(f"[build] {name}: {line.strip()}", flush=True)
         for k in _build.KERNELS:
             _build.load(k)
-        print(f"[build] all sources in {time.perf_counter() - t0:.2f} s "
-              "wall", flush=True)
+        print(f"[build] all sources and the {len(sph_built)} non-quintic "
+              f"libraries in {build_wall:.2f} s wall", flush=True)
 
         print(f"[time] phase 3 from "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4614,7 +5109,7 @@ def main() -> int:
                   f"cfg={cscheme._cell_cfg} boundary particles "
                   f"{int(cscene.is_boundary.sum())} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
-            gated = phase_fluid_kernels(cscheme, cscene, label, fl_t,
+            gated, _ = phase_fluid_kernels(cscheme, cscene, label, fl_t,
                                         timed=not floor,
                                         k1=None if floor else k1_t)
             _, n_pick = phase_split_kernels(cscheme, cscene, label, sp_t,
@@ -4885,7 +5380,7 @@ def main() -> int:
         # their twins (their libraries built first, all together); 40.
         # the main paths with each of them; 41. the Verlet skin
         t_sph = time.perf_counter()
-        sph_build, sph_build_s = build_sph_instances()
+        sph_build, sph_build_s = build_sph_instances(sph_built, build_wall)
         sph_t = {}
         phase_sph_kernels(dev, sph_t)
         sph_paths = phase_sph_main_paths(dev, smi)
@@ -4927,6 +5422,22 @@ def main() -> int:
         classic_cpl = phase_classic_coupling(dev, smi)
         print(f"[classic] phases 47-49 in {time.perf_counter() - t_c:.1f} "
               "s", flush=True)
+        print(f"[time] phase 50 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        # 50. the DEM column at (8, 32) and K4 / K3 at 4, 24, 64, 128
+        # lanes; 51. kdkf on a 48-lane spill grid (and its compact store),
+        # B4 and B5 on the 3D boxes at 64; 52. the slab steps on classic
+        # bases
+        t_l = time.perf_counter()
+        dem_lanes = phase_dem_lanes(dev, smi)
+        print(f"[time] phase 51 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        cpl_lanes = phase_coupling_lanes(dev, smi)
+        print(f"[time] phase 52 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        slab_classic = phase_slab_classic(dev, smi)
+        print(f"[lanes] phases 50-52 in {time.perf_counter() - t_l:.1f} s",
+              flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5188,6 +5699,21 @@ def main() -> int:
                                    src)
     kernels += classic_kernel_entries(kernels, classic_rigid, classic_cpl,
                                       src)
+    kernels += lanes_kernel_entries(kernels, dem_lanes, cpl_lanes, src)
+    dm = dem_lanes["main"]
+    print(f"[done] lane widths: DEM M={dm['M']} K4 {dm['ms']:.4f} ms "
+          f"(bound {dm['bound_ms']:.4f}), {dm['sps']:.2f} steps/s; K4 / K3 "
+          + ", ".join(f"{k} M={M} {v['ms']:.4f} ms" for (k, M), v in
+                      sorted(dem_lanes["widths"].items()))
+          + f"; kdkf M={cpl_lanes['M']} {cpl_lanes['sps']:.2f} steps/s, "
+          + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in
+                      cpl_lanes["fluid"].items())
+          + f"; 3D M={cpl_lanes['M3']} " + ", ".join(
+              f"{k} {v['ms']:.4f} ms" for k, v in cpl_lanes["fluid3"].items())
+          + "; slab steps on classic bases (P = " + str(SLAB_P) + "): "
+          + ", ".join(f"{k} M={v['M']} {1.0 / v['s']:.2f} steps/s"
+                      for k, v in slab_classic.items()) + f"; on {smi}",
+          flush=True)
     print("[done] classic grid: " + "; ".join(
         f"{k} M={r['M']} O={r['O']} K2 {r['k2']['ms']:.4f} ms (bound "
         f"{r['k2']['bound_ms']:.4f}), GTVF "
@@ -5215,8 +5741,8 @@ def main() -> int:
               f"{g} L={L} {v['ms']:.4f} ms ({v['sps']:.2f} steps/s)"
               for (g, L), v in sorted(wide_dem.items()))
           + f"; on {smi}", flush=True)
-    print(f"[done] SPH kernels: {len(sph_build)} libraries built in "
-          f"{sph_build_s:.2f} s wall; " + "; ".join(
+    print(f"[done] SPH kernels: {len(sph_build)} libraries built with the "
+          f"quintic sources in {sph_build_s:.2f} s wall; " + "; ".join(
               f"{k} K2 {sph_t[k]['k2']['ms']:.4f} ms, B4 "
               f"{sph_t[k]['fluid']['fluid_rates_wall']['ms']:.4f} ms, B5 "
               f"{sph_t[k]['fluid']['fluid_forces_contact']['ms']:.4f} ms"

@@ -105,6 +105,24 @@
 //   staging and write-back add ~0.02 ms at L = 12 and grow with the
 //   bytes, the scan ~0.005 (shared memory for the lists), the pair
 //   bodies ~0.003.
+// Lane widths (the grid's M lanes a slot, 1 <= M <= MAX_M = 256; the
+// reference kernels round a slot's lanes up to 128 and take any M).  M = 8
+// and M = 16, the spill grids' widths, are instances of their own (MT = M,
+// every layout constant known to the compiler).  Every other M runs the
+// runtime-width instance (MT = 0), which lays a slot out as MP lanes, the
+// power of two >= max(M, 8), lanes >= M empty (no query, no candidate):
+// - MP <= 32: a row sits in one warp, as at 8 and 16 lanes (128 / MP rows
+//   a block), and is staged by the warp's ballots;
+// - MP = 64 and 128: a row spans MP / 32 warps (2 rows or 1 a block).  The
+//   warps' ballots of a staging round are counted in shared memory and
+//   added in lane order (one more block barrier a round), so the staged
+//   candidates keep the stencil's lane order;
+// - MP = 256: a block holds 128 query lanes of a row (two blocks a row),
+//   stages all 256 lanes of an entry (two lanes a thread) and 4 entries a
+//   round, so that the staging buffer keeps its 16 KB.
+// Pack lanes are named r * MP + l in the staging buffer (rows * MP <
+// 2^31).  Past 256 lanes the entry points refuse (cudaErrorInvalidValue;
+// ops/dem_kernel.py raises first).
 // No matrix unit, no prefix product, no reduced precision: idx and dem
 // are exact copies.  Built with --fmad=false so r = sqrt(x*x + y*y +
 // z*z) rounds as the plain version's does and the gate decisions (which
@@ -125,6 +143,7 @@ constexpr int NO_LIST = 1 << 30;   // a row's count when it takes no list
 constexpr int MAX_WIDE_L = 8192;   // the wide instance's widest table
 constexpr int E_MAX = 8;
 constexpr int R_MAX = 9;
+constexpr int MAX_M = 256;   // the widest slot (lanes)
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 8;      // stencil entries (run slots) staged a round
@@ -153,6 +172,7 @@ struct Args {
   int* o_dem;
   float* o_spr;                  // [3, N, L]
   int N, L, E;
+  int M, MP, lgMP;               // lanes a slot; the layout's MP = 2^lgMP
   float dt, cutoff;
 };
 
@@ -199,15 +219,28 @@ __device__ __forceinline__ bool list_key(int idx, int dem, unsigned& key) {
   return (unsigned)idx < (1u << 24) && (unsigned)dem < 256u;
 }
 
-template <int M, bool ROWWIN, int LM>
+// MT: the lane width of an instance of its own (8, 16), or 0: the
+// runtime-width instance (a.M lanes laid out as a.MP; see the header)
+template <int MT, bool ROWWIN, int LM>
 __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
-  constexpr int G = THREADS / M;      // query rows a block
-  constexpr int TM = TILE * M;        // candidate lanes a row stages a round
+  constexpr bool GEN = MT == 0;
   constexpr bool wide = LM == WIDE;
-  // staged live candidates: x y z and the pack lane (row * M + lane) as
-  // the int bits of w
-  __shared__ float4 s_pos[G * TM];
-  __shared__ int s_cnt[G];
+  constexpr int GMAX = THREADS / (GEN ? 8 : MT);   // query rows a block, most
+  const int M = GEN ? a.M : MT;       // pack lanes a row
+  const int MP = GEN ? a.MP : MT;     // lanes a row takes in the layout
+  const int QL = MP < THREADS ? MP : THREADS;   // a row's query lanes a block
+  const int G = THREADS / QL;         // query rows a block
+  const int BPR = MP / QL;            // blocks a row (2 at MP = 256)
+  const int PW = QL < 32 ? QL : 32;   // a row's lanes in one warp
+  const int TL = MP > THREADS ? TILE / 2 : TILE;   // entries staged a round
+  const int TM = TL * MP;             // candidate lanes a row stages a round
+  // staged live candidates: x y z and the pack lane (row * MP + lane) as
+  // the int bits of w (G * TM = THREADS * TILE in every layout)
+  __shared__ float4 s_pos[THREADS * TILE];
+  __shared__ int s_cnt[GMAX];
+  // rows over several warps: each warp's live lanes a staging round,
+  // [row][entry piece][warp of the row] (G * TL * MP / 32 = 32 words)
+  __shared__ int s_wc[GEN ? THREADS / 4 : 1];
   // narrow: the query lanes' input tables [LM][THREADS]
   constexpr int LS = wide ? 1 : LM;
   __shared__ int s_tidx[LS * THREADS];
@@ -225,21 +258,33 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   __shared__ int l_code[WARPS * LIST];
   __shared__ float l_f[WARPS * 6 * LIST];
   __shared__ float s_mat[E_MAX * 4];
-  __shared__ int s_run0[ROWWIN ? G * R_MAX : 1];
-  __shared__ int s_pre[ROWWIN ? G * (R_MAX + 1) : 1];
+  __shared__ int s_run0[ROWWIN ? GMAX * R_MAX : 1];
+  __shared__ int s_pre[ROWWIN ? GMAX * (R_MAX + 1) : 1];
 
   const int t = threadIdx.x, lane = t & 31, wp = t >> 5;
-  const int g = t / M, l = t % M;
-  const int lane0 = lane & ~(M - 1);         // the row's first lane
-  const unsigned gmask = ((1u << M) - 1u) << lane0;   // the row's lanes
+  const int g = t / QL, lq = t % QL;         // row of the block, its lane
+  const int row0 = (blockIdx.x / BPR) * G;   // the block's first row
+  const int l = (blockIdx.x % BPR) * QL + lq;   // the lane in its row
+  const int lane0 = lane & ~(PW - 1);        // the row's first lane here
+  const unsigned gmask =                     // the row's lanes in the warp
+      PW == 32 ? FULL : ((1u << PW) - 1u) << lane0;
   const unsigned lt = (1u << lane) - 1u;
-  const int qrow = blockIdx.x * G + g;
+  const int qrow = row0 + g;
   const int L = a.L;
   if (t < a.E * 4) s_mat[t] = a.mat[t];
+  // a staged lane name (row * MP + lane) -> its row and lane
+  auto srow = [&](int s) -> int {
+    if constexpr (GEN) return s >> a.lgMP;
+    else return s / MT;
+  };
+  auto slane = [&](int s) -> int {
+    if constexpr (GEN) return s & (a.MP - 1);
+    else return s % MT;
+  };
 
   float qx = 0.0f, qy = 0.0f, qz = 0.0f;
   int p = -1;
-  if (qrow < a.rows) {
+  if (qrow < a.rows && l < M) {
     const float* qb = a.pack + (long long)qrow * NF * M + l;
     qx = __ldg(qb + FX * M);
     qy = __ldg(qb + FY * M);
@@ -313,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   }
   if constexpr (ROWWIN) {
     // the window's runs as flat run-slot offsets
-    if (l == 0 && qrow < a.rows) {
+    if (lq == 0 && qrow < a.rows) {
       int acc = 0;
       for (int r = 0; r < a.R; ++r) {
         const long long c = a.run_cnt[(long long)qrow * a.R + r];
@@ -324,7 +369,9 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
       s_pre[g * (R_MAX + 1) + a.R] = acc;
     }
   }
-  const bool row_live = (__ballot_sync(FULL, live) & gmask) != 0u;
+  // a row over several warps stages for all of them: live if it exists
+  const bool row_live = QL > 32 ? qrow < a.rows
+                                : (__ballot_sync(FULL, live) & gmask) != 0u;
   const bool warp_live = __any_sync(FULL, live);
   if (!__syncthreads_or(live)) return;   // block-uniform
   int total = 0;                          // candidate entries of this row
@@ -353,10 +400,10 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   // phase 2: the pair body of list entry i
   auto pair = [&](int i) {
     const int own = wp * 32 + lo[i];          // the query lane's thread
-    const float* qb = a.pack + (long long)(blockIdx.x * G + own / M) * NF * M +
-                      own % M;
+    const float* qb = a.pack + (long long)(row0 + own / QL) * NF * M +
+                      (blockIdx.x % BPR) * QL + own % QL;
     const int src = ls[i];
-    const float* sb = a.pack + (long long)(src / M) * NF * M + src % M;
+    const float* sb = a.pack + (long long)srow(src) * NF * M + slane(src);
     // every field of both lanes in one round of loads (a listed pair
     // nearly always passes the exact gate)
     float q[NF], s[NF];
@@ -517,7 +564,8 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
       } else {
         if (n_new < L) {
           // parked at slot n_new of the particle's output row
-          const float* sb = a.pack + (long long)(ls[i] / M) * NF * M + ls[i] % M;
+          const float* sb =
+              a.pack + (long long)srow(ls[i]) * NF * M + slane(ls[i]);
           a.o_idx[(long long)p * L + n_new] = (int)__ldg(sb + FIDX * M);
           a.o_dem[(long long)p * L + n_new] = (int)__ldg(sb + FDEM * M);
         }
@@ -530,7 +578,7 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   // r^2 above this means r > cutoff (the exact gate fails); the filter's
   // r^2 is contracted (fma), at most a few ulp from the exact one
   const float thr = (a.cutoff * a.cutoff) * 1.001f;
-  const int self = qrow * M + l;
+  const int self = qrow * MP + l;
   // candidate k of this row's tile: listed if it may pass the gate
   auto test = [&](const float4* tp, int k, int mine, int& src) -> bool {
     if (k >= mine) return false;
@@ -556,26 +604,70 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
       cnt = 0;
     }
   };
-  for (int e0 = 0; __syncthreads_or(e0 < total); e0 += TILE) {
+  for (int e0 = 0; __syncthreads_or(e0 < total); e0 += TL) {
     // stage this round's live candidates of each row, in order
-    const int myrow = l < TILE ? row_of(e0 + l) : -1;
-    int off = 0;
-#pragma unroll 4
-    for (int e = 0; e < TILE; ++e) {
-      const int r = __shfl_sync(FULL, myrow, lane0 + e);
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      bool ok = false;
-      if (r >= 0) {
-        const float* sb = a.pack + (long long)r * NF * M + l;
-        v = make_float4(__ldg(sb + FX * M), __ldg(sb + FY * M),
-                        __ldg(sb + FZ * M), __int_as_float(r * M + l));
-        ok = __ldg(sb + FIDX * M) >= 0.0f;
+    const int myrow = lane - lane0 < TL ? row_of(e0 + lane - lane0) : -1;
+    if (GEN && QL > 32) {
+      // a row over several warps: first each warp's live lanes of every
+      // (entry, piece of QL lanes), counted in s_wc; then each lane's
+      // place: the counts before it in (entry, piece, warp) order
+      const int NPS = MP / QL, WPR = QL / 32, wr = lq >> 5;
+      const int NK = TL * NPS;                 // <= 8
+      unsigned okb = 0u;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k >= NK) break;
+        const int r = __shfl_sync(FULL, myrow, k / NPS);
+        const int ls = (k % NPS) * QL + lq;
+        bool ok = false;
+        if (r >= 0 && ls < M)
+          ok = __ldg(a.pack + ((long long)r * NF + FIDX) * M + ls) >= 0.0f;
+        const unsigned b = __ballot_sync(FULL, ok);
+        if (lane == 0) s_wc[(g * NK + k) * WPR + wr] = __popc(b);
+        okb |= ok ? 1u << k : 0u;
       }
-      const unsigned b = __ballot_sync(FULL, ok) & gmask;
-      if (ok) s_pos[g * TM + off + __popc(b & lt)] = v;
-      off += __popc(b);
+      __syncthreads();
+      int off = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k >= NK) break;
+        const unsigned b = __ballot_sync(FULL, (okb >> k) & 1u);
+        int tot = 0, before = 0;
+        for (int w = 0; w < WPR; ++w) {
+          const int c = s_wc[(g * NK + k) * WPR + w];
+          tot += c;
+          before += w < wr ? c : 0;
+        }
+        const int r = __shfl_sync(FULL, myrow, k / NPS);
+        if ((okb >> k) & 1u) {
+          const int ls = (k % NPS) * QL + lq;
+          const float* sb = a.pack + (long long)r * NF * M + ls;
+          s_pos[g * TM + off + before + __popc(b & lt)] =
+              make_float4(__ldg(sb + FX * M), __ldg(sb + FY * M),
+                          __ldg(sb + FZ * M), __int_as_float(r * MP + ls));
+        }
+        off += tot;
+      }
+      if (lq == 0) s_cnt[g] = off;
+    } else {
+      int off = 0;
+#pragma unroll 4
+      for (int e = 0; e < TL; ++e) {
+        const int r = __shfl_sync(FULL, myrow, lane0 + e);
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        bool ok = false;
+        if (r >= 0 && l < M) {
+          const float* sb = a.pack + (long long)r * NF * M + l;
+          v = make_float4(__ldg(sb + FX * M), __ldg(sb + FY * M),
+                          __ldg(sb + FZ * M), __int_as_float(r * MP + l));
+          ok = __ldg(sb + FIDX * M) >= 0.0f;
+        }
+        const unsigned b = __ballot_sync(FULL, ok) & gmask;
+        if (ok) s_pos[g * TM + off + __popc(b & lt)] = v;
+        off += __popc(b);
+      }
+      if (lq == 0) s_cnt[g] = off;
     }
-    if (l == 0) s_cnt[g] = off;
     __syncthreads();
     // phase 1: the gate scan
     if (warp_live) {
@@ -744,37 +836,49 @@ __global__ void __launch_bounds__(THREADS, 4) dem_pairs_kernel(const Args a) {
   os[1] = make_float4(f[4], f[5], (float)n_live, (float)n_gated);
 }
 
-template <int M, bool ROWWIN, int LM>
+template <int MT, bool ROWWIN, int LM>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr int G = THREADS / M;
+  const int QL = a.MP < THREADS ? a.MP : THREADS;
+  const int G = THREADS / QL, BPR = a.MP / QL;
   const int bytes = LM == WIDE ? wide_bytes(a.L) : 0;
   if (bytes > 0) {
     static int allowed = 0;   // the dynamic shared memory allowed so far
     if (bytes > allowed) {
       const cudaError_t err = cudaFuncSetAttribute(
-          dem_pairs_kernel<M, ROWWIN, LM>,
+          dem_pairs_kernel<MT, ROWWIN, LM>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (err != cudaSuccess) return (int)err;
       allowed = bytes;
     }
   }
-  dem_pairs_kernel<M, ROWWIN, LM>
-      <<<(a.rows + G - 1) / G, THREADS, bytes, stream>>>(a);
+  const long long blocks = (long long)((a.rows + G - 1) / G) * BPR;
+  dem_pairs_kernel<MT, ROWWIN, LM>
+      <<<(unsigned)blocks, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int M, bool ROWWIN>
+template <int MT, bool ROWWIN>
 int dispatch_lm(int LM, const Args& a, cudaStream_t stream) {
-  if (LM == L_VEC) return launch<M, ROWWIN, L_VEC>(a, stream);
-  return launch<M, ROWWIN, WIDE>(a, stream);
+  if (LM == L_VEC) return launch<MT, ROWWIN, L_VEC>(a, stream);
+  return launch<MT, ROWWIN, WIDE>(a, stream);
 }
 
+// M lanes a slot -> the instance: 8 and 16 their own, any other width up
+// to MAX_M the runtime-width one, laid out as MP = 2^lgMP >= max(M, 8)
 template <bool ROWWIN>
-int dispatch(int M, int LM, const Args& a, void* stream) {
+int dispatch(int M, int LM, Args& a, void* stream) {
+  if (M < 1 || M > MAX_M) return (int)cudaErrorInvalidValue;
+  a.M = M;
+  for (a.lgMP = 3; (1 << a.lgMP) < M; ++a.lgMP) {}
+  a.MP = 1 << a.lgMP;
+  // staged lane names r * MP + l are ints
+  if ((long long)(a.rows + 1) * a.MP >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   if (a.rows == 0 || a.N == 0) return 0;
-  if (M == 8) return dispatch_lm<8, ROWWIN>(LM, a, (cudaStream_t)stream);
-  if (M == 16) return dispatch_lm<16, ROWWIN>(LM, a, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (M == 8) return dispatch_lm<8, ROWWIN>(LM, a, st);
+  if (M == 16) return dispatch_lm<16, ROWWIN>(LM, a, st);
+  return dispatch_lm<0, ROWWIN>(LM, a, st);
 }
 
 // LM: the instance, 8 (L <= 8) or 0 (the wide one, L <= MAX_WIDE_L)

@@ -57,8 +57,15 @@
 // of an entry, so candidates are staged in stencil lane order, in windows
 // of kCap that may end inside an entry), so a query lane's sums keep the
 // order and shape they have at M <= 32; each warp stages the stencil
-// itself.  B4 and B5 keep M <= 32 (the kdkf step refuses the classic
-// grid).
+// itself.  B4 and B5 take the same instances past 32 lanes (the kdkf step
+// and its compact store on a spill grid of more lanes, and the slab kdkf
+// step on a classic base).  B5's contact part runs per warp: the warp's
+// rigid lanes over its own staged contact list, which holds every lane of
+// the stencil in stencil lane order, so a lane's sums and its pick (the
+// lowest lane wins a distance tie) are the one-lane kernel's; each warp
+// writes the contact rows of its own 32 query lanes (with query rows, a
+// warp finds its slot's row by the binary search even without a rigid
+// lane of its own, so every lane of a culled slot gets its init row).
 //
 // The pair bodies evaluate the library's SPH kernel (csrc/sph_kernels.cuh:
 // sph::w, sph::gradw, sph::w_gradw; one library per kernel, picked by
@@ -664,7 +671,6 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
                   float init_dist, float sig_num, float sig_den) {
   extern __shared__ float4 smem4[];
   constexpr int W = 6;
-  static_assert(!(WM && CONTACT), "B5 takes slots of at most 32 lanes");
   const int lane = threadIdx.x & 31;
   const long long wid =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -672,18 +678,24 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
   const int NPQ = WM ? (M + 31) / 32 : 1;
   const long long slot = WM ? wid / NPQ : wid;
   if (slot >= NC) {
-    // B5's warps past the slots: the init row of a row whose slot has no
-    // rigid lane (a padding row, rows[x] = NC), or zeros over the rows of
-    // 32 particles without a lane
+    // B5's warps past the slots' (one a row or 32 particles, also with
+    // WM): the init row of a row whose slot has no rigid lane (a padding
+    // row, rows[x] = NC), or zeros over the rows of 32 particles without
+    // a lane
     if (CONTACT) {
-      const long long x = slot - NC;
+      const long long x = WM ? wid - (long long)NC * NPQ : slot - NC;
       if (rows) {
         if (x >= NI) return;
         const long long rs = __ldg(rows + x);
         bool rigid = false;
-        if (rs >= 0 && rs < NC && lane < M)
-          rigid = decode(__ldg(dft + (rs * NF + FFLAGS) * M + lane)).rigid ==
-                  1.0f;
+        if (rs >= 0 && rs < NC) {
+          for (int l = lane; l < M; l += 32) {   // WM: every piece of 32
+            rigid = rigid ||
+                    decode(__ldg(dft + (rs * NF + FFLAGS) * M + l)).rigid ==
+                        1.0f;
+            if (!WM) break;
+          }
+        }
         if (!__any_sync(kFull, rigid))
           mofidi::fill_init_rows(cout, M, S, init_dist, lane, 32, 1, [&](int l) {
             return (x * M + l) * 12LL * S;
@@ -726,7 +738,7 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
   long long pid = -1;
   if (lane < MQ) {
     qf = decode(__ldg(q + FFLAGS * M + lane));
-    if (CONTACT && lane_pid) pid = __ldg(lane_pid + slot * M + lane);
+    if (CONTACT && lane_pid) pid = __ldg(lane_pid + slot * M + qb + lane);
   }
   const bool act = qf.fluid == 1.0f || (FSI && qf.rigid == 1.0f);
   const bool rig = CONTACT && qf.rigid == 1.0f;
@@ -734,22 +746,24 @@ __global__ void __launch_bounds__(kWarps * 32, CONTACT ? 5 : 6)
   const unsigned rmask = __ballot_sync(kFull, rig);
   const int nq = __popc(amask), nr = __popc(rmask);
   // B5: this lane's contact row (words into cout; -1: none), into crow
+  // (WM: a warp with no rigid lane may hold lanes of a culled slot: it
+  // searches too)
   auto contact_row = [&]() -> long long {
     if (!rows) return pid >= 0 && pid < n ? pid * 12LL * S : -1LL;
-    if (nr == 0) return -1LL;                // not a culled slot
+    if (!WM && nr == 0) return -1LL;         // not a culled slot
     int lo = 0, hi = NI;                     // rows ascend: a binary search
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
       if (__ldg(rows + mid) < slot) lo = mid + 1;
       else hi = mid;
     }
-    return lo < NI && __ldg(rows + lo) == slot && lane < M
-               ? ((long long)lo * M + lane) * 12LL * S : -1LL;
+    return lo < NI && __ldg(rows + lo) == slot && lane < MQ
+               ? ((long long)lo * M + qb + lane) * 12LL * S : -1LL;
   };
   // B5: the init rows over the lanes' contact rows (crow), 16 bytes a
   // thread a store
   auto fill_rows = [&]() {
-    mofidi::fill_init_rows(cout, M, S, init_dist, lane, 32, 1,
+    mofidi::fill_init_rows(cout, MQ, S, init_dist, lane, 32, 1,
                            [&](int l) { return crow[l]; });
   };
   if (CONTACT) {            // the rows now: the slot is not live past here
@@ -1115,28 +1129,24 @@ int rates_wall_dispatch(const float* d, const long long* nb, float* o,
 #undef RW
 }
 
-// a slot of M <= 32 lanes is a warp's; the split passes (B6a, B6b) also
-// take the classic grid's wider slots, up to kMaxLanes (B4 does not: the
-// kdkf step refuses that grid)
+// a slot of M <= 32 lanes is a warp's; a wider one, up to kMaxLanes (the
+// classic grid's, or a spill grid of more lanes), ceil(M / 32) warps'
 template <int MODE>
 int rates_wall_entry(const void* dft, const void* nbr, void* out, int NC,
                      int O, int M, int kdim2, int edac, int has_rigid,
                      float cutoff, float nu2, float cs2, float gx, float gy,
                      float gz, float sig_num, float sig_den, void* stream) {
-  const int max_m = MODE == kRatesWall ? 32 : kMaxLanes;
-  if (NC < 0 || O < 1 || M < 1 || M > max_m)
+  if (NC < 0 || O < 1 || M < 1 || M > kMaxLanes)
     return (int)cudaErrorInvalidValue;
   if (NC == 0) return 0;
   const auto* d = (const float*)dft;
   const auto* nb = (const long long*)nbr;
   auto* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (MODE != kRatesWall) {
-    if (M > 32)
-      return rates_wall_dispatch<MODE, true>(d, nb, o, NC, O, M, kdim2, edac,
-                                             has_rigid, cutoff, nu2, cs2, gx,
-                                             gy, gz, sig_num, sig_den, st);
-  }
+  if (M > 32)
+    return rates_wall_dispatch<MODE, true>(d, nb, o, NC, O, M, kdim2, edac,
+                                           has_rigid, cutoff, nu2, cs2, gx,
+                                           gy, gz, sig_num, sig_den, st);
   return rates_wall_dispatch<MODE, false>(d, nb, o, NC, O, M, kdim2, edac,
                                           has_rigid, cutoff, nu2, cs2, gx, gy,
                                           gz, sig_num, sig_den, st);
@@ -1174,11 +1184,10 @@ int forces_entry(const void* dft, const void* nbr, void* out, void* cout,
                  int n, int kdim2, int visc, float cutoff, float alpha_c0,
                  float init_dist, float sig_num, float sig_den,
                  void* stream) {
-  // a slot of M <= 32 lanes is a warp's; B6c also takes the classic
-  // grid's wider slots, up to kMaxLanes (B5 does not: the kdkf step
-  // refuses that grid); B5 writes its contact columns by query row or by
+  // a slot of M <= 32 lanes is a warp's; a wider one, up to kMaxLanes,
+  // ceil(M / 32) warps'; B5 writes its contact columns by query row or by
   // particle
-  if (NC < 0 || O < 1 || M < 1 || M > (CONTACT ? 32 : kMaxLanes) ||
+  if (NC < 0 || O < 1 || M < 1 || M > kMaxLanes ||
       (CONTACT && (S < 1 || !cout || (rows != nullptr) == (lane_pid != nullptr)
                    || (rows && NI < 0) ||
                    (lane_pid && (!dense_pos || n < 0)))))
@@ -1196,14 +1205,12 @@ int forces_entry(const void* dft, const void* nbr, void* out, void* cout,
   launch_forces<K, V, FSI, CONTACT, WM>(d, nb, o, co, rw, lp, dp, NC, O, M, \
                                         S, NI, n, cutoff, alpha_c0,         \
                                         init_dist, sig_num, sig_den, st)
-  if constexpr (!CONTACT) {
-    if (M > 32) {
-      switch ((kdim2 ? 2 : 0) + (visc ? 1 : 0)) {
-        case 0: return FC(false, false, true);
-        case 1: return FC(false, true, true);
-        case 2: return FC(true, false, true);
-        default: return FC(true, true, true);
-      }
+  if (M > 32) {
+    switch ((kdim2 ? 2 : 0) + (visc ? 1 : 0)) {
+      case 0: return FC(false, false, true);
+      case 1: return FC(false, true, true);
+      case 2: return FC(true, false, true);
+      default: return FC(true, true, true);
     }
   }
   switch ((kdim2 ? 2 : 0) + (visc ? 1 : 0)) {

@@ -887,11 +887,8 @@ def _make_force_eval(kernel, params: dict, cell_cfg=None,
         if cell_cfg.skin > 0:
             scene, grid = grid_for_step(scene, cell_cfg)
             dfT = tck.pack_grid(scene, grid, cell_cfg)
-        elif not cell_cfg.spill:
-            grid, dfT = tck.pack_classic(scene, cell_cfg)
         else:
-            grid, _, dfT = tck.pack_scene(scene, cell_cfg, plain,
-                                          want_dense_pos=True)
+            grid, dfT = tck.pack_contact(scene, cell_cfg, plain)
         cp = tck.contact_pipeline_cell(
             dfT, grid, cell_cfg, kernel, scene.meta.total_no_bodies,
             4.0 * scene.meta.spacing0, scene.n, plain).to(scene.dtype)

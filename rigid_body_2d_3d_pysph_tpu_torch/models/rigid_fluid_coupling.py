@@ -96,7 +96,11 @@ that grid: each pack is gathered through the grid's ``slot2p``
 ``pack_fluid_pallas``; no K1), then B6a, B6b, B6c and K2 run on every
 slot at the grid's lane width (K2 up to 128 lanes, the split passes up to
 256).  The kdkf step and the compact store need the spill grid and raise
-on a classic one, as the reference's sorted build does.
+on a classic one, as the reference's sorted build does.  A spill config
+set the same way (``spill=True`` with an explicit ``M``) runs kdkf and
+its compact store at that lane width by the same route: K1, then B4 and
+B5 on slots of up to 256 lanes (past 32 lanes, ``ceil(M / 32)`` warps a
+slot).
 
 Bodies are integrated in 3D (``two_d=False``) even in 2D scenes, as the
 reference does.
@@ -641,10 +645,7 @@ def _pack(scene, cfg, has_fluid: bool, plain: bool):
     spill grid, gathered through ``slot2p`` on the classic grid."""
     if has_fluid:
         return fk.pack_fluid(scene, cfg, plain)
-    if not cfg.spill:
-        return tck.pack_classic(scene, cfg)
-    grid, _, dfT = tck.pack_scene(scene, cfg, plain, want_dense_pos=True)
-    return grid, dfT
+    return tck.pack_contact(scene, cfg, plain)
 
 
 def _rates(scene, grid, dfT, kernel, cfg, nu_edac, c0, edac, has_rigid,

@@ -11,9 +11,9 @@ cull and contact sums.
 
 The cell pipeline (:func:`contact_pipeline_cell`, the coupling steps'
 contact pass) runs the same sums on every slot of a grid that exists, on
-this pack built directly (:func:`pack_scene` on the spill grid,
-:func:`pack_classic` on the classic grid, whose slots hold 8 to 128 lanes)
-or laid out from the rows of another pack (:func:`contact_pack`, the
+this pack built directly (:func:`pack_contact`: :func:`pack_scene` on the
+spill grid, :func:`pack_classic` on the classic grid, whose slots hold 8
+to 128 lanes) or laid out from the rows of another pack (:func:`contact_pack`, the
 coupling pack).
 
 Output of the contact sums: 12 S columns a lane, column ``c * S + s``
@@ -461,6 +461,18 @@ def pack_classic(scene, cfg: CellGridConfig):
     M])``."""
     grid = build_cell_grid(scene.x, scene.y, scene.z, scene.active, cfg)
     return grid, pack_grid(scene, grid, cfg)
+
+
+def pack_contact(scene, cfg: CellGridConfig, plain: bool = False):
+    """The contact pack of a step on ``cfg``'s grid: ``(grid, dfT [NC +
+    1, F, M])``, the spill grid's through K1 (:func:`pack_scene`, the
+    grid keeping ``dense_pos`` for the cell pipeline's lane map), the
+    classic grid's gathered through ``slot2p`` (:func:`pack_classic`).
+    ``plain`` as in :func:`pack_scene`."""
+    if not cfg.spill:
+        return pack_classic(scene, cfg)
+    grid, _, dfT = pack_scene(scene, cfg, plain, want_dense_pos=True)
+    return grid, dfT
 
 
 def pack_grid(scene, grid, cfg: CellGridConfig):

@@ -9,7 +9,10 @@ still-overlapping partner is a candidate):
 * the spill grid (default): grid build with the 13 source fields riding
   the cell sort, pack expansion (K1) and :func:`dem_cell_sums`
   (``csrc/dem.cu`` ``dem_cell`` for CUDA tensors), which reads and
-  writes the ``[N, L]`` contact table in particle order;
+  writes the ``[N, L]`` contact table in particle order; on a classic
+  grid (a preset config, or a slab step's classic base) the pack is
+  gathered through ``slot2p`` instead of K1 and the same kernel runs on
+  the grid's stencil rows;
 * the row-window grid: the 13 source fields ride the window sort, one
   pack expansion (K1) and :func:`dem_rowwin_sums` (``dem_rowwin``),
   which reads and writes the table in particle order as the spill
@@ -35,8 +38,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .cellpairs import CellGridConfig, build_cell_grid_packed
-from .cellpairs import build_cell_grid
+from .cellpairs import (CellGridConfig, build_cell_grid,
+                        build_cell_grid_packed, pack_fields)
 from .dem import prune_contact_table
 from .dem_cell import (NF, SENT, PackedParticles, dem_payload,
                        grid_from_pack, lvc_displacement_cell, lvc_force_cell)
@@ -52,7 +55,11 @@ E_MAX = 8                 # entities (the reference kernels' bound too)
 NARROW_WIDTH = 8
 MAX_TABLE_WIDTH = 8192
 WIDE_LIST = 16            # live entries a query's list holds (dem.cu CL)
-KERNEL_M = (8, 16)        # the lane widths csrc/dem.cu is instantiated for
+# csrc/dem.cu takes any slot width up to MAX_LANES (MAX_M there): 8 and 16
+# lanes (the spill grids' widths) are instances of their own, every other
+# width runs the runtime-width instance (counted as "<table>/lanes<M>")
+OWN_M = (8, 16)
+MAX_LANES = 256
 
 
 def material_table(scene):
@@ -90,13 +97,20 @@ def _check_cuda(name, M, floats, ints64=(), ints32=()):
     if any(t.dtype != torch.int64 for t in ints64) or \
             any(t.dtype != torch.int32 for t in ints32):
         raise ValueError(f"{name}: index tables have the wrong dtype")
-    if M not in KERNEL_M:
-        raise ValueError(f"{name}: {M} lanes a slot (the kernel takes "
-                         f"{KERNEL_M})")
+    if not 1 <= M <= MAX_LANES:
+        raise ValueError(f"{name}: {M} lanes a slot (the kernel takes 1 to "
+                         f"{MAX_LANES})")
     L = ints32[0].shape[1]
     if L > MAX_TABLE_WIDTH:
         raise NotImplementedError(f"{name}: table width {L} (the kernel "
                                   f"takes at most {MAX_TABLE_WIDTH})")
+
+
+def lanes_instance(inst: str, M: int) -> str:
+    """The launch-count key of table instance ``inst`` at M lanes a slot:
+    8 and 16 lanes keep the table instance's name, another width runs the
+    runtime-width instance (``"<inst>/lanes<M>"``)."""
+    return inst if M in OWN_M else f"{inst}/lanes{M}"
 
 
 def _launch(kernel, pack, index_tables, tables, mat, sizes, dt, cutoff):
@@ -118,7 +132,7 @@ def _launch(kernel, pack, index_tables, tables, mat, sizes, dt, cutoff):
              o_idx.data_ptr(), o_dem.data_ptr(), o_spr.data_ptr(), n,
              *sizes, L, lm, mat.shape[0], float(dt), float(cutoff), stream)
     _build.check(err, kernel)
-    _build.count(kernel, instance=inst)
+    _build.count(kernel, instance=lanes_instance(inst, pack.shape[2]))
     return o_sum, o_idx, o_dem, o_spr[0], o_spr[1], o_spr[2]
 
 
@@ -251,12 +265,33 @@ def gid_rows(scene, n_ident: int):
     return torch.cat([row_of[:n_ident], row_of.new_full((1,), n)])
 
 
+def dem_pack(scene, cfg: CellGridConfig, plain: bool = False):
+    """``(grid, dfT [NC + 1, 13, M])``: the DEM source pack of ``cfg``'s
+    grid at the scene's positions, row NC all sentinels.  The spill grid
+    carries the 13 fields through its cell sort and expands them (K1;
+    ``plain``: its plain version); the classic grid (one slot a cell,
+    ``cfg.spill`` False) gathers them through ``slot2p`` (no K1), as
+    ``contact_kernel.pack_classic`` does."""
+    sent = torch.tensor(SENT, dtype=scene.dtype, device=scene.device)
+    if not cfg.spill:
+        grid = build_cell_grid(scene.x, scene.y, scene.z, scene.active, cfg)
+        df = pack_fields(grid, cfg, dem_payload(scene), SENT)
+        row = sent[None, :, None].expand(1, NF, cfg.M)
+        return grid, torch.cat([df.transpose(1, 2), row], 0).contiguous()
+    grid, pt = build_cell_grid_packed(scene.x, scene.y, scene.z,
+                                      scene.active, cfg, dem_payload(scene))
+    expand = expand_slots_reference if plain else expand_slots
+    return grid, expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
+
+
 def lvc_displacement_cell_kernel(scene, cfg: CellGridConfig, dt,
                                  tng_idx, tng_dem, tng_x, tng_y, tng_z,
                                  plain: bool = False,
                                  n_ident: int | None = None) -> DemPass:
-    """The spill-grid pass (prune fused).  ``plain`` runs K1's and K4's
-    plain versions even on CUDA tensors (the reference on the card).
+    """The cell-grid pass (prune fused) on the spill grid (K1, K4) or
+    the classic one (the pack gathered, K4; :func:`dem_pack`).  ``plain``
+    runs K1's and K4's plain versions even on CUDA tensors (the reference
+    on the card).
 
     ``n_ident``: the table entries are the partners' gids (below
     ``n_ident``; the slab step's tables), not their rows.  K4 reads and
@@ -270,12 +305,8 @@ def lvc_displacement_cell_kernel(scene, cfg: CellGridConfig, dt,
             torch.clamp(tng_idx.to(torch.int64), 0, n_ident)]
         tng_idx = torch.where((tng_idx >= 0) & (row < scene.n), row,
                               -1).to(torch.int32)
-    grid, pt = build_cell_grid_packed(scene.x, scene.y, scene.z,
-                                      scene.active, cfg, dem_payload(scene))
-    sent = torch.tensor(SENT, dtype=scene.dtype, device=scene.device)
-    expand = expand_slots_reference if plain else expand_slots
+    grid, dfT = dem_pack(scene, cfg, plain)
     sums_fn = dem_cell_sums_reference if plain else dem_cell_sums
-    dfT = expand(pt.sorted_fields, pt.base, pt.cnt, sent, cfg.M)
     out = sums_fn(dfT, grid.nbr_slots, tng_idx, tng_dem, tng_x, tng_y,
                   tng_z, material_table(scene), dt, cfg)
     res = _pass(*out, grid.overflow, scene.dtype)

@@ -26,11 +26,13 @@ and the kdk and reference orderings run the split passes
 
 Each wrapper runs its twin for CPU tensors and ``csrc/fluid.cu`` for
 CUDA tensors (float32), in the library of the pass's SPH kernel (any of
-the six of ``ops/kernels.py``); it raises on any other device.  B4 and B5
-take slots of up to 32 lanes on the card (the spill grid's; the kdkf
-step refuses the classic grid), the split passes up to ``MAX_LANES``
-(the classic grid's slots, sized from occupancy: the kdk and reference
-orderings pack it by :func:`pack_fluid_classic`).  The pack is
+the six of ``ops/kernels.py``); it raises on any other device.  Every
+pass takes slots of up to ``MAX_LANES`` lanes on the card: a slot of up
+to 32 lanes is one warp's, a wider one (the classic grid's slots, sized
+from occupancy, which the kdk and reference orderings pack by
+:func:`pack_fluid_classic`; a spill grid of more lanes for kdkf) runs
+the pass's instance of ``ceil(M / 32)`` warps a slot, counted as
+``<pass>/lanes<M>``.  The pack is
 ``dfT [NC + 1, 14, M]``: query slot s is row s, a stencil entry NC (no
 neighbour) reads the all-sentinel row NC.  Unlike the TPU kernels, every
 row's output is written (sentinel lanes hold zeros and the contact init
@@ -56,8 +58,8 @@ from .pack_expand import expand_slots, expand_slots_reference
 
 _BIG = 1.0e9
 _MAX_PAIR_ELEMS = 1 << 22   # pair lanes per chunk of the plain versions
-WARP_LANES = 32             # csrc/fluid.cu: B4's and B5's widest slot
-MAX_LANES = 256             # and the split passes' (kMaxLanes)
+WARP_LANES = 32             # csrc/fluid.cu: a warp's slot
+MAX_LANES = 256             # the widest slot of every pass (kMaxLanes)
 
 # Field rows of the coupling pack.  The flags word is dem*16 + cfib*8 +
 # static_boundary*4 + fluid*2 + rigid (cfib = contact_force_is_boundary),
@@ -420,9 +422,9 @@ def fluid_forces_contact_reference(dfT, nbr, kernel: Kernel,
 # kernel wrappers (csrc/fluid.cu for CUDA tensors)
 # ---------------------------------------------------------------------------
 
-def _check(name, dfT, nbr, max_lanes=WARP_LANES):
+def _check(name, dfT, nbr):
     """The common shape checks; True when the kernel runs (CUDA: float32,
-    int64 stencil rows, at most ``max_lanes`` lanes a slot)."""
+    int64 stencil rows, at most ``MAX_LANES`` lanes a slot)."""
     if dfT.dim() != 3 or dfT.shape[1] != NF or nbr.dim() != 2 \
             or dfT.shape[0] != nbr.shape[0] + 1:
         raise ValueError(f"{name}: bad shapes {tuple(dfT.shape)}, "
@@ -436,8 +438,8 @@ def _check(name, dfT, nbr, max_lanes=WARP_LANES):
         raise ValueError(f"{name}: the kernel takes float32")
     if nbr.dtype != torch.int64:
         raise ValueError(f"{name}: the kernel takes an int64 stencil table")
-    if dfT.shape[2] > max_lanes:
-        raise ValueError(f"{name}: the kernel takes M <= {max_lanes} lanes "
+    if dfT.shape[2] > MAX_LANES:
+        raise ValueError(f"{name}: the kernel takes M <= {MAX_LANES} lanes "
                          f"a slot, got {dfT.shape[2]}")
     return True
 
@@ -479,7 +481,7 @@ def fluid_rates_wall(dfT, nbr, kernel: Kernel, cutoff: float,
 def fluid_rates(dfT, nbr, kernel: Kernel, cutoff: float,
                 nu_edac: float, c0: float, edac: bool, has_rigid: bool):
     """B6a: continuity and EDAC rates -> ``[NC, M, 2]``."""
-    if not _check("fluid_rates", dfT, nbr, MAX_LANES):
+    if not _check("fluid_rates", dfT, nbr):
         return fluid_rates_reference(dfT, nbr, kernel, cutoff, nu_edac, c0,
                                      edac, has_rigid)
     return _launch("fluid_rates", kernel, dfT, nbr, 2,
@@ -489,7 +491,7 @@ def fluid_rates(dfT, nbr, kernel: Kernel, cutoff: float,
 
 def wall_bc(dfT, nbr, kernel: Kernel, cutoff: float, g):
     """B6b: the Adami wall sums -> ``[NC, M, 5]``."""
-    if not _check("wall_bc", dfT, nbr, MAX_LANES):
+    if not _check("wall_bc", dfT, nbr):
         return wall_bc_reference(dfT, nbr, kernel, cutoff, g)
     return _launch("wall_bc", kernel, dfT, nbr, 5, (int(kernel.dim == 2),),
                    (cutoff, g[0], g[1], g[2]))
@@ -499,7 +501,7 @@ def fluid_forces(dfT, nbr, kernel: Kernel, cutoff: float,
                  fluid_alpha: float, c0: float, has_rigid: bool = False):
     """B6c: the 6 force columns -> ``[NC, M, 6]``; ``has_rigid`` adds the
     FSI source class and the fluid -> rigid force."""
-    if not _check("fluid_forces", dfT, nbr, MAX_LANES):
+    if not _check("fluid_forces", dfT, nbr):
         return fluid_forces_reference(dfT, nbr, kernel, cutoff, fluid_alpha,
                                       c0, has_rigid)
     return _launch("fluid_forces", kernel, dfT, nbr, 6,
@@ -519,7 +521,7 @@ def fluid_forces_contact(dfT, nbr, kernel: Kernel, cutoff: float,
     init row), by particle with ``lanes`` (``[n, 12 S]``, a particle
     without a lane zeros), or with neither by query row at every slot
     (``[NC, M, 12 S]``).  Counted as the instance ``"rows"`` or
-    ``"lanes"``."""
+    ``"lanes"`` (past 32 lanes ``"rows/lanes<M>"``, ``"lanes/lanes<M>"``)."""
     if rows is not None and lanes is not None:
         raise ValueError("fluid_forces_contact: rows or lanes, not both")
     if S < 1:
@@ -560,6 +562,7 @@ def fluid_forces_contact(dfT, nbr, kernel: Kernel, cutoff: float,
              kernel.device_id, float(cutoff), float(-fluid_alpha * c0),
              float(init_dist), float(sig_num), float(sig_den), stream)
     _build.check(err, "fluid_forces_contact")
+    inst = "rows" if lanes is None else "lanes"
     _build.count("fluid_forces_contact", kernel.name,
-                 "rows" if lanes is None else "lanes")
+                 inst if M <= WARP_LANES else f"{inst}/lanes{M}")
     return fout, cout

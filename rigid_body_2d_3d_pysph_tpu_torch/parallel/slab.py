@@ -40,6 +40,15 @@ full ``[N, S]`` route K1 and K2 on every slot; the DEM step K1 and K4
 its ordering (``csrc/fluid.cu``: kdk B6a, B6b, B6c; kdkf B4, B6c) and K2
 on every slot.  ``plain=True`` runs their plain versions instead, on any
 device.
+
+The base grid may be the spill grid or a classic one (one slot a cell,
+``cellpairs.config_from_positions(..., spill=False)``, or ``sub >= 2``),
+as the reference's slab steps build whatever base they are given.  On a
+classic base each pack is gathered through the local grid's ``slot2p``
+(no K1: ``contact_kernel.pack_classic``, ``dem_kernel.dem_pack``,
+``fluid_kernel.pack_fluid_classic``) and the same kernels run at the
+base's lane width; the rigid blob route needs the spill grid and raises
+on a classic base, as the reference's sorted build does.
 """
 
 from __future__ import annotations
@@ -440,6 +449,8 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
     half-kick.  Blob scenes (``slot_blob``) take the compact route (K1,
     the cull, K2 on the culled rows; ``n_interesting`` per slab), full
     ``[N, S]`` scenes K1 and K2 on every slot with the ``[N, S]`` tail.
+    On a classic base the full route gathers its pack (no K1) and runs
+    K2 at the base's width; the blob route raises there.
     ``chain`` steps a call; ``plain`` runs the kernels' plain versions.
     ``step.exchange(parts, dt)`` runs the stage before the evaluation
     (the kicked scenes, the extended scenes, the face overflows): the
@@ -461,6 +472,11 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
     if not blob and "contact_force_normal_x" not in parts[0]:
         raise ValueError("make_slab_step: the local scenes carry neither "
                          "slot_blob nor the [N, S] slot fields")
+    if blob and not local_cfg.spill:
+        raise ValueError("make_slab_step: the blob route's sorted pack "
+                         "build requires a spillover grid (cfg.spill=True); "
+                         "a classic base runs the full [N, S] route "
+                         "(slab_decompose(..., use_blob=False))")
 
     def evaluate(scene_e, dt):
         """(scene with the per-particle forces, overflow, interesting
@@ -469,8 +485,7 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
             scene_e, cc = rb.rigid_contact_force_eval_compact_blob(
                 scene_e, local_cfg, kernel, params, dt, ni_max, plain)
             return scene_e, cc.overflow, cc.n_interesting
-        grid, _, dfT = tck.pack_scene(scene_e, local_cfg, plain,
-                                      want_dense_pos=True)
+        grid, dfT = tck.pack_contact(scene_e, local_cfg, plain)
         cp = tck.contact_pipeline_cell(
             dfT, grid, local_cfg, kernel, scene_e.meta.total_no_bodies,
             4.0 * scene_e.meta.spacing0, scene_e.n, plain).to(scene_e.dtype)
@@ -629,12 +644,12 @@ def make_slab_redistribute(parts: List[Scene], mesh: Mesh, cfg: SlabConfig):
 
 def make_slab_dem_step(scheme, parts: List[Scene], mesh: Mesh,
                        cfg: SlabConfig, n_global: int, plain: bool = False):
-    """The DEM step (LVC displacement, spill grid) over the slabs, as
+    """The DEM step (LVC displacement) over the slabs, as
     ``step(parts, dt) -> parts``: the half-kick of the granular rows
     (``is_rigid``), the halo of ``DEM_GHOST_FIELDS`` with ``dem_id`` and
     ``gid`` (ghost rows: empty tables, ``moi`` 1), the grid build, K1
-    and K4 on the slab and its ghosts, force assembly, the drift and the
-    second half-kick.  The contact tables are keyed on gids (below
+    (spill base; a classic base gathers the pack) and K4 on the slab and
+    its ghosts, force assembly, the drift and the second half-kick.  The contact tables are keyed on gids (below
     ``n_global``, :func:`attach_gids`): DEM sums are per query, so the
     two ring sends are the only exchange.  ``plain`` runs the kernels'
     plain versions; ``step.exchange`` as in :func:`make_slab_step`."""

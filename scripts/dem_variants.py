@@ -2,6 +2,7 @@
 """Where the DEM pair kernels' time goes, on one CUDA card.
 
     python3 scripts/dem_variants.py [--parent DIR] [--widths 8,12,...]
+        [--lanes 4,24,32,64,128]
 
 Run from the repository root on the machine with the card.  It builds
 ``csrc/dem.cu`` as it is and in two cut-down copies, each with ``nvcc``
@@ -18,7 +19,10 @@ match bitmap ``o_match`` (zeros, passed here) and picks among its table
 widths 8, 16, 32 and 0 (the rows in global memory).  On
 ``chip_smoke.py``'s DEM scenes (~104k grains in 2D at L = 8; the ~123k
 3D column at each table width of ``--widths``, default 8, 12, 16, 32,
-40; the contact table filled by a plain pass) it prints, per grid and
+40; the contact table filled by a plain pass; the 2D column again at
+each slot width of ``--lanes`` at L = 8, K4 on the spill grid of that M
+and K3 on row windows of that M: the runtime-width instance, which a
+parent that takes 8 and 16 lanes only refuses) it prints, per grid and
 width: the bound (bytes: each particle's 13 pack fields, 8 sums and
 table row of 5L words read and written once; operations: 9 a candidate
 lane, 140 a gated pair), the wrapper's time (allocation and the fills of
@@ -48,6 +52,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from rigid_body_2d_3d_pysph_tpu_torch.ops import _build  # noqa: E402
 from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk  # noqa: E402
+from rigid_body_2d_3d_pysph_tpu_torch.ops import rowwin as rw  # noqa: E402
 
 SOURCE = os.path.join(_build.CSRC, "dem.cu")
 OUT = os.path.join(ROOT, "build", "dem_variants")
@@ -99,9 +104,19 @@ def parent_width(L):
     return next((lm for lm in PARENT_WIDTHS if L <= lm), 0)
 
 
-def time_grid(label, dim, grid, L, libs, dev, old=()):
+def time_grid(label, dim, grid, L, libs, dev, old=(), M=None):
     scheme, scene = cs.dem_scene(dev, dim, grid, L=L)
     spill = grid == "spill"
+    if M is not None:     # the slot width set on the scheme's grid
+        host = lambda k: scene[k].cpu().numpy()
+        if spill:
+            scheme.cell_factor = dict(cs.DEM_WIDTHS).get(M, 8.0)
+            scheme.cell_M = M
+        else:
+            scheme._rowwin_cfg = rw.rowwin_config_from_positions(
+                host("x"), host("y"), host("z"),
+                scheme._contact_radius(scene), dim, M=M)
+        label = f"{label} M={M}"
     cfg = scheme.cell_config(scene) if spill else scheme.rowwin_config(scene)
     run = (tdk.lvc_displacement_cell_kernel if spill
            else tdk.lvc_displacement_rowwin_kernel)
@@ -160,6 +175,9 @@ def time_grid(label, dim, grid, L, libs, dev, old=()):
         o_spr.zero_()
         o_match.zero_()
         if call() != 0:
+            if name == "parent" and M is not None:
+                line.append("parent refuses the width")
+                continue
             raise RuntimeError(f"{name}: launch failed")
         torch.cuda.synchronize()
         if name in ("full", "parent"):
@@ -184,6 +202,9 @@ def main():
                     "beside this one")
     ap.add_argument("--widths", default="8,12,16,32,40",
                     help="table widths of the 3D column (2D: L = 8)")
+    ap.add_argument("--lanes", default="4,24,32,64,128",
+                    help="slot widths of the 2D column at L = 8 (empty: "
+                    "none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("dem_variants: no CUDA device", file=sys.stderr)
@@ -209,6 +230,9 @@ def main():
     for label, dim, grid in GRIDS:
         for L in (widths if dim == 3 else (8,)):
             time_grid(label, dim, grid, L, libs, dev, old)
+    for M in [int(m) for m in args.lanes.split(",") if m]:
+        for label, dim, grid in GRIDS[:2]:
+            time_grid(label, dim, grid, 8, libs, dev, old, M=M)
     return 0
 
 

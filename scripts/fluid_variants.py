@@ -2,7 +2,7 @@
 """Where the fluid kernels' time goes, on one CUDA card.
 
     python3 scripts/fluid_variants.py [--parent DIR] [--kernel forces|rates]
-                                      [--no-wide]
+                                      [--no-wide] [--lanes 48]
 
 Run from the repository root on the machine with the card.  It builds
 ``csrc/fluid.cu`` as it is and in cut-down copies of one of its two
@@ -35,7 +35,10 @@ B5 with gated contact pairs; the fluid-only tank: B4 and B6c without
 bodies, all at ~96.9k particles with seeded random velocities and body
 ``p_fsi``; unless ``--no-wide``, the tank with 8 layers of 16 boxes, S
 = 129, and with 6 layers of 50, S = 301, phase 45's scenes: B5 on the
-compact store) it prints each build's time per launch: CUDA events over
+compact store; the sinking box and the box on the floor again on a
+spill grid of each slot width of ``--lanes``, 48 by default: B4 and B5
+of ceil(M / 32) warps a slot, which a parent that takes 32 lanes at most
+refuses) it prints each build's time per launch: CUDA events over
 50 launches into a preallocated output, behind a device sleep so the
 host's enqueue is not timed.  B5 runs in the layout of the scene's kdkf
 step (``chip_smoke.b5_layout``: by particle on the full route, by query
@@ -211,12 +214,18 @@ def usage(report):
     return "\n".join(lines)
 
 
-def scenes(dev, wide):
+def scenes(dev, wide, lanes=()):
     """(label, scheme, set-up scene) of the timed scenes."""
     for label, kw in (("sinking box", {}), ("box on floor", dict(floor=True)),
                       ("tank", dict(body=False))):
         scheme, scene, _ = cs.sinking_box_scene(dev, **kw)
         yield label, scheme, scene
+    for M in lanes:
+        for label, kw in (("sinking box", {}),
+                          ("box on floor", dict(floor=True))):
+            scheme, scene, _ = cs.sinking_box_scene(
+                dev, grid=dict(spill=True, M=M), **kw)
+            yield f"{label} M={M}", scheme, scene
     if wide:
         for label, kw in (
                 ("boxes S=129", dict(rows=cs.WIDE_BOX_129[0],
@@ -232,14 +241,15 @@ def scenes(dev, wide):
             yield label, scheme, scene
 
 
-def cases(dev, kernels, wide):
+def cases(dev, kernels, wide, lanes=()):
     """(label, instance, template, wrapper, wrapper args, C entry, C args
     after the sizes, S of the contact columns, B5's layout and the
     grid's (grid, cfg, n)) on the scenes."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 
     out = []
-    for label, scheme, scene in scenes(dev, wide):
+    for label, scheme, scene in scenes(dev, wide, lanes):
+        what = label.split(" M=")[0]
         kernel = get_kernel(scheme.kernel_name, scheme.dim)
         cfg = scheme.cell_config(scene, kernel)
         gen = torch.Generator(device=dev).manual_seed(17)
@@ -274,13 +284,13 @@ def cases(dev, kernels, wide):
                             S, lay, unp))
             if label.startswith("boxes"):
                 continue
-            if label != "box on floor":
+            if what != "box on floor":
                 out.append((label, "B6c" + (" with bodies" if body else ""),
                             "forces", fk.fluid_forces, fbase + (body,),
                             "fluid_forces",
                             (kd2, int(visc), int(body), rc, ac0) + tail, 0,
                             None, None))
-        if "rates" in kernels and label in ("sinking box", "tank"):
+        if "rates" in kernels and what in ("sinking box", "tank"):
             rates = (rc, float(2.0 * nu), float(c0 * c0))
             out.append((label, "B4" + (" with bodies" if body else ""),
                         "rates", fk.fluid_rates_wall,
@@ -375,6 +385,9 @@ def time_b5(case, libs, block):
             fout.fill_(float("nan"))
             cout.fill_(float("nan"))
         if call() != 0:
+            if name.startswith("parent") and M > 32:
+                line.append(f"{name} refuses M={M}")
+                continue
             raise RuntimeError(f"{name}: launch failed")
         torch.cuda.synchronize()
         same = ""
@@ -423,6 +436,9 @@ def time_case(case, libs, no_id=(), block=()):
         call = lambda: fn(*ptrs, NC, O, M, *args, stream)
         out.fill_(float("nan"))
         if call() != 0:
+            if name.startswith("parent") and M > 32:
+                line.append(f"{name} refuses M={M}")
+                continue
             raise RuntimeError(f"{name}: launch failed")
         torch.cuda.synchronize()
         same = ""
@@ -442,6 +458,9 @@ def main():
                     help="cut and time one template (default: both)")
     ap.add_argument("--no-wide", action="store_true",
                     help="leave out the scenes of 129 and 301 entities")
+    ap.add_argument("--lanes", default="48",
+                    help="slot widths of the spill grid past a warp "
+                    "(empty: none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fluid_variants: no CUDA device", file=sys.stderr)
@@ -485,7 +504,8 @@ def main():
     print(f"[fluid-variants] {cs.smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
     try:
-        for case in cases(dev, kernels, not args.no_wide):
+        lanes = [int(m) for m in args.lanes.split(",") if m]
+        for case in cases(dev, kernels, not args.no_wide, lanes):
             time_case(case, libs, no_id, block)
     except cs.PhaseError as e:
         print(f"fluid_variants: FAILED: {e}", file=sys.stderr)

@@ -39,3 +39,24 @@ def test_kernel_table_matches_the_c_entry_point(kernel):
     sigs = _signatures(source)
     assert entry in sigs, f"{entry} not in csrc/{source}.cu"
     assert argtypes == sigs[entry]
+
+
+@pytest.mark.parametrize("source,const,module,attr", [
+    ("dem", "MAX_M", "dem_kernel", "MAX_LANES"),
+    ("fluid", "kMaxLanes", "fluid_kernel", "MAX_LANES"),
+    ("dem", "MAX_WIDE_L", "dem_kernel", "MAX_TABLE_WIDTH"),
+])
+def test_lane_and_table_limits_match_the_sources(source, const, module,
+                                                 attr):
+    """The wrappers' limits (they raise past them on the card) are the
+    kernels' own: every width below is dispatched, so no width the
+    wrapper takes can come back refused at launch."""
+    import importlib
+
+    with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
+        text = f.read()
+    m = re.search(rf"constexpr int {const} = (\d+);", text)
+    assert m, f"{const} not in csrc/{source}.cu"
+    mod = importlib.import_module(
+        f"rigid_body_2d_3d_pysph_tpu_torch.ops.{module}")
+    assert int(m.group(1)) == getattr(mod, attr)

@@ -1211,18 +1211,18 @@ def test_fluid_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfk.fluid_rates(dfT.double(), nbr, kernel, 0.1, 0.1, 1.0, True, True)
     with pytest.raises(ValueError):
         tfk.wall_bc(dfT[:, :7], nbr, kernel, 0.1, g)
-    wide = torch.zeros((5, tfk.NF, 64), device=dev)   # B4, B5: a warp
     widest = torch.zeros((5, tfk.NF, tfk.MAX_LANES + 8), device=dev)
     with pytest.raises(ValueError):
         tfk.fluid_forces(widest, nbr, kernel, 0.1, 0.1, 1.0)
     with pytest.raises(ValueError):
-        tfk.fluid_rates_wall(wide, nbr, kernel, 0.1, 0.1, 1.0, True, True, g)
+        tfk.fluid_rates_wall(widest, nbr, kernel, 0.1, 0.1, 1.0, True, True,
+                             g)
     with pytest.raises(ValueError):
         tfk.fluid_rates(widest, nbr, kernel, 0.1, 0.1, 1.0, True, True)
     with pytest.raises(ValueError):
         tfk.wall_bc(widest, nbr, kernel, 0.1, g)
     with pytest.raises(ValueError):
-        tfk.fluid_forces_contact(wide, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
+        tfk.fluid_forces_contact(widest, nbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
     lanes = tcell.LaneMap(torch.zeros(64, dtype=torch.int64, device=dev),
                           torch.zeros(3, dtype=torch.int64, device=dev), 3)
     with pytest.raises(ValueError):       # rows and lanes
@@ -1896,7 +1896,9 @@ def test_split_passes_classic_widths_match_twin(dev, dim, M):
 
 def test_classic_wrappers_refuse_widths_past_the_kernels(dev):
     """K2 takes slots of at most 128 lanes (the 3D coupling's classic
-    176 raises), the split passes 256, B4 and B5 32."""
+    176 raises), every fluid pass 256 (B4 and B5 at 48 lanes run:
+    ``test_b4_b5_wide_slot_instances_match_twins``), the DEM kernels
+    256."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
 
     kernel = QuinticSpline(dim=2)
@@ -1906,15 +1908,21 @@ def test_classic_wrappers_refuse_widths_past_the_kernels(dev):
         tck.contact_sums(torch.zeros((4, 7, 176), device=dev), q, nbr, 3,
                          0.1, 0.2, kernel)
     fnbr = torch.zeros((4, 9), dtype=torch.int64, device=dev)
-    d48 = torch.zeros((5, tfk.NF, 48), device=dev)
-    with pytest.raises(ValueError, match="32"):
-        tfk.fluid_rates_wall(d48, fnbr, kernel, 0.1, 0.1, 1.0, True, True,
-                             (0.0, -1.0, 0.0))
-    with pytest.raises(ValueError, match="32"):
-        tfk.fluid_forces_contact(d48, fnbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
     d264 = torch.zeros((5, tfk.NF, 264), device=dev)
     with pytest.raises(ValueError, match="256"):
+        tfk.fluid_rates_wall(d264, fnbr, kernel, 0.1, 0.1, 1.0, True, True,
+                             (0.0, -1.0, 0.0))
+    with pytest.raises(ValueError, match="256"):
+        tfk.fluid_forces_contact(d264, fnbr, kernel, 0.1, 0.1, 1.0, 2, 0.1)
+    with pytest.raises(ValueError, match="256"):
         tfk.fluid_rates(d264, fnbr, kernel, 0.1, 0.1, 1.0, True, True)
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+    scene, cfg = _dem_scene(2, dev, "spill", "empty", n_side=4)
+    d257 = torch.zeros((5, 13, 257), device=dev)
+    with pytest.raises(ValueError, match="256"):
+        tdk.dem_cell_sums(d257, fnbr, scene.tng_idx, scene.tng_idx_dem_id,
+                          scene.tng_x, scene.tng_y, scene.tng_z,
+                          tdk.material_table(scene), 1e-5, cfg)
 
 
 def _classic_cfg(scene, cutoff, dim, **kw):
@@ -2062,3 +2070,103 @@ def test_classic_coupling_3d_kdk_kernel_steps_match_plain_steps(dev):
         np.testing.assert_allclose(x, y, rtol=1e-4,
                                    atol=1e-4 * max(np.abs(y).max(), 1.0),
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# every lane width: the DEM kernels' runtime-width instance, B4 and B5 past
+# a warp
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L", [8, 12])
+@pytest.mark.parametrize("M", [1, 4, 24, 32, 64, 100, 128, 200, 256, None])
+@pytest.mark.parametrize("grid", ["spill", "rowwin", "classic"])
+def test_dem_kernels_at_every_lane_width(dev, grid, M, L):
+    """K4 (spill grid) and K3 (row windows) at M lanes a slot, and K4 on
+    the classic grid (``M`` None: its lanes from occupancy), the narrow
+    and the wide table instance, from the filled table and from one whose
+    contacts open and close: tables bit for bit, sums and springs at the
+    twin's tolerances; each launch counted as the runtime-width instance
+    (8 and 16 lanes keep theirs)."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import dem_kernel as tdk
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import rowwin as trw
+
+    if (grid == "classic") != (M is None):
+        pytest.skip("the classic grid sizes its lanes from occupancy; the "
+                    "other grids take every M")
+    for table in ("filled", "moved"):
+        scene, cfg0 = _dem_scene(2, dev, "rowwin" if grid == "rowwin"
+                                 else "spill", table, L=L)
+        host = lambda k: scene[k].cpu().numpy()
+        if grid == "rowwin":
+            cfg = trw.rowwin_config_from_positions(
+                host("x"), host("y"), host("z"), cfg0.cutoff, 2, M=M)
+            run, kname = tdk.lvc_displacement_rowwin_kernel, "dem_rowwin"
+        else:
+            cfg = tcell.config_from_positions(
+                host("x"), host("y"), host("z"), cfg0.cutoff, 2,
+                cell_factor=2.0 if (M or 8) < 8 else 4.0, M=M,
+                spill=grid == "spill", cell_chunk=64)
+            assert cfg.spill == (grid == "spill")
+            run, kname = tdk.lvc_displacement_cell_kernel, "dem_cell"
+        tabs = (scene.tng_idx, scene.tng_idx_dem_id, scene.tng_x,
+                scene.tng_y, scene.tng_z)
+        inst = (f"{kname}/"
+                f"{tdk.lanes_instance(tdk.table_instance(L)[0], cfg.M)}")
+        before = _build.LAUNCHES_INSTANCE.get(inst, 0)
+        got = run(scene, cfg, 1e-5, *tabs)
+        ref = run(scene, cfg, 1e-5, *tabs, plain=True)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES_INSTANCE.get(inst, 0) == before + 1, inst
+        assert not bool(ref.overflow) and int(ref.count.sum()) > 0
+        for k in ("tng_idx", "tng_dem", "count", "n_gated"):
+            assert torch.equal(getattr(got, k), getattr(ref, k)), (k, table)
+        for k in ("tng_x", "tng_y", "tng_z"):
+            assert torch.allclose(getattr(got, k), getattr(ref, k),
+                                  rtol=1e-4, atol=0), (k, table)
+        _check_sums(torch.stack([got.fx, got.fy, got.torz]),
+                    torch.stack([ref.fx, ref.fy, ref.torz]), "sums")
+
+
+@pytest.mark.parametrize("layout", ["rows", "lanes", "every"])
+@pytest.mark.parametrize("M", [33, 48, 64, 100, 256])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_b4_b5_wide_slot_instances_match_twins(dev, dim, M, layout):
+    """B4 and B5 on random packs of M lanes a slot (ceil(M / 32) warps a
+    slot): B4's columns and B5's forces within 2e-5 of each column's
+    largest magnitude, B5's contact columns as K2's (picks bit for bit)
+    by query row at some slots, by particle, or at every slot."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as tfk
+
+    args = _fluid_pack_args(dim, 3, dev, seed=70 + M, M=M, NC=24)
+    dfT, nbr = args[0], args[1]
+    NC = nbr.shape[0]
+    kw = {}
+    if layout == "rows":
+        kw["rows"] = torch.tensor([0, 2, 3, 7, 11, NC, NC], device=dev)
+    elif layout == "lanes":
+        rng = np.random.default_rng(M)
+        n = NC * M + 5
+        pid = rng.permutation(n)[:NC * M]
+        dp = np.full(n, NC * M)
+        dp[pid] = np.arange(NC * M)
+        kw["lanes"] = tcell.LaneMap(torch.as_tensor(pid, device=dev),
+                                    torch.as_tensor(dp, device=dev), n)
+    inst = ("rows" if "lanes" not in kw else "lanes") + f"/lanes{M}"
+    before = _build.LAUNCHES_INSTANCE.get(f"fluid_forces_contact/{inst}", 0)
+    got = tfk.fluid_forces_contact(*args, **kw)
+    ref = tfk.fluid_forces_contact_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES_INSTANCE[f"fluid_forces_contact/{inst}"] \
+        == before + 1
+    S = 3
+    gc, rc = got[1].reshape(-1, 12 * S), ref[1].reshape(-1, 12 * S)
+    assert int((rc[:, 5 * S:6 * S] < args[7]).sum()) > 0
+    _check_contact(gc, rc, S)
+    _check_fluid_columns(got[0], ref[0], f"B5 M={M}")
+    g = (0.0, -1.0, 0.0)
+    for edac, rigid in ((True, True), (False, False)):
+        rw = (dfT, nbr, args[2], args[3], 0.02, 10.0, edac, rigid, g)
+        a, b = tfk.fluid_rates_wall(*rw), tfk.fluid_rates_wall_reference(*rw)
+        torch.cuda.synchronize()
+        _check_fluid_columns(a, b, f"B4 M={M}")
+    assert _build.LAUNCHES_INSTANCE.get(f"fluid_rates_wall/lanes{M}", 0) > 0

@@ -8,7 +8,10 @@
   on CPU tensors each kernel wrapper runs its plain version) against the
   Pallas spill-grid kernel in interpret mode over 5 coupled f32
   iterations on the ``tests/test_pallas_dem.py`` scene and grid (each
-  iteration starts both sides from the reference's state).  The
+  iteration starts both sides from the reference's state), at the
+  default 16 lanes a slot and at 32 and 4 (``csrc/dem.cu``'s
+  runtime-width instance on the card; the reference pads a slot to 128
+  lanes whatever its M).  The
   candidate order is the same, so table slot positions and live counts
   match exactly; the sums differ by summation order (rtol 2e-5 / atol
   2e-3, as ``tests/test_pallas_dem.py``).  The springs take rtol 1e-4
@@ -142,15 +145,18 @@ def test_prune_and_core_match_reference_f64(case):
         assert (tout[12].numpy() > tout[11].numpy()).any()
 
 
-def test_spill_pass_matches_pallas_interpret():
+@pytest.mark.parametrize("M", [None, 32, 4])
+def test_spill_pass_matches_pallas_interpret(M):
     _, scene = _grain_scene_f32()
     fields = {k: np.asarray(v) for k, v in scene.fields.items()}
     tscene = scene_from_numpy(fields, scene.meta, CPU, torch.float32)
     cutoff = 2.0 * float(fields["rad_s"].max())
     args = (fields["x"], fields["y"], fields["z"], cutoff, 2)
-    jcfg = jcell.config_from_positions(*args, cell_chunk=16, cell_factor=2.0)
-    tcfg = tcell.config_from_positions(*args, cell_chunk=16, cell_factor=2.0)
+    kw = dict(cell_chunk=16, cell_factor=2.0, M=M, spill=True)
+    jcfg = jcell.config_from_positions(*args, **kw)
+    tcfg = tcell.config_from_positions(*args, **kw)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert tcfg.spill and tcfg.M == (M or 16)
     dt = np.float32(1e-5)
 
     @jax.jit
@@ -163,7 +169,10 @@ def test_spill_pass_matches_pallas_interpret():
             interpret=True)
 
     launches = dict(_build.LAUNCHES)
-    for it in range(5):
+    # 32 lanes: an empty table's pass and a filled one's; 4 lanes: the
+    # empty table's (the filled table's pass at 32 lanes runs the same
+    # runtime-width instance of csrc/dem.cu on the card)
+    for it in range({None: 5, 32: 2, 4: 1}[M]):
         ovf, out_j = eval_pallas(scene)
         r = tdk.lvc_displacement_cell_kernel(
             tscene, tcfg, float(dt), tscene.tng_idx, tscene.tng_idx_dem_id,

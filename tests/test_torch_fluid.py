@@ -9,7 +9,10 @@ build, pack and unpack:
   box at the surface, EDAC and rigid bodies on;
 * B5 ``fluid_forces_contact`` with the box resting 0.95 dx above the
   tank floor, so the contact columns hold gated pairs, picks and sums;
-* B6c ``fluid_forces`` on the fluid-only tank (no rigid body).
+* B6c ``fluid_forces`` on the fluid-only tank (no rigid body);
+* B4 and B5 again on a spill grid of 48 lanes a slot (``_m48``: the
+  kdkf step on a preset spill config; on the card the passes' instances
+  of two warps a slot).
 
 Velocities and the body's p_fsi are seeded random numbers (numpy).
 Tolerance: the sums differ only in summation order (f32), within
@@ -43,9 +46,10 @@ TOL = 2e-5
 NU_EDAC, ALPHA, G = 0.02, 0.1, (0.0, -1.0, 0.0)
 
 
-def _scene(case):
+def _scene(case, M=None):
     """(reference scheme, f32 reference scene) with seeded velocities
-    and, on the body, a seeded p_fsi."""
+    and, on the body, a seeded p_fsi; ``M``: the scheme's grid replaced
+    by a spill grid of M lanes a slot at the same cutoff."""
     if case == "floor":
         jsch, jscene = _jax_floor_scene()
     else:
@@ -57,6 +61,11 @@ def _scene(case):
         u=jnp.asarray(rng.uniform(-0.2, 0.2, n)),
         v=jnp.asarray(rng.uniform(-0.2, 0.2, n)),
         p_fsi=jnp.asarray(np.where(rigid, rng.uniform(0.0, 1.0, n), 0.0)))
+    if M is not None:
+        host = lambda k: np.asarray(jscene[k])
+        jsch._cell_cfg = jcell.config_from_positions(
+            host("x"), host("y"), host("z"), jsch._cell_cfg.cutoff, 2, M=M,
+            spill=True)
     return jsch, _f32(jscene)
 
 
@@ -124,12 +133,16 @@ def _check_sums(got, ref, cols, what, floor=1e-30):
 
 
 CASES = {"rates_wall": "surface", "forces_contact": "floor",
-         "forces": "fluid_only"}
+         "forces": "fluid_only", "rates_wall_m48": "surface",
+         "forces_contact_m48": "floor"}
 
 
 @pytest.mark.parametrize("which", list(CASES))
 def test_plain_pass_matches_pallas_interpret(which):
-    jsch, jscene = _scene(CASES[which])
+    M = 48 if which.endswith("_m48") else None
+    jsch, jscene = _scene(CASES[which], M)
+    which = which.removesuffix("_m48")
+    assert M is None or jsch._cell_cfg.M == M
     ref = _reference(jsch, jscene, which)
     got = _port(jsch, jscene, which)
     assert got.shape == ref.shape
