@@ -280,18 +280,23 @@ no result line):
     bound; 100 GTVF steps under phase 4's gates (one K2 a step at the
     grid's width, no K1, the full [N, S] schema, no overflow); 20 kernel
     steps against 20 plain steps (10 for the 3D cubes);
-48. the kdk coupling ordering on the sinking box's classic grid of 48
-    lanes (the kdkf step refuses it): B6a (EDAC and Tait), B6b, B6c and
-    K2 on every slot against their plain versions, timed; 150 steps under
-    phase 11's gates (B6a, B6b, B6c and K2 a step at 48 lanes, no K1);
-    20 kernel steps against 20 plain steps with the dense box on the
-    floor; 49. the kdk ordering on the 3D sinking box's own classic grid
-    (the coupling's lane rule: M 80, O 27): B6a, B6b, B6c and K2 on
-    every slot against their plain versions, timed; 100 steps under
-    phase 11's gates (each a step at 80 lanes, no K1); 10 kernel steps
-    against 10 plain steps; then the split passes on the same box's pack
-    at 176 lanes a slot against their plain versions, timed (K2 refuses
-    that width);
+48. the kdk and kdkf coupling orderings on the sinking box's classic
+    grid of 48 lanes: B6a (EDAC and Tait), B6b, B6c and K2 on every slot
+    against their plain versions, timed; 150 kdk steps under phase 11's
+    gates (B6a, B6b, B6c and K2 a step at 48 lanes, no K1) and 150 kdkf
+    steps (B4 and B5 a step at 48 lanes, B5's contact columns by
+    particle, no K1); 20 kdk kernel steps against 20 plain steps with the
+    dense box on the floor, B4 and B5 on that box's pack against their
+    plain versions, timed (gated pairs and picks required), and 10 kdkf
+    kernel steps against 10 plain steps; 49. the same orderings on the
+    3D sinking box's own classic grid (the coupling's lane rule: M 80,
+    O 27): B6a, B6b, B6c, K2, B4 and B5 on its pack against their plain
+    versions, timed; 100 kdk and 100 kdkf steps under phase 11's gates
+    (each a step at 80 lanes, no K1), each with 10 kernel steps against
+    10 plain steps; then at 176 lanes a slot on the same box: the split
+    passes, B4 and B5 against their plain versions, timed, K2 refusing
+    that width, and 50 kdkf steps (B5 carries the contact) under phase
+    11's gates, 2 of them against 2 plain steps;
 50. every lane width of the DEM kernels: the 2D column on the spill grid
     at (cell_factor, cell_M) = (8, 32), K4 and K1 against their plain
     versions, timed, 100 steps under phase 7's gates, 20 kernel steps
@@ -307,17 +312,22 @@ no result line):
     tank floor against their plain versions, timed, with contact picks;
 52. the slab steps on classic bases, 4 slabs of the card, 20 steps each:
     the stack's GTVF and the DEM column against single-device steps on
-    the same grid, the sinking box's kdk against single-device kdk steps
-    and its kdkf against plain slab steps, with the launches a slab a
-    step;
-53. a JSON line of per-kernel numbers (``launches`` from the kernel's
+    the same grid, the sinking box's kdk and kdkf against single-device
+    steps of the ordering, with the launches a slab a step;
+53. the row-sharded step (``parallel/sharded.py``) on 4 row blocks of
+    the card: the 2D stack (compact route, its bodies sliding), the DEM
+    column and the sinking box in kdkf, 10 sharded steps each against 10
+    single-device steps on the padded scene, the launches a block a step
+    and both steps/s;
+54. a JSON line of per-kernel numbers (``launches`` from the kernel's
     first main path, ``launches_by_path`` from every path it ran on,
     ``rigid-3d``, ``coupling-3d``, ``benchmark-5-2d``,
     ``sinking-box-case``, ``rigid-rk2``, ``rigid-leapfrog``,
     ``coupling-rk2``, ``benchmark-2``, ``slab-rigid-2d``,
     ``slab-rigid-3d``, ``slab-dem-2d``, ``slab-coupling-kdk-2d``,
     ``slab-coupling-kdkf-2d``, ``slab-coupling-kdkf-3d``,
-    ``coupling-compact-2d`` and ``coupling-compact-3d`` among them,
+    ``coupling-compact-2d``, ``coupling-compact-3d``, the classic kdkf
+    paths and the sharded paths among them,
     with each slab's K1, K2, K4 and fluid pass times; K2's 3D times at
     the set-up ``ni_max`` and on every interesting row beside its 2D
     time; K1 on the 3D rigid pack and on the 2D and 3D coupling packs;
@@ -339,7 +349,11 @@ no result line):
     (the runtime-width instance, every width of phase 50 beside), K1 at
     32 lanes, ``fluid_rates_wall/lanes48`` and
     ``fluid_forces_contact/lanes/lanes48`` (the 3D boxes' 64-lane times
-    beside), with their launches from their phase 50-51 main paths,
+    and the classic 2D box's 48-lane times beside), with their launches
+    from their phase 50-51 main paths (and phase 48's), and B4's and
+    B5's classic instances at 80 and 176 lanes with their launches from
+    their phase 49 main paths; the shared scene builds' count and
+    seconds (each scene builder runs once for each set of arguments),
     the script's seconds, then the result line.
 
 It imports nothing from JAX or the JAX package.
@@ -631,6 +645,59 @@ def slot_lanes(cnt, nbr):
 # ---------------------------------------------------------------------------
 # scenes
 # ---------------------------------------------------------------------------
+
+# each shared sinking-box build: {key: [seconds, calls]}
+SCENE_BUILDS = {}
+_SCENES = {}
+
+
+def _key_part(v):
+    return tuple(sorted(v.items())) if isinstance(v, dict) else v
+
+
+def shared_build(fn):
+    """The scene builder ``fn`` (``sinking_box_scene``, which 17 calls
+    of the coupling phases take) built once for each set of arguments:
+    every call returns that build's scene (a value: no step writes into
+    its tensors) with a fresh shallow copy of its scheme (the phases set
+    the scheme's ordering, stepper, grid and capacity), so phases that
+    take the same scene pay for one build.  The cached scenes stay on
+    the device for the rest of the run, so the later phases' "peak
+    device memory" includes them.  ``SCENE_BUILDS`` keeps each build's
+    seconds and calls."""
+    def build(*args, **kw):
+        key = (fn.__name__, tuple(_key_part(a) for a in args),
+               tuple(sorted((k, _key_part(v)) for k, v in kw.items())))
+        if key not in _SCENES:
+            t0 = time.perf_counter()
+            _SCENES[key] = fn(*args, **kw)
+            SCENE_BUILDS[key] = [time.perf_counter() - t0, 0]
+        SCENE_BUILDS[key][1] += 1
+        scheme, *rest = _SCENES[key]
+        return (copy.copy(scheme), *rest)
+
+    build.__doc__, build.__name__ = fn.__doc__, fn.__name__
+    return build
+
+
+def scene_build_line():
+    """The shared scene builds: their count and seconds, the calls they
+    served, the seconds the repeated calls would have taken and the
+    device memory the cached scenes hold."""
+    built = sum(t for t, _ in SCENE_BUILDS.values())
+    calls = sum(c for _, c in SCENE_BUILDS.values())
+    saved = sum(t * (c - 1) for t, c in SCENE_BUILDS.values())
+    held = sum(v.numel() * v.element_size() for _, scene, _ in
+               _SCENES.values() for v in scene.fields.values()
+               if torch.is_tensor(v))
+    slow = sorted(((t, c, k[0]) for k, (t, c) in SCENE_BUILDS.items()),
+                  reverse=True)[:6]
+    return (f"{len(SCENE_BUILDS)} scene builds in {built:.1f} s served "
+            f"{calls} calls ({saved:.1f} s of repeated builds saved; "
+            f"the cached scenes hold {held / 2**30:.2f} GiB); "
+            "slowest: " + ", ".join(f"{n} {t:.1f} s x{c}"
+                                    for t, c, n in slow))
+
 
 def classic_config(scheme, scene, **grid):
     """A classic cell grid config (``cellpairs.config_from_positions``
@@ -1605,6 +1672,7 @@ def phase_dem_parity(scheme, scene, other=None, label="dem-parity",
 # rigid-fluid coupling
 # ---------------------------------------------------------------------------
 
+@shared_build
 def sinking_box_scene(dev, n_target=CPL_N, floor=False, body=True,
                       rho_b=2.0, engine="cell", kernel="quintic", grid=None):
     """``cases/rigid_body_rotating_and_sinking_in_tank_2d.py`` built with
@@ -2155,8 +2223,8 @@ def phase_coupling_main(scheme, scene, dt, n_steps, label, smi, per_step,
 
 def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
                           other=None, push=True, full=False,
-                          rtol=STEP_RTOL):
-    """20 kernel steps against 20 twin steps from one state in the
+                          rtol=STEP_RTOL, n=COMPARE_STEPS):
+    """``n`` kernel steps against ``n`` twin steps from one state in the
     scheme's ordering, in contact throughout: the dense box starts GAP dx
     above the floor, engaged, and moving down and sideways.  Sliding,
     because at zero tangential velocity the Coulomb friction's direction
@@ -2193,14 +2261,14 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
         for fn, c in ((fast, scene), (plain, start_b)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(COMPARE_STEPS):
+            for _ in range(n):
                 c = fn(c, dt)
             torch.cuda.synchronize()
-            ends.append((c, COMPARE_STEPS / (time.perf_counter() - t0)))
+            ends.append((c, n / (time.perf_counter() - t0)))
         (a, sps["compact"]), (b, sps["full"]) = ends
     else:
         a = b = scene
-        for _ in range(COMPARE_STEPS):
+        for _ in range(n):
             a, b = fast(a, dt), plain(b, dt)
     torch.cuda.synchronize()
     check(not bool(a.nbr_overflow) and not bool(b.nbr_overflow),
@@ -2259,13 +2327,13 @@ def phase_coupling_parity(scheme, scene, dt, label="cpl-parity",
     what = (f"{scene.meta.nb} boxes of rho {CPL_BOX_RHO:g}"
             if scene.meta.nb > 1
             else f"dense box on the floor, rho {CPL_PARITY_RHO}")
-    print(f"[{label}] {stepper}: {COMPARE_STEPS} kernel steps "
-          f"vs {COMPARE_STEPS} {ref} steps ({what}; end "
+    print(f"[{label}] {stepper}: {n} kernel steps "
+          f"vs {n} {ref} steps ({what}; end "
           f"overlap {float(b.overlap.max()):.3e}, |delta_lt_x| "
           f"{float(b.delta_lt_x.abs().max()):.3e}), max abs diff: "
           + ", ".join(worst), flush=True)
     if full:
-        print(f"[{label}] steps/s over {COMPARE_STEPS} steps: compact "
+        print(f"[{label}] steps/s over {n} steps: compact "
               f"{sps['compact']:.2f}, full route {sps['full']:.2f}",
               flush=True)
     return sps
@@ -4300,6 +4368,13 @@ CLASSIC_CPL_3D_STEPS = 100
 CLASSIC_SPLIT = ["fluid_rates", "fluid_rates_tait", "wall_bc",
                  "fluid_forces_rigid"]
 CLASSIC_SPLIT_3D = ["fluid_rates", "wall_bc", "fluid_forces_rigid"]
+# the kdkf step's passes (B5 by particle)
+CLASSIC_FUSED = ["fluid_rates_wall", "fluid_forces_contact"]
+# kdkf at CLASSIC_BOX_3D_WIDE: its steps under phase 11's gates, and the
+# steps held against twin steps (few: a twin step there runs B4's and
+# B5's plain versions at 176 lanes, seconds each on the card)
+CLASSIC_WIDE_STEPS = CHUNK
+CLASSIC_WIDE_CMP = 2
 
 
 def phase_classic_rigid(dev, smi):
@@ -4347,31 +4422,35 @@ def phase_classic_rigid(dev, smi):
 
 
 def phase_classic_coupling(dev, smi):
-    """48. The kdk coupling ordering on a classic grid of CLASSIC_BOX set
-    before the set-up, on the sinking box: the kdkf step refuses the
-    grid; B6a (EDAC and Tait), B6b and B6c with bodies on the gathered
-    pack and K2 on every slot of its contact pack against their twins,
-    timed with their bounds; CLASSIC_CPL_STEPS steps under phase 11's
-    gates (B6a, B6b, B6c and K2 a step at the grid's width, no K1); 20
-    kernel steps against 20 twin steps with the dense box on the floor.
-    49. The kdk ordering on the 3D sinking box's classic grid of the
+    """48. The kdk and kdkf coupling orderings on a classic grid of
+    CLASSIC_BOX set before the set-up, on the sinking box: B6a (EDAC and
+    Tait), B6b and B6c with bodies on the gathered pack and K2 on every
+    slot of its contact pack against their twins, timed with their
+    bounds; CLASSIC_CPL_STEPS kdk steps under phase 11's gates (B6a, B6b,
+    B6c and K2 a step at the grid's width, no K1) and as many kdkf steps
+    (B4 and B5 a step at the grid's width, B5's contact columns by
+    particle, no K1); 20 kdk kernel steps against 20 twin steps with the
+    dense box on the floor, then on that box's pack B4 and B5 against
+    their twins, timed (gated contact pairs and picks required), and
+    SHORT_CMP kdkf kernel steps against as many twin steps.
+    49. The same orderings on the 3D sinking box's classic grid of the
     lane rule (CLASSIC_BOX_3D, set before the set-up; M 80, O 27): B6a,
-    B6b, B6c and K2 on its pack against their twins, timed;
-    CLASSIC_CPL_3D_STEPS steps under phase 11's gates (each a step at the
-    grid's width, no K1); SHORT_CMP kernel steps against as many twin
-    steps from the end state.  Then B6a, B6b and B6c at CLASSIC_BOX_3D_WIDE (176 lanes)
-    on the same scene against their twins, timed, and K2 refusing that
-    width, as the reference's does.  Returns the numbers."""
+    B6b, B6c, K2, B4 and B5 on its pack against their twins, timed;
+    CLASSIC_CPL_3D_STEPS kdk and as many kdkf steps under phase 11's
+    gates (each a step at the grid's width, no K1); SHORT_CMP kernel
+    steps of each against as many twin steps from its end state.  Then
+    at CLASSIC_BOX_3D_WIDE (176 lanes) on the same scene: B6a, B6b, B6c,
+    B4 and B5 against their twins, timed; K2 refusing that width, as the
+    reference's does; and CLASSIC_WIDE_STEPS kdkf steps there (B5 carries
+    the contact) under phase 11's gates, CLASSIC_WIDE_CMP of them against
+    as many twin steps.  Returns the numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
     from rigid_body_2d_3d_pysph_tpu_torch.ops import contact_kernel as tck
     from rigid_body_2d_3d_pysph_tpu_torch.ops import fluid_kernel as fk
 
     t0 = time.perf_counter()
+    kdkf_step = dict(fluid_rates_wall=1, fluid_forces_contact=1)
     scheme, scene, dt = sinking_box_scene(dev, grid=CLASSIC_BOX)
-    try:
-        scheme.make_step(scene)
-        check(False, "the kdkf step took a classic grid")
-    except ValueError as e:
-        check("spill" in str(e), f"kdkf on a classic grid: {e}")
     scheme.gtvf_ordering = "kdk"
     kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(
         scheme, scene, "classic box", 17, p_fsi=True)
@@ -4392,12 +4471,23 @@ def phase_classic_coupling(dev, smi):
         scheme, scene, dt, CLASSIC_CPL_STEPS, "classic-cpl-kdk", smi,
         per_step)
     check_lanes_instances("classic kdk", launches, cfg.M)
+    scheme.gtvf_ordering = "kdkf"
+    _, launches_f, sps_f = phase_coupling_main(
+        scheme, scene, dt, CLASSIC_CPL_STEPS, "classic-cpl-kdkf", smi,
+        kdkf_step)
+    check_kdkf_instances("classic kdkf", launches_f, cfg.M)
     del scheme, scene
     pscheme, pscene, pdt = sinking_box_scene(
         dev, floor=True, rho_b=CPL_PARITY_RHO, grid=CLASSIC_BOX)
     pscheme.gtvf_ordering = "kdk"
     phase_coupling_parity(pscheme, pscene, pdt, "classic-kdk-parity")
+    pscheme.gtvf_ordering = "kdkf"
+    b45 = classic_b4_b5(pscheme, pscene, "classic box on floor", True)
+    phase_coupling_parity(pscheme, pscene, pdt, "classic-kdkf-parity",
+                          n=SHORT_CMP)
     del pscheme, pscene
+    print(f"[classic] phase 48 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # 49. the 3D box on the classic grid of the lane rule
     t1 = time.perf_counter()
@@ -4409,7 +4499,8 @@ def phase_classic_coupling(dev, smi):
           f"NC={cfg3.NC_max}", flush=True)
     split3, _, _ = fluid_pass_checks(
         fluid_calls(scheme3, dfT3, grid3.nbr_slots, kernel3, cfg3.radius,
-                    S3, init3, CLASSIC_SPLIT_3D),
+                    S3, init3, CLASSIC_SPLIT_3D + CLASSIC_FUSED,
+                    dict(lanes=tcell.lane_map(grid3, cfg3, scene3.n))),
         dfT3, grid3.nbr_slots, pt3, cfg3.radius, S3, init3,
         abs(scheme3.fluid_alpha) > 1e-14, "classic 3D box", True)
     print_fluid_passes("classic-kernels", "3D box", split3)
@@ -4425,8 +4516,17 @@ def phase_classic_coupling(dev, smi):
     phase_coupling_3d_parity(scheme3, end3, dt3, "classic-cpl-kdk-3d",
                              SHORT_CMP)
     del end3
+    scheme3.gtvf_ordering = "kdkf"
+    end3f, launches3f, sps3f = phase_coupling_main(
+        scheme3, scene3, dt3, CLASSIC_CPL_3D_STEPS, "classic-cpl-kdkf-3d",
+        smi, kdkf_step)
+    check_kdkf_instances("classic kdkf 3D", launches3f, cfg3.M)
+    phase_coupling_3d_parity(scheme3, end3f, dt3, "classic-cpl-kdkf-3d",
+                             SHORT_CMP)
+    del end3f
 
-    # the split passes at 176 lanes on the same scene; K2 refuses them
+    # the passes at 176 lanes on the same scene; K2 refuses them, B5
+    # carries the kdkf step's contact there
     wide = classic_config(scheme3, scene3, occupancy_safety=2.6,
                           **CLASSIC_BOX_3D_WIDE)
     kernel3, wide, gridw, ptw, dfTw, S3, init3 = fluid_scene_pack(
@@ -4441,17 +4541,64 @@ def phase_classic_coupling(dev, smi):
         check(str(tck.MAX_LANES) in str(e), f"K2 at {wide.M} lanes: {e}")
     splitw, workw, _ = fluid_pass_checks(
         fluid_calls(scheme3, dfTw, gridw.nbr_slots, kernel3, wide.radius,
-                    S3, init3, CLASSIC_SPLIT_3D),
+                    S3, init3, CLASSIC_SPLIT_3D + CLASSIC_FUSED,
+                    dict(lanes=tcell.lane_map(gridw, wide, scene3.n))),
         dfTw, gridw.nbr_slots, ptw, wide.radius, S3, init3,
         abs(scheme3.fluid_alpha) > 1e-14, "classic 3D box, 176 lanes", True)
     print(f"[classic-kernels] 3D box: n={scene3.n} M={wide.M} O={wide.O} "
-          f"NC={wide.NC_max} | {workw} ({time.perf_counter() - t1:.1f} s "
-          "for phase 49)", flush=True)
+          f"NC={wide.NC_max} | {workw}", flush=True)
     print_fluid_passes("classic-kernels", "3D box, 176 lanes", splitw)
+    del gridw, ptw, dfTw
+    schemew = copy.copy(scheme3)
+    schemew._cell_cfg = wide
+    endw, launchesw, spsw = phase_coupling_main(
+        schemew, scene3, dt3, CLASSIC_WIDE_STEPS, "classic-cpl-kdkf-3d-wide",
+        smi, kdkf_step)
+    check_kdkf_instances("classic kdkf 3D wide", launchesw, wide.M)
+    phase_coupling_3d_parity(schemew, endw, dt3, "classic-cpl-kdkf-3d-wide",
+                             CLASSIC_WIDE_CMP)
+    print(f"[classic] phase 49 in {time.perf_counter() - t1:.1f} s",
+          flush=True)
     return dict(split=split, launches=launches, sps=sps, M=cfg.M, O=cfg.O,
+                launches_f=launches_f, sps_f=sps_f, b45=b45,
                 split3=split3, launches3=launches3, sps3=sps3, M3=cfg3.M,
-                O3=cfg3.O, splitw=splitw, Mw=wide.M, Ow=wide.O,
-                seconds=time.perf_counter() - t0)
+                O3=cfg3.O, launches3f=launches3f, sps3f=sps3f,
+                splitw=splitw, Mw=wide.M, Ow=wide.O, launchesw=launchesw,
+                spsw=spsw, seconds=time.perf_counter() - t0)
+
+
+def classic_b4_b5(scheme, scene, label, contact):
+    """B4 and B5 (by particle) on the scene's classic pack against their
+    twins, timed with their bounds; with ``contact`` gated contact pairs
+    and contact rows with a pick are required.  Returns the numbers."""
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
+
+    kernel, cfg, grid, pt, dfT, S, init = fluid_scene_pack(
+        scheme, scene, label, 17, p_fsi=True)
+    out, work, n_found = fluid_pass_checks(
+        fluid_calls(scheme, dfT, grid.nbr_slots, kernel, cfg.radius, S,
+                    init, CLASSIC_FUSED,
+                    dict(lanes=tcell.lane_map(grid, cfg, scene.n))),
+        dfT, grid.nbr_slots, pt, cfg.radius, S, init,
+        abs(scheme.fluid_alpha) > 1e-14, label, True)
+    if contact:
+        check(work["gated"] > 0 and n_found > 0, f"{label}: {work['gated']} "
+              f"gated pairs, {n_found} contact rows with a pick")
+    print(f"[classic-kernels] {label}: n={scene.n} M={cfg.M} O={cfg.O} "
+          f"NC={cfg.NC_max} | gated pairs {work['gated']}, contact rows "
+          f"with a pick {n_found}", flush=True)
+    print_fluid_passes("classic-kernels", label, out)
+    return out
+
+
+def check_kdkf_instances(label, launches, M):
+    """Every B4 and B5 launch of a kdkf run went to the instance of the
+    grid's M lanes (B5 writing its contact columns by particle)."""
+    for k, inst in (("fluid_rates_wall", f"fluid_rates_wall/lanes{M}"),
+                    ("fluid_forces_contact",
+                     f"fluid_forces_contact/lanes/lanes{M}")):
+        check(launches.get(inst, 0) == launches[k] > 0,
+              f"{label}: {k} ran another instance than {inst}")
 
 
 def check_lanes_instances(label, launches, M):
@@ -4823,9 +4970,9 @@ def phase_slab_classic(dev, smi):
     single-device steps on the same grid; the DEM column on a classic
     base (K4, no K1) against single-device steps of the same grid; the
     sinking box (the dense box pushed on the floor, CLASSIC_BOX) in kdk
-    (B6a, B6b, B6c, K2) against single-device kdk steps, and in kdkf (B4,
-    B6c, K2: the single-device kdkf refuses the classic grid) against
-    plain slab steps.  Returns {path: numbers}."""
+    (B6a, B6b, B6c, K2) and in kdkf (B4, B6c, K2) against single-device
+    steps of the ordering (the single-device kdkf: B4 and B5).  Returns
+    {path: numbers}."""
     from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
     from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
     from rigid_body_2d_3d_pysph_tpu_torch.parallel import slab as sl
@@ -4884,14 +5031,12 @@ def phase_slab_classic(dev, smi):
         kernel = get_kernel(scheme.kernel_name, 2)
         base = slab_grid_x(scheme.cell_config(scene, kernel), scene)
         check(not base.spill, "phase 52: the box's grid is not classic")
-        single = None
-        if ordering == "kdk":
-            single = scene
-            sstep = scheme.make_step(scene)
-            for _ in range(SLAB_CLASSIC_STEPS):
-                single = sstep(single, dt)
-            check(not bool(single.nbr_overflow), "phase 52: kdk "
-                  "single-device overflow")
+        single = scene
+        sstep = scheme.make_step(scene)
+        for _ in range(SLAB_CLASSIC_STEPS):
+            single = sstep(single, dt)
+        check(not bool(single.nbr_overflow), f"phase 52: {ordering} "
+              "single-device overflow")
         label = f"slab-classic-{ordering}"
         make = _slab_maker(scheme, scene, P, label, base, "coupling")
         per_step = {k: v for k, v in CPL_SLAB_KERNELS[ordering].items()
@@ -4975,6 +5120,182 @@ def lanes_kernel_entries(kernels, dem_lanes, cpl_lanes, src):
             compact_rows_launches=c["compact_launches"]
             if name == "fluid_forces_contact" else None,
             steps_per_s=c["sps"]))
+    return out
+
+
+def classic_kdkf_entries(kernels, cpl, src):
+    """B4's and B5's entries for the classic kdkf paths (phases 48-49):
+    the 2D box's instance at CLASSIC_BOX's width (the entry of that
+    instance, if phase 51's spill path made one, takes the classic
+    numbers beside its own), the 3D box's at 80 and at 176 lanes, each
+    with its launches from its own main path.  Returns the new
+    entries."""
+    by_name = {kd["name"]: kd for kd in kernels}
+    out = []
+    for name in CLASSIC_FUSED:
+        for path, t, launches, M, O in (
+                ("classic-cpl-kdkf", cpl["b45"][name], cpl["launches_f"],
+                 cpl["M"], cpl["O"]),
+                ("classic-cpl-kdkf-3d", cpl["split3"][name],
+                 cpl["launches3f"], cpl["M3"], cpl["O3"]),
+                ("classic-cpl-kdkf-3d-wide", cpl["splitw"][name],
+                 cpl["launchesw"], cpl["Mw"], cpl["Ow"])):
+            inst = (f"{name}/lanes{M}" if name == "fluid_rates_wall"
+                    else f"{name}/lanes/lanes{M}")
+            n = launches.get(inst, 0)
+            if inst in by_name:
+                kd = by_name[inst]
+                kd["launches_by_path"][path] = n
+                kd.update(max_abs_err=max(kd["max_abs_err"], t["err"]),
+                          classic_ms=t["ms"], classic_plain_ms=t["plain_ms"],
+                          classic_bound_ms=t["bound_ms"],
+                          classic_bound_by=t["bound_by"], classic_O=O)
+                continue
+            kd = dict(name=inst, route="cuda", source=src + "fluid.cu",
+                      replaces=by_name[name]["replaces"], launches=n,
+                      launches_by_path={path: n}, max_abs_err=t["err"],
+                      ms=t["ms"], plain_ms=t["plain_ms"],
+                      bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                      library_ms=None, M=M, O=O, grid=path)
+            by_name[inst] = kd
+            out.append(kd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the row-sharded step (phase 53)
+# ---------------------------------------------------------------------------
+
+SHARDED_KERNELS = dict(
+    rigid=dict(pack_expand=1, contact=1),
+    dem=dict(pack_expand=1, dem_cell=1),
+    kdkf=CPL_SLAB_KERNELS["kdkf"])
+
+
+def _sharded_run(label, scheme, scene, dt, kind, keys, body, smi,
+                 tables=False):
+    """SHORT_CMP steps of ``parallel/sharded.py``'s step on SLAB_P row
+    blocks of the card against as many single-device steps of the scheme
+    on the padded scene (STEP_RTOL; positions and xcm as their change,
+    SLAB_ULPS; with ``tables`` the DEM tables as (partner, dem) -> spring
+    maps), the launches a block a step SHARDED_KERNELS[kind] and nothing
+    else.  An overflow of the rigid compact route's capacity in the
+    single-device run raises the scheme's capacity boost 1.5x and repeats
+    both runs, as the Solver's rule does; each block's store has the
+    single-device capacity and holds only its own rows' slots, so an
+    overflow of the sharded run alone fails.  Returns the numbers, with
+    ``retries``: the side that overflowed at each boost."""
+    from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
+    from rigid_body_2d_3d_pysph_tpu_torch.ops import _build
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel import sharded as sh
+    from rigid_body_2d_3d_pysph_tpu_torch.parallel.mesh import make_mesh
+
+    P, n = SLAB_P, SHORT_CMP
+    mesh = make_mesh(P, [scene.device] * P)
+    padded = sh.pad_scene(scene, P)
+    parts0 = sh.shard_scene(scene, mesh)
+    check(sh.gather_scene(parts0).n == padded.n, f"{label}: blocks of "
+          f"{parts0[0].n} rows for {padded.n}")
+
+    def run(step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state = step(state, dt)
+        torch.cuda.synchronize()
+        return state, n / (time.perf_counter() - t0)
+
+    retries = []
+    for attempt in range(5):
+        if "cl_pid" in padded:
+            padded = trb.fit_compact_store(padded, scheme._cell_cfg,
+                                           scheme.capacity_boost)
+        single, sps1 = run(scheme.make_step(padded), padded)
+        step = sh.make_sharded_step(scheme, parts0, mesh)
+        _build.reset_launches()
+        parts, sps = run(step, parts0)
+        launches = dict(_build.LAUNCHES)
+        ovf1 = bool(single.nbr_overflow)
+        ovf = any(bool(p.nbr_overflow) for p in parts)
+        if not (ovf1 or ovf):
+            break
+        side = ("both" if ovf1 and ovf else
+                "single-device" if ovf1 else "sharded")
+        check(ovf1, f"{label}: the sharded step overflowed at boost "
+              f"{scheme.capacity_boost:.3g}, the single-device step not")
+        check(kind == "rigid" and attempt < 4, f"{label}: overflow")
+        retries.append(f"{side} at boost {scheme.capacity_boost:.3g}")
+        scheme.capacity_boost = float(scheme.capacity_boost) * 1.5
+        print(f"[{label}] overflow ({side}): capacity boost raised to "
+              f"{scheme.capacity_boost:.3g}, both runs repeated", flush=True)
+    _slab_launch_gate(label, launches, {
+        k: P * v * n for k, v in SHARDED_KERNELS[kind].items()})
+    launches = check_instances(label, scheme.kernel_name, launches)
+    g = sh.gather_scene(parts)
+    rows = torch.arange(scene.n, device=scene.device)
+    x0 = {k: scene[k] for k in ("x", "y", "z")[:scheme.dim] + ("xcm",)
+          if k in scene}
+    w = _slab_compare(label, g, rows, single, rows, keys, body, x0,
+                      SLAB_ULPS)
+    if tables:
+        pick = lambda sc: _sorted_tables(sc.with_fields(**{
+            k: sc[k][:scene.n] for k in ("tng_idx", "tng_idx_dem_id",
+                                         "tng_x", "tng_y", "tng_z")}))
+        (ka, sa), (kb, sb) = pick(g), pick(single)
+        bad = int((ka != kb).any(1).sum())
+        check(bad == 0, f"{label}: {bad} rows hold other contacts")
+        d = (sa - sb).abs()
+        check(bool((d <= STEP_RTOL * sb.abs()
+                    + STEP_RTOL * float(sb.abs().max())).all()),
+              f"{label}: springs off by {float(d.max()):.3e}")
+        w.append(f"tables equal (springs {float(d.max()):.3e})")
+    a_step = {k: v / (P * n) for k, v in launches.items()
+              if v and "/" not in k and "[" not in k}
+    print(f"[sharded] {label}: P={P} blocks of {parts[0].n} rows, n="
+          f"{scene.n} (padded {padded.n}): {n} sharded steps vs {n} "
+          "single-device steps on the padded scene: " + ", ".join(w)
+          + f" | launches a block a step {a_step} | sharded {sps:.2f} "
+          f"steps/s, single-device {sps1:.2f} steps/s (over {n} steps); "
+          f"overflow retries: {'; '.join(retries) or 'none'}; on {smi}",
+          flush=True)
+    return dict(launches=launches, sps=sps, sps_single=sps1, n=scene.n,
+                n_pad=padded.n, per_block_step=a_step, retries=retries)
+
+
+def phase_sharded(dev, smi):
+    """53. The row-sharded step (``parallel/sharded.py``: each block's
+    rows the queries, every other block's rows source-only ghosts, the
+    scheme's own grid on every block) on SLAB_P blocks of the card: the
+    2D stack (phase 4's, the compact route through its ``slot_blob``, the
+    bodies sliding), the DEM column (phase 7's) and the sinking box in
+    kdkf (phase 11's), each as ``_sharded_run``.  Returns {path:
+    numbers}."""
+    t0 = time.perf_counter()
+    out = {}
+    scheme, scene, _ = contact_scene_2d(dev)
+    check("cl_pid" in scene, "phase 53: the stack is not compact")
+    slide = np.random.default_rng(17).uniform(-SLAB_SLIDE, SLAB_SLIDE,
+                                              (scene.meta.nb, 3))
+    slide[:, 2] = 0.0
+    scene = scheme.set_linear_velocity(scene, slide)
+    out["rigid"] = _sharded_run("sharded-rigid-2d", scheme, scene, DT,
+                                "rigid", ("x", "y", "u", "v"),
+                                ("xcm", "vcm", "omega"), smi)
+    del scheme, scene
+    scheme, scene = dem_scene(dev, 2)
+    scheme.cell_config(scene)           # sized on the unpadded scene
+    out["dem"] = _sharded_run(
+        "sharded-dem-2d", scheme, scene, DEM_DT, "dem",
+        ("x", "y", "u", "v", "wz", "fx", "fy", "torz"), (), smi,
+        tables=True)
+    del scheme, scene
+    scheme, scene, dt = sinking_box_scene(dev)
+    check(scheme.gtvf_ordering == "kdkf", "phase 53: not kdkf")
+    out["kdkf"] = _sharded_run("sharded-coupling-kdkf-2d", scheme, scene,
+                               dt, "kdkf", ("x", "y", "u", "v", "rho", "p"),
+                               ("xcm", "vcm", "omega"), smi)
+    print(f"[sharded] phase 53 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return out
 
 
@@ -5438,6 +5759,11 @@ def main() -> int:
         slab_classic = phase_slab_classic(dev, smi)
         print(f"[lanes] phases 50-52 in {time.perf_counter() - t_l:.1f} s",
               flush=True)
+        print(f"[time] phase 53 from "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        # 53. the row-sharded step: the stack, the DEM column and the
+        # sinking box (kdkf) on SLAB_P blocks of the card
+        sharded = phase_sharded(dev, smi)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5467,7 +5793,13 @@ def main() -> int:
         ("slab-coupling-kdkf-2d", slabc["kdkf"]["launches_long"]),
         ("slab-coupling-kdkf-3d", slabc3["launches"]),
         ("coupling-compact-2d", cc2_launches),
-        ("coupling-compact-3d", cc3_launches))
+        ("coupling-compact-3d", cc3_launches),
+        ("classic-cpl-kdkf", classic_cpl["launches_f"]),
+        ("classic-cpl-kdkf-3d", classic_cpl["launches3f"]),
+        ("classic-cpl-kdkf-3d-wide", classic_cpl["launchesw"]),
+        ("sharded-rigid-2d", sharded["rigid"]["launches"]),
+        ("sharded-dem-2d", sharded["dem"]["launches"]),
+        ("sharded-coupling-kdkf-2d", sharded["kdkf"]["launches"]))
         + ((("slab-rigid-2d-cards", slab_cards["launches"]["blob"]),)
            if slab_cards else ())
         if c.get(k)}
@@ -5700,6 +6032,7 @@ def main() -> int:
     kernels += classic_kernel_entries(kernels, classic_rigid, classic_cpl,
                                       src)
     kernels += lanes_kernel_entries(kernels, dem_lanes, cpl_lanes, src)
+    kernels += classic_kdkf_entries(kernels, classic_cpl, src)
     dm = dem_lanes["main"]
     print(f"[done] lane widths: DEM M={dm['M']} K4 {dm['ms']:.4f} ms "
           f"(bound {dm['bound_ms']:.4f}), {dm['sps']:.2f} steps/s; K4 / K3 "
@@ -5785,6 +6118,22 @@ def main() -> int:
     print("[done] list engine: " + ", ".join(
         f"{k} {sps_of(v):.2f} steps/s" for k, v in lists.items())
         + f"; on {smi}", flush=True)
+    print("[done] classic kdkf: 2D box M=" + str(classic_cpl["M"]) + " "
+          f"{classic_cpl['sps_f']:.2f} steps/s, 3D box M={classic_cpl['M3']} "
+          f"{classic_cpl['sps3f']:.2f} steps/s, M={classic_cpl['Mw']} "
+          f"{classic_cpl['spsw']:.2f} steps/s; " + "; ".join(
+              f"{lab} " + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in
+                                    t.items() if k in CLASSIC_FUSED)
+              for lab, t in (("2D", classic_cpl["b45"]),
+                             ("3D", classic_cpl["split3"]),
+                             ("3D wide", classic_cpl["splitw"])))
+          + f"; on {smi}", flush=True)
+    print(f"[done] sharded (P = {SLAB_P}): " + "; ".join(
+        f"{k} n={v['n']} {v['sps']:.2f} steps/s against single-device "
+        f"{v['sps_single']:.2f}, launches a block a step "
+        f"{v['per_block_step']}" for k, v in sharded.items())
+        + f"; on {smi}", flush=True)
+    print(f"[done] scenes: {scene_build_line()}", flush=True)
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(smi, flush=True)

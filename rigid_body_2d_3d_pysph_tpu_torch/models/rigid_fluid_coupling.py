@@ -95,11 +95,16 @@ that grid: each pack is gathered through the grid's ``slot2p``
 (``fluid_kernel.pack_fluid_classic``, the reference's
 ``pack_fluid_pallas``; no K1), then B6a, B6b, B6c and K2 run on every
 slot at the grid's lane width (K2 up to 128 lanes, the split passes up to
-256).  The kdkf step and the compact store need the spill grid and raise
-on a classic one, as the reference's sorted build does.  A spill config
-set the same way (``spill=True`` with an explicit ``M``) runs kdkf and
-its compact store at that lane width by the same route: K1, then B4 and
-B5 on slots of up to 256 lanes (past 32 lanes, ``ceil(M / 32)`` warps a
+256).  The kdkf step runs there too, as the reference's XLA branch does
+(``_make_step_cell_kdkf`` :603-640): its pack is gathered the same way,
+then B4 and B5 run on every slot at the grid's lane width (up to 256;
+B5 carries the contact, so kdkf runs past K2's 128 lanes), with B5's
+contact columns written by particle through the grid's ``slot2p``.  The
+compact store needs the sorted build's pack tables and raises on a
+classic grid, as the reference's sorted build does.  A spill config set
+the same way (``spill=True`` with an explicit ``M``) runs kdkf and its
+compact store at that lane width by the same route: K1, then B4 and B5
+on slots of up to 256 lanes (past 32 lanes, ``ceil(M / 32)`` warps a
 slot).
 
 Bodies are integrated in 3D (``two_d=False``) even in 2D scenes, as the
@@ -365,8 +370,8 @@ def _require_spill(cfg, what: str):
     build, which needs the spill grid (as the reference's does)."""
     if not cfg.spill:
         raise ValueError(f"{what} requires a spillover grid "
-                         "(cfg.spill=True); the classic grid runs the kdk, "
-                         "reference and rk2 steps")
+                         "(cfg.spill=True); the classic grid runs every "
+                         "ordering on the full [N, S] slot schema")
 
 
 def _masks(scene):
@@ -479,8 +484,13 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
                              ni_max: int = 0):
     """One fused kdkf timestep (see the module docstring); ``ni_max > 0``
     takes the compact route on a scene that holds the compact store, and
-    records the light cull's count in ``scene.n_interesting``."""
-    _require_spill(cfg, "the kdkf step")
+    records the light cull's count in ``scene.n_interesting``.  On a
+    classic grid the pack is gathered through ``slot2p``
+    (:func:`fluid_kernel.pack_fluid`; no K1) and B4 and B5 run at its
+    lane width; the compact route reads the sorted build's pack tables
+    and raises there."""
+    if ni_max:
+        _require_spill(cfg, "the kdkf step's compact contact store")
     gvec = (params["gx"], params["gy"], params["gz"])
     NC = cfg.NC_max
     cutoff = cfg.radius
@@ -498,7 +508,10 @@ def build_coupling_kdkf_step(kernel, cfg, params: dict, edac: bool,
             rates_wall, forces = fk.fluid_rates_wall, fk.fluid_forces
             forces_contact = fk.fluid_forces_contact
         S = scene.meta.total_no_bodies
-        grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg, plain)
+        if ni_max:   # the light cull reads the sorted build's slot ids
+            grid, pt, dfT = fk.pack_fluid_sorted(scene, cfg, plain)
+        else:
+            grid, dfT = fk.pack_fluid(scene, cfg, plain)
         nbr = grid.nbr_slots
         _, _, sb, fl, rg = fk.decode_flags(dfT[:NC, fk.FFLAGS])
         fl_l, bd_l, rb_l = fl == 1.0, sb == 1.0, rg == 1.0

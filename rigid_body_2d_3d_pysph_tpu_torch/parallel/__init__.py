@@ -1,2 +1,3 @@
-"""Multi-device execution: the x-slab decomposition of the rigid and DEM
-steps (``slab.py``) over a list of devices (``mesh.py``)."""
+"""Multi-device execution over a list of devices (``mesh.py``): the
+x-slab decomposition of the rigid, DEM and coupling steps (``slab.py``)
+and the row-sharded step (``sharded.py``)."""

@@ -31,6 +31,11 @@ the list of devices of a :class:`~.mesh.Mesh` (slab d on
 * A received buffer or the summed force may be the sender's own tensor
   (``Tensor.to`` of the current device returns it): nothing here writes
   into a tensor in place.
+* The ghosts come from a halo object: :class:`RingHalo` (the face rows,
+  to the ring neighbours) for the slab steps, ``sharded.RowGather``
+  (every other block's rows) for the row-sharded step of
+  ``parallel/sharded.py``; both run one evaluation (:func:`rigid_step`,
+  :func:`dem_step`, :func:`coupling_step`).
 
 Each slab's evaluation runs the hand-written kernels of the
 single-device paths: the rigid blob route K1 (``csrc/pack_expand.cu``),
@@ -128,13 +133,19 @@ def _is_row(v, n: int) -> bool:
     return torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == n
 
 
-def _pad_value(k: str) -> float:
-    """The fill of an inactive padding row."""
+# the fields an inactive padding row holds at -1
+_PAD_IDS = ("gid", "tng_idx", "tng_idx_dem_id", "dem_id")
+
+
+def _pad_value(k: str, far: float = _BIG, ids=_PAD_IDS) -> float:
+    """The fill of an inactive padding row: positions at ``far``; unit
+    mass, density, h and moi; -1 in the id fields ``ids``; 0 (``active``
+    False) elsewhere."""
     if k in ("x", "y", "z"):
-        return _BIG
+        return far
     if k in ("m", "rho", "h", "moi"):
         return 1.0
-    if k in ("gid", "tng_idx", "tng_idx_dem_id", "dem_id"):
+    if k in ids:
         return -1.0
     return 0.0
 
@@ -361,6 +372,32 @@ def _ring(left_bufs, right_bufs, devices):
     return out
 
 
+class RingHalo:
+    """The slab ring as a ghost source: slab d sends its active rows
+    within ``halo_width`` of each face (the first ``halo_cap`` of each)
+    to the neighbour across that face, and receives ``2 halo_cap`` ghost
+    rows (:func:`_ring`).  The row-sharded step's source is
+    ``sharded.RowGather``; the step builders below take either."""
+
+    def __init__(self, mesh: Mesh, cfg: SlabConfig):
+        self.devices = mesh.devices
+        self.cfg = cfg
+        self.n_ghost = 2 * cfg.halo_cap
+
+    def rows(self, d: int, s: Scene):
+        """The rows slab d sends, as a list of (rows, valid) selections,
+        and whether more rows matched than fit."""
+        rl, rr, ovf = _face_rows(*_face_masks(s, d, self.cfg),
+                                 self.cfg.halo_cap, self.cfg.slab_cells >= 2)
+        return (rl, rr), ovf
+
+    def route(self, bufs):
+        """``bufs[d]``: slab d's buffers, one a selection of
+        :meth:`rows` -> each slab's received ``[n_ghost, F]``."""
+        return _ring([b[0] for b in bufs], [b[1] for b in bufs],
+                     self.devices)
+
+
 def _ghost_tails(g, fields, flag: int, dem: int):
     """The ghost rows from the received buffers ``g`` (``fields`` in
     column order, the validity flag in column ``flag``, the dem id in
@@ -457,23 +494,32 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
     kernels' inputs at the slab path's shapes."""
     _check_engine(scheme, "make_slab_step")
     _check_parts(parts, mesh, cfg)
+    return rigid_step(scheme, parts, RingHalo(mesh, cfg),
+                      local_grid_config(cfg), chain, plain, "make_slab_step")
+
+
+def rigid_step(scheme, parts: List[Scene], halo, local_cfg, chain: int = 1,
+               plain: bool = False, what: str = "the rigid step"):
+    """:func:`make_slab_step` with the ghosts from ``halo``
+    (:class:`RingHalo` or ``sharded.RowGather``), each device's rows and
+    ghosts on the grid ``local_cfg``; the compact route's capacity is the
+    scheme's ``ni_max`` on that grid."""
     if scheme.integrator != "gtvf":
-        raise NotImplementedError("the rigid slab step runs the GTVF "
-                                  f"integrator, not {scheme.integrator!r}")
+        raise NotImplementedError(f"{what} runs the GTVF integrator, not "
+                                  f"{scheme.integrator!r}")
     kernel = get_kernel(scheme.kernel_name, scheme.dim)
     params = dict(kr=scheme.kr, kf=scheme.kf, fric_coeff=scheme.fric_coeff,
                   gx=scheme.gx, gy=scheme.gy, gz=scheme.gz)
     two_d = scheme.two_d
-    local_cfg = local_grid_config(cfg)
     ni_max = scheme.ni_max(local_cfg)
-    H = cfg.halo_cap
+    NG = halo.n_ghost
     NGF = len(GHOST_FIELDS)
     blob = "slot_blob" in parts[0]
     if not blob and "contact_force_normal_x" not in parts[0]:
-        raise ValueError("make_slab_step: the local scenes carry neither "
+        raise ValueError(f"{what}: the local scenes carry neither "
                          "slot_blob nor the [N, S] slot fields")
     if blob and not local_cfg.spill:
-        raise ValueError("make_slab_step: the blob route's sorted pack "
+        raise ValueError(f"{what}: the blob route's sorted pack "
                          "build requires a spillover grid (cfg.spill=True); "
                          "a classic base runs the full [N, S] route "
                          "(slab_decompose(..., use_blob=False))")
@@ -493,26 +539,24 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
                 None)
 
     def exchange(parts, dt):
-        """The half-kick, the face buffers and the ring sends: (kicked
-        local scenes, extended scenes, face overflows)."""
-        kicked, lbufs, rbufs, ovfs = [], [], [], []
+        """The half-kick, the ghost buffers and their sends: (kicked
+        local scenes, extended scenes, send overflows)."""
+        kicked, bufs, ovfs = [], [], []
         for d, s in enumerate(parts):
             s = rb._particles_from_body_velocity(
                 rb._body_half_kick(s, dt, two_d))
             fdt = s.dtype
             cols = ([s[k] for k in GHOST_FIELDS]
                     + [s.dem_id.to(fdt), s.is_fluid.to(fdt)])
-            rows_l, rows_r, ovf = _face_rows(*_face_masks(s, d, cfg), H,
-                                             cfg.slab_cells >= 2)
+            rows, ovf = halo.rows(d, s)
             kicked.append(s)
-            lbufs.append(_take_rows(cols, *rows_l, NGF))
-            rbufs.append(_take_rows(cols, *rows_r, NGF))
+            bufs.append([_take_rows(cols, *r, NGF) for r in rows])
             ovfs.append(ovf)
         exts = []
-        for s, g in zip(kicked, _ring(lbufs, rbufs, mesh.devices)):
+        for s, g in zip(kicked, halo.route(bufs)):
             gv, tails = _ghost_tails(g, GHOST_FIELDS, NGF, NGF + 1)
             tails["is_fluid"] = gv & (g[:, NGF + 2] > 0.5)
-            exts.append(_extend(s, 2 * H, tails))
+            exts.append(_extend(s, NG, tails))
         return kicked, exts, ovfs
 
     def one(parts, dt):
@@ -521,7 +565,7 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
         for s, e, ovf in zip(kicked, exts, ovfs):
             with on_device(e.device):
                 se, govf, n_int = evaluate(e, dt)
-            se = _drop_ghosts(se, s.n, 2 * H)
+            se = _drop_ghosts(se, s.n, NG)
             se = se.replace(nbr_overflow=se.nbr_overflow | govf | ovf)
             if n_int is not None:
                 se = se.with_fields(n_interesting=n_int)
@@ -530,7 +574,7 @@ def make_slab_step(scheme, parts: List[Scene], mesh: Mesh, cfg: SlabConfig,
             # after the rank-order sum
             sums.append(rops.body_sums(se, se.fx, se.fy, se.fz,
                                        torch.float64))
-        sums = _rank_sum(sums, mesh.devices)
+        sums = _rank_sum(sums, halo.devices)
 
         out = []
         for s, ft in zip(evald, sums):
@@ -658,16 +702,28 @@ def make_slab_dem_step(scheme, parts: List[Scene], mesh: Mesh,
     if "gid" not in parts[0]:
         raise ValueError("make_slab_dem_step: attach_gids before "
                          "slab_decompose")
+    return dem_step(scheme, parts, RingHalo(mesh, cfg),
+                    local_grid_config(cfg), n_global, lambda d, s: s.gid,
+                    plain, "make_slab_dem_step")
+
+
+def dem_step(scheme, parts: List[Scene], halo, local_cfg, n_global: int,
+             gid_of, plain: bool = False, what: str = "the DEM step"):
+    """:func:`make_slab_dem_step` with the ghosts from ``halo``, each
+    device's rows and ghosts on the grid ``local_cfg``; ``gid_of(d, s)``
+    gives device d's rows' gids (below ``n_global``), the keys of the
+    contact tables.  A local scene without a ``gid`` field gets none
+    back."""
     if n_global >= MAX_GID:
-        raise ValueError(f"make_slab_dem_step: {n_global} gids; they ride "
+        raise ValueError(f"{what}: {n_global} gids; they ride "
                          f"float32 columns, exact below {MAX_GID}")
     if scheme.contact_model != "LVCDisplacement":
-        raise NotImplementedError("the slab DEM step runs LVCDisplacement")
-    local_cfg = local_grid_config(cfg)
+        raise NotImplementedError(f"{what} runs LVCDisplacement, not "
+                                  f"{scheme.contact_model!r}")
     if local_cfg.radius < 2.0 * float(max(p.rad_s.max() for p in parts)):
         raise ValueError("the DEM grid's cutoff is below 2 max(rad_s): "
                          "the fused prune would miss overlapping pairs")
-    H = cfg.halo_cap
+    NG = halo.n_ghost
     NGF = len(DEM_GHOST_FIELDS)
     gx, gy, gz = scheme.gx, scheme.gy, scheme.gz
     springs = scheme._springs()
@@ -676,32 +732,31 @@ def make_slab_dem_step(scheme, parts: List[Scene], mesh: Mesh,
     half_kick = lambda s, half: dem_model.dem_half_kick(s, s.is_rigid, half)
 
     def exchange(parts, dt):
-        """The half-kick, the face buffers and the ring sends: (kicked
-        local scenes, extended scenes, face overflows)."""
-        kicked, lbufs, rbufs, ovfs = [], [], [], []
+        """The half-kick, the ghost buffers and their sends: (kicked
+        local scenes, extended scenes, send overflows)."""
+        kicked, gids, bufs, ovfs = [], [], [], []
         for d, s in enumerate(parts):
             s = half_kick(s, 0.5 * dt)
             fdt = s.dtype
+            gid = gid_of(d, s)
             cols = ([s[k] for k in DEM_GHOST_FIELDS]
-                    + [s.dem_id.to(fdt), s.gid.to(fdt)])
-            m_left, m_right = _face_masks(s, d, cfg)
-            rbuf, ovr = _compact_rows(m_right, cols, H)
-            lb, ovl = _compact_rows(m_left, cols, H)
+                    + [s.dem_id.to(fdt), gid.to(fdt)])
+            rows, ovf = halo.rows(d, s)
             kicked.append(s)
-            lbufs.append(lb)
-            rbufs.append(rbuf)
-            ovfs.append(ovl | ovr)
+            gids.append(gid)
+            bufs.append([_take_rows(cols, *r) for r in rows])
+            ovfs.append(ovf)
         exts = []
-        for s, g in zip(kicked, _ring(lbufs, rbufs, mesh.devices)):
+        for s, gid, g in zip(kicked, gids, halo.route(bufs)):
             # the validity flag rides last, after dem_id and gid
             gv, tails = _ghost_tails(g, DEM_GHOST_FIELDS, NGF + 2, NGF)
             tails["gid"] = torch.where(gv, g[:, NGF + 1].to(torch.int32), -1)
             L = s.tng_idx.shape[1]
-            tails["tng_idx"] = torch.full((2 * H, L), -1, dtype=torch.int32,
+            tails["tng_idx"] = torch.full((NG, L), -1, dtype=torch.int32,
                                           device=g.device)
             tails["tng_idx_dem_id"] = tails["tng_idx"]
-            tails["moi"] = torch.ones(2 * H, dtype=s.dtype, device=g.device)
-            exts.append(_extend(s, 2 * H, tails))
+            tails["moi"] = torch.ones(NG, dtype=s.dtype, device=g.device)
+            exts.append(_extend(s.with_fields(gid=gid), NG, tails))
         return kicked, exts, ovfs
 
     def step(parts, dt):
@@ -716,7 +771,10 @@ def make_slab_dem_step(scheme, parts: List[Scene], mesh: Mesh,
                     n_ident=n_global)
             se = dem_model.dem_apply_pass(se, r, springs, se.is_rigid, gx,
                                           gy, gz)
-            se = _drop_ghosts(se, s.n, 2 * H)
+            se = _drop_ghosts(se, s.n, NG)
+            if "gid" not in s:
+                se = Scene({k: v for k, v in se.fields.items()
+                            if k != "gid"}, se.meta)
             se = se.replace(nbr_overflow=se.nbr_overflow | ovf)
             se = se.with_fields(n_gated=r.n_gated[:s.n].sum())
             se = dem_model.dem_drift(se, se.is_rigid, dt)
@@ -782,17 +840,27 @@ def make_slab_coupling_step(scheme, parts: List[Scene], mesh: Mesh,
     see them, overflows)."""
     _check_engine(scheme, "make_slab_coupling_step")
     _check_parts(parts, mesh, cfg)
+    return coupling_step(scheme, parts, RingHalo(mesh, cfg),
+                         local_grid_config(cfg), chain, plain,
+                         "make_slab_coupling_step")
+
+
+def coupling_step(scheme, parts: List[Scene], halo, local_cfg,
+                  chain: int = 1, plain: bool = False,
+                  what: str = "the coupling step"):
+    """:func:`make_slab_coupling_step` with the ghosts from ``halo``, each
+    device's rows and ghosts on the grid ``local_cfg``."""
     if scheme.fluid_stepper != "gtvf":
-        raise NotImplementedError("the slab coupling step runs the GTVF "
-                                  f"stepper, not {scheme.fluid_stepper!r}")
+        raise NotImplementedError(f"{what} runs the GTVF stepper, not "
+                                  f"{scheme.fluid_stepper!r}")
     if scheme.gtvf_ordering not in ("kdk", "kdkf"):
-        raise NotImplementedError("the slab coupling step runs the kdk and "
-                                  "kdkf orderings, not "
+        raise NotImplementedError(f"{what} runs the kdk and kdkf "
+                                  "orderings, not "
                                   f"{scheme.gtvf_ordering!r}")
     if "slot_blob" in parts[0] or "contact_force_normal_x" not in parts[0]:
-        raise ValueError("make_slab_coupling_step: the local scenes need the "
-                         "full [N, S] slot fields (slab_decompose(..., "
-                         "use_blob=False))")
+        raise ValueError(f"{what}: the local scenes need the full [N, S] "
+                         "slot fields (slab_decompose(..., use_blob=False); "
+                         "a scene set up without the compact store)")
     kernel = get_kernel(scheme.kernel_name, scheme.dim)
     params = dict(kr=scheme.kr, kf=scheme.kf, fric_coeff=scheme.fric_coeff,
                   gx=scheme.gx, gy=scheme.gy, gz=scheme.gz)
@@ -802,10 +870,9 @@ def make_slab_coupling_step(scheme, parts: List[Scene], mesh: Mesh,
     has_fluid = len(scheme.fluids) > 0
     has_rigid = len(scheme.rigid_bodies) > 0
     kdkf = scheme.gtvf_ordering == "kdkf" and has_fluid
-    local_cfg = local_grid_config(cfg)
     cutoff = local_cfg.radius
     two_d = local_cfg.dim == 2
-    H = cfg.halo_cap
+    NG = halo.n_ghost
     NGF = len(CPL_GHOST_FIELDS)
     if plain:
         rates_wall, wall, forces = (fk.fluid_rates_wall_reference,
@@ -816,23 +883,22 @@ def make_slab_coupling_step(scheme, parts: List[Scene], mesh: Mesh,
                                     fk.fluid_forces)
 
     def exchange(parts):
-        """The face rows at the current positions to the ring neighbours:
-        (extended scenes, face rows, face overflows).  With fluid a ghost
-        row keeps its owner's is_rigid (a rigid source for the fluid
-        passes; :func:`coupling_contact_pack` clears it for K2), else it
-        has is_rigid = 0 (the contact pack is packed from the scene)."""
-        rows, lbufs, rbufs, ovfs = [], [], [], []
+        """The ghost rows at the current positions to the devices that
+        take them: (extended scenes, sent rows, send overflows).  With
+        fluid a ghost row keeps its owner's is_rigid (a rigid source for
+        the fluid passes; :func:`coupling_contact_pack` clears it for
+        K2), else it has is_rigid = 0 (the contact pack is packed from
+        the scene)."""
+        rows, bufs, ovfs = [], [], []
         for d, s in enumerate(parts):
             cols = ([s[k] for k in CPL_GHOST_FIELDS]
                     + [s[k].to(s.dtype) for k in _CPL_FLAGS])
-            rl, rr, ovf = _face_rows(*_face_masks(s, d, cfg), H,
-                                     cfg.slab_cells >= 2)
-            rows.append((rl, rr))
-            lbufs.append(_take_rows(cols, *rl))
-            rbufs.append(_take_rows(cols, *rr))
+            sel, ovf = halo.rows(d, s)
+            rows.append(sel)
+            bufs.append([_take_rows(cols, *r) for r in sel])
             ovfs.append(ovf)
         exts = []
-        for s, g in zip(parts, _ring(lbufs, rbufs, mesh.devices)):
+        for s, g in zip(parts, halo.route(bufs)):
             gv, tails = _ghost_tails(g, CPL_GHOST_FIELDS, NGF + 4, NGF)
             for k in ("rho", "rho_fsi", "m", "h"):
                 tails[k] = torch.where(gv, tails[k],
@@ -840,22 +906,21 @@ def make_slab_coupling_step(scheme, parts: List[Scene], mesh: Mesh,
             for i, k in enumerate(_CPL_FLAGS[1:] if has_fluid
                                   else _CPL_FLAGS[1:3]):
                 tails[k] = gv & (g[:, NGF + 1 + i] > 0.5)
-            exts.append(_extend(s, 2 * H, tails))
+            exts.append(_extend(s, NG, tails))
         return exts, rows, ovfs
 
     def resend(exts, rows, values):
-        """Each slab's ``values`` ({pack row: [nl] tensor}, its local
+        """Each device's ``values`` ({pack row: [nl] tensor}, its local
         rows' updated columns) for the rows of its last exchange, to the
-        ring neighbours: {pack row: [nl + 2H] tensor} a slab, the
-        received values in the ghost rows (0 in an invalid ghost row,
-        which has no lane)."""
-        lbufs, rbufs = [], []
-        for (rl, rr), v in zip(rows, values):
+        devices that took them: {pack row: [nl + n_ghost] tensor} a
+        device, the received values in the ghost rows (0 in an invalid
+        ghost row, which has no lane)."""
+        bufs = []
+        for sel, v in zip(rows, values):
             cols = list(v.values())
-            lbufs.append(_take_rows(cols, *rl))
-            rbufs.append(_take_rows(cols, *rr))
+            bufs.append([_take_rows(cols, *r) for r in sel])
         out = []
-        for e, v, g in zip(exts, values, _ring(lbufs, rbufs, mesh.devices)):
+        for e, v, g in zip(exts, values, halo.route(bufs)):
             gv = g[:, -1] > 0.5
             out.append({r: torch.cat([x, torch.where(gv, g[:, i].to(x.dtype),
                                                      x.new_zeros(()))])
@@ -985,7 +1050,7 @@ def make_slab_coupling_step(scheme, parts: List[Scene], mesh: Mesh,
         if has_rigid:
             evald = [s.replace(force=ft[:, :3].to(s.dtype),
                                torque=ft[:, 3:].to(s.dtype))
-                     for s, ft in zip(evald, _rank_sum(sums, mesh.devices))]
+                     for s, ft in zip(evald, _rank_sum(sums, halo.devices))]
         return [cpl._kick(s, dt, cpl._masks(s)[0], has_fluid, has_rigid)
                 for s in evald]
 

@@ -11,9 +11,10 @@ it.
   ``n_occupied``, ``overflow``), inactive particles included, and on a
   lane overflow (a cell holding more than M particles) and a cell
   overflow (more occupied cells than ``NC_max``).
-* The kdkf step and the compact contact store need the spill grid and
-  raise on a classic config (the JAX sorted build raises,
-  ``ops/cellpairs.py:480``); the packed build itself still refuses it.
+* The compact contact stores need the spill grid and raise on a classic
+  config, in the coupling's set-up and its compact kdkf step (the JAX
+  sorted build raises, ``ops/cellpairs.py:480``); the packed build
+  itself still refuses it; the full kdkf route runs there.
 * The overflow rebuild (``refresh_configs``) drops a preset classic
   config, so the next ``cell_config`` sizes a spill grid, on both sides;
   a rigid GTVF run through the ``Solver`` then steps on, on the spill
@@ -37,6 +38,8 @@ from rigid_body_2d_3d_pysph_tpu_torch.app.application import Solver
 from rigid_body_2d_3d_pysph_tpu_torch.models import (
     RigidFluidCouplingScheme as TRFC)
 from rigid_body_2d_3d_pysph_tpu_torch.models import rigid_body as trb
+from rigid_body_2d_3d_pysph_tpu_torch.models import (
+    rigid_fluid_coupling as tcpl)
 from rigid_body_2d_3d_pysph_tpu_torch.ops import cellpairs as tcell
 from rigid_body_2d_3d_pysph_tpu_torch.ops.kernels import get_kernel
 from rigid_body_2d_3d_pysph_tpu_torch.state import (
@@ -152,13 +155,20 @@ def _coupling(with_spill):
 
 
 def test_kdkf_and_compact_store_refuse_the_classic_grid():
-    # kdkf: make_step raises, naming the spill requirement
+    # kdkf's compact route reads the sorted build's pack tables: its step
+    # raises on a classic grid, naming the spill requirement; the full
+    # kdkf route runs there (held to the JAX XLA step in
+    # test_torch_classic_steps.py), and so does kdk
     sch, scene = _coupling(with_spill=False)
     scene = sch.setup(scene)
     assert "cl_pid" not in scene
     with pytest.raises(ValueError, match="spill"):
-        sch.make_step(scene)
-    # the kdk ordering on the same grid builds
+        tcpl.build_coupling_kdkf_step(
+            get_kernel("quintic", 2), sch._cell_cfg,
+            dict(gx=0.0, gy=-1.0, gz=0.0), True, 0.1, 1.0, 1.0, 7.0, 0.1,
+            True, ni_max=4)
+    out = sch.make_step(scene)(scene, DT)
+    assert torch.isfinite(out.x).all() and not bool(out.nbr_overflow)
     sch.gtvf_ordering = "kdk"
     sch.make_step(scene)
 

@@ -13,10 +13,11 @@ grid (a classic config set as the scheme's ``_cell_cfg`` before
   JAX ``make_step`` on its XLA cell engine with the same ``_cell_cfg``
   (its full route: the sorted and compact routes need the spill grid),
   rtol 1e-10; the contacts engage and the springs evolve.
-* The coupling's kdk ordering, 10 steps with the box sliding on the tank
-  floor, on the classic grid of the coupling's lane rule
-  (``occupancy_safety=2.6``), against the JAX ``_make_step_cell`` (kdk),
-  rtol 1e-9 (``test_torch_coupling_orderings``' tolerance).
+* The coupling's kdk and kdkf orderings, 10 steps each with the box
+  sliding on the tank floor, on the classic grid of the coupling's lane
+  rule (``occupancy_safety=2.6``), against the JAX ``_make_step_cell``
+  (kdk) and the XLA branch of ``_make_step_cell_kdkf``, rtol 1e-9
+  (``test_torch_coupling_orderings``' tolerance).
 
 Both sides start from one state carried across with
 ``state.convert.scene_from_numpy``; atol is rtol x max(|field|, 1).
@@ -139,11 +140,14 @@ def test_gtvf_3d_sub2_matches_reference_f64():
     _compare_all(*_run(jsch, jscene, tsch, tscene, 12))
 
 
-def test_kdk_coupling_classic_matches_xla_f64():
+def _coupling_classic_matches_xla(ordering):
+    """10 f64 steps of ``ordering`` with the box sliding on the tank
+    floor, on the classic grid of the coupling's lane rule, against the
+    JAX XLA step of that ordering."""
     jsch, jscene, dx, rho0 = coupling_scene(jmake_group, jbuild_scene,
                                             jgeom, JRFC, True, floor=True)
     jsch.engine = "cell"
-    jsch.gtvf_ordering = "kdk"
+    jsch.gtvf_ordering = ordering
     h = float(np.asarray(jscene.h).max())
     jsch._cell_cfg = _classic(jscene, 3.0 * h, 2, occupancy_safety=2.6,
                               spill=False)
@@ -158,3 +162,16 @@ def test_kdk_coupling_classic_matches_xla_f64():
     _assert_in_contact(jend)
     assert float(np.abs(np.asarray(jend.fx)).max()) > 0   # FSI is on
     _compare(jend, tend, FLUID + BODY + SLOTS, rtol=1e-9)
+
+
+def test_kdk_coupling_classic_matches_xla_f64():
+    _coupling_classic_matches_xla("kdk")
+
+
+def test_kdkf_coupling_classic_matches_xla_f64():
+    """The fused kdkf step on the classic grid: the port gathers its pack
+    through ``slot2p`` and runs B4 and B5 (contact columns by particle)
+    where the JAX XLA branch runs the split passes and the contact
+    pipeline; the sums differ in order only."""
+    _coupling_classic_matches_xla("kdkf")
+

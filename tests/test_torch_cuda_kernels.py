@@ -1963,12 +1963,12 @@ def test_classic_rigid_kernel_steps_match_plain_steps(dev, dim):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("ordering", ["kdk", "reference"])
+@pytest.mark.parametrize("ordering", ["kdk", "reference", "kdkf"])
 def test_classic_coupling_kernel_steps_match_plain_steps(dev, ordering):
-    """3 steps of the kdk and reference orderings on the coupling's
-    classic grid (the box tank, lanes past a warp): B6a, B6b, B6c and K2
-    a step on every slot at the grid's width, no K1; the kdkf step
-    refuses the grid."""
+    """3 steps of the kdk, reference and kdkf orderings on the coupling's
+    classic grid (the box tank, lanes past a warp), no K1: B6a, B6b, B6c
+    and K2 a step on every slot at the grid's width (kdk, reference), B4
+    and B5 by particle (kdkf)."""
     scheme, scene = _coupling_scene(dev)
     scene = scene.replace(vcm=torch.tensor([[0.05, -0.02, 0.0]], device=dev))
     h = float(scene.h.max())
@@ -1976,21 +1976,25 @@ def test_classic_coupling_kernel_steps_match_plain_steps(dev, ordering):
                                     spill=False, cell_factor=1.5)
     M = scheme._cell_cfg.M
     assert 32 < M <= 128
-    with pytest.raises(ValueError, match="spill"):
-        scheme.make_step(scene)                 # kdkf
     scheme.gtvf_ordering = ordering
     fast, plain = scheme.make_step(scene), scheme.make_step(scene, plain=True)
     a = b = scene
     _build.reset_launches()
     for _ in range(3):
         a, b = fast(a, 1e-5), plain(b, 1e-5)
-    n_rates = 1
-    want = dict(fluid_rates=n_rates, wall_bc=1, fluid_forces=1, contact=1)
+    if ordering == "kdkf":
+        want = dict(fluid_rates_wall=1, fluid_forces_contact=1)
+        insts = (f"fluid_rates_wall/lanes{M}",
+                 f"fluid_forces_contact/lanes/lanes{M}")
+    else:
+        want = dict(fluid_rates=1, wall_bc=1, fluid_forces=1, contact=1)
+        insts = tuple(f"{k}/lanes{M}" for k in ("fluid_rates", "wall_bc",
+                                                "fluid_forces"))
     for k, n in want.items():
         assert _build.LAUNCHES[k] == 3 * n, k
     assert sum(_build.LAUNCHES.values()) == 3 * sum(want.values())
-    for k in ("fluid_rates", "wall_bc", "fluid_forces"):
-        assert _build.LAUNCHES_INSTANCE[f"{k}/lanes{M}"] == 3, k
+    for k in insts:
+        assert _build.LAUNCHES_INSTANCE[k] == 3, k
     assert not bool(a.nbr_overflow)
     assert float(b.overlap.max()) > 0
     for k in ("x", "y", "u", "v", "rho", "p", "p_fsi", "fx", "fy", "xcm",
